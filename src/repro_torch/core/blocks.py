@@ -1,0 +1,76 @@
+"""AtacWorks-style 1D dilated-conv ResNet (paper §4.2) on the DilatedConv1D
+layer — counterpart of ``repro/core/blocks.py`` (fused single-device
+forward).
+
+Always 25 conv layers: a stem (1->C), 11 residual
+blocks of two convs (C->C) and two 1-channel heads (denoised signal, peak
+logits).  Each residual block is two fused kernel calls::
+
+    r = relu(conv1(h) + b1)
+    h = relu(conv2(r) + b2 + h)
+
+The state-dict keys mirror the JAX parameter tree: ``stem.w``,
+``res.<i>.conv1.b``, ``head_signal.w``, ...
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core.conv1d import DilatedConv1D
+
+N_RES_BLOCKS = 11  # 1 stem + 11*2 res + 2 heads = 25 conv layers
+
+
+class ResBlock(nn.Module):
+    def __init__(self, C: int, S: int, **kw):
+        super().__init__()
+        self.conv1 = DilatedConv1D(C, C, S, **kw)
+        self.conv2 = DilatedConv1D(C, C, S, **kw)
+
+
+class AtacWorks(nn.Module):
+    """The 25-layer stack; ``forward(x)`` is :func:`forward` on itself."""
+
+    def __init__(self, cfg, *, device: torch.device | str = "cpu",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        C, S = cfg.conv_channels, cfg.conv_filter
+        kw = dict(dtype=getattr(torch, cfg.dtype), device=device,
+                  generator=generator)
+        self.stem = DilatedConv1D(1, C, S, **kw)
+        self.res = nn.ModuleList(ResBlock(C, S, **kw)
+                                 for _ in range(N_RES_BLOCKS))
+        self.head_signal = DilatedConv1D(C, 1, S, **kw)
+        self.head_peak = DilatedConv1D(C, 1, S, **kw)
+
+    def forward(self, x: torch.Tensor, *, backend: str | None = None,
+                padding: str = "SAME") -> tuple[torch.Tensor, torch.Tensor]:
+        return forward(self, self.cfg, x, backend=backend, padding=padding)
+
+
+def init_params(cfg, *, seed: int = 0,
+                device: torch.device | str = "cpu") -> AtacWorks:
+    """The stack with weights drawn from a generator seeded with ``seed``
+    (the same weights on every device; biases are zeros)."""
+    return AtacWorks(cfg, device=device,
+                     generator=torch.Generator().manual_seed(seed))
+
+
+def forward(model: AtacWorks, cfg, x: torch.Tensor, *,
+            backend: str | None = None,
+            padding: str = "SAME") -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, W) noisy coverage track -> (signal (B, W), peak_logits (B, W)),
+    both fp32.  ``padding="CAUSAL"`` is the streaming-servable variant:
+    the one-shot reference the chunked ``core.streaming`` path matches."""
+    kw = dict(dilation=cfg.conv_dilation, backend=backend, padding=padding)
+    h = x[:, None, :]  # (B, 1, W)
+    h = model.stem(h, activation="relu", **kw)
+    for blk in model.res:
+        r = blk.conv1(h, activation="relu", **kw)
+        h = blk.conv2(r, activation="relu", residual=h, **kw)
+    signal = model.head_signal(h, activation="relu", out_dtype=torch.float32,
+                               **kw)[:, 0, :]
+    peak = model.head_peak(h, out_dtype=torch.float32, **kw)[:, 0, :]
+    return signal, peak
