@@ -5,7 +5,8 @@
 
 Phases (any failed check raises, so the run exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     build the CUDA kernel from the checkout's sources, timed;
+     build both CUDA kernels from the checkout's sources, in parallel and
+     timed, with ptxas' registers and spills;
   2. the kernel ``conv1d_fwd`` against its plain PyTorch version on the
      card at every layer shape of the serving path (stem 1->15, conv1,
      conv2 with residual, the two 15->1 heads), at the stream-step shape
@@ -15,7 +16,9 @@ Phases (any failed check raises, so the run exits non-zero):
      between CUDA events) of the kernel, the plain version and
      ``F.conv1d`` (weights permuted to (K, C, S), cuDNN TF32 off) beside
      the least time the card could take, and the time of one call as a
-     caller sees it (host work included);
+     caller sees it (host work included); at the stream step also the
+     host time of one call through ``ops.conv1d`` (as the server makes
+     it) beside the bare wrapper's;
   3. serve the full ``atacworks`` config (C=K=15, S=51, d=8, 25 layers;
      seeded weights, random non-zero biases) with ``ConvStreamServer``: 4
      slots, chunk 4096, 4096-sample histories, 8 queued ragged streams of
@@ -25,7 +28,28 @@ Phases (any failed check raises, so the run exits non-zero):
      launched 25 times per stream step.  The same streams are then served
      again SERVE_REPEATS times, so chunk p50/p99 and samples/s are read
      per run and pooled, with their spread between runs;
-  4. a JSON line of the kernels, the card's line, and last the result line.
+  4. the training path's kernels at every layer shape it runs (batch 8 x
+     width 60,000, SAME, fp32: stem 1->15, conv 15->15, the 15->1 heads):
+     the forward, bwd-data through ``conv1d_fwd`` (the padded cotangent
+     against the flipped, transposed weights) and ``conv1d_bwd_weight``
+     with and without dbias, each against its plain version, with device,
+     call, plain and library times (cuDNN's gradients through
+     ``torch.nn.grad``, TF32 off) beside the bound; ``save_preact`` against
+     the plain pre-activation (gelu, silu); bf16 at C=K=16; two
+     ``conv1d_bwd_weight`` launches bitwise equal;
+  5. the whole model's gradient: the full ``atacworks`` widths at batch 2
+     x width 8,192 (seeded weights, random non-zero biases): the loss and
+     all 50 parameter gradients through the kernels against autograd over
+     the plain version on the card, TF32 off; then 3 AdamW steps both ways,
+     their losses and the parameters they leave;
+  6. train ``atacworks`` through ``repro_torch.launch.train``'s own entry
+     point at batch 8 x 60,000 for 10 steps: every loss finite,
+     ``conv1d_fwd`` launched 49 times per step (25 forward + 24 bwd-data)
+     and ``conv1d_bwd_weight`` 25 times; step p50, samples/s, and the
+     kernels' device time per step against the step; then PROFILE_STEPS
+     more steps under ``torch.profiler``: device time by kernel and the
+     device's busy share of a step;
+  7. a JSON line of the kernels, the card's line, and last the result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
 """
@@ -48,6 +72,20 @@ PEAK_BYTES = 3.35e12
 
 TOL = {"float32": (1e-4, 1e-4),   # 765-term fp32 sums taken in another order
        "bfloat16": (1e-2, 1e-2)}  # outputs rounded to bf16 (2^-8 relative)
+# backward passes: max|kernel - plain| <= BWD_TOL * max|plain|.  fp32: the
+# weight gradient sums 480,000 terms per element (batch 8 x 60,000) in
+# another order; bf16: the data gradient is rounded to bf16 at its store.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# whole model: each of the 50 gradients within GRAD_TOL * max|plain| of
+# autograd over the plain version (25 layers of fp32 sums taken in another
+# order, the errors carried through the chain), the loss within LOSS_RTOL
+GRAD_TOL, LOSS_RTOL = 1e-3, 1e-5
+# after GRAD_STEPS AdamW steps (lr ADAMW_LR) both ways: the losses within
+# LOSS_RTOL, and the parameters within PARAM_ATOL, except that AdamW's
+# first updates are sign-like (about lr each), so an element whose
+# gradient lies within the gradients' error of zero may step the other
+# way: at most PARAM_FLIP_FRAC of all elements may differ by more
+ADAMW_LR, PARAM_ATOL, PARAM_FLIP_FRAC = 3e-4, 1e-5, 1e-4
 
 MAIN_SHAPE = "conv1 b+relu 15->15 stream"  # the row the kernels line reports
 DEVICE = "cuda"
@@ -56,6 +94,12 @@ DEVICE = "cuda"
 # streams of 50,000 + U[0, 4096) samples (more streams than slots, ragged)
 SLOTS, CHUNK, PROMPT_LEN, STREAMS, TRACK_LEN = 4, 4096, 4096, 8, 50000
 SERVE_REPEATS = 5  # timed runs after the checked one
+
+# the training cell: batch 8 x width 60,000 (paper §4.2), 10 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 60000, 10
+# the whole-model gradient check: full widths at batch 2 x 8,192
+GRAD_BATCH, GRAD_SEQ, GRAD_STEPS = 2, 8192, 3
+PROFILE_STEPS = 4  # training steps traced by torch.profiler after the run
 
 
 def _card_line() -> str:
@@ -113,17 +157,39 @@ def _device_ms(fn, per_graph: int = 10, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def _bound_ms(N, C, K, S, Wp, Q, dtype_name, has_bias, has_res, out_bytes):
-    """Least time for one layer: the larger of its bytes (each input read
-    once, the output written once) over HBM bandwidth and its flops over
-    the peak for the input type."""
-    es = 4 if dtype_name == "float32" else 2
-    nbytes = (N * C * Wp + S * K * C + K * has_bias + N * K * Q * has_res) * es
-    nbytes += N * K * Q * out_bytes
-    flops = 2.0 * N * K * C * S * Q
+def _host_us(fn, reps: int = 200, rounds: int = 5) -> float:
+    """Host time of one call in microseconds: ``reps`` calls enqueued back
+    to back, timed on the host clock to the last return while the device
+    runs behind; median over ``rounds``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _bound(flops, nbytes, dtype_name):
+    """Least time in ms: the larger of the bytes (each input read once,
+    each output written once) over HBM bandwidth and the flops over the
+    peak for the input type; and which of the two it is."""
     t_mem = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_mem, t_ops), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def _bound_ms(N, C, K, S, Wp, Q, dtype_name, has_bias, has_res, out_bytes):
+    """Least time for one forward layer (see ``_bound``)."""
+    es = 4 if dtype_name == "float32" else 2
+    nbytes = (N * C * Wp + S * K * C + K * has_bias + N * K * Q * has_res) * es
+    nbytes += N * K * Q * out_bytes
+    return _bound(2.0 * N * K * C * S * Q, nbytes, dtype_name)
 
 
 def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
@@ -210,6 +276,20 @@ def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
             row["library_call_ms"] = _call_ms(library)
             row["bound_ms"], row["bound_by"] = _bound_ms(
                 N, C, K, S, Q + span, Q, dt, True, res, 4)
+            if where == "stream":
+                # what ops adds to a served call on the host: the server
+                # calls ops.conv1d VALID on [state | chunk] under
+                # inference_mode, which ends in the wrapper call
+                def via_ops():
+                    return ops.conv1d(
+                        xp, w, bias=b, residual=r, activation=act,
+                        dilation=d, padding="VALID", out_dtype=out_dtype)
+
+                with torch.inference_mode():
+                    row["wrapper_host_us"] = _host_us(kernel)
+                    row["ops_host_us"] = _host_us(via_ops)
+                row["ops_added_host_us"] = (row["ops_host_us"]
+                                            - row["wrapper_host_us"])
         rows.append(row)
         print("kernel-check " + json.dumps(row), flush=True)
     torch.cuda.synchronize()
@@ -320,6 +400,341 @@ def serve_check(torch, np, configs, blocks, serve, conv1d_brgemm):
     return stats
 
 
+def _check_close(label, got, want, tol):
+    """max|got - want| <= tol * max|want|; returns (max_abs, max_rel)."""
+    scale = max(want.float().abs().max().item(), 1e-30)
+    max_abs = (got.float() - want.float()).abs().max().item()
+    if not max_abs <= tol * scale:
+        raise AssertionError(f"{label}: max abs diff {max_abs} > {tol} x "
+                             f"max|plain| {scale}")
+    return max_abs, max_abs / scale
+
+
+def bwd_kernel_checks(torch, conv1d_brgemm, ref):
+    """Phase 4: the training path's kernels at its layer shapes."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    N, Q, S, d = TRAIN_BATCH, TRAIN_SEQ, 51, 8
+    span = (S - 1) * d
+    Wp = Q + span
+    # (label, C, K, dtype): every layer shape of the training path, fp32,
+    # and the bf16 config's widths
+    layers = [("stem", 1, 15, "float32"), ("conv", 15, 15, "float32"),
+              ("head", 15, 1, "float32"), ("stem", 1, 16, "bfloat16"),
+              ("conv", 16, 16, "bfloat16"), ("head", 16, 1, "bfloat16")]
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    rows = []
+    for name, C, K, dt in layers:
+        dtype = getattr(torch, dt)
+        tol = BWD_TOL[dt]
+        x = rnd(N, C, Wp, dtype=dtype)                 # padded input
+        w = (rnd(S, K, C) * (C * S) ** -0.5).to(dtype)
+        b = (0.1 * rnd(K)).to(dtype)
+        g = rnd(N, K, Q, dtype=dtype)                  # cotangent of u
+        g_pad = F.pad(g, (span, span))
+        w_t = w.flip(0).transpose(1, 2).contiguous()   # (S, C, K)
+        w_kcs = w.permute(1, 2, 0).contiguous()        # (K, C, S), torch's
+        fp32 = dt == "float32"
+
+        def fwd():
+            return conv1d_brgemm.conv1d_fwd(x, w, bias=b, activation="relu",
+                                            dilation=d)
+
+        def bwd_data():
+            return conv1d_brgemm.conv1d_fwd(g_pad, w_t, dilation=d)
+
+        def bwd_w(with_dbias=True):
+            return conv1d_brgemm.conv1d_bwd_weight(x, g, S=S, dilation=d,
+                                                   with_dbias=with_dbias)
+
+        passes = {
+            "fwd": (fwd, lambda: ref.conv1d_fused_ref(
+                x, w, bias=b, activation="relu", dilation=d),
+                lambda: F.conv1d(x, w_kcs, b, dilation=d),
+                2.0 * N * K * C * S * Q,
+                (N * C * Wp + S * K * C + K + N * K * Q) * x.element_size()),
+            "bwd_data": (bwd_data, lambda: ref.conv1d_bwd_data_ref(
+                g, w, dilation=d),
+                lambda: torch.nn.grad.conv1d_input(
+                    (N, C, Wp), w_kcs, g, dilation=d),
+                # the function: only the Q cotangent columns are non-zero
+                # (the span padding is zeros the wrapper adds), so
+                # 2NKCSQ flops, and g read unpadded
+                2.0 * N * K * C * S * Q,
+                (N * K * Q + S * K * C + N * C * Wp) * x.element_size()),
+            "bwd_weight": (bwd_w, lambda: (
+                ref.conv1d_bwd_weight_ref(x, g, dilation=d),
+                ref.conv1d_dbias_ref(g)),
+                lambda: torch.nn.grad.conv1d_weight(
+                    x, (K, C, S), g, dilation=d),
+                2.0 * N * K * C * S * Q,
+                (N * C * Wp + N * K * Q) * x.element_size()
+                + (S * K * C + K) * 4),
+        }
+        for pname, (kern, plain, lib, flops, nbytes) in passes.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            label = f"{pname} {name} {C}->{K} N={N} Q={Q}" + (
+                "" if fp32 else " bf16")
+            if pname == "bwd_weight":
+                err_w = _check_close(label + " dw", got[0], want[0], tol)
+                err_b = _check_close(label + " dbias", got[1], want[1], tol)
+                nod = bwd_w(with_dbias=False)
+                err_n = _check_close(label + " dw (no dbias)", nod, want[0],
+                                     tol)
+                again = bwd_w()
+                torch.cuda.synchronize()
+                if not (torch.equal(again[0], got[0])
+                        and torch.equal(again[1], got[1])
+                        and torch.equal(nod, got[0])):
+                    raise AssertionError(f"{label}: two launches differ")
+                max_abs = max(err_w[0], err_b[0], err_n[0])
+                max_rel = max(err_w[1], err_b[1], err_n[1])
+            else:
+                max_abs, max_rel = _check_close(label, got, want, tol)
+            row = dict(shape=label, pass_=pname, layer=name, dtype=dt, N=N,
+                       C=C, K=K, S=S, dilation=d, Q=Q, max_abs_err=max_abs,
+                       max_rel_diff=max_rel, tol_rel_to_max_plain=tol,
+                       ok=True)
+            if pname == "bwd_weight":
+                row["bitwise_two_launches"] = True
+            if fp32:
+                row["kernel_ms"] = _device_ms(kern)
+                row["kernel_call_ms"] = _call_ms(kern)
+                row["plain_ms"] = _device_ms(plain, per_graph=2)
+                row["library_ms"] = _device_ms(lib)
+                row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, dt)
+            rows.append(row)
+            print("bwd-check " + json.dumps(row), flush=True)
+
+    # save_preact: the fp32 pre-activation beside the output, gelu and silu
+    C = K = 15
+    x, r = rnd(N, C, Wp), rnd(N, K, Q)
+    w, b = rnd(S, K, C) * (C * S) ** -0.5, 0.1 * rnd(K)
+    for act in ("gelu", "silu"):
+        y, u = conv1d_brgemm.conv1d_fwd(x, w, bias=b, residual=r,
+                                        activation=act, save_preact=True,
+                                        dilation=d)
+        want_u = ref.conv1d_preact_ref(x, w, bias=b, residual=r, dilation=d)
+        want_y = ref.conv1d_fused_ref(x, w, bias=b, residual=r,
+                                      activation=act, dilation=d)
+        label = f"save_preact {act} conv {C}->{K} N={N} Q={Q}"
+        err_u = _check_close(label + " preact", u, want_u, BWD_TOL["float32"])
+        err_y = _check_close(label + " out", y, want_y, BWD_TOL["float32"])
+        row = dict(shape=label, pass_="save_preact", dtype="float32",
+                   max_abs_err=max(err_u[0], err_y[0]),
+                   max_rel_diff=max(err_u[1], err_y[1]),
+                   tol_rel_to_max_plain=BWD_TOL["float32"], ok=True)
+        rows.append(row)
+        print("bwd-check " + json.dumps(row), flush=True)
+    torch.cuda.synchronize()
+    return rows
+
+
+def _seeded_model(torch, blocks, cfg, seed):
+    """The stack from a seed, with random non-zero biases (zeros at init
+    would leave the bias path untested)."""
+    model = blocks.init_params(cfg, seed=seed, device=DEVICE)
+    gen = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".b"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def model_grad_check(torch, configs, blocks, synthetic, adamw,
+                     conv1d_brgemm):
+    """Phase 5: the whole model's loss and gradients through the kernels
+    against autograd over the plain version, then 3 AdamW steps."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get("atacworks")
+    model = _seeded_model(torch, blocks, cfg, seed=5)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             synthetic.make_batch(cfg, GRAD_BATCH, GRAD_SEQ, seed=7).items()}
+    names = [n for n, _ in model.named_parameters()]
+
+    def loss_and_grads(m, backend):
+        params = [p for _, p in m.named_parameters()]
+        loss, _ = blocks.loss_fn(m, cfg, batch, backend=backend)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    fwd0, bw0 = conv1d_brgemm.conv1d_fwd.launches, \
+        conv1d_brgemm.conv1d_bwd_weight.launches
+    loss_k, grads_k = loss_and_grads(model, None)
+    launched = (conv1d_brgemm.conv1d_fwd.launches - fwd0,
+                conv1d_brgemm.conv1d_bwd_weight.launches - bw0)
+    loss_p, grads_p = loss_and_grads(model, "ref")
+    torch.cuda.synchronize()
+    if launched != (49, 25):
+        raise AssertionError(f"one gradient launched {launched} kernels, "
+                             "expected (49 conv1d_fwd, 25 bwd_weight)")
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"loss through the kernels {loss_k.item()} vs "
+                             f"plain {loss_p.item()}: rel {loss_rel}")
+    if len(grads_k) != 50:
+        raise AssertionError(f"{len(grads_k)} gradients, expected 50")
+    worst = (0.0, "")
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"non-finite gradient of {name}")
+        _, rel = _check_close(f"grad {name}", gk, gp, GRAD_TOL)
+        worst = max(worst, (rel, name))
+
+    def adamw_steps(backend):
+        m = copy.deepcopy(model)
+        state = adamw.init(dict(m.named_parameters()))
+        losses = []
+        for _ in range(GRAD_STEPS):
+            loss, grads = loss_and_grads(m, backend)
+            params = dict(m.named_parameters())
+            new, state, _ = adamw.update(dict(zip(names, grads)), state,
+                                         params, lr=ADAMW_LR)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(new[k])
+            losses.append(loss.item())
+        return losses, m
+
+    (steps_k, model_k), (steps_p, model_p) = (adamw_steps(None),
+                                              adamw_steps("ref"))
+    step_rel = max(abs(a - b) / abs(b) for a, b in zip(steps_k, steps_p))
+    if not step_rel <= LOSS_RTOL:
+        raise AssertionError(f"AdamW losses through the kernels {steps_k} "
+                             f"vs plain {steps_p}: rel {step_rel}")
+    diffs = torch.cat([(pk.detach() - pp.detach()).abs().flatten()
+                       for pk, pp in zip(model_k.parameters(),
+                                         model_p.parameters())])
+    beyond = int((diffs > PARAM_ATOL).sum().item())
+    param_max = diffs.max().item()
+    if beyond > PARAM_FLIP_FRAC * diffs.numel():
+        raise AssertionError(
+            f"after {GRAD_STEPS} AdamW steps {beyond} of {diffs.numel()} "
+            f"parameters differ by more than {PARAM_ATOL} (max {param_max})")
+    stats = dict(batch=GRAD_BATCH, seq=GRAD_SEQ, loss_kernel=loss_k.item(),
+                 loss_plain=loss_p.item(), loss_rel_diff=loss_rel,
+                 n_grads=len(grads_k), worst_grad_rel_diff=worst[0],
+                 worst_grad=worst[1], grad_tol_rel_to_max_plain=GRAD_TOL,
+                 adamw_losses_kernel=steps_k, adamw_losses_plain=steps_p,
+                 adamw_loss_max_rel_diff=step_rel,
+                 adamw_param_max_abs_diff=param_max,
+                 adamw_params_beyond_atol=beyond, adamw_params=diffs.numel(),
+                 adamw_param_atol=PARAM_ATOL,
+                 launches_per_gradient=list(launched))
+    print("model-grad " + json.dumps(stats), flush=True)
+    return stats
+
+
+def train_check(torch, np, train, conv1d_brgemm):
+    """Phase 6: train atacworks through the launcher's own entry point."""
+    torch.cuda.reset_peak_memory_stats()
+    conv1d_brgemm.conv1d_fwd.launches = 0
+    conv1d_brgemm.conv1d_bwd_weight.launches = 0
+    summary = train.run(["--arch", "atacworks", "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_BATCH), "--seq",
+                         str(TRAIN_SEQ)])
+    fwd = conv1d_brgemm.conv1d_fwd.launches
+    bw = conv1d_brgemm.conv1d_bwd_weight.launches
+    losses = summary["losses"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {losses}")
+    if (fwd, bw) != (49 * TRAIN_STEPS, 25 * TRAIN_STEPS):
+        raise AssertionError(
+            f"{fwd} conv1d_fwd and {bw} conv1d_bwd_weight launches in "
+            f"{TRAIN_STEPS} steps; expected 49 and 25 per step")
+    times = np.asarray(summary["step_s"][train.WARMUP_STEPS:])
+    stats = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                 losses=losses, step_s=summary["step_s"],
+                 step_p50_ms=float(np.median(times) * 1e3),
+                 step_min_ms=float(times.min() * 1e3),
+                 step_max_ms=float(times.max() * 1e3),
+                 samples_per_s=summary["samples_per_s"],
+                 conv1d_fwd_launches=fwd, conv1d_bwd_weight_launches=bw,
+                 fwd_launches_per_step=fwd / TRAIN_STEPS,
+                 bwd_weight_launches_per_step=bw / TRAIN_STEPS,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("train " + json.dumps(stats), flush=True)
+    return stats
+
+
+def train_profile(torch, train):
+    """Phase 6, second part: where a training step's time goes.
+    PROFILE_STEPS more steps of the launcher under ``torch.profiler``
+    (kept apart from the timed run, whose step times it would inflate):
+    device time by kernel name per step, and the device's busy share,
+    the kernels' summed time over the steps' summed host-clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        summary = train.run(["--arch", "atacworks", "--steps",
+                             str(PROFILE_STEPS), "--batch", str(TRAIN_BATCH),
+                             "--seq", str(TRAIN_SEQ)])
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        kernels.append(dict(
+            name=e.key[:120], calls=e.count,
+            ms_per_step=us / 1e3 / PROFILE_STEPS,
+            port=any(t in e.key for t in ("conv1d_fwd_kernel",
+                                          "bwd_weight_partial",
+                                          "reduce_partials"))))
+    kernels.sort(key=lambda k: -k["ms_per_step"])
+    step_ms = 1e3 * sum(summary["step_s"]) / PROFILE_STEPS
+    busy = sum(k["ms_per_step"] for k in kernels)
+    ours = sum(k["ms_per_step"] for k in kernels if k["port"])
+    stats = dict(steps=PROFILE_STEPS, traced_step_ms=step_ms,
+                 device_busy_ms_per_step=busy,
+                 port_kernels_ms_per_step=ours,
+                 other_device_ms_per_step=busy - ours,
+                 device_busy_share=busy / step_ms if step_ms else None,
+                 kernel_names=len(kernels), top=kernels[:15])
+    print("train-profile " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _build_all(conv1d_brgemm, build):
+    """Build both kernels' libraries at once (one nvcc each, started
+    together), timed; and ptxas' register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        t0 = time.perf_counter()
+        futs = {name: pool.submit(timed, fn) for name, fn in
+                (("conv1d_fwd", conv1d_brgemm._lib),
+                 ("conv1d_bwd_weight", conv1d_brgemm._bwd_lib))}
+        each = {name: f.result() for name, f in futs.items()}
+        total = time.perf_counter() - t0
+    ptxas = {}
+    for name in each:
+        log = next(build.BUILD_DIR.glob(f"{name}-*.log"), None)
+        ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
+                        if "registers" in ln or "spill" in ln]
+                       if log else [])
+    return total, each, ptxas
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -332,26 +747,30 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     from repro_torch import configs
     from repro_torch.core import blocks
+    from repro_torch.data import synthetic
     from repro_torch.kernels import build, conv1d_brgemm, ops, ref
     from repro_torch.kernels import epilogue as ep
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import adamw
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; nvidia-smi: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    conv1d_brgemm._lib()  # builds and loads the .so
-    build_s = time.perf_counter() - t0
-    log = next(build.BUILD_DIR.glob("conv1d_fwd-*.log"), None)
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln] if log else [])
-    print(f"built conv1d_fwd in {build_s:.1f} s", flush=True)
-    for ln in ptxas:
-        print("ptxas " + ln)
+    build_s, build_each, ptxas = _build_all(conv1d_brgemm, build)
+    print(f"built both kernels in {build_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in build_each.items()) + ")", flush=True)
+    for name, lines in ptxas.items():
+        for ln in lines:
+            print(f"ptxas {name}: {ln}")
 
     rows = kernel_checks(torch, conv1d_brgemm, ops, ref, ep)
     stats = serve_check(torch, np, configs, blocks, serve, conv1d_brgemm)
+    bwd_rows = bwd_kernel_checks(torch, conv1d_brgemm, ref)
+    grad_stats = model_grad_check(torch, configs, blocks, synthetic, adamw,
+                                  conv1d_brgemm)
+    train_stats = train_check(torch, np, train, conv1d_brgemm)
+    profile_stats = train_profile(torch, train)
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     # device time of the 25 kernels of one stream step, from the per-layer
@@ -363,30 +782,89 @@ def main(argv=None) -> int:
                       + 11 * per_layer["conv2"] + per_layer["head_signal"]
                       + per_layer["head_peak"])
     stats["step_kernel_ms"] = step_kernel_ms
+    # host time ops.conv1d adds over the wrapper, summed over a step's 25
+    added = {r["shape"].split()[0]: r["ops_added_host_us"] for r in rows
+             if "ops_added_host_us" in r}
+    stats["step_ops_added_host_us"] = (
+        added["stem"] + 11 * added["conv1"] + 11 * added["conv2"]
+        + added["head_signal"] + added["head_peak"])
     stats["kernel_share_of_chunk_p50"] = step_kernel_ms / stats["chunk_p50_ms"]
     print(f"stream step: kernels {step_kernel_ms:.4f} ms of device time, "
-          f"chunk p50 {stats['chunk_p50_ms']:.4f} ms on the host clock",
-          flush=True)
-    entry = dict(
+          f"chunk p50 {stats['chunk_p50_ms']:.4f} ms on the host clock; "
+          f"ops.conv1d adds {stats['step_ops_added_host_us']:.1f} us of "
+          "host time over the bare wrapper calls", flush=True)
+
+    # device time of one training step's kernels, from the per-shape
+    # device times above: 25 forward (stem, 22 conv, 2 heads), 24 bwd-data
+    # (22 conv; the heads' is the 1->15 shape) and 25 bwd-weight passes
+    t = {(r["pass_"], r["layer"]): r["kernel_ms"] for r in bwd_rows
+         if r.get("kernel_ms") is not None}
+    fwd_ms = t["fwd", "stem"] + 22 * t["fwd", "conv"] + 2 * t["fwd", "head"]
+    bd_ms = 22 * t["bwd_data", "conv"] + 2 * t["bwd_data", "head"]
+    bw_ms = (t["bwd_weight", "stem"] + 22 * t["bwd_weight", "conv"]
+             + 2 * t["bwd_weight", "head"])
+    train_stats.update(step_fwd_kernel_ms=fwd_ms,
+                       step_bwd_data_kernel_ms=bd_ms,
+                       step_bwd_weight_kernel_ms=bw_ms,
+                       step_kernel_ms=fwd_ms + bd_ms + bw_ms)
+    train_stats["kernel_share_of_step_p50"] = (
+        train_stats["step_kernel_ms"] / train_stats["step_p50_ms"])
+    print(f"train step: kernels {train_stats['step_kernel_ms']:.3f} ms of "
+          f"device time (fwd {fwd_ms:.3f}, bwd-data {bd_ms:.3f}, "
+          f"bwd-weight {bw_ms:.3f}), step p50 "
+          f"{train_stats['step_p50_ms']:.3f} ms, "
+          f"{train_stats['samples_per_s']:.2f} samples/s", flush=True)
+
+    fp32_bwd = [r for r in bwd_rows if r["dtype"] == "float32"]
+    conv_fwd = next(r for r in bwd_rows
+                    if (r["pass_"], r["layer"], r["dtype"])
+                    == ("fwd", "conv", "float32"))
+    conv_bw = next(r for r in bwd_rows
+                   if (r["pass_"], r["layer"], r["dtype"])
+                   == ("bwd_weight", "conv", "float32"))
+    fwd_entry = dict(
         name="conv1d_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/conv1d_fwd.cu",
         replaces="src/repro/kernels/conv1d_brgemm.py:492",
-        launches=stats["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in rows
-                        if r["dtype"] == "float32"),
-        ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"],
-        shape=MAIN_SHAPE, max_rel_diff=max(r["max_rel_diff"] for r in rows),
-        launches_per_step=stats["launches_per_step"])
+        launches=train_stats["conv1d_fwd_launches"],
+        max_abs_err=max([r["max_abs_err"] for r in rows
+                         if r["dtype"] == "float32"]
+                        + [r["max_abs_err"] for r in fp32_bwd
+                           if r["pass_"] != "bwd_weight"]),
+        ms=conv_fwd["kernel_ms"], plain_ms=conv_fwd["plain_ms"],
+        bound_ms=conv_fwd["bound_ms"], bound_by=conv_fwd["bound_by"],
+        library_ms=conv_fwd["library_ms"], shape=conv_fwd["shape"],
+        launches_per_step=train_stats["fwd_launches_per_step"],
+        serve=dict(shape=MAIN_SHAPE, launches=stats["launches"],
+                   launches_per_step=stats["launches_per_step"],
+                   ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
+                   bound_ms=main_row["bound_ms"],
+                   bound_by=main_row["bound_by"],
+                   library_ms=main_row["library_ms"],
+                   max_rel_diff=max(r["max_rel_diff"] for r in rows)))
+    bw_entry = dict(
+        name="conv1d_bwd_weight", route="cuda",
+        source="src/repro_torch/kernels/csrc/conv1d_bwd_weight.cu",
+        replaces="src/repro/kernels/conv1d_brgemm.py:688",
+        launches=train_stats["conv1d_bwd_weight_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in fp32_bwd
+                        if r["pass_"] == "bwd_weight"),
+        ms=conv_bw["kernel_ms"], plain_ms=conv_bw["plain_ms"],
+        bound_ms=conv_bw["bound_ms"], bound_by=conv_bw["bound_by"],
+        library_ms=conv_bw["library_ms"], shape=conv_bw["shape"],
+        launches_per_step=train_stats["bwd_weight_launches_per_step"])
+    kernels = [fwd_entry, bw_entry]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
-                           ptxas=ptxas, kernel_checks=rows, serve=stats,
-                           kernels=[entry]), f, indent=1)
-    print(json.dumps({"kernels": [entry]}))
+                           build_each_s=build_each, ptxas=ptxas,
+                           kernel_checks=rows, serve=stats,
+                           bwd_checks=bwd_rows, model_grad=grad_stats,
+                           train=train_stats, train_profile=profile_stats,
+                           kernels=kernels), f, indent=1)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

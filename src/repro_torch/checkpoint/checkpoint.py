@@ -1,0 +1,217 @@
+"""Fault-tolerant checkpoints of a ``TrainState`` (counterpart of
+``repro/checkpoint/checkpoint.py``), in the JAX package's on-disk format
+so a checkpoint crosses between the packages in both directions.
+
+Layout::
+
+    <dir>/step_00000100/arrays.npz      leaf arrays keyed by flat path
+    <dir>/step_00000100/manifest.json   step, shapes, dtypes
+    <dir>/step_00000100/COMMIT          completeness marker, written last
+
+Flat keys are those the JAX ``_flatten`` gives its ``TrainState``:
+``.params/res/0/conv1/w``, ``.opt/.m/...``, ``.opt/.v/...``,
+``.opt/.count`` and ``.step`` (152 leaves for the AtacWorks stack).  bf16
+leaves are stored as their raw 2-byte values, as numpy saves the JAX
+package's bf16 arrays.
+
+  * **Atomic commit**: a checkpoint is staged as ``step_<n>.tmp``, every
+    file fsync'd, the ``COMMIT`` marker written last, then renamed into
+    place; a directory without the marker is torn and never offered.
+  * **Torn-checkpoint fallback**: ``restore(step=None)`` walks newest to
+    oldest past any checkpoint that fails to load.
+  * **Retention**: the ``keep`` newest are kept; deletion goes through a
+    rename to ``.trash``; stale ``.tmp``, ``.trash`` and torn directories
+    are swept after each save.
+
+The JAX package's asynchronous writer and its elastic re-sharding wait in
+ROADMAP.md queue A.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import zipfile
+
+import numpy as np
+import torch
+
+from repro_torch.optim.adamw import AdamWState
+
+SEP = "/"
+COMMIT_MARKER = "COMMIT"
+_REQUIRED = ("manifest.json", "arrays.npz", COMMIT_MARKER)
+
+
+def _step_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _is_complete(path: str) -> bool:
+    """Complete iff every required file, the COMMIT marker included,
+    exists; anything else is torn and must never be offered."""
+    return all(os.path.exists(os.path.join(path, f)) for f in _REQUIRED)
+
+
+def _key(name: str) -> str:
+    return name.replace(".", SEP)
+
+
+def state_tensors(state) -> dict[str, torch.Tensor]:
+    """The state's tensors under the JAX package's flat keys."""
+    flat = {f".params{SEP}{_key(k)}": p
+            for k, p in state.params.named_parameters()}
+    flat.update({f".opt{SEP}.m{SEP}{_key(k)}": t
+                 for k, t in state.opt.m.items()})
+    flat.update({f".opt{SEP}.v{SEP}{_key(k)}": t
+                 for k, t in state.opt.v.items()})
+    flat[f".opt{SEP}.count"] = state.opt.count
+    flat[".step"] = state.step
+    return flat
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # raw 2-byte values, as numpy stores bf16
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:  # raw bf16
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(like.dtype)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    # -- write ------------------------------------------------------------
+
+    def save(self, state, step: int) -> str:
+        """Synchronous atomic save; returns the committed path."""
+        final = _step_dir(self.directory, step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        arrays, manifest = {}, {"step": step, "leaves": {}}
+        for k, t in state_tensors(state).items():
+            arrays[k] = _to_numpy(t)
+            manifest["leaves"][k] = {
+                "shape": list(t.shape),
+                "dtype": str(t.dtype).removeprefix("torch.")}
+        with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        # completeness marker LAST: a crash between any of the writes above
+        # and here leaves a directory readers provably reject
+        with open(os.path.join(tmp, COMMIT_MARKER), "w") as f:
+            f.write(f"{step}\n")
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)  # atomic commit
+        self._gc()
+        return final
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            victim = _step_dir(self.directory, s)
+            trash = victim + ".trash"
+            os.replace(victim, trash)
+            shutil.rmtree(trash, ignore_errors=True)
+        # sweep crash debris: stale staging dirs, half-deleted trash, and
+        # torn step dirs (no COMMIT marker: unreadable by construction)
+        for name in os.listdir(self.directory):
+            path = os.path.join(self.directory, name)
+            if name.endswith((".tmp", ".trash")):
+                shutil.rmtree(path, ignore_errors=True)
+            elif (name.startswith("step_") and os.path.isdir(path)
+                  and not _is_complete(path)):
+                shutil.rmtree(path, ignore_errors=True)
+
+    # -- read -------------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        """Steps with COMPLETE checkpoints only."""
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and not name.endswith(
+                    (".tmp", ".trash")):
+                try:
+                    step = int(name[5:])
+                except ValueError:
+                    continue
+                if _is_complete(os.path.join(self.directory, name)):
+                    out.append(step)
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state, step: int | None = None):
+        """Load a checkpoint into ``state`` (in place: parameters copied,
+        moments, count and step replaced on the state's device) and return
+        it.  Every leaf is read and checked before any is written, so a
+        damaged checkpoint leaves ``state`` as it was.
+
+        With ``step=None`` the newest checkpoint is tried first and one that
+        fails to load is skipped with a message, falling back to the next
+        newest.  An explicit ``step`` raises ``FileNotFoundError`` if that
+        checkpoint is missing, torn or unreadable.
+        """
+        candidates = self.all_steps()[::-1] if step is None else [step]
+        if not candidates:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        last_err = None
+        for s in candidates:
+            path = _step_dir(self.directory, s)
+            if not _is_complete(path):
+                last_err = FileNotFoundError(
+                    f"checkpoint step {s} at {path} is missing or torn "
+                    "(no COMMIT marker)")
+                continue
+            try:
+                return self._load(state, path)
+            except (OSError, EOFError, KeyError, ValueError,
+                    zipfile.BadZipFile) as e:  # damaged past the marker
+                last_err = e
+                if step is None:
+                    print(f"checkpoint: step {s} unreadable ({e!r}); "
+                          "falling back to an older checkpoint")
+        raise FileNotFoundError(
+            f"no restorable checkpoint under {self.directory}: {last_err}")
+
+    def _load(self, state, path: str):
+        want = state_tensors(state)
+        loaded = {}
+        with np.load(os.path.join(path, "arrays.npz")) as data:
+            for k, like in want.items():
+                a = data[k]
+                if tuple(a.shape) != tuple(like.shape):
+                    raise ValueError(f"{k}: stored shape {a.shape}, state "
+                                     f"has {tuple(like.shape)}")
+                loaded[k] = _from_numpy(a, like).to(like.device)
+        with torch.no_grad():
+            for k, p in state.params.named_parameters():
+                p.copy_(loaded[f".params{SEP}{_key(k)}"])
+        state.opt = AdamWState(
+            m={k: loaded[f".opt{SEP}.m{SEP}{_key(k)}"] for k in state.opt.m},
+            v={k: loaded[f".opt{SEP}.v{SEP}{_key(k)}"] for k in state.opt.v},
+            count=loaded[f".opt{SEP}.count"])
+        state.step = loaded[".step"]
+        return state

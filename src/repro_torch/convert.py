@@ -1,16 +1,21 @@
-"""Parameters across the two packages: the JAX package's parameter tree,
-given as numpy arrays, becomes the port's state dict.
+"""State across the two packages: the JAX package's parameter tree, or its
+whole ``TrainState``, given as numpy arrays, becomes the port's.
 
 The tree's nesting of dicts and lists maps onto dotted state-dict keys
 (``{"res": [{"conv1": {"w": ...}}]}`` -> ``"res.0.conv1.w"``), which is how
 ``core.blocks.AtacWorks`` names its parameters, so::
 
     model.load_state_dict(params_from_jax(jax_tree_as_numpy))
+    state = train_state_from_jax(jax_train_state_as_numpy, cfg)
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import blocks
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.train_step import TrainState
 
 
 def _tensor(a) -> torch.Tensor:
@@ -33,3 +38,19 @@ def params_from_jax(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     for k, v in items:
         out.update(params_from_jax(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
+
+
+def train_state_from_jax(state, cfg, *,
+                         device: torch.device | str = "cpu") -> TrainState:
+    """The JAX ``TrainState`` (params, AdamW moments and count, step; its
+    leaves as numpy arrays) as the port's, on ``device``."""
+    model = blocks.init_params(cfg, device=device)
+    model.load_state_dict(params_from_jax(state.params))
+
+    def moments(tree):
+        return {k: t.to(device) for k, t in params_from_jax(tree).items()}
+
+    opt = AdamWState(m=moments(state.opt.m), v=moments(state.opt.v),
+                     count=_tensor(state.opt.count).to(device, torch.int32))
+    return TrainState(params=model, opt=opt,
+                      step=_tensor(state.step).to(device, torch.int32))

@@ -10,7 +10,8 @@ logits).  Each residual block is two fused kernel calls::
     h = relu(conv2(r) + b2 + h)
 
 The state-dict keys mirror the JAX parameter tree: ``stem.w``,
-``res.<i>.conv1.b``, ``head_signal.w``, ...
+``res.<i>.conv1.b``, ``head_signal.w``, ...  ``loss_fn`` is the training
+loss: MSE of the denoised signal plus BCE of the peak calls.
 """
 from __future__ import annotations
 
@@ -74,3 +75,22 @@ def forward(model: AtacWorks, cfg, x: torch.Tensor, *,
                                **kw)[:, 0, :]
     peak = model.head_peak(h, out_dtype=torch.float32, **kw)[:, 0, :]
     return signal, peak
+
+
+def loss_fn(model: AtacWorks, cfg, batch: dict, *, backend: str | None = None):
+    """AtacWorks loss: MSE(denoised signal) + BCE(peak calls), weighted
+    1:1, the BCE in its numerically stable form on the logits.
+
+    batch: ``noisy``/``clean`` (B, W) fp32 and ``peaks`` (B, W) int8
+    (``data.synthetic.atacseq_batch``); ``noisy`` is cast to the model's
+    dtype, as the server casts its chunks.  Returns ``(loss, {"mse",
+    "bce"})``, fp32 scalars (0-d tensors).
+    """
+    dtype = next(model.parameters()).dtype
+    signal, peak_logits = forward(model, cfg, batch["noisy"].to(dtype),
+                                  backend=backend)
+    mse = torch.mean((signal - batch["clean"].float()) ** 2)
+    labels = batch["peaks"].float()
+    bce = torch.mean(torch.clamp(peak_logits, min=0) - peak_logits * labels
+                     + torch.log1p(torch.exp(-peak_logits.abs())))
+    return mse + bce, {"mse": mse, "bce": bce}

@@ -1,18 +1,20 @@
-"""The BRGEMM conv1d forward kernel's wrapper (counterpart of
-``repro/kernels/conv1d_brgemm.py:conv1d_fwd``).
+"""The BRGEMM conv1d kernels' wrappers (counterpart of
+``repro/kernels/conv1d_brgemm.py``: ``conv1d_fwd`` and
+``conv1d_bwd_weight``).
 
-``conv1d_fwd`` launches the CUDA kernel ``csrc/conv1d_fwd.cu`` on a CUDA
-tensor and computes its plain version (``ref.conv1d_fused_ref``) on a CPU
-tensor; a CUDA tensor never reaches the plain version here.  The CPU branch
-is kept so the wrapper can be called, input checks included, on the CPU
-where there is no card: the port's rule for every kernel wrapper, which
-only the tensor's device decides.  ``ops.conv1d`` reaches the plain version
-on the CPU through its own ``"ref"`` backend.  The library is built from
-the checkout's sources at the first launch (``build.py``).
+Each wrapper launches its CUDA kernel (``csrc/conv1d_fwd.cu``,
+``csrc/conv1d_bwd_weight.cu``) on a CUDA tensor and computes its plain
+version (``ref.py``) on a CPU tensor; a CUDA tensor never reaches the plain
+version here.  The CPU branch is kept so the wrapper can be called, input
+checks included, on the CPU where there is no card: the port's rule for
+every kernel wrapper, which only the tensor's device decides.
+``ops.conv1d`` reaches the plain version on the CPU through its own
+``"ref"`` backend.  Each library is built from the checkout's sources at
+its first launch (``build.py``).
 
-``conv1d_fwd.launches`` counts kernel launches — it is incremented where the
-kernel is launched and nowhere else, so a run can show that its path went
-through the kernel.
+``conv1d_fwd.launches`` and ``conv1d_bwd_weight.launches`` count kernel
+launches; each is incremented where its kernel is launched and nowhere
+else, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -25,18 +27,31 @@ from . import build as _build
 from . import epilogue as _ep
 from . import ref as _ref
 
-_SOURCES = ("conv1d_fwd.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("conv1d_fwd", _SOURCES)
-    lib.conv1d_fwd.argtypes = [_VP] * 5 + [_I] * 10 + [_VP]
+    """The forward kernel's library, built at first use."""
+    lib = _build.load("conv1d_fwd", ("conv1d_fwd.cu",))
+    lib.conv1d_fwd.argtypes = [_VP] * 6 + [_I] * 10 + [_VP]
     lib.conv1d_fwd.restype = _I
     lib.conv1d_fwd_error_string.argtypes = [_I]
     lib.conv1d_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The weight-gradient kernel's library, built at first use."""
+    lib = _build.load("conv1d_bwd_weight", ("conv1d_bwd_weight.cu",))
+    lib.conv1d_bwd_weight_rows.argtypes = [_I] * 7
+    lib.conv1d_bwd_weight_rows.restype = _I
+    lib.conv1d_bwd_weight.argtypes = [_VP] * 5 + [_I] * 8 + [_VP]
+    lib.conv1d_bwd_weight.restype = _I
+    lib.conv1d_bwd_weight_error_string.argtypes = [_I]
+    lib.conv1d_bwd_weight_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -57,15 +72,18 @@ def _check(name: str, t: torch.Tensor | None, shape: tuple, dtype,
 def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
                bias: torch.Tensor | None = None,
                residual: torch.Tensor | None = None,
-               activation: str | None = None, dilation: int = 1,
-               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+               activation: str | None = None, save_preact: bool = False,
+               dilation: int = 1, out_dtype: torch.dtype | None = None):
     """BRGEMM forward: x (N, C, Q + (S-1)*d), w (S, K, C) -> (N, K, Q),
     ``act(conv + bias + residual)`` on the fp32 accumulator, stored in
-    ``out_dtype`` (default ``x.dtype``).
+    ``out_dtype`` (default ``x.dtype``).  With ``save_preact`` returns
+    ``(out, preact)``, preact being the fp32 ``conv + bias + residual``.
 
     x and w are fp32 or bf16 of one dtype; bias (K,) has w's dtype and
     residual (N, K, Q) has x's.  Every tensor is contiguous and on x's
-    device; anything else raises.
+    device; anything else raises.  The same call is the data gradient
+    (Alg. 3) on the zero-padded cotangent and the flipped, transposed
+    weights (``ops.Conv1dFunction``).
     """
     activation = _ep.canon(activation)
     out_dtype = out_dtype or x.dtype
@@ -89,20 +107,27 @@ def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
     _check("bias", bias, (K,), w.dtype, x.device)
     _check("residual", residual, (N, K, Q), x.dtype, x.device)
     if x.device.type == "cpu":
-        return _ref.conv1d_fused_ref(x, w, dilation=dilation, bias=bias,
-                                     activation=activation, residual=residual,
-                                     out_dtype=out_dtype)
+        if not save_preact:
+            return _ref.conv1d_fused_ref(
+                x, w, dilation=dilation, bias=bias, activation=activation,
+                residual=residual, out_dtype=out_dtype)
+        u = _ref.conv1d_preact_ref(x, w, dilation=dilation, bias=bias,
+                                   residual=residual)
+        return _ep.ACTIVATIONS[activation](u).to(out_dtype), u
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_fwd runs on cuda (or cpu); got {x.device}")
     if N > 65535:
         raise ValueError(f"batch {N} exceeds the kernel's grid limit 65535")
     out = torch.empty((N, K, Q), dtype=out_dtype, device=x.device)
+    preact = (torch.empty((N, K, Q), dtype=torch.float32, device=x.device)
+              if save_preact else None)
     lib = _lib()
     rc = lib.conv1d_fwd(
         x.data_ptr(), w.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         residual.data_ptr() if residual is not None else None,
-        out.data_ptr(), N, C, K, S, Wp, dilation, _ep.ACT_CODES[activation],
+        out.data_ptr(), preact.data_ptr() if save_preact else None,
+        N, C, K, S, Wp, dilation, _ep.ACT_CODES[activation],
         _DTYPES[x.dtype], _DTYPES[out_dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc == -1:
@@ -113,7 +138,80 @@ def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
         raise RuntimeError("conv1d_fwd launch failed: "
                            + lib.conv1d_fwd_error_string(rc).decode())
     conv1d_fwd.launches += 1
-    return out
+    return (out, preact) if save_preact else out
 
 
 conv1d_fwd.launches = 0
+
+# conv1d_bwd_weight's negative return codes: shapes it does not take
+_BWD_REFUSED = {
+    -1: "the footprint (all channels of one column tile) does not fit in "
+        "shared memory",
+    -2: "the batch exceeds the kernel's grid limit 65535",
+}
+
+
+def _bwd_failed(lib, rc: int) -> Exception:
+    if rc in _BWD_REFUSED:
+        return ValueError(f"conv1d_bwd_weight: {_BWD_REFUSED[rc]}")
+    if rc == -3:
+        return RuntimeError("conv1d_bwd_weight: the device's SM count "
+                            "could not be read")
+    return RuntimeError("conv1d_bwd_weight launch failed: "
+                        + lib.conv1d_bwd_weight_error_string(rc).decode())
+
+
+def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
+                      dilation: int = 1, with_dbias: bool = False):
+    """BRGEMM weight gradient (Alg. 4): x (N, C, Q + (S-1)*d), gout
+    (N, K, Q) -> dw (S, K, C) fp32, ``dw[s,k,c] = sum_{n,q} gout[n,k,q] *
+    x[n,c,q+s*d]``.  ``with_dbias`` also returns the fused bias gradient
+    ``dbias[k] = sum_{n,q} gout[n,k,q]`` (K,) fp32: ``(dw, dbias)``.
+
+    x and gout are fp32 or bf16 of one dtype, contiguous and on one
+    device; anything else raises.  On the card the sums over the batch and
+    the width are a split reduction in a fixed order (no atomics): two
+    launches on the same inputs give bitwise equal results.
+    """
+    if x.dim() != 3 or gout.dim() != 3:
+        raise ValueError(f"x must be (N, C, W) and gout (N, K, Q); got "
+                         f"{tuple(x.shape)} and {tuple(gout.shape)}")
+    N, C, Wp = x.shape
+    K, Q = gout.shape[1:]
+    if S < 1 or dilation < 1:
+        raise ValueError(f"S and dilation must be >= 1, got {S}, {dilation}")
+    if Q <= 0 or Wp != Q + (S - 1) * dilation:
+        raise ValueError(f"x width {Wp} != gout width {Q} + (S-1)*d = "
+                         f"{Q + (S - 1) * dilation}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"conv1d_bwd_weight takes fp32/bf16; got {x.dtype}")
+    _check("x", x, (N, C, Wp), x.dtype, x.device)
+    _check("gout", gout, (N, K, Q), x.dtype, x.device)
+    if x.device.type == "cpu":
+        dw = _ref.conv1d_bwd_weight_ref(x, gout, dilation=dilation)
+        return (dw, _ref.conv1d_dbias_ref(gout)) if with_dbias else dw
+    if x.device.type != "cuda":
+        raise ValueError(f"conv1d_bwd_weight runs on cuda (or cpu); got "
+                         f"{x.device}")
+    lib = _bwd_lib()
+    dev = x.device.index
+    rows = lib.conv1d_bwd_weight_rows(N, C, K, S, Wp, dilation, dev)
+    if rows < 0:
+        raise _bwd_failed(lib, rows)
+    row_len = S * K * C + (K if with_dbias else 0)
+    partial = torch.empty(rows * row_len, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((S, K, C), dtype=torch.float32, device=x.device)
+    dbias = (torch.empty(K, dtype=torch.float32, device=x.device)
+             if with_dbias else None)
+    rc = lib.conv1d_bwd_weight(
+        x.data_ptr(), gout.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        dbias.data_ptr() if with_dbias else None, N, C, K, S, Wp, dilation,
+        _DTYPES[x.dtype], dev, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise _bwd_failed(lib, rc)
+    conv1d_bwd_weight.launches += 1
+    return (dw, dbias) if with_dbias else dw
+
+
+conv1d_bwd_weight.launches = 0

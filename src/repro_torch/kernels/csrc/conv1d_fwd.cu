@@ -11,6 +11,13 @@
 //   w (S, K, C), bias (K,), residual (N, K, Q), out (N, K, Q)
 //   x, w, bias, residual share one dtype (fp32 or bf16); out is fp32 or
 //   bf16.  Sums and the epilogue run in fp32; out is cast once, at its store.
+//   preact (N, K, Q) fp32, optional (the Pallas kernel's save_preact): the
+//   pre-activation conv + bias + residual, stored beside out for the
+//   gelu/silu gradient.
+//
+// The same kernel is the data gradient (Alg. 3): the caller passes the
+// cotangent zero-padded by the span on both sides as x and the flipped
+// taps with K and C swapped, w[::-1].transpose(0, 2, 1), as w.
 //
 // Bound.  At the AtacWorks shapes (C=K=15, S=51, d=8) a layer does
 // 2*C*S = 1530 flops per output element against a few bytes of traffic, so
@@ -111,8 +118,9 @@ template <typename T, typename OutT, int KT>
 __global__ void __launch_bounds__(BLOCK)
 conv1d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const T* __restrict__ bias, const T* __restrict__ residual,
-                  OutT* __restrict__ out, int C, int K, int S, int Wp, int Q,
-                  int dilation, int cc_max, int act) {
+                  OutT* __restrict__ out, float* __restrict__ preact, int C,
+                  int K, int S, int Wp, int Q, int dilation, int cc_max,
+                  int act) {
   extern __shared__ __align__(16) float smem[];
   const int F = TQ + (S - 1) * dilation;
   float* xs = smem;                           // (cc_max, F)
@@ -193,6 +201,7 @@ conv1d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       float u = acc[j][k];
       if (bias != nullptr) u += to_f32(bias[k0 + k]);
       if (residual != nullptr) u += to_f32(residual[o]);
+      if (preact != nullptr) preact[o] = u;
       out[o] = from_f32<OutT>(activate(u, act));
     }
   }
@@ -200,8 +209,8 @@ conv1d_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T, typename OutT, int KT>
 int launch(const void* x, const void* w, const void* bias,
-           const void* residual, void* out, int N, int C, int K, int S,
-           int Wp, int dilation, int act, cudaStream_t stream) {
+           const void* residual, void* out, float* preact, int N, int C,
+           int K, int S, int Wp, int dilation, int act, cudaStream_t stream) {
   const int span = (S - 1) * dilation;
   const int Q = Wp - span;
   const int cc = channel_chunk(C, S, span, KT);
@@ -217,7 +226,7 @@ int launch(const void* x, const void* w, const void* bias,
   kernel<<<grid, BLOCK, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<const T*>(residual),
-      static_cast<OutT*>(out), C, K, S, Wp, Q, dilation, cc, act);
+      static_cast<OutT*>(out), preact, C, K, S, Wp, Q, dilation, cc, act);
   return int(cudaGetLastError());
 }
 
@@ -227,13 +236,13 @@ int filter_tile(int K) { return K == 1 ? 1 : 8; }
 
 template <typename T, typename OutT>
 int launch_kt(int K, const void* x, const void* w, const void* bias,
-              const void* residual, void* out, int N, int C, int S, int Wp,
-              int dilation, int act, cudaStream_t stream) {
+              const void* residual, void* out, float* preact, int N, int C,
+              int S, int Wp, int dilation, int act, cudaStream_t stream) {
   if (filter_tile(K) == 1)
-    return launch<T, OutT, 1>(x, w, bias, residual, out, N, C, K, S, Wp,
-                              dilation, act, stream);
-  return launch<T, OutT, 8>(x, w, bias, residual, out, N, C, K, S, Wp,
-                            dilation, act, stream);
+    return launch<T, OutT, 1>(x, w, bias, residual, out, preact, N, C, K, S,
+                              Wp, dilation, act, stream);
+  return launch<T, OutT, 8>(x, w, bias, residual, out, preact, N, C, K, S,
+                            Wp, dilation, act, stream);
 }
 
 }  // namespace
@@ -242,27 +251,28 @@ extern "C" {
 
 // Launches on `stream` of GPU `device` and returns cudaGetLastError()
 // after the launch (0 on success), or -1 when the footprint cannot fit in
-// shared memory.  dtype / out_dtype: 0 = fp32, 1 = bf16.  bias / residual
-// may be null.
+// shared memory.  dtype / out_dtype: 0 = fp32, 1 = bf16.  bias, residual
+// and preact (fp32) may be null.
 int conv1d_fwd(const void* x, const void* w, const void* bias,
-               const void* residual, void* out, int N, int C, int K, int S,
-               int Wp, int dilation, int act, int dtype, int out_dtype,
-               int device, void* stream) {
+               const void* residual, void* out, void* preact, int N, int C,
+               int K, int S, int Wp, int dilation, int act, int dtype,
+               int out_dtype, int device, void* stream) {
   // this library links its own CUDA runtime: select the tensors' GPU in it
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pre = static_cast<float*>(preact);
   if (dtype == DT_F32 && out_dtype == DT_F32)
-    return launch_kt<float, float>(K, x, w, bias, residual, out, N, C, S, Wp,
-                                   dilation, act, st);
+    return launch_kt<float, float>(K, x, w, bias, residual, out, pre, N, C,
+                                   S, Wp, dilation, act, st);
   if (dtype == DT_F32)
-    return launch_kt<float, __nv_bfloat16>(K, x, w, bias, residual, out, N,
-                                           C, S, Wp, dilation, act, st);
+    return launch_kt<float, __nv_bfloat16>(K, x, w, bias, residual, out, pre,
+                                           N, C, S, Wp, dilation, act, st);
   if (out_dtype == DT_F32)
-    return launch_kt<__nv_bfloat16, float>(K, x, w, bias, residual, out, N,
-                                           C, S, Wp, dilation, act, st);
+    return launch_kt<__nv_bfloat16, float>(K, x, w, bias, residual, out, pre,
+                                           N, C, S, Wp, dilation, act, st);
   return launch_kt<__nv_bfloat16, __nv_bfloat16>(
-      K, x, w, bias, residual, out, N, C, S, Wp, dilation, act, st);
+      K, x, w, bias, residual, out, pre, N, C, S, Wp, dilation, act, st);
 }
 
 const char* conv1d_fwd_error_string(int code) {

@@ -1,16 +1,26 @@
-"""Layer-facing conv1d ops (counterpart of ``repro/kernels/ops.py``, forward
-only).
+"""Layer-facing conv1d ops (counterpart of ``repro/kernels/ops.py``,
+single device).
 
 ``conv1d`` pads for VALID / SAME / CAUSAL and runs the fused forward
 ``act(conv + bias + residual)`` on one of two backends:
 
-  * ``"cuda"`` — the hand-written kernel (``conv1d_brgemm.conv1d_fwd``);
-    the default for a CUDA tensor.  On a CPU tensor it raises.
-  * ``"ref"``  — the plain PyTorch version (``ref.conv1d_fused_ref``); the
-    default for a CPU tensor.
+  * ``"cuda"`` — the hand-written kernels (``conv1d_brgemm``); the default
+    for a CUDA tensor.  On a CPU tensor it raises.
+  * ``"ref"``  — the plain PyTorch version (``ref.conv1d_fused_ref``),
+    differentiated by autograd; the default for a CPU tensor.
 
-Nothing falls back from one to the other.  The kernel masks its own ragged
-width edge, so there is no round-up of the width to a tile.
+Nothing falls back from one to the other.  The kernels mask their own
+ragged width edge, so there is no round-up of the width to a tile.
+
+On the ``"cuda"`` backend a call that autograd records (grad mode on and
+an input that requires grad) goes through :class:`Conv1dFunction`, the
+counterpart of the ``_conv1d_pallas`` custom VJP: the forward kernel, then
+in the backward the activation's derivative, the data gradient through the
+forward kernel (Alg. 3) and the weight and bias gradients through
+``conv1d_bwd_weight`` (Alg. 4).  Any other call (serving, under
+``inference_mode``) launches the forward kernel directly.  The padding
+stays outside the Function, as ``jnp.pad`` sits outside the custom VJP, so
+autograd slices the data gradient back to the unpadded input.
 
 ``conv1d_streaming`` is the causal streaming step: one VALID pass over
 ``state ++ chunk`` and the carried state slid to the last ``(S-1)*d``
@@ -76,7 +86,6 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
     if backend == "cuda" and not x.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors; x is on "
                          f"{x.device} (use backend='ref' on the CPU)")
-    activation = _ep.canon(activation)
     S = w.shape[0]
     lo, hi = _pad_amounts(S, dilation, padding)
     if lo or hi:
@@ -85,9 +94,102 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
         return _ref.conv1d_fused_ref(x, w, dilation=dilation, bias=bias,
                                      activation=activation, residual=residual,
                                      out_dtype=out_dtype)
-    return _k.conv1d_fwd(x.contiguous(), w.contiguous(), bias=bias,
-                         residual=residual, activation=activation,
-                         dilation=dilation, out_dtype=out_dtype)
+    return fused_conv1d(x.contiguous(), w.contiguous(), bias=bias,
+                        residual=residual, activation=activation,
+                        dilation=dilation, out_dtype=out_dtype)
+
+
+def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                 bias: torch.Tensor | None = None,
+                 residual: torch.Tensor | None = None,
+                 activation: str | None = None, dilation: int = 1,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The kernel path on an already padded x (N, C, Q + (S-1)*d): through
+    :class:`Conv1dFunction` when autograd records the call, else one
+    launch of the forward kernel (a served call adds only the grad-mode
+    check to the wrapper's host work).  The wrappers take the device from
+    the tensors, so on CPU tensors every pass is its plain version."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w, bias, residual)):
+        return Conv1dFunction.apply(x, w, bias, residual, dilation,
+                                    _ep.canon(activation), out_dtype)
+    return _k.conv1d_fwd(x, w, bias=bias, residual=residual,
+                         activation=activation, dilation=dilation,
+                         out_dtype=out_dtype)
+
+
+def _widest(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """One dtype for a kernel call on two operands: theirs when they
+    agree, else fp32 (widening bf16 is exact)."""
+    return a if a == b else torch.float32
+
+
+class Conv1dFunction(torch.autograd.Function):
+    """``act(conv(x, w) + bias + residual)`` on a padded x with its
+    gradient (single device; no gradient all-reduce).
+
+    The forward saves ``(x, w, saved)``: saved is nothing for a linear
+    epilogue, the output for relu (its mask) and the kernel's fp32
+    pre-activation for gelu/silu, which is only then asked for.  The
+    backward computes
+
+      * du = act'(.) * dy in dy's dtype (``epilogue.cotangent``);
+      * dx through the forward kernel on du zero-padded by the span on
+        both sides against ``w.flip(0).transpose(1, 2)``, (S, C, K),
+        stored in x's dtype; skipped when no one wants dx (the stem's
+        input is data);
+      * (dw, dbias) through ``conv1d_bwd_weight``, cast to w's and the
+        bias's dtypes;
+      * dresidual = du in the residual's dtype.
+
+    Each kernel call takes one dtype.  Where the operands differ (the
+    bf16 model's heads give an fp32 cotangent against bf16 weights and
+    inputs), the bf16 operand is widened to fp32, which is exact and is
+    what the reference's fp32 accumulation computes.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, dilation, activation, out_dtype):
+        kw = dict(bias=bias, residual=residual, activation=activation,
+                  dilation=dilation, out_dtype=out_dtype)
+        if _ep.needs_preact(activation):
+            y, saved = _k.conv1d_fwd(x, w, save_preact=True, **kw)
+        else:
+            y = _k.conv1d_fwd(x, w, **kw)
+            saved = y if activation == "relu" else None
+        ctx.save_for_backward(x, w, saved)
+        ctx.dilation, ctx.activation = dilation, activation
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, saved = ctx.saved_tensors
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
+        d = ctx.dilation
+        S = w.shape[0]
+        span = (S - 1) * d
+        du = _ep.cotangent(ctx.activation, saved, gy).contiguous()
+        dx = dw = dbias = dres = None
+        if need_x:
+            dt = _widest(du.dtype, w.dtype)
+            dx = _k.conv1d_fwd(
+                F.pad(du.to(dt), (span, span)),
+                w.flip(0).transpose(1, 2).to(dt).contiguous(),
+                dilation=d, out_dtype=x.dtype)
+        if need_w or need_b:
+            dt = _widest(x.dtype, du.dtype)
+            out = _k.conv1d_bwd_weight(x.to(dt), du.to(dt), S=S, dilation=d,
+                                       with_dbias=need_b)
+            dw, dbias = out if need_b else (out, None)
+            dw = dw.to(w.dtype) if need_w else None
+            if need_b:
+                dbias = dbias.to(ctx.bias_dtype)
+        if need_r:
+            dres = du.to(ctx.residual_dtype)
+        return dx, dw, dbias, dres, None, None, None
 
 
 def conv_stream_state(batch: int, c_in: int, S: int, dilation: int,

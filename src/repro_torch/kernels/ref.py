@@ -3,7 +3,9 @@
 
 These are what the CUDA kernels are held against, on the card by
 ``chip_smoke.py`` and on the CPU by the tests, and what a wrapper computes
-for a tensor that lies on the CPU.
+for a tensor that lies on the CPU: the fused forward (``conv1d_fwd.cu``),
+the data gradient (Alg. 3, the same kernel on the flipped weights) and the
+weight and bias gradients (Alg. 4, ``conv1d_bwd_weight.cu``).
 
 Conventions (the paper's layout, kept from the JAX package):
   x   : (N, C, W)   input
@@ -14,6 +16,7 @@ Conventions (the paper's layout, kept from the JAX package):
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import epilogue as _ep
 
@@ -50,6 +53,51 @@ def conv1d_fused_ref(x: torch.Tensor, w: torch.Tensor, *, dilation: int = 1,
     """The fused-epilogue forward: act(conv + bias + residual) with all the
     epilogue math on the fp32 accumulator, then one cast to ``out_dtype``
     (default ``x.dtype``)."""
-    u = _ep.apply_ref(_conv1d_f32(x, w, dilation), bias=bias,
-                      residual=residual, activation=activation)
-    return u.to(out_dtype or x.dtype)
+    u = conv1d_preact_ref(x, w, dilation=dilation, bias=bias,
+                          residual=residual)
+    return _ep.ACTIVATIONS[_ep.canon(activation)](u).to(out_dtype or x.dtype)
+
+
+def conv1d_preact_ref(x: torch.Tensor, w: torch.Tensor, *, dilation: int = 1,
+                      bias: torch.Tensor | None = None,
+                      residual: torch.Tensor | None = None) -> torch.Tensor:
+    """The fp32 pre-activation ``conv + bias + residual``: the forward
+    kernel's ``save_preact`` output."""
+    return _ep.apply_ref(_conv1d_f32(x, w, dilation), bias=bias,
+                         residual=residual)
+
+
+def conv1d_bwd_data_ref(gout: torch.Tensor, w: torch.Tensor, *,
+                        dilation: int = 1) -> torch.Tensor:
+    """Alg. 3: the data gradient w.r.t. the (padded) input of conv1d_ref.
+
+    gout: (N, K, Q) -> (N, C, W) with W = Q + (S-1)*dilation, in gout's
+    dtype: the forward conv on gout zero-padded by the span on both sides
+    against the flipped taps with K and C swapped, the paper's (S, C, K)
+    layout.
+    """
+    S = w.shape[0]
+    span = (S - 1) * dilation
+    g = F.pad(gout, (span, span))
+    return conv1d_ref(g, w.flip(0).transpose(1, 2), dilation=dilation)
+
+
+def conv1d_bwd_weight_ref(x: torch.Tensor, gout: torch.Tensor, *,
+                          dilation: int = 1) -> torch.Tensor:
+    """Alg. 4: ``dW[s,k,c] = sum_{n,q} gout[n,k,q] * x[n,c,q + s*d]``.
+
+    x: (N, C, Q + (S-1)*d), gout: (N, K, Q) -> (S, K, C) fp32.
+    """
+    N, K, Q = gout.shape
+    W = x.shape[-1]
+    S = (W - Q) // dilation + 1
+    g32, x32 = gout.float(), x.float()
+    return torch.stack([
+        torch.einsum("nkq,ncq->kc", g32,
+                     x32[:, :, s * dilation:s * dilation + Q])
+        for s in range(S)])
+
+
+def conv1d_dbias_ref(gout: torch.Tensor) -> torch.Tensor:
+    """The bias gradient ``dbias[k] = sum_{n,q} gout[n,k,q]`` in fp32."""
+    return gout.float().sum(dim=(0, 2))

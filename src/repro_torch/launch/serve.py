@@ -28,23 +28,10 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import reduced
 from repro_torch.core import blocks
+from repro_torch.launch.device import require_device
 from repro_torch.train.serve_step import (make_conv_prefill_step,
                                           make_conv_stream_state,
                                           make_conv_stream_step)
-
-
-def require_device(device: torch.device | str) -> torch.device:
-    """``device`` as a ``torch.device``; raises if it is CUDA and there is
-    no GPU (the port never moves to the CPU unasked)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port serves on the GPU by default; pass "
-            "--device cpu (ConvStreamServer(..., device='cpu')) to run the "
-            "plain PyTorch version on the CPU")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _leaves(state: dict):

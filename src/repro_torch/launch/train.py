@@ -1,0 +1,133 @@
+"""Training launcher of the port: the single-device conv path of the JAX
+package's ``launch/train.py`` (``run``), on the card by default.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch atacworks \\
+        --steps 10 --batch 8 --seq 60000
+
+trains the 25-layer AtacWorks model on synthetic ATAC-seq tracks (batch 8
+x width 60,000: 50k segments padded by 5k on both sides, paper §4.2)
+through the hand-written kernels, forward and backward.  ``--device cpu``
+runs the plain PyTorch version on the CPU (with ``--smoke`` for the
+reduced config); without a GPU and without that flag it raises.  Each step
+prints its loss, gradient norm and time (to a synchronisation), and the
+run ends with the median step time over the steps after the first
+``WARMUP_STEPS`` and ``samples_per_s = batch / median``.  ``--ckpt-dir``
+saves atomic checkpoints in the JAX package's format every ``--ckpt-every``
+steps and at the end; ``--resume`` continues from the newest one, with
+the same batches the steps saw the first time.
+
+The JAX launcher's elastic supervisor, fault drills, health and straggler
+monitors, telemetry and meshes wait in ROADMAP.md queue A.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint.checkpoint import Checkpointer
+from repro_torch.configs.base import reduced
+from repro_torch.core import blocks
+from repro_torch.data.synthetic import SyntheticLoader
+from repro_torch.launch.device import require_device
+from repro_torch.train.train_step import init_state, make_train_step
+
+# steps excluded from throughput: the first pays the kernels' build and
+# load, the second first-touch allocation
+WARMUP_STEPS = 2
+
+
+def _parse_args(argv):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (C=8, S=9)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=60_000,
+                    help="track width (paper §4.2: 50,000 + 2 x 5,000)")
+    ap.add_argument("--accum", type=int, default=1,
+                    help="microbatches per step (gradients summed in fp32)")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> dict:
+    """Train and return a summary: losses, per-step times, median step
+    time after warm-up and samples/s."""
+    args = _parse_args(argv)
+    cfg = configs.get(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    device = require_device(args.device)
+    if args.batch % args.accum:
+        raise SystemExit(f"--batch {args.batch} must divide by --accum "
+                         f"{args.accum}")
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    state = init_state(blocks.init_params(cfg, seed=args.seed, device=device))
+    start = 0
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        start = int(state.step)
+        print(f"resumed from step {start}")
+    step_fn = make_train_step(cfg, accum_steps=args.accum, peak_lr=args.lr,
+                              warmup_steps=max(2, args.steps // 10),
+                              total_steps=args.steps)
+    print(f"arch={cfg.name} device={device} batch={args.batch} "
+          f"seq={args.seq} accum={args.accum}")
+
+    losses, dts = [], []
+    loader = SyntheticLoader(cfg, args.batch, args.seq, device=device,
+                             seed=args.seed, start=start)
+    try:
+        for i in range(start, args.steps):
+            batch = next(loader)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            dts.append(dt)
+            print(f"step {i:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} dt {dt:.3f}s",
+                  flush=True)
+            if ckpt and (i + 1) % args.ckpt_every == 0:
+                ckpt.save(state, i + 1)
+    finally:
+        loader.close()
+    if ckpt and args.steps > start:
+        ckpt.save(state, args.steps)
+
+    summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
+               "first_step": start, "global_batch": args.batch,
+               "seq": args.seq, "accum": args.accum, "losses": losses,
+               "step_s": dts}
+    if dts:
+        measured = dts[WARMUP_STEPS:] or dts
+        steady = float(np.median(measured))
+        summary.update(median_step_s=steady,
+                       samples_per_s=args.batch / steady)
+        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step "
+              f"{steady * 1e3:.2f} ms over {len(measured)} steps after "
+              f"warm-up ({args.batch / steady:.2f} samples/s)")
+    return summary
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

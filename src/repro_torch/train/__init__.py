@@ -1,1 +1,1 @@
-"""Step factories (serving only in this slice; training comes next)."""
+"""Step factories: training (``train_step``) and serving (``serve_step``)."""

@@ -7,18 +7,29 @@ PyTorch version; the JAX side runs its Pallas kernel in interpret mode
 (``backend="pallas"``) and its own plain version (``backend="ref"``).
 Tolerances: ``atol=rtol=1e-5`` in fp32 (the two frameworks sum in another
 order); ``2e-2`` for bf16, against JAX's fp32 math on bf16-rounded inputs.
-The CUDA kernel itself is held against its plain version on the card by
-``chip_smoke.py``.
+Gradients: ``atol=rtol=1e-4`` in fp32 (the weight gradient sums every
+batch and width position, and dx passes through a second conv, in
+another order); for bf16, ``2e-2`` of the largest value (the port rounds
+dx, dw and dbias to bf16).  The backward cases call
+``ops.fused_conv1d`` on CPU tensors: it runs ``ops.Conv1dFunction``, whose
+wrappers then compute each pass's plain version, so they check the
+Function's own algebra (flip, transpose, cotangent padding, activation
+mask, dbias, dresidual, mixed head dtypes).  The CUDA kernels themselves
+are held against their plain versions on the card by ``chip_smoke.py``.
 """
 from __future__ import annotations
 
 import os
 import stat
+import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import torch.nn.functional as F
 
 from repro.kernels import epilogue as jep
 from repro.kernels import ops as jops
@@ -26,6 +37,7 @@ from repro_torch.kernels import build, conv1d_brgemm, epilogue, ops, ref
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def _operands(C, K, S, W, *, N=2, residual_q=None, seed=0):
@@ -281,3 +293,237 @@ def test_ops_docstring_example_runs():
     import doctest
     res = doctest.testmod(ops, optionflags=doctest.ELLIPSIS)
     assert res.attempted >= 2 and res.failed == 0
+
+
+# --- backward: Conv1dFunction and the plain backward passes -------------
+
+# (C, K, S, dilation, padding, bias, activation, residual, dtype, out_dtype)
+GRAD_CASES = [
+    (3, 4, 3, 1, "VALID", True, None, False, "float32", None),
+    (3, 4, 3, 8, "SAME", True, "relu", True, "float32", None),
+    (3, 4, 3, 8, "CAUSAL", True, "gelu", False, "float32", None),
+    (3, 4, 3, 1, "SAME", True, "silu", True, "float32", None),
+    (3, 3, 5, 2, "CAUSAL", False, "gelu", True, "float32", None),
+    (3, 4, 3, 8, "VALID", False, "relu", True, "float32", None),
+    (3, 3, 3, 1, "CAUSAL", True, "silu", False, "float32", None),
+    (1, 4, 3, 8, "SAME", True, "relu", False, "float32", None),    # stem
+    (4, 1, 3, 8, "SAME", True, "relu", False, "float32", None),    # head
+    (4, 1, 3, 1, "CAUSAL", True, None, False, "float32", None),    # head
+    (4, 4, 3, 8, "SAME", True, "relu", True, "bfloat16", None),
+    (4, 4, 3, 1, "CAUSAL", True, "gelu", False, "bfloat16", None),
+    # the bf16 model's heads: fp32 output, so an fp32 cotangent against
+    # bf16 weights and inputs
+    (4, 1, 3, 8, "SAME", True, "relu", False, "bfloat16", "float32"),
+    (4, 1, 3, 8, "SAME", True, None, False, "bfloat16", "float32"),
+]
+
+
+def _grad_case_id(c):
+    C, K, S, d, pad, b, act, r, dt, od = c
+    return (f"C{C}K{K}S{S}d{d}-{pad}-" + jep.signature(b, act, r) + f"-{dt}"
+            + (f"-out_{od}" if od else ""))
+
+
+def _grad_operands(C, K, S, d, padding, has_b, has_r, dtype, W=40):
+    Q = _out_width(W, S, d, padding)
+    x, w, b, r = _operands(C, K, S, W, residual_q=Q if has_r else None)
+    g = np.random.default_rng(9).standard_normal((2, K, Q)).astype(np.float32)
+    ins = {"x": x, "w": w, "b": b if has_b else None, "r": r}
+    if dtype == "bfloat16":  # the values both sides see: bf16-rounded
+        ins = {k: None if v is None else
+               _torch(v, torch.bfloat16).float().numpy()
+               for k, v in ins.items()}
+        g = _torch(g, torch.bfloat16).float().numpy()
+    return ins, g
+
+
+def _jax_grads(ins, g, *, d, padding, act, backend, out_dtype):
+    names = [k for k, v in ins.items() if v is not None]
+
+    def loss(*args):
+        kw = dict(zip(names, args))
+        y = jops.conv1d(kw["x"], kw["w"], bias=kw.get("b"),
+                        residual=kw.get("r"), activation=act, dilation=d,
+                        padding=padding, backend=backend)
+        return jnp.sum(y.astype(jnp.float32) * g)
+
+    grads = jax.grad(loss, argnums=tuple(range(len(names))))(
+        *(jnp.asarray(ins[k]) for k in names))
+    return {k: np.asarray(v, np.float32) for k, v in zip(names, grads)}
+
+
+def _port_grads(ins, g, *, S, d, padding, act, dtype, out_dtype, path):
+    dt = getattr(torch, dtype)
+    t = {k: None if v is None else _torch(v, dt).requires_grad_()
+         for k, v in ins.items()}
+    kw = dict(bias=t["b"], residual=t["r"], activation=act, dilation=d,
+              out_dtype=getattr(torch, out_dtype) if out_dtype else None)
+    if path == "function":
+        lo, hi = ops._pad_amounts(S, d, padding)
+        y = ops.fused_conv1d(F.pad(t["x"], (lo, hi)), t["w"], **kw)
+    else:
+        y = ops.conv1d(t["x"], t["w"], padding=padding, backend="ref", **kw)
+    gy = _torch(g).to(y.dtype)
+    y.backward(gy)
+    out = {}
+    for k, v in t.items():
+        if v is not None:
+            assert v.grad.dtype == v.dtype, k  # cast back to the primal's
+            out[k] = v.grad.float().numpy()
+    return out
+
+
+@pytest.mark.parametrize("jax_backend", ["pallas", "ref"])
+@pytest.mark.parametrize("case", GRAD_CASES, ids=_grad_case_id)
+def test_conv1d_grads_match_jax(case, jax_backend):
+    """dx, dw, dbias and dresidual of the port's Function and of its plain
+    backend against ``jax.grad`` of JAX's conv1d."""
+    C, K, S, d, padding, has_b, act, has_r, dtype, od = case
+    ins, g = _grad_operands(C, K, S, d, padding, has_b, has_r, dtype)
+    want = _jax_grads(ins, g, d=d, padding=padding, act=act,
+                      backend=jax_backend, out_dtype=od)
+    for path in ("function", "ref"):
+        got = _port_grads(ins, g, S=S, d=d, padding=padding, act=act,
+                          dtype=dtype, out_dtype=od, path=path)
+        assert set(got) == set(want)
+        for k in want:
+            if dtype == "bfloat16":
+                scale = float(np.abs(want[k]).max())
+                tol = dict(atol=2e-2 * scale, rtol=2e-2)
+            else:
+                tol = GRAD_TOL
+            np.testing.assert_allclose(got[k], want[k], err_msg=f"{path} d{k}",
+                                       **tol)
+
+
+def test_function_skips_dx_for_data_inputs(monkeypatch):
+    """No bwd-data pass when the input needs no gradient (the stem), one
+    bwd-weight pass either way; counted through the wrappers."""
+    x, w, b, _ = _operands(3, 4, 3, 30)
+    calls = {"fwd": 0, "bwd_weight": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(conv1d_brgemm, "conv1d_fwd",
+                        counted("fwd", conv1d_brgemm.conv1d_fwd))
+    monkeypatch.setattr(conv1d_brgemm, "conv1d_bwd_weight",
+                        counted("bwd_weight", conv1d_brgemm.conv1d_bwd_weight))
+    for x_grad, want in ((False, 1), (True, 2)):
+        calls.update(fwd=0, bwd_weight=0)
+        xt = _torch(x).requires_grad_(x_grad)
+        wt, bt = _torch(w).requires_grad_(), _torch(b).requires_grad_()
+        y = ops.fused_conv1d(xt, wt, bias=bt, activation="relu", dilation=2)
+        y.sum().backward()
+        assert calls == {"fwd": want, "bwd_weight": 1}
+        assert (xt.grad is not None) == x_grad
+        assert wt.grad is not None and bt.grad is not None
+
+
+def test_no_grad_calls_launch_the_forward_only():
+    """Under inference_mode (the server) the kernel path is one forward
+    call with no autograd record."""
+    x, w, b, _ = _operands(3, 4, 3, 30)
+    wt = _torch(w).requires_grad_()
+    with torch.inference_mode():
+        y = ops.fused_conv1d(_torch(x), wt, bias=_torch(b), dilation=2)
+    assert y.grad_fn is None
+    y = ops.fused_conv1d(_torch(x), wt, bias=_torch(b), dilation=2)
+    assert type(y.grad_fn).__name__ == "Conv1dFunctionBackward"
+
+
+@pytest.mark.parametrize("dilation", [1, 8])
+def test_plain_backward_passes_match_jax(dilation):
+    from repro.kernels import ref as jref
+    S, W = 3, 40
+    x, w, _, _ = _operands(3, 4, S, W)
+    Q = W - (S - 1) * dilation
+    g = np.random.default_rng(2).standard_normal((2, 4, Q)).astype(np.float32)
+    np.testing.assert_allclose(
+        ref.conv1d_bwd_data_ref(_torch(g), _torch(w), dilation=dilation),
+        jref.conv1d_bwd_data_ref(_jax(g), _jax(w), dilation=dilation),
+        **F32_TOL)
+    np.testing.assert_allclose(
+        ref.conv1d_bwd_weight_ref(_torch(x), _torch(g), dilation=dilation),
+        jref.conv1d_bwd_weight_ref(_jax(x), _jax(g), dilation=dilation),
+        **GRAD_TOL)
+    np.testing.assert_allclose(ref.conv1d_dbias_ref(_torch(g)),
+                               g.sum(axis=(0, 2)), **F32_TOL)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "gelu", "silu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_epilogue_cotangent_matches_jax(act, dtype):
+    rng = np.random.default_rng(4)
+    u = (3 * rng.standard_normal((2, 3, 17))).astype(np.float32)
+    gout = rng.standard_normal((2, 3, 17)).astype(np.float32)
+    dt = getattr(torch, dtype)
+    y = epilogue.ACTIVATIONS[act](_torch(u))
+    saved = {"none": None, "relu": y.to(dt), "gelu": _torch(u),
+             "silu": _torch(u)}[act]
+    got = epilogue.cotangent(act, saved, _torch(gout, dt))
+    assert got.dtype == dt
+    jsaved = None if saved is None else jnp.asarray(saved.float().numpy())
+    want = jops._epilogue_cotangent(
+        types.SimpleNamespace(activation=act), jsaved,
+        jnp.asarray(_torch(gout, dt).float().numpy()))
+    # fp32: where tanh saturates the two frameworks' tanh differ in the
+    # last bit, which gelu's (1 - tanh^2) term turns into up to ~2e-6
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want), **tol)
+    assert epilogue.needs_preact(act) == jops._needs_preact(act)
+
+
+def test_save_preact_on_cpu_is_the_plain_version():
+    x, w, b, r = _operands(3, 4, 3, 30, residual_q=30 - 2 * 4)
+    before = conv1d_brgemm.conv1d_fwd.launches
+    y, u = conv1d_brgemm.conv1d_fwd(
+        _torch(x), _torch(w), bias=_torch(b), residual=_torch(r),
+        activation="silu", save_preact=True, dilation=4)
+    assert u.dtype == torch.float32
+    assert torch.equal(u, ref.conv1d_preact_ref(
+        _torch(x), _torch(w), bias=_torch(b), residual=_torch(r), dilation=4))
+    assert torch.equal(y, ref.conv1d_fused_ref(
+        _torch(x), _torch(w), bias=_torch(b), residual=_torch(r),
+        activation="silu", dilation=4))
+    assert conv1d_brgemm.conv1d_fwd.launches == before
+
+
+@pytest.mark.parametrize("with_dbias", [False, True])
+def test_conv1d_bwd_weight_on_cpu_is_the_plain_version(with_dbias):
+    x, _, _, _ = _operands(3, 4, 3, 30)
+    g = np.random.default_rng(5).standard_normal((2, 4, 22)).astype(
+        np.float32)
+    before = conv1d_brgemm.conv1d_bwd_weight.launches
+    got = conv1d_brgemm.conv1d_bwd_weight(_torch(x), _torch(g), S=3,
+                                          dilation=4, with_dbias=with_dbias)
+    dw = ref.conv1d_bwd_weight_ref(_torch(x), _torch(g), dilation=4)
+    if with_dbias:
+        assert torch.equal(got[0], dw)
+        assert torch.equal(got[1], ref.conv1d_dbias_ref(_torch(g)))
+    else:
+        assert torch.equal(got, dw)
+    assert conv1d_brgemm.conv1d_bwd_weight.launches == before
+
+
+def _bad_bwd_inputs():
+    x, g = torch.zeros(2, 3, 20), torch.zeros(2, 4, 16)
+    return {
+        "dtype": (x.double(), g.double(), {}),
+        "mixed_dtype": (x, g.bfloat16(), {}),
+        "width": (x, torch.zeros(2, 4, 15), {}),
+        "batch": (x, torch.zeros(3, 4, 16), {}),
+        "noncontiguous": (torch.zeros(2, 20, 3).transpose(1, 2), g, {}),
+        "dilation": (x, g, {"dilation": 0}),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_bad_bwd_inputs()))
+def test_conv1d_bwd_weight_rejects_bad_inputs(what):
+    x, g, kw = _bad_bwd_inputs()[what]
+    kw = {"S": 3, "dilation": 2, **kw}
+    with pytest.raises(ValueError):
+        conv1d_brgemm.conv1d_bwd_weight(x, g, **kw)
