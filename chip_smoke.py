@@ -5,8 +5,8 @@
 
 Phases (any failed check raises, so the run exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     build both CUDA kernels from the checkout's sources, in parallel and
-     timed, with ptxas' registers and spills;
+     build the four CUDA kernels from the checkout's sources, in parallel
+     and timed, with ptxas' registers and spills;
   2. the kernel ``conv1d_fwd`` against its plain PyTorch version on the
      card at every layer shape of the serving path (stem 1->15, conv1,
      conv2 with residual, the two 15->1 heads), at the stream-step shape
@@ -49,7 +49,28 @@ Phases (any failed check raises, so the run exits non-zero):
      kernels' device time per step against the step; then PROFILE_STEPS
      more steps under ``torch.profiler``: device time by kernel and the
      device's busy share of a step;
-  7. a JSON line of the kernels, the card's line, and last the result line.
+  7. the depthwise kernels against their plain versions at the Mamba2-370M
+     conv layer of its training cell (batch 8 x 2,048, C = 2304, S = 4):
+     the forward (bf16 in, bias + silu, fp32 out and preact), bwd-data
+     (the padded fp32 cotangent against the flipped taps, bf16 out) and
+     bwd-weight (bf16 x, fp32 cotangent) with and without dbias, two
+     launches bitwise equal, one fp32, one residual and one dilation-3
+     case; device, call, plain and library (``F.conv1d(groups=C)``,
+     ``torch.nn.grad``) times beside the bound;
+  8. the whole Mamba2 gradient: the full widths in an fp32 copy of the
+     config cut to 2 layers (remat on), batch 2 x 512, TF32 off: the loss
+     and all 12 gradients through the kernels against autograd over the
+     plain version, and 3 x 2 forward and 2 bwd-weight launches;
+  9. train ``mamba2-370m`` (48 layers, bf16, remat on) through
+     ``repro_torch.launch.train``'s own entry point at batch 8 x 2,048 for
+     10 steps: every loss and gradient norm finite, 144 depthwise forward
+     launches (forward, recompute, bwd-data) and 48 bwd-weight launches a
+     step; step p50, tokens/s, peak memory; then M2_PROFILE_STEPS more
+     steps under ``torch.profiler``: device time of the depthwise
+     kernels, the projections' matrix products, the SSD's batched
+     products, the rest, and the idle time;
+  10. a JSON line of the four kernels, the card's line, and last the
+      result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
 """
@@ -100,6 +121,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 60000, 10
 # the whole-model gradient check: full widths at batch 2 x 8,192
 GRAD_BATCH, GRAD_SEQ, GRAD_STEPS = 2, 8192, 3
 PROFILE_STEPS = 4  # training steps traced by torch.profiler after the run
+
+# the Mamba2-370M conv layer of the training cell: batch 8 x 2,048,
+# conv_dim 2304 (d_inner 2048 + 2 x d_state 128), conv width 4
+DW_BATCH, DW_SEQ, DW_CHANNELS, DW_TAPS = 8, 2048, 2304, 4
+# depthwise kernels vs plain: max|kernel - plain| <= tol * max|plain|.
+# fp32 results: sums of S products, or of 16,384 per channel for the
+# weight gradient, in another order; bf16 results: one bf16 rounding
+DW_TOL_F32, DW_TOL_BF16 = 1e-5, 2.0 ** -7
+# the whole Mamba2 gradient: the full widths in fp32, 2 layers, batch 2 x
+# 512; the loss within LOSS_RTOL, each gradient within GRAD_TOL of its
+# leaf's largest value (as for AtacWorks)
+M2_GRAD_LAYERS, M2_GRAD_BATCH, M2_GRAD_SEQ = 2, 2, 512
+# the Mamba2-370M training cell: batch 8 x 2,048 (the Mamba-2 paper's
+# pretraining context), 10 steps; then M2_PROFILE_STEPS traced
+M2_BATCH, M2_SEQ, M2_STEPS, M2_PROFILE_STEPS = 8, 2048, 10, 3
 
 
 def _card_line() -> str:
@@ -537,6 +573,159 @@ def bwd_kernel_checks(torch, conv1d_brgemm, ref):
     return rows
 
 
+def dw_kernel_checks(torch, conv1d_brgemm, ref):
+    """Phase 7: both depthwise kernels against their plain versions at the
+    Mamba2-370M layer shape of the training cell (batch 8 x 2,048, C =
+    2304, S = 4, CAUSAL): the forward (bf16 in, silu, fp32 out and
+    preact), bwd-data (the padded fp32 cotangent against the flipped,
+    widened taps, bf16 out) and bwd-weight (bf16 x, fp32 cotangent) with
+    and without dbias, two launches bitwise equal; then one fp32, one
+    residual and one dilation-3 case.  Device, call, plain and library
+    times beside the bound for the three passes of the path."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    N, C, Q, S = DW_BATCH, DW_CHANNELS, DW_SEQ, DW_TAPS
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, dtype=f32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=DEVICE)
+                ).to(dtype)
+
+    def operands(d, dtype):
+        span = (S - 1) * d
+        return (rnd(N, C, Q + span, dtype=dtype),
+                rnd(S, C, dtype=dtype, scale=S ** -0.5),
+                rnd(C, dtype=dtype, scale=0.1), rnd(N, C, Q), span)
+
+    def tol_of(t):
+        return DW_TOL_BF16 if t.dtype == bf16 else DW_TOL_F32
+
+    rows = []
+
+    def record(label, pname, pairs, extra=None):
+        errs = [_check_close(f"{label} {k}", got, want, tol_of(got))
+                for k, (got, want) in pairs.items()]
+        row = dict(shape=label, pass_=pname, N=N, C=C, Q=Q, S=S,
+                   max_abs_err=max(e[0] for e in errs),
+                   max_rel_diff=max(e[1] for e in errs),
+                   tol_rel_to_max_plain={k: tol_of(g) for k, (g, _) in
+                                         pairs.items()}, ok=True)
+        row.update(extra or {})
+        rows.append(row)
+        print("dw-check " + json.dumps(row), flush=True)
+        return row
+
+    # the path's three passes, timed
+    x, w, b, g, span = operands(1, bf16)
+    g_pad = F.pad(g, (span, span))
+    w_flip = w.flip(0).float().contiguous()
+    w_c1s = w.t().unsqueeze(1).contiguous()          # (C, 1, S), torch's
+    x32, w32_c1s = x.float(), w_c1s.float()
+
+    def fwd():
+        return conv1d_brgemm.depthwise_conv1d_fwd(
+            x, w, bias=b, activation="silu", save_preact=True,
+            out_dtype=f32)
+
+    def fwd_plain():
+        u = ref.depthwise_conv1d_preact_ref(x, w, bias=b)
+        return F.silu(u), u
+
+    def bwd_data():
+        return conv1d_brgemm.depthwise_conv1d_fwd(g_pad, w_flip,
+                                                  out_dtype=bf16)
+
+    def bwd_w(with_dbias=True):
+        return conv1d_brgemm.depthwise_conv1d_bwd_weight(
+            x, g, S=S, with_dbias=with_dbias)
+
+    def bwd_w_plain():
+        return (ref.depthwise_conv1d_bwd_weight_ref(x, g),
+                ref.conv1d_dbias_ref(g))
+
+    Wp = Q + span
+    # bytes: each input read once, each output written once; the ops are
+    # fp32 FMAs whatever the input type
+    passes = {
+        "fwd": (fwd, fwd_plain,
+                lambda: F.conv1d(x, w_c1s, b, groups=C),
+                2.0 * N * C * S * Q,
+                N * C * Wp * 2 + (S * C + C) * 2 + 2 * N * C * Q * 4),
+        "bwd_data": (bwd_data, lambda: ref.depthwise_conv1d_bwd_data_ref(
+            g, w.float(), out_dtype=bf16),
+            lambda: torch.nn.grad.conv1d_input((N, C, Wp), w32_c1s, g,
+                                               groups=C),
+            2.0 * N * C * S * Q, N * C * Q * 4 + S * C * 4 + N * C * Wp * 2),
+        "bwd_weight": (bwd_w, bwd_w_plain,
+                       lambda: torch.nn.grad.conv1d_weight(
+                           x32, (C, 1, S), g, groups=C),
+                       2.0 * N * C * (S + 1) * Q,
+                       N * C * Wp * 2 + N * C * Q * 4 + (S * C + C) * 4),
+    }
+    for pname, (kern, plain, lib, flops, nbytes) in passes.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        label = f"{pname} mamba2 C={C} N={N} Q={Q}"
+        extra = {}
+        if pname == "fwd":
+            pairs = {"out": (got[0], want[0]), "preact": (got[1], want[1])}
+        elif pname == "bwd_data":
+            pairs = {"dx": (got, want)}
+        else:
+            nod = bwd_w(with_dbias=False)
+            again = bwd_w()
+            torch.cuda.synchronize()
+            if not (torch.equal(again[0], got[0])
+                    and torch.equal(again[1], got[1])
+                    and torch.equal(nod, got[0])):
+                raise AssertionError(f"{label}: two launches differ")
+            pairs = {"dw": (got[0], want[0]), "dbias": (got[1], want[1]),
+                     "dw (no dbias)": (nod, want[0])}
+            extra["bitwise_two_launches"] = True
+        extra["kernel_ms"] = _device_ms(kern)
+        extra["kernel_call_ms"] = _call_ms(kern)
+        extra["plain_ms"] = _device_ms(plain, per_graph=2)
+        extra["library_ms"] = _device_ms(lib)
+        extra["bound_ms"], extra["bound_by"] = _bound(flops, nbytes,
+                                                      "float32")
+        record(label, pname, pairs, extra)
+
+    # one fp32, one residual (gelu, bf16 out) and one dilation-3 case
+    x, w, b, g, _ = operands(1, f32)
+    y, u = conv1d_brgemm.depthwise_conv1d_fwd(x, w, bias=b,
+                                              activation="silu",
+                                              save_preact=True)
+    record(f"fwd fp32 silu C={C}", "fwd", {
+        "out": (y, F.silu(ref.depthwise_conv1d_preact_ref(x, w, bias=b))),
+        "preact": (u, ref.depthwise_conv1d_preact_ref(x, w, bias=b))})
+    dw, db = conv1d_brgemm.depthwise_conv1d_bwd_weight(x, g, S=S,
+                                                       with_dbias=True)
+    record(f"bwd_weight fp32 C={C}", "bwd_weight", {
+        "dw": (dw, ref.depthwise_conv1d_bwd_weight_ref(x, g)),
+        "dbias": (db, ref.conv1d_dbias_ref(g))})
+    x, w, b, _, _ = operands(1, bf16)
+    r = rnd(N, C, Q, dtype=bf16)
+    record(f"fwd bf16 gelu+residual C={C}", "fwd", {"out": (
+        conv1d_brgemm.depthwise_conv1d_fwd(x, w, bias=b, residual=r,
+                                           activation="gelu"),
+        ref.depthwise_conv1d_fused_ref(x, w, bias=b, residual=r,
+                                       activation="gelu"))})
+    x, w, b, g, _ = operands(3, bf16)
+    record(f"fwd+bwd_weight dilation 3 C={C}", "fwd", {
+        "out": (conv1d_brgemm.depthwise_conv1d_fwd(
+            x, w, bias=b, activation="silu", dilation=3, out_dtype=f32),
+            ref.depthwise_conv1d_fused_ref(x, w, bias=b, activation="silu",
+                                           dilation=3, out_dtype=f32)),
+        "dw": (conv1d_brgemm.depthwise_conv1d_bwd_weight(x, g, S=S,
+                                                         dilation=3),
+               ref.depthwise_conv1d_bwd_weight_ref(x, g, dilation=3))})
+    torch.cuda.synchronize()
+    return rows
+
+
 def _seeded_model(torch, blocks, cfg, seed):
     """The stack from a seed, with random non-zero biases (zeros at init
     would leave the bias path untested)."""
@@ -709,8 +898,178 @@ def train_profile(torch, train):
     return stats
 
 
+def _mamba2_model(torch, cfg, init_model, seed):
+    """Mamba2 from a seed with random non-zero conv biases (zeros at init
+    would leave the fused bias path untested)."""
+    model = init_model(cfg, seed=seed, device=DEVICE)
+    gen = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        b = model.layers.mixer.conv_b
+        b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+    return model
+
+
+def mamba2_grad_check(torch, configs, init_model, synthetic, losses,
+                      conv1d_brgemm):
+    """Phase 8: the whole Mamba2 gradient at the full widths (an fp32 copy
+    of mamba2-370m cut to M2_GRAD_LAYERS layers, remat on) at batch 2 x
+    512: the loss and all 12 gradients through the depthwise kernels
+    against autograd over the plain version on the card, TF32 off."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("mamba2-370m"),
+                              n_layers=M2_GRAD_LAYERS, dtype="float32")
+    model = _mamba2_model(torch, cfg, init_model, seed=21)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             synthetic.make_batch(cfg, M2_GRAD_BATCH, M2_GRAD_SEQ,
+                                  seed=22).items()}
+    names, params = zip(*model.named_parameters())
+    dwf, dwb = (conv1d_brgemm.depthwise_conv1d_fwd,
+                conv1d_brgemm.depthwise_conv1d_bwd_weight)
+
+    def loss_and_grads(backend):
+        loss = losses.softmax_xent(model(batch["tokens"], backend=backend),
+                                   batch["labels"])
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    f0, b0 = dwf.launches, dwb.launches
+    loss_k, grads_k = loss_and_grads(None)
+    launched = (dwf.launches - f0, dwb.launches - b0)
+    loss_p, grads_p = loss_and_grads("ref")
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    if launched != (3 * L, L):
+        raise AssertionError(f"one gradient launched {launched} depthwise "
+                             f"kernels, expected ({3 * L} forward: forward, "
+                             f"recompute and bwd-data; {L} bwd-weight)")
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"Mamba2 loss through the kernels "
+                             f"{loss_k.item()} vs plain {loss_p.item()}: "
+                             f"rel {loss_rel}")
+    if len(grads_k) != 12:
+        raise AssertionError(f"{len(grads_k)} gradients, expected 12")
+    worst = (0.0, "")
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"non-finite gradient of {name}")
+        _, rel = _check_close(f"mamba2 grad {name}", gk, gp, GRAD_TOL)
+        worst = max(worst, (rel, name))
+    stats = dict(layers=L, d_model=cfg.d_model, batch=M2_GRAD_BATCH,
+                 seq=M2_GRAD_SEQ, dtype=cfg.dtype, remat=cfg.remat,
+                 loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
+                 loss_rel_diff=loss_rel, n_grads=len(grads_k),
+                 worst_grad_rel_diff=worst[0], worst_grad=worst[1],
+                 grad_tol_rel_to_max_plain=GRAD_TOL,
+                 launches_per_gradient=list(launched))
+    print("mamba2-grad " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _m2_argv(steps):
+    return ["--arch", "mamba2-370m", "--steps", str(steps), "--batch",
+            str(M2_BATCH), "--seq", str(M2_SEQ)]
+
+
+def mamba2_train_check(torch, np, train, conv1d_brgemm, n_layers):
+    """Phase 9: train the full Mamba2-370M through the launcher's own entry
+    point at batch 8 x 2,048 for M2_STEPS steps: every loss and gradient
+    norm finite (no step skipped), the
+    depthwise forward launched 3 x 48 times a step (forward, remat
+    recompute, bwd-data) and the weight gradient 48 times."""
+    dwf, dwb = (conv1d_brgemm.depthwise_conv1d_fwd,
+                conv1d_brgemm.depthwise_conv1d_bwd_weight)
+    dwf.launches = 0
+    dwb.launches = 0
+    summary = train.run(_m2_argv(M2_STEPS))
+    fwd, bw = dwf.launches, dwb.launches
+    losses = summary["losses"]
+    if len(losses) != M2_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"Mamba2 training losses {losses}")
+    if summary["skipped_steps"]:
+        raise AssertionError(f"{summary['skipped_steps']} Mamba2 steps "
+                             "skipped for a non-finite gradient norm")
+    want = (3 * n_layers * M2_STEPS, n_layers * M2_STEPS)
+    if (fwd, bw) != want:
+        raise AssertionError(
+            f"{fwd} depthwise_conv1d_fwd and {bw} depthwise_conv1d_bwd_weight"
+            f" launches in {M2_STEPS} steps; expected {want[0]} and "
+            f"{want[1]} ({3 * n_layers} and {n_layers} per step)")
+    times = np.asarray(summary["step_s"][train.WARMUP_STEPS:])
+    stats = dict(steps=M2_STEPS, batch=M2_BATCH, seq=M2_SEQ, losses=losses,
+                 grad_norms=summary["grad_norms"], step_s=summary["step_s"],
+                 step_p50_ms=float(np.median(times) * 1e3),
+                 step_min_ms=float(times.min() * 1e3),
+                 step_max_ms=float(times.max() * 1e3),
+                 tokens_per_s=summary["tokens_per_s"],
+                 samples_per_s=summary["samples_per_s"],
+                 peak_memory_gb=summary["peak_memory_gb"],
+                 depthwise_fwd_launches=fwd, depthwise_bwd_weight_launches=bw,
+                 fwd_launches_per_step=fwd / M2_STEPS,
+                 bwd_weight_launches_per_step=bw / M2_STEPS)
+    print("mamba2-train " + json.dumps(stats), flush=True)
+    return stats
+
+
+def mamba2_profile(torch, train):
+    """Phase 9, second part: M2_PROFILE_STEPS more steps under
+    ``torch.profiler``: device time per step of the depthwise kernels, of
+    the matrix products outside the SSD (``aten::mm``/``addmm``: the
+    projections, the unembedding and their gradients, bf16), of the SSD's
+    batched products (``aten::bmm``, fp32), of everything else, and the
+    device's idle time against the steps' host-clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        summary = train.run(_m2_argv(M2_PROFILE_STEPS))
+        torch.cuda.synchronize()
+    n = M2_PROFILE_STEPS
+
+    def dev_ms(e, self_only):
+        for attr in (("self_device_time_total", "self_cuda_time_total")
+                     if self_only else
+                     ("device_time_total", "cuda_time_total")):
+            us = getattr(e, attr, None)
+            if us is not None:
+                return us / 1e3 / n
+        return 0.0
+
+    kernels, by_op = [], {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels.append(dict(
+                name=e.key[:120], calls=e.count,
+                ms_per_step=dev_ms(e, False),
+                port=any(t in e.key for t in ("dw_fwd_kernel",
+                                              "dw_bwd_weight_partial",
+                                              "dw_reduce_partials"))))
+        else:
+            by_op[e.key] = by_op.get(e.key, 0.0) + dev_ms(e, True)
+    kernels.sort(key=lambda k: -k["ms_per_step"])
+    step_ms = 1e3 * sum(summary["step_s"]) / n
+    busy = sum(k["ms_per_step"] for k in kernels)
+    ours = sum(k["ms_per_step"] for k in kernels if k["port"])
+    mm = sum(by_op.get(k, 0.0) for k in ("aten::mm", "aten::addmm"))
+    bmm = sum(by_op.get(k, 0.0) for k in ("aten::bmm", "aten::baddbmm"))
+    stats = dict(steps=n, traced_step_ms=step_ms,
+                 device_busy_ms_per_step=busy,
+                 depthwise_kernels_ms_per_step=ours,
+                 projection_matmuls_ms_per_step=mm,
+                 ssd_bmm_ms_per_step=bmm,
+                 other_device_ms_per_step=busy - ours - mm - bmm,
+                 idle_ms_per_step=step_ms - busy,
+                 device_busy_share=busy / step_ms if step_ms else None,
+                 kernel_names=len(kernels), top=kernels[:15])
+    print("mamba2-profile " + json.dumps(stats), flush=True)
+    return stats
+
+
 def _build_all(conv1d_brgemm, build):
-    """Build both kernels' libraries at once (one nvcc each, started
+    """Build the four kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' register and spill lines."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -719,11 +1078,14 @@ def _build_all(conv1d_brgemm, build):
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(4) as pool:
         t0 = time.perf_counter()
         futs = {name: pool.submit(timed, fn) for name, fn in
                 (("conv1d_fwd", conv1d_brgemm._lib),
-                 ("conv1d_bwd_weight", conv1d_brgemm._bwd_lib))}
+                 ("conv1d_bwd_weight", conv1d_brgemm._bwd_lib),
+                 ("depthwise_conv1d_fwd", conv1d_brgemm._dw_lib),
+                 ("depthwise_conv1d_bwd_weight",
+                  conv1d_brgemm._dw_bwd_lib))}
         each = {name: f.result() for name, f in futs.items()}
         total = time.perf_counter() - t0
     ptxas = {}
@@ -751,14 +1113,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, conv1d_brgemm, ops, ref
     from repro_torch.kernels import epilogue as ep
     from repro_torch.launch import serve, train
+    from repro_torch.models import init_model
     from repro_torch.optim import adamw
+    from repro_torch.train import losses
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; nvidia-smi: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     build_s, build_each, ptxas = _build_all(conv1d_brgemm, build)
-    print(f"built both kernels in {build_s:.1f} s (" + ", ".join(
+    print(f"built the four kernels in {build_s:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in build_each.items()) + ")", flush=True)
     for name, lines in ptxas.items():
         for ln in lines:
@@ -771,6 +1135,12 @@ def main(argv=None) -> int:
                                   conv1d_brgemm)
     train_stats = train_check(torch, np, train, conv1d_brgemm)
     profile_stats = train_profile(torch, train)
+    dw_rows = dw_kernel_checks(torch, conv1d_brgemm, ref)
+    m2_grad = mamba2_grad_check(torch, configs, init_model, synthetic,
+                                losses, conv1d_brgemm)
+    m2_layers = configs.get("mamba2-370m").n_layers
+    m2_train = mamba2_train_check(torch, np, train, conv1d_brgemm, m2_layers)
+    m2_profile = mamba2_profile(torch, train)
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     # device time of the 25 kernels of one stream step, from the per-layer
@@ -853,7 +1223,56 @@ def main(argv=None) -> int:
         bound_ms=conv_bw["bound_ms"], bound_by=conv_bw["bound_by"],
         library_ms=conv_bw["library_ms"], shape=conv_bw["shape"],
         launches_per_step=train_stats["bwd_weight_launches_per_step"])
-    kernels = [fwd_entry, bw_entry]
+    # the depthwise pair: times at the Mamba2 layer shape, launches from
+    # the Mamba2 training run, and the device time of one step's launches
+    dw = {r["pass_"]: r for r in dw_rows if "kernel_ms" in r}
+    m2_train.update(
+        step_dw_fwd_kernel_ms=2 * m2_layers * dw["fwd"]["kernel_ms"],
+        step_dw_bwd_data_kernel_ms=m2_layers * dw["bwd_data"]["kernel_ms"],
+        step_dw_bwd_weight_kernel_ms=m2_layers * dw["bwd_weight"][
+            "kernel_ms"],
+        step_dw_bound_ms=m2_layers * (2 * dw["fwd"]["bound_ms"]
+                                      + dw["bwd_data"]["bound_ms"]
+                                      + dw["bwd_weight"]["bound_ms"]))
+    m2_train["step_dw_kernel_ms"] = (m2_train["step_dw_fwd_kernel_ms"]
+                                     + m2_train["step_dw_bwd_data_kernel_ms"]
+                                     + m2_train[
+                                         "step_dw_bwd_weight_kernel_ms"])
+    print(f"mamba2 train step: depthwise kernels "
+          f"{m2_train['step_dw_kernel_ms']:.3f} ms of device time (bound "
+          f"{m2_train['step_dw_bound_ms']:.3f} ms), step p50 "
+          f"{m2_train['step_p50_ms']:.1f} ms, "
+          f"{m2_train['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{m2_train['peak_memory_gb']:.2f} GB", flush=True)
+    dw_fwd_entry = dict(
+        name="depthwise_conv1d_fwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/depthwise_conv1d_fwd.cu",
+        replaces="src/repro/kernels/conv1d_brgemm.py:843",
+        launches=m2_train["depthwise_fwd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in dw_rows
+                        if r["pass_"] in ("fwd", "bwd_data")),
+        ms=dw["fwd"]["kernel_ms"], plain_ms=dw["fwd"]["plain_ms"],
+        bound_ms=dw["fwd"]["bound_ms"], bound_by=dw["fwd"]["bound_by"],
+        library_ms=dw["fwd"]["library_ms"], shape=dw["fwd"]["shape"],
+        launches_per_step=m2_train["fwd_launches_per_step"],
+        bwd_data={k: dw["bwd_data"][k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")})
+    dw_bw_entry = dict(
+        name="depthwise_conv1d_bwd_weight", route="cuda",
+        source="src/repro_torch/kernels/csrc/depthwise_conv1d_bwd_weight.cu",
+        replaces="src/repro/kernels/conv1d_brgemm.py:998",
+        launches=m2_train["depthwise_bwd_weight_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in dw_rows
+                        if r["pass_"] == "bwd_weight"),
+        ms=dw["bwd_weight"]["kernel_ms"],
+        plain_ms=dw["bwd_weight"]["plain_ms"],
+        bound_ms=dw["bwd_weight"]["bound_ms"],
+        bound_by=dw["bwd_weight"]["bound_by"],
+        library_ms=dw["bwd_weight"]["library_ms"],
+        shape=dw["bwd_weight"]["shape"],
+        launches_per_step=m2_train["bwd_weight_launches_per_step"])
+    kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -863,6 +1282,8 @@ def main(argv=None) -> int:
                            kernel_checks=rows, serve=stats,
                            bwd_checks=bwd_rows, model_grad=grad_stats,
                            train=train_stats, train_profile=profile_stats,
+                           dw_checks=dw_rows, mamba2_grad=m2_grad,
+                           mamba2_train=m2_train, mamba2_profile=m2_profile,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

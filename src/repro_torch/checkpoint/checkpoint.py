@@ -10,9 +10,10 @@ Layout::
 
 Flat keys are those the JAX ``_flatten`` gives its ``TrainState``:
 ``.params/res/0/conv1/w``, ``.opt/.m/...``, ``.opt/.v/...``,
-``.opt/.count`` and ``.step`` (152 leaves for the AtacWorks stack).  bf16
-leaves are stored as their raw 2-byte values, as numpy saves the JAX
-package's bf16 arrays.
+``.opt/.count`` and ``.step`` (152 leaves for the AtacWorks stack, 38
+for Mamba2, whose per-layer leaves are stacked (L, ...) in both
+packages).  bf16 leaves are stored as their raw 2-byte values, as numpy
+saves the JAX package's bf16 arrays.
 
   * **Atomic commit**: a checkpoint is staged as ``step_<n>.tmp``, every
     file fsync'd, the ``COMMIT`` marker written last, then renamed into

@@ -3,7 +3,10 @@ whole ``TrainState``, given as numpy arrays, becomes the port's.
 
 The tree's nesting of dicts and lists maps onto dotted state-dict keys
 (``{"res": [{"conv1": {"w": ...}}]}`` -> ``"res.0.conv1.w"``), which is how
-``core.blocks.AtacWorks`` names its parameters, so::
+``core.blocks.AtacWorks`` and ``models.mamba2.Mamba2`` name their
+parameters.  Mamba2's per-layer leaves keep the JAX tree's leading ``L``
+axis in the port (``layers.mixer.in_proj`` is (L, D, d_proj) in both), so
+nothing is split or joined::
 
     model.load_state_dict(params_from_jax(jax_tree_as_numpy))
     state = train_state_from_jax(jax_train_state_as_numpy, cfg)
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import blocks
+from repro_torch.models import init_model
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.train.train_step import TrainState
 
@@ -44,7 +47,7 @@ def train_state_from_jax(state, cfg, *,
                          device: torch.device | str = "cpu") -> TrainState:
     """The JAX ``TrainState`` (params, AdamW moments and count, step; its
     leaves as numpy arrays) as the port's, on ``device``."""
-    model = blocks.init_params(cfg, device=device)
+    model = init_model(cfg, device=device)
     model.load_state_dict(params_from_jax(state.params))
 
     def moments(tree):

@@ -1,14 +1,15 @@
-"""Synthetic data of the conv family (counterpart of the conv part of
-``repro/data/synthetic.py``).
+"""Synthetic data of the conv and SSM families (counterpart of the conv and
+LM parts of ``repro/data/synthetic.py``).
 
 The real ATAC-seq data behind the paper's end-to-end experiments is
 access-controlled, so training runs on synthetic coverage tracks with
 matched shape statistics: Poisson-like counts, sparse smoothed peaks,
 50k-wide segments padded by 5k on both sides (paper §4.2).
-``atacseq_batch`` is the JAX package's function line for line, with the
-same numpy generator calls, so one seed gives the same batch in both
-packages.  ``SyntheticLoader`` makes batches on a producer thread and
-moves them to the device while the step runs.
+``atacseq_batch`` and ``lm_batch`` (uniform random tokens) are the JAX
+package's functions line for line, with the same numpy generator calls,
+so one seed gives the same batch in both packages.  ``SyntheticLoader``
+makes batches on a producer thread and moves them to the device while the
+step runs (token batches keep JAX's int32).
 """
 from __future__ import annotations
 
@@ -47,13 +48,24 @@ def atacseq_batch(rng: np.random.Generator, batch: int, width: int = 60_000,
     return {"noisy": noisy, "clean": clean, "peaks": peaks}
 
 
+def lm_batch(rng: np.random.Generator, cfg, batch: int, seq: int) -> dict:
+    """``{'tokens', 'labels'}`` int32 (B, seq): one draw of seq + 1 tokens
+    per row, labels the tokens shifted by one."""
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1), dtype=np.int64)
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}
+
+
 def make_batch(cfg, batch: int, seq: int, seed: int = 0) -> dict:
     """One numpy batch of the config's family from ``seed``."""
-    if cfg.family != "conv":
-        raise NotImplementedError(
-            f"synthetic {cfg.family!r} batches are not ported to repro_torch "
-            "yet: only the conv family is (ROADMAP.md queue A)")
-    return atacseq_batch(np.random.default_rng(seed), batch, width=seq)
+    rng = np.random.default_rng(seed)
+    if cfg.family == "conv":
+        return atacseq_batch(rng, batch, width=seq)
+    if cfg.family == "ssm":
+        return lm_batch(rng, cfg, batch, seq)
+    raise NotImplementedError(
+        f"synthetic {cfg.family!r} batches are not ported to repro_torch "
+        "yet: only the conv and ssm families' are (ROADMAP.md queue A)")
 
 
 class SyntheticLoader:

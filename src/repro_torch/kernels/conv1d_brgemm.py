@@ -1,9 +1,10 @@
 """The BRGEMM conv1d kernels' wrappers (counterpart of
-``repro/kernels/conv1d_brgemm.py``: ``conv1d_fwd`` and
-``conv1d_bwd_weight``).
+``repro/kernels/conv1d_brgemm.py``: ``conv1d_fwd``, ``conv1d_bwd_weight``
+and the depthwise pair ``depthwise_conv1d_fwd``,
+``depthwise_conv1d_bwd_weight``).
 
-Each wrapper launches its CUDA kernel (``csrc/conv1d_fwd.cu``,
-``csrc/conv1d_bwd_weight.cu``) on a CUDA tensor and computes its plain
+Each wrapper launches its CUDA kernel (``csrc/<name>.cu``) on a CUDA
+tensor and computes its plain
 version (``ref.py``) on a CPU tensor; a CUDA tensor never reaches the plain
 version here.  The CPU branch is kept so the wrapper can be called, input
 checks included, on the CPU where there is no card: the port's rule for
@@ -12,9 +13,10 @@ every kernel wrapper, which only the tensor's device decides.
 ``"ref"`` backend.  Each library is built from the checkout's sources at
 its first launch (``build.py``).
 
-``conv1d_fwd.launches`` and ``conv1d_bwd_weight.launches`` count kernel
-launches; each is incremented where its kernel is launched and nowhere
-else, so a run can show that its path went through the kernels.
+Each wrapper's ``launches`` attribute (``conv1d_fwd.launches``, ...)
+counts its kernel launches; each is incremented where its kernel is
+launched and nowhere else, so a run can show that its path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -215,3 +217,172 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
 
 
 conv1d_bwd_weight.launches = 0
+
+
+# --- depthwise (C == K): the Mamba2 causal conv ---------------------------
+
+# the depthwise kernels' negative return codes: shapes they do not take
+_DW_REFUSED = {
+    -1: "the footprint (8 channel rows of 256 + (S-1)*dilation columns) "
+        "does not fit in shared memory",
+    -2: "more than 8 taps (the kernels keep the taps in registers)",
+    -3: "the batch exceeds the kernel's grid limit 65535",
+}
+
+
+@functools.cache
+def _dw_lib() -> ctypes.CDLL:
+    """The depthwise forward kernel's library, built at first use."""
+    lib = _build.load("depthwise_conv1d_fwd", ("depthwise_conv1d_fwd.cu",))
+    lib.depthwise_conv1d_fwd.argtypes = [_VP] * 6 + [_I] * 9 + [_VP]
+    lib.depthwise_conv1d_fwd.restype = _I
+    lib.depthwise_conv1d_fwd_error_string.argtypes = [_I]
+    lib.depthwise_conv1d_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _dw_bwd_lib() -> ctypes.CDLL:
+    """The depthwise weight-gradient kernel's library, built at first use."""
+    lib = _build.load("depthwise_conv1d_bwd_weight",
+                      ("depthwise_conv1d_bwd_weight.cu",))
+    lib.depthwise_conv1d_bwd_weight_rows.argtypes = [_I] * 2
+    lib.depthwise_conv1d_bwd_weight_rows.restype = _I
+    lib.depthwise_conv1d_bwd_weight.argtypes = [_VP] * 5 + [_I] * 8 + [_VP]
+    lib.depthwise_conv1d_bwd_weight.restype = _I
+    lib.depthwise_conv1d_bwd_weight_error_string.argtypes = [_I]
+    lib.depthwise_conv1d_bwd_weight_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _dw_failed(name: str, lib, rc: int) -> Exception:
+    if rc in _DW_REFUSED:
+        return ValueError(f"{name}: {_DW_REFUSED[rc]}")
+    return RuntimeError(f"{name} launch failed: "
+                        + getattr(lib, f"{name}_error_string")(rc).decode())
+
+
+def depthwise_conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
+                         bias: torch.Tensor | None = None,
+                         residual: torch.Tensor | None = None,
+                         activation: str | None = None,
+                         save_preact: bool = False, dilation: int = 1,
+                         out_dtype: torch.dtype | None = None):
+    """Depthwise forward: x (N, C, Q + (S-1)*d), w (S, C) -> (N, C, Q),
+    ``act(conv + bias + residual)`` on the fp32 accumulator, stored in
+    ``out_dtype`` (default ``x.dtype``).  With ``save_preact`` returns
+    ``(out, preact)``, preact being the fp32 ``conv + bias + residual``.
+
+    x and w are fp32 or bf16 of one dtype; bias (C,) has w's dtype and
+    residual (N, C, Q) has x's.  Every tensor is contiguous and on x's
+    device; anything else raises, as do more than 8 taps on the card.  The
+    same call is the data gradient on the zero-padded cotangent and the
+    flipped taps ``w.flip(0)`` (``ops.DepthwiseConv1dFunction``).
+    """
+    activation = _ep.canon(activation)
+    out_dtype = out_dtype or x.dtype
+    if x.dim() != 3 or w.dim() != 2:
+        raise ValueError(f"x must be (N, C, W) and w (S, C); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    N, C, Wp = x.shape
+    S, Cw = w.shape
+    if Cw != C:
+        raise ValueError(f"weight has C={Cw} but input has C={C}")
+    if dilation < 1:
+        raise ValueError(f"dilation must be >= 1, got {dilation}")
+    Q = Wp - (S - 1) * dilation
+    if Q <= 0:
+        raise ValueError(f"width {Wp} too small for S={S}, "
+                         f"dilation={dilation}")
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError(f"depthwise_conv1d_fwd takes fp32/bf16; got x "
+                         f"{x.dtype}, out {out_dtype}")
+    _check("x", x, (N, C, Wp), x.dtype, x.device)
+    _check("w", w, (S, C), x.dtype, x.device)
+    _check("bias", bias, (C,), w.dtype, x.device)
+    _check("residual", residual, (N, C, Q), x.dtype, x.device)
+    if x.device.type == "cpu":
+        u = _ref.depthwise_conv1d_preact_ref(x, w, dilation=dilation,
+                                             bias=bias, residual=residual)
+        y = _ep.ACTIVATIONS[activation](u).to(out_dtype)
+        return (y, u) if save_preact else y
+    if x.device.type != "cuda":
+        raise ValueError(f"depthwise_conv1d_fwd runs on cuda (or cpu); got "
+                         f"{x.device}")
+    out = torch.empty((N, C, Q), dtype=out_dtype, device=x.device)
+    preact = (torch.empty((N, C, Q), dtype=torch.float32, device=x.device)
+              if save_preact else None)
+    lib = _dw_lib()
+    rc = lib.depthwise_conv1d_fwd(
+        x.data_ptr(), w.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        residual.data_ptr() if residual is not None else None,
+        out.data_ptr(), preact.data_ptr() if save_preact else None,
+        N, C, S, Wp, dilation, _ep.ACT_CODES[activation], _DTYPES[x.dtype],
+        _DTYPES[out_dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise _dw_failed("depthwise_conv1d_fwd", lib, rc)
+    depthwise_conv1d_fwd.launches += 1
+    return (out, preact) if save_preact else out
+
+
+depthwise_conv1d_fwd.launches = 0
+
+
+def depthwise_conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *,
+                                S: int, dilation: int = 1,
+                                with_dbias: bool = False):
+    """Depthwise weight gradient: x (N, C, Q + (S-1)*d), gout (N, C, Q) ->
+    dw (S, C) fp32, ``dw[s,c] = sum_{n,q} gout[n,c,q] * x[n,c,q+s*d]``.
+    ``with_dbias`` also returns the fused bias gradient ``dbias[c] =
+    sum_{n,q} gout[n,c,q]`` (C,) fp32: ``(dw, dbias)``.
+
+    x and gout are fp32 or bf16, each in its own dtype (the kernel widens
+    each as it reads it), contiguous and on one device; anything else
+    raises, as do more than 8 taps on the card.  On the card the sums are a
+    split reduction in a fixed order (no atomics): two launches on the
+    same inputs give bitwise equal results.
+    """
+    if x.dim() != 3 or gout.dim() != 3:
+        raise ValueError(f"x must be (N, C, W) and gout (N, C, Q); got "
+                         f"{tuple(x.shape)} and {tuple(gout.shape)}")
+    N, C, Wp = x.shape
+    Q = gout.shape[-1]
+    if S < 1 or dilation < 1:
+        raise ValueError(f"S and dilation must be >= 1, got {S}, {dilation}")
+    if Q <= 0 or Wp != Q + (S - 1) * dilation:
+        raise ValueError(f"x width {Wp} != gout width {Q} + (S-1)*d = "
+                         f"{Q + (S - 1) * dilation}")
+    for name, t in (("x", x), ("gout", gout)):
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"depthwise_conv1d_bwd_weight takes fp32/bf16; "
+                             f"got {name} {t.dtype}")
+    _check("x", x, (N, C, Wp), x.dtype, x.device)
+    _check("gout", gout, (N, C, Q), gout.dtype, x.device)
+    if x.device.type == "cpu":
+        dw = _ref.depthwise_conv1d_bwd_weight_ref(x, gout, dilation=dilation)
+        return (dw, _ref.conv1d_dbias_ref(gout)) if with_dbias else dw
+    if x.device.type != "cuda":
+        raise ValueError(f"depthwise_conv1d_bwd_weight runs on cuda (or "
+                         f"cpu); got {x.device}")
+    lib = _dw_bwd_lib()
+    rows = lib.depthwise_conv1d_bwd_weight_rows(N, Q)
+    row_len = S * C + (C if with_dbias else 0)
+    partial = torch.empty(rows * row_len, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((S, C), dtype=torch.float32, device=x.device)
+    dbias = (torch.empty(C, dtype=torch.float32, device=x.device)
+             if with_dbias else None)
+    rc = lib.depthwise_conv1d_bwd_weight(
+        x.data_ptr(), gout.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        dbias.data_ptr() if with_dbias else None, N, C, S, Wp, dilation,
+        _DTYPES[x.dtype], _DTYPES[gout.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise _dw_failed("depthwise_conv1d_bwd_weight", lib, rc)
+    depthwise_conv1d_bwd_weight.launches += 1
+    return (dw, dbias) if with_dbias else dw
+
+
+depthwise_conv1d_bwd_weight.launches = 0

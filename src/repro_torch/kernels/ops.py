@@ -22,6 +22,11 @@ forward kernel (Alg. 3) and the weight and bias gradients through
 stays outside the Function, as ``jnp.pad`` sits outside the custom VJP, so
 autograd slices the data gradient back to the unpadded input.
 
+``depthwise_conv1d`` is the same for the depthwise (C == K) conv of the
+Mamba2 block, weights ``(S, C)``: on ``"cuda"`` it runs
+``depthwise_conv1d_fwd`` and, when autograd records the call,
+:class:`DepthwiseConv1dFunction` (the ``_dw_conv1d_pallas`` custom VJP).
+
 ``conv1d_streaming`` is the causal streaming step: one VALID pass over
 ``state ++ chunk`` and the carried state slid to the last ``(S-1)*d``
 input columns.
@@ -183,6 +188,142 @@ class Conv1dFunction(torch.autograd.Function):
             dt = _widest(x.dtype, du.dtype)
             out = _k.conv1d_bwd_weight(x.to(dt), du.to(dt), S=S, dilation=d,
                                        with_dbias=need_b)
+            dw, dbias = out if need_b else (out, None)
+            dw = dw.to(w.dtype) if need_w else None
+            if need_b:
+                dbias = dbias.to(ctx.bias_dtype)
+        if need_r:
+            dres = du.to(ctx.residual_dtype)
+        return dx, dw, dbias, dres, None, None, None
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                     bias: torch.Tensor | None = None,
+                     activation: str | None = None,
+                     residual: torch.Tensor | None = None, dilation: int = 1,
+                     padding: Padding = "CAUSAL", backend: str | None = None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Depthwise 1D conv with fused epilogue.  x: (N, C, W), w: (S, C) ->
+    (N, C, Q); bias (C,), residual (N, C, Q), the epilogue of ``conv1d``.
+    Both backends follow the JAX package's dtype rule: fp32 accumulation
+    and epilogue math, output in ``out_dtype`` or x's dtype, whatever the
+    weights' dtype.
+
+    Example (CPU, the plain version; the Mamba2 causal conv)::
+
+        >>> import torch
+        >>> from repro_torch.kernels import ops
+        >>> x, w = torch.ones(2, 16, 64), torch.ones(4, 16)
+        >>> ops.depthwise_conv1d(x, w, padding="CAUSAL").shape
+        torch.Size([2, 16, 64])
+        >>> ops.depthwise_conv1d(x, w, bias=torch.zeros(16),
+        ...                      activation="silu").shape
+        torch.Size([2, 16, 64])
+    """
+    backend = backend or default_backend(x)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown conv backend {backend!r}; "
+                         f"expected one of {BACKENDS}")
+    if backend == "cuda" and not x.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors; x is on "
+                         f"{x.device} (use backend='ref' on the CPU)")
+    lo, hi = _pad_amounts(w.shape[0], dilation, padding)
+    if lo or hi:
+        x = F.pad(x, (lo, hi))
+    if backend == "ref":
+        return _ref.depthwise_conv1d_fused_ref(
+            x, w, dilation=dilation, bias=bias, activation=activation,
+            residual=residual, out_dtype=out_dtype)
+    return fused_depthwise_conv1d(x.contiguous(), w.contiguous(), bias=bias,
+                                  residual=residual, activation=activation,
+                                  dilation=dilation, out_dtype=out_dtype)
+
+
+def fused_depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
+                           bias: torch.Tensor | None = None,
+                           residual: torch.Tensor | None = None,
+                           activation: str | None = None, dilation: int = 1,
+                           out_dtype: torch.dtype | None = None
+                           ) -> torch.Tensor:
+    """The depthwise kernel path on an already padded x (N, C, Q + (S-1)*d):
+    through :class:`DepthwiseConv1dFunction` when autograd records the
+    call, else one launch of the forward kernel.  On CPU tensors every
+    pass is its plain version."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w, bias, residual)):
+        return DepthwiseConv1dFunction.apply(
+            x, w, bias, residual, dilation, _ep.canon(activation), out_dtype)
+    return _dw_fwd(x, w, bias, residual, activation=activation,
+                   dilation=dilation, out_dtype=out_dtype or x.dtype)
+
+
+def _dw_fwd(x, w, bias, residual, **kw):
+    """One forward kernel call on operands brought to one dtype: theirs
+    when they agree, else fp32 (exact; in the Mamba2 model all four share
+    the model's dtype, so nothing is copied)."""
+    ts = [t for t in (x, w, bias, residual) if t is not None]
+    dt = ts[0].dtype if all(t.dtype == ts[0].dtype for t in ts) \
+        else torch.float32
+
+    def cast(t):
+        return None if t is None else t.to(dt)
+
+    return _k.depthwise_conv1d_fwd(cast(x), cast(w), bias=cast(bias),
+                                   residual=cast(residual), **kw)
+
+
+class DepthwiseConv1dFunction(torch.autograd.Function):
+    """``act(depthwise_conv(x, w) + bias + residual)`` on a padded x with
+    its gradient (single device), the counterpart of the
+    ``_dw_conv1d_pallas`` custom VJP.
+
+    The forward saves ``(x, w, saved)`` as :class:`Conv1dFunction` does
+    (the fp32 pre-activation only for gelu/silu).  The backward computes
+
+      * du = act'(.) * dy in dy's dtype (``epilogue.cotangent``);
+      * dx through the forward kernel on du zero-padded by the span on
+        both sides against ``w.flip(0)`` (no transpose: depthwise), stored
+        in x's dtype.  The tiny (S, C) weights are widened to du's fp32,
+        never the cotangent rounded;
+      * (dw, dbias) through ``depthwise_conv1d_bwd_weight``, which reads x
+        and du each in its own dtype (no fp32 copy of a bf16 x), cast to
+        w's and the bias's dtypes;
+      * dresidual = du in the residual's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, dilation, activation, out_dtype):
+        kw = dict(activation=activation, dilation=dilation,
+                  out_dtype=out_dtype or x.dtype)
+        if _ep.needs_preact(activation):
+            y, saved = _dw_fwd(x, w, bias, residual, save_preact=True, **kw)
+        else:
+            y = _dw_fwd(x, w, bias, residual, **kw)
+            saved = y if activation == "relu" else None
+        ctx.save_for_backward(x, w, saved)
+        ctx.dilation, ctx.activation = dilation, activation
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, saved = ctx.saved_tensors
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
+        d = ctx.dilation
+        S = w.shape[0]
+        span = (S - 1) * d
+        du = _ep.cotangent(ctx.activation, saved, gy).contiguous()
+        dx = dw = dbias = dres = None
+        if need_x:
+            dt = _widest(du.dtype, w.dtype)
+            dx = _k.depthwise_conv1d_fwd(
+                F.pad(du.to(dt), (span, span)), w.flip(0).to(dt).contiguous(),
+                dilation=d, out_dtype=x.dtype)
+        if need_w or need_b:
+            out = _k.depthwise_conv1d_bwd_weight(x, du, S=S, dilation=d,
+                                                 with_dbias=need_b)
             dw, dbias = out if need_b else (out, None)
             dw = dw.to(w.dtype) if need_w else None
             if need_b:

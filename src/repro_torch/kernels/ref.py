@@ -5,7 +5,9 @@ These are what the CUDA kernels are held against, on the card by
 ``chip_smoke.py`` and on the CPU by the tests, and what a wrapper computes
 for a tensor that lies on the CPU: the fused forward (``conv1d_fwd.cu``),
 the data gradient (Alg. 3, the same kernel on the flipped weights) and the
-weight and bias gradients (Alg. 4, ``conv1d_bwd_weight.cu``).
+weight and bias gradients (Alg. 4, ``conv1d_bwd_weight.cu``); and the
+depthwise variants (the Mamba2 causal conv: ``depthwise_conv1d_fwd.cu``,
+``depthwise_conv1d_bwd_weight.cu``), whose weights are ``(S, C)``.
 
 Conventions (the paper's layout, kept from the JAX package):
   x   : (N, C, W)   input
@@ -101,3 +103,83 @@ def conv1d_bwd_weight_ref(x: torch.Tensor, gout: torch.Tensor, *,
 def conv1d_dbias_ref(gout: torch.Tensor) -> torch.Tensor:
     """The bias gradient ``dbias[k] = sum_{n,q} gout[n,k,q]`` in fp32."""
     return gout.float().sum(dim=(0, 2))
+
+
+# ---------------------------------------------------------------------------
+# Depthwise (grouped, C == K): the Mamba2 causal conv
+# ---------------------------------------------------------------------------
+
+
+def _depthwise_conv1d_f32(x: torch.Tensor, w: torch.Tensor,
+                          dilation: int) -> torch.Tensor:
+    """``out[n,c,q] = sum_s w[s,c] * x[n,c,q+s*d]`` in fp32, tap by tap,
+    no output cast.  x: (N, C, W), w: (S, C) -> (N, C, Q)."""
+    S, C = w.shape
+    N, Cx, W = x.shape
+    if C != Cx:
+        raise ValueError(f"weight has C={C} but input has C={Cx}")
+    Q = W - (S - 1) * dilation
+    if Q <= 0:
+        raise ValueError(f"width {W} too small for S={S}, dilation={dilation}")
+    xf, wf = x.float(), w.float()
+    out = torch.zeros((N, C, Q), dtype=torch.float32, device=x.device)
+    for s in range(S):
+        out = out + wf[s][None, :, None] * xf[:, :, s * dilation:
+                                               s * dilation + Q]
+    return out
+
+
+def depthwise_conv1d_preact_ref(x: torch.Tensor, w: torch.Tensor, *,
+                                dilation: int = 1,
+                                bias: torch.Tensor | None = None,
+                                residual: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """The fp32 pre-activation ``conv + bias + residual`` of the depthwise
+    conv: the forward kernel's ``save_preact`` output."""
+    return _ep.apply_ref(_depthwise_conv1d_f32(x, w, dilation), bias=bias,
+                         residual=residual)
+
+
+def depthwise_conv1d_fused_ref(x: torch.Tensor, w: torch.Tensor, *,
+                               dilation: int = 1,
+                               bias: torch.Tensor | None = None,
+                               activation: str | None = None,
+                               residual: torch.Tensor | None = None,
+                               out_dtype: torch.dtype | None = None
+                               ) -> torch.Tensor:
+    """The depthwise fused forward ``act(conv + bias + residual)``, all
+    epilogue math on the fp32 accumulator, one cast to ``out_dtype``
+    (default ``x.dtype``).  x (N, C, Q + (S-1)*d), w (S, C), bias (C,),
+    residual (N, C, Q)."""
+    u = depthwise_conv1d_preact_ref(x, w, dilation=dilation, bias=bias,
+                                    residual=residual)
+    return _ep.ACTIVATIONS[_ep.canon(activation)](u).to(out_dtype or x.dtype)
+
+
+def depthwise_conv1d_bwd_data_ref(gout: torch.Tensor, w: torch.Tensor, *,
+                                  dilation: int = 1,
+                                  out_dtype: torch.dtype | None = None
+                                  ) -> torch.Tensor:
+    """The depthwise data gradient: the forward on gout zero-padded by the
+    span on both sides against the flipped taps ``w.flip(0)`` (no
+    transpose: each channel is its own filter).  gout (N, C, Q) ->
+    (N, C, Q + (S-1)*d) in ``out_dtype`` (default gout's)."""
+    span = (w.shape[0] - 1) * dilation
+    return depthwise_conv1d_fused_ref(F.pad(gout, (span, span)), w.flip(0),
+                                      dilation=dilation,
+                                      out_dtype=out_dtype or gout.dtype)
+
+
+def depthwise_conv1d_bwd_weight_ref(x: torch.Tensor, gout: torch.Tensor, *,
+                                    dilation: int = 1) -> torch.Tensor:
+    """Depthwise Alg. 4: ``dW[s,c] = sum_{n,q} gout[n,c,q] * x[n,c,q+s*d]``.
+
+    x: (N, C, Q + (S-1)*d), gout: (N, C, Q), each in its own dtype ->
+    (S, C) fp32.  The bias gradient is ``conv1d_dbias_ref(gout)``.
+    """
+    Q = gout.shape[-1]
+    S = (x.shape[-1] - Q) // dilation + 1
+    g32, x32 = gout.float(), x.float()
+    return torch.stack([
+        (g32 * x32[:, :, s * dilation:s * dilation + Q]).sum(dim=(0, 2))
+        for s in range(S)])

@@ -13,8 +13,8 @@ paper's config) on every chunk.  It runs on the card by default:
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
 it raises.  Streaming is causal-only: ``--conv-padding same`` exits with an
-error.  The LM families are not ported yet and raise
-``NotImplementedError``.
+error.  Serving the LM families (Mamba2 included: its decode path runs no
+kernel) is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -271,6 +271,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch)
+    if cfg.family != "conv":
+        raise NotImplementedError(
+            f"serving the {cfg.family!r} family is not ported to repro_torch "
+            "yet: only conv streaming is; Mamba2's decode path waits in "
+            "ROADMAP.md queue A")
     if args.smoke:
         cfg = reduced(cfg)
     return serve_conv(args, cfg)

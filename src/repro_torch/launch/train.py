@@ -1,4 +1,4 @@
-"""Training launcher of the port: the single-device conv path of the JAX
+"""Training launcher of the port: the single-device path of the JAX
 package's ``launch/train.py`` (``run``), on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch atacworks \\
@@ -6,15 +6,25 @@ package's ``launch/train.py`` (``run``), on the card by default.
 
 trains the 25-layer AtacWorks model on synthetic ATAC-seq tracks (batch 8
 x width 60,000: 50k segments padded by 5k on both sides, paper §4.2)
-through the hand-written kernels, forward and backward.  ``--device cpu``
-runs the plain PyTorch version on the CPU (with ``--smoke`` for the
-reduced config); without a GPU and without that flag it raises.  Each step
-prints its loss, gradient norm and time (to a synchronisation), and the
-run ends with the median step time over the steps after the first
-``WARMUP_STEPS`` and ``samples_per_s = batch / median``.  ``--ckpt-dir``
-saves atomic checkpoints in the JAX package's format every ``--ckpt-every``
-steps and at the end; ``--resume`` continues from the newest one, with
-the same batches the steps saw the first time.
+through the hand-written conv kernels, forward and backward.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+        --steps 10 --batch 8 --seq 2048
+
+trains the full Mamba2-370M (48 layers, bf16, remat on) on uniform random
+tokens, batch 8 x 2,048 (the Mamba-2 paper's pretraining context), its
+causal conv through the hand-written depthwise kernels.
+
+``--device cpu`` runs the plain PyTorch version on the CPU (with
+``--smoke`` for the reduced config); without a GPU and without that flag
+it raises.  Each step prints its loss, gradient norm and time (to a
+synchronisation), and the run ends with the median step time over the
+steps after the first ``WARMUP_STEPS``, ``samples_per_s = batch /
+median`` (and ``tokens_per_s`` for a language model), and on the card the
+peak device memory.  ``--ckpt-dir`` saves atomic checkpoints in the JAX
+package's format every ``--ckpt-every`` steps and at the end;
+``--resume`` continues from the newest one, with the same batches the
+steps saw the first time.
 
 The JAX launcher's elastic supervisor, fault drills, health and straggler
 monitors, telemetry and meshes wait in ROADMAP.md queue A.
@@ -30,9 +40,9 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs.base import reduced
-from repro_torch.core import blocks
 from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.launch.device import require_device
+from repro_torch.models import init_model
 from repro_torch.train.train_step import init_state, make_train_step
 
 # steps excluded from throughput: the first pays the kernels' build and
@@ -44,13 +54,15 @@ def _parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced same-family config (C=8, S=9)")
+                    help="reduced same-family config (conv: C=8, S=9; "
+                         "ssm: 2 layers, d_model 64)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=60_000,
-                    help="track width (paper §4.2: 50,000 + 2 x 5,000)")
+                    help="track width (paper §4.2: 50,000 + 2 x 5,000) or "
+                         "tokens per sequence")
     ap.add_argument("--accum", type=int, default=1,
                     help="microbatches per step (gradients summed in fp32)")
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -62,8 +74,10 @@ def _parse_args(argv):
 
 
 def run(argv=None) -> dict:
-    """Train and return a summary: losses, per-step times, median step
-    time after warm-up and samples/s."""
+    """Train and return a summary: losses, gradient norms, the number of
+    steps skipped for a non-finite loss or gradient, per-step times,
+    median step time after warm-up, samples/s (and tokens/s for a
+    language model), and on the card the peak device memory."""
     args = _parse_args(argv)
     cfg = configs.get(args.arch)
     if args.smoke:
@@ -73,7 +87,9 @@ def run(argv=None) -> dict:
         raise SystemExit(f"--batch {args.batch} must divide by --accum "
                          f"{args.accum}")
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
-    state = init_state(blocks.init_params(cfg, seed=args.seed, device=device))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state = init_state(init_model(cfg, seed=args.seed, device=device))
     start = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
@@ -85,7 +101,7 @@ def run(argv=None) -> dict:
     print(f"arch={cfg.name} device={device} batch={args.batch} "
           f"seq={args.seq} accum={args.accum}")
 
-    losses, dts = [], []
+    losses, gnorms, dts, skipped = [], [], [], 0
     loader = SyntheticLoader(cfg, args.batch, args.seq, device=device,
                              seed=args.seed, start=start)
     try:
@@ -98,10 +114,11 @@ def run(argv=None) -> dict:
             dt = time.perf_counter() - t0
             loss = float(metrics["loss"])
             losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            skipped += int(metrics["skipped"])
             dts.append(dt)
-            print(f"step {i:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} dt {dt:.3f}s",
-                  flush=True)
+            print(f"step {i:5d} loss {loss:.4f} gnorm {gnorms[-1]:.3f} "
+                  f"dt {dt:.3f}s", flush=True)
             if ckpt and (i + 1) % args.ckpt_every == 0:
                 ckpt.save(state, i + 1)
     finally:
@@ -112,15 +129,24 @@ def run(argv=None) -> dict:
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
                "first_step": start, "global_batch": args.batch,
                "seq": args.seq, "accum": args.accum, "losses": losses,
+               "grad_norms": gnorms, "skipped_steps": skipped,
                "step_s": dts}
     if dts:
         measured = dts[WARMUP_STEPS:] or dts
         steady = float(np.median(measured))
         summary.update(median_step_s=steady,
                        samples_per_s=args.batch / steady)
+        rate = f"{args.batch / steady:.2f} samples/s"
+        if cfg.family != "conv":
+            summary["tokens_per_s"] = args.batch * args.seq / steady
+            rate += f", {summary['tokens_per_s']:.0f} tokens/s"
         print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step "
               f"{steady * 1e3:.2f} ms over {len(measured)} steps after "
-              f"warm-up ({args.batch / steady:.2f} samples/s)")
+              f"warm-up ({rate})")
+    if device.type == "cuda":
+        summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(
+            device) / 1e9
+        print(f"peak device memory {summary['peak_memory_gb']:.2f} GB")
     return summary
 
 

@@ -1,0 +1,29 @@
+"""Model registry of the port (counterpart of ``repro/models/__init__.py``):
+``get_model(cfg)`` returns the module that builds the config's family, and
+``init_model`` builds the model of any ported family from a seed.
+
+Only the SSM family (Mamba2) is ported among the language models; the conv
+family's model is ``repro_torch.core.blocks``.
+"""
+from __future__ import annotations
+
+
+def get_model(cfg):
+    """The model module of ``cfg.family``: ``init_params(cfg, ...)``,
+    ``forward(model, tokens, ...)``."""
+    if cfg.family == "ssm":
+        from repro_torch.models import mamba2
+        return mamba2
+    raise NotImplementedError(
+        f"the {cfg.family!r} family's model is not ported to repro_torch "
+        "yet: among the language models only the ssm family (mamba2) is "
+        "(ROADMAP.md queue A)")
+
+
+def init_model(cfg, *, seed: int = 0, device="cpu"):
+    """The ``nn.Module`` of the config's family with seeded weights: the
+    AtacWorks stack for ``conv``, the language model otherwise."""
+    if cfg.family == "conv":
+        from repro_torch.core import blocks
+        return blocks.init_params(cfg, seed=seed, device=device)
+    return get_model(cfg).init_params(cfg, seed=seed, device=device)

@@ -1,0 +1,258 @@
+"""Mamba2 (SSD, state-space duality; Dao & Gu 2024, arXiv:2405.21060), the
+attention-free language model (counterpart of ``repro/models/mamba2.py``,
+full-sequence path).
+
+The causal depthwise conv inside every block runs through the port's
+depthwise kernels (``kernels.ops.depthwise_conv1d``): the forward with
+bias and SiLU fused on the fp32 accumulator, and in training its
+``DepthwiseConv1dFunction`` (bwd-data through the forward kernel,
+``depthwise_conv1d_bwd_weight`` for the weight and bias gradients).
+
+Sequence mixing is the chunked SSD algorithm: quadratic attention-like
+products inside chunks of ``cfg.ssm.chunk`` tokens, and the state carried
+across chunks by a loop (JAX's ``lax.scan``).  The decode path
+(``block_decode``/``decode_step``) runs no kernel and is not ported yet
+(ROADMAP.md queue A).
+
+Parameters are kept as the JAX package keeps them: the per-layer leaves
+stacked with a leading ``L`` axis (``layers.mixer.in_proj`` is (L, D,
+d_proj)), so the state-dict keys, shapes and AdamW's ``ndim >= 2`` decay
+rule are the JAX tree's own, and checkpoints cross between the packages
+unchanged.  The forward takes each layer's slice through one ``unbind``
+per stacked leaf, whose backward stacks the L gradients once; indexing
+the stacked leaf per layer instead would add a full (L, ...) gradient
+per layer.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import common as cm
+
+# the per-layer mixer leaves, in the JAX tree's order
+MIXER_KEYS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D",
+              "gate_norm", "out_proj")
+
+
+def dims(cfg) -> tuple[int, int, int]:
+    """``(d_inner, n_heads, conv_dim)``."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return d_inner, d_inner // s.head_dim, d_inner + 2 * s.n_groups * s.d_state
+
+
+class _Leaves(nn.Module):
+    """One level of the JAX parameter tree: its leaves as parameters."""
+
+    def __init__(self, **leaves: torch.Tensor):
+        super().__init__()
+        for k, t in leaves.items():
+            self.register_parameter(k, nn.Parameter(t))
+
+
+class Mamba2(nn.Module):
+    """The language model; ``forward(tokens)`` is :func:`forward`.
+
+    Parameters (JAX's keys): ``embed.tok`` (padded_vocab, D),
+    ``layers.norm.scale`` (L, D), ``layers.mixer.<MIXER_KEYS>`` (L, ...),
+    ``final_norm.scale`` (D,), ``unembed`` (D, padded_vocab).
+    """
+
+    def __init__(self, cfg, leaves: dict[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _Leaves(tok=leaves["embed.tok"])
+        self.layers = nn.Module()
+        self.layers.norm = _Leaves(scale=leaves["layers.norm.scale"])
+        self.layers.mixer = _Leaves(**{
+            k: leaves[f"layers.mixer.{k}"] for k in MIXER_KEYS})
+        self.final_norm = _Leaves(scale=leaves["final_norm.scale"])
+        self.unembed = nn.Parameter(leaves["unembed"])
+
+    def forward(self, tokens: torch.Tensor, *, hidden_only: bool = False,
+                backend: str | None = None) -> torch.Tensor:
+        return forward(self, tokens, hidden_only=hidden_only,
+                       backend=backend)
+
+
+def init_params(cfg, *, seed: int = 0,
+                device: torch.device | str = "cpu") -> Mamba2:
+    """The model with weights drawn on the host from a generator seeded
+    with ``seed`` (the same weights on every device), by the JAX
+    package's distributions: normal projections scaled by fan-in ** -0.5,
+    conv taps by conv_width ** -0.5, embeddings by 0.02; zero conv bias,
+    unit norms and D, ``A_log = log(1..H)`` and ``dt_bias`` the inverse
+    softplus of a log-uniform dt in [dt_min, dt_max].  ``dt_bias``,
+    ``A_log`` and ``D`` are fp32 whatever the model's dtype."""
+    s = cfg.ssm
+    gen = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+    d_inner, H, conv_dim = dims(cfg)
+    d_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + H  # z, xBC, dt
+
+    def normal(*shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+    norm = cm.init_norm(cfg, D, dtype)["scale"]
+    dt = torch.exp(torch.rand((L, H), generator=gen)
+                   * (math.log(s.dt_max) - math.log(s.dt_min))
+                   + math.log(s.dt_min))
+    leaves = {
+        "embed.tok": normal(V, D, scale=0.02),
+        "layers.norm.scale": norm.repeat(L, 1),
+        "layers.mixer.in_proj": normal(L, D, d_proj, scale=D ** -0.5),
+        "layers.mixer.conv_w": normal(L, s.conv_width, conv_dim,
+                                      scale=s.conv_width ** -0.5),
+        "layers.mixer.conv_b": torch.zeros((L, conv_dim), dtype=dtype),
+        "layers.mixer.dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "layers.mixer.A_log": torch.log(torch.arange(
+            1, H + 1, dtype=torch.float32)).repeat(L, 1),
+        "layers.mixer.D": torch.ones((L, H)),
+        "layers.mixer.gate_norm": torch.ones((L, d_inner), dtype=dtype),
+        "layers.mixer.out_proj": normal(L, d_inner, D,
+                                        scale=d_inner ** -0.5),
+        "final_norm.scale": norm,
+        "unembed": normal(D, V, scale=D ** -0.5),
+    }
+    return Mamba2(cfg, {k: v.to(device) for k, v in leaves.items()})
+
+
+def _conv(p: dict, xBC: torch.Tensor, cfg, backend) -> torch.Tensor:
+    """The causal depthwise conv over time: (B, T, C) -> (B, C, T) for the
+    kernel, bias + SiLU fused, fp32 out (it feeds the SSD scan without a
+    cast), back to (B, T, C)."""
+    y = kops.depthwise_conv1d(
+        xBC.transpose(1, 2), p["conv_w"], bias=p["conv_b"],
+        activation="silu", dilation=1, padding="CAUSAL", backend=backend,
+        out_dtype=torch.float32)
+    return y.transpose(1, 2)
+
+
+def _softplus(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, which is ``logaddexp(v, 0)`` (``F.softplus``
+    turns linear above 20)."""
+    return torch.logaddexp(v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+    """SSD scan.  x: (B, T, H, P), dt: (B, T, H), A: (H,), B/C: (B, T, G, N)
+    -> y (B, T, H, P), all fp32.  The products keep (b, nc, H|G) leading, as
+    the JAX package's head-major layout does.
+
+    One difference from the JAX package: the intra-chunk decay
+    ``exp(cs_i - cs_j)`` is masked before the ``exp`` (``-inf`` above the
+    diagonal) where JAX masks after it.  The values are the same; JAX's
+    form overflows to ``inf`` above the diagonal once ``|cs|`` passes 88,
+    which Mamba2-370M's chunk of 128 reaches, and its gradient is then
+    ``0 * inf = nan``.
+    """
+    b, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if T % chunk:
+        # pad to a chunk multiple: dt = 0 is inert (no decay, no input)
+        pad = chunk - T % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        return ssd_chunked(x, dt, A, B, C, chunk)[:, :T]
+    nc, rep = T // chunk, H // G
+
+    xh = x.reshape(b, nc, chunk, H, P).permute(0, 1, 3, 2, 4)   # (b,nc,H,c,P)
+    dth = dt.reshape(b, nc, chunk, H).permute(0, 1, 3, 2)      # (b,nc,H,c)
+    Bg = B.reshape(b, nc, chunk, G, N).permute(0, 1, 3, 2, 4)  # (b,nc,G,c,N)
+    Cg = C.reshape(b, nc, chunk, G, N).permute(0, 1, 3, 2, 4)
+    dA_cs = torch.cumsum(dth * A[:, None], dim=3)              # (b,nc,H,c)
+
+    # intra-chunk: y_i += C_i.B_j exp(cs_i - cs_j) dt_j x_j for j <= i;
+    # C.B is per group, shared by its heads
+    cb = Cg @ Bg.transpose(-1, -2)                             # (b,nc,G,c,c)
+    seg = dA_cs[..., :, None] - dA_cs[..., None, :]            # (b,nc,H,c,c)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    Lmat = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    cbl = (cb.reshape(b, nc, G, 1, chunk, chunk)
+           * Lmat.reshape(b, nc, G, rep, chunk, chunk)).reshape(
+        b, nc, H, chunk, chunk)
+    y_intra = cbl @ (dth[..., None] * xh)                      # (b,nc,H,c,P)
+
+    # chunk states: S = sum_j exp(cs_last - cs_j) dt_j B_j x_j^T
+    decay_to_end = torch.exp(dA_cs[..., -1:] - dA_cs)          # (b,nc,H,c)
+    wx = ((dth * decay_to_end)[..., None] * xh).reshape(
+        b, nc, G, rep, chunk, P)
+    S = (Bg.transpose(-1, -2)[:, :, :, None] @ wx).reshape(
+        b, nc, H, N, P)
+
+    # inter-chunk recurrence: the state *entering* each chunk
+    chunk_decay = torch.exp(dA_cs[..., -1])                    # (b,nc,H)
+    h = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+    h_in = []
+    for i in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, i, :, None, None] + S[:, i]
+    h_in = torch.stack(h_in, dim=1).reshape(b, nc, G, rep, N, P)
+
+    y_inter = (torch.exp(dA_cs).reshape(b, nc, G, rep, chunk)[..., None]
+               * (Cg[:, :, :, None] @ h_in)).reshape(b, nc, H, chunk, P)
+    return (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(b, T, H, P)
+
+
+def block_fwd(p: dict, xres: torch.Tensor, cfg, *,
+              backend: str | None = None) -> torch.Tensor:
+    """One Mamba2 block over the full sequence.  xres: (B, T, D), already
+    normed; ``p`` holds one layer's ``MIXER_KEYS``."""
+    s = cfg.ssm
+    d_inner, H, _ = dims(cfg)
+    P, G, N = s.head_dim, s.n_groups, s.d_state
+    b, T, _ = xres.shape
+    z, xBC, dt = torch.split(xres @ p["in_proj"],
+                             [d_inner, d_inner + 2 * G * N, H], dim=-1)
+    xBC = _conv(p, xBC, cfg, backend)  # fp32 (B, T, conv_dim)
+    x_ssm, B, C = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    x_ssm = x_ssm.reshape(b, T, H, P)
+    B = B.reshape(b, T, G, N)
+    C = C.reshape(b, T, G, N)
+    dt_act = _softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y = ssd_chunked(x_ssm, dt_act, A, B, C, s.chunk)
+    y = y + p["D"][None, None, :, None] * x_ssm
+    y = y.reshape(b, T, d_inner)
+    y = y * F.silu(z.float())
+    # gated RMS norm, cast back to the residual stream's dtype
+    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps)
+    y = (y * p["gate_norm"].float()).to(xres.dtype)
+    return y @ p["out_proj"]
+
+
+def forward(model: Mamba2, tokens: torch.Tensor, *, hidden_only: bool = False,
+            backend: str | None = None) -> torch.Tensor:
+    """tokens (B, T) int -> fp32 logits (B, T, padded_vocab), the padded
+    columns at ``common.NEG_INF``; with ``hidden_only`` the final-normed
+    hidden state (B, T, D) instead.  ``backend`` picks the conv's
+    (``None``: the kernels for CUDA tensors, the plain version for CPU
+    ones).  With ``cfg.remat`` each layer's activations are recomputed in
+    the backward."""
+    cfg = model.cfg
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    mixer = model.layers.mixer
+
+    def layer(x, scale, *leaves):
+        p = dict(zip(MIXER_KEYS, leaves))
+        return x + block_fwd(p, cm.apply_norm(scale, x, cfg), cfg,
+                             backend=backend)
+
+    step = cm.maybe_remat(layer, cfg)
+    for lp in zip(model.layers.norm.scale.unbind(0),
+                  *(getattr(mixer, k).unbind(0) for k in MIXER_KEYS)):
+        x = step(x, *lp)
+    x = cm.apply_norm(model.final_norm.scale, x, cfg)
+    if hidden_only:
+        return x
+    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg)

@@ -5,6 +5,10 @@ int32 step count, decoupled weight decay added to the update of
 parameters with ``ndim >= 2`` only.
 
 Parameters, gradients and moments are dicts keyed by state-dict name.
+The decay rule reads each tensor's ``ndim``, which is the JAX leaf's: the
+port keeps the JAX tree's shapes, Mamba2's per-layer vectors included
+(``layers.mixer.A_log`` is (L, H), so it decays as in JAX, and
+``final_norm.scale`` (D,) does not).
 ``update`` is functional: it returns new tensors and changes nothing it
 is given, so a train step can keep the old values where a step is skipped.
 """

@@ -1,22 +1,46 @@
 """Per-family loss functions (counterpart of ``repro/train/losses.py``).
 
-Only the conv family is ported: its batch is ``{'noisy', 'clean',
-'peaks'}``, each (B, W).  The LM families' losses wait in ROADMAP.md
-queue A.
+Batch layouts:
+  conv: ``{'noisy', 'clean', 'peaks'}``, each (B, W);
+  ssm:  ``{'tokens', 'labels'}``, each (B, T) int32.
+
+The other LM families' losses, and the streamed cross-entropy
+(``cfg.xent_chunk``), wait in ROADMAP.md queue A.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import blocks
 
 
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits fp32 (B, T, V), labels int (B, T) -> mean NLL."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
 def make_loss_fn(cfg):
     """``loss(model, batch) -> (loss, aux)`` for the config's family."""
-    if cfg.family != "conv":
+    if cfg.family == "conv":
+        def conv_loss(model, batch):
+            return blocks.loss_fn(model, cfg, batch)
+
+        return conv_loss
+    if cfg.family != "ssm":
         raise NotImplementedError(
             f"the {cfg.family!r} family's loss is not ported to repro_torch "
-            "yet: only the conv family is (ROADMAP.md queue A)")
+            "yet: only the conv and ssm families are (ROADMAP.md queue A)")
+    if cfg.xent_chunk:
+        raise NotImplementedError(
+            "the streamed cross-entropy (xent_chunk > 0) is not ported to "
+            "repro_torch yet (ROADMAP.md queue A)")
 
-    def conv_loss(model, batch):
-        return blocks.loss_fn(model, cfg, batch)
+    def lm_loss(model, batch):
+        """Mean next-token NLL over the full fp32 logits; Mamba2 has no
+        auxiliary loss, so the total is the NLL."""
+        loss = softmax_xent(model(batch["tokens"]), batch["labels"])
+        return loss, {"nll": loss}
 
-    return conv_loss
+    return lm_loss

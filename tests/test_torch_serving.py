@@ -87,7 +87,7 @@ def test_configs_match_jax():
         for f in ("name", "conv_channels", "conv_filter", "conv_dilation",
                   "dtype"):
             assert getattr(tr, f) == getattr(jr, f), (name, f)
-    assert configs.names() == ["atacworks", "atacworks-bf16"]
+    assert configs.names() == ["atacworks", "atacworks-bf16", "mamba2-370m"]
 
 
 def test_lm_families_raise_not_implemented():
@@ -344,7 +344,9 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 named = ["repro_torch.launch.train", "repro_torch.train.train_step",
          "repro_torch.train.losses", "repro_torch.optim.adamw",
          "repro_torch.optim.schedule", "repro_torch.data.synthetic",
-         "repro_torch.checkpoint.checkpoint"]
+         "repro_torch.checkpoint.checkpoint", "repro_torch.models",
+         "repro_torch.models.common", "repro_torch.models.mamba2",
+         "repro_torch.configs.mamba2_370m"]
 assert set(named) <= set(mods), sorted(set(named) - set(mods))
 for m in mods + named:
     importlib.import_module(m)
@@ -357,14 +359,14 @@ print(len(mods))
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Every module of the port (the training slice's named) and
+    """Every module of the port (the training and Mamba2 slices' named) and
     chip_smoke.py import without jax or any module of the JAX package."""
     code = _HYGIENE.format(root=ROOT, src=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": ""})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 28
+    assert int(proc.stdout.split()[-1]) >= 32
 
 
 def test_chip_smoke_refuses_without_a_gpu():
