@@ -5,8 +5,8 @@
 
 Phases (any failed check raises, so the run exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     build the four CUDA kernels from the checkout's sources, in parallel
-     and timed, with ptxas' registers and spills;
+     build the six CUDA kernels' libraries from the checkout's sources, in
+     parallel and timed, with ptxas' registers and spills;
   2. the kernel ``conv1d_fwd`` against its plain PyTorch version on the
      card at every layer shape of the serving path (stem 1->15, conv1,
      conv2 with residual, the two 15->1 heads), at the stream-step shape
@@ -69,7 +69,28 @@ Phases (any failed check raises, so the run exits non-zero):
      steps under ``torch.profiler``: device time of the depthwise
      kernels, the projections' matrix products, the SSD's batched
      products, the rest, and the idle time;
-  10. a JSON line of the four kernels, the card's line, and last the
+  10. the flash kernels against their plain versions at StarCoder2-3B's
+      attention in its training cell (batch 4 x 4,096, 24 heads over 2
+      KV heads of 128, bf16, causal): o, lse, dq, dk, dv, two backward
+      launches bitwise equal; one fp32, one non-causal, one G = 1 and one
+      ragged (T = 1,000) case, and the forward with q_offset 1,024 over
+      2,048 keys at head_dim 64; device, call, plain and library
+      (``F.scaled_dot_product_attention``, a yardstick the port never
+      calls) times beside the bound;
+  11. the whole StarCoder2-3B gradient: the full widths in an fp32 copy of
+      the config cut to 2 layers (remat on), batch 2 x 512, TF32 off: the
+      loss and all 19 gradients through the flash kernels against
+      autograd over the plain attention (``attn_impl="chunked"``), and
+      2 x 2 ``flash_fwd`` and 2 ``flash_bwd`` launches;
+  12. train ``starcoder2-3b`` (30 layers, bf16, remat on) through
+      ``repro_torch.launch.train``'s own entry point with ``--attn-impl
+      flash`` at batch 4 x 4,096 for 8 steps: every loss and gradient norm
+      finite, no step skipped, 60 ``flash_fwd`` (forward and remat
+      recompute) and 30 ``flash_bwd`` launches a step, peak memory under
+      80 GB; step p50, tokens/s; then LM_PROFILE_STEPS more steps under
+      ``torch.profiler``: device time of the flash kernels, the matrix
+      products, the rest, and the idle time;
+  13. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -136,6 +157,32 @@ M2_GRAD_LAYERS, M2_GRAD_BATCH, M2_GRAD_SEQ = 2, 2, 512
 # the Mamba2-370M training cell: batch 8 x 2,048 (the Mamba-2 paper's
 # pretraining context), 10 steps; then M2_PROFILE_STEPS traced
 M2_BATCH, M2_SEQ, M2_STEPS, M2_PROFILE_STEPS = 8, 2048, 10, 3
+
+# StarCoder2-3B's attention in its training cell: batch 4 x 4,096, 24
+# query heads over 2 KV heads (G = 12) of 128, bf16, causal
+FA_B, FA_T, FA_KV, FA_G, FA_HD = 4, 4096, 2, 12, 128
+# flash kernels vs plain.  fp32 results: max|kernel - plain| <= FA_TOL_F32
+# * max|plain|, since dk and dv sum up to 4,096 x 12 = 49,152 terms in
+# another order, whose rounding alone is sqrt(n) x 2^-24, about 1e-5 of
+# the largest value; lse (one log-sum-exp per row, fp32 in both dtypes)
+# within FA_TOL_LSE of the largest.  bf16 results, each element against
+# its own value: |kernel - plain| <= FA_RTOL_BF16 * |plain| + FA_ATOL_BF16
+# * max|plain|.  Both sides round fp32 values that differ only in
+# summation order once to bf16 (to nearest even), so they differ by at
+# most one bf16 ulp, 2^-7 of the value, plus the fp32 difference (about
+# 1e-5 of the largest value), which the atol covers many times over.  A
+# bound held per element also holds the late causal rows, whose values
+# are 50 to 100 times smaller than the first rows'.
+FA_TOL_F32, FA_TOL_LSE = 1e-4, 1e-5
+FA_RTOL_BF16, FA_ATOL_BF16 = 2.0 ** -7, 1e-3
+# the whole StarCoder2-3B gradient: the full widths in fp32, 2 layers,
+# batch 2 x 512; the loss within LOSS_RTOL, each gradient within GRAD_TOL
+# of its leaf's largest value (as for AtacWorks and Mamba2)
+LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 2, 2, 512
+# the StarCoder2-3B training cell: batch 4 x 4,096 (its pretraining
+# context), 8 steps; then LM_PROFILE_STEPS traced
+LM_BATCH, LM_SEQ, LM_STEPS, LM_PROFILE_STEPS = 4, 4096, 8, 2
+LM_MEMORY_LIMIT_GB = 80.0
 
 
 def _card_line() -> str:
@@ -446,6 +493,26 @@ def _check_close(label, got, want, tol):
     return max_abs, max_abs / scale
 
 
+def _check_elementwise(label, got, want, rtol, atol_of_max):
+    """|got - want| <= rtol * |want| + atol_of_max * max|want| for every
+    element; returns (max_abs, max_abs / max|want|, the largest share of
+    its own limit that an element uses: at most 1)."""
+    g, w = got.float(), want.float()
+    scale = max(w.abs().max().item(), 1e-30)
+    diff = (g - w).abs()
+    share = diff / (rtol * w.abs() + atol_of_max * scale)
+    use = share.max().item()
+    if not use <= 1.0:
+        i = int(share.argmax())
+        raise AssertionError(
+            f"{label}: element {i}: |kernel - plain| "
+            f"{diff.flatten()[i].item()} > {rtol} x |plain| "
+            f"{w.flatten()[i].abs().item()} + {atol_of_max} x max|plain| "
+            f"{scale}")
+    max_abs = diff.max().item()
+    return max_abs, max_abs / scale, use
+
+
 def bwd_kernel_checks(torch, conv1d_brgemm, ref):
     """Phase 4: the training path's kernels at its layer shapes."""
     import torch.nn.functional as F
@@ -726,6 +793,12 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
     return rows
 
 
+def _batch(torch, synthetic, cfg, batch, seq, seed):
+    """A synthetic batch of the config's family on the card."""
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in
+            synthetic.make_batch(cfg, batch, seq, seed=seed).items()}
+
+
 def _seeded_model(torch, blocks, cfg, seed):
     """The stack from a seed, with random non-zero biases (zeros at init
     would leave the bias path untested)."""
@@ -748,8 +821,7 @@ def model_grad_check(torch, configs, blocks, synthetic, adamw,
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get("atacworks")
     model = _seeded_model(torch, blocks, cfg, seed=5)
-    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
-             synthetic.make_batch(cfg, GRAD_BATCH, GRAD_SEQ, seed=7).items()}
+    batch = _batch(torch, synthetic, cfg, GRAD_BATCH, GRAD_SEQ, 7)
     names = [n for n, _ in model.named_parameters()]
 
     def loss_and_grads(m, backend):
@@ -786,12 +858,11 @@ def model_grad_check(torch, configs, blocks, synthetic, adamw,
         losses = []
         for _ in range(GRAD_STEPS):
             loss, grads = loss_and_grads(m, backend)
-            params = dict(m.named_parameters())
-            new, state, _ = adamw.update(dict(zip(names, grads)), state,
-                                         params, lr=ADAMW_LR)
-            with torch.no_grad():
-                for k, p in params.items():
-                    p.copy_(new[k])
+            grads = dict(zip(names, grads))
+            gnorm = adamw.global_norm(grads)
+            adamw.update_(grads, state, dict(m.named_parameters()),
+                          lr=ADAMW_LR, grad_norm=gnorm,
+                          finite=torch.isfinite(gnorm))
             losses.append(loss.item())
         return losses, m
 
@@ -856,35 +927,52 @@ def train_check(torch, np, train, conv1d_brgemm):
     return stats
 
 
+def _profile_steps(torch, train, argv, steps, port_names):
+    """Run the launcher with ``argv`` (``steps`` steps) under
+    ``torch.profiler``; returns its summary, the device kernels by name
+    (calls, device ms per step, ``port`` if the name holds one of
+    ``port_names``; longest first), and each host op's self device ms per
+    step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        summary = train.run(argv)
+        torch.cuda.synchronize()
+
+    def dev_ms(e, self_only):
+        for attr in (("self_device_time_total", "self_cuda_time_total")
+                     if self_only else
+                     ("device_time_total", "cuda_time_total")):
+            us = getattr(e, attr, None)
+            if us is not None:
+                return us / 1e3 / steps
+        return 0.0
+
+    kernels, by_op = [], {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels.append(dict(
+                name=e.key[:120], calls=e.count, ms_per_step=dev_ms(e, False),
+                port=any(t in e.key for t in port_names)))
+        else:
+            by_op[e.key] = by_op.get(e.key, 0.0) + dev_ms(e, True)
+    kernels.sort(key=lambda k: -k["ms_per_step"])
+    return summary, kernels, by_op
+
+
 def train_profile(torch, train):
     """Phase 6, second part: where a training step's time goes.
     PROFILE_STEPS more steps of the launcher under ``torch.profiler``
     (kept apart from the timed run, whose step times it would inflate):
     device time by kernel name per step, and the device's busy share,
     the kernels' summed time over the steps' summed host-clock time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        summary = train.run(["--arch", "atacworks", "--steps",
-                             str(PROFILE_STEPS), "--batch", str(TRAIN_BATCH),
-                             "--seq", str(TRAIN_SEQ)])
-        torch.cuda.synchronize()
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        kernels.append(dict(
-            name=e.key[:120], calls=e.count,
-            ms_per_step=us / 1e3 / PROFILE_STEPS,
-            port=any(t in e.key for t in ("conv1d_fwd_kernel",
-                                          "bwd_weight_partial",
-                                          "reduce_partials"))))
-    kernels.sort(key=lambda k: -k["ms_per_step"])
+    summary, kernels, _ = _profile_steps(
+        torch, train, ["--arch", "atacworks", "--steps", str(PROFILE_STEPS),
+                       "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)],
+        PROFILE_STEPS, ("conv1d_fwd_kernel", "bwd_weight_partial",
+                        "reduce_partials"))
     step_ms = 1e3 * sum(summary["step_s"]) / PROFILE_STEPS
     busy = sum(k["ms_per_step"] for k in kernels)
     ours = sum(k["ms_per_step"] for k in kernels if k["port"])
@@ -909,6 +997,96 @@ def _mamba2_model(torch, cfg, init_model, seed):
     return model
 
 
+def _model_grad_check(torch, losses, label, cfg, model, batch, run_kernel,
+                      run_plain, counters, expected, why, n_grads):
+    """The loss and every gradient of ``model`` on ``batch`` through the
+    kernels (``run_kernel(tokens)`` -> logits) against autograd over the
+    plain version (``run_plain``): the loss within LOSS_RTOL, each of the
+    ``n_grads`` gradients finite and within GRAD_TOL of its leaf's
+    largest value; the kernel run must have launched ``counters``
+    ``expected`` times (``why`` says what they are)."""
+    names, params = zip(*model.named_parameters())
+
+    def loss_and_grads(run):
+        loss = losses.softmax_xent(run(batch["tokens"]), batch["labels"])
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    before = [c.launches for c in counters]
+    loss_k, grads_k = loss_and_grads(run_kernel)
+    launched = tuple(c.launches - n for c, n in zip(counters, before))
+    loss_p, grads_p = loss_and_grads(run_plain)
+    torch.cuda.synchronize()
+    if launched != expected:
+        raise AssertionError(f"{label}: one gradient launched {launched} of "
+                             f"{[c.__name__ for c in counters]}, expected "
+                             f"{expected} ({why})")
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"{label} loss through the kernels "
+                             f"{loss_k.item()} vs plain {loss_p.item()}: "
+                             f"rel {loss_rel}")
+    if len(grads_k) != n_grads:
+        raise AssertionError(f"{len(grads_k)} gradients, expected {n_grads}")
+    worst = (0.0, "")
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"non-finite gradient of {name}")
+        _, rel = _check_close(f"{label} grad {name}", gk, gp, GRAD_TOL)
+        worst = max(worst, (rel, name))
+    stats = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                 batch=batch["tokens"].shape[0],
+                 seq=batch["tokens"].shape[1], dtype=cfg.dtype,
+                 remat=cfg.remat, loss_kernel=loss_k.item(),
+                 loss_plain=loss_p.item(), loss_rel_diff=loss_rel,
+                 n_grads=len(grads_k), worst_grad_rel_diff=worst[0],
+                 worst_grad=worst[1], grad_tol_rel_to_max_plain=GRAD_TOL,
+                 launches_per_gradient=list(launched))
+    print(f"{label}-grad " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _train_check(np, train, label, argv, steps, counters, per_step,
+                 memory_limit_gb=None):
+    """Train through the launcher's own entry point with ``argv``
+    (``steps`` steps): every loss and gradient norm finite, no step
+    skipped, ``counters`` launched ``per_step`` times a step, and peak
+    device memory under ``memory_limit_gb`` where given.  Returns the
+    step times, throughput, peak memory and launches."""
+    for c in counters:
+        c.launches = 0
+    summary = train.run(argv)
+    launches = {c.__name__: c.launches for c in counters}
+    losses = summary["losses"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{label} training losses {losses}")
+    if not np.isfinite(summary["grad_norms"]).all():
+        raise AssertionError(f"{label} gradient norms "
+                             f"{summary['grad_norms']}")
+    if summary["skipped_steps"]:
+        raise AssertionError(f"{summary['skipped_steps']} {label} steps "
+                             "skipped for a non-finite gradient norm")
+    want = {c.__name__: n * steps for c, n in zip(counters, per_step)}
+    if launches != want:
+        raise AssertionError(f"{label}: {launches} launches in {steps} "
+                             f"steps; expected {want}")
+    if memory_limit_gb and not summary["peak_memory_gb"] < memory_limit_gb:
+        raise AssertionError(f"{label}: peak device memory "
+                             f"{summary['peak_memory_gb']} GB")
+    times = np.asarray(summary["step_s"][train.WARMUP_STEPS:])
+    stats = dict(argv=argv, steps=steps, losses=losses,
+                 grad_norms=summary["grad_norms"], step_s=summary["step_s"],
+                 step_p50_ms=float(np.median(times) * 1e3),
+                 step_min_ms=float(times.min() * 1e3),
+                 step_max_ms=float(times.max() * 1e3),
+                 tokens_per_s=summary["tokens_per_s"],
+                 samples_per_s=summary["samples_per_s"],
+                 peak_memory_gb=summary["peak_memory_gb"],
+                 launches=launches,
+                 launches_per_step={k: n / steps for k, n in launches.items()})
+    print(f"{label}-train " + json.dumps(stats), flush=True)
+    return stats
+
+
 def mamba2_grad_check(torch, configs, init_model, synthetic, losses,
                       conv1d_brgemm):
     """Phase 8: the whole Mamba2 gradient at the full widths (an fp32 copy
@@ -922,50 +1100,14 @@ def mamba2_grad_check(torch, configs, init_model, synthetic, losses,
     cfg = dataclasses.replace(configs.get("mamba2-370m"),
                               n_layers=M2_GRAD_LAYERS, dtype="float32")
     model = _mamba2_model(torch, cfg, init_model, seed=21)
-    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
-             synthetic.make_batch(cfg, M2_GRAD_BATCH, M2_GRAD_SEQ,
-                                  seed=22).items()}
-    names, params = zip(*model.named_parameters())
-    dwf, dwb = (conv1d_brgemm.depthwise_conv1d_fwd,
-                conv1d_brgemm.depthwise_conv1d_bwd_weight)
-
-    def loss_and_grads(backend):
-        loss = losses.softmax_xent(model(batch["tokens"], backend=backend),
-                                   batch["labels"])
-        return loss.detach(), torch.autograd.grad(loss, params)
-
-    f0, b0 = dwf.launches, dwb.launches
-    loss_k, grads_k = loss_and_grads(None)
-    launched = (dwf.launches - f0, dwb.launches - b0)
-    loss_p, grads_p = loss_and_grads("ref")
-    torch.cuda.synchronize()
+    batch = _batch(torch, synthetic, cfg, M2_GRAD_BATCH, M2_GRAD_SEQ, 22)
     L = cfg.n_layers
-    if launched != (3 * L, L):
-        raise AssertionError(f"one gradient launched {launched} depthwise "
-                             f"kernels, expected ({3 * L} forward: forward, "
-                             f"recompute and bwd-data; {L} bwd-weight)")
-    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    if not loss_rel <= LOSS_RTOL:
-        raise AssertionError(f"Mamba2 loss through the kernels "
-                             f"{loss_k.item()} vs plain {loss_p.item()}: "
-                             f"rel {loss_rel}")
-    if len(grads_k) != 12:
-        raise AssertionError(f"{len(grads_k)} gradients, expected 12")
-    worst = (0.0, "")
-    for name, gk, gp in zip(names, grads_k, grads_p):
-        if not torch.isfinite(gk).all():
-            raise AssertionError(f"non-finite gradient of {name}")
-        _, rel = _check_close(f"mamba2 grad {name}", gk, gp, GRAD_TOL)
-        worst = max(worst, (rel, name))
-    stats = dict(layers=L, d_model=cfg.d_model, batch=M2_GRAD_BATCH,
-                 seq=M2_GRAD_SEQ, dtype=cfg.dtype, remat=cfg.remat,
-                 loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
-                 loss_rel_diff=loss_rel, n_grads=len(grads_k),
-                 worst_grad_rel_diff=worst[0], worst_grad=worst[1],
-                 grad_tol_rel_to_max_plain=GRAD_TOL,
-                 launches_per_gradient=list(launched))
-    print("mamba2-grad " + json.dumps(stats), flush=True)
-    return stats
+    return _model_grad_check(
+        torch, losses, "mamba2", cfg, model, batch,
+        lambda x: model(x, backend=None), lambda x: model(x, backend="ref"),
+        (conv1d_brgemm.depthwise_conv1d_fwd,
+         conv1d_brgemm.depthwise_conv1d_bwd_weight), (3 * L, L),
+        "forward, recompute and bwd-data; bwd-weight", 12)
 
 
 def _m2_argv(steps):
@@ -976,41 +1118,15 @@ def _m2_argv(steps):
 def mamba2_train_check(torch, np, train, conv1d_brgemm, n_layers):
     """Phase 9: train the full Mamba2-370M through the launcher's own entry
     point at batch 8 x 2,048 for M2_STEPS steps: every loss and gradient
-    norm finite (no step skipped), the
-    depthwise forward launched 3 x 48 times a step (forward, remat
-    recompute, bwd-data) and the weight gradient 48 times."""
-    dwf, dwb = (conv1d_brgemm.depthwise_conv1d_fwd,
-                conv1d_brgemm.depthwise_conv1d_bwd_weight)
-    dwf.launches = 0
-    dwb.launches = 0
-    summary = train.run(_m2_argv(M2_STEPS))
-    fwd, bw = dwf.launches, dwb.launches
-    losses = summary["losses"]
-    if len(losses) != M2_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"Mamba2 training losses {losses}")
-    if summary["skipped_steps"]:
-        raise AssertionError(f"{summary['skipped_steps']} Mamba2 steps "
-                             "skipped for a non-finite gradient norm")
-    want = (3 * n_layers * M2_STEPS, n_layers * M2_STEPS)
-    if (fwd, bw) != want:
-        raise AssertionError(
-            f"{fwd} depthwise_conv1d_fwd and {bw} depthwise_conv1d_bwd_weight"
-            f" launches in {M2_STEPS} steps; expected {want[0]} and "
-            f"{want[1]} ({3 * n_layers} and {n_layers} per step)")
-    times = np.asarray(summary["step_s"][train.WARMUP_STEPS:])
-    stats = dict(steps=M2_STEPS, batch=M2_BATCH, seq=M2_SEQ, losses=losses,
-                 grad_norms=summary["grad_norms"], step_s=summary["step_s"],
-                 step_p50_ms=float(np.median(times) * 1e3),
-                 step_min_ms=float(times.min() * 1e3),
-                 step_max_ms=float(times.max() * 1e3),
-                 tokens_per_s=summary["tokens_per_s"],
-                 samples_per_s=summary["samples_per_s"],
-                 peak_memory_gb=summary["peak_memory_gb"],
-                 depthwise_fwd_launches=fwd, depthwise_bwd_weight_launches=bw,
-                 fwd_launches_per_step=fwd / M2_STEPS,
-                 bwd_weight_launches_per_step=bw / M2_STEPS)
-    print("mamba2-train " + json.dumps(stats), flush=True)
-    return stats
+    norm finite (no step skipped), the depthwise forward launched 3 x 48
+    times a step (forward, remat recompute, bwd-data) and the weight
+    gradient 48 times."""
+    torch.cuda.empty_cache()
+    return _train_check(
+        np, train, "mamba2", _m2_argv(M2_STEPS), M2_STEPS,
+        (conv1d_brgemm.depthwise_conv1d_fwd,
+         conv1d_brgemm.depthwise_conv1d_bwd_weight),
+        (3 * n_layers, n_layers))
 
 
 def mamba2_profile(torch, train):
@@ -1020,36 +1136,10 @@ def mamba2_profile(torch, train):
     projections, the unembedding and their gradients, bf16), of the SSD's
     batched products (``aten::bmm``, fp32), of everything else, and the
     device's idle time against the steps' host-clock time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        summary = train.run(_m2_argv(M2_PROFILE_STEPS))
-        torch.cuda.synchronize()
     n = M2_PROFILE_STEPS
-
-    def dev_ms(e, self_only):
-        for attr in (("self_device_time_total", "self_cuda_time_total")
-                     if self_only else
-                     ("device_time_total", "cuda_time_total")):
-            us = getattr(e, attr, None)
-            if us is not None:
-                return us / 1e3 / n
-        return 0.0
-
-    kernels, by_op = [], {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kernels.append(dict(
-                name=e.key[:120], calls=e.count,
-                ms_per_step=dev_ms(e, False),
-                port=any(t in e.key for t in ("dw_fwd_kernel",
-                                              "dw_bwd_weight_partial",
-                                              "dw_reduce_partials"))))
-        else:
-            by_op[e.key] = by_op.get(e.key, 0.0) + dev_ms(e, True)
-    kernels.sort(key=lambda k: -k["ms_per_step"])
+    summary, kernels, by_op = _profile_steps(
+        torch, train, _m2_argv(n), n,
+        ("dw_fwd_kernel", "dw_bwd_weight_partial", "dw_reduce_partials"))
     step_ms = 1e3 * sum(summary["step_s"]) / n
     busy = sum(k["ms_per_step"] for k in kernels)
     ours = sum(k["ms_per_step"] for k in kernels if k["port"])
@@ -1068,8 +1158,264 @@ def mamba2_profile(torch, train):
     return stats
 
 
-def _build_all(conv1d_brgemm, build):
-    """Build the four kernels' libraries at once (one nvcc each, started
+def _attn_bound(B, T, H, KV, hd, causal, dtype_name, products, nbytes):
+    """Least time of ``products`` (B, H, T, T, hd)-sized products over the
+    (query, key) pairs the mask keeps (see ``_bound``)."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    return _bound(2.0 * products * B * H * hd * pairs, nbytes, dtype_name)
+
+
+def _flash_errs(label, pairs, lse, lse_p, bf16):
+    """Each (kernel, plain) pair of ``pairs`` against its tolerance (bf16:
+    per element; fp32: FA_TOL_F32 of the largest value) and lse within
+    FA_TOL_LSE -> {name: (max_abs, max_abs / max|plain|, share of the
+    per-element limit used or None)}."""
+    errs = {"lse": (*_check_close(f"{label} lse", lse, lse_p, FA_TOL_LSE),
+                    None)}
+    for name, (got, want) in pairs.items():
+        if bf16:
+            errs[name] = _check_elementwise(f"{label} {name}", got, want,
+                                            FA_RTOL_BF16, FA_ATOL_BF16)
+        else:
+            errs[name] = (*_check_close(f"{label} {name}", got, want,
+                                        FA_TOL_F32), None)
+    return errs
+
+
+def _flash_err_fields(errs, bf16):
+    """A flash-check row's error readings and the tolerances they meet."""
+    fields = dict(max_abs_err={k: e[0] for k, e in errs.items()},
+                  max_rel_diff={k: e[1] for k, e in errs.items()},
+                  lse_tol_rel_to_max_plain=FA_TOL_LSE)
+    if bf16:
+        fields.update(rtol=FA_RTOL_BF16, atol_rel_to_max_plain=FA_ATOL_BF16,
+                      elementwise_limit_use={k: e[2] for k, e in errs.items()
+                                             if e[2] is not None})
+    else:
+        fields.update(tol_rel_to_max_plain=FA_TOL_F32)
+    return fields
+
+
+def flash_kernel_checks(torch, fa, ref):
+    """Phase 10: ``flash_fwd`` and ``flash_bwd`` against their plain
+    versions at StarCoder2-3B's attention in the training cell (batch 4 x
+    4,096, 24 heads over 2 KV heads of 128, bf16, causal; q a (B, T, KV,
+    G, hd) view of the model's (B, T, H, hd)), the backward from the
+    kernel's o and lse, two backward launches bitwise equal, each bf16
+    element within its own bound; then the same shape in fp32, one
+    non-causal, one G = 1 and one ragged case, and the forward with a
+    query offset at head_dim 64.  Device, call, plain and library times
+    beside the bound at the cell's shape."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    rows = []
+
+    def operands(B, T, KV, G, dtype):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        q = rnd(B, T, KV * G, FA_HD).view(B, T, KV, G, FA_HD)
+        return q, rnd(B, T, KV, FA_HD), rnd(B, T, KV, FA_HD), rnd(
+            B, T, KV, G, FA_HD)
+
+    def check(label, B, T, KV, G, dtype, causal, timed=False):
+        q, k, v, do = operands(B, T, KV, G, dtype)
+
+        def fwd():
+            return fa.flash_fwd(q, k, v, causal=causal)
+
+        o, lse = fwd()
+
+        def bwd():
+            return fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+
+        grads, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"{label}: two flash_bwd launches differ")
+        o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=causal)
+        grads_p = ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        bf16 = dtype == torch.bfloat16
+        pairs = dict(o=(o, o_p), **{n: (g, gp) for n, g, gp in zip(
+            ("dq", "dk", "dv"), grads, grads_p)})
+        errs = _flash_errs(label, pairs, lse, lse_p, bf16)
+        del o_p, lse_p, grads_p, again, pairs
+        dtype_name = str(dtype).removeprefix("torch.")
+        row = dict(shape=label, B=B, T=T, H=KV * G, KV=KV, hd=FA_HD,
+                   dtype=dtype_name, causal=causal,
+                   **_flash_err_fields(errs, bf16),
+                   bitwise_two_bwd_launches=True, ok=True)
+        if timed:
+            H, es = KV * G, q.element_size()
+            big, small = B * T * H * FA_HD, B * T * KV * FA_HD
+            # fwd: q, k, v in, o and lse out; bwd: q, k, v, o, do, lse in,
+            # dq, dk, dv out (delta is computed inside the call)
+            f_bytes = (2 * big + 2 * small) * es + B * T * H * 4
+            b_bytes = (4 * big + 4 * small) * es + B * T * H * 4
+            qt, kt, vt = (t.transpose(1, 2) for t in (
+                q.reshape(B, T, H, FA_HD), k, v))
+            qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+            o_lib = F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal, enable_gqa=True)
+            do_lib = do.reshape(B, T, H, FA_HD).transpose(1, 2)
+
+            def lib_bwd():
+                return torch.autograd.grad(o_lib, (qg, kg, vg), do_lib,
+                                           retain_graph=True)
+
+            for name, kern, plain, lib, products, nbytes in (
+                    ("fwd", fwd, lambda: ref.flash_fwd_ref(
+                        q, k, v, causal=causal), lib_fwd, 2, f_bytes),
+                    ("bwd", bwd, lambda: ref.flash_bwd_ref(
+                        q, k, v, o, lse, do, causal=causal), lib_bwd, 5,
+                     b_bytes)):
+                row[f"{name}_kernel_ms"] = _device_ms(kern, per_graph=2,
+                                                      reps=3)
+                row[f"{name}_kernel_call_ms"] = _call_ms(kern, reps=5)
+                row[f"{name}_plain_ms"] = _call_ms(plain, reps=3)
+                row[f"{name}_library_ms"] = _call_ms(lib, reps=5)
+                (row[f"{name}_bound_ms"],
+                 row[f"{name}_bound_by"]) = _attn_bound(
+                    B, T, H, KV, FA_HD, causal, dtype_name, products, nbytes)
+            del o_lib
+        rows.append(row)
+        print("flash-check " + json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    check(f"cell B={FA_B} T={FA_T} KV={FA_KV} G={FA_G} bf16 causal", FA_B,
+          FA_T, FA_KV, FA_G, bf16, True, timed=True)
+    check(f"cell B={FA_B} T={FA_T} KV={FA_KV} G={FA_G} fp32 causal", FA_B,
+          FA_T, FA_KV, FA_G, f32, True)
+    check("bf16 non-causal T=2048", 1, 2048, FA_KV, FA_G, bf16, False)
+    check("G=1 bf16 causal T=2048 (8 heads of their own)", 1, 2048, 8, 1,
+          bf16, True)
+    check("ragged T=1000 bf16 causal", 2, 1000, FA_KV, FA_G, bf16, True)
+
+    # queries at q_offset + t over a longer key row, head_dim 64: the
+    # forward only (the backward, as in JAX, takes no offset)
+    B, Tq, Tk, KV, G, hd, off = 1, 1024, 2048, 2, 4, 64, 1024
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(bf16)
+
+    q, k, v = rnd(B, Tq, KV, G, hd), rnd(B, Tk, KV, hd), rnd(B, Tk, KV, hd)
+    o, lse = fa.flash_fwd(q, k, v, causal=True, bq=256, q_offset=off)
+    o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=True, q_offset=off)
+    label = f"q_offset={off} Tq={Tq} Tk={Tk} hd={hd} bf16 causal forward"
+    errs = _flash_errs(label, dict(o=(o, o_p)), lse, lse_p, True)
+    row = dict(shape=label, B=B, T=Tq, Tk=Tk, H=KV * G, KV=KV, hd=hd,
+               dtype="bfloat16", causal=True, q_offset=off,
+               **_flash_err_fields(errs, True), ok=True)
+    rows.append(row)
+    print("flash-check " + json.dumps(row), flush=True)
+    return rows
+
+
+def _lm_model(torch, cfg, init_model, seed):
+    """StarCoder2 from a seed with random non-zero biases and norm
+    parameters (zeros and ones at init would leave those paths
+    untested)."""
+    model = init_model(cfg, seed=seed, device=DEVICE)
+    gen = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() > 2 or (p.dim() == 2 and "dense_layers" not in name):
+                continue  # projections and the embedding keep their init
+            noise = 0.1 * torch.randn(p.shape, generator=gen)
+            p.copy_(p + noise.to(p.device, p.dtype))
+    return model
+
+
+def lm_grad_check(torch, configs, init_model, synthetic, losses, fa):
+    """Phase 11: the whole StarCoder2-3B gradient at the full widths (an
+    fp32 copy of the config cut to LM_GRAD_LAYERS layers, remat on) at
+    batch 2 x 512: the loss and all 19 gradients through the flash
+    kernels against autograd over the plain attention on the card, TF32
+    off."""
+    import dataclasses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("starcoder2-3b"),
+                              n_layers=LM_GRAD_LAYERS, dtype="float32",
+                              attn_impl="flash")
+    model = _lm_model(torch, cfg, init_model, seed=51)
+    batch = _batch(torch, synthetic, cfg, LM_GRAD_BATCH, LM_GRAD_SEQ, 52)
+
+    def run(attn_impl):
+        def logits(tokens):
+            model.cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+            return model(tokens)
+        return logits
+
+    L = cfg.n_layers
+    return _model_grad_check(
+        torch, losses, "starcoder2", cfg, model, batch, run("flash"),
+        run("chunked"), (fa.flash_fwd, fa.flash_bwd), (2 * L, L),
+        "forward and remat recompute; backward", 19)
+
+
+def _lm_argv(steps):
+    return ["--arch", "starcoder2-3b", "--attn-impl", "flash", "--steps",
+            str(steps), "--batch", str(LM_BATCH), "--seq", str(LM_SEQ)]
+
+
+def lm_train_check(torch, np, train, fa, n_layers):
+    """Phase 12: train the full StarCoder2-3B through the launcher's own
+    entry point at batch 4 x 4,096 for LM_STEPS steps: every loss and
+    gradient norm finite (no step skipped), ``flash_fwd`` launched 2 x 30
+    times a step (forward, remat recompute) and ``flash_bwd`` 30 times,
+    peak device memory under LM_MEMORY_LIMIT_GB."""
+    torch.cuda.empty_cache()
+    return _train_check(np, train, "starcoder2", _lm_argv(LM_STEPS),
+                        LM_STEPS, (fa.flash_fwd, fa.flash_bwd),
+                        (2 * n_layers, n_layers), LM_MEMORY_LIMIT_GB)
+
+
+def lm_profile(torch, train):
+    """Phase 12, second part: LM_PROFILE_STEPS more steps under
+    ``torch.profiler``: device time per step of the flash kernels, of the
+    matrix products (``aten::mm``/``addmm``: the projections, the
+    unembedding and their gradients, bf16), of everything else, and the
+    device's idle time against the steps' host-clock time.  The window
+    also holds the model's upload before the first step (host-to-device
+    copies, outside the steps' time): it is reported apart."""
+    torch.cuda.empty_cache()
+    n = LM_PROFILE_STEPS
+    summary, kernels, by_op = _profile_steps(
+        torch, train, _lm_argv(n), n,
+        ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+    step_ms = 1e3 * sum(summary["step_s"]) / n
+    upload = sum(k["ms_per_step"] for k in kernels
+                 if k["name"].startswith("Memcpy HtoD"))
+    busy = sum(k["ms_per_step"] for k in kernels) - upload
+    ours = sum(k["ms_per_step"] for k in kernels if k["port"])
+    fwd_ms = sum(k["ms_per_step"] for k in kernels
+                 if "flash_fwd_kernel" in k["name"])
+    mm = sum(by_op.get(k, 0.0) for k in ("aten::mm", "aten::addmm"))
+    stats = dict(steps=n, traced_step_ms=step_ms,
+                 upload_ms_per_step=upload,
+                 device_busy_ms_per_step=busy,
+                 flash_kernels_ms_per_step=ours,
+                 flash_fwd_ms_per_step=fwd_ms,
+                 flash_bwd_ms_per_step=ours - fwd_ms,
+                 matmuls_ms_per_step=mm,
+                 other_device_ms_per_step=busy - ours - mm,
+                 idle_ms_per_step=step_ms - busy,
+                 device_busy_share=busy / step_ms if step_ms else None,
+                 kernel_names=len(kernels), top=kernels[:15])
+    print("starcoder2-profile " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _build_all(conv1d_brgemm, flash_attention, build):
+    """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' register and spill lines."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1078,14 +1424,16 @@ def _build_all(conv1d_brgemm, build):
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         t0 = time.perf_counter()
         futs = {name: pool.submit(timed, fn) for name, fn in
                 (("conv1d_fwd", conv1d_brgemm._lib),
                  ("conv1d_bwd_weight", conv1d_brgemm._bwd_lib),
                  ("depthwise_conv1d_fwd", conv1d_brgemm._dw_lib),
                  ("depthwise_conv1d_bwd_weight",
-                  conv1d_brgemm._dw_bwd_lib))}
+                  conv1d_brgemm._dw_bwd_lib),
+                 ("flash_fwd", flash_attention._fwd_lib),
+                 ("flash_bwd", flash_attention._bwd_lib))}
         each = {name: f.result() for name, f in futs.items()}
         total = time.perf_counter() - t0
     ptxas = {}
@@ -1110,7 +1458,8 @@ def main(argv=None) -> int:
     from repro_torch import configs
     from repro_torch.core import blocks
     from repro_torch.data import synthetic
-    from repro_torch.kernels import build, conv1d_brgemm, ops, ref
+    from repro_torch.kernels import (build, conv1d_brgemm, flash_attention,
+                                     ops, ref)
     from repro_torch.kernels import epilogue as ep
     from repro_torch.launch import serve, train
     from repro_torch.models import init_model
@@ -1121,8 +1470,9 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; nvidia-smi: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    build_s, build_each, ptxas = _build_all(conv1d_brgemm, build)
-    print(f"built the four kernels in {build_s:.1f} s (" + ", ".join(
+    build_s, build_each, ptxas = _build_all(conv1d_brgemm, flash_attention,
+                                            build)
+    print(f"built the six kernels in {build_s:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in build_each.items()) + ")", flush=True)
     for name, lines in ptxas.items():
         for ln in lines:
@@ -1141,6 +1491,12 @@ def main(argv=None) -> int:
     m2_layers = configs.get("mamba2-370m").n_layers
     m2_train = mamba2_train_check(torch, np, train, conv1d_brgemm, m2_layers)
     m2_profile = mamba2_profile(torch, train)
+    fa_rows = flash_kernel_checks(torch, flash_attention, ref)
+    lm_grad = lm_grad_check(torch, configs, init_model, synthetic, losses,
+                            flash_attention)
+    lm_layers = configs.get("starcoder2-3b").n_layers
+    lm_train = lm_train_check(torch, np, train, flash_attention, lm_layers)
+    lm_prof = lm_profile(torch, train)
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     # device time of the 25 kernels of one stream step, from the per-layer
@@ -1248,13 +1604,14 @@ def main(argv=None) -> int:
         name="depthwise_conv1d_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/depthwise_conv1d_fwd.cu",
         replaces="src/repro/kernels/conv1d_brgemm.py:843",
-        launches=m2_train["depthwise_fwd_launches"],
+        launches=m2_train["launches"]["depthwise_conv1d_fwd"],
         max_abs_err=max(r["max_abs_err"] for r in dw_rows
                         if r["pass_"] in ("fwd", "bwd_data")),
         ms=dw["fwd"]["kernel_ms"], plain_ms=dw["fwd"]["plain_ms"],
         bound_ms=dw["fwd"]["bound_ms"], bound_by=dw["fwd"]["bound_by"],
         library_ms=dw["fwd"]["library_ms"], shape=dw["fwd"]["shape"],
-        launches_per_step=m2_train["fwd_launches_per_step"],
+        launches_per_step=m2_train["launches_per_step"][
+            "depthwise_conv1d_fwd"],
         bwd_data={k: dw["bwd_data"][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err")})
@@ -1262,7 +1619,7 @@ def main(argv=None) -> int:
         name="depthwise_conv1d_bwd_weight", route="cuda",
         source="src/repro_torch/kernels/csrc/depthwise_conv1d_bwd_weight.cu",
         replaces="src/repro/kernels/conv1d_brgemm.py:998",
-        launches=m2_train["depthwise_bwd_weight_launches"],
+        launches=m2_train["launches"]["depthwise_conv1d_bwd_weight"],
         max_abs_err=max(r["max_abs_err"] for r in dw_rows
                         if r["pass_"] == "bwd_weight"),
         ms=dw["bwd_weight"]["kernel_ms"],
@@ -1271,8 +1628,45 @@ def main(argv=None) -> int:
         bound_by=dw["bwd_weight"]["bound_by"],
         library_ms=dw["bwd_weight"]["library_ms"],
         shape=dw["bwd_weight"]["shape"],
-        launches_per_step=m2_train["bwd_weight_launches_per_step"])
-    kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry]
+        launches_per_step=m2_train["launches_per_step"][
+            "depthwise_conv1d_bwd_weight"])
+    # the flash pair: times at the cell's attention shape, launches from
+    # the StarCoder2 training run, and the device time of one step's
+    cell = fa_rows[0]
+    lm_train.update(
+        step_flash_fwd_kernel_ms=2 * lm_layers * cell["fwd_kernel_ms"],
+        step_flash_bwd_kernel_ms=lm_layers * cell["bwd_kernel_ms"],
+        step_flash_bound_ms=lm_layers * (2 * cell["fwd_bound_ms"]
+                                         + cell["bwd_bound_ms"]))
+    lm_train["step_flash_kernel_ms"] = (lm_train["step_flash_fwd_kernel_ms"]
+                                        + lm_train["step_flash_bwd_kernel_ms"])
+    print(f"starcoder2 train step: flash kernels "
+          f"{lm_train['step_flash_kernel_ms']:.1f} ms of device time (bound "
+          f"{lm_train['step_flash_bound_ms']:.2f} ms), step p50 "
+          f"{lm_train['step_p50_ms']:.1f} ms, "
+          f"{lm_train['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{lm_train['peak_memory_gb']:.2f} GB", flush=True)
+    flash_entries = []
+    for name, line, pas, errs in (
+            ("flash_fwd", 60, "fwd", ("o", "lse")),
+            ("flash_bwd", 142, "bwd", ("dq", "dk", "dv"))):
+        flash_entries.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            launches=lm_train["launches"][name],
+            max_abs_err=max(r["max_abs_err"][e] for r in fa_rows
+                            for e in errs if e in r["max_abs_err"]),
+            max_rel_diff=max(r["max_rel_diff"][e] for r in fa_rows
+                             for e in errs if e in r["max_rel_diff"]),
+            ms=cell[f"{pas}_kernel_ms"], call_ms=cell[f"{pas}_kernel_call_ms"],
+            plain_ms=cell[f"{pas}_plain_ms"],
+            bound_ms=cell[f"{pas}_bound_ms"],
+            bound_by=cell[f"{pas}_bound_by"],
+            library_ms=cell[f"{pas}_library_ms"], shape=cell["shape"],
+            launches_per_step=lm_train["launches_per_step"][name]))
+    kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
+               *flash_entries]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1284,6 +1678,9 @@ def main(argv=None) -> int:
                            train=train_stats, train_profile=profile_stats,
                            dw_checks=dw_rows, mamba2_grad=m2_grad,
                            mamba2_train=m2_train, mamba2_profile=m2_profile,
+                           flash_checks=fa_rows, starcoder2_grad=lm_grad,
+                           starcoder2_train=lm_train,
+                           starcoder2_profile=lm_prof,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

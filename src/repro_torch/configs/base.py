@@ -2,9 +2,9 @@
 ``ModelConfig`` (``repro/configs/base.py``) that the ported families read,
 and its registry.
 
-The conv family (AtacWorks) and the SSM family (Mamba2) are ported.  The
-other families raise ``NotImplementedError`` that names the ROADMAP queue
-they wait in.
+The conv family (AtacWorks), the SSM family (Mamba2) and the dense
+transformers (StarCoder2, Qwen2, Qwen3) are ported.  The other families
+raise ``NotImplementedError`` that names the ROADMAP queue they wait in.
 """
 from __future__ import annotations
 
@@ -12,14 +12,13 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Literal, Optional
 
-Family = Literal["conv", "ssm"]
+Family = Literal["conv", "ssm", "dense"]
 
 # Architectures of the JAX package whose families the port does not have
-# yet (ROADMAP.md, queue A: the LM model zoo and the hybrid models).
+# yet (ROADMAP.md, queue A: MoE, MLA, VLM, hybrid and encoder-decoder).
 NOT_PORTED = (
-    "deepseek-v3-671b", "internvl2-2b", "moonshot-v1-16b-a3b", "qwen2-7b",
-    "qwen3-14b", "qwen3-8b", "starcoder2-3b", "whisper-large-v3",
-    "zamba2-7b",
+    "deepseek-v3-671b", "internvl2-2b", "moonshot-v1-16b-a3b",
+    "whisper-large-v3", "zamba2-7b",
 )
 
 
@@ -39,14 +38,26 @@ class SSMConfig:
 class ModelConfig:
     name: str
     family: Family
-    # language models (the SSM family)
+    # language models (the SSM and dense families)
     n_layers: int = 0
     d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
     vocab_size: int = 0
-    norm: str = "rmsnorm"        # only 'rmsnorm' is ported
+    # attention details
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    attn_out_bias: bool = False
+    rope_theta: float = 10000.0
+    norm: str = "rmsnorm"        # 'rmsnorm' | 'layernorm'
     norm_eps: float = 1e-6
+    mlp_act: str = "swiglu"      # 'swiglu' | 'gelu' (tanh form)
+    mlp_bias: bool = False
     tie_embeddings: bool = False
-    pos_embedding: str = "none"  # only 'none' is ported
+    pos_embedding: str = "rope"  # 'rope' | 'none' are ported
+    max_position: int = 1 << 20
     ssm: Optional[SSMConfig] = None
     # conv nets (AtacWorks)
     conv_channels: int = 0
@@ -56,6 +67,10 @@ class ModelConfig:
     dtype: str = "float32"
     remat: bool = True
     remat_policy: str = "nothing"  # only 'nothing' is ported
+    attn_chunk: int = 256        # q-chunk of the chunked causal attention
+    # attention: 'chunked' (plain PyTorch, the (Tq, Tk) scores per q-chunk)
+    # or 'flash' (the hand-written kernels, kernels/flash_attention.py)
+    attn_impl: str = "chunked"
     # chunk of the streamed cross-entropy (0: the full (B, T, V) logits);
     # only 0 is ported
     xent_chunk: int = 0
@@ -83,9 +98,10 @@ def get(name: str) -> ModelConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported to repro_torch yet: only the conv "
-            "family (atacworks, atacworks-bf16) and the SSM family "
-            "(mamba2-370m) are; the other families wait in ROADMAP.md "
-            "queue A")
+            "family (atacworks, atacworks-bf16), the SSM family "
+            "(mamba2-370m) and the dense transformers (starcoder2-3b, "
+            "qwen2-7b, qwen3-8b, qwen3-14b) are; the other families wait "
+            "in ROADMAP.md queue A")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {names()}")
     return _REGISTRY[name]
@@ -98,9 +114,10 @@ def names() -> list[str]:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests, fp32.  Conv: C <= 8,
-    S <= 9 (the stack keeps its 25 layers).  SSM: the JAX package's
-    reduction (2 layers, d_model 64, vocab <= 256, d_state 16, head_dim 8,
-    chunk 16, remat off)."""
+    S <= 9 (the stack keeps its 25 layers).  SSM and dense: the JAX
+    package's reduction (2 layers, d_model 64, vocab <= 256, remat off;
+    SSM: d_state 16, head_dim 8, chunk 16; dense: 4 heads over <= 2 KV
+    heads of 16, d_ff 128, max_position 4096, attn_chunk 64)."""
     small: dict = dict(dtype="float32")
     if cfg.family == "conv":
         small.update(conv_channels=min(cfg.conv_channels, 8),
@@ -110,9 +127,15 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                      vocab_size=min(cfg.vocab_size, 256), remat=False,
                      ssm=dataclasses.replace(cfg.ssm, d_state=16,
                                              head_dim=8, chunk=16))
+    if cfg.family == "dense":
+        small.update(n_layers=min(cfg.n_layers, 2), d_model=64, n_heads=4,
+                     n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
+                     d_ff=128, vocab_size=min(cfg.vocab_size, 256),
+                     max_position=4096, remat=False, attn_chunk=64)
     small.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)
 
 
 def _load_all() -> None:
-    from . import atacworks, mamba2_370m  # noqa: F401  (register on import)
+    from . import (atacworks, mamba2_370m, qwen2_7b,  # noqa: F401
+                   qwen3_8b, qwen3_14b, starcoder2_3b)  # (register on import)

@@ -1,0 +1,23 @@
+"""Qwen3-8B.  Same values as ``repro/configs/qwen3_8b.py``.
+
+36 layers, d_model 4096, 32 query heads over 8 KV heads of 128, d_ff
+12288, vocab 151,936, per-head RMS norm on q and k, RoPE (theta 1e6),
+SwiGLU, bf16.
+"""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=12288,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    dtype="bfloat16",
+    source="hf:Qwen/Qwen3-8B",
+))

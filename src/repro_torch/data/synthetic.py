@@ -1,5 +1,5 @@
-"""Synthetic data of the conv and SSM families (counterpart of the conv and
-LM parts of ``repro/data/synthetic.py``).
+"""Synthetic data of the conv, SSM and dense families (counterpart of the
+conv and LM parts of ``repro/data/synthetic.py``).
 
 The real ATAC-seq data behind the paper's end-to-end experiments is
 access-controlled, so training runs on synthetic coverage tracks with
@@ -61,11 +61,12 @@ def make_batch(cfg, batch: int, seq: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     if cfg.family == "conv":
         return atacseq_batch(rng, batch, width=seq)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "dense"):
         return lm_batch(rng, cfg, batch, seq)
     raise NotImplementedError(
         f"synthetic {cfg.family!r} batches are not ported to repro_torch "
-        "yet: only the conv and ssm families' are (ROADMAP.md queue A)")
+        "yet: only the conv, ssm and dense families' are (ROADMAP.md "
+        "queue A)")
 
 
 class SyntheticLoader:

@@ -51,8 +51,10 @@ def _digest(sources: tuple[Path, ...]) -> str:
 def build(name: str, sources: tuple[str, ...]) -> Path:
     """Compile ``sources`` (file names under ``csrc/``) into one shared
     library unless a build of the same sources and flags exists; returns
-    its path.  ``nvcc``'s output, with ptxas' register and spill report, is
-    kept beside it as ``<name>-<hash>.log``."""
+    its path.  Headers (``.cuh``) among ``sources`` enter the hash and are
+    included by the ``.cu`` files, not compiled.  ``nvcc``'s output, with
+    ptxas' register and spill report, is kept beside it as
+    ``<name>-<hash>.log``."""
     srcs = tuple(CSRC / s for s in sources)
     out = BUILD_DIR / f"{name}-{_digest(srcs)}.so"
     if out.exists():
@@ -63,7 +65,8 @@ def build(name: str, sources: tuple[str, ...]) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *(str(s) for s in srcs if s.suffix == ".cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = out.with_suffix(".log")
         log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)

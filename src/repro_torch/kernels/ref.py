@@ -7,7 +7,10 @@ for a tensor that lies on the CPU: the fused forward (``conv1d_fwd.cu``),
 the data gradient (Alg. 3, the same kernel on the flipped weights) and the
 weight and bias gradients (Alg. 4, ``conv1d_bwd_weight.cu``); and the
 depthwise variants (the Mamba2 causal conv: ``depthwise_conv1d_fwd.cu``,
-``depthwise_conv1d_bwd_weight.cu``), whose weights are ``(S, C)``.
+``depthwise_conv1d_bwd_weight.cu``), whose weights are ``(S, C)``; and
+flash attention's forward and backward (``flash_fwd_ref``,
+``flash_bwd_ref``: ``flash_fwd.cu``, ``flash_bwd.cu``), in the JAX
+kernels' layout q (B, Tq, KV, G, hd), k and v (B, Tk, KV, hd).
 
 Conventions (the paper's layout, kept from the JAX package):
   x   : (N, C, W)   input
@@ -183,3 +186,79 @@ def depthwise_conv1d_bwd_weight_ref(x: torch.Tensor, gout: torch.Tensor, *,
     return torch.stack([
         (g32 * x32[:, :, s * dilation:s * dilation + Q]).sum(dim=(0, 2))
         for s in range(S)])
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (repro/kernels/flash_attention.py, term by term)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # the masked score: exp(NEG_INF - m) is exactly 0
+
+
+def _causal_mask(Tq: int, Tk: int, q_offset: int, device) -> torch.Tensor:
+    q_pos = torch.arange(Tq, device=device) + q_offset
+    return q_pos[:, None] >= torch.arange(Tk, device=device)[None, :]
+
+
+def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, q_offset: int = 0):
+    """q (B, Tq, KV, G, hd), k and v (B, Tk, KV, hd) -> (o in q's dtype,
+    lse fp32 (B, Tq, KV, G)): ``_fwd_kernel`` of the JAX package for each
+    (batch, KV head), all in fp32 from fp32-cast inputs.  ``q_offset``
+    shifts the query positions of the causal mask."""
+    B, Tq, KV, G, hd = q.shape
+    Tk = k.shape[1]
+    scale = hd ** -0.5
+    mask = _causal_mask(Tq, Tk, q_offset, q.device)[:, None, :]
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Tq, KV, G), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for h in range(KV):
+            qf = q[b, :, h].float() * scale                 # (Tq, G, hd)
+            s = torch.einsum("qgh,kh->qgk", qf, k[b, :, h].float())
+            if causal:
+                s = torch.where(mask, s, NEG_INF)
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(-1, keepdim=True)
+            o[b, :, h] = torch.einsum("qgk,kh->qgh", p / l,
+                                      v[b, :, h].float()).to(q.dtype)
+            lse[b, :, h] = (m + torch.log(l))[..., 0]
+    return o, lse
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * o)`` in fp32 from the stored o in its own dtype:
+    (B, Tq, KV, G, hd) -> (B, Tq, KV, G)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
+    """The gradient of flash attention -> (dq, dk, dv) in q's, k's and v's
+    dtypes: ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` of the JAX package
+    for each (batch, KV head), P recomputed from lse, dk and dv summed over
+    the G heads of the group."""
+    B, Tq, KV, G, hd = q.shape
+    Tk = k.shape[1]
+    scale = hd ** -0.5
+    mask = _causal_mask(Tq, Tk, 0, q.device)[:, None, :]
+    delta = flash_delta(o, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for b in range(B):
+        for h in range(KV):
+            qf = q[b, :, h].float() * scale
+            kf, vf = k[b, :, h].float(), v[b, :, h].float()
+            dof = do[b, :, h].float()
+            s = torch.einsum("qgh,kh->qgk", qf, kf)
+            if causal:
+                s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - lse[b, :, h][..., None])
+            dp = torch.einsum("qgh,kh->qgk", dof, vf)
+            ds = p * (dp - delta[b, :, h][..., None])
+            dq[b, :, h] = (torch.einsum("qgk,kh->qgh", ds, kf)
+                           * scale).to(q.dtype)
+            dv[b, :, h] = torch.einsum("qgk,qgh->kh", p, dof).to(v.dtype)
+            dk[b, :, h] = torch.einsum("qgk,qgh->kh", ds, qf).to(k.dtype)
+    return dq, dk, dv

@@ -15,6 +15,15 @@ trains the full Mamba2-370M (48 layers, bf16, remat on) on uniform random
 tokens, batch 8 x 2,048 (the Mamba-2 paper's pretraining context), its
 causal conv through the hand-written depthwise kernels.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
+        --attn-impl flash --steps 8 --batch 4 --seq 4096
+
+trains the full StarCoder2-3B (30 layers, bf16, remat on) on uniform
+random tokens at its 4,096-token pretraining context, attention through
+the hand-written flash kernels (``--attn-impl`` sets the config's
+``attn_impl``, as ``dataclasses.replace(cfg, attn_impl="flash")`` does in
+the JAX package; the configs default to ``chunked``, plain PyTorch).
+
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
 it raises.  Each step prints its loss, gradient norm and time (to a
@@ -32,6 +41,7 @@ monitors, telemetry and meshes wait in ROADMAP.md queue A.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -55,7 +65,11 @@ def _parse_args(argv):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (conv: C=8, S=9; "
-                         "ssm: 2 layers, d_model 64)")
+                         "ssm and dense: 2 layers, d_model 64)")
+    ap.add_argument("--attn-impl", choices=("chunked", "flash"), default=None,
+                    help="attention of a dense model: 'chunked' (plain "
+                         "PyTorch) or 'flash' (the flash kernels); default: "
+                         "the config's")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--steps", type=int, default=20)
@@ -82,6 +96,8 @@ def run(argv=None) -> dict:
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     device = require_device(args.device)
     if args.batch % args.accum:
         raise SystemExit(f"--batch {args.batch} must divide by --accum "
@@ -99,7 +115,8 @@ def run(argv=None) -> dict:
                               warmup_steps=max(2, args.steps // 10),
                               total_steps=args.steps)
     print(f"arch={cfg.name} device={device} batch={args.batch} "
-          f"seq={args.seq} accum={args.accum}")
+          f"seq={args.seq} accum={args.accum}"
+          + (f" attn_impl={cfg.attn_impl}" if cfg.family == "dense" else ""))
 
     losses, gnorms, dts, skipped = [], [], [], 0
     loader = SyntheticLoader(cfg, args.batch, args.seq, device=device,
@@ -127,6 +144,7 @@ def run(argv=None) -> dict:
         ckpt.save(state, args.steps)
 
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
+               "attn_impl": cfg.attn_impl,
                "first_step": start, "global_batch": args.batch,
                "seq": args.seq, "accum": args.accum, "losses": losses,
                "grad_norms": gnorms, "skipped_steps": skipped,

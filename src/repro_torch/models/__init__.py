@@ -2,8 +2,9 @@
 ``get_model(cfg)`` returns the module that builds the config's family, and
 ``init_model`` builds the model of any ported family from a seed.
 
-Only the SSM family (Mamba2) is ported among the language models; the conv
-family's model is ``repro_torch.core.blocks``.
+Among the language models the SSM family (Mamba2) and the dense
+transformers are ported; the conv family's model is
+``repro_torch.core.blocks``.
 """
 from __future__ import annotations
 
@@ -14,10 +15,13 @@ def get_model(cfg):
     if cfg.family == "ssm":
         from repro_torch.models import mamba2
         return mamba2
+    if cfg.family == "dense":
+        from repro_torch.models import transformer
+        return transformer
     raise NotImplementedError(
         f"the {cfg.family!r} family's model is not ported to repro_torch "
-        "yet: among the language models only the ssm family (mamba2) is "
-        "(ROADMAP.md queue A)")
+        "yet: among the language models only the ssm (mamba2) and dense "
+        "(transformer) families are (ROADMAP.md queue A)")
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu"):

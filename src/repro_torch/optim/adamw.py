@@ -9,8 +9,12 @@ The decay rule reads each tensor's ``ndim``, which is the JAX leaf's: the
 port keeps the JAX tree's shapes, Mamba2's per-layer vectors included
 (``layers.mixer.A_log`` is (L, H), so it decays as in JAX, and
 ``final_norm.scale`` (D,) does not).
-``update`` is functional: it returns new tensors and changes nothing it
-is given, so a train step can keep the old values where a step is skipped.
+
+``update_`` updates the parameters and moments in place, a leaf at a time
+and a large leaf a slice of its leading (layer) axis at a time, so no
+whole copy of the state is ever live: the train step of a 3 B parameter
+model holds its fp32 moments (24 GB) once.  A step that ``finite`` marks
+as skipped leaves every tensor as it was (``torch.where``, no host sync).
 """
 from __future__ import annotations
 
@@ -22,6 +26,10 @@ import torch
 B1, B2, EPS = 0.9, 0.95, 1e-8
 WEIGHT_DECAY = 0.1
 GRAD_CLIP = 1.0  # global L2 norm
+# leaves above this many elements are updated a slice of their leading
+# axis at a time (the stacked (30, 3072, 12288) MLP leaf of StarCoder2-3B
+# would be 4.5 GB per fp32 temporary)
+SLICE_ELEMENTS = 1 << 27
 
 
 class AdamWState(NamedTuple):
@@ -40,29 +48,49 @@ def init(params: dict[str, torch.Tensor]) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=device))
 
 
-@torch.no_grad()
-def update(grads: dict[str, torch.Tensor], state: AdamWState,
-           params: dict[str, torch.Tensor], *, lr):
-    """Returns ``(new_params, new_state, {"grad_norm"})``.  ``lr`` may be a
-    number or a 0-d tensor; ``grad_norm`` is the global L2 norm of the
-    gradients before clipping (a 0-d fp32 tensor)."""
-    g32 = {k: g.float() for k, g in grads.items()}
-    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in g32.values()))
-    scale = torch.where(gnorm > GRAD_CLIP, GRAD_CLIP / (gnorm + 1e-9),
-                        torch.ones_like(gnorm))
-    g32 = {k: g * scale for k, g in g32.items()}
+def _slices(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``t`` itself, or views of at most ``SLICE_ELEMENTS`` elements along
+    its leading axis."""
+    if t.numel() <= SLICE_ELEMENTS or t.dim() < 2:
+        return (t,)
+    rows = max(1, SLICE_ELEMENTS // (t.numel() // t.shape[0]))
+    return t.split(rows, dim=0)
 
+
+@torch.no_grad()
+def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of the gradients in fp32 (a 0-d tensor)."""
+    return torch.sqrt(sum(torch.sum(g * g) for t in grads.values()
+                          for g in (s.float() for s in _slices(t))))
+
+
+@torch.no_grad()
+def update_(grads: dict[str, torch.Tensor], state: AdamWState,
+            params: dict[str, torch.Tensor], *, lr, grad_norm: torch.Tensor,
+            finite: torch.Tensor) -> None:
+    """One AdamW step in place on ``params``, ``state.m``, ``state.v`` and
+    ``state.count``, from the gradients and their global norm
+    ``grad_norm`` (clipped to ``GRAD_CLIP``).  Where the 0-d bool
+    ``finite`` is false every tensor keeps its value.  ``lr`` may be a
+    number or a 0-d tensor."""
+    scale = torch.where(grad_norm > GRAD_CLIP, GRAD_CLIP / (grad_norm + 1e-9),
+                        torch.ones_like(grad_norm))
     count = state.count + 1
     b1c = 1 - B1 ** count.float()
     b2c = 1 - B2 ** count.float()
-    new_m = {k: B1 * state.m[k] + (1 - B1) * g for k, g in g32.items()}
-    new_v = {k: B2 * state.v[k] + (1 - B2) * (g * g) for k, g in g32.items()}
+    for k, p in params.items():
+        decay = p.ndim >= 2  # decay matrices only (standard practice)
+        for ps, gs, ms, vs in zip(_slices(p), _slices(grads[k]),
+                                  _slices(state.m[k]), _slices(state.v[k])):
+            g = gs.float() * scale
+            m = B1 * ms + (1 - B1) * g
+            v = B2 * vs + (1 - B2) * (g * g)
+            upd = (m / b1c) / (torch.sqrt(v / b2c) + EPS)
+            if decay:
+                upd = upd + WEIGHT_DECAY * ps.float()
+            new = (ps.float() - lr * upd).to(ps.dtype)
+            ms.copy_(torch.where(finite, m, ms))
+            vs.copy_(torch.where(finite, v, vs))
+            ps.copy_(torch.where(finite, new, ps))
+    state.count.copy_(torch.where(finite, count, state.count))
 
-    def step(p, m, v):
-        upd = (m / b1c) / (torch.sqrt(v / b2c) + EPS)
-        if p.ndim >= 2:  # decay matrices only (standard practice)
-            upd = upd + WEIGHT_DECAY * p.float()
-        return (p.float() - lr * upd).to(p.dtype)
-
-    new_params = {k: step(p, new_m[k], new_v[k]) for k, p in params.items()}
-    return new_params, AdamWState(new_m, new_v, count), {"grad_norm": gnorm}

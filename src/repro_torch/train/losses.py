@@ -2,7 +2,7 @@
 
 Batch layouts:
   conv: ``{'noisy', 'clean', 'peaks'}``, each (B, W);
-  ssm:  ``{'tokens', 'labels'}``, each (B, T) int32.
+  ssm, dense:  ``{'tokens', 'labels'}``, each (B, T) int32.
 
 The other LM families' losses, and the streamed cross-entropy
 (``cfg.xent_chunk``), wait in ROADMAP.md queue A.
@@ -28,18 +28,21 @@ def make_loss_fn(cfg):
             return blocks.loss_fn(model, cfg, batch)
 
         return conv_loss
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "dense"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's loss is not ported to repro_torch "
-            "yet: only the conv and ssm families are (ROADMAP.md queue A)")
+            "yet: only the conv, ssm and dense families' are (ROADMAP.md "
+            "queue A)")
     if cfg.xent_chunk:
         raise NotImplementedError(
             "the streamed cross-entropy (xent_chunk > 0) is not ported to "
             "repro_torch yet (ROADMAP.md queue A)")
 
     def lm_loss(model, batch):
-        """Mean next-token NLL over the full fp32 logits; Mamba2 has no
-        auxiliary loss, so the total is the NLL."""
+        """Mean next-token NLL over the full fp32 logits.  JAX's total is
+        ``nll + AUX_WEIGHT * aux``, where aux is the MoE load-balance loss:
+        0 for Mamba2 and the dense transformers, so the total is the
+        NLL."""
         loss = softmax_xent(model(batch["tokens"]), batch["labels"])
         return loss, {"nll": loss}
 

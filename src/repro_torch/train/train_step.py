@@ -3,12 +3,13 @@ device): loss -> gradients (with microbatch accumulation) -> non-finite
 guard -> AdamW update.
 
 The JAX step is a pure function of an immutable state.  Here the state's
-model is an ``nn.Module`` and the step updates it in place: parameters are
-overwritten with their new values, and the moments, the count and the step
-counter are replaced.  Nothing in the step waits for the device: the
-learning rate comes from the step counter on the device, and a
-non-finite step is skipped with ``torch.where`` (old values kept), not
-with a host-side branch.  The step returns its metrics as 0-d tensors; the
+model is an ``nn.Module`` and the step updates it in place: the global
+gradient norm comes first, then ``adamw.update_`` overwrites the
+parameters, the moments and the count leaf by leaf (no whole copy of the
+state is live), and the step counter is replaced.  Nothing in the step
+waits for the device: the learning rate comes from the step counter on
+the device, and a non-finite loss or gradient norm skips the step with
+``torch.where`` (old values kept), not with a host-side branch.  The step returns its metrics as 0-d tensors; the
 caller decides when to read them.
 """
 from __future__ import annotations
@@ -76,26 +77,13 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
         lr = schedule.cosine_with_warmup(
             state.step, peak_lr=peak_lr, warmup_steps=warmup_steps,
             total_steps=total_steps)
-        old = dict(zip(names, params))
-        new, opt, metrics = adamw.update(dict(zip(names, grads)), state.opt,
-                                         old, lr=lr)
-        finite = torch.isfinite(metrics["grad_norm"]) & torch.isfinite(loss)
-
-        def keep(n, o):
-            return torch.where(finite, n, o)
-
-        new = {k: keep(new[k], old[k]) for k in names}
-        opt = adamw.AdamWState(
-            m={k: keep(opt.m[k], state.opt.m[k]) for k in names},
-            v={k: keep(opt.v[k], state.opt.v[k]) for k in names},
-            count=keep(opt.count, state.opt.count))
-        metrics["skipped"] = (~finite).float()
-        with torch.no_grad():
-            for k, p in old.items():
-                p.copy_(new[k])
-        state.opt = opt
+        grads = dict(zip(names, grads))
+        gnorm = adamw.global_norm(grads)
+        finite = torch.isfinite(gnorm) & torch.isfinite(loss)
+        adamw.update_(grads, state.opt, dict(zip(names, params)), lr=lr,
+                      grad_norm=gnorm, finite=finite)
         state.step = state.step + 1
-        metrics.update(loss=loss, lr=lr)
-        return state, metrics
+        return state, {"grad_norm": gnorm, "skipped": (~finite).float(),
+                       "loss": loss, "lr": lr}
 
     return train_step

@@ -289,6 +289,23 @@ def test_build_is_keyed_on_the_sources(monkeypatch, tmp_path):
     assert os.path.isdir(tmp_path / "out2")
 
 
+def test_build_hashes_headers_and_compiles_only_sources(monkeypatch,
+                                                       tmp_path):
+    """A header among the sources enters the library's hash and is not
+    handed to nvcc: the ``.cu`` files include it."""
+    args = tmp_path / "args"
+    nvcc = _fake_nvcc(tmp_path, f'echo "$@" > {args}\n'
+                      'while [ "$1" != "-o" ]; do shift; done\n'
+                      'echo lib > "$2"\n')
+    monkeypatch.setattr(build, "find_nvcc", lambda: nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    with_header = build.build("flash_fwd", ("flash_fwd.cu",
+                                            "flash_common.cuh"))
+    assert "flash_fwd.cu" in args.read_text()
+    assert "flash_common.cuh" not in args.read_text()
+    assert with_header != build.build("flash_fwd", ("flash_fwd.cu",))
+
+
 def test_ops_docstring_example_runs():
     import doctest
     res = doctest.testmod(ops, optionflags=doctest.ELLIPSIS)

@@ -421,9 +421,9 @@ def test_checkpoint_port_writes_jax_restores(cfgs, jparams, tmp_path):
 
 def test_other_lm_families_raise(cfgs):
     _, cfg = cfgs
-    dense = dataclasses.replace(cfg, family="dense")
+    moe = dataclasses.replace(cfg, family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.get_model(dense)
+        models.get_model(moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         losses.make_loss_fn(dataclasses.replace(cfg, xent_chunk=64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

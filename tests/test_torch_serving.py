@@ -87,12 +87,14 @@ def test_configs_match_jax():
         for f in ("name", "conv_channels", "conv_filter", "conv_dilation",
                   "dtype"):
             assert getattr(tr, f) == getattr(jr, f), (name, f)
-    assert configs.names() == ["atacworks", "atacworks-bf16", "mamba2-370m"]
+    assert configs.names() == ["atacworks", "atacworks-bf16", "mamba2-370m",
+                               "qwen2-7b", "qwen3-14b", "qwen3-8b",
+                               "starcoder2-3b"]
 
 
 def test_lm_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("qwen3-8b")
+        configs.get("deepseek-v3-671b")
     with pytest.raises(NotImplementedError):
         serve.main(["--arch", "mamba2-370m", "--device", "cpu"])
 
@@ -346,7 +348,9 @@ named = ["repro_torch.launch.train", "repro_torch.train.train_step",
          "repro_torch.optim.schedule", "repro_torch.data.synthetic",
          "repro_torch.checkpoint.checkpoint", "repro_torch.models",
          "repro_torch.models.common", "repro_torch.models.mamba2",
-         "repro_torch.configs.mamba2_370m"]
+         "repro_torch.configs.mamba2_370m", "repro_torch.models.transformer",
+         "repro_torch.kernels.flash_attention",
+         "repro_torch.configs.starcoder2_3b"]
 assert set(named) <= set(mods), sorted(set(named) - set(mods))
 for m in mods + named:
     importlib.import_module(m)
@@ -359,8 +363,9 @@ print(len(mods))
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Every module of the port (the training and Mamba2 slices' named) and
-    chip_smoke.py import without jax or any module of the JAX package."""
+    """Every module of the port (the training, Mamba2 and transformer
+    slices' named) and chip_smoke.py import without jax or any module of
+    the JAX package."""
     code = _HYGIENE.format(root=ROOT, src=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,

@@ -168,9 +168,9 @@ def test_loss_fn_of_other_families_raises(cfgs):
     import dataclasses
     _, cfg = cfgs
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.make_loss_fn(dataclasses.replace(cfg, family="dense"))
+        losses.make_loss_fn(dataclasses.replace(cfg, family="moe"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synthetic.make_batch(dataclasses.replace(cfg, family="dense"), 1, 8)
+        synthetic.make_batch(dataclasses.replace(cfg, family="moe"), 1, 8)
 
 
 @pytest.mark.parametrize("grad_scale", [0.01, 100.0], ids=["unclipped",
@@ -180,20 +180,22 @@ def test_adamw_matches_jax(grad_scale):
     shapes = {"a.w": (3, 4, 5), "a.b": (4,), "c.w": (2, 7)}
     params = {k: rng.standard_normal(s).astype(np.float32)
               for k, s in shapes.items()}
-    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
-    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    # copies: update_ writes in place, and jnp.asarray may alias numpy
+    tparams = {k: torch.tensor(v) for k, v in params.items()}
+    jp = {k: jnp.array(v) for k, v in params.items()}
     state, jstate = adamw.init(tparams), jadamw.init(jp)
     for step in range(3):
         grads = {k: (grad_scale * rng.standard_normal(s)).astype(np.float32)
                  for k, s in shapes.items()}
         lr = 1e-2 * (step + 1)
-        tparams, state, m = adamw.update(
-            {k: torch.from_numpy(v) for k, v in grads.items()}, state,
-            tparams, lr=lr)
+        tgrads = {k: torch.from_numpy(v) for k, v in grads.items()}
+        gnorm = adamw.global_norm(tgrads)
+        adamw.update_(tgrads, state, tparams, lr=lr, grad_norm=gnorm,
+                      finite=torch.isfinite(gnorm))
         jp, jstate, jm = jadamw.update(
             {k: jnp.asarray(v) for k, v in grads.items()}, jstate, jp, lr=lr)
-        np.testing.assert_allclose(m["grad_norm"].item(),
-                                   float(jm["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(gnorm.item(), float(jm["grad_norm"]),
+                                   rtol=1e-6)
         for k in shapes:
             for got, want in ((tparams[k], jp[k]), (state.m[k], jstate.m[k]),
                               (state.v[k], jstate.v[k])):
