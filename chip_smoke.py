@@ -6,7 +6,9 @@
 Phases (any failed check raises, so the run exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      build the six CUDA kernels' libraries from the checkout's sources, in
-     parallel and timed, with ptxas' registers and spills;
+     parallel and timed, with ptxas' registers, spills and warnings; count
+     the HGMMA (wgmma) instructions of each flash kernel in the libraries'
+     SASS (``cuobjdump -sass``): the bf16 kernels must have some;
   2. the kernel ``conv1d_fwd`` against its plain PyTorch version on the
      card at every layer shape of the serving path (stem 1->15, conv1,
      conv2 with residual, the two 15->1 heads), at the stream-step shape
@@ -72,11 +74,12 @@ Phases (any failed check raises, so the run exits non-zero):
   10. the flash kernels against their plain versions at StarCoder2-3B's
       attention in its training cell (batch 4 x 4,096, 24 heads over 2
       KV heads of 128, bf16, causal): o, lse, dq, dk, dv, two backward
-      launches bitwise equal; one fp32, one non-causal, one G = 1 and one
-      ragged (T = 1,000) case, and the forward with q_offset 1,024 over
-      2,048 keys at head_dim 64; device, call, plain and library
-      (``F.scaled_dot_product_attention``, a yardstick the port never
-      calls) times beside the bound;
+      launches bitwise equal; one fp32, one non-causal, one G = 1, one
+      ragged (T = 1,000) and one head_dim 64 case (forward and backward),
+      and the forward with q_offset 1,024 over 2,048 keys at head_dim 64;
+      device, call, plain and library (``F.scaled_dot_product_attention``,
+      a yardstick the port never calls) times beside the bound, and the
+      rate each kernel reaches (the bound's flops over its time);
   11. the whole StarCoder2-3B gradient: the full widths in an fp32 copy of
       the config cut to 2 layers (remat on), batch 2 x 512, TF32 off: the
       loss and all 19 gradients through the flash kernels against
@@ -1212,15 +1215,14 @@ def flash_kernel_checks(torch, fa, ref):
     gen = torch.Generator(device=DEVICE).manual_seed(41)
     rows = []
 
-    def operands(B, T, KV, G, dtype):
+    def operands(B, T, KV, G, hd, dtype):
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-        q = rnd(B, T, KV * G, FA_HD).view(B, T, KV, G, FA_HD)
-        return q, rnd(B, T, KV, FA_HD), rnd(B, T, KV, FA_HD), rnd(
-            B, T, KV, G, FA_HD)
+        q = rnd(B, T, KV * G, hd).view(B, T, KV, G, hd)
+        return q, rnd(B, T, KV, hd), rnd(B, T, KV, hd), rnd(B, T, KV, G, hd)
 
-    def check(label, B, T, KV, G, dtype, causal, timed=False):
-        q, k, v, do = operands(B, T, KV, G, dtype)
+    def check(label, B, T, KV, G, dtype, causal, timed=False, hd=FA_HD):
+        q, k, v, do = operands(B, T, KV, G, hd, dtype)
 
         def fwd():
             return fa.flash_fwd(q, k, v, causal=causal)
@@ -1242,19 +1244,19 @@ def flash_kernel_checks(torch, fa, ref):
         errs = _flash_errs(label, pairs, lse, lse_p, bf16)
         del o_p, lse_p, grads_p, again, pairs
         dtype_name = str(dtype).removeprefix("torch.")
-        row = dict(shape=label, B=B, T=T, H=KV * G, KV=KV, hd=FA_HD,
+        row = dict(shape=label, B=B, T=T, H=KV * G, KV=KV, hd=hd,
                    dtype=dtype_name, causal=causal,
                    **_flash_err_fields(errs, bf16),
                    bitwise_two_bwd_launches=True, ok=True)
         if timed:
             H, es = KV * G, q.element_size()
-            big, small = B * T * H * FA_HD, B * T * KV * FA_HD
+            big, small = B * T * H * hd, B * T * KV * hd
             # fwd: q, k, v in, o and lse out; bwd: q, k, v, o, do, lse in,
             # dq, dk, dv out (delta is computed inside the call)
             f_bytes = (2 * big + 2 * small) * es + B * T * H * 4
             b_bytes = (4 * big + 4 * small) * es + B * T * H * 4
             qt, kt, vt = (t.transpose(1, 2) for t in (
-                q.reshape(B, T, H, FA_HD), k, v))
+                q.reshape(B, T, H, hd), k, v))
             qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
 
             def lib_fwd():
@@ -1263,7 +1265,7 @@ def flash_kernel_checks(torch, fa, ref):
 
             o_lib = F.scaled_dot_product_attention(
                 qg, kg, vg, is_causal=causal, enable_gqa=True)
-            do_lib = do.reshape(B, T, H, FA_HD).transpose(1, 2)
+            do_lib = do.reshape(B, T, H, hd).transpose(1, 2)
 
             def lib_bwd():
                 return torch.autograd.grad(o_lib, (qg, kg, vg), do_lib,
@@ -1282,7 +1284,14 @@ def flash_kernel_checks(torch, fa, ref):
                 row[f"{name}_library_ms"] = _call_ms(lib, reps=5)
                 (row[f"{name}_bound_ms"],
                  row[f"{name}_bound_by"]) = _attn_bound(
-                    B, T, H, KV, FA_HD, causal, dtype_name, products, nbytes)
+                    B, T, H, KV, hd, causal, dtype_name, products, nbytes)
+                # the bound's flops over the kernel's time, and its share
+                # of the bound
+                n_pairs = T * (T + 1) // 2 if causal else T * T
+                row[f"{name}_tflops"] = (2.0 * products * B * H * hd * n_pairs
+                                         / row[f"{name}_kernel_ms"] / 1e9)
+                row[f"{name}_bound_share"] = (row[f"{name}_bound_ms"]
+                                              / row[f"{name}_kernel_ms"])
             del o_lib
         rows.append(row)
         print("flash-check " + json.dumps(row), flush=True)
@@ -1297,6 +1306,8 @@ def flash_kernel_checks(torch, fa, ref):
     check("G=1 bf16 causal T=2048 (8 heads of their own)", 1, 2048, 8, 1,
           bf16, True)
     check("ragged T=1000 bf16 causal", 2, 1000, FA_KV, FA_G, bf16, True)
+    check("hd=64 bf16 causal T=2048", 1, 2048, FA_KV, FA_G, bf16, True,
+          hd=64)
 
     # queries at q_offset + t over a longer key row, head_dim 64: the
     # forward only (the backward, as in JAX, takes no offset)
@@ -1390,14 +1401,14 @@ def lm_profile(torch, train):
     n = LM_PROFILE_STEPS
     summary, kernels, by_op = _profile_steps(
         torch, train, _lm_argv(n), n,
-        ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+        ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_"))
     step_ms = 1e3 * sum(summary["step_s"]) / n
     upload = sum(k["ms_per_step"] for k in kernels
                  if k["name"].startswith("Memcpy HtoD"))
     busy = sum(k["ms_per_step"] for k in kernels) - upload
     ours = sum(k["ms_per_step"] for k in kernels if k["port"])
     fwd_ms = sum(k["ms_per_step"] for k in kernels
-                 if "flash_fwd_kernel" in k["name"])
+                 if "flash_fwd_" in k["name"])
     mm = sum(by_op.get(k, 0.0) for k in ("aten::mm", "aten::addmm"))
     stats = dict(steps=n, traced_step_ms=step_ms,
                  upload_ms_per_step=upload,
@@ -1416,7 +1427,8 @@ def lm_profile(torch, train):
 
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
-    together), timed; and ptxas' register and spill lines."""
+    together), timed; and ptxas' lines naming each kernel, its registers
+    and spills, and any warning."""
     from concurrent.futures import ThreadPoolExecutor
 
     def timed(fn):
@@ -1440,9 +1452,45 @@ def _build_all(conv1d_brgemm, flash_attention, build):
     for name in each:
         log = next(build.BUILD_DIR.glob(f"{name}-*.log"), None)
         ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if any(w in ln for w in ("entry function",
+                                                 "registers", "spill",
+                                                 "arning"))]
                        if log else [])
     return total, each, ptxas
+
+
+def _kernel_name(mangled):
+    """``flash_fwd_wgmma_kernel<128>`` or ``flash_fwd_kernel<float, 64>``
+    from a mangled name of the flash sources; else the name itself."""
+    import re
+    m = re.search(r"\d+(flash_\w*?kernel)I(f?)Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+
+
+def hgmma_counts(build, flash_attention):
+    """HGMMA instructions (wgmma in SASS) of each flash kernel, from
+    ``cuobjdump -sass`` of the loaded libraries.  Raises unless all six
+    bf16 kernels (``*_wgmma_kernel``, head_dim 64 and 128) have some: the
+    proof that their products run on the tensor cores."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    counts = {}
+    for lib in (flash_attention._fwd_lib(), flash_attention._bwd_lib()):
+        sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        fn = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = _kernel_name(ln.split("Function :")[1].strip())
+                counts[fn] = 0
+            elif fn is not None and "HGMMA" in ln:
+                counts[fn] += 1
+    bf16 = {k: n for k, n in counts.items() if "wgmma" in k}
+    if len(bf16) != 6 or not all(bf16.values()):
+        raise AssertionError(f"flash kernels' HGMMA counts {counts}: each "
+                             "of the six bf16 kernels must have some")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -1477,6 +1525,8 @@ def main(argv=None) -> int:
     for name, lines in ptxas.items():
         for ln in lines:
             print(f"ptxas {name}: {ln}")
+    hgmma = hgmma_counts(build, flash_attention)
+    print("hgmma " + json.dumps(hgmma), flush=True)
 
     rows = kernel_checks(torch, conv1d_brgemm, ops, ref, ep)
     stats = serve_check(torch, np, configs, blocks, serve, conv1d_brgemm)
@@ -1664,6 +1714,9 @@ def main(argv=None) -> int:
             bound_ms=cell[f"{pas}_bound_ms"],
             bound_by=cell[f"{pas}_bound_by"],
             library_ms=cell[f"{pas}_library_ms"], shape=cell["shape"],
+            tflops=cell[f"{pas}_tflops"],
+            bound_share=cell[f"{pas}_bound_share"],
+            hgmma={k: n for k, n in hgmma.items() if k.startswith(name)},
             launches_per_step=lm_train["launches_per_step"][name]))
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
@@ -1673,6 +1726,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            build_each_s=build_each, ptxas=ptxas,
+                           hgmma=hgmma,
                            kernel_checks=rows, serve=stats,
                            bwd_checks=bwd_rows, model_grad=grad_stats,
                            train=train_stats, train_profile=profile_stats,

@@ -11,37 +11,53 @@
 //   q (B, Tq, KV, G, hd), k and v (B, Tk, KV, hd), read through their
 //   element strides (the last dimension contiguous), fp32 or bf16, one
 //   dtype; o (B, Tq, KV, G, hd) contiguous in q's dtype; lse (B, Tq, KV, G)
-//   contiguous fp32.  hd is 64 or 128.  Every product and sum in fp32 from
-//   fp32-cast inputs, as the TPU kernel computes them.
+//   contiguous fp32.  hd is 64 or 128.
 //
 // Bound.  At StarCoder2-3B's training shape (B 4, T 4,096, 24 heads over
 // 2 KV heads, hd 128, causal) one launch needs 4.12e11 flops (the causal
 // half of 4*B*H*T^2*hd) against 0.2 GB of q, k, v and o: 0.417 ms at
-// 989 TFLOP/s bf16 against 0.06 ms at 3.35 TB/s, so operations bound it.
-// This kernel runs the products as fp32 FMAs outside the tensor cores
-// (67 TFLOP/s at best), so it cannot come within 15x of that bound; the
-// tensor-core form (wgmma on bf16 tiles) is later work.
+// 989 TFLOP/s bf16 against 0.06 ms at 3.35 TB/s, so operations bound it,
+// and only wgmma reaches the tensor cores' rate.
 //
-// Design (simple and right first):
-//   * one block per (batch, KV head, tile of BM query rows), where a row
-//     is one (position, group head) pair: rows r = t*G + g of one KV head
-//     are its G query heads at each position, so every K/V tile a block
-//     loads serves all G heads (G = 12 for StarCoder2-3B);
-//   * the key axis is a loop over tiles of BK keys with an online softmax
-//     (running max m and sum l per row, fp32), since a whole K/V row of a
-//     head does not fit in shared memory at T = 4,096;
-//   * causal: a key tile that lies wholly above the diagonal of every row
-//     of the block is skipped (it contributes exp(NEG_INF - m) = 0);
-//     inside a tile the mask is NEG_INF = -1e30, as in the TPU kernel;
-//   * ragged edges (Tq*G or Tk not a multiple of the tile) are masked in
-//     the kernel: rows past the end are not stored, keys past the end get
-//     p = 0;
-//   * shared memory holds the scaled fp32 Q tile, the K and V tiles and P
-//     (rows padded by 4 floats so 16-byte reads do not collide); 256
-//     threads as 16 x 16, each owning 4 rows x 4 keys of S and 4 rows x
-//     hd/16 columns of O, rows and keys interleaved by 16;
-//   * the tiles are issued heaviest first (the last query tiles see the
-//     most keys).
+// Two bodies, chosen by dtype in launch<> and sharing only the header:
+//
+//   * bf16 (flash_fwd_wgmma_kernel): the products on the tensor cores.
+//     S = Q.K^T is one bf16 product: its inputs are the model's bf16
+//     tensors, so every product is exact and the sum fp32; the scale (with
+//     log2(e) folded in for exp2) and the mask are applied to S in fp32.
+//     P = exp(S - m) cannot go in as one bf16 rounding without eating most
+//     of the check's per-element bound (0.8 of it where two terms use 0.45,
+//     by a CPU emulation of the rounding), so P.V runs as two bf16
+//     products, on hi = bf16(p) and lo = bf16(p - hi), into one fp32
+//     accumulator: 3 products where the bound counts 2.  l sums the fp32
+//     p.  The design:
+//       - one block per (tile of 128 rows, batch x KV head), heaviest
+//         tiles first across all heads (a 1-D grid); a row is one
+//         (position, group head) pair, r = t*G + g, read through q's
+//         strides, so every K/V tile serves all G heads of its positions;
+//       - two consumer warpgroups, 64 rows each (wgmma's M); each holds its
+//         S (64 x 64 keys, 32 fp32 a thread) and O (64 x hd) accumulators
+//         and its rows' running max and sum in registers;
+//       - a 2-stage cp.async ring of 64-key K and V tiles in the 128-byte-
+//         swizzled layout (flash_common.cuh), the next tile loading while
+//         the current one is used; Q is loaded once;
+//       - S = Q.K^T from shared memory (m64n64k16, K K-major); the online
+//         softmax in registers (exp2f, each row's four lanes joined by
+//         shuffles); then O += P_hi.V + P_lo.V (m64n{hd}k16) with P from
+//         the S accumulator in registers, whose layout is A's, and V read
+//         N-major (wgmma's transpose of bf16 B);
+//       - the causal tile skip, the ragged masks and NEG_INF = -1e30 as in
+//         the fp32 body.
+//   * fp32 (flash_fwd_kernel): every product and sum in fp32 from fp32
+//     inputs as FMAs outside the tensor cores, as the TPU kernel computes
+//     them.  fp32 attention runs only where the JAX kernel's exact fp32
+//     arithmetic is the point (parity checks), so this body stays the
+//     simple one: one block per (batch, KV head, tile of BM rows), the key
+//     axis a loop over BK-key tiles with an online softmax, the tiles and
+//     P in padded fp32 shared memory, 256 threads as 16 x 16 each owning 4
+//     rows x 4 keys of S and 4 rows x hd/16 columns of O, tiles issued
+//     heaviest first; a key tile wholly above every row's diagonal is
+//     skipped; rows past the end are not stored, keys past it get p = 0.
 #include "flash_common.cuh"
 
 namespace {
@@ -60,7 +76,7 @@ struct Params {
   float scale;
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(Params p) {
   constexpr int LD = HD + 4;        // row stride of Q, K, V in shared memory
@@ -77,12 +93,12 @@ flash_fwd_kernel(Params p) {
   const int ntiles = (nrows + BM - 1) / BM;
   const int r0 = (ntiles - 1 - (int)blockIdx.x) * BM;  // heaviest first
   const int b = blockIdx.y / p.KV, kv = blockIdx.y % p.KV;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + kv * p.q_skv;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kv * p.k_skv;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kv * p.v_skv;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + kv * p.q_skv;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kv * p.k_skv;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kv * p.v_skv;
 
   // the Q tile, cast to fp32 and scaled once (JAX: q.astype(f32) * scale)
-  load_rows<T, HD>(Qs, q, p.q_st, p.q_sg, r0, nrows, p.G, p.scale);
+  load_rows<HD>(Qs, q, p.q_st, p.q_sg, r0, nrows, p.G, p.scale);
 
   int qpos[RPT];
 #pragma unroll
@@ -106,8 +122,8 @@ flash_fwd_kernel(Params p) {
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_keys<T, HD>(Ks, k, p.k_st, k0, p.Tk);
-    load_keys<T, HD>(Vs, v, p.v_st, k0, p.Tk);
+    load_keys<HD>(Ks, k, p.k_st, k0, p.Tk);
+    load_keys<HD>(Vs, v, p.v_st, k0, p.Tk);
     __syncthreads();
 
     float s[RPT][CPT];
@@ -196,7 +212,7 @@ flash_fwd_kernel(Params p) {
   }
 
   // o = acc / l in q's dtype; lse = m + log(l)
-  T* o = static_cast<T*>(p.o);
+  float* o = static_cast<float*>(p.o);
   const long long HDl = HD;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
@@ -214,16 +230,172 @@ flash_fwd_kernel(Params p) {
   }
 }
 
+// ---- bf16: the wgmma body ------------------------------------------------
+
+constexpr int NWG = 2;              // consumer warpgroups a block
+constexpr int ROWS = NWG * WG_M;    // rows a block: 128
+constexpr int KEYS = 64;            // keys a tile (the S product's N)
+
+template <int HD>
+constexpr int fwd_smem_bytes() {    // Q, then two stages of K and V
+  return 1024 + (ROWS + 4 * KEYS) * HD * 2;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NWG * WG, 1)
+flash_fwd_wgmma_kernel(Params p) {
+  constexpr int KV_BYTES = KEYS * HD * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = Qs + ROWS * HD * 2;   // stage s: K, then V
+
+  const int nrows = p.Tq * p.G;
+  const int ntiles = (nrows + ROWS - 1) / ROWS;
+  const int nbk = gridDim.x / ntiles;         // batch x KV heads
+  const int r0 = (ntiles - 1 - (int)blockIdx.x / nbk) * ROWS;  // heaviest first
+  const int b = blockIdx.x % nbk / p.KV, kv = blockIdx.x % nbk % p.KV;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + kv * p.q_skv;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kv * p.k_skv;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kv * p.v_skv;
+
+  // keys past the last row's position are masked for every row: skip them
+  const int last = min(r0 + ROWS, nrows) - 1;
+  const int kend = p.causal ? min(p.Tk, last / p.G + p.q_offset + 1) : p.Tk;
+  const int ntk = (kend + KEYS - 1) / KEYS;
+
+  cp_rows<ROWS, HD, NWG * WG>(Qs, q, p.q_st, p.q_sg, r0, nrows, p.G);
+  cp_keys<KEYS, HD, NWG * WG>(ring, k, p.k_st, 0, p.Tk);
+  cp_keys<KEYS, HD, NWG * WG>(ring + KV_BYTES, v, p.v_st, 0, p.Tk);
+  cp_async_commit();
+
+  // this thread's two rows (wgmma's accumulator layout) and key columns
+  const int w = threadIdx.x / WG, t = threadIdx.x % WG;
+  const int rw = w * WG_M + (t / 32) * 16 + (t % 32) / 4;   // and rw + 8
+  const int cq = 2 * (t % 4);
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + rw + 8 * h;
+    qpos[h] = r < nrows ? r / p.G + p.q_offset : -1;
+  }
+  const uint32_t Qw = Qs + w * WG_M * 128;   // this warpgroup's 64 rows
+  const float sl2 = p.scale * LOG2E;         // s in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[HD / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+
+  for (int it = 0; it < ntk; ++it) {
+    const uint32_t Ks = ring + (it & 1) * 2 * KV_BYTES, Vs = Ks + KV_BYTES;
+    if (it + 1 < ntk) {  // the next tile into the other stage
+      const uint32_t nK = ring + ((it + 1) & 1) * 2 * KV_BYTES;
+      cp_keys<KEYS, HD, NWG * WG>(nK, k, p.k_st, (it + 1) * KEYS, p.Tk);
+      cp_keys<KEYS, HD, NWG * WG>(nK + KV_BYTES, v, p.v_st, (it + 1) * KEYS,
+                                  p.Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // S = Q K^T
+    float s[KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<ROWS>(Qw, kk), desc_k<KEYS>(Ks, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+
+    // scale and mask (log2 units), then the online softmax; a row's 64 keys
+    // live on its four lanes
+    const int k0 = it * KEYS;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int e = 0; e < KEYS / 2; ++e) {
+      const int j = k0 + 8 * (e / 4) + cq + (e % 2), h = (e / 2) % 2;
+      const bool ok = j < p.Tk && (!p.causal || j <= qpos[h]);
+      s[e] = ok ? s[e] * sl2 : NEG_INF;
+      mx[h] = fmaxf(mx[h], s[e]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f(m[h] - mn);
+      m[h] = mn;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int e = 0; e < KEYS / 2; ++e) {
+      const int j = k0 + 8 * (e / 4) + cq + (e % 2), h = (e / 2) % 2;
+      s[e] = j < p.Tk ? exp2f(s[e] - m[h]) : 0.f;
+      l[h] += s[e];
+    }
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e / 2) % 2];
+
+    // O += P_hi V + P_lo V
+    uint32_t ph[KEYS / 16][4], pl[KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk) split_frag(s, kk, ph[kk], pl[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk) {
+      wgmma_rs<HD>(o, ph[kk], desc_n<KEYS>(Vs, kk));
+      wgmma_rs<HD>(o, pl[kk], desc_n<KEYS>(Vs, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    __syncthreads();  // this stage's K and V are consumed
+  }
+
+  // o = O / l in bf16; lse = m + log(l), m back in natural units
+  bf16* op = static_cast<bf16*>(p.o);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = r0 + rw + 8 * h;
+    if (r >= nrows) continue;
+    const long long row = row_index(b, kv, r, p.Tq, p.KV, p.G);
+    const float inv = 1.f / l[h];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      store2(op + row * HD + 8 * j + cq, o[4 * j + 2 * h] * inv,
+             o[4 * j + 2 * h + 1] * inv);
+    if (t % 4 == 0) p.lse[row] = m[h] * LN2 + logf(l[h]);
+  }
+}
+
 template <typename T, int HD>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr int LD = HD + 4;
-  const int smem = (BM * LD + 2 * BK * LD + BM * (BK + 4)) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
   const int nrows = p.Tq * p.G;
-  const dim3 grid((nrows + BM - 1) / BM, B * p.KV);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(p);
+  if constexpr (sizeof(T) == 2) {  // bf16: wgmma
+    const int smem = fwd_smem_bytes<HD>();
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    const int grid = (nrows + ROWS - 1) / ROWS * B * p.KV;
+    flash_fwd_wgmma_kernel<HD><<<grid, NWG * WG, smem, stream>>>(p);
+  } else {  // fp32: FMAs
+    constexpr int LD = HD + 4;
+    const int smem =
+        (BM * LD + 2 * BK * LD + BM * (BK + 4)) * (int)sizeof(float);
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((nrows + BM - 1) / BM, B * p.KV);
+    flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 

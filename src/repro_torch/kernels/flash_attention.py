@@ -79,12 +79,15 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
 
 
 def _check_cuda(name: str, t: torch.Tensor) -> None:
-    """What the kernels' 4-element loads need: every stride a multiple of
-    4 elements and the start 16-byte aligned."""
-    if any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
-        raise ValueError(f"{name} needs strides that are multiples of 4 "
-                         f"and a 16-byte aligned start; strides "
-                         f"{t.stride()}, address {t.data_ptr():#x}")
+    """What the kernels' 16-byte loads need (the bf16 kernels' cp.async of
+    8 elements, the fp32 kernels' 4): every row 16-byte aligned, so every
+    stride a multiple of 16 bytes (8 bf16, 4 fp32 elements) and the start
+    16-byte aligned."""
+    per = 16 // t.element_size()
+    if any(s % per for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs strides that are multiples of {per} "
+                         f"elements (16 bytes) and a 16-byte aligned start; "
+                         f"strides {t.stride()}, address {t.data_ptr():#x}")
 
 
 def _check_qkv(q, k, v) -> None:
@@ -131,7 +134,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q, k and v are fp32 or bf16 of one dtype on one device, each with a
     contiguous last dimension; on the card hd is 64 or 128 and every
-    stride a multiple of 4.  Anything else raises.
+    stride a multiple of 16 bytes.  Anything else raises.
     """
     _check_qkv(q, k, v)
     B, Tq, KV, G, hd = q.shape
