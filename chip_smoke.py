@@ -6,21 +6,25 @@
 Phases (any failed check raises, so the run exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      build the six CUDA kernels' libraries from the checkout's sources, in
-     parallel and timed, with ptxas' registers, spills and warnings; count
+     parallel and timed, with ptxas' registers, spills and warnings (no
+     kernel of ``conv1d_fwd`` or ``depthwise_conv1d_fwd`` may spill); count
      the HGMMA (wgmma) instructions of each flash kernel in the libraries'
-     SASS (``cuobjdump -sass``): the bf16 kernels must have some;
+     SASS (``cuobjdump -sass``): the bf16 kernels must have some; and the
+     FFMA and LDS instructions of each ``conv1d_fwd`` kernel's main loop;
   2. the kernel ``conv1d_fwd`` against its plain PyTorch version on the
      card at every layer shape of the serving path (stem 1->15, conv1,
      conv2 with residual, the two 15->1 heads), at the stream-step shape
      (4 slots x chunk 4096 over a 400 + 4096 window) and at the one-shot
      causal width 60,000, in fp32; the same in bf16 at C=K=16; gelu, silu
-     and SAME padding once each.  Device times (CUDA graphs replayed
-     between CUDA events) of the kernel, the plain version and
-     ``F.conv1d`` (weights permuted to (K, C, S), cuDNN TF32 off) beside
-     the least time the card could take, and the time of one call as a
-     caller sees it (host work included); at the stream step also the
-     host time of one call through ``ops.conv1d`` (as the server makes
-     it) beside the bare wrapper's;
+     and SAME padding once each; two generic cases (fig5: fp32 C=K=64,
+     d=1, S=25; fig6: bf16 C=K=32, d=4, S=51; batch 4 x 5,000), checked
+     only.  Device times (CUDA graphs replayed between CUDA events) of the
+     kernel, the plain version and ``F.conv1d`` (weights permuted to (K,
+     C, S), cuDNN TF32 off) beside the least time the card could take,
+     the rate (GFLOP/s), the share of the bound and the register tile the
+     launch took, and the time of one call as a caller sees it (host work
+     included); at the stream step also the host time of one call through
+     ``ops.conv1d`` (as the server makes it) beside the bare wrapper's;
   3. serve the full ``atacworks`` config (C=K=15, S=51, d=8, 25 layers;
      seeded weights, random non-zero biases) with ``ConvStreamServer``: 4
      slots, chunk 4096, 4096-sample histories, 8 queued ragged streams of
@@ -36,9 +40,10 @@ Phases (any failed check raises, so the run exits non-zero):
      against the flipped, transposed weights) and ``conv1d_bwd_weight``
      with and without dbias, each against its plain version, with device,
      call, plain and library times (cuDNN's gradients through
-     ``torch.nn.grad``, TF32 off) beside the bound; ``save_preact`` against
-     the plain pre-activation (gelu, silu); bf16 at C=K=16; two
-     ``conv1d_bwd_weight`` launches bitwise equal;
+     ``torch.nn.grad``, TF32 off) beside the bound, with the rate, the
+     share of the bound and the forward's tile; ``save_preact`` against
+     the plain pre-activation (gelu, silu); bf16 at C=K=16; two launches of
+     each pass bitwise equal;
   5. the whole model's gradient: the full ``atacworks`` widths at batch 2
      x width 8,192 (seeded weights, random non-zero biases): the loss and
      all 50 parameter gradients through the kernels against autograd over
@@ -56,9 +61,10 @@ Phases (any failed check raises, so the run exits non-zero):
      the forward (bf16 in, bias + silu, fp32 out and preact), bwd-data
      (the padded fp32 cotangent against the flipped taps, bf16 out) and
      bwd-weight (bf16 x, fp32 cotangent) with and without dbias, two
-     launches bitwise equal, one fp32, one residual and one dilation-3
-     case; device, call, plain and library (``F.conv1d(groups=C)``,
-     ``torch.nn.grad``) times beside the bound;
+     launches of each bitwise equal, one fp32, one residual and one
+     dilation-3 case; device, call, plain and library
+     (``F.conv1d(groups=C)``, ``torch.nn.grad``) times beside the bound,
+     the rate (GB/s) and the share of the bound;
   8. the whole Mamba2 gradient: the full widths in an fp32 copy of the
      config cut to 2 layers (remat on), batch 2 x 512, TF32 off: the loss
      and all 12 gradients through the kernels against autograd over the
@@ -76,7 +82,8 @@ Phases (any failed check raises, so the run exits non-zero):
       KV heads of 128, bf16, causal): o, lse, dq, dk, dv, two backward
       launches bitwise equal; one fp32, one non-causal, one G = 1, one
       ragged (T = 1,000) and one head_dim 64 case (forward and backward),
-      and the forward with q_offset 1,024 over 2,048 keys at head_dim 64;
+      the forward with q_offset 1,024 over 2,048 keys at head_dim 64, and
+      forward and backward with 1,024 queries over 2,048 keys (no offset);
       device, call, plain and library (``F.scaled_dot_product_attention``,
       a yardstick the port never calls) times beside the bound, and the
       rate each kernel reaches (the bound's flops over its time);
@@ -278,6 +285,26 @@ def _bound_ms(N, C, K, S, Wp, Q, dtype_name, has_bias, has_res, out_bytes):
     return _bound(2.0 * N * K * C * S * Q, nbytes, dtype_name)
 
 
+def _fwd_tile(conv1d_brgemm, N, C, K, S, Wp, d):
+    """The register tile ``conv1d_fwd`` takes at this shape on this card:
+    "J=8 KT=16" (J columns spaced d apart x KT filters a thread)."""
+    code = conv1d_brgemm._lib().conv1d_fwd_tile(N, C, K, S, Wp, d, 0)
+    if code < 0:
+        raise AssertionError(f"conv1d_fwd_tile returned {code}")
+    return f"J={code // 100} KT={code % 100}"
+
+
+def _rates(row, flops=None, nbytes=None):
+    """The rate the row's device time reaches (GFLOP/s of ``flops``, GB/s of
+    ``nbytes``) and its share of the bound (bound / time)."""
+    ms = row["kernel_ms"]
+    if flops is not None:
+        row["gflop_per_s"] = flops / ms / 1e6
+    if nbytes is not None:
+        row["gb_per_s"] = nbytes / ms / 1e6
+    row["bound_share"] = row["bound_ms"] / ms
+
+
 def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
     """Phase 2: every layer shape of the path, kernel vs plain version."""
     import torch.nn.functional as F
@@ -285,30 +312,38 @@ def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    S, d = 51, 8
-    span = (S - 1) * d
     # (label, C, K, activation, residual, out_dtype is fp32)
     layers = [("stem", 1, 15, "relu", False, False),
               ("conv1", 15, 15, "relu", False, False),
               ("conv2", 15, 15, "relu", True, False),
               ("head_signal", 15, 1, "relu", False, True),
               ("head_peak", 15, 1, None, False, True)]
-    cases = []
+    cases = []  # ... (S, dilation), dtype, N, Q, padding, where
     for name, C, K, act, res, f32out in layers:
-        cases.append((name, C, K, act, res, f32out, "float32", 4, 4096,
-                      "CAUSAL", "stream"))
-        cases.append((name, C, K, act, res, f32out, "float32", 1, 60000,
-                      "CAUSAL", "oneshot"))
+        cases.append((name, C, K, act, res, f32out, (51, 8), "float32", 4,
+                      4096, "CAUSAL", "stream"))
+        cases.append((name, C, K, act, res, f32out, (51, 8), "float32", 1,
+                      60000, "CAUSAL", "oneshot"))
     for name, C, K, act, res, f32out in layers:  # atacworks-bf16: C=K=16
         cases.append((name, 1 if C == 1 else 16, 1 if K == 1 else 16, act,
-                      res, f32out, "bfloat16", 4, 4096, "CAUSAL", "stream"))
-    cases.append(("conv1", 15, 15, "gelu", False, False, "float32", 4, 4096,
-                  "SAME", "stream"))
-    cases.append(("conv2", 15, 15, "silu", True, False, "float32", 4, 4096,
-                  "CAUSAL", "stream"))
+                      res, f32out, (51, 8), "bfloat16", 4, 4096, "CAUSAL",
+                      "stream"))
+    cases.append(("conv1", 15, 15, "gelu", False, False, (51, 8), "float32",
+                  4, 4096, "SAME", "stream"))
+    cases.append(("conv2", 15, 15, "silu", True, False, (51, 8), "float32",
+                  4, 4096, "CAUSAL", "stream"))
+    # the generic tiling beyond the path (the paper's Figure 5 and 6
+    # parameter sets, repro/tune/presets.py): K > 16 in filter tiles,
+    # dilation 1 and 4, bf16; checked, not timed
+    cases.append(("fig5", 64, 64, "relu", False, False, (25, 1), "float32",
+                  4, 5000, "SAME", "d=1 S=25"))
+    cases.append(("fig6", 32, 32, "relu", False, False, (51, 4), "bfloat16",
+                  4, 5000, "SAME", "d=4 S=51"))
 
     rows = []
-    for (name, C, K, act, res, f32out, dt, N, Q, padding, where) in cases:
+    for (name, C, K, act, res, f32out, (S, d), dt, N, Q, padding,
+         where) in cases:
+        span = (S - 1) * d
         dtype = getattr(torch, dt)
         x = torch.randn((N, C, Q), generator=gen, device=DEVICE).to(dtype)
         w = (torch.randn((S, K, C), generator=gen, device=DEVICE)
@@ -333,7 +368,8 @@ def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
             " bf16" if dt == "bfloat16" else "")
         row = dict(shape=label, dtype=dt, N=N, C=C, K=K, S=S, dilation=d,
                    Q=Q, max_abs_err=max_abs, max_rel_diff=max_rel,
-                   atol=atol, rtol=rtol, ok=ok)
+                   atol=atol, rtol=rtol, ok=ok,
+                   tile=_fwd_tile(conv1d_brgemm, N, C, K, S, Q + span, d))
         if not ok:
             raise AssertionError(f"kernel disagrees with plain version: {row}")
         if dt == "float32" and padding == "CAUSAL" and act in ("relu", None):
@@ -362,6 +398,7 @@ def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
             row["library_call_ms"] = _call_ms(library)
             row["bound_ms"], row["bound_by"] = _bound_ms(
                 N, C, K, S, Q + span, Q, dt, True, res, 4)
+            _rates(row, flops=2.0 * N * K * C * S * Q)
             if where == "stream":
                 # what ops adds to a served call on the host: the server
                 # calls ops.conv1d VALID on [state | chunk] under
@@ -604,18 +641,26 @@ def bwd_kernel_checks(torch, conv1d_brgemm, ref):
                 max_rel = max(err_w[1], err_b[1], err_n[1])
             else:
                 max_abs, max_rel = _check_close(label, got, want, tol)
+                again = kern()
+                torch.cuda.synchronize()
+                if not torch.equal(again, got):
+                    raise AssertionError(f"{label}: two launches differ")
             row = dict(shape=label, pass_=pname, layer=name, dtype=dt, N=N,
                        C=C, K=K, S=S, dilation=d, Q=Q, max_abs_err=max_abs,
                        max_rel_diff=max_rel, tol_rel_to_max_plain=tol,
-                       ok=True)
-            if pname == "bwd_weight":
-                row["bitwise_two_launches"] = True
+                       bitwise_two_launches=True, ok=True)
+            if pname == "fwd":
+                row["tile"] = _fwd_tile(conv1d_brgemm, N, C, K, S, Wp, d)
+            elif pname == "bwd_data":  # K channels in, C filters out
+                row["tile"] = _fwd_tile(conv1d_brgemm, N, K, C, S,
+                                        Wp + span, d)
             if fp32:
                 row["kernel_ms"] = _device_ms(kern)
                 row["kernel_call_ms"] = _call_ms(kern)
                 row["plain_ms"] = _device_ms(plain, per_graph=2)
                 row["library_ms"] = _device_ms(lib)
                 row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, dt)
+                _rates(row, flops=flops)
             rows.append(row)
             print("bwd-check " + json.dumps(row), flush=True)
 
@@ -649,9 +694,10 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
     2304, S = 4, CAUSAL): the forward (bf16 in, silu, fp32 out and
     preact), bwd-data (the padded fp32 cotangent against the flipped,
     widened taps, bf16 out) and bwd-weight (bf16 x, fp32 cotangent) with
-    and without dbias, two launches bitwise equal; then one fp32, one
-    residual and one dilation-3 case.  Device, call, plain and library
-    times beside the bound for the three passes of the path."""
+    and without dbias, two launches of each bitwise equal; then one fp32,
+    one residual and one dilation-3 case.  Device, call, plain and library
+    times beside the bound, the rate and the share of the bound for the
+    three passes of the path."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -740,6 +786,18 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
         torch.cuda.synchronize()
         label = f"{pname} mamba2 C={C} N={N} Q={Q}"
         extra = {}
+        if pname in ("fwd", "bwd_data"):
+            again = kern()
+            torch.cuda.synchronize()
+            same = (torch.equal(again[0], got[0])
+                    and torch.equal(again[1], got[1]) if pname == "fwd"
+                    else torch.equal(again, got))
+            if not same:
+                raise AssertionError(f"{label}: two launches differ")
+            extra["bitwise_two_launches"] = True
+            # each thread: 8 outputs of one row, one register window for
+            # all taps at dilation 1 (depthwise_conv1d_fwd.cu)
+            extra["tile"] = "8 outputs a thread, one window"
         if pname == "fwd":
             pairs = {"out": (got[0], want[0]), "preact": (got[1], want[1])}
         elif pname == "bwd_data":
@@ -761,6 +819,7 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
         extra["library_ms"] = _device_ms(lib)
         extra["bound_ms"], extra["bound_by"] = _bound(flops, nbytes,
                                                       "float32")
+        _rates(extra, nbytes=nbytes)
         record(label, pname, pairs, extra)
 
     # one fp32, one residual (gelu, bf16 out) and one dilation-3 case
@@ -1206,8 +1265,9 @@ def flash_kernel_checks(torch, fa, ref):
     G, hd) view of the model's (B, T, H, hd)), the backward from the
     kernel's o and lse, two backward launches bitwise equal, each bf16
     element within its own bound; then the same shape in fp32, one
-    non-causal, one G = 1 and one ragged case, and the forward with a
-    query offset at head_dim 64.  Device, call, plain and library times
+    non-causal, one G = 1 and one ragged case, the forward with a query
+    offset at head_dim 64, and forward and backward with fewer queries
+    than keys.  Device, call, plain and library times
     beside the bound at the cell's shape."""
     import torch.nn.functional as F
 
@@ -1324,6 +1384,28 @@ def flash_kernel_checks(torch, fa, ref):
     row = dict(shape=label, B=B, T=Tq, Tk=Tk, H=KV * G, KV=KV, hd=hd,
                dtype="bfloat16", causal=True, q_offset=off,
                **_flash_err_fields(errs, True), ok=True)
+    rows.append(row)
+    print("flash-check " + json.dumps(row), flush=True)
+
+    # the backward with fewer queries than keys (no offset: query t sees
+    # keys 0..t, so keys past Tq get no gradient), head_dim 64
+    do = rnd(B, Tq, KV, G, hd)
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    grads = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    again = fa.flash_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    label = f"Tq={Tq} Tk={Tk} hd={hd} bf16 causal backward"
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{label}: two flash_bwd launches differ")
+    o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=True)
+    grads_p = ref.flash_bwd_ref(q, k, v, o, lse, do, causal=True)
+    errs = _flash_errs(label, dict(o=(o, o_p), **{
+        n: (g, gp) for n, g, gp in zip(("dq", "dk", "dv"), grads, grads_p)}),
+        lse, lse_p, True)
+    row = dict(shape=label, B=B, T=Tq, Tk=Tk, H=KV * G, KV=KV, hd=hd,
+               dtype="bfloat16", causal=True,
+               **_flash_err_fields(errs, True),
+               bitwise_two_bwd_launches=True, ok=True)
     rows.append(row)
     print("flash-check " + json.dumps(row), flush=True)
     return rows
@@ -1459,6 +1541,19 @@ def _build_all(conv1d_brgemm, flash_attention, build):
     return total, each, ptxas
 
 
+def _check_no_spills(ptxas, names):
+    """Raise if ptxas reports a spill store or load in any kernel of the
+    libraries ``names`` (the register-tiled bodies must hold their tiles
+    in registers)."""
+    import re
+    for name in names:
+        for ln in ptxas[name]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and (int(m[1]) or int(m[2])):
+                raise AssertionError(f"{name} spills: {ln}")
+
+
 def _kernel_name(mangled):
     """``flash_fwd_wgmma_kernel<128>`` or ``flash_fwd_kernel<float, 64>``
     from a mangled name of the flash sources; else the name itself."""
@@ -1493,6 +1588,43 @@ def hgmma_counts(build, flash_attention):
     return counts
 
 
+def conv_loop_mix(build, conv1d_brgemm):
+    """The instruction mix of each ``conv1d_fwd`` kernel's main loop from
+    ``cuobjdump -sass``: of the loops (a backward branch and the code it
+    jumps back over) with no MUFU (the epilogue's exp and tanh), the one
+    with the largest share of FFMA.  {"conv1d_fwd_kernel<J, KT>":
+    {"instructions": n, "FFMA": a, "LDS": b}}, loads of any width counted
+    as one LDS each."""
+    import re
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", conv1d_brgemm._lib()._name],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    mix = {}
+    for fn in sass.split("Function :")[1:]:
+        m = re.search(r"conv1d_fwd_kernelILi(\d+)ELi(\d+)E", fn[:300])
+        if not m:
+            continue
+        ins = [(int(a, 16), t.split()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        ops = [(a, [w for w in t if not w.startswith("@")]) for a, t in ins]
+        best = {"instructions": 1, "FFMA": 0, "LDS": 0}
+        for a, t in ops:
+            if not (t and t[0].startswith("BRA") and t[-1].startswith("0x")
+                    and int(t[-1], 16) < a):
+                continue
+            body = [u[0].split(".")[0] for b, u in ops
+                    if int(t[-1], 16) <= b <= a and u]
+            if "MUFU" in body:
+                continue
+            if body.count("FFMA") / len(body) > (best["FFMA"]
+                                                  / best["instructions"]):
+                best = {"instructions": len(body), "FFMA": body.count("FFMA"),
+                        "LDS": body.count("LDS")}
+        mix[f"conv1d_fwd_kernel<{m[1]}, {m[2]}>"] = best
+    return mix
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1525,8 +1657,11 @@ def main(argv=None) -> int:
     for name, lines in ptxas.items():
         for ln in lines:
             print(f"ptxas {name}: {ln}")
+    _check_no_spills(ptxas, ("conv1d_fwd", "depthwise_conv1d_fwd"))
     hgmma = hgmma_counts(build, flash_attention)
     print("hgmma " + json.dumps(hgmma), flush=True)
+    loop_mix = conv_loop_mix(build, conv1d_brgemm)
+    print("conv1d_fwd main loops " + json.dumps(loop_mix), flush=True)
 
     rows = kernel_checks(torch, conv1d_brgemm, ops, ref, ep)
     stats = serve_check(torch, np, configs, blocks, serve, conv1d_brgemm)
@@ -1595,6 +1730,9 @@ def main(argv=None) -> int:
     conv_fwd = next(r for r in bwd_rows
                     if (r["pass_"], r["layer"], r["dtype"])
                     == ("fwd", "conv", "float32"))
+    conv_bd = next(r for r in bwd_rows
+                   if (r["pass_"], r["layer"], r["dtype"])
+                   == ("bwd_data", "conv", "float32"))
     conv_bw = next(r for r in bwd_rows
                    if (r["pass_"], r["layer"], r["dtype"])
                    == ("bwd_weight", "conv", "float32"))
@@ -1610,13 +1748,22 @@ def main(argv=None) -> int:
         ms=conv_fwd["kernel_ms"], plain_ms=conv_fwd["plain_ms"],
         bound_ms=conv_fwd["bound_ms"], bound_by=conv_fwd["bound_by"],
         library_ms=conv_fwd["library_ms"], shape=conv_fwd["shape"],
+        tile=conv_fwd["tile"], gflop_per_s=conv_fwd["gflop_per_s"],
+        bound_share=conv_fwd["bound_share"],
         launches_per_step=train_stats["fwd_launches_per_step"],
+        bwd_data={k: conv_bd[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "tile", "gflop_per_s",
+            "bound_share")},
         serve=dict(shape=MAIN_SHAPE, launches=stats["launches"],
                    launches_per_step=stats["launches_per_step"],
                    ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
                    bound_ms=main_row["bound_ms"],
                    bound_by=main_row["bound_by"],
                    library_ms=main_row["library_ms"],
+                   tile=main_row["tile"],
+                   gflop_per_s=main_row["gflop_per_s"],
+                   bound_share=main_row["bound_share"],
                    max_rel_diff=max(r["max_rel_diff"] for r in rows)))
     bw_entry = dict(
         name="conv1d_bwd_weight", route="cuda",
@@ -1660,11 +1807,14 @@ def main(argv=None) -> int:
         ms=dw["fwd"]["kernel_ms"], plain_ms=dw["fwd"]["plain_ms"],
         bound_ms=dw["fwd"]["bound_ms"], bound_by=dw["fwd"]["bound_by"],
         library_ms=dw["fwd"]["library_ms"], shape=dw["fwd"]["shape"],
+        tile=dw["fwd"]["tile"], gb_per_s=dw["fwd"]["gb_per_s"],
+        bound_share=dw["fwd"]["bound_share"],
         launches_per_step=m2_train["launches_per_step"][
             "depthwise_conv1d_fwd"],
         bwd_data={k: dw["bwd_data"][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")})
+            "library_ms", "max_abs_err", "tile", "gb_per_s",
+            "bound_share")})
     dw_bw_entry = dict(
         name="depthwise_conv1d_bwd_weight", route="cuda",
         source="src/repro_torch/kernels/csrc/depthwise_conv1d_bwd_weight.cu",
@@ -1726,7 +1876,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            cuda=torch.version.cuda, build_s=build_s,
                            build_each_s=build_each, ptxas=ptxas,
-                           hgmma=hgmma,
+                           hgmma=hgmma, conv1d_fwd_loops=loop_mix,
                            kernel_checks=rows, serve=stats,
                            bwd_checks=bwd_rows, model_grad=grad_stats,
                            train=train_stats, train_profile=profile_stats,

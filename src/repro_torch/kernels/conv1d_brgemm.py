@@ -39,6 +39,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv1d_fwd", ("conv1d_fwd.cu",))
     lib.conv1d_fwd.argtypes = [_VP] * 6 + [_I] * 10 + [_VP]
     lib.conv1d_fwd.restype = _I
+    lib.conv1d_fwd_tile.argtypes = [_I] * 7
+    lib.conv1d_fwd_tile.restype = _I
     lib.conv1d_fwd_error_string.argtypes = [_I]
     lib.conv1d_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -223,8 +225,6 @@ conv1d_bwd_weight.launches = 0
 
 # the depthwise kernels' negative return codes: shapes they do not take
 _DW_REFUSED = {
-    -1: "the footprint (8 channel rows of 256 + (S-1)*dilation columns) "
-        "does not fit in shared memory",
     -2: "more than 8 taps (the kernels keep the taps in registers)",
     -3: "the batch exceeds the kernel's grid limit 65535",
 }

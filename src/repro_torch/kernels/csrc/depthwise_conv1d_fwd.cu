@@ -22,36 +22,49 @@
 // Bound.  A Mamba2 layer (C = 2304, S = 4) does 2*S = 8 flops per output
 // element against 2 + 4 (+ 4 with preact) bytes moved: memory-bound by
 // far.  At batch 8 x 2,048 the forward moves 75.6 MB in and 302 MB out,
-// 0.113 ms at 3.35 TB/s; no tensor-core form has a place here.
+// 0.113 ms at the H100 SXM's published 3.35 TB/s (700 W); no tensor-core
+// form has a place here.
 //
-// Design (simple and right first):
-//   * one block per (column tile of TQ columns, channel tile of CB
-//     channels, sample); BLOCK = TQ threads run along the width, one
-//     column each, so every global load and store of a row coalesces;
-//   * the tile's footprint x[n, c-tile, q0 : q0+TQ+(S-1)d] is staged in
-//     shared memory once (as fp32) and read by all S taps;
-//   * per channel the S taps and the bias are read into registers (one
-//     broadcast load each), then the thread sums its column with fmaf in
-//     tap order s = 0..S-1 and applies the epilogue on the accumulator;
-//   * the ragged width edge is masked in the kernel (staged as zeros past
-//     Wp, no store past Q): no round-up of the width to a tile;
-//   * at most MAX_TAPS taps (registers); any dilation whose footprint fits
-//     in shared memory (opt-in up to 227 KiB).
+// Design (a 16-byte memory path):
+//   * one thread computes V = 8 consecutive outputs of one channel row:
+//     one 16-byte load of bf16 input, one 16-byte store of bf16 output or
+//     two of fp32 (out and preact alike).  A block is BLOCK threads along
+//     one row; nothing goes through shared memory;
+//   * the rows are not 16-byte aligned (Wp = 2,051 forward and 2,054
+//     bwd-data in the Mamba2 layer): a thread loads the aligned 16-byte
+//     chunks that cover its inputs and shifts them into place in registers
+//     by the row's misalignment (uniform over the row, so the shift is a
+//     branch the whole warp takes).  Its outputs are anchored to the
+//     output row's 16-byte grid, so every full group of V stores 16 bytes
+//     at a time; the first and last group of a misaligned row store
+//     element by element;
+//   * dilation 1 (the Mamba2 conv and its bwd-data): the (S-1)-column halo
+//     comes in the same chunks, up to 3 (bf16) or 5 (fp32) independent
+//     16-byte loads a thread, all issued before the first use; the
+//     neighbouring threads' overlapping chunks hit L1.  Any other dilation
+//     loads each tap's chunks apart (they hit L1 and L2 for the taps that
+//     neighbouring threads and blocks share), so there is no footprint
+//     limit;
+//   * the S taps and the bias sit in registers; each output is summed with
+//     fmaf in tap order s = 0..S-1, then bias, residual, preact,
+//     activation and one cast, per element;
+//   * the ragged width edge is masked in the kernel: no round-up of the
+//     width to a tile;
+//   * at most MAX_TAPS taps (registers).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int BLOCK = 256;               // threads per block
-constexpr int TQ = BLOCK;                // output columns per block
-constexpr int CB = 8;                    // channels per block
+constexpr int BLOCK = 128;               // threads per block, along a row
+constexpr int V = 8;                     // outputs a thread
+constexpr int TQ = BLOCK * V;            // outputs a block
 constexpr int MAX_TAPS = 8;              // taps kept in registers
-constexpr int SMEM_BUDGET = 48 * 1024;   // default shared memory per block
-constexpr int SMEM_MAX = 232448;         // Hopper's per-block opt-in limit
 
 constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3;
 constexpr int DT_F32 = 0;                // dtype codes: 0 fp32, 1 bf16
-constexpr int ERR_FOOTPRINT = -1;        // the footprint does not fit
 constexpr int ERR_TAPS = -2;             // more than MAX_TAPS taps
 constexpr int ERR_SHAPE = -3;            // batch beyond the grid's limit
 
@@ -88,73 +101,195 @@ __device__ __forceinline__ float activate(float u, int act) {
   }
 }
 
+// Elements of T in 16 bytes, and a pointer's offset past the 16-byte grid.
+template <typename T> __host__ __device__ constexpr int epc() {
+  return 16 / int(sizeof(T));
+}
+template <typename T> __device__ __forceinline__ int misalign(const T* p) {
+  return int(reinterpret_cast<uintptr_t>(p) & 15) / int(sizeof(T));
+}
+
+__device__ __forceinline__ void unpack(float* v, uint4 r, const float*) {
+  v[0] = __uint_as_float(r.x);
+  v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z);
+  v[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(float* v, uint4 r,
+                                       const __nv_bfloat16*) {
+  const unsigned u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // little-endian: element 2i in the low half
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// v <- row[e0 - a .. e0 - a + NCH*E) as fp32, from NCH aligned 16-byte
+// chunks (row + e0 - a is 16-byte aligned), then shifted left by a so
+// that v[i] = row[e0 + i].  Chunks past the first `need` values or wholly
+// outside the row [0, Wp) are not loaded (zeros); a loaded chunk lies in
+// the 16 bytes around a row element, so it never leaves the allocation.
+// a is uniform over a row: the shifts are branches the warp takes
+// together.
+template <typename T, int NCH>
+__device__ __forceinline__ void load_window(float (&v)[NCH * epc<T>()],
+                                            const T* __restrict__ row, int e0,
+                                            int Wp, int need) {
+  constexpr int E = epc<T>();
+  const int a = misalign(row + e0);
+  const int base = e0 - a;
+  uint4 raw[NCH];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) {
+    const int e = base + i * E;
+    raw[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (i * E < a + need && e < Wp && e + E > 0)
+      raw[i] = __ldg(reinterpret_cast<const uint4*>(row + e));
+  }
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) unpack(v + i * E, raw[i], row);
+  if (E >= 8 && (a & 4)) {
+#pragma unroll
+    for (int i = 0; i + 4 < NCH * E; ++i) v[i] = v[i + 4];
+  }
+  if (E >= 4 && (a & 2)) {
+#pragma unroll
+    for (int i = 0; i + 2 < NCH * E; ++i) v[i] = v[i + 2];
+  }
+  if (a & 1) {
+#pragma unroll
+    for (int i = 0; i + 1 < NCH * E; ++i) v[i] = v[i + 1];
+  }
+}
+
+// V values of a row at element q: 16 bytes at a time where they lie in
+// [0, n) and start on the 16-byte grid, else element by element.
+template <typename T>
+__device__ __forceinline__ void load_v(float (&v)[V], const T* __restrict__ p,
+                                       int q, int n) {
+  if (q >= 0 && q + V <= n && misalign(p + q) == 0) {
+#pragma unroll
+    for (int h = 0; h < V / epc<T>(); ++h)
+      unpack(v + h * epc<T>(),
+             __ldg(reinterpret_cast<const uint4*>(p + q) + h), p);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    v[i] = q + i >= 0 && q + i < n ? to_f32(p[q + i]) : 0.f;
+}
+
+__device__ __forceinline__ uint4 pack(const float* y, float*) {
+  return make_uint4(__float_as_uint(y[0]), __float_as_uint(y[1]),
+                    __float_as_uint(y[2]), __float_as_uint(y[3]));
+}
+__device__ __forceinline__ uint4 pack(const float* y, __nv_bfloat16*) {
+  unsigned u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+    u[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// Store V values at element q of a row of n: 16 bytes at a time where
+// the group lies in [0, n) and starts on the 16-byte grid, else element by
+// element (the first and last group of a misaligned row).
+template <typename T>
+__device__ __forceinline__ void store_v(T* __restrict__ p, int q, int n,
+                                        const float (&y)[V]) {
+  if (q >= 0 && q + V <= n && misalign(p + q) == 0) {
+#pragma unroll
+    for (int h = 0; h < V / epc<T>(); ++h)
+      reinterpret_cast<uint4*>(p + q)[h] = pack(y + h * epc<T>(), p);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    if (q + i >= 0 && q + i < n) p[q + i] = from_f32<T>(y[i]);
+}
+
 template <typename T, typename OutT>
 __global__ void __launch_bounds__(BLOCK)
 dw_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
               const T* __restrict__ bias, const T* __restrict__ residual,
               OutT* __restrict__ out, float* __restrict__ preact, int C,
-              int S, int Wp, int Q, int dilation, int act) {
-  extern __shared__ float xs[];  // (CB, F)
-  const int F = TQ + (S - 1) * dilation;
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ;
-  const int c0 = blockIdx.y * CB;
-  const int n = blockIdx.z;
-  const int cb = min(CB, C - c0);
+              int S, int Wp, int Q, int dilation, int tiles, int act) {
+  constexpr int E = epc<T>();
+  const int c = blockIdx.x / tiles;
+  const int tile = blockIdx.x - c * tiles;
+  const long long row = (long long)blockIdx.y * C + c;
+  OutT* orow = out + row * Q;
+  // the thread's first output, on the output row's 16-byte grid
+  const int q = (tile * BLOCK + threadIdx.x) * V - misalign(orow);
+  if (q >= Q) return;
+  const T* xrow = x + row * Wp;
 
-  for (int ci = 0; ci < cb; ++ci) {
-    const T* row = x + ((long long)n * C + c0 + ci) * Wp;
-    for (int j = tid; j < F; j += BLOCK) {
-      const int col = q0 + j;
-      xs[ci * F + j] = col < Wp ? to_f32(row[col]) : 0.f;
+  float wr[MAX_TAPS];
+#pragma unroll
+  for (int s = 0; s < MAX_TAPS; ++s)
+    wr[s] = s < S ? to_f32(w[(long long)s * C + c]) : 0.f;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+
+  if (dilation == 1) {
+    // one window of V + S - 1 inputs for all taps
+    constexpr int NCH = (E - 1 + V + MAX_TAPS - 1 + E - 1) / E;
+    float v[NCH * E];
+    load_window<T, NCH>(v, xrow, q, Wp, V + S - 1);
+#pragma unroll
+    for (int s = 0; s < MAX_TAPS; ++s)
+      if (s < S)
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = fmaf(wr[s], v[i + s], acc[i]);
+  } else {
+    constexpr int NCH = (E - 1 + V + E - 1) / E;
+#pragma unroll
+    for (int s = 0; s < MAX_TAPS; ++s) {
+      if (s < S) {
+        float v[NCH * E];
+        load_window<T, NCH>(v, xrow, q + s * dilation, Wp, V);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = fmaf(wr[s], v[i], acc[i]);
+      }
     }
   }
-  __syncthreads();
 
-  const int q = q0 + tid;
-  if (q >= Q) return;
-  for (int ci = 0; ci < cb; ++ci) {
-    const int c = c0 + ci;
-    float wr[MAX_TAPS];
+  float u[V];
+  const float b = bias != nullptr ? to_f32(bias[c]) : 0.f;
 #pragma unroll
-    for (int s = 0; s < MAX_TAPS; ++s)
-      wr[s] = s < S ? to_f32(w[(long long)s * C + c]) : 0.f;
-    const float* xr = xs + ci * F + tid;
-    float acc = 0.f;
+  for (int i = 0; i < V; ++i) u[i] = bias != nullptr ? acc[i] + b : acc[i];
+  if (residual != nullptr) {
+    float r[V];
+    load_v(r, residual + row * Q, q, Q);
 #pragma unroll
-    for (int s = 0; s < MAX_TAPS; ++s)
-      if (s < S) acc = fmaf(wr[s], xr[s * dilation], acc);
-
-    const long long o = ((long long)n * C + c) * Q + q;
-    float u = acc;
-    if (bias != nullptr) u += to_f32(bias[c]);
-    if (residual != nullptr) u += to_f32(residual[o]);
-    if (preact != nullptr) preact[o] = u;
-    out[o] = from_f32<OutT>(activate(u, act));
+    for (int i = 0; i < V; ++i) u[i] += r[i];
   }
-}
-
-size_t smem_bytes(int S, int dilation) {
-  return sizeof(float) * size_t(CB) * (size_t(TQ) + size_t(S - 1) * dilation);
+  if (preact != nullptr) store_v(preact + row * Q, q, Q, u);
+  float y[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) y[i] = activate(u[i], act);
+  store_v(orow, q, Q, y);
 }
 
 template <typename T, typename OutT>
 int launch(const void* x, const void* w, const void* bias,
            const void* residual, void* out, float* preact, int N, int C,
            int S, int Wp, int dilation, int act, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S, dilation);
-  auto kernel = dw_fwd_kernel<T, OutT>;
-  if (smem > SMEM_BUDGET) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-  }
   const int Q = Wp - (S - 1) * dilation;
-  const dim3 grid((Q + TQ - 1) / TQ, (C + CB - 1) / CB, N);
-  kernel<<<grid, BLOCK, smem, stream>>>(
+  // a misaligned output row shifts its groups left by up to 15 bytes
+  const bool aligned = Q * sizeof(OutT) % 16 == 0 &&
+                       (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int tiles = (Q + (aligned ? 0 : epc<OutT>() - 1) + TQ - 1) / TQ;
+  if ((long long)tiles * C > 0x7fffffff) return ERR_SHAPE;
+  const dim3 grid(tiles * C, N);
+  dw_fwd_kernel<T, OutT><<<grid, BLOCK, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<const T*>(residual),
-      static_cast<OutT*>(out), preact, C, S, Wp, Q, dilation, act);
+      static_cast<OutT*>(out), preact, C, S, Wp, Q, dilation, tiles, act);
   return int(cudaGetLastError());
 }
 
@@ -164,17 +299,16 @@ extern "C" {
 
 // Launches on `stream` of GPU `device` and returns cudaGetLastError()
 // after the launch (0 on success), or a negative code for a shape the
-// kernel does not take: -1 the footprint does not fit in shared memory,
-// -2 more than MAX_TAPS taps, -3 a batch beyond the grid's limit 65535.
-// dtype / out_dtype: 0 = fp32, 1 = bf16.  bias, residual and preact
-// (fp32) may be null.
+// kernel does not take: -2 more than MAX_TAPS taps, -3 a batch beyond the
+// grid's limit 65535 (or more than 2^31 - 1 row tiles).  dtype /
+// out_dtype: 0 = fp32, 1 = bf16.  bias, residual and preact (fp32) may be
+// null.
 int depthwise_conv1d_fwd(const void* x, const void* w, const void* bias,
                          const void* residual, void* out, void* preact,
                          int N, int C, int S, int Wp, int dilation, int act,
                          int dtype, int out_dtype, int device, void* stream) {
   if (S > MAX_TAPS) return ERR_TAPS;
   if (N > 65535) return ERR_SHAPE;
-  if (smem_bytes(S, dilation) > size_t(SMEM_MAX)) return ERR_FOOTPRINT;
   // this library links its own CUDA runtime: select the tensors' GPU in it
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
