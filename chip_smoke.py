@@ -7,10 +7,14 @@ Phases (any failed check raises, so the run exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      build the six CUDA kernels' libraries from the checkout's sources, in
      parallel and timed, with ptxas' registers, spills and warnings (no
-     kernel of ``conv1d_fwd`` or ``depthwise_conv1d_fwd`` may spill); count
-     the HGMMA (wgmma) instructions of each flash kernel in the libraries'
-     SASS (``cuobjdump -sass``): the bf16 kernels must have some; and the
-     FFMA and LDS instructions of each ``conv1d_fwd`` kernel's main loop;
+     kernel of ``conv1d_fwd``, ``depthwise_conv1d_fwd`` or
+     ``conv1d_bwd_weight`` may spill); count the HGMMA (wgmma)
+     instructions of each flash and each ``conv1d_bwd_weight`` kernel in
+     the libraries' SASS (``cuobjdump -sass``): the bf16 flash kernels and
+     every ``bwd_weight_partial`` kernel (the fp32 ones run three TF32
+     terms) must have some; the FFMA and LDS instructions of each
+     ``conv1d_fwd`` kernel's main loop, and the instructions, HGMMA and LDS
+     of each ``bwd_weight_partial`` kernel's main loop;
   2. the kernel ``conv1d_fwd`` against its plain PyTorch version on the
      card at every layer shape of the serving path (stem 1->15, conv1,
      conv2 with residual, the two 15->1 heads), at the stream-step shape
@@ -41,9 +45,14 @@ Phases (any failed check raises, so the run exits non-zero):
      with and without dbias, each against its plain version, with device,
      call, plain and library times (cuDNN's gradients through
      ``torch.nn.grad``, TF32 off) beside the bound, with the rate, the
-     share of the bound and the forward's tile; ``save_preact`` against
-     the plain pre-activation (gelu, silu); bf16 at C=K=16; two launches of
-     each pass bitwise equal;
+     share of the bound and the forward's tile; each bwd-weight row has
+     two bounds: the three-term TF32 bound its tensor-core body answers to
+     (the bytes, or three products of the unpadded (S*C, K) GEMM at 495
+     TFLOP/s) and the fp32 FMA bound of the kernel it replaced,
+     with the share of each; ``save_preact`` against the plain
+     pre-activation (gelu, silu); bf16 at C=K=16; bwd-weight with and
+     without dbias at phase 2's generic shapes (fig5, fig6; batch 4 x
+     5,000), checked only; two launches of each pass bitwise equal;
   5. the whole model's gradient: the full ``atacworks`` widths at batch 2
      x width 8,192 (seeded weights, random non-zero biases): the loss and
      all 50 parameter gradients through the kernels against autograd over
@@ -117,9 +126,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 in
-# them, and HBM3 bandwidth.  Stated against the card's power limit.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 and
+# TF32 in them, and HBM3 bandwidth.  Stated against the card's power limit.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 
 TOL = {"float32": (1e-4, 1e-4),   # 765-term fp32 sums taken in another order
@@ -283,6 +292,13 @@ def _bound_ms(N, C, K, S, Wp, Q, dtype_name, has_bias, has_res, out_bytes):
     nbytes = (N * C * Wp + S * K * C + K * has_bias + N * K * Q * has_res) * es
     nbytes += N * K * Q * out_bytes
     return _bound(2.0 * N * K * C * S * Q, nbytes, dtype_name)
+
+
+def _tf32_flops(N, C, K, S, Q):
+    """The operations of conv1d_bwd_weight in three TF32 terms: three
+    products of the (S*C, K) GEMM over the N*Q columns, counted from the
+    function's own work (no padding to wgmma's tiles)."""
+    return 3 * 2.0 * S * C * K * N * Q
 
 
 def _fwd_tile(conv1d_brgemm, N, C, K, S, Wp, d):
@@ -660,9 +676,52 @@ def bwd_kernel_checks(torch, conv1d_brgemm, ref):
                 row["plain_ms"] = _device_ms(plain, per_graph=2)
                 row["library_ms"] = _device_ms(lib)
                 row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, dt)
+                if pname == "bwd_weight":
+                    # the FMA bound of the kernel this one replaced beside
+                    # the three-term TF32 bound of its tensor-core bodies
+                    row["fma_bound_ms"] = row["bound_ms"]
+                    row["fma_bound_by"] = row["bound_by"]
+                    row["fma_bound_share"] = row["fma_bound_ms"] / row[
+                        "kernel_ms"]
+                    row["bound_ms"], row["bound_by"] = _bound(
+                        _tf32_flops(N, C, K, S, Q), nbytes, "tf32")
                 _rates(row, flops=flops)
             rows.append(row)
             print("bwd-check " + json.dumps(row), flush=True)
+
+    # bwd-weight at phase 2's generic shapes (the paper's Figure 5 and 6
+    # parameter sets): more filters and channels than one block takes,
+    # dilation 1 (the unit body) and 4 (the taps body), bf16; checked only
+    for name, C, K, S_, d_, dt in (("fig5", 64, 64, 25, 1, "float32"),
+                                   ("fig6", 32, 32, 51, 4, "bfloat16")):
+        dtype, Nf, Qf = getattr(torch, dt), 4, 5000
+        tol = BWD_TOL[dt]
+        x = rnd(Nf, C, Qf + (S_ - 1) * d_, dtype=dtype)
+        g = rnd(Nf, K, Qf, dtype=dtype)
+        label = f"bwd_weight {name} {C}->{K} d={d_} S={S_} N={Nf} Q={Qf}" + (
+            " bf16" if dt == "bfloat16" else "")
+        got = conv1d_brgemm.conv1d_bwd_weight(x, g, S=S_, dilation=d_,
+                                              with_dbias=True)
+        nod = conv1d_brgemm.conv1d_bwd_weight(x, g, S=S_, dilation=d_)
+        again = conv1d_brgemm.conv1d_bwd_weight(x, g, S=S_, dilation=d_,
+                                                with_dbias=True)
+        torch.cuda.synchronize()
+        want = ref.conv1d_bwd_weight_ref(x, g, dilation=d_)
+        errs = (_check_close(label + " dw", got[0], want, tol),
+                _check_close(label + " dbias", got[1],
+                             ref.conv1d_dbias_ref(g), tol),
+                _check_close(label + " dw (no dbias)", nod, want, tol))
+        if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+                and torch.equal(nod, got[0])):
+            raise AssertionError(f"{label}: two launches differ")
+        row = dict(shape=label, pass_="bwd_weight", layer=name, dtype=dt,
+                   N=Nf, C=C, K=K, S=S_, dilation=d_, Q=Qf,
+                   max_abs_err=max(e[0] for e in errs),
+                   max_rel_diff=max(e[1] for e in errs),
+                   tol_rel_to_max_plain=tol, bitwise_two_launches=True,
+                   ok=True)
+        rows.append(row)
+        print("bwd-check " + json.dumps(row), flush=True)
 
     # save_preact: the fp32 pre-activation beside the output, gelu and silu
     C = K = 15
@@ -1536,7 +1595,7 @@ def _build_all(conv1d_brgemm, flash_attention, build):
         ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
                         if any(w in ln for w in ("entry function",
                                                  "registers", "spill",
-                                                 "arning"))]
+                                                 "arning", "(C75"))]
                        if log else [])
     return total, each, ptxas
 
@@ -1554,67 +1613,94 @@ def _check_no_spills(ptxas, names):
                 raise AssertionError(f"{name} spills: {ln}")
 
 
+def _check_wgmma_not_serialized(ptxas, names):
+    """Raise if ptxas serializes the wgmma instructions of any kernel of
+    the libraries ``names`` (notices C7513 and C7520: a register an
+    in-flight wgmma reads is rewritten, or a wgmma sits under a branch
+    that warpgroups take differently)."""
+    for name in names:
+        for ln in ptxas[name]:
+            if "(C7513)" in ln or "(C7520)" in ln:
+                raise AssertionError(f"{name} serializes wgmma: {ln}")
+
+
 def _kernel_name(mangled):
-    """``flash_fwd_wgmma_kernel<128>`` or ``flash_fwd_kernel<float, 64>``
-    from a mangled name of the flash sources; else the name itself."""
+    """``flash_fwd_wgmma_kernel<128>``, ``flash_fwd_kernel<float, 64>`` or
+    ``bwd_weight_partial_taps<float, false>`` from a mangled name of
+    the flash or bwd-weight sources; else the name itself."""
     import re
     m = re.search(r"\d+(flash_\w*?kernel)I(f?)Li(\d+)E", mangled)
-    if not m:
-        return mangled
-    return f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+    if m:
+        return f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+    m = re.search(r"\d+(bwd_weight_partial\w*?)I(f|13__nv_bfloat16)"
+                  r"((?:L[bi]\d+E)*)E", mangled)
+    if m:
+        args = ["float" if m[2] == "f" else "bf16"] + [
+            ("true" if v == "1" else "false") if k == "b" else v
+            for k, v in re.findall(r"L([bi])(\d+)E", m[3])]
+        return f"{m[1]}<{', '.join(args)}>"
+    return mangled
 
 
-def hgmma_counts(build, flash_attention):
-    """HGMMA instructions (wgmma in SASS) of each flash kernel, from
-    ``cuobjdump -sass`` of the loaded libraries.  Raises unless all six
-    bf16 kernels (``*_wgmma_kernel``, head_dim 64 and 128) have some: the
-    proof that their products run on the tensor cores."""
+def _sass_functions(build, lib):
+    """{kernel name: its SASS} of a loaded library (``cuobjdump -sass``)."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {_kernel_name(fn.split()[0]): fn
+            for fn in sass.split("Function :")[1:]}
+
+
+def _loops(fn):
+    """The opcodes of each loop of a kernel's SASS: a backward branch and
+    the code it jumps back over."""
+    import re
+    ops = [(int(a, 16), [w for w in t.split() if not w.startswith("@")])
+           for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    for a, t in ops:
+        if t and t[0].startswith("BRA") and t[-1].startswith("0x") and (
+                int(t[-1], 16) < a):
+            yield [u[0].split(".")[0] for b, u in ops
+                   if int(t[-1], 16) <= b <= a and u]
+
+
+def hgmma_counts(build, flash_attention, conv1d_brgemm):
+    """HGMMA instructions (wgmma in SASS) of each flash and each
+    conv1d_bwd_weight kernel.  Raises unless all six bf16 flash kernels
+    (``*_wgmma_kernel``, head_dim 64 and 128) and every
+    ``bwd_weight_partial`` kernel have some: the proof that their
+    products run on the tensor cores."""
     counts = {}
-    for lib in (flash_attention._fwd_lib(), flash_attention._bwd_lib()):
-        sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
-        fn = None
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                fn = _kernel_name(ln.split("Function :")[1].strip())
-                counts[fn] = 0
-            elif fn is not None and "HGMMA" in ln:
-                counts[fn] += 1
+    for lib in (flash_attention._fwd_lib(), flash_attention._bwd_lib(),
+                conv1d_brgemm._bwd_lib()):
+        for name, fn in _sass_functions(build, lib).items():
+            counts[name] = fn.count("HGMMA")
     bf16 = {k: n for k, n in counts.items() if "wgmma" in k}
     if len(bf16) != 6 or not all(bf16.values()):
         raise AssertionError(f"flash kernels' HGMMA counts {counts}: each "
                              "of the six bf16 kernels must have some")
+    bw = {k: n for k, n in counts.items()
+          if k.startswith("bwd_weight_partial")}
+    if not any("<float" in k for k in bw) or not all(bw.values()):
+        raise AssertionError(f"conv1d_bwd_weight's HGMMA counts {bw}: each "
+                             "bwd_weight_partial kernel must have some")
     return counts
 
 
 def conv_loop_mix(build, conv1d_brgemm):
     """The instruction mix of each ``conv1d_fwd`` kernel's main loop from
-    ``cuobjdump -sass``: of the loops (a backward branch and the code it
-    jumps back over) with no MUFU (the epilogue's exp and tanh), the one
-    with the largest share of FFMA.  {"conv1d_fwd_kernel<J, KT>":
-    {"instructions": n, "FFMA": a, "LDS": b}}, loads of any width counted
-    as one LDS each."""
+    ``cuobjdump -sass``: of the loops with no MUFU (the epilogue's exp and
+    tanh), the one with the largest share of FFMA.  {"conv1d_fwd_kernel<J,
+    KT>": {"instructions": n, "FFMA": a, "LDS": b}}, loads of any width
+    counted as one LDS each."""
     import re
-    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", conv1d_brgemm._lib()._name],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
     mix = {}
-    for fn in sass.split("Function :")[1:]:
-        m = re.search(r"conv1d_fwd_kernelILi(\d+)ELi(\d+)E", fn[:300])
+    for name, fn in _sass_functions(build, conv1d_brgemm._lib()).items():
+        m = re.search(r"conv1d_fwd_kernelILi(\d+)ELi(\d+)E", name)
         if not m:
             continue
-        ins = [(int(a, 16), t.split()) for a, t in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
-        ops = [(a, [w for w in t if not w.startswith("@")]) for a, t in ins]
         best = {"instructions": 1, "FFMA": 0, "LDS": 0}
-        for a, t in ops:
-            if not (t and t[0].startswith("BRA") and t[-1].startswith("0x")
-                    and int(t[-1], 16) < a):
-                continue
-            body = [u[0].split(".")[0] for b, u in ops
-                    if int(t[-1], 16) <= b <= a and u]
+        for body in _loops(fn):
             if "MUFU" in body:
                 continue
             if body.count("FFMA") / len(body) > (best["FFMA"]
@@ -1622,6 +1708,25 @@ def conv_loop_mix(build, conv1d_brgemm):
                 best = {"instructions": len(body), "FFMA": body.count("FFMA"),
                         "LDS": body.count("LDS")}
         mix[f"conv1d_fwd_kernel<{m[1]}, {m[2]}>"] = best
+    return mix
+
+
+def bwd_loop_mix(build, conv1d_brgemm):
+    """The main loop of each ``bwd_weight_partial`` kernel from
+    ``cuobjdump -sass``: of its loops with HGMMA, the one with the largest
+    share of HGMMA.  {name: {"instructions": n, "HGMMA": h, "LDS": l}}."""
+    mix = {}
+    for name, fn in _sass_functions(build, conv1d_brgemm._bwd_lib()).items():
+        if not name.startswith("bwd_weight_partial"):
+            continue
+        best = {"instructions": 1, "HGMMA": 0, "LDS": 0}
+        for body in _loops(fn):
+            if body.count("HGMMA") / len(body) > (best["HGMMA"]
+                                                   / best["instructions"]):
+                best = {"instructions": len(body),
+                        "HGMMA": body.count("HGMMA"),
+                        "LDS": body.count("LDS")}
+        mix[name] = best
     return mix
 
 
@@ -1657,11 +1762,16 @@ def main(argv=None) -> int:
     for name, lines in ptxas.items():
         for ln in lines:
             print(f"ptxas {name}: {ln}")
-    _check_no_spills(ptxas, ("conv1d_fwd", "depthwise_conv1d_fwd"))
-    hgmma = hgmma_counts(build, flash_attention)
+    _check_no_spills(ptxas, ("conv1d_fwd", "depthwise_conv1d_fwd",
+                             "conv1d_bwd_weight"))
+    _check_wgmma_not_serialized(ptxas, ("conv1d_bwd_weight", "flash_fwd",
+                                        "flash_bwd"))
+    hgmma = hgmma_counts(build, flash_attention, conv1d_brgemm)
     print("hgmma " + json.dumps(hgmma), flush=True)
     loop_mix = conv_loop_mix(build, conv1d_brgemm)
     print("conv1d_fwd main loops " + json.dumps(loop_mix), flush=True)
+    bwd_mix = bwd_loop_mix(build, conv1d_brgemm)
+    print("bwd_weight_partial main loops " + json.dumps(bwd_mix), flush=True)
 
     rows = kernel_checks(torch, conv1d_brgemm, ops, ref, ep)
     stats = serve_check(torch, np, configs, blocks, serve, conv1d_brgemm)
@@ -1765,6 +1875,10 @@ def main(argv=None) -> int:
                    gflop_per_s=main_row["gflop_per_s"],
                    bound_share=main_row["bound_share"],
                    max_rel_diff=max(r["max_rel_diff"] for r in rows)))
+    # bound_ms: the three-term TF32 bound; fma_bound_ms: the fp32 FMA one
+    bw_keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+               "bound_by", "bound_share", "fma_bound_ms", "fma_bound_by",
+               "fma_bound_share", "gflop_per_s")
     bw_entry = dict(
         name="conv1d_bwd_weight", route="cuda",
         source="src/repro_torch/kernels/csrc/conv1d_bwd_weight.cu",
@@ -1775,6 +1889,17 @@ def main(argv=None) -> int:
         ms=conv_bw["kernel_ms"], plain_ms=conv_bw["plain_ms"],
         bound_ms=conv_bw["bound_ms"], bound_by=conv_bw["bound_by"],
         library_ms=conv_bw["library_ms"], shape=conv_bw["shape"],
+        bound_share=conv_bw["bound_share"],
+        fma_bound_ms=conv_bw["fma_bound_ms"],
+        fma_bound_share=conv_bw["fma_bound_share"],
+        gflop_per_s=conv_bw["gflop_per_s"],
+        layers={layer: {k: r[k] for k in bw_keys}
+                for r in bwd_rows for layer in ("stem", "head")
+                if (r["pass_"], r.get("layer"), r["dtype"])
+                == ("bwd_weight", layer, "float32")},
+        hgmma={k: n for k, n in hgmma.items()
+               if k.startswith("bwd_weight_partial")},
+        main_loops=bwd_mix,
         launches_per_step=train_stats["bwd_weight_launches_per_step"])
     # the depthwise pair: times at the Mamba2 layer shape, launches from
     # the Mamba2 training run, and the device time of one step's launches
@@ -1877,6 +2002,7 @@ def main(argv=None) -> int:
                            cuda=torch.version.cuda, build_s=build_s,
                            build_each_s=build_each, ptxas=ptxas,
                            hgmma=hgmma, conv1d_fwd_loops=loop_mix,
+                           bwd_weight_loops=bwd_mix,
                            kernel_checks=rows, serve=stats,
                            bwd_checks=bwd_rows, model_grad=grad_stats,
                            train=train_stats, train_profile=profile_stats,

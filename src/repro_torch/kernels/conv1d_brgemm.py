@@ -49,7 +49,8 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     """The weight-gradient kernel's library, built at first use."""
-    lib = _build.load("conv1d_bwd_weight", ("conv1d_bwd_weight.cu",))
+    lib = _build.load("conv1d_bwd_weight", ("conv1d_bwd_weight.cu",
+                                             "hopper.cuh"))
     lib.conv1d_bwd_weight_rows.argtypes = [_I] * 7
     lib.conv1d_bwd_weight_rows.restype = _I
     lib.conv1d_bwd_weight.argtypes = [_VP] * 5 + [_I] * 8 + [_VP]
@@ -151,7 +152,7 @@ conv1d_fwd.launches = 0
 _BWD_REFUSED = {
     -1: "the footprint (all channels of one column tile) does not fit in "
         "shared memory",
-    -2: "the batch exceeds the kernel's grid limit 65535",
+    -2: "the shape exceeds the kernel's grid limits",
 }
 
 

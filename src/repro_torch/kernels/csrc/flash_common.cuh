@@ -1,21 +1,24 @@
 // flash_common.cuh — what flash_fwd.cu and flash_bwd.cu share.  Included
-// by both sources (build.py hashes it with them).
+// by both sources (build.py hashes it with them, and hopper.cuh, which it
+// includes).
 //
 //   * the fp32 path (FMA bodies): its tile sizes, 4-element fp32 loads and
 //     stores, and the strided loads of a row tile and a key tile into
 //     padded shared memory;
 //   * the bf16 path (tensor cores, sm_90a): cp.async 16-byte loads of a row
-//     or key tile into the 128-byte-swizzled layout, the wgmma shared-
-//     memory descriptor of that layout (K-major and N-major), the wgmma
+//     or key tile into the 128-byte-swizzled layout (hopper.cuh), its
+//     N-major wgmma descriptor (the K-major one is hopper.cuh's), the wgmma
 //     products used (m64n64k16 from shared memory, m64n64k16 and
-//     m64n128k16 with A in registers), wgmma's fence, commit and wait, and
-//     the split of an fp32 accumulator into two bf16 A operands, hi and lo;
+//     m64n128k16 with A in registers), and the split of an fp32
+//     accumulator into two bf16 A operands, hi and lo;
 //   * the dtype and error codes and the row index of lse, o and dq.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -78,56 +81,15 @@ __device__ __forceinline__ long long row_index(int b, int kv, int r, int Tq,
 // ---- the bf16 path: Hopper's tensor cores through wgmma (sm_90a) ---------
 //
 // A tile of R rows by HD bf16 columns lives in shared memory as HD/64
-// column blocks of (R, 64), each row 128 bytes whose 16-byte chunk c sits
-// at chunk c ^ (row % 8): the 128-byte swizzle that a wgmma descriptor of
-// layout B128 names.  Every tile starts 1024-byte aligned (the swizzle is
-// taken on the address bits), so one layout serves both ways of reading
-// it: K-major (hd as the k dimension: Q.K^T and its kin) and N-major (the
-// rows as the k dimension: P.V and its kin, wgmma's transposed B).
+// column blocks of (R, 64) in hopper.cuh's 128-byte swizzled layout, so
+// one layout serves both ways of reading it: K-major (hd as the k
+// dimension: Q.K^T and its kin) and N-major (the rows as the k dimension:
+// P.V and its kin, wgmma's transposed B).
 
 using bf16 = __nv_bfloat16;
 
-constexpr int WG = 128;          // threads of a warpgroup
-constexpr int WG_M = 64;         // rows of one wgmma (M)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid
-// (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-// make this thread's shared-memory writes visible to wgmma's reads (the
-// async proxy); a barrier after it makes all threads' visible
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The byte offset of 16-byte chunk c (8 columns) of row rr in an (R, HD)
-// tile of the swizzled layout.
-template <int R>
-__device__ __forceinline__ uint32_t sw128(int rr, int c) {
-  return (c >> 3) * (R * 128) + rr * 128 + (((c & 7) ^ (rr & 7)) << 4);
-}
 
 // Rows r0 .. r0+R (row r = t*G + g) of (B, Tq, KV, G, hd)-strided x,
 // already offset to its batch and KV head, into the swizzled (R, HD) tile
@@ -165,43 +127,11 @@ __device__ __forceinline__ void cp_keys(uint32_t dst, const bf16* x,
   }
 }
 
-// wgmma's shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (each in 16-byte units), layout B128 (bits 62-63).
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-// K-major: the 16 columns 16kk .. 16kk+15 of the rows of an (R, HD) tile
-// that start at tile (rows 8 apart by 1024 bytes; the 32-byte step inside
-// a 128-byte row is taken before the swizzle).
-template <int R>
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return desc_b128(tile + (kk >> 2) * (R * 128) + (kk & 3) * 32, 16, 1024);
-}
 // N-major (transposed B): rows 16kk .. 16kk+15 of an (R, HD) tile as the k
 // dimension, its HD columns as n (column blocks R * 128 bytes apart).
 template <int R>
 __device__ __forceinline__ uint64_t desc_n(uint32_t tile, int kk) {
   return desc_b128(tile + kk * 2048, R * 128, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keeps the compiler from moving reads or writes of an accumulator across
-// a wgmma fence or wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // d (64 x 64, fp32) += A (64 x 16) . B (16 x 64), both bf16 in shared memory

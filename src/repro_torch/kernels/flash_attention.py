@@ -42,7 +42,8 @@ _REFUSED = {-1: f"head_dim must be one of {_HEAD_DIMS}",
 @functools.cache
 def _fwd_lib() -> ctypes.CDLL:
     """The forward kernel's library, built at first use."""
-    lib = _build.load("flash_fwd", ("flash_fwd.cu", "flash_common.cuh"))
+    lib = _build.load("flash_fwd", ("flash_fwd.cu", "flash_common.cuh",
+                                    "hopper.cuh"))
     lib.flash_fwd.argtypes = [_VP] * 5 + [_I] * 6 + [_VP, _I, _I, _F, _I,
                                                       _I, _VP]
     lib.flash_fwd.restype = _I
@@ -54,7 +55,8 @@ def _fwd_lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     """The backward kernels' library, built at first use."""
-    lib = _build.load("flash_bwd", ("flash_bwd.cu", "flash_common.cuh"))
+    lib = _build.load("flash_bwd", ("flash_bwd.cu", "flash_common.cuh",
+                                    "hopper.cuh"))
     lib.flash_bwd.argtypes = [_VP] * 9 + [_I] * 6 + [_VP, _I, _F, _I, _I,
                                                       _VP]
     lib.flash_bwd.restype = _I
