@@ -109,7 +109,24 @@ Phases (any failed check raises, so the run exits non-zero):
       80 GB; step p50, tokens/s; then LM_PROFILE_STEPS more steps under
       ``torch.profiler``: device time of the flash kernels, the matrix
       products, the rest, and the idle time;
-  13. a JSON line of the six kernels, the card's line, and last the
+  13. the paper's Figs 4-6 grid (``repro_torch.tune.sweep``: fig4 fp32
+      C=K=15 d=8, fig5 fp32 C=K=64 d=1, fig6 bf16 C=K=32 d=4; S in {5,
+      25, 51} x Q in {1,000, 5,000, 20,000}; batch 4, SAME): per cell the
+      forward and the forward + backward on the kernels (their own
+      tiles), cuDNN (``backend="library"``, TF32 off, deterministic) and
+      ``backend="auto"`` after a measured ``tune`` of the three passes
+      (top 3 each) into a fresh cache; device ms (graph replay),
+      GFLOP/s, efficiency against the dtype's peak, speedup over cuDNN,
+      each backward pass's own time and the taps/unit race of
+      ``conv1d_bwd_weight``.  Checked: the kernels' outputs within
+      ``TOL`` and gradients within ``BWD_TOL`` of the plain version;
+      every tile and body the kernels instantiate launched unless their
+      own rule refuses it (a tile changes no forward or bwd-data bit; a
+      body's dw within ``BWD_TOL``, bitwise on two launches); each
+      ``"auto"`` result bitwise equal to the call with its plan pinned.
+      One summary line a figure: median efficiency of kernel and cuDNN,
+      the cells the kernel wins, the worst cell, ``"auto"``'s winners;
+  14. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -126,17 +143,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (dense): fp32 outside the tensor cores, bf16 and
-# TF32 in them, and HBM3 bandwidth.  Stated against the card's power limit.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
-PEAK_BYTES = 3.35e12
-
-TOL = {"float32": (1e-4, 1e-4),   # 765-term fp32 sums taken in another order
-       "bfloat16": (1e-2, 1e-2)}  # outputs rounded to bf16 (2^-8 relative)
-# backward passes: max|kernel - plain| <= BWD_TOL * max|plain|.  fp32: the
-# weight gradient sums 480,000 terms per element (batch 8 x 60,000) in
-# another order; bf16: the data gradient is rounded to bf16 at its store.
-BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The least time of a call (the H100 SXM's published peaks, stated against
+# the card's power limit): the larger of its bytes over HBM bandwidth and
+# its operations over the peak of their type (repro_torch.roofline).
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+# outputs |kernel - plain| <= atol + rtol * |plain| per dtype (TOL); the
+# backward passes max|kernel - plain| <= BWD_TOL * max|plain|; one copy,
+# with the sweep that holds Figs 4-6 to them (its comment says why)
+from repro_torch.tune.sweep import BWD_TOL, TOL  # noqa: E402
 # whole model: each of the 50 gradients within GRAD_TOL * max|plain| of
 # autograd over the plain version (25 layers of fp32 sums taken in another
 # order, the errors carried through the chain), the loss within LOSS_RTOL
@@ -202,6 +216,9 @@ LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 2, 2, 512
 # context), 8 steps; then LM_PROFILE_STEPS traced
 LM_BATCH, LM_SEQ, LM_STEPS, LM_PROFILE_STEPS = 4, 4096, 8, 2
 LM_MEMORY_LIMIT_GB = 80.0
+# the paper's Figs 4-6 sweep: graph replays per timing (cut these, never
+# the cells, if the phase runs long); the tuner times every candidate
+SWEEP_ITERS = 5
 
 
 def _card_line() -> str:
@@ -234,29 +251,9 @@ def _call_ms(fn, reps: int = 20) -> float:
 def _device_ms(fn, per_graph: int = 10, reps: int = 5) -> float:
     """Device time of one call: ``per_graph`` calls captured in one CUDA
     graph, replayed ``reps`` times back to back between two events, so no
-    host work sits between the kernels.  Median over the replays."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per_graph)
-    times.sort()
-    return times[len(times) // 2]
+    host work sits between the kernels (``repro_torch.tune.measure``)."""
+    from repro_torch.tune.measure import device_ms
+    return device_ms(fn, per_graph, reps)
 
 
 def _host_us(fn, reps: int = 200, rounds: int = 5) -> float:
@@ -277,36 +274,12 @@ def _host_us(fn, reps: int = 200, rounds: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def _bound(flops, nbytes, dtype_name):
-    """Least time in ms: the larger of the bytes (each input read once,
-    each output written once) over HBM bandwidth and the flops over the
-    peak for the input type; and which of the two it is."""
-    t_mem = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return max(t_mem, t_ops), ("operations" if t_ops >= t_mem else "bytes")
-
-
-def _bound_ms(N, C, K, S, Wp, Q, dtype_name, has_bias, has_res, out_bytes):
-    """Least time for one forward layer (see ``_bound``)."""
-    es = 4 if dtype_name == "float32" else 2
-    nbytes = (N * C * Wp + S * K * C + K * has_bias + N * K * Q * has_res) * es
-    nbytes += N * K * Q * out_bytes
-    return _bound(2.0 * N * K * C * S * Q, nbytes, dtype_name)
-
-
-def _tf32_flops(N, C, K, S, Q):
-    """The operations of conv1d_bwd_weight in three TF32 terms: three
-    products of the (S*C, K) GEMM over the N*Q columns, counted from the
-    function's own work (no padding to wgmma's tiles)."""
-    return 3 * 2.0 * S * C * K * N * Q
-
-
 def _fwd_tile(conv1d_brgemm, N, C, K, S, Wp, d):
     """The register tile ``conv1d_fwd`` takes at this shape on this card:
     "J=8 KT=16" (J columns spaced d apart x KT filters a thread)."""
-    code = conv1d_brgemm._lib().conv1d_fwd_tile(N, C, K, S, Wp, d, 0)
-    if code < 0:
-        raise AssertionError(f"conv1d_fwd_tile returned {code}")
+    code = conv1d_brgemm.fwd_tile(N, C, K, S, Wp, d)
+    if code is None:
+        raise AssertionError("conv1d_fwd_tile refused the shape")
     return f"J={code // 100} KT={code % 100}"
 
 
@@ -412,7 +385,7 @@ def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
             row["library_ms"] = _device_ms(library)
             row["kernel_call_ms"] = _call_ms(kernel)
             row["library_call_ms"] = _call_ms(library)
-            row["bound_ms"], row["bound_by"] = _bound_ms(
+            row["bound_ms"], row["bound_by"] = roofline.conv1d_fwd_bound(
                 N, C, K, S, Q + span, Q, dt, True, res, 4)
             _rates(row, flops=2.0 * N * K * C * S * Q)
             if where == "stream":
@@ -675,7 +648,8 @@ def bwd_kernel_checks(torch, conv1d_brgemm, ref):
                 row["kernel_call_ms"] = _call_ms(kern)
                 row["plain_ms"] = _device_ms(plain, per_graph=2)
                 row["library_ms"] = _device_ms(lib)
-                row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, dt)
+                row["bound_ms"], row["bound_by"] = roofline.bound(flops,
+                                                                  nbytes, dt)
                 if pname == "bwd_weight":
                     # the FMA bound of the kernel this one replaced beside
                     # the three-term TF32 bound of its tensor-core bodies
@@ -683,8 +657,8 @@ def bwd_kernel_checks(torch, conv1d_brgemm, ref):
                     row["fma_bound_by"] = row["bound_by"]
                     row["fma_bound_share"] = row["fma_bound_ms"] / row[
                         "kernel_ms"]
-                    row["bound_ms"], row["bound_by"] = _bound(
-                        _tf32_flops(N, C, K, S, Q), nbytes, "tf32")
+                    row["bound_ms"], row["bound_by"] = roofline.bound(
+                        roofline.tf32_flops(N, C, K, S, Q), nbytes, "tf32")
                 _rates(row, flops=flops)
             rows.append(row)
             print("bwd-check " + json.dumps(row), flush=True)
@@ -876,8 +850,8 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
         extra["kernel_call_ms"] = _call_ms(kern)
         extra["plain_ms"] = _device_ms(plain, per_graph=2)
         extra["library_ms"] = _device_ms(lib)
-        extra["bound_ms"], extra["bound_by"] = _bound(flops, nbytes,
-                                                      "float32")
+        extra["bound_ms"], extra["bound_by"] = roofline.bound(
+            flops, nbytes, "float32")
         _rates(extra, nbytes=nbytes)
         record(label, pname, pairs, extra)
 
@@ -1044,8 +1018,25 @@ def train_check(torch, np, train, conv1d_brgemm):
                  fwd_launches_per_step=fwd / TRAIN_STEPS,
                  bwd_weight_launches_per_step=bw / TRAIN_STEPS,
                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    stats.update(_model_rate("atacworks", TRAIN_BATCH, TRAIN_SEQ,
+                             stats["step_p50_ms"]))
     print("train " + json.dumps(stats), flush=True)
     return stats
+
+
+def _model_rate(arch, batch, seq, step_ms):
+    """A training step's useful work and least memory traffic by the
+    roofline's count (``repro_torch.roofline.flops``: 6 N D plus the
+    attention or SSD terms; 3x the forward for the conv net) and the rate
+    the measured step ran at."""
+    from repro_torch import configs
+    from repro_torch.roofline import flops as counts
+
+    cfg, shape = configs.get(arch), counts.StepShape("train", seq, batch)
+    flops = counts.model_flops(cfg, shape)
+    return dict(model_flops_per_step=flops,
+                model_bytes_per_step=counts.model_bytes(cfg, shape),
+                model_tflops_per_s=flops / (step_ms * 1e-3) / 1e12)
 
 
 def _profile_steps(torch, train, argv, steps, port_names):
@@ -1204,6 +1195,9 @@ def _train_check(np, train, label, argv, steps, counters, per_step,
                  peak_memory_gb=summary["peak_memory_gb"],
                  launches=launches,
                  launches_per_step={k: n / steps for k, n in launches.items()})
+    arg = dict(zip(argv[::2], argv[1::2]))
+    stats.update(_model_rate(arg["--arch"], int(arg["--batch"]),
+                             int(arg["--seq"]), stats["step_p50_ms"]))
     print(f"{label}-train " + json.dumps(stats), flush=True)
     return stats
 
@@ -1283,7 +1277,8 @@ def _attn_bound(B, T, H, KV, hd, causal, dtype_name, products, nbytes):
     """Least time of ``products`` (B, H, T, T, hd)-sized products over the
     (query, key) pairs the mask keeps (see ``_bound``)."""
     pairs = T * (T + 1) // 2 if causal else T * T
-    return _bound(2.0 * products * B * H * hd * pairs, nbytes, dtype_name)
+    return roofline.bound(2.0 * products * B * H * hd * pairs, nbytes,
+                          dtype_name)
 
 
 def _flash_errs(label, pairs, lse, lse_p, bf16):
@@ -1566,6 +1561,30 @@ def lm_profile(torch, train):
     return stats
 
 
+def sweep_check(sweep):
+    """Phase 13: the paper's Figs 4-6 grid (``repro_torch.tune.sweep``):
+    every cell's forward and forward + backward on the kernels (their own
+    tiles), cuDNN (TF32 off) and ``"auto"`` after a measured tune of its
+    three passes into a fresh cache; every result checked (see the sweep's
+    ``--check``); one line a row, then one summary line a figure."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = sweep.run(grad=True, tuned=True, algs=True, check=True,
+                        device="cuda", cache=os.path.join(tmp, "tune.json"),
+                        iters=SWEEP_ITERS,
+                        log=lambda r: print("sweep " + json.dumps(r),
+                                            flush=True))
+    for chk in res["checks"]:
+        print("sweep-check " + json.dumps(chk), flush=True)
+    for fig, summ in res["summary"].items():
+        print(f"sweep-summary {fig} " + json.dumps(summ), flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"sweep: {len(res['checks'])} cells, {len(res['rows'])} rows in "
+          f"{res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -1750,6 +1769,7 @@ def main(argv=None) -> int:
     from repro_torch.models import init_model
     from repro_torch.optim import adamw
     from repro_torch.train import losses
+    from repro_torch.tune import sweep
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1792,6 +1812,7 @@ def main(argv=None) -> int:
     lm_layers = configs.get("starcoder2-3b").n_layers
     lm_train = lm_train_check(torch, np, train, flash_attention, lm_layers)
     lm_prof = lm_profile(torch, train)
+    sweep_res = sweep_check(sweep)
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     # device time of the 25 kernels of one stream step, from the per-layer
@@ -2010,7 +2031,7 @@ def main(argv=None) -> int:
                            mamba2_train=m2_train, mamba2_profile=m2_profile,
                            flash_checks=fa_rows, starcoder2_grad=lm_grad,
                            starcoder2_train=lm_train,
-                           starcoder2_profile=lm_prof,
+                           starcoder2_profile=lm_prof, sweep=sweep_res,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -31,10 +31,13 @@ class DilatedConv1D(nn.Module):
                 padding: kops.Padding = "SAME", backend: str | None = None,
                 activation: str | None = None,
                 residual: torch.Tensor | None = None,
-                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                out_dtype: torch.dtype | None = None,
+                tile: int | None = None) -> torch.Tensor:
         """x: (N, C_in, W) -> (N, C_out, Q): ``act(conv(x) + b + residual)``
-        in one fused kernel call."""
+        in one fused kernel call.  ``backend="auto"`` (or
+        ``REPRO_CONV_BACKEND=auto``) runs the tuner's plan for each pass;
+        ``tile`` pins the forward kernel's register tile."""
         return kops.conv1d(x, self.w, bias=self.b, activation=activation,
                            residual=residual, dilation=dilation,
                            padding=padding, backend=backend,
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, tile=tile)

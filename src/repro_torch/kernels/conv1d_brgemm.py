@@ -13,6 +13,15 @@ every kernel wrapper, which only the tensor's device decides.
 ``"ref"`` backend.  Each library is built from the checkout's sources at
 its first launch (``build.py``).
 
+``conv1d_fwd`` takes a pinned register tile (``tile=``, one of
+``FWD_TILES``) and ``conv1d_bwd_weight`` a pinned body (``body=``, one
+of ``BWD_BODIES``), the knobs the tuner (``repro_torch.tune``) searches;
+``None`` keeps the kernel's own choice.  A pin that is not one of those
+raises on every device; one that may not run the shape is refused by the
+kernel's own rule (``fwd_tile`` and ``bwd_weight_body`` ask it) and
+raises, never replaced.  On a CPU tensor a valid pin is ignored: the
+plain version has no tile.
+
 Each wrapper's ``launches`` attribute (``conv1d_fwd.launches``, ...)
 counts its kernel launches; each is incremented where its kernel is
 launched and nowhere else, so a run can show that its path went through
@@ -32,14 +41,46 @@ from . import ref as _ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
+# conv1d_fwd's register tiles, J * 100 + KT (J columns x KT filters a
+# thread): the ones csrc/conv1d_fwd.cu instantiates, by filter count
+FWD_TILES_WIDE = (616, 408, 204, 104)   # K > 1
+FWD_TILES_SINGLE = (1601, 201, 101)     # K == 1
+FWD_TILES = FWD_TILES_WIDE + FWD_TILES_SINGLE
+# conv1d_bwd_weight's bodies, by the code csrc/conv1d_bwd_weight.cu takes
+BWD_BODIES = {"unit": 1, "taps": 2}
+_REFUSED_PIN = -4  # both kernels' code for a pin that may not run
+
+
+def fwd_tiles(K: int) -> tuple[int, ...]:
+    """The tiles ``conv1d_fwd`` instantiates for K filters."""
+    return FWD_TILES_SINGLE if K == 1 else FWD_TILES_WIDE
+
+
+def _tile_code(tile: int | None) -> int:
+    if tile is None or tile == 0:
+        return 0
+    if tile not in FWD_TILES:
+        raise ValueError(f"unknown conv1d_fwd tile {tile!r}; expected one "
+                         f"of {FWD_TILES} (J * 100 + KT) or None")
+    return int(tile)
+
+
+def _body_code(body: str | None) -> int:
+    if body is None:
+        return 0
+    if body not in BWD_BODIES:
+        raise ValueError(f"unknown conv1d_bwd_weight body {body!r}; "
+                         f"expected one of {tuple(BWD_BODIES)} or None")
+    return BWD_BODIES[body]
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The forward kernel's library, built at first use."""
     lib = _build.load("conv1d_fwd", ("conv1d_fwd.cu",))
-    lib.conv1d_fwd.argtypes = [_VP] * 6 + [_I] * 10 + [_VP]
+    lib.conv1d_fwd.argtypes = [_VP] * 6 + [_I] * 11 + [_VP]
     lib.conv1d_fwd.restype = _I
-    lib.conv1d_fwd_tile.argtypes = [_I] * 7
+    lib.conv1d_fwd_tile.argtypes = [_I] * 8
     lib.conv1d_fwd_tile.restype = _I
     lib.conv1d_fwd_error_string.argtypes = [_I]
     lib.conv1d_fwd_error_string.restype = ctypes.c_char_p
@@ -51,9 +92,11 @@ def _bwd_lib() -> ctypes.CDLL:
     """The weight-gradient kernel's library, built at first use."""
     lib = _build.load("conv1d_bwd_weight", ("conv1d_bwd_weight.cu",
                                              "hopper.cuh"))
-    lib.conv1d_bwd_weight_rows.argtypes = [_I] * 7
+    lib.conv1d_bwd_weight_rows.argtypes = [_I] * 8
     lib.conv1d_bwd_weight_rows.restype = _I
-    lib.conv1d_bwd_weight.argtypes = [_VP] * 5 + [_I] * 8 + [_VP]
+    lib.conv1d_bwd_weight_body.argtypes = [_I] * 8
+    lib.conv1d_bwd_weight_body.restype = _I
+    lib.conv1d_bwd_weight.argtypes = [_VP] * 5 + [_I] * 9 + [_VP]
     lib.conv1d_bwd_weight.restype = _I
     lib.conv1d_bwd_weight_error_string.argtypes = [_I]
     lib.conv1d_bwd_weight_error_string.restype = ctypes.c_char_p
@@ -78,7 +121,8 @@ def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
                bias: torch.Tensor | None = None,
                residual: torch.Tensor | None = None,
                activation: str | None = None, save_preact: bool = False,
-               dilation: int = 1, out_dtype: torch.dtype | None = None):
+               dilation: int = 1, out_dtype: torch.dtype | None = None,
+               tile: int | None = None):
     """BRGEMM forward: x (N, C, Q + (S-1)*d), w (S, K, C) -> (N, K, Q),
     ``act(conv + bias + residual)`` on the fp32 accumulator, stored in
     ``out_dtype`` (default ``x.dtype``).  With ``save_preact`` returns
@@ -88,10 +132,13 @@ def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
     residual (N, K, Q) has x's.  Every tensor is contiguous and on x's
     device; anything else raises.  The same call is the data gradient
     (Alg. 3) on the zero-padded cotangent and the flipped, transposed
-    weights (``ops.Conv1dFunction``).
+    weights (``ops.Conv1dFunction``).  ``tile`` pins the register tile
+    (one of ``fwd_tiles(K)``); every tile sums in one order, so the pin
+    changes no bit of the result, only the time.
     """
     activation = _ep.canon(activation)
     out_dtype = out_dtype or x.dtype
+    tile_code = _tile_code(tile)
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x must be (N, C, W) and w (S, K, C); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -133,12 +180,15 @@ def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
         residual.data_ptr() if residual is not None else None,
         out.data_ptr(), preact.data_ptr() if save_preact else None,
         N, C, K, S, Wp, dilation, _ep.ACT_CODES[activation],
-        _DTYPES[x.dtype], _DTYPES[out_dtype], x.device.index,
+        _DTYPES[x.dtype], _DTYPES[out_dtype], tile_code, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc == -1:
         raise ValueError(
             f"conv1d_fwd: one channel row of the footprint (span "
             f"{(S - 1) * dilation}) does not fit in shared memory")
+    if rc == _REFUSED_PIN:
+        raise ValueError(f"conv1d_fwd: tile {tile} may not run C={C} K={K} "
+                         f"S={S} dilation={dilation}")
     if rc != 0:
         raise RuntimeError("conv1d_fwd launch failed: "
                            + lib.conv1d_fwd_error_string(rc).decode())
@@ -148,11 +198,26 @@ def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
 
 conv1d_fwd.launches = 0
 
+
+def fwd_tile(N: int, C: int, K: int, S: int, Wp: int, dilation: int, *,
+             tile: int | None = None, device: int = 0) -> int | None:
+    """The tile ``conv1d_fwd`` takes at this shape on GPU ``device``: its
+    own choice for ``tile=None``, else the pinned tile if the kernel's rule
+    lets it run here; None where the kernel refuses.  Asks the library
+    (builds it at first use), so it needs the card."""
+    code = _lib().conv1d_fwd_tile(N, C, K, S, Wp, dilation,
+                                  _tile_code(tile), device)
+    return code if code > 0 else None
+
+
 # conv1d_bwd_weight's negative return codes: shapes it does not take
 _BWD_REFUSED = {
     -1: "the footprint (all channels of one column tile) does not fit in "
         "shared memory",
     -2: "the shape exceeds the kernel's grid limits",
+    _REFUSED_PIN: "the pinned body may not run this shape (the taps body "
+                  "needs K > 1 with C > 1 and dilation % 4 == 0, or K == 1 "
+                  "with S <= 64)",
 }
 
 
@@ -167,7 +232,8 @@ def _bwd_failed(lib, rc: int) -> Exception:
 
 
 def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
-                      dilation: int = 1, with_dbias: bool = False):
+                      dilation: int = 1, with_dbias: bool = False,
+                      body: str | None = None):
     """BRGEMM weight gradient (Alg. 4): x (N, C, Q + (S-1)*d), gout
     (N, K, Q) -> dw (S, K, C) fp32, ``dw[s,k,c] = sum_{n,q} gout[n,k,q] *
     x[n,c,q+s*d]``.  ``with_dbias`` also returns the fused bias gradient
@@ -176,8 +242,11 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
     x and gout are fp32 or bf16 of one dtype, contiguous and on one
     device; anything else raises.  On the card the sums over the batch and
     the width are a split reduction in a fixed order (no atomics): two
-    launches on the same inputs give bitwise equal results.
+    launches on the same inputs give bitwise equal results.  ``body`` pins
+    the body (``"unit"`` or ``"taps"``); the two sum in different orders,
+    so a pin may change dw within rounding.
     """
+    body_code = _body_code(body)
     if x.dim() != 3 or gout.dim() != 3:
         raise ValueError(f"x must be (N, C, W) and gout (N, K, Q); got "
                          f"{tuple(x.shape)} and {tuple(gout.shape)}")
@@ -200,7 +269,8 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
                          f"{x.device}")
     lib = _bwd_lib()
     dev = x.device.index
-    rows = lib.conv1d_bwd_weight_rows(N, C, K, S, Wp, dilation, dev)
+    rows = lib.conv1d_bwd_weight_rows(N, C, K, S, Wp, dilation, body_code,
+                                      dev)
     if rows < 0:
         raise _bwd_failed(lib, rows)
     row_len = S * K * C + (K if with_dbias else 0)
@@ -212,7 +282,8 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
     rc = lib.conv1d_bwd_weight(
         x.data_ptr(), gout.data_ptr(), partial.data_ptr(), dw.data_ptr(),
         dbias.data_ptr() if with_dbias else None, N, C, K, S, Wp, dilation,
-        _DTYPES[x.dtype], dev, torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPES[x.dtype], body_code, dev,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise _bwd_failed(lib, rc)
     conv1d_bwd_weight.launches += 1
@@ -222,11 +293,26 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
 conv1d_bwd_weight.launches = 0
 
 
+def bwd_weight_body(N: int, C: int, K: int, S: int, Wp: int, dilation: int,
+                    *, body: str | None = None,
+                    device: int = 0) -> str | None:
+    """The body ``conv1d_bwd_weight`` takes at this shape on GPU
+    ``device``: its own choice for ``body=None``, else the pinned body if
+    the kernel's rule lets it run here; None where the kernel refuses.
+    Asks the library (builds it at first use), so it needs the card."""
+    code = _bwd_lib().conv1d_bwd_weight_body(N, C, K, S, Wp, dilation,
+                                             _body_code(body), device)
+    return next((b for b, c in BWD_BODIES.items() if c == code), None)
+
+
 # --- depthwise (C == K): the Mamba2 causal conv ---------------------------
 
+# the most taps the depthwise kernels take (they keep the taps in registers)
+DW_MAX_TAPS = 8
 # the depthwise kernels' negative return codes: shapes they do not take
 _DW_REFUSED = {
-    -2: "more than 8 taps (the kernels keep the taps in registers)",
+    -2: f"more than {DW_MAX_TAPS} taps (the kernels keep the taps in "
+        "registers)",
     -3: "the batch exceeds the kernel's grid limit 65535",
 }
 

@@ -108,6 +108,7 @@ constexpr int DT_F32 = 0;                 // dtype codes: 0 fp32, 1 bf16
 constexpr int ERR_FOOTPRINT = -1;         // the footprint does not fit
 constexpr int ERR_SHAPE = -2;             // beyond the grid's limits
 constexpr int ERR_DEVICE = -3;            // the SM count cannot be read
+constexpr int ERR_BODY = -4;              // a pinned body that may not run
 
 using bf16 = __nv_bfloat16;
 
@@ -312,16 +313,24 @@ size_t smem_bytes(const Geo& g) {
 // Plan of pass 1, shared by the host functions below: the body, TQ
 // columns a tile, and as many column ranges (blocks along the grid's x,
 // partial rows) as the card has SMs.  TQ does not depend on the dtype, so
-// the rows conv1d_bwd_weight_rows reports hold for both.
+// the rows conv1d_bwd_weight_rows reports hold for both.  `body` pins the
+// body (PIN_UNIT, PIN_TAPS) or lets the shape choose it (PIN_NONE); the
+// taps body needs K > 1 with C > 1 and d % 4 == 0 (its group stride is d
+// columns, 16-byte aligned), or K == 1 with S <= TR.  A pinned body that
+// may not run is refused (ERR_BODY), never replaced.
 struct Plan {
   int body, TQ, ntiles, tiles, parts;
 };
+constexpr int PIN_NONE = 0, PIN_UNIT = 1, PIN_TAPS = 2;
 
-int make_plan(int N, int C, int K, int S, int Wp, int dilation, int device,
-              Plan* p) {
+int make_plan(int N, int C, int K, int S, int Wp, int dilation, int body,
+              int device, Plan* p) {
   const int Q = Wp - (S - 1) * dilation;
-  const bool taps = (K == 1 && S <= TR) || (K > 1 && C > 1 &&
-                                            dilation % 4 == 0);
+  const bool taps_ok = (K == 1 && S <= TR) || (K > 1 && C > 1 &&
+                                               dilation % 4 == 0);
+  if ((body == PIN_TAPS && !taps_ok) || body < PIN_NONE || body > PIN_TAPS)
+    return ERR_BODY;
+  const bool taps = body == PIN_NONE ? taps_ok : body == PIN_TAPS;
   p->body = taps ? BODY_TAPS : BODY_UNIT;
   p->TQ = 0;
   Geo g;
@@ -978,27 +987,39 @@ extern "C" {
 // Rows of fp32 partial sums conv1d_bwd_weight needs as scratch, each
 // S*K*C (+K with dbias) long: one per column range.  A negative value is
 // an error: -1 the footprint cannot fit in shared memory, -2 a shape
-// beyond the grid's limits, -3 the SM count could not be read.
+// beyond the grid's limits, -3 the SM count could not be read, -4 the
+// pinned body may not run this shape.  body: 0 the shape's own choice,
+// 1 the unit body, 2 the taps body.
 int conv1d_bwd_weight_rows(int N, int C, int K, int S, int Wp, int dilation,
-                           int device) {
+                           int body, int device) {
   Plan pl;
-  const int rc = make_plan(N, C, K, S, Wp, dilation, device, &pl);
+  const int rc = make_plan(N, C, K, S, Wp, dilation, body, device, &pl);
   return rc != 0 ? rc : pl.parts;
+}
+
+// The body a launch with this `body` argument takes (1 unit, 2 taps), or
+// a negative code as conv1d_bwd_weight_rows.
+int conv1d_bwd_weight_body(int N, int C, int K, int S, int Wp, int dilation,
+                           int body, int device) {
+  Plan pl;
+  const int rc = make_plan(N, C, K, S, Wp, dilation, body, device, &pl);
+  return rc != 0 ? rc : pl.body == BODY_TAPS ? PIN_TAPS : PIN_UNIT;
 }
 
 // Launches both passes on `stream` of GPU `device` and returns
 // cudaGetLastError() after them (0 on success), or a negative code as
 // conv1d_bwd_weight_rows.  dtype: 0 = fp32, 1 = bf16.  dbias may be null
 // (then no bias gradient is summed).  `partial` holds
-// conv1d_bwd_weight_rows(...) rows.
+// conv1d_bwd_weight_rows(...) rows for the same `body`.
 int conv1d_bwd_weight(const void* x, const void* g, void* partial, void* dw,
                       void* dbias, int N, int C, int K, int S, int Wp,
-                      int dilation, int dtype, int device, void* stream) {
+                      int dilation, int dtype, int body, int device,
+                      void* stream) {
   // this library links its own CUDA runtime: select the tensors' GPU in it
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
   Plan pl;
-  const int rc = make_plan(N, C, K, S, Wp, dilation, device, &pl);
+  const int rc = make_plan(N, C, K, S, Wp, dilation, body, device, &pl);
   if (rc != 0) return rc;
   const int esize = dtype == DT_F32 ? 4 : 2;
   Params p;

@@ -43,7 +43,10 @@
 //     store, one filter tile, so the footprint is staged once (K > 16 runs
 //     in tiles of 16).  Smaller grids take fewer columns and filters a
 //     thread (the stream step J = 2, KT = 4); K = 1 (the heads) gives all
-//     of a thread's registers to columns (J = 16 in training);
+//     of a thread's registers to columns (J = 16 in training).  A caller
+//     (the tuner) may pin any tile of the list instead; `legal` decides
+//     for both, and a pinned tile that may not run is refused, never
+//     replaced;
 //   * the dilated footprint x[n, c, q0 : q0+TQ+(S-1)d] of a channel chunk
 //     and its weights (S, CC, KT) are staged in shared memory as fp32 and
 //     read by all S taps: 16-byte cp.async where the rows are 16-byte
@@ -81,6 +84,7 @@ constexpr int BATCH = 8;                  // loads in flight a thread
 constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3;
 constexpr int DT_BF16 = 1;                // dtype codes: 0 fp32, 1 bf16
 constexpr int ERR_FOOTPRINT = -1;         // one channel row does not fit
+constexpr int ERR_TILE = -4;              // a pinned tile that may not run
 
 __device__ __forceinline__ float load_f32(const void* p, long long i,
                                           bool bf16) {
@@ -383,6 +387,18 @@ __host__ bool fits(Tile t, int C, int S, int d) {
   return channel_chunk(C, row_floats(t.J, d, F), S, t.KT) > 0;
 }
 
+// Whether tile t may run this shape: one of the list for K (K > 1 or
+// K = 1), J > 1 only at d <= BLOCK, and a channel row that fits in shared
+// memory.  The one rule for the kernel's own choice and for a pinned tile.
+__host__ bool legal(Tile t, int C, int K, int S, int d) {
+  const Tile* list = K == 1 ? SINGLE : WIDE;
+  const int count = K == 1 ? 3 : 4;
+  bool listed = false;
+  for (int i = 0; i < count; ++i)
+    listed |= list[i].J == t.J && list[i].KT == t.KT;
+  return listed && !(t.J > 1 && d > BLOCK) && fits(t, C, S, d);
+}
+
 // The tile for a shape on a card of `sms` SMs; {0, 0} if no tile's
 // channel row fits in shared memory.
 __host__ Tile choose(int N, int C, int K, int S, int Wp, int d, int sms) {
@@ -392,7 +408,7 @@ __host__ Tile choose(int N, int C, int K, int S, int Wp, int d, int sms) {
   Tile best{0, 0};
   for (int i = 0; i < count; ++i) {
     const Tile t = list[i];
-    if ((t.J > 1 && d > BLOCK) || !fits(t, C, S, d)) continue;
+    if (!legal(t, C, K, S, d)) continue;
     best = t;
     const long long TQ = geometry(t.J, d).TQ;
     const long long blocks =
@@ -400,6 +416,20 @@ __host__ Tile choose(int N, int C, int K, int S, int Wp, int d, int sms) {
     if (blocks >= sms) break;
   }
   return best;
+}
+
+// The tile of a launch: the pinned one (code J * 100 + KT) if it is legal
+// here, the kernel's own choice for code 0; {0, 0} with *err set if none.
+__host__ Tile resolve(int code, int N, int C, int K, int S, int Wp, int d,
+                      int sms, int* err) {
+  if (code != 0) {
+    const Tile t{code / 100, code % 100};
+    *err = legal(t, C, K, S, d) ? 0 : ERR_TILE;
+    return *err ? Tile{0, 0} : t;
+  }
+  const Tile t = choose(N, C, K, S, Wp, d, sms);
+  *err = t.J == 0 ? ERR_FOOTPRINT : 0;
+  return t;
 }
 
 template <int J, int KT>
@@ -454,34 +484,40 @@ int sm_count(int device, int* sms) {
 extern "C" {
 
 // Launches on `stream` of GPU `device` and returns cudaGetLastError()
-// after the launch (0 on success), or -1 when the footprint cannot fit in
-// shared memory.  dtype / out_dtype: 0 = fp32, 1 = bf16.  bias, residual
-// and preact (fp32) may be null.
+// after the launch (0 on success), -1 when the footprint cannot fit in
+// shared memory, or -4 when the pinned tile may not run this shape.
+// dtype / out_dtype: 0 = fp32, 1 = bf16.  bias, residual and preact
+// (fp32) may be null.  tile: J * 100 + KT pins the register tile (one of
+// 616, 408, 204, 104 for K > 1; 1601, 201, 101 for K = 1); 0 lets the
+// kernel choose.
 int conv1d_fwd(const void* x, const void* w, const void* bias,
                const void* residual, void* out, void* preact, int N, int C,
                int K, int S, int Wp, int dilation, int act, int dtype,
-               int out_dtype, int device, void* stream) {
+               int out_dtype, int tile, int device, void* stream) {
   // this library links its own CUDA runtime: select the tensors' GPU in it
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
   int sms = 0;
   if (const int rc = sm_count(device, &sms)) return rc;
-  const Tile t = choose(N, C, K, S, Wp, dilation, sms);
-  if (t.J == 0) return ERR_FOOTPRINT;
+  int err = 0;
+  const Tile t = resolve(tile, N, C, K, S, Wp, dilation, sms, &err);
+  if (err) return err;
   const Args a{x, w, bias, residual, out, static_cast<float*>(preact), N, C,
                K, S, Wp, dilation, act, int(dtype == DT_BF16),
                int(out_dtype == DT_BF16), static_cast<cudaStream_t>(stream)};
   return dispatch(t, a);
 }
 
-// The tile a launch at this shape takes on GPU `device`, as J * 100 + KT
-// (J columns x KT filters a thread), or a negative code as conv1d_fwd's.
+// The tile a launch at this shape with this `tile` argument takes on GPU
+// `device`, as J * 100 + KT, or a negative code as conv1d_fwd's: the
+// kernel's own choice for tile 0, else whether the pinned tile may run.
 int conv1d_fwd_tile(int N, int C, int K, int S, int Wp, int dilation,
-                    int device) {
+                    int tile, int device) {
   int sms = 0;
   if (const int rc = sm_count(device, &sms)) return -rc;
-  const Tile t = choose(N, C, K, S, Wp, dilation, sms);
-  return t.J == 0 ? ERR_FOOTPRINT : t.J * 100 + t.KT;
+  int err = 0;
+  const Tile t = resolve(tile, N, C, K, S, Wp, dilation, sms, &err);
+  return err ? err : t.J * 100 + t.KT;
 }
 
 const char* conv1d_fwd_error_string(int code) {

@@ -44,6 +44,17 @@ def signature(has_bias: bool, activation: str | None,
     return "+".join(parts) if parts else "none"
 
 
+def parse(sig: str | None) -> tuple[bool, str, bool]:
+    """Inverse of ``signature``: -> (has_bias, activation, has_residual)."""
+    if sig in ("", "none", None):
+        return False, "none", False
+    parts = sig.split("+")
+    acts = [p for p in parts if p not in ("b", "r")]
+    if len(acts) > 1 or any(a not in ACTIVATIONS for a in acts):
+        raise ValueError(f"bad epilogue signature {sig!r}")
+    return "b" in parts, acts[0] if acts else "none", "r" in parts
+
+
 def apply_ref(u: torch.Tensor, *, bias: torch.Tensor | None = None,
               residual: torch.Tensor | None = None,
               activation: str | None = None) -> torch.Tensor:
