@@ -126,7 +126,31 @@ Phases (any failed check raises, so the run exits non-zero):
       ``"auto"`` result bitwise equal to the call with its plan pinned.
       One summary line a figure: median efficiency of kernel and cuDNN,
       the cells the kernel wins, the worst cell, ``"auto"``'s winners;
-  14. a JSON line of the six kernels, the card's line, and last the
+  14. serve the language models at their published widths through
+      ``repro_torch.launch.serve.serve_lm`` (seeded weights, random
+      non-zero biases and norms): Mamba2-370M (bf16, fp32 cache) at batch
+      8 and StarCoder2-3B (bf16, bf16 cache) at batch 4, a 200-token
+      prompt prefilled by sequential decode steps and 64 tokens generated
+      greedily, with no kernel launched in any decode step; then the
+      fused prefill step (``make_prefill_step``) on the same prompt: 48
+      ``depthwise_conv1d_fwd`` launches (Mamba2), 30 ``flash_fwd``
+      (StarCoder2, ``attn_impl="flash"``) and nothing else, its last
+      logits within ``serve.prefill_tol`` (bf16: 2^-7 + n_layers x 2^-9
+      of the largest) of the decode's at position 199, the greedy tokens
+      equal in the rows whose top-2 margin is over twice that.  Decode
+      step p50/p99, tokens/s, the sequential prefill's seconds, the fused
+      prefill's call and device time, peak memory (the model's bytes plus
+      the most the cell allocated above what it started with), the
+      decode's device busy share (``torch.profiler`` over 24 steps) and a
+      decode step's bound (``roofline.flops.hbm_bytes_decode`` at 3.35
+      TB/s).  ``depthwise_conv1d_streaming`` at
+      Mamba2's conv (8 x 2304, bf16 in, bias + silu, fp32 out) over 2,048
+      columns in chunks of 1, 64 and a ragged rest: bitwise the one-shot
+      causal kernel call, within DW_TOL_F32 of the plain version.  The two
+      prefill kernels at the prefill's shapes against their plain versions,
+      timed beside bound and library call.  A 2-layer fp32 copy of each
+      model at full width: prefill against decode within 1e-4;
+  15. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -216,6 +240,16 @@ LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 2, 2, 512
 # context), 8 steps; then LM_PROFILE_STEPS traced
 LM_BATCH, LM_SEQ, LM_STEPS, LM_PROFILE_STEPS = 4, 4096, 8, 2
 LM_MEMORY_LIMIT_GB = 80.0
+# phase 14, LM serving at the published widths: Mamba2-370M at batch 8
+# and StarCoder2-3B at batch 4 (its flash prefill), a 200-token prompt
+# (not a multiple of the SSD chunk or the flash tile) and 64 generated
+# tokens; the decode's busy share traced over 8 + 17 - 1 steps; a 2-layer
+# fp32 copy of each at batch 2; Mamba2's conv streamed over 2,048 columns
+# (16 chunks of 1, then chunks of 64, then the ragged rest)
+M2_SERVE_BATCH, SC2_SERVE_BATCH, LM_PROMPT, LM_GEN = 8, 4, 200, 64
+LM_TRACE_PROMPT, LM_TRACE_GEN = 8, 17
+LM_FP32_LAYERS, LM_FP32_BATCH = 2, 2
+STREAM_SEQ, STREAM_ONES, STREAM_CHUNK = 2048, 16, 64
 # the paper's Figs 4-6 sweep: graph replays per timing (cut these, never
 # the cells, if the phase runs long); the tuner times every candidate
 SWEEP_ITERS = 5
@@ -254,6 +288,23 @@ def _device_ms(fn, per_graph: int = 10, reps: int = 5) -> float:
     host work sits between the kernels (``repro_torch.tune.measure``)."""
     from repro_torch.tune.measure import device_ms
     return device_ms(fn, per_graph, reps)
+
+
+def _counters(conv1d_brgemm, fa):
+    """The six kernel wrappers, whose ``launches`` count their launches."""
+    return (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight,
+            conv1d_brgemm.depthwise_conv1d_fwd,
+            conv1d_brgemm.depthwise_conv1d_bwd_weight, fa.flash_fwd,
+            fa.flash_bwd)
+
+
+def _counted(counters, fn):
+    """``fn()`` with every counter set to 0 just before it; returns its
+    result and each kernel's launches in it."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    return out, {c.__name__: c.launches for c in counters}
 
 
 def _host_us(fn, reps: int = 200, rounds: int = 5) -> float:
@@ -440,9 +491,9 @@ def serve_check(torch, np, configs, blocks, serve, conv1d_brgemm):
         return done, time.perf_counter() - t0
 
     server = make_server()
-    conv1d_brgemm.conv1d_fwd.launches = 0
-    done, wall = timed_run(server)
-    launches = conv1d_brgemm.conv1d_fwd.launches
+    (done, wall), launches = _counted((conv1d_brgemm.conv1d_fwd,),
+                                      lambda: timed_run(server))
+    launches = launches["conv1d_fwd"]
     prefills = sum(r.history is not None for r in done)
     per_step = (launches - 25 * prefills) / server.chunks_run
     if len(done) != STREAMS:
@@ -924,11 +975,10 @@ def model_grad_check(torch, configs, blocks, synthetic, adamw,
         loss, _ = blocks.loss_fn(m, cfg, batch, backend=backend)
         return loss.detach(), torch.autograd.grad(loss, params)
 
-    fwd0, bw0 = conv1d_brgemm.conv1d_fwd.launches, \
-        conv1d_brgemm.conv1d_bwd_weight.launches
-    loss_k, grads_k = loss_and_grads(model, None)
-    launched = (conv1d_brgemm.conv1d_fwd.launches - fwd0,
-                conv1d_brgemm.conv1d_bwd_weight.launches - bw0)
+    (loss_k, grads_k), launched = _counted(
+        (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight),
+        lambda: loss_and_grads(model, None))
+    launched = tuple(launched.values())
     loss_p, grads_p = loss_and_grads(model, "ref")
     torch.cuda.synchronize()
     if launched != (49, 25):
@@ -993,13 +1043,12 @@ def model_grad_check(torch, configs, blocks, synthetic, adamw,
 def train_check(torch, np, train, conv1d_brgemm):
     """Phase 6: train atacworks through the launcher's own entry point."""
     torch.cuda.reset_peak_memory_stats()
-    conv1d_brgemm.conv1d_fwd.launches = 0
-    conv1d_brgemm.conv1d_bwd_weight.launches = 0
-    summary = train.run(["--arch", "atacworks", "--steps", str(TRAIN_STEPS),
-                         "--batch", str(TRAIN_BATCH), "--seq",
-                         str(TRAIN_SEQ)])
-    fwd = conv1d_brgemm.conv1d_fwd.launches
-    bw = conv1d_brgemm.conv1d_bwd_weight.launches
+    summary, launched = _counted(
+        (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight),
+        lambda: train.run(["--arch", "atacworks", "--steps",
+                           str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ)]))
+    fwd, bw = launched.values()
     losses = summary["losses"]
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"training losses {losses}")
@@ -1039,18 +1088,17 @@ def _model_rate(arch, batch, seq, step_ms):
                 model_tflops_per_s=flops / (step_ms * 1e-3) / 1e12)
 
 
-def _profile_steps(torch, train, argv, steps, port_names):
-    """Run the launcher with ``argv`` (``steps`` steps) under
-    ``torch.profiler``; returns its summary, the device kernels by name
-    (calls, device ms per step, ``port`` if the name holds one of
-    ``port_names``; longest first), and each host op's self device ms per
-    step."""
+def _trace(torch, fn, port_names, per=1):
+    """Run ``fn()`` under ``torch.profiler``; returns its result, the
+    device kernels by name (calls, device ms per one of ``per`` units,
+    ``port`` if the name holds one of ``port_names``; longest first), and
+    each host op's self device ms per unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        summary = train.run(argv)
+        result = fn()
         torch.cuda.synchronize()
 
     def dev_ms(e, self_only):
@@ -1059,7 +1107,7 @@ def _profile_steps(torch, train, argv, steps, port_names):
                      ("device_time_total", "cuda_time_total")):
             us = getattr(e, attr, None)
             if us is not None:
-                return us / 1e3 / steps
+                return us / 1e3 / per
         return 0.0
 
     kernels, by_op = [], {}
@@ -1071,7 +1119,13 @@ def _profile_steps(torch, train, argv, steps, port_names):
         else:
             by_op[e.key] = by_op.get(e.key, 0.0) + dev_ms(e, True)
     kernels.sort(key=lambda k: -k["ms_per_step"])
-    return summary, kernels, by_op
+    return result, kernels, by_op
+
+
+def _profile_steps(torch, train, argv, steps, port_names):
+    """Run the launcher with ``argv`` (``steps`` steps) under
+    ``torch.profiler`` (``_trace``, per step)."""
+    return _trace(torch, lambda: train.run(argv), port_names, steps)
 
 
 def train_profile(torch, train):
@@ -1123,9 +1177,9 @@ def _model_grad_check(torch, losses, label, cfg, model, batch, run_kernel,
         loss = losses.softmax_xent(run(batch["tokens"]), batch["labels"])
         return loss.detach(), torch.autograd.grad(loss, params)
 
-    before = [c.launches for c in counters]
-    loss_k, grads_k = loss_and_grads(run_kernel)
-    launched = tuple(c.launches - n for c, n in zip(counters, before))
+    (loss_k, grads_k), launched = _counted(
+        counters, lambda: loss_and_grads(run_kernel))
+    launched = tuple(launched.values())
     loss_p, grads_p = loss_and_grads(run_plain)
     torch.cuda.synchronize()
     if launched != expected:
@@ -1164,10 +1218,7 @@ def _train_check(np, train, label, argv, steps, counters, per_step,
     skipped, ``counters`` launched ``per_step`` times a step, and peak
     device memory under ``memory_limit_gb`` where given.  Returns the
     step times, throughput, peak memory and launches."""
-    for c in counters:
-        c.launches = 0
-    summary = train.run(argv)
-    launches = {c.__name__: c.launches for c in counters}
+    summary, launches = _counted(counters, lambda: train.run(argv))
     losses = summary["losses"]
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"{label} training losses {losses}")
@@ -1585,6 +1636,309 @@ def sweep_check(sweep):
     return res
 
 
+def _decode_bound(cfg, batch, kv_len, cache_dtype):
+    """The least time of one decode step at ``kv_len`` cached positions
+    (``roofline.bound``) from the roofline's counts
+    (``repro_torch.roofline.flops``: ``model_flops`` and
+    ``hbm_bytes_decode`` of a decode step that leaves ``kv_len + 1``
+    positions, the cache in ``cache_dtype``)."""
+    from repro_torch.roofline import flops as counts
+    shape = counts.StepShape("decode", kv_len + 1, batch)
+    nbytes = counts.hbm_bytes_decode(cfg, shape, cache_dtype.itemsize)
+    cache = counts.decode_cache_bytes(cfg, batch, kv_len + 1,
+                                      cache_dtype.itemsize)
+    ms, by = roofline.bound(counts.model_flops(cfg, shape), nbytes,
+                            "bfloat16")
+    return dict(bound_ms=ms, bound_by=by, param_bytes=nbytes - cache,
+                cache_bytes=cache)
+
+
+def _serve_lm_cell(torch, serve, counters, arch, cfg, model, batch):
+    """One model's serving at full width: ``serve_lm`` (sequential prefill
+    of LM_PROMPT tokens, LM_GEN generated) with no kernel launched, then
+    the fused prefill step on the same prompt, whose last logits must
+    match the decode's at the prompt's last position within
+    ``serve.prefill_tol``, its launches counted; the fused prefill timed
+    and traced, the decode traced for its busy share."""
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", "61"]
+    args = serve.parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the model and earlier leftovers
+    model_bytes = sum(t.numel() * t.element_size() for t in
+                      (*model.parameters(), *model.buffers()))
+    stats, launched = _counted(counters,
+                               lambda: serve.serve_lm(args, cfg, model))
+    if any(launched.values()):
+        raise AssertionError(f"{arch}: the decode steps launched {launched}")
+    gap, prefill = _counted(counters, lambda: serve.prefill_gap(
+        model, cfg, stats["prompt"], stats["prompt_logits"]))
+    if not (gap["gap"] <= gap["tol"] and gap["tokens_equal"]):
+        raise AssertionError(f"{arch}: fused prefill vs decode {gap}")
+    peak = (torch.cuda.max_memory_allocated() - held + model_bytes) / 1e9
+    step = serve.make_prefill_step(cfg)
+    prompt = {"tokens": stats["prompt"]}
+    prefill_call_ms = _call_ms(lambda: step(model, prompt), reps=5)
+    _, kernels, _ = _trace(torch, lambda: step(model, prompt),
+                           ("dw_fwd_kernel", "flash_fwd_"))
+    prefill_dev = sum(k["ms_per_step"] for k in kernels)
+    # the decode's busy share: LM_TRACE_PROMPT + LM_TRACE_GEN - 1 steps
+    small = serve.parse_args(argv[:2] + [
+        "--batch", str(batch), "--prompt-len", str(LM_TRACE_PROMPT),
+        "--gen", str(LM_TRACE_GEN)])
+    n = LM_TRACE_PROMPT + LM_TRACE_GEN - 1
+    traced, dkernels, _ = _trace(
+        torch, lambda: serve.serve_lm(small, cfg, model), (), n)
+    traced_step_ms = (traced["prefill_s"] + sum(traced["step_s"])) * 1e3 / n
+    busy = sum(k["ms_per_step"] for k in dkernels)
+    cache_dtype = serve.lm_cache_dtype(cfg)
+    kv_len = LM_PROMPT + LM_GEN // 2  # the generated steps' middle
+    bound = _decode_bound(cfg, batch, kv_len, cache_dtype)
+    out = dict(arch=arch, batch=batch, prompt_len=LM_PROMPT, gen=LM_GEN,
+               dtype=cfg.dtype, cache_dtype=stats["cache_dtype"],
+               sequential_prefill_s=stats["prefill_s"],
+               step_p50_ms=stats["step_p50_ms"],
+               step_p99_ms=stats["step_p99_ms"],
+               tokens_per_s=stats["tokens_per_s"],
+               decode_launches=launched, prefill_launches=prefill,
+               prefill_vs_decode=gap, prefill_call_ms=prefill_call_ms,
+               prefill_device_ms=prefill_dev,
+               prefill_port_kernel_ms=sum(k["ms_per_step"] for k in kernels
+                                          if k["port"]),
+               peak_memory_gb=peak, model_gb=model_bytes / 1e9,
+               decode_traced_step_ms=traced_step_ms,
+               decode_device_busy_ms=busy,
+               decode_device_busy_share=busy / traced_step_ms,
+               decode_busy_share_of_p50=busy / stats["step_p50_ms"],
+               decode_kernels_per_step=sum(k["calls"] for k in dkernels) / n,
+               decode_bound_at_kv_len=kv_len, **bound,
+               decode_bound_share=bound["bound_ms"] / stats["step_p50_ms"],
+               decode_top=dkernels[:8])
+    print(f"{arch}-serve " + json.dumps(out), flush=True)
+    return out
+
+
+def _fp32_prefill_check(torch, serve, init_model, cfg, arch, seed, counters):
+    """A 2-layer fp32 copy of a config at its full widths: the fused
+    prefill against the sequential decode at ``serve.prefill_tol``'s fp32
+    tolerance, TF32 off."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS, dtype="float32")
+    model = (_mamba2_model(torch, c, init_model, seed) if c.family == "ssm"
+             else _lm_model(torch, c, init_model, seed))
+    args = serve.parse_args(["--arch", arch, "--batch", str(LM_FP32_BATCH),
+                             "--prompt-len", str(LM_PROMPT), "--gen", "4",
+                             "--seed", str(seed)])
+    stats = serve.serve_lm(args, c, model)
+    gap, launched = _counted(counters, lambda: serve.prefill_gap(
+        model, c, stats["prompt"], stats["prompt_logits"]))
+    if not (gap["gap"] <= gap["tol"] and gap["tokens_equal"]):
+        raise AssertionError(f"{arch} fp32: fused prefill vs decode {gap}")
+    out = dict(arch=arch, layers=c.n_layers, dtype=c.dtype,
+               attn_impl=c.attn_impl, batch=LM_FP32_BATCH,
+               prompt_len=LM_PROMPT, prefill_vs_decode=gap,
+               prefill_launches=launched)
+    print(f"{arch}-fp32-prefill " + json.dumps(out), flush=True)
+    return out
+
+
+def _stream_check(torch, ops, ref, counters):
+    """``depthwise_conv1d_streaming`` at Mamba2-370M's conv (batch 8 x
+    2304 channels, S = 4, bf16 in, bias + silu, fp32 out) over a
+    STREAM_SEQ-column stream: STREAM_ONES chunks of 1 column, then chunks
+    of STREAM_CHUNK, then the ragged rest, from a fresh state.  The
+    streamed outputs bitwise equal to the one-shot causal kernel call and
+    within DW_TOL_F32 of the plain version, the last state bitwise the
+    stream's last 3 columns; a stream step's call time at 1 and at
+    STREAM_CHUNK columns."""
+    gen = torch.Generator(device=DEVICE).manual_seed(81)
+    N, C, S, T = M2_SERVE_BATCH, DW_CHANNELS, DW_TAPS, STREAM_SEQ
+    bf16, f32 = torch.bfloat16, torch.float32
+    x = torch.randn((N, C, T), generator=gen, device=DEVICE).to(bf16)
+    w = (S ** -0.5 * torch.randn((S, C), generator=gen, device=DEVICE)
+         ).to(bf16)
+    b = (0.1 * torch.randn((C,), generator=gen, device=DEVICE)).to(bf16)
+    kw = dict(bias=b, activation="silu", out_dtype=f32)
+    rest = T - STREAM_ONES
+    widths = [1] * STREAM_ONES + [STREAM_CHUNK] * (rest // STREAM_CHUNK)
+    if rest % STREAM_CHUNK:
+        widths.append(rest % STREAM_CHUNK)
+
+    def stream():
+        state = ops.conv_stream_state(N, C, S, 1, bf16, DEVICE)
+        outs, lo = [], 0
+        for width in widths:
+            y, state = ops.depthwise_conv1d_streaming(
+                x[:, :, lo:lo + width], w, state=state, **kw)
+            outs.append(y)
+            lo += width
+        return torch.cat(outs, dim=-1), state
+
+    with torch.inference_mode():
+        (got, state), launched = _counted(counters, stream)
+        launched = launched["depthwise_conv1d_fwd"]
+        whole = ops.depthwise_conv1d(x, w, padding="CAUSAL", **kw)
+        plain = ref.depthwise_conv1d_fused_ref(
+            torch.nn.functional.pad(x, (S - 1, 0)), w, **kw)
+    torch.cuda.synchronize()
+    if launched != len(widths):
+        raise AssertionError(f"stream: {launched} launches for "
+                             f"{len(widths)} chunks")
+    if not torch.equal(got, whole):
+        raise AssertionError("stream: the chunked outputs differ from the "
+                             "one-shot causal kernel call (max diff "
+                             f"{(got - whole).abs().max().item()})")
+    if not torch.equal(state, x[:, :, -(S - 1):]):
+        raise AssertionError("stream: the last state is not the stream's "
+                             "last columns")
+    max_abs, rel = _check_close("stream vs plain", got, plain, DW_TOL_F32)
+    st1 = ops.conv_stream_state(N, C, S, 1, bf16, DEVICE)
+    row = dict(shape=f"stream N={N} C={C} S={S} T={T}", chunks=len(widths),
+               widths=sorted(set(widths)), launches=launched,
+               bitwise_one_shot=True, max_abs_err=max_abs,
+               max_rel_diff=rel, tol_rel_to_max_plain=DW_TOL_F32)
+    for width in (1, STREAM_CHUNK):
+        xs = x[:, :, :width].contiguous()
+        row[f"step_call_ms_q{width}"] = _call_ms(
+            lambda: ops.depthwise_conv1d_streaming(xs, w, state=st1, **kw))
+    print("dw-stream " + json.dumps(row), flush=True)
+    return row
+
+
+def _prefill_kernel_rows(torch, conv1d_brgemm, fa, ref):
+    """The two kernels of the fused prefill at its shapes against their
+    plain versions, timed beside the bound and the library call:
+    ``depthwise_conv1d_fwd`` at Mamba2-370M's (8 x 2304, 3 + LM_PROMPT
+    columns, bf16 in, bias + silu, fp32 out), ``flash_fwd`` at
+    StarCoder2-3B's (batch 4 x LM_PROMPT, 24 heads over 2 KV of 128,
+    bf16, causal; LM_PROMPT is not a multiple of the kernel's tile)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(91)
+    bf16, f32 = torch.bfloat16, torch.float32
+    N, C, S, Q = M2_SERVE_BATCH, DW_CHANNELS, DW_TAPS, LM_PROMPT
+    Wp = Q + S - 1
+    x = torch.randn((N, C, Wp), generator=gen, device=DEVICE).to(bf16)
+    w = (S ** -0.5 * torch.randn((S, C), generator=gen, device=DEVICE)
+         ).to(bf16)
+    b = (0.1 * torch.randn((C,), generator=gen, device=DEVICE)).to(bf16)
+    w_c1s = w.t().unsqueeze(1).contiguous()
+
+    def dw():
+        return conv1d_brgemm.depthwise_conv1d_fwd(
+            x, w, bias=b, activation="silu", out_dtype=f32)
+
+    def dw_plain():
+        return ref.depthwise_conv1d_fused_ref(x, w, bias=b,
+                                              activation="silu",
+                                              out_dtype=f32)
+
+    max_abs, rel = _check_close("prefill dw", dw(), dw_plain(), DW_TOL_F32)
+    nbytes = N * C * Wp * 2 + (S * C + C) * 2 + N * C * Q * 4
+    def dw_library():
+        return F.conv1d(x, w_c1s, b, groups=C)
+
+    dw_row = dict(shape=f"prefill mamba2 N={N} C={C} Q={Q}",
+                  max_abs_err=max_abs, max_rel_diff=rel,
+                  kernel_ms=_device_ms(dw), plain_ms=_device_ms(dw_plain),
+                  library_ms=_device_ms(dw_library), call_ms=_call_ms(dw),
+                  library_call_ms=_call_ms(dw_library))
+    dw_row["bound_ms"], dw_row["bound_by"] = roofline.bound(
+        2.0 * N * C * S * Q, nbytes, "float32")
+    _rates(dw_row, nbytes=nbytes)
+
+    B, T, KV, G, hd = SC2_SERVE_BATCH, LM_PROMPT, FA_KV, FA_G, FA_HD
+    H = KV * G
+    q = torch.randn((B, T, H, hd), generator=gen, device=DEVICE).to(
+        bf16).view(B, T, KV, G, hd)
+    k, v = (torch.randn((B, T, KV, hd), generator=gen, device=DEVICE).to(
+        bf16) for _ in range(2))
+    bq = min(256, T)  # the model's query tile, min(attn_chunk, T)
+
+    def fl():
+        return fa.flash_fwd(q, k, v, causal=True, bq=bq)
+
+    (o, lse), (o_p, lse_p) = fl(), ref.flash_fwd_ref(q, k, v, causal=True)
+    errs = _flash_errs("prefill flash", {"o": (o, o_p)}, lse, lse_p, True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q.reshape(B, T, H, hd), k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    f_bytes = (2 * B * T * H * hd + 2 * B * T * KV * hd) * 2 + B * T * H * 4
+    fl_row = dict(shape=f"prefill starcoder2 B={B} T={T} H={H} KV={KV} "
+                  f"hd={hd} bf16 causal", **_flash_err_fields(errs, True),
+                  kernel_ms=_device_ms(fl), plain_ms=_device_ms(
+                      lambda: ref.flash_fwd_ref(q, k, v, causal=True)),
+                  library_ms=_device_ms(sdpa), call_ms=_call_ms(fl),
+                  library_call_ms=_call_ms(sdpa))
+    fl_row["bound_ms"], fl_row["bound_by"] = _attn_bound(
+        B, T, H, KV, hd, True, "bfloat16", 2, f_bytes)
+    fl_row["bound_share"] = fl_row["bound_ms"] / fl_row["kernel_ms"]
+    torch.cuda.synchronize()
+    for row in (dw_row, fl_row):
+        print("prefill-kernel " + json.dumps(row), flush=True)
+    return dw_row, fl_row
+
+
+def lm_serve_check(torch, configs, init_model, serve, ops, ref,
+                   conv1d_brgemm, fa):
+    """Phase 14: serve Mamba2-370M and StarCoder2-3B at their published
+    widths (``_serve_lm_cell``), Mamba2's conv stream (``_stream_check``),
+    the prefill's two kernels at its shapes (``_prefill_kernel_rows``),
+    and a 2-layer fp32 copy of each at full width
+    (``_fp32_prefill_check``)."""
+    import dataclasses
+    counters = _counters(conv1d_brgemm, fa)
+    out = {}
+    m2 = configs.get("mamba2-370m")
+    model = _mamba2_model(torch, m2, init_model, seed=61)
+    out["mamba2"] = _serve_lm_cell(torch, serve, counters, "mamba2-370m", m2,
+                                   model, M2_SERVE_BATCH)
+    del model
+    sc2 = dataclasses.replace(configs.get("starcoder2-3b"), attn_impl="flash")
+    model = _lm_model(torch, sc2, init_model, seed=71)
+    out["starcoder2"] = _serve_lm_cell(torch, serve, counters,
+                                       "starcoder2-3b", sc2, model,
+                                       SC2_SERVE_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    want = {"mamba2": ("depthwise_conv1d_fwd", m2.n_layers),
+            "starcoder2": ("flash_fwd", sc2.n_layers)}
+    for key, (name, n) in want.items():
+        got = out[key]["prefill_launches"]
+        if got != {**{k: 0 for k in got}, name: n}:
+            raise AssertionError(f"{key}: one fused prefill launched {got}; "
+                                 f"expected {n} {name} and nothing else")
+    out["stream"] = _stream_check(torch, ops, ref, counters)
+    out["prefill_kernels"] = _prefill_kernel_rows(torch, conv1d_brgemm, fa,
+                                                  ref)
+    out["fp32"] = [
+        _fp32_prefill_check(torch, serve, init_model, m2, "mamba2-370m", 62,
+                            counters),
+        _fp32_prefill_check(torch, serve, init_model, sc2, "starcoder2-3b",
+                            72, counters)]
+    for key in ("mamba2", "starcoder2"):
+        r = out[key]
+        gap = r["prefill_vs_decode"]
+        print(f"{key} serving: decode step p50 {r['step_p50_ms']:.3f} ms, "
+              f"p99 {r['step_p99_ms']:.3f} ms, {r['tokens_per_s']:.1f} "
+              f"tokens/s, sequential prefill {r['sequential_prefill_s']:.3f}"
+              f" s, fused prefill {r['prefill_device_ms']:.3f} ms of device "
+              f"time ({r['prefill_call_ms']:.3f} ms a call), peak "
+              f"{r['peak_memory_gb']:.2f} GB, decode busy "
+              f"{r['decode_device_busy_share']:.3f}, decode bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['decode_bound_share']:.3f} of p50), prefill vs decode "
+              f"{gap['gap']:.4g} (tol {gap['tol']:.4g}; tokens checked in "
+              f"{gap['rows_with_clear_margin']} of {r['batch']} rows)",
+              flush=True)
+    return out
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -1749,6 +2103,18 @@ def bwd_loop_mix(build, conv1d_brgemm):
     return mix
 
 
+def _prefill_entry(lm_serve, key, name, row):
+    """A kernel's fused-prefill numbers for the kernels line: its launches
+    in one prefill of the phase-14 cell and its row at the prefill's
+    shape."""
+    r = lm_serve["prefill_kernels"][row]
+    return dict(launches_per_prefill=lm_serve[key]["prefill_launches"][name],
+                **{k: r[k] for k in ("shape", "kernel_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "call_ms", "library_call_ms",
+                                     "max_abs_err", "bound_share")})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1813,6 +2179,8 @@ def main(argv=None) -> int:
     lm_train = lm_train_check(torch, np, train, flash_attention, lm_layers)
     lm_prof = lm_profile(torch, train)
     sweep_res = sweep_check(sweep)
+    lm_serve = lm_serve_check(torch, configs, init_model, serve, ops, ref,
+                              conv1d_brgemm, flash_attention)
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     # device time of the 25 kernels of one stream step, from the per-layer
@@ -1957,6 +2325,9 @@ def main(argv=None) -> int:
         bound_share=dw["fwd"]["bound_share"],
         launches_per_step=m2_train["launches_per_step"][
             "depthwise_conv1d_fwd"],
+        prefill=_prefill_entry(lm_serve, "mamba2", "depthwise_conv1d_fwd",
+                               0),
+        stream=lm_serve["stream"],
         bwd_data={k: dw["bwd_data"][k] for k in (
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err", "tile", "gb_per_s",
@@ -2014,6 +2385,8 @@ def main(argv=None) -> int:
             bound_share=cell[f"{pas}_bound_share"],
             hgmma={k: n for k, n in hgmma.items() if k.startswith(name)},
             launches_per_step=lm_train["launches_per_step"][name]))
+    flash_entries[0]["prefill"] = _prefill_entry(lm_serve, "starcoder2",
+                                                 "flash_fwd", 1)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     if args.out:
@@ -2032,6 +2405,7 @@ def main(argv=None) -> int:
                            flash_checks=fa_rows, starcoder2_grad=lm_grad,
                            starcoder2_train=lm_train,
                            starcoder2_profile=lm_prof, sweep=sweep_res,
+                           lm_serve=lm_serve,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,6 +10,9 @@ nothing is split or joined::
 
     model.load_state_dict(params_from_jax(jax_tree_as_numpy))
     state = train_state_from_jax(jax_train_state_as_numpy, cfg)
+
+A decode cache keeps its nesting (``cache_from_jax``): the port's caches
+are the JAX package's trees of the same layouts.
 """
 from __future__ import annotations
 
@@ -41,6 +44,17 @@ def params_from_jax(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     for k, v in items:
         out.update(params_from_jax(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
+
+
+def cache_from_jax(tree, *, device: torch.device | str = "cpu"):
+    """A JAX decode cache (its leaves as numpy arrays) as the port's: the
+    same nesting of dicts, each leaf a tensor of its own with the same
+    layout and dtype (Mamba2 ``{"conv": (L, B, S-1, conv_dim), "ssm": (L,
+    B, H, N, P)}``, dense ``{"dense": {"k"|"v": (L, B, Tmax, KV, hd)}}``),
+    so ``decode_step`` may write into it."""
+    if isinstance(tree, dict):
+        return {k: cache_from_jax(v, device=device) for k, v in tree.items()}
+    return _tensor(tree).to(device)
 
 
 def train_state_from_jax(state, cfg, *,

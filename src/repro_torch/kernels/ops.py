@@ -47,9 +47,9 @@ Mamba2 block, weights ``(S, C)``: on ``"cuda"`` it runs
 ``depthwise_conv1d_fwd`` and, when autograd records the call,
 :class:`DepthwiseConv1dFunction` (the ``_dw_conv1d_pallas`` custom VJP).
 
-``conv1d_streaming`` is the causal streaming step: one VALID pass over
-``state ++ chunk`` and the carried state slid to the last ``(S-1)*d``
-input columns.
+``conv1d_streaming`` and ``depthwise_conv1d_streaming`` are the causal
+streaming steps: one VALID pass over ``state ++ chunk`` and the carried
+state slid to the last ``(S-1)*d`` input columns.
 """
 from __future__ import annotations
 
@@ -601,6 +601,26 @@ def conv_stream_state(batch: int, c_in: int, S: int, dilation: int,
                        device=device)
 
 
+def _stream_call(conv_fn, x: torch.Tensor, w: torch.Tensor,
+                 state: torch.Tensor, span: int, kwargs: dict
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The streaming engine of both convs: ONE VALID pass of ``conv_fn``
+    over ``[state | chunk]`` (only the chunk's columns are computed), and
+    the last ``span`` input columns of that window as a dense copy, so the
+    new state does not pin the whole window."""
+    N, Cx, W = x.shape
+    if tuple(state.shape) != (N, Cx, span):
+        raise ValueError(f"streaming state shape {tuple(state.shape)} does "
+                         f"not match (N={N}, C_in={Cx}, span={span})")
+    if state.dtype != x.dtype:
+        raise ValueError(f"streaming state dtype {state.dtype} != chunk "
+                         f"dtype {x.dtype}; init the state with the stream's "
+                         "input dtype")
+    xc = torch.cat([state, x], dim=-1) if span else x
+    y = conv_fn(xc, w, padding="VALID", **kwargs)
+    return y, xc[:, :, xc.shape[-1] - span:].contiguous()
+
+
 def conv1d_streaming(x: torch.Tensor, w: torch.Tensor, *,
                      state: torch.Tensor, bias: torch.Tensor | None = None,
                      activation: str | None = None,
@@ -617,18 +637,42 @@ def conv1d_streaming(x: torch.Tensor, w: torch.Tensor, *,
     the history recomputed.  ``new_state`` is a dense copy of the last
     ``(S-1)*d`` columns, so it does not pin the whole window.
     """
-    S, K, C = w.shape
-    span = (S - 1) * dilation
-    N, Cx, W = x.shape
-    if tuple(state.shape) != (N, Cx, span):
-        raise ValueError(f"streaming state shape {tuple(state.shape)} does "
-                         f"not match (N={N}, C_in={Cx}, span={span})")
-    if state.dtype != x.dtype:
-        raise ValueError(f"streaming state dtype {state.dtype} != chunk "
-                         f"dtype {x.dtype}; init the state with the stream's "
-                         "input dtype")
-    xc = torch.cat([state, x], dim=-1) if span else x
-    y = conv1d(xc, w, bias=bias, activation=activation, residual=residual,
-               dilation=dilation, padding="VALID", backend=backend,
-               out_dtype=out_dtype)
-    return y, xc[:, :, xc.shape[-1] - span:].contiguous()
+    S = w.shape[0]
+    return _stream_call(
+        conv1d, x, w, state, (S - 1) * dilation,
+        dict(bias=bias, activation=activation, residual=residual,
+             dilation=dilation, backend=backend, out_dtype=out_dtype))
+
+
+def depthwise_conv1d_streaming(x: torch.Tensor, w: torch.Tensor, *,
+                               state: torch.Tensor,
+                               bias: torch.Tensor | None = None,
+                               activation: str | None = None,
+                               residual: torch.Tensor | None = None,
+                               dilation: int = 1, backend: str | None = None,
+                               out_dtype: torch.dtype | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One streaming step of the causal depthwise conv1d (Mamba2's conv,
+    the dilation kept general): x (N, C, W_chunk), w (S, C), ``state``
+    (N, C, (S-1)*d) in x's dtype (:func:`conv_stream_state` with c_in = C).
+    The contract of :func:`conv1d_streaming`: on a CUDA tensor one
+    ``depthwise_conv1d_fwd`` launch over ``[state | chunk]``, whose
+    summation order does not depend on the width, so a chunked stream is
+    bitwise the one-shot causal call through the kernel.
+
+    Example (CPU, the plain version)::
+
+        >>> import torch
+        >>> from repro_torch.kernels import ops
+        >>> w = torch.ones(4, 8)
+        >>> st = ops.conv_stream_state(2, 8, S=4, dilation=1)
+        >>> y, st = ops.depthwise_conv1d_streaming(torch.ones(2, 8, 1), w,
+        ...                                        state=st)
+        >>> y.shape, st.shape
+        (torch.Size([2, 8, 1]), torch.Size([2, 8, 3]))
+    """
+    S = w.shape[0]
+    return _stream_call(
+        depthwise_conv1d, x, w, state, (S - 1) * dilation,
+        dict(bias=bias, activation=activation, residual=residual,
+             dilation=dilation, backend=backend, out_dtype=out_dtype))

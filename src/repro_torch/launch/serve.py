@@ -1,20 +1,41 @@
-"""Serving launcher of the port: batched continuous streaming for the conv
-family (counterpart of ``repro/launch/serve.py``).
+"""Serving launcher of the port (counterpart of ``repro/launch/serve.py``):
+batched greedy decode for the language models, batched continuous
+streaming for the conv family.  It runs on the card by default.
 
-A continuous-serving loop over the streaming conv1d: a request queue,
-per-stream positions, and padded-batch compaction so ragged streams share
-one ``(B, chunk)`` step, with each layer's state carried in a ring buffer
-instead of re-running the stack's receptive field (10 000 columns for the
-paper's config) on every chunk.  It runs on the card by default:
+Language models (the SSM family, Mamba2, and the dense transformers):
+build the cache of ``--prompt-len`` seeded prompt tokens by sequential
+teacher-forced decode steps, as the JAX launcher does (the fused prefill
+is ``train.serve_step.make_prefill_step``, which ``--smoke`` checks
+against it), then generate ``--gen`` tokens greedily, reporting the
+prefill's time, the decode step's p50/p99 and tokens/s:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --batch 8 --prompt-len 200 --gen 64
+
+The cache is fp32 where the JAX launcher runs one (the SSM family, and
+fp32 configs) and in the model's dtype for a bf16 dense model: with an
+fp32 KV cache the JAX package's bf16 attention output turns fp32 and its
+layer scan refuses the carry (ROADMAP.md queue C), so the model's dtype
+(``make_cache``'s default) is the one it can run.  The decode step runs
+no kernel (as in the JAX package, where XLA takes it); ``--model-parallel``
+above 1 waits for model-axis parallelism (ROADMAP.md queue A item 4), and
+the telemetry spans of the JAX launcher (``with_request_spans``,
+``serve.prefill``) for ``obs`` (queue A item 6).
+
+Conv family (AtacWorks): a continuous-serving loop over the streaming
+conv1d: a request queue, per-stream positions, and padded-batch
+compaction so ragged streams share one ``(B, chunk)`` step, with each
+layer's state carried in a ring buffer instead of re-running the stack's
+receptive field (10 000 columns for the paper's config) on every chunk:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch atacworks \
         --streams 8 --batch 4 --chunk 4096 --prompt-len 4096
 
+Streaming is causal-only: ``--conv-padding same`` exits with an error.
+
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
-it raises.  Streaming is causal-only: ``--conv-padding same`` exits with an
-error.  Serving the LM families (Mamba2 included: its decode path runs no
-kernel) is not ported yet and raises ``NotImplementedError``.
+it raises.
 """
 from __future__ import annotations
 
@@ -29,9 +50,32 @@ from repro_torch import configs
 from repro_torch.configs.base import reduced
 from repro_torch.core import blocks
 from repro_torch.launch.device import require_device
-from repro_torch.train.serve_step import (make_conv_prefill_step,
+from repro_torch.models import init_model
+from repro_torch.train.serve_step import (make_cache, make_conv_prefill_step,
                                           make_conv_stream_state,
-                                          make_conv_stream_step)
+                                          make_conv_stream_step,
+                                          make_prefill_step, make_serve_step)
+
+# The fused prefill's last logits against the sequential decode's at the
+# same position: max|prefill - decode| <= tol * max|decode| over the real
+# vocabulary.  fp32: the chunked SSD or the attention over the whole
+# prompt against the recurrence or the cache, the same products summed in
+# another order (about 1e-6 of the largest logit at 2 layers): 1e-4.
+# bf16: the logits are bf16 products, so two paths whose sums differ in
+# the last bits may round a logit one bf16 ulp apart (2^-7 of the
+# largest); before that each layer rounds its outputs to bf16 (2^-9
+# relative) on values that differ between the paths, and the residual
+# stream carries those roundings to the logits: one 2^-9 of the largest
+# logit a layer on top.
+PREFILL_TOL_F32 = 1e-4
+PREFILL_TOL_BF16_ULP, PREFILL_TOL_BF16_PER_LAYER = 2.0 ** -7, 2.0 ** -9
+
+
+def prefill_tol(cfg, dtype: torch.dtype) -> float:
+    """The prefill-against-decode tolerance of a model of ``dtype``."""
+    if dtype == torch.float32:
+        return PREFILL_TOL_F32
+    return PREFILL_TOL_BF16_ULP + cfg.n_layers * PREFILL_TOL_BF16_PER_LAYER
 
 
 def _leaves(state: dict):
@@ -246,16 +290,134 @@ def serve_conv(args, cfg) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def lm_cache_dtype(cfg) -> torch.dtype:
+    """The decode cache's dtype: fp32 for the SSM family and for fp32
+    configs (the JAX launcher's), the model's dtype otherwise (the only
+    one the JAX package runs for a bf16 dense model)."""
+    if cfg.family == "ssm" or cfg.dtype == "float32":
+        return torch.float32
+    return getattr(torch, cfg.dtype)
+
+
+def prefill_gap(model, cfg, prompt: torch.Tensor,
+                decode_logits: torch.Tensor) -> dict:
+    """The fused prefill step on ``prompt`` against the sequential decode's
+    logits at its last position: ``gap`` = max|prefill - decode| over
+    max|decode| (the real vocabulary), ``tol`` = ``prefill_tol``, and
+    ``tokens_equal``: whether the greedy tokens agree in every row whose
+    top-2 margin exceeds twice the tolerance (each path may move a logit
+    by the tolerance, so a smaller margin may flip), counted in
+    ``rows_with_clear_margin``."""
+    _, logits = make_prefill_step(cfg)(model, {"tokens": prompt})
+    V = cfg.vocab_size  # the padded columns are NEG_INF on both sides
+    got, want = logits[:, -1, :V].float(), decode_logits[:, -1, :V].float()
+    scale = want.abs().max()
+    rel = prefill_tol(cfg, next(model.parameters()).dtype)
+    tol = rel * scale
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = got.argmax(-1) == want.argmax(-1)
+    return {"gap": ((got - want).abs().max() / scale).item(),
+            "tol": rel,
+            "tokens_equal": bool((same | ~clear).all()),
+            "rows_with_clear_margin": int(clear.sum())}
+
+
+def serve_lm(args, cfg, model=None) -> dict:
+    """The language models' serving path: sequential prefill of a seeded
+    prompt through the serve step, then greedy generation.  ``model``
+    (on ``args.device``) is served when given, else one is built from
+    ``args.seed``.  Returns the run's numbers: ``prefill_s``, ``step_s``,
+    ``step_p50_ms`` / ``step_p99_ms`` (host clock around one decode step,
+    its next tokens copied to the host as a server sends them),
+    ``tokens_per_s`` (batch x decode steps over their time), ``tokens``
+    (B, gen), ``prompt`` and ``prompt_logits`` (the decode's logits at the
+    prompt's last position), the cache's dtype."""
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 is not ported to repro_torch yet: it waits "
+            "for model-axis tensor parallelism (ROADMAP.md queue A item 4)")
+    if args.prompt_len < 1 or args.gen < 2:
+        raise ValueError("--prompt-len must be >= 1 and --gen >= 2 (the "
+                         "first generated token comes from the prefill)")
+    device = require_device(args.device)
+    if model is None:
+        model = init_model(cfg, seed=args.seed, device=device)
+    max_len = args.prompt_len + args.gen
+    cache_dtype = lm_cache_dtype(cfg)
+    cache = make_cache(cfg, args.batch, max_len, dtype=cache_dtype,
+                       device=device)
+    serve = make_serve_step(cfg)
+    rng = np.random.default_rng(args.seed)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    ).to(device)
+
+    # prefill: sequential teacher-forced decode steps (cache-correct by
+    # construction)
+    t0 = time.perf_counter()
+    for t in range(args.prompt_len):
+        nxt, cache, logits = serve(model, cache, prompt[:, t:t + 1], t)
+    prompt_logits = logits
+    finite = torch.isfinite(logits).all()
+    out = [nxt.cpu()]
+    prefill_s = time.perf_counter() - t0
+    print(f"prefill {args.prompt_len} tokens x {args.batch} on {device} "
+          f"(sequential decode steps, {cache_dtype} cache): "
+          f"{prefill_s:.3f} s", flush=True)
+
+    times = []
+    for t in range(args.prompt_len, max_len - 1):
+        t0 = time.perf_counter()
+        nxt, cache, logits = serve(model, cache, nxt, t)
+        out.append(nxt.cpu())
+        times.append(time.perf_counter() - t0)
+        finite &= torch.isfinite(logits).all()
+    if not bool(finite):
+        raise AssertionError("non-finite logits")
+    tokens = torch.cat(out, dim=1).numpy()
+    st = np.asarray(times)
+    stats = dict(device=str(device), cache_dtype=str(cache_dtype),
+                 batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+                 prefill_s=prefill_s, steps=len(times), step_s=times,
+                 step_p50_ms=float(np.median(st)) * 1e3,
+                 step_p99_ms=float(np.percentile(st, 99)) * 1e3,
+                 tokens_per_s=args.batch * len(times) / float(st.sum()),
+                 tokens=tokens, prompt=prompt, prompt_logits=prompt_logits)
+    print(f"generated {tokens.shape} tokens, logits finite: step p50 "
+          f"{stats['step_p50_ms']:.3f} ms, p99 {stats['step_p99_ms']:.3f} ms,"
+          f" {stats['tokens_per_s']:.1f} tokens/s", flush=True)
+    print("sample:", tokens[0, :16])
+    if args.smoke:
+        gap = prefill_gap(model, cfg, prompt, prompt_logits)
+        if gap["gap"] > gap["tol"] or not gap["tokens_equal"]:
+            raise AssertionError(f"the fused prefill diverged from the "
+                                 f"sequential decode: {gap}")
+        print(f"smoke: fused prefill == sequential decode at position "
+              f"{args.prompt_len - 1} (max diff {gap['gap']:.2e} of the "
+              f"largest logit, tol {gap['tol']:.2e})")
+    return stats
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags (``serve_lm`` and ``serve_conv`` read them)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced config (C=8, S=9) and a check of stream "
-                         "0 against the one-shot forward")
+                    help="reduced config (conv: C=8, S=9, and a check of "
+                         "stream 0 against the one-shot forward; ssm and "
+                         "dense: 2 layers, d_model 64, and a check of the "
+                         "fused prefill against the sequential decode)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="LM: prompt tokens; conv: history samples")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="LM: tokens generated per sequence")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="LM: only 1 (model-axis parallelism waits in "
+                         "ROADMAP.md queue A item 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--streams", type=int, default=8,
                     help="number of queued streaming requests")
@@ -268,17 +430,18 @@ def main(argv=None) -> int:
                     choices=["causal", "same"],
                     help="only 'causal' can stream; 'same' exits with an "
                          "error (needs future context)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     cfg = configs.get(args.arch)
-    if cfg.family != "conv":
-        raise NotImplementedError(
-            f"serving the {cfg.family!r} family is not ported to repro_torch "
-            "yet: only conv streaming is; Mamba2's decode path waits in "
-            "ROADMAP.md queue A")
     if args.smoke:
         cfg = reduced(cfg)
-    return serve_conv(args, cfg)
+    if cfg.family == "conv":
+        return serve_conv(args, cfg)
+    serve_lm(args, cfg)
+    return 0
 
 
 if __name__ == "__main__":

@@ -3,15 +3,23 @@
 ``init_model`` builds the model of any ported family from a seed.
 
 Among the language models the SSM family (Mamba2) and the dense
-transformers are ported; the conv family's model is
-``repro_torch.core.blocks``.
+transformers are ported, each module with the functional surface of the
+JAX package's (``repro/models/__init__.py``), the model an ``nn.Module``:
+
+    init_params(cfg, *, seed, device) -> model
+    forward(model, tokens, *, last_only=False, ...) -> logits
+    init_cache(cfg, batch, max_len, dtype, device) -> cache
+    decode_step(model, cache, tokens, pos) -> (logits, cache)
+
+``decode_step`` updates the cache in place and returns it.  The conv
+family's model is ``repro_torch.core.blocks``, which serves through
+ring-buffer streaming instead of a cache.
 """
 from __future__ import annotations
 
 
 def get_model(cfg):
-    """The model module of ``cfg.family``: ``init_params(cfg, ...)``,
-    ``forward(model, tokens, ...)``."""
+    """The model module of ``cfg.family`` (the surface above)."""
     if cfg.family == "ssm":
         from repro_torch.models import mamba2
         return mamba2

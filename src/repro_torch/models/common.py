@@ -1,7 +1,8 @@
 """Shared language-model pieces the ported families read (counterpart of
 the matching parts of ``repro/models/common.py``): the RMS and layer
 norms, rotary embeddings, grouped-query attention (the chunked plain
-path and the flash kernels), the MLPs, token embedding, the unembedding
+path and the flash kernels) and its single-token decode against a KV
+cache, the MLPs, token embedding, the unembedding
 with its vocabulary padding masked, and activation rematerialisation.
 
 The JAX package's cast points are kept: norms, rotary embeddings, the
@@ -184,6 +185,33 @@ def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     return o
 
 
+def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+    """Single-token self-attention.  x (B, 1, D); cache_k and cache_v
+    (B, Tmax, KV, hd) are one layer's slices of the KV cache; ``pos`` is
+    the token's position, which is the cache's valid length before it.
+    k and v are written into the cache at ``pos`` (in place, in the
+    cache's dtype) and the query attends to positions 0..pos.
+
+    The JAX package's dtype flow is kept: the softmax weights take the
+    cache's dtype (``a.to(v.dtype)``), and ``o @ wo`` promotes as JAX's
+    matmul does, so an fp32 cache with bf16 weights gives an fp32 output
+    (the JAX package's scan then refuses the fp32 residual; the port's
+    launcher runs such a model with a cache of the model's dtype)."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg, torch.full((B, 1), pos, device=x.device))
+    cache_k[:, pos] = k[:, 0]
+    cache_v[:, pos] = v[:, 0]
+    o = gqa_attention(q, cache_k, cache_v, causal=False, kv_len=pos + 1)
+    o = o.reshape(B, 1, -1)
+    wo = p["wo"]
+    dt = torch.promote_types(o.dtype, wo.dtype)
+    o = o.to(dt) @ wo.to(dt)
+    if cfg.attn_out_bias:
+        o = o + p["bo"]
+    return o
+
+
 # --- MLP -------------------------------------------------------------------------
 
 def mlp_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
@@ -246,7 +274,9 @@ def logits_from_hidden(tok: torch.Tensor, unembed: torch.Tensor | None,
 def maybe_remat(fn, cfg):
     """``fn`` itself, or with ``cfg.remat`` a function that keeps none of
     ``fn``'s activations and recomputes them in the backward (JAX's
-    ``nothing_saveable`` policy; the ``"dots"`` policy is not ported)."""
+    ``nothing_saveable`` policy; the ``"dots"`` policy is not ported).
+    Where autograd records nothing (serving, under ``inference_mode``)
+    the function runs once, as it is."""
     if not cfg.remat:
         return fn
     if cfg.remat_policy != "nothing":
@@ -255,6 +285,8 @@ def maybe_remat(fn, cfg):
             "yet: only 'nothing' is (ROADMAP.md queue A)")
 
     def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
         return torch.utils.checkpoint.checkpoint(fn, *args,
                                                  use_reentrant=False)
 

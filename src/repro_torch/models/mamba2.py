@@ -1,6 +1,5 @@
 """Mamba2 (SSD, state-space duality; Dao & Gu 2024, arXiv:2405.21060), the
-attention-free language model (counterpart of ``repro/models/mamba2.py``,
-full-sequence path).
+attention-free language model (counterpart of ``repro/models/mamba2.py``).
 
 The causal depthwise conv inside every block runs through the port's
 depthwise kernels (``kernels.ops.depthwise_conv1d``): the forward with
@@ -10,9 +9,13 @@ bias and SiLU fused on the fp32 accumulator, and in training its
 
 Sequence mixing is the chunked SSD algorithm: quadratic attention-like
 products inside chunks of ``cfg.ssm.chunk`` tokens, and the state carried
-across chunks by a loop (JAX's ``lax.scan``).  The decode path
-(``block_decode``/``decode_step``) runs no kernel and is not ported yet
-(ROADMAP.md queue A).
+across chunks by a loop (JAX's ``lax.scan``).  Decode
+(``block_decode``/``decode_step``) is the O(1) recurrent update on an
+(H, N, P) state, its conv the fp32 product of the (S, C) taps with a
+window of the last S inputs, in plain PyTorch as the JAX package leaves
+it to XLA: it runs no kernel.  The cache (``init_cache``) holds every
+layer's state in real (L, B, ...) tensors that ``decode_step`` updates
+in place.
 
 Parameters are kept as the JAX package keeps them: the per-layer leaves
 stacked with a leading ``L`` axis (``layers.mixer.in_proj`` is (L, D,
@@ -74,10 +77,11 @@ class Mamba2(nn.Module):
         self.final_norm = _Leaves(scale=leaves["final_norm.scale"])
         self.unembed = nn.Parameter(leaves["unembed"])
 
-    def forward(self, tokens: torch.Tensor, *, hidden_only: bool = False,
+    def forward(self, tokens: torch.Tensor, *, last_only: bool = False,
+                hidden_only: bool = False,
                 backend: str | None = None) -> torch.Tensor:
-        return forward(self, tokens, hidden_only=hidden_only,
-                       backend=backend)
+        return forward(self, tokens, last_only=last_only,
+                       hidden_only=hidden_only, backend=backend)
 
 
 def init_params(cfg, *, seed: int = 0,
@@ -231,17 +235,28 @@ def block_fwd(p: dict, xres: torch.Tensor, cfg, *,
     return y @ p["out_proj"]
 
 
-def forward(model: Mamba2, tokens: torch.Tensor, *, hidden_only: bool = False,
+def _layers(model: Mamba2):
+    """Each layer's ``(norm scale, mixer leaves)``, slices of the stacked
+    leaves."""
+    mixer = model.layers.mixer
+    for scale, *leaves in zip(model.layers.norm.scale.unbind(0),
+                              *(getattr(mixer, k).unbind(0)
+                                for k in MIXER_KEYS)):
+        yield scale, dict(zip(MIXER_KEYS, leaves))
+
+
+def forward(model: Mamba2, tokens: torch.Tensor, *, last_only: bool = False,
+            hidden_only: bool = False,
             backend: str | None = None) -> torch.Tensor:
     """tokens (B, T) int -> fp32 logits (B, T, padded_vocab), the padded
-    columns at ``common.NEG_INF``; with ``hidden_only`` the final-normed
+    columns at ``common.NEG_INF``; ``last_only`` keeps the last position
+    only (B, 1, ...), the prefill's; with ``hidden_only`` the final-normed
     hidden state (B, T, D) instead.  ``backend`` picks the conv's
     (``None``: the kernels for CUDA tensors, the plain version for CPU
     ones).  With ``cfg.remat`` each layer's activations are recomputed in
     the backward."""
     cfg = model.cfg
     x = cm.embed_tokens(model.embed.tok, tokens, cfg)
-    mixer = model.layers.mixer
 
     def layer(x, scale, *leaves):
         p = dict(zip(MIXER_KEYS, leaves))
@@ -249,10 +264,91 @@ def forward(model: Mamba2, tokens: torch.Tensor, *, hidden_only: bool = False,
                              backend=backend)
 
     step = cm.maybe_remat(layer, cfg)
-    for lp in zip(model.layers.norm.scale.unbind(0),
-                  *(getattr(mixer, k).unbind(0) for k in MIXER_KEYS)):
-        x = step(x, *lp)
+    for scale, p in _layers(model):
+        x = step(x, scale, *p.values())
+    if last_only:
+        x = x[:, -1:]
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
     if hidden_only:
         return x
     return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg)
+
+
+# --- decode ------------------------------------------------------------------
+
+def init_block_state(cfg, batch: int, dtype: torch.dtype = torch.float32,
+                     device: torch.device | str = "cpu") -> dict:
+    """One layer's decode state: ``conv`` (B, S-1, conv_dim), the last S-1
+    conv inputs, in ``dtype``; ``ssm`` (B, H, N, P), the recurrent state,
+    in fp32 whatever ``dtype``: the JAX package's decode returns it in
+    fp32 from its first step on (h is an fp32 product), so a narrower
+    leaf would round a state JAX keeps."""
+    s = cfg.ssm
+    _, H, conv_dim = dims(cfg)
+    return {"conv": torch.zeros((batch, s.conv_width - 1, conv_dim),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, H, s.d_state, s.head_dim),
+                               dtype=torch.float32, device=device)}
+
+
+def block_decode(p: dict, xres: torch.Tensor, cfg,
+                 state: dict) -> torch.Tensor:
+    """One Mamba2 block on one token.  xres: (B, 1, D), already normed;
+    ``state`` as :func:`init_block_state`, updated in place (the conv
+    window slides by one, the SSM state takes the token).  Returns the
+    block's output (B, 1, D)."""
+    s = cfg.ssm
+    d_inner, H, _ = dims(cfg)
+    P, G, N = s.head_dim, s.n_groups, s.d_state
+    b = xres.shape[0]
+    z, xBC, dt = torch.split(xres @ p["in_proj"],
+                             [d_inner, d_inner + 2 * G * N, H], dim=-1)
+    conv = state["conv"]
+    window = torch.cat([conv, xBC.to(conv.dtype)], dim=1)      # (B, S, cd)
+    conv_out = torch.einsum("bsc,sc->bc", window.float(),
+                            p["conv_w"].float()) + p["conv_b"].float()
+    conv.copy_(window[:, 1:])
+    x_ssm, B, C = torch.split(F.silu(conv_out), [d_inner, G * N, G * N],
+                              dim=-1)
+    x_ssm = x_ssm.reshape(b, H, P)
+    B = B.reshape(b, G, N).repeat_interleave(H // G, dim=1)    # (b, H, N)
+    C = C.reshape(b, G, N).repeat_interleave(H // G, dim=1)
+    dt_act = _softplus(dt[:, 0].float() + p["dt_bias"])       # (b, H)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dt_act * A)
+    h = (state["ssm"] * decay[:, :, None, None]
+         + (dt_act[:, :, None] * B)[..., None] * x_ssm[:, :, None, :])
+    state["ssm"].copy_(h)
+    y = (C[:, :, None, :] @ h).squeeze(2) + p["D"][None, :, None] * x_ssm
+    y = y.reshape(b, 1, d_inner)
+    y = y * F.silu(z.float())
+    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps)
+    y = (y * p["gate_norm"].float()).to(xres.dtype)
+    return y @ p["out_proj"]
+
+
+def init_cache(cfg, batch: int, max_len: int = 0,
+               dtype: torch.dtype = torch.float32,
+               device: torch.device | str = "cpu") -> dict:
+    """The decode cache, O(1) in the sequence length (``max_len`` unused):
+    ``{"conv": (L, B, S-1, conv_dim), "ssm": (L, B, H, N, P)}``, the JAX
+    package's layout, each leaf a tensor of its own (not a broadcast of one
+    layer's: ``decode_step`` writes every layer's slice in place)."""
+    one = init_block_state(cfg, batch, dtype, device)
+    return {k: v[None].repeat(cfg.n_layers, *(1,) * v.dim())
+            for k, v in one.items()}
+
+
+def decode_step(model: Mamba2, cache: dict, tokens: torch.Tensor,
+                pos: int) -> tuple[torch.Tensor, dict]:
+    """One decode step.  tokens (B, 1) int -> (fp32 logits (B, 1,
+    padded_vocab), cache), the cache updated in place.  ``pos`` is unused:
+    the state holds the whole history."""
+    cfg = model.cfg
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    for i, (scale, p) in enumerate(_layers(model)):
+        state = {k: v[i] for k, v in cache.items()}
+        x = x + block_decode(p, cm.apply_norm(scale, x, cfg), cfg, state)
+    x = cm.apply_norm(model.final_norm.scale, x, cfg)
+    return cm.logits_from_hidden(model.embed.tok, model.unembed, x,
+                                 cfg), cache

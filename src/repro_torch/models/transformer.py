@@ -15,10 +15,13 @@ checkpoints cross between the packages unchanged.  The forward takes each
 layer's slice through one ``unbind`` per stacked leaf (see
 ``models/mamba2.py``).
 
-Not ported (ROADMAP.md queue A): the MoE and MLA layers, the VLM's image
-embeddings, and the decode path (``init_cache``, ``decode_step``), which
-runs no kernel.  The JAX forward also returns the MoE auxiliary loss,
-which is 0 for the dense family; the port's returns the logits only.
+Decode (``init_cache``, ``decode_step``) runs one token through every
+layer against a KV cache of (L, B, Tmax, KV, hd) tensors, updated in
+place; it runs no kernel (``common.attention_decode``, as in the JAX
+package).  Not ported (ROADMAP.md queue A): the MoE and MLA layers and
+their decode, and the VLM's image embeddings.  The JAX forward also
+returns the MoE auxiliary loss, which is 0 for the dense family; the
+port's returns the logits only.
 """
 from __future__ import annotations
 
@@ -115,6 +118,26 @@ def _layer_fwd(lp: dict, x: torch.Tensor, cfg,
     return x + cm.apply_mlp(lp["mlp"], h, cfg)
 
 
+def _stacked(model: Transformer) -> tuple[list[str], list[torch.Tensor]]:
+    """The per-layer leaves' keys below ``PREFIX`` and their stacked
+    tensors."""
+    pairs = [(k[len(PREFIX):], p) for k, p in model.named_parameters()
+             if k.startswith(PREFIX)]
+    return [k for k, _ in pairs], [p for _, p in pairs]
+
+
+def _final(model: Transformer, x: torch.Tensor, hidden_only: bool = False
+           ) -> torch.Tensor:
+    """The final norm, then the logits unless ``hidden_only``."""
+    cfg = model.cfg
+    fn = model.final_norm
+    x = cm.apply_norm(fn.scale, x, cfg, getattr(fn, "bias", None))
+    if hidden_only:
+        return x
+    return cm.logits_from_hidden(model.embed.tok,
+                                 getattr(model, "unembed", None), x, cfg)
+
+
 def forward(model: Transformer, tokens: torch.Tensor, *,
             last_only: bool = False, hidden_only: bool = False
             ) -> torch.Tensor:
@@ -126,30 +149,65 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     cfg = model.cfg
     x = cm.embed_tokens(model.embed.tok, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    stacked = [(k[len(PREFIX):], p) for k, p in model.named_parameters()
-               if k.startswith(PREFIX)]
-    keys = [k for k, _ in stacked]
+    keys, stacked = _stacked(model)
 
     def layer(x, *leaves):
         return _layer_fwd(_nest(keys, leaves), x, cfg, positions)
 
     step = cm.maybe_remat(layer, cfg)
-    for lp in zip(*(p.unbind(0) for _, p in stacked)):
+    for lp in zip(*(p.unbind(0) for p in stacked)):
         x = step(x, *lp)
     if last_only:
         x = x[:, -1:]
-    fn = model.final_norm
-    x = cm.apply_norm(fn.scale, x, cfg, getattr(fn, "bias", None))
-    if hidden_only:
-        return x
-    return cm.logits_from_hidden(model.embed.tok,
-                                 getattr(model, "unembed", None), x, cfg)
+    return _final(model, x, hidden_only)
 
 
-def init_cache(*_, **__):
-    raise NotImplementedError(
-        "the transformer's decode path (init_cache, decode_step) is not "
-        "ported to repro_torch yet: it runs no kernel (ROADMAP.md queue A)")
+# --- decode (KV cache) ---------------------------------------------------------
+
+def _check_dense(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family!r} family's decode path (MoE, MLA) is not "
+            "ported to repro_torch yet: only the dense one is (ROADMAP.md "
+            "queue A)")
 
 
-decode_step = init_cache
+def init_cache(cfg, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: torch.device | str = "cpu") -> dict:
+    """The KV cache, the JAX package's layout: ``{"dense": {"k": (L, B,
+    max_len, KV, hd), "v": (...)}}`` in ``dtype``, zeros."""
+    _check_dense(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"dense": {k: torch.zeros(shape, dtype=dtype, device=device)
+                      for k in ("k", "v")}}
+
+
+def _layer_decode(lp: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+    h = cm.apply_norm(lp["attn_norm"]["scale"], x, cfg,
+                      lp["attn_norm"].get("bias"))
+    x = x + cm.attention_decode(lp["attn"], h, cfg, cache_k, cache_v, pos)
+    h = cm.apply_norm(lp["mlp_norm"]["scale"], x, cfg,
+                      lp["mlp_norm"].get("bias"))
+    return x + cm.apply_mlp(lp["mlp"], h, cfg)
+
+
+def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
+                pos: int) -> tuple[torch.Tensor, dict]:
+    """One decode step.  tokens (B, 1) int at position ``pos`` (the
+    cache's valid length) -> (fp32 logits (B, 1, padded_vocab), cache),
+    each layer's k and v written into the cache at ``pos`` in place."""
+    cfg = model.cfg
+    _check_dense(cfg)
+    if pos >= cache["dense"]["k"].shape[2]:
+        raise ValueError(f"position {pos} is past the cache's "
+                         f"{cache['dense']['k'].shape[2]} slots")
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    keys, stacked = _stacked(model)
+    layer_caches = zip(cache["dense"]["k"].unbind(0),
+                       cache["dense"]["v"].unbind(0))
+    for lp, (ck, cv) in zip(zip(*(p.unbind(0) for p in stacked)),
+                            layer_caches):
+        x = _layer_decode(_nest(keys, lp), x, cfg, ck, cv, pos)
+    return _final(model, x), cache

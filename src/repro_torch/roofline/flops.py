@@ -123,18 +123,33 @@ def model_flops(cfg, shape) -> float:
                  + 4 * B * T * cfg.n_heads * cfg.head_dim * cfg.n_layers)
 
 
-def hbm_bytes_decode(cfg, shape) -> float:
-    """Least device-memory traffic of one decode step: the parameters
-    (bf16) and the cache (the SSM's fp32 states read and written)."""
-    B, T = shape.global_batch, shape.seq_len
-    p_bytes = 2 * param_count(cfg)
+def decode_cache_bytes(cfg, batch: int, seq_len: int,
+                       cache_itemsize: int = 2) -> float:
+    """Least cache traffic of one decode step that leaves ``seq_len``
+    positions in the cache: the SSM's conv window (``cache_itemsize``
+    bytes an element) and fp32 states, each read and written whole; or
+    the KV rows (``cache_itemsize``), ``seq_len - 1`` read and the new one
+    written."""
     if cfg.family == "ssm":
         s = cfg.ssm
-        _, H = _ssm_dims(cfg)
-        return float(p_bytes
-                     + 4 * B * H * s.head_dim * s.d_state * cfg.n_layers * 2)
-    cache = 2 * B * T * 2 * cfg.n_kv_heads * cfg.head_dim * cfg.n_layers
-    return float(p_bytes + cache)
+        d_inner, H = _ssm_dims(cfg)
+        window = (s.conv_width - 1) * (d_inner + 2 * s.n_groups * s.d_state)
+        state = cache_itemsize * window + 4 * H * s.head_dim * s.d_state
+        return float(2 * batch * state * cfg.n_layers)
+    return float(cache_itemsize * batch * seq_len * 2 * cfg.n_kv_heads
+                 * cfg.head_dim * cfg.n_layers)
+
+
+def hbm_bytes_decode(cfg, shape, cache_itemsize: int = 2) -> float:
+    """Least device-memory traffic of one decode step: the bf16
+    parameters, of an untied embedding only the batch's rows, and
+    ``decode_cache_bytes`` at ``shape.seq_len``.  JAX's count reads the
+    whole untied table and leaves the conv window out."""
+    B, T = shape.global_batch, shape.seq_len
+    p_bytes = 2 * param_count(cfg)
+    if cfg.family != "conv" and not cfg.tie_embeddings:  # a row lookup
+        p_bytes -= 2 * (cfg.vocab_size - B) * cfg.d_model
+    return float(p_bytes + decode_cache_bytes(cfg, B, T, cache_itemsize))
 
 
 def model_bytes(cfg, shape) -> float:

@@ -1,14 +1,63 @@
-"""Serve-step factories of the conv family (counterpart of the conv part of
-``repro/train/serve_step.py``).
+"""Serve-step factories (counterpart of ``repro/train/serve_step.py``):
+the language models' batched greedy decode step, their cache and their
+fused prefill step, and the conv family's streaming steps.
 
 Each step runs under ``torch.inference_mode()``: serving needs no
-gradient.
+gradient (and with ``cfg.remat`` each layer runs once).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import streaming
+from repro_torch.models import get_model
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax of the last position over the padded vocabulary (its
+    padded columns are ``NEG_INF``), as (B, 1) int32."""
+    return logits[:, -1, :].argmax(-1).to(torch.int32)[:, None]
+
+
+def make_serve_step(cfg):
+    """``serve_step(model, cache, tokens, pos) -> (next_tokens, cache,
+    logits)``: one batched decode step, tokens (B, 1) int at position
+    ``pos`` (the cache's valid length), greedy next tokens (B, 1) int32,
+    fp32 logits (B, 1, padded_vocab); the cache is updated in place."""
+    model_mod = get_model(cfg)
+
+    @torch.inference_mode()
+    def serve_step(model, cache, tokens, pos: int):
+        logits, cache = model_mod.decode_step(model, cache, tokens, pos)
+        return _greedy(logits), cache, logits
+
+    return serve_step
+
+
+def make_cache(cfg, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: torch.device | str = "cpu") -> dict:
+    """The family's decode cache (``init_cache``), zeros."""
+    return get_model(cfg).init_cache(cfg, batch, max_len, dtype=dtype,
+                                     device=device)
+
+
+def make_prefill_step(cfg):
+    """``prefill_step(model, batch) -> (next_tokens, logits)``: the fused
+    prefill, ONE full-sequence forward over ``batch["tokens"]`` (B, T)
+    with the logits of the last position only (B, 1, padded_vocab); the
+    (B, T, V) logits are never made.  On the card it runs the family's
+    kernels: Mamba2's conv through ``depthwise_conv1d_fwd``, a dense
+    model's attention through ``flash_fwd`` when ``cfg.attn_impl ==
+    "flash"``."""
+    model_mod = get_model(cfg)
+
+    @torch.inference_mode()
+    def prefill_step(model, batch):
+        logits = model_mod.forward(model, batch["tokens"], last_only=True)
+        return _greedy(logits), logits
+
+    return prefill_step
 
 
 def make_conv_stream_state(cfg, batch: int,

@@ -1,17 +1,22 @@
 """Parity of the port's roofline arithmetic (``repro_torch.roofline``) with
 the JAX package's (``repro.roofline``), on the CPU: the conv layer's
-operation and byte counts, the model counts of every ported config, and
-the H100 peaks and bounds that ``chip_smoke.py`` states (the values its
-phase 4 printed before the bounds moved here must not move).  Counts are
-integers carried in floats: equal exactly."""
+operation and byte counts, the model counts of every ported config (a
+decode step's bytes beside the two terms JAX's count gets wrong), a
+decode step's cache bytes against the port's own cache, and the H100 peaks
+and bounds that ``chip_smoke.py`` states (the values its phase 4 printed
+before the bounds moved here must not move).  Counts are integers carried
+in floats: equal exactly."""
 from __future__ import annotations
 
 import pytest
+import torch
 
 from repro.configs import get as jget
 from repro.roofline import flops as jflops
 from repro_torch import configs
+from repro_torch.configs.base import reduced
 from repro_torch.roofline import analysis, flops
+from repro_torch.train import serve_step
 
 CONV_SHAPES = [(4, 15, 15, 51, 5000), (4, 64, 64, 25, 20000),
                (8, 1, 15, 51, 60000)]
@@ -38,8 +43,33 @@ def test_model_counts_match_jax(arch):
         shape = flops.StepShape(kind, T, B)
         assert flops.model_flops(cfg, shape) == jflops.model_flops(
             jcfg, shape), kind
-        assert flops.model_bytes(cfg, shape) == jflops.model_bytes(
-            jcfg, shape), kind
+        want = jflops.model_bytes(jcfg, shape)
+        if kind == "decode" and cfg.family != "conv":
+            # JAX's count reads the whole untied table and leaves out the
+            # SSM's conv window (bf16, read and written)
+            if not cfg.tie_embeddings:
+                want -= 2 * (cfg.vocab_size - B) * cfg.d_model
+            if cfg.family == "ssm":
+                s = cfg.ssm
+                conv_dim = s.expand * cfg.d_model + 2 * s.n_groups * s.d_state
+                want += 2 * 2 * B * (s.conv_width - 1) * conv_dim \
+                    * cfg.n_layers
+        assert flops.model_bytes(cfg, shape) == want, kind
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "starcoder2-3b"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_cache_bytes_are_the_caches(arch, dtype):
+    """A decode step's cache bytes are those of the port's own cache
+    (``make_cache``): an SSM's leaves each read and written, a KV cache of
+    ``seq_len`` positions read once (the new row written in its place)."""
+    cfg = reduced(configs.get(arch))
+    B, T = 3, 7
+    cache = serve_step.make_cache(cfg, B, T, dtype=dtype)
+    leaves = cache["dense"].values() if "dense" in cache else cache.values()
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    got = flops.decode_cache_bytes(cfg, B, T, dtype.itemsize)
+    assert got == (2 * nbytes if cfg.family == "ssm" else nbytes)
 
 
 def test_peaks_by_device_name():

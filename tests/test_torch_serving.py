@@ -95,8 +95,11 @@ def test_configs_match_jax():
 def test_lm_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "mamba2-370m", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        configs.get("zamba2-7b")  # hybrid serving needs shared attention
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        serve.main(["--arch", "mamba2-370m", "--device", "cpu", "--smoke",
+                    "--model-parallel", "2"])
 
 
 def test_state_dict_mirrors_the_jax_tree(cfgs, params):
@@ -350,7 +353,8 @@ named = ["repro_torch.launch.train", "repro_torch.train.train_step",
          "repro_torch.models.common", "repro_torch.models.mamba2",
          "repro_torch.configs.mamba2_370m", "repro_torch.models.transformer",
          "repro_torch.kernels.flash_attention",
-         "repro_torch.configs.starcoder2_3b"]
+         "repro_torch.configs.starcoder2_3b", "repro_torch.launch.serve",
+         "repro_torch.train.serve_step", "repro_torch.convert"]
 assert set(named) <= set(mods), sorted(set(named) - set(mods))
 for m in mods + named:
     importlib.import_module(m)

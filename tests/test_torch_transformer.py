@@ -328,10 +328,6 @@ def test_remat_matches_no_remat(arch, monkeypatch):
 
 def test_decode_path_and_other_families_raise():
     _, cfg = _cfgs("starcoder2-3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.decode_step(None, cfg, None, None, 0)
     moe = dataclasses.replace(cfg, family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.get_model(moe)
