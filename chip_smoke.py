@@ -150,7 +150,32 @@ Phases (any failed check raises, so the run exits non-zero):
       prefill kernels at the prefill's shapes against their plain versions,
       timed beside bound and library call.  A 2-layer fp32 copy of each
       model at full width: prefill against decode within 1e-4;
-  15. a JSON line of the six kernels, the card's line, and last the
+  15. data parallelism (``train/data_parallel.py``).  (a) DP_RANKS gloo
+      ranks sharing the one card (NCCL refuses two ranks on one GPU), each
+      on its half of the global batch 8 x 60,000 at the full AtacWorks
+      widths (seeded weights, random non-zero biases): the loss within
+      LOSS_RTOL and every gradient leaf elementwise within DP_TOL of its
+      largest value against the one-process gradient at batch 8 on the
+      kernels, and within LOSS_RTOL and GRAD_TOL of the one-process
+      gradient through the plain version, the ranks' gradients bitwise
+      equal, per rank and step 49 ``conv1d_fwd`` and 25
+      ``conv1d_bwd_weight`` launches and 25 all-reduces; the same with
+      ``grad_reduce_chunks=DP_CHUNKS`` (25 x DP_CHUNKS bwd-weight launches
+      and all-reduces); the gradient's host-clock time per rank (gloo
+      stages every reduce through the host).  The kernels at the shapes
+      this path gives them (a rank's 4 x 60,000 and one chunk's 15,000
+      columns) against their plain versions within BWD_TOL, timed beside
+      bound and library call, and the chunk's two copies timed.
+      (b) ``sharded_conv1d`` at a 15->15 layer and
+      ``sharded_depthwise_conv1d`` at the Mamba2 conv layer (fp32) on two
+      ranks: each rank's output rows and the summed w and bias gradients
+      against the unsharded op on the kernels and through the plain
+      version.  (c) the launcher over an NCCL group of
+      one rank (every layer's all-reduce issued) for 10 steps beside the
+      plain launcher's 10 in this call: the same losses, step p50 of
+      each, and the all-reduce's device time per step from
+      ``torch.profiler``;
+  16. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -253,6 +278,20 @@ STREAM_SEQ, STREAM_ONES, STREAM_CHUNK = 2048, 16, 64
 # the paper's Figs 4-6 sweep: graph replays per timing (cut these, never
 # the cells, if the phase runs long); the tuner times every candidate
 SWEEP_ITERS = 5
+# phase 15, data parallelism: DP_RANKS gloo ranks on the one card, the
+# global batch DP_BATCH x DP_SEQ split between them; each gradient leaf
+# elementwise within DP_TOL of its largest value against the one-process
+# gradient (the weight gradients sum 480,000 products a element, half of
+# them on each rank, the two halves added after the all-reduce: fp32
+# rounding in another order, and BWD_TOL's bound for the same sums);
+# and within GRAD_TOL (as phase 5) of the one-process gradient through the
+# plain version; DP_TIMED timed gradients a rank after the counted one; the
+# kernels at a rank's local batch and one chunk's width against their plain
+# versions within BWD_TOL (as phase 4); the launcher over
+# one NCCL rank for DP_NCCL_STEPS steps, DP_PROFILE_STEPS more traced
+DP_RANKS, DP_BATCH, DP_SEQ, DP_CHUNKS, DP_TIMED = 2, 8, 60000, 4, 3
+DP_TOL = 1e-4
+DP_NCCL_BACKEND, DP_NCCL_STEPS, DP_PROFILE_STEPS = "nccl", 10, 4
 
 
 def _card_line() -> str:
@@ -1939,6 +1978,435 @@ def lm_serve_check(torch, configs, init_model, serve, ops, ref,
     return out
 
 
+def _dp_sharded_ops(torch, ops, sharded, conv1d_brgemm, group, rank, st):
+    """Phase 15 (b), in one rank: ``sharded_conv1d`` at an AtacWorks layer
+    and ``sharded_depthwise_conv1d`` at the Mamba2 conv layer (fp32), on
+    this rank's rows of a seeded global batch, against the unsharded op on
+    the whole batch in the same process, on the kernels and through the
+    plain version: the rank's output rows within TOL, the w and bias
+    gradients (summed over the ranks by the wrapper) within BWD_TOL of
+    the largest value.  Each wrapper's kernels are counted in their own
+    call (``_check_dp_counts``)."""
+    dev = st["device"]
+    gen = torch.Generator().manual_seed(11)
+    N, n = st["batch"], st["batch"] // st["world"]
+    rows = slice(rank * n, (rank + 1) * n)
+    cases = (
+        ("conv1d 15->15 b+relu", sharded.sharded_conv1d, ops.conv1d,
+         (N, 15, st["seq"]), (51, 15, 15), 15,
+         dict(activation="relu", dilation=8, padding="SAME"),
+         (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight)),
+        ("depthwise b+silu", sharded.sharded_depthwise_conv1d,
+         ops.depthwise_conv1d, (N, st["dw_channels"], st["dw_seq"]),
+         (4, st["dw_channels"]), st["dw_channels"],
+         dict(activation="silu", padding="CAUSAL"),
+         (conv1d_brgemm.depthwise_conv1d_fwd,
+          conv1d_brgemm.depthwise_conv1d_bwd_weight)))
+    out = []
+    for label, shard_fn, plain_fn, xs, ws, nb, kw, counters in cases:
+        x = torch.randn(xs, generator=gen).to(dev)
+        w0 = (0.1 * torch.randn(ws, generator=gen)).to(dev)
+        b0 = (0.1 * torch.randn(nb, generator=gen)).to(dev)
+        g = torch.randn((xs[0], nb, xs[2]), generator=gen).to(dev)
+
+        def run(fn, xx, gg, **extra):
+            w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+            y = fn(xx, w, bias=b, **kw, **extra)
+            (y * gg).sum().backward()
+            return y.detach(), w.grad, b.grad
+
+        (y, dw, db), launched = _counted(
+            counters, lambda: run(shard_fn, x[rows].contiguous(),
+                                  g[rows].contiguous(), group=group))
+        row = dict(op=label, shape=list(xs), rank=rank, launches=launched)
+        rtol, atol = TOL["float32"]
+        for ref_name, extra in (("", {}), ("plain_", dict(backend="ref"))):
+            y1, dw1, db1 = run(plain_fn, x, g, **extra)
+            what = f"the unsharded op{' (plain)' if extra else ''}"
+            fwd_err = (y - y1[rows]).abs().max().item()
+            if not ((y - y1[rows]).abs()
+                    <= atol + rtol * y1[rows].abs()).all():
+                raise AssertionError(f"sharded {label}: rank {rank}'s rows "
+                                     f"differ from {what} by {fwd_err}")
+            row.update({
+                f"{ref_name}fwd_max_abs": fwd_err,
+                f"{ref_name}fwd_bitwise": bool(torch.equal(y, y1[rows])),
+                f"{ref_name}dw_rel_err": _check_close(
+                    f"sharded {label} dw vs {what}", dw, dw1,
+                    BWD_TOL["float32"])[1],
+                f"{ref_name}dbias_rel_err": _check_close(
+                    f"sharded {label} dbias vs {what}", db, db1,
+                    BWD_TOL["float32"])[1]})
+        out.append(row)
+    return out
+
+
+def _dp_kernel_rows(torch, conv1d_brgemm):
+    """Phase 15 (a), the kernels at the shapes the data-parallel path
+    gives them, against their plain versions within BWD_TOL (as phase 4)
+    and timed beside the bound and the library call: a rank's 15->15
+    layer at its local batch DP_BATCH / DP_RANKS x DP_SEQ (forward,
+    bwd-data, bwd-weight) and bwd-weight on the first of DP_CHUNKS width
+    ranges, with the two copies that range's slices take
+    (``ops._param_grads``) timed on their own."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    N, Q, S, d, C = DP_BATCH // DP_RANKS, DP_SEQ, 51, 8, 15
+    span = (S - 1) * d
+    x = torch.randn((N, C, Q + span), generator=gen, device=DEVICE)
+    w = torch.randn((S, C, C), generator=gen, device=DEVICE) * (C * S) ** -0.5
+    b = 0.1 * torch.randn((C,), generator=gen, device=DEVICE)
+    g = torch.randn((N, C, Q), generator=gen, device=DEVICE)
+    g_pad = F.pad(g, (span, span))
+    w_t = w.flip(0).transpose(1, 2).contiguous()
+    w_kcs = w.permute(1, 2, 0).contiguous()
+    lo, hi = ops._chunk_ranges(Q, DP_CHUNKS)[0]
+    xc = x[:, :, lo:hi + span].contiguous()
+    gc = g[:, :, lo:hi].contiguous()
+
+    def bwd_w(xx, gg):
+        return lambda: conv1d_brgemm.conv1d_bwd_weight(
+            xx, gg, S=S, dilation=d, with_dbias=True)
+
+    def bwd_w_plain(xx, gg):
+        return lambda: (ref.conv1d_bwd_weight_ref(xx, gg, dilation=d),
+                        ref.conv1d_dbias_ref(gg))
+
+    def bwd_w_lib(xx, gg):
+        return lambda: torch.nn.grad.conv1d_weight(xx, (C, C, S), gg,
+                                                   dilation=d)
+
+    def nbytes(n, q):
+        return (n * C * (q + span) + n * C * q + S * C * C + C) * 4
+
+    fwd_flops = 2.0 * N * C * C * S * Q
+    cases = (
+        ("fwd", N, Q, lambda: conv1d_brgemm.conv1d_fwd(
+            x, w, bias=b, activation="relu", dilation=d),
+         lambda: ref.conv1d_fused_ref(x, w, bias=b, activation="relu",
+                                      dilation=d),
+         lambda: F.conv1d(x, w_kcs, b, dilation=d), fwd_flops, "float32"),
+        ("bwd_data", N, Q, lambda: conv1d_brgemm.conv1d_fwd(
+            g_pad, w_t, dilation=d),
+         lambda: ref.conv1d_bwd_data_ref(g, w, dilation=d),
+         lambda: torch.nn.grad.conv1d_input((N, C, Q + span), w_kcs, g,
+                                            dilation=d),
+         fwd_flops, "float32"),
+        ("bwd_weight", N, Q, bwd_w(x, g), bwd_w_plain(x, g),
+         bwd_w_lib(x, g), roofline.tf32_flops(N, C, C, S, Q), "tf32"),
+        ("bwd_weight chunk", N, hi - lo, bwd_w(xc, gc), bwd_w_plain(xc, gc),
+         bwd_w_lib(xc, gc), roofline.tf32_flops(N, C, C, S, hi - lo),
+         "tf32"))
+    rows = []
+    for name, n, q, kern, plain, lib, flops, kind in cases:
+        label = f"dp {name} 15->15 N={n} Q={q}"
+        got, want = kern(), plain()
+        if isinstance(got, tuple):
+            errs = [_check_close(f"{label} {part}", a, p_, BWD_TOL["float32"])
+                    for part, a, p_ in zip(("dw", "dbias"), got, want)]
+            max_abs, max_rel = (max(e[0] for e in errs),
+                                max(e[1] for e in errs))
+        else:
+            max_abs, max_rel = _check_close(label, got, want,
+                                            BWD_TOL["float32"])
+        row = dict(shape=label, pass_=name, N=n, Q=q, max_abs_err=max_abs,
+                   max_rel_diff=max_rel,
+                   tol_rel_to_max_plain=BWD_TOL["float32"],
+                   kernel_ms=_device_ms(kern),
+                   plain_ms=_device_ms(plain, per_graph=2),
+                   library_ms=_device_ms(lib))
+        row["bound_ms"], row["bound_by"] = roofline.bound(flops,
+                                                          nbytes(n, q), kind)
+        _rates(row, flops=2.0 * n * C * C * S * q)
+        rows.append(row)
+    rows[-1]["slice_copies_ms"] = _device_ms(
+        lambda: (x[:, :, lo:hi + span].contiguous(),
+                 g[:, :, lo:hi].contiguous()))
+    torch.cuda.synchronize()
+    for row in rows:
+        print("dp-kernel " + json.dumps(row), flush=True)
+    return rows
+
+
+def _dp_rank(rank, st):
+    """Phase 15, one of ``st["world"]`` gloo ranks sharing the card: the
+    data-parallel gradient of the full AtacWorks model at this rank's
+    share of the seeded global batch, unchunked and chunked (counted, then
+    timed), and the sharded ops; the results go to a file the parent
+    reads."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import blocks
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import conv1d_brgemm, ops, sharded
+    from repro_torch.launch import mesh
+    from repro_torch.train.data_parallel import (make_sharded_grad_fn,
+                                                 shard_batch)
+
+    global DEVICE
+    DEVICE = st["device"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    group = mesh.init_data_group("gloo", f"file://{st['store']}",
+                                 st["world"], rank)
+    try:
+        cfg = configs.get("atacworks")
+        model = _seeded_model(torch, blocks, cfg, seed=5)
+        batch = shard_batch(_batch(torch, synthetic, cfg, st["batch"],
+                                   st["seq"], 7), group)
+        out = {}
+        for chunks in (1, st["chunks"]):
+            fn = make_sharded_grad_fn(cfg, group, grad_reduce_chunks=chunks)
+            mesh.GradReducer.launches = 0
+            ((loss, _), grads), launched = _counted(
+                (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight),
+                lambda: fn(model, batch))
+            reduces = mesh.GradReducer.launches
+            pending = fn.reducer.pending
+            grads = [g.detach().cpu() for g in grads]
+            times = []
+            for _ in range(st["timed"]):
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(model, batch)
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[chunks] = dict(loss=float(loss), grads=grads,
+                               launches=launched, all_reduces=reduces,
+                               pending_after=pending, grad_ms=times)
+        out["sharded"] = _dp_sharded_ops(torch, ops, sharded, conv1d_brgemm,
+                                         group, rank, st)
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(st["out"], f"rank{rank}.pt"))
+
+
+def _dp_nccl_run(torch, train, conv1d_brgemm, mesh, store, steps):
+    """Phase 15 (c): the launcher over an NCCL group of one rank (every
+    layer's all-reduce issued; on one rank NCCL sums in place with no
+    device work): ``steps`` steps counted and timed, then
+    DP_PROFILE_STEPS under ``torch.profiler``: per step, the calls and
+    host time of the collective ops (names holding "nccl" or "c10d") and
+    the device time of NCCL's kernels and of all kernels; the group
+    ended."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dist.init_process_group(DP_NCCL_BACKEND, init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        argv = ["--arch", "atacworks", "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ)]
+        mesh.GradReducer.launches = 0
+        summary, launched = _counted(
+            (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight),
+            lambda: train.run(argv + ["--steps", str(steps)]))
+        reduces = mesh.GradReducer.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = train.run(argv + ["--steps", str(DP_PROFILE_STEPS)])
+            torch.cuda.synchronize()
+    finally:
+        mesh.destroy()
+
+    def per_step(us):
+        return (us or 0.0) / 1e3 / DP_PROFILE_STEPS
+
+    ops, busy, nccl_dev = {}, 0.0, 0.0
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0.0)
+        key = e.key.lower()
+        if e.device_type == DeviceType.CUDA:
+            busy += per_step(dev)
+            if "nccl" in key or "allreduce" in key:
+                nccl_dev += per_step(dev)
+        elif "nccl" in key or "c10d" in key:
+            ops[e.key[:80]] = dict(calls_per_step=e.count / DP_PROFILE_STEPS,
+                                   host_ms_per_step=per_step(e.cpu_time_total))
+    return summary, launched, reduces, dict(
+        traced_step_ms=1e3 * sum(traced["step_s"]) / DP_PROFILE_STEPS,
+        device_busy_ms_per_step=busy,
+        all_reduce_device_ms_per_step=nccl_dev, collective_ops=ops)
+
+
+def dp_check(torch, np, configs, train, conv1d_brgemm):
+    """Phase 15: data parallelism.  (a, b) DP_RANKS gloo ranks sharing the
+    one card (NCCL refuses two ranks on one GPU): the full AtacWorks
+    gradient at the global batch DP_BATCH x DP_SEQ, split, against the
+    one-process gradient at the global batch on the kernels and through
+    the plain version, unchunked and with ``grad_reduce_chunks=DP_CHUNKS``,
+    the kernels at the path's shapes against their plain versions
+    (``_dp_kernel_rows``), and the sharded ops; (c) the
+    launcher over an NCCL group of one rank, DP_NCCL_STEPS steps beside
+    the plain launcher's in this call, and the all-reduce's device time
+    from ``torch.profiler``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import blocks
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh
+    from repro_torch.train.data_parallel import make_sharded_grad_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get("atacworks")
+    model = _seeded_model(torch, blocks, cfg, seed=5)
+    batch = _batch(torch, synthetic, cfg, DP_BATCH, DP_SEQ, 7)
+    names = [n for n, _ in model.named_parameters()]
+    (loss1, _), grads1 = make_sharded_grad_fn(cfg, None)(model, batch)
+    grads1 = [g.detach().cpu() for g in grads1]
+    # the one-process gradient through the plain version (autograd over
+    # ``ref``), which every gradient below is also held to
+    loss_p, _ = blocks.loss_fn(model, cfg, batch, backend="ref")
+    grads_p = [g.detach().cpu() for g in torch.autograd.grad(
+        loss_p, [p for _, p in model.named_parameters()])]
+    loss_p = float(loss_p.detach())
+    del model, batch
+
+    def vs_plain(label, loss, grads):
+        """The loss within LOSS_RTOL and each leaf within GRAD_TOL of its
+        largest plain value; the worst leaf's max|diff| / max|plain|."""
+        rel = abs(loss - loss_p) / abs(loss_p)
+        if not rel <= LOSS_RTOL:
+            raise AssertionError(f"{label}: loss {loss} vs plain {loss_p}")
+        return max((_check_close(f"{label} grad {name} vs plain", g, gp,
+                                 GRAD_TOL)[1], name)
+                   for name, g, gp in zip(names, grads, grads_p))
+
+    one_vs_plain = vs_plain("one-process dp", float(loss1), grads1)
+    kernel_rows = _dp_kernel_rows(torch, conv1d_brgemm)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        st = dict(device=DEVICE, world=DP_RANKS, batch=DP_BATCH, seq=DP_SEQ,
+                  chunks=DP_CHUNKS, timed=DP_TIMED, store=f"{tmp}/store",
+                  out=tmp, dw_channels=DW_CHANNELS, dw_seq=DW_SEQ)
+        t0 = time.perf_counter()
+        mp.start_processes(_dp_rank, args=(st,), nprocs=DP_RANKS,
+                           start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(DP_RANKS)]
+        stats = dict(card=_card_line(), ranks=DP_RANKS, backend="gloo",
+                     batch=DP_BATCH,
+                     seq=DP_SEQ, chunks=DP_CHUNKS, grad_tol=DP_TOL,
+                     grad_tol_plain=GRAD_TOL, loss_one_process=float(loss1),
+                     loss_plain=loss_p,
+                     one_process_worst_grad_rel_to_max_plain=one_vs_plain[0],
+                     one_process_worst_grad_plain=one_vs_plain[1],
+                     kernel_rows=kernel_rows, ranks_wall_s=ranks_s)
+        for chunks in (1, DP_CHUNKS):
+            worst, worst_p = (0.0, ""), (0.0, "")
+            for r, out in enumerate(res):
+                o = out[chunks]
+                rel = abs(o["loss"] - float(loss1)) / abs(float(loss1))
+                if not rel <= LOSS_RTOL:
+                    raise AssertionError(
+                        f"dp loss (rank {r}, chunks {chunks}) {o['loss']} "
+                        f"vs one process {float(loss1)}")
+                for name, g, g1 in zip(names, o["grads"], grads1):
+                    _, got, use = _check_elementwise(
+                        f"dp grad {name} (rank {r}, chunks {chunks})", g,
+                        g1, 0.0, DP_TOL)
+                    worst = max(worst, (got, name))
+                worst_p = max(worst_p, vs_plain(
+                    f"dp (rank {r}, chunks {chunks})", o["loss"],
+                    o["grads"]))
+                _check_dp_counts(o, chunks, r, out["sharded"])
+                if r and any(not torch.equal(a, b) for a, b in
+                             zip(o["grads"], res[0][chunks]["grads"])):
+                    raise AssertionError(f"ranks 0 and {r} hold different "
+                                         f"gradients (chunks {chunks})")
+            o = res[0][chunks]
+            stats[f"chunks{chunks}"] = dict(
+                loss=o["loss"], worst_grad_rel_to_max=worst[0],
+                worst_grad=worst[1],
+                worst_grad_rel_to_max_plain=worst_p[0],
+                worst_grad_plain=worst_p[1],
+                launches_per_rank_step=o["launches"],
+                all_reduces_per_rank_step=o["all_reduces"],
+                grad_ms_per_rank=[out[chunks]["grad_ms"] for out in res],
+                grad_p50_ms=float(np.median([t for out in res
+                                             for t in out[chunks]["grad_ms"]])))
+        stats["sharded"] = [row for out in res for row in out["sharded"]]
+
+        # (c) the plain launcher, then the launcher over NCCL, in turn
+        plain = train.run(["--arch", "atacworks", "--steps",
+                           str(DP_NCCL_STEPS), "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ)])
+        summary, launched, reduces, prof = _dp_nccl_run(
+            torch, train, conv1d_brgemm, mesh, f"{tmp}/nccl", DP_NCCL_STEPS)
+    losses = summary["losses"]
+    if len(losses) != DP_NCCL_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"NCCL launcher losses {losses}")
+    _check_nccl_counts(summary["dp"], launched, reduces)
+    if losses != plain["losses"]:
+        raise AssertionError(f"NCCL launcher losses {losses} differ from "
+                             f"the plain launcher's {plain['losses']}")
+    warm = train.WARMUP_STEPS
+    calls = max([o["calls_per_step"] for k, o in
+                 prof["collective_ops"].items()
+                 if "allreduce" in k.lower() or "all_reduce" in k.lower()],
+                default=0)
+    if calls < 25:
+        raise AssertionError(f"the trace shows {calls} all-reduces a step: "
+                             f"{prof['collective_ops']}")
+    stats["nccl"] = dict(
+        steps=DP_NCCL_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        step_p50_ms=float(np.median(summary["step_s"][warm:]) * 1e3),
+        plain_step_p50_ms=float(np.median(plain["step_s"][warm:]) * 1e3),
+        samples_per_s=summary["samples_per_s"],
+        plain_samples_per_s=plain["samples_per_s"],
+        launches_per_step={k: v / DP_NCCL_STEPS for k, v in launched.items()},
+        all_reduces_per_step=reduces / DP_NCCL_STEPS, **prof)
+    print("dp " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _check_nccl_counts(dp, launched, reduces):
+    """The launcher over one NCCL rank: 49 forward and 25 bwd-weight
+    launches and 25 all-reduces a step."""
+    n = DP_NCCL_STEPS
+    if dp != 1 or launched != dict(conv1d_fwd=49 * n,
+                                   conv1d_bwd_weight=25 * n) \
+            or reduces != 25 * n:
+        raise AssertionError(f"NCCL launcher: dp {dp}, {launched} launches, "
+                             f"{reduces} all-reduces in {n} steps; expected "
+                             "49, 25 and 25 a step")
+
+
+def _check_dp_counts(o, chunks, rank, sharded_rows):
+    """A rank's step: 25 bwd-weight passes, each run over ``chunks`` width
+    ranges (one launch each) and each range's (dw, dbias) one all-reduce;
+    49 ``conv1d_fwd`` launches; no reduce left in flight.  Each sharded op:
+    one forward and one bwd-weight launch."""
+    want = dict(conv1d_fwd=49, conv1d_bwd_weight=25 * chunks)
+    if o["launches"] != want or o["all_reduces"] != 25 * chunks \
+            or o["pending_after"]:
+        raise AssertionError(
+            f"rank {rank}, chunks {chunks}: launches {o['launches']}, "
+            f"{o['all_reduces']} all-reduces, {o['pending_after']} pending; "
+            f"expected {want} and {25 * chunks} all-reduces")
+    for row in sharded_rows:
+        if sorted(row["launches"].values()) != [1, 1]:
+            raise AssertionError(f"sharded {row['op']} launched "
+                                 f"{row['launches']}; expected one forward "
+                                 "and one bwd-weight")
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -2103,6 +2571,13 @@ def bwd_loop_mix(build, conv1d_brgemm):
     return mix
 
 
+def _dp_row(r):
+    """A kernel's row at a data-parallel shape, for the kernels line."""
+    return {k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "max_abs_err",
+                              "bound_share", "slice_copies_ms") if k in r}
+
+
 def _prefill_entry(lm_serve, key, name, row):
     """A kernel's fused-prefill numbers for the kernels line: its launches
     in one prefill of the phase-14 cell and its row at the prefill's
@@ -2181,6 +2656,7 @@ def main(argv=None) -> int:
     sweep_res = sweep_check(sweep)
     lm_serve = lm_serve_check(torch, configs, init_model, serve, ops, ref,
                               conv1d_brgemm, flash_attention)
+    dp = dp_check(torch, np, configs, train, conv1d_brgemm)
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     # device time of the 25 kernels of one stream step, from the per-layer
@@ -2254,6 +2730,13 @@ def main(argv=None) -> int:
             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err", "tile", "gflop_per_s",
             "bound_share")},
+        dp=dict(launches_per_rank_step={
+            c: dp[f"chunks{c}"]["launches_per_rank_step"]["conv1d_fwd"]
+            for c in (1, DP_CHUNKS)},
+            nccl_launches_per_step=dp["nccl"]["launches_per_step"][
+                "conv1d_fwd"],
+            **{r["pass_"]: _dp_row(r) for r in dp["kernel_rows"]
+               if r["pass_"] in ("fwd", "bwd_data")}),
         serve=dict(shape=MAIN_SHAPE, launches=stats["launches"],
                    launches_per_step=stats["launches_per_step"],
                    ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
@@ -2289,7 +2772,15 @@ def main(argv=None) -> int:
         hgmma={k: n for k, n in hgmma.items()
                if k.startswith("bwd_weight_partial")},
         main_loops=bwd_mix,
-        launches_per_step=train_stats["bwd_weight_launches_per_step"])
+        launches_per_step=train_stats["bwd_weight_launches_per_step"],
+        dp={**{f"chunks{c}": dict(
+            launches_per_rank_step=dp[f"chunks{c}"]["launches_per_rank_step"][
+                "conv1d_bwd_weight"],
+            all_reduces_per_rank_step=dp[f"chunks{c}"][
+                "all_reduces_per_rank_step"]) for c in (1, DP_CHUNKS)},
+            **{r["pass_"].replace(" ", "_"): _dp_row(r)
+               for r in dp["kernel_rows"]
+               if r["pass_"].startswith("bwd_weight")}})
     # the depthwise pair: times at the Mamba2 layer shape, launches from
     # the Mamba2 training run, and the device time of one step's launches
     dw = {r["pass_"]: r for r in dw_rows if "kernel_ms" in r}
@@ -2405,7 +2896,7 @@ def main(argv=None) -> int:
                            flash_checks=fa_rows, starcoder2_grad=lm_grad,
                            starcoder2_train=lm_train,
                            starcoder2_profile=lm_prof, sweep=sweep_res,
-                           lm_serve=lm_serve,
+                           lm_serve=lm_serve, dp=dp,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

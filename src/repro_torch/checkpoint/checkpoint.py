@@ -10,9 +10,10 @@ Layout::
 
 Flat keys are those the JAX ``_flatten`` gives its ``TrainState``:
 ``.params/res/0/conv1/w``, ``.opt/.m/...``, ``.opt/.v/...``,
-``.opt/.count`` and ``.step`` (152 leaves for the AtacWorks stack, 38
-for Mamba2, whose per-layer leaves are stacked (L, ...) in both
-packages).  bf16 leaves are stored as their raw 2-byte values, as numpy
+``.opt/.count``, ``.step`` and, with gradient compression, the error
+feedback ``.ef/...`` (152 leaves for the AtacWorks stack, 202 with
+``ef``; 38 for Mamba2, whose per-layer leaves are stacked (L, ...) in
+both packages).  bf16 leaves are stored as their raw 2-byte values, as numpy
 saves the JAX package's bf16 arrays.
 
   * **Atomic commit**: a checkpoint is staged as ``step_<n>.tmp``, every
@@ -68,6 +69,8 @@ def state_tensors(state) -> dict[str, torch.Tensor]:
                  for k, t in state.opt.v.items()})
     flat[f".opt{SEP}.count"] = state.opt.count
     flat[".step"] = state.step
+    if state.ef is not None:
+        flat.update({f".ef{SEP}{_key(k)}": t for k, t in state.ef.items()})
     return flat
 
 
@@ -215,4 +218,6 @@ class Checkpointer:
             v={k: loaded[f".opt{SEP}.v{SEP}{_key(k)}"] for k in state.opt.v},
             count=loaded[f".opt{SEP}.count"])
         state.step = loaded[".step"]
+        if state.ef is not None:
+            state.ef = {k: loaded[f".ef{SEP}{_key(k)}"] for k in state.ef}
         return state

@@ -32,12 +32,17 @@ class DilatedConv1D(nn.Module):
                 activation: str | None = None,
                 residual: torch.Tensor | None = None,
                 out_dtype: torch.dtype | None = None,
-                tile: int | None = None) -> torch.Tensor:
+                tile: int | None = None, grad_reduce=None,
+                grad_reduce_chunks: int | None = None) -> torch.Tensor:
         """x: (N, C_in, W) -> (N, C_out, Q): ``act(conv(x) + b + residual)``
         in one fused kernel call.  ``backend="auto"`` (or
         ``REPRO_CONV_BACKEND=auto``) runs the tuner's plan for each pass;
-        ``tile`` pins the forward kernel's register tile."""
+        ``tile`` pins the forward kernel's register tile; ``grad_reduce``
+        sums the weight and bias gradients over a data group
+        (``kops.conv1d``)."""
         return kops.conv1d(x, self.w, bias=self.b, activation=activation,
                            residual=residual, dilation=dilation,
                            padding=padding, backend=backend,
-                           out_dtype=out_dtype, tile=tile)
+                           out_dtype=out_dtype, tile=tile,
+                           grad_reduce=grad_reduce,
+                           grad_reduce_chunks=grad_reduce_chunks)

@@ -1,5 +1,5 @@
 """Streaming inference for the dilated-conv family (counterpart of
-``repro/core/streaming.py``, fused path).
+``repro/core/streaming.py``).
 
 Each of the 25 causal layers carries a ring buffer of the last
 ``(S-1)*dilation`` input columns (:func:`init_stream_state`; zeros are the
@@ -9,7 +9,9 @@ buffer, so a chunk's outputs are the one-shot
 ``blocks.forward(padding="CAUSAL")`` values for its columns with nothing of
 the receptive field recomputed.  Through the CUDA kernel they are bitwise
 equal (the kernel's summation order does not depend on the width).
-:func:`prefill` is :func:`stream_step` on a fresh state.
+:func:`prefill` is :func:`stream_step` on a fresh state.  ``fused=False``
+runs each layer as ``blocks.forward_unfused`` does: the conv alone, then
+the bias, the residual and the fp32 relu as separate ops.
 
 Streaming is causal by construction: SAME/VALID padding need future
 context and raise :class:`StreamingUnsupported`.
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.blocks import N_RES_BLOCKS
+from repro_torch.core import blocks
 from repro_torch.kernels import ops as kops
 
 
@@ -42,7 +44,7 @@ def layer_span(cfg) -> int:
 
 def receptive_field(cfg) -> int:
     """Total look-back of the 25-layer stack."""
-    return (2 * N_RES_BLOCKS + 3) * layer_span(cfg)
+    return (2 * blocks.N_RES_BLOCKS + 3) * layer_span(cfg)
 
 
 def init_stream_state(cfg, batch: int, dtype: torch.dtype = torch.float32,
@@ -57,28 +59,45 @@ def init_stream_state(cfg, batch: int, dtype: torch.dtype = torch.float32,
     return {
         "stem": buf(1),
         "res": [{"conv1": buf(C), "conv2": buf(C)}
-                for _ in range(N_RES_BLOCKS)],
+                for _ in range(blocks.N_RES_BLOCKS)],
         "head_signal": buf(C),
         "head_peak": buf(C),
     }
 
 
 def stream_step(model, cfg, state: dict, chunk: torch.Tensor, *,
-                padding: str = "CAUSAL"):
+                padding: str = "CAUSAL", fused: bool | None = None):
     """One streaming step of the conv stack.
 
     chunk: (B, W_chunk) -> ``((signal, peak_logits), new_state)``, both
     outputs (B, W_chunk) fp32.  ``state`` is not modified; ``new_state``
     holds fresh buffers.  Each layer runs the kernel on a CUDA tensor and
-    the plain version on a CPU one (``ops.default_backend``).
+    the plain version on a CPU one (``ops.default_backend``).  ``fused``
+    (default ``blocks.FUSED_DEFAULT``) picks the fused epilogue or the
+    unfused composition; prefill and steps of one stream should agree.
     """
     validate_streamable(padding)
+    if fused is None:
+        fused = blocks.FUSED_DEFAULT
     d = cfg.conv_dilation
     new = {"res": []}
 
     def layer(conv, buf, h, **kw):
-        return kops.conv1d_streaming(h, conv.w, state=buf, bias=conv.b,
-                                     dilation=d, **kw)
+        if fused:
+            return kops.conv1d_streaming(h, conv.w, state=buf, bias=conv.b,
+                                         dilation=d, **kw)
+        # the unfused composition, op for op blocks.forward_unfused's
+        y, nbuf = kops.conv1d_streaming(h, conv.w, state=buf, dilation=d)
+        y = y + conv.b[None, :, None].to(y.dtype)
+        act, res = kw.get("activation"), kw.get("residual")
+        out_dtype = kw.get("out_dtype")
+        if res is not None:
+            y = (res + y).float()
+        elif act is not None or out_dtype is not None:
+            y = y.float()
+        if act == "relu":
+            y = torch.relu(y)
+        return y.to(out_dtype if out_dtype is not None else h.dtype), nbuf
 
     h = chunk[:, None, :]  # (B, 1, W)
     h, new["stem"] = layer(model.stem, state["stem"], h, activation="relu")
@@ -95,11 +114,12 @@ def stream_step(model, cfg, state: dict, chunk: torch.Tensor, *,
     return (signal[:, 0, :], peak[:, 0, :]), new
 
 
-def prefill(model, cfg, history: torch.Tensor, *, padding: str = "CAUSAL"):
+def prefill(model, cfg, history: torch.Tensor, *, padding: str = "CAUSAL",
+            fused: bool | None = None):
     """Initialise streaming state from a history in ONE pass: history
     (B, W_hist) -> ``((signal, peak_logits), state)``; this is
     :func:`stream_step` on a fresh state."""
     validate_streamable(padding)
     state = init_stream_state(cfg, history.shape[0], history.dtype,
                               history.device)
-    return stream_step(model, cfg, state, history)
+    return stream_step(model, cfg, state, history, fused=fused)

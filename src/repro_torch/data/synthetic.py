@@ -76,12 +76,25 @@ class SyntheticLoader:
     Batches are keyed by STEP index, not production order: batch *i* of a
     loader started at ``start`` is seeded ``seed + start + i``, so a loader
     rebuilt at step *r* on resume replays exactly the batches steps
-    ``r, r+1, ...`` saw the first time.  ``close`` stops the thread."""
+    ``r, r+1, ...`` saw the first time.  ``close`` stops the thread.
+
+    ``rank``/``world``: data parallelism.  ``batch`` stays the global
+    batch; every rank draws the same global batch from the step's seed
+    (the generator draws sample after sample, so a slice cannot be drawn
+    alone) and moves its contiguous share, rows ``[rank * batch / world,
+    (rank + 1) * batch / world)``, to its device.  The ranks' shares are
+    then the single-process batch, split."""
 
     def __init__(self, cfg, batch: int, seq: int, *,
                  device: torch.device | str = "cpu", seed: int = 0,
-                 start: int = 0):
+                 start: int = 0, rank: int = 0, world: int = 1):
+        if batch % world:
+            raise ValueError(
+                f"batch {batch} does not divide over {world} data-parallel "
+                "shards; pad or re-batch the input")
         self.cfg, self.batch, self.seq = cfg, batch, seq
+        n = batch // world
+        self._rows = slice(rank * n, (rank + 1) * n)
         self.device = torch.device(device)
         self._q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         self._seed = seed + start
@@ -93,7 +106,8 @@ class SyntheticLoader:
         i = 0
         while not self._stop.is_set():
             b = make_batch(self.cfg, self.batch, self.seq, seed=self._seed + i)
-            b = {k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
+            b = {k: torch.from_numpy(v[self._rows]).to(self.device)
+                 for k, v in b.items()}
             while not self._stop.is_set():
                 try:
                     self._q.put(b, timeout=0.1)

@@ -1,5 +1,4 @@
-"""Layer-facing conv1d ops (counterpart of ``repro/kernels/ops.py``,
-single device).
+"""Layer-facing conv1d ops (counterpart of ``repro/kernels/ops.py``).
 
 ``conv1d`` pads for VALID / SAME / CAUSAL and runs the fused forward
 ``act(conv + bias + residual)`` on one of four backends:
@@ -50,6 +49,23 @@ Mamba2 block, weights ``(S, C)``: on ``"cuda"`` it runs
 ``conv1d_streaming`` and ``depthwise_conv1d_streaming`` are the causal
 streaming steps: one VALID pass over ``state ++ chunk`` and the carried
 state slid to the last ``(S-1)*d`` input columns.
+
+**Data parallelism** (``grad_reduce``, the JAX package's
+``grad_reduce_axes``): a process group, or a per-step
+``reduce.GradReducer`` over one, marks the call as running on one
+rank's share of the batch.  Each Function's backward then sums (dw,
+dbias) over the group right after its bwd-weight pass, as one all-reduce
+of one fp32 buffer: with a reducer asynchronously, so that layer *l*'s
+reduce can overlap the backward of layers < *l* (the reducer waits
+before ``torch.autograd.grad`` returns), with a bare group at once.
+``grad_reduce_chunks`` > 1 runs the bwd-weight pass over that many
+contiguous width ranges instead (x sliced ``[lo, hi + span)``, du ``[lo,
+hi)``, each slice copied, since the kernels take contiguous operands),
+reduces each partial as soon as it exists and sums the reduced partials
+in range order.  On ``"ref"``, which autograd differentiates, the weight
+and the bias pass through :class:`ReduceGrad`, whose backward sums their
+cotangents over the group (JAX's ``_psum_cotangent``; one reduce, no
+chunks).  Without a group every reduce is the identity.
 """
 from __future__ import annotations
 
@@ -62,6 +78,7 @@ import torch.nn.functional as F
 from . import conv1d_brgemm as _k
 from . import epilogue as _ep
 from . import ref as _ref
+from .reduce import GradReducer
 
 Padding = Literal["VALID", "SAME", "CAUSAL"]
 BACKENDS = ("cuda", "ref", "library", "auto")
@@ -168,7 +185,8 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
            residual: torch.Tensor | None = None, dilation: int = 1,
            padding: Padding = "SAME", backend: str | None = None,
            out_dtype: torch.dtype | None = None, tile: int | None = None,
-           bwd_data_cfg=None, bwd_weight_cfg=None) -> torch.Tensor:
+           bwd_data_cfg=None, bwd_weight_cfg=None, grad_reduce=None,
+           grad_reduce_chunks: int | None = None) -> torch.Tensor:
     """1D dilated convolution with fused epilogue, paper semantics.
 
     x: (N, C, W), w: (S, K, C) -> (N, K, Q); Q == W for SAME/CAUSAL and
@@ -178,7 +196,9 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
 
     ``tile`` pins the forward kernel's register tile; ``bwd_data_cfg`` /
     ``bwd_weight_cfg`` (a :class:`PassConfig` or its tuple) pin a backward
-    pass, winning over ``"auto"``'s plan.
+    pass, winning over ``"auto"``'s plan.  ``grad_reduce`` /
+    ``grad_reduce_chunks``: the data-parallel sum of the weight and bias
+    gradients (module docstring).
 
     Example (CPU, the plain version)::
 
@@ -198,6 +218,7 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
         x = F.pad(x, (lo, hi))
     backward_pinned = bwd_data_cfg is not None or bwd_weight_cfg is not None
     if backend == "ref" and not backward_pinned:
+        w, bias = _reduce_params(grad_reduce, w, bias)
         return _ref.conv1d_fused_ref(x, w, dilation=dilation, bias=bias,
                                      activation=activation, residual=residual,
                                      out_dtype=out_dtype)
@@ -209,7 +230,9 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
                      bwd_data_cfg=bwd_data_cfg, bwd_weight_cfg=bwd_weight_cfg)
     return fused_conv1d(x.contiguous(), w.contiguous(), bias=bias,
                         residual=residual, activation=activation,
-                        dilation=dilation, out_dtype=out_dtype, plan=plan)
+                        dilation=dilation, out_dtype=out_dtype, plan=plan,
+                        grad_reduce=grad_reduce,
+                        grad_reduce_chunks=grad_reduce_chunks)
 
 
 def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
@@ -218,7 +241,8 @@ def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                  activation: str | None = None, dilation: int = 1,
                  out_dtype: torch.dtype | None = None,
                  tile: int | None = None,
-                 plan: tuple[PassConfig, PassConfig, PassConfig] | None = None
+                 plan: tuple[PassConfig, PassConfig, PassConfig] | None = None,
+                 grad_reduce=None, grad_reduce_chunks: int | None = None
                  ) -> torch.Tensor:
     """The kernel path on an already padded x (N, C, Q + (S-1)*d): through
     :class:`Conv1dFunction` when autograd records the call, else one
@@ -228,14 +252,16 @@ def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
     ``tile`` alone pins the forward kernel's tile; with neither, the
     default, the kernels run with their own tiles.  The wrappers take the
     device from the tensors, so on CPU tensors every ``"cuda"`` pass is
-    its plain version."""
+    its plain version.  ``grad_reduce`` / ``grad_reduce_chunks`` as
+    ``conv1d``'s."""
     if plan is None and tile is not None:
         plan = (PassConfig("cuda", tile), PassConfig(), PassConfig())
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, w, bias, residual)):
         return Conv1dFunction.apply(x, w, bias, residual, dilation,
-                                    _ep.canon(activation), out_dtype, plan)
+                                    _ep.canon(activation), out_dtype, plan,
+                                    grad_reduce, int(grad_reduce_chunks or 1))
     if plan is None:
         return _k.conv1d_fwd(x, w, bias=bias, residual=residual,
                              activation=activation, dilation=dilation,
@@ -339,9 +365,120 @@ def _widest(a: torch.dtype, b: torch.dtype) -> torch.dtype:
     return a if a == b else torch.float32
 
 
+def _chunk_ranges(n: int, chunks: int) -> list[tuple[int, int]]:
+    """``n`` units split into ``chunks`` contiguous, near-even ``[lo, hi)``
+    ranges, at least one unit each (the JAX package's ``_chunk_ranges``)."""
+    chunks = max(1, min(int(chunks), n))
+    base, rem = divmod(n, chunks)
+    out, lo = [], 0
+    for i in range(chunks):
+        hi = lo + base + (1 if i < rem else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def _reducer(grad_reduce) -> GradReducer | None:
+    if grad_reduce is None or isinstance(grad_reduce, GradReducer):
+        return grad_reduce
+    return GradReducer(grad_reduce)
+
+
+def _param_grads(grad_reduce, run, x, du, *, span: int, chunks: int,
+                 w: torch.Tensor, need_w: bool, bias_dtype):
+    """(dw, dbias) in w's and the bias's dtypes (None where not wanted;
+    ``bias_dtype`` None: no dbias) from the bwd-weight pass ``run(x, du)``
+    (fp32 dw, or (dw, dbias)).  Under ``grad_reduce`` they are summed over
+    the data group: one all-reduce of one fp32 buffer ``[dw | dbias]`` per
+    width range (``_chunk_ranges(Q, chunks)``, each range's x and du
+    copied), the reduced partials summed in range order.  With a
+    :class:`GradReducer` the reduces stay in flight and the returned
+    tensors are filled when it waits (fp32 weights and one range: dw and
+    dbias are views of the buffer itself); with a bare group they are
+    waited on here."""
+    with_dbias = bias_dtype is not None
+    if grad_reduce is None:
+        out = run(x, du)
+        dw, db = out if with_dbias else (out, None)
+        return (dw.to(w.dtype) if need_w else None,
+                db.to(bias_dtype) if with_dbias else None)
+    reducer = _reducer(grad_reduce)
+    reducer.claim(w.data_ptr())
+    Q = du.shape[-1]
+    ranges = _chunk_ranges(Q, chunks)
+    n = w.numel()
+    parts = []
+    for lo, hi in ranges:
+        out = (run(x, du) if (lo, hi) == (0, Q) else
+               run(x[:, :, lo:hi + span].contiguous(),
+                   du[:, :, lo:hi].contiguous()))
+        dw, db = out if with_dbias else (out, None)
+        parts.append(dw.reshape(-1) if db is None
+                     else torch.cat([dw.reshape(-1), db]))
+    if len(parts) == 1 and w.dtype == torch.float32 and (
+            not with_dbias or bias_dtype == torch.float32):
+        buf = parts[0]
+        reducer.all_reduce_(buf)
+        dw, db = buf[:n].view(w.shape), (buf[n:] if with_dbias else None)
+    else:
+        dw = torch.empty_like(w)
+        db = (torch.empty(parts[0].numel() - n, dtype=bias_dtype,
+                          device=w.device) if with_dbias else None)
+
+        def finish():
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            dw.copy_(total[:n].view(w.shape))
+            if db is not None:
+                db.copy_(total[n:])
+
+        for i, p in enumerate(parts):
+            reducer.all_reduce_(p, finish if i == len(parts) - 1 else None)
+    if reducer is not grad_reduce:  # a bare group: no reducer waits later
+        reducer.wait()
+    return (dw if need_w else None), db
+
+
+class ReduceGrad(torch.autograd.Function):
+    """The identity whose backward sums the cotangent over the data group
+    (JAX's ``_psum_cotangent``), in the cotangent's dtype, into a copy:
+    how ``"ref"`` (autograd over the plain version) and an op outside a
+    kernel (``blocks.forward_unfused``'s bias add) reduce a parameter's
+    gradient.  ``reduce(grad_reduce, p)`` applies it."""
+
+    @staticmethod
+    def forward(ctx, p, grad_reduce):
+        ctx.grad_reduce, ctx.key = grad_reduce, p.data_ptr()
+        return p.view_as(p)
+
+    @staticmethod
+    def backward(ctx, g):
+        reducer = _reducer(ctx.grad_reduce)
+        reducer.claim(ctx.key)
+        buf = g.clone(memory_format=torch.contiguous_format)
+        reducer.all_reduce_(buf)
+        if reducer is not ctx.grad_reduce:
+            reducer.wait()
+        return buf, None
+
+    @staticmethod
+    def reduce(grad_reduce, p: torch.Tensor) -> torch.Tensor:
+        if grad_reduce is None or not (torch.is_grad_enabled()
+                                       and p.requires_grad):
+            return p
+        return ReduceGrad.apply(p, grad_reduce)
+
+
+def _reduce_params(grad_reduce, w, bias):
+    return (ReduceGrad.reduce(grad_reduce, w),
+            None if bias is None else ReduceGrad.reduce(grad_reduce, bias))
+
+
 class Conv1dFunction(torch.autograd.Function):
     """``act(conv(x, w) + bias + residual)`` on a padded x with its
-    gradient (single device; no gradient all-reduce).
+    gradient; with ``grad_reduce`` the weight and bias gradients are
+    summed over the data group right after the bwd-weight pass.
 
     ``plan`` runs each pass on its own backend (:class:`PassConfig`; None:
     the kernels with their own tiles): ``"cuda"`` the kernels, ``"ref"``
@@ -365,12 +502,18 @@ class Conv1dFunction(torch.autograd.Function):
     bf16 model's heads give an fp32 cotangent against bf16 weights and
     inputs), the bf16 operand is widened to fp32, which is exact and is
     what the reference's fp32 accumulation computes.
+
+    ``grad_reduce`` (a group or a ``GradReducer``) sums (dw, dbias) over
+    the data group on their fp32 accumulator, before the casts, in
+    ``grad_reduce_chunks`` width ranges (``_param_grads``); dx
+    and dresidual stay the rank's own.
     """
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, dilation, activation, out_dtype,
-                plan=None):
+                plan=None, grad_reduce=None, grad_reduce_chunks=1):
         ctx.plan = plan
+        ctx.grad_reduce, ctx.chunks = grad_reduce, grad_reduce_chunks
         kw = dict(bias=bias, residual=residual, activation=activation,
                   dilation=dilation, out_dtype=out_dtype)
         preact = _ep.needs_preact(activation)
@@ -406,19 +549,21 @@ class Conv1dFunction(torch.autograd.Function):
                                     out_dtype=x.dtype)
         if need_w or need_b:
             dt = _widest(x.dtype, du.dtype)
-            if plan is None:
-                out = _k.conv1d_bwd_weight(x.to(dt), du.to(dt), S=S,
-                                           dilation=d, with_dbias=need_b)
-            else:
-                out = _bwd_weight_pass(plan[2], x.to(dt), du.to(dt), S=S,
-                                       dilation=d, with_dbias=need_b)
-            dw, dbias = out if need_b else (out, None)
-            dw = dw.to(w.dtype) if need_w else None
-            if need_b:
-                dbias = dbias.to(ctx.bias_dtype)
+
+            def run(xa, ga):
+                if plan is None:
+                    return _k.conv1d_bwd_weight(xa, ga, S=S, dilation=d,
+                                                with_dbias=need_b)
+                return _bwd_weight_pass(plan[2], xa, ga, S=S, dilation=d,
+                                        with_dbias=need_b)
+
+            dw, dbias = _param_grads(
+                ctx.grad_reduce, run, x.to(dt), du.to(dt), span=span,
+                chunks=ctx.chunks, w=w, need_w=need_w,
+                bias_dtype=ctx.bias_dtype if need_b else None)
         if need_r:
             dres = du.to(ctx.residual_dtype)
-        return dx, dw, dbias, dres, None, None, None, None
+        return dx, dw, dbias, dres, None, None, None, None, None, None
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
@@ -428,13 +573,15 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                      padding: Padding = "CAUSAL", backend: str | None = None,
                      out_dtype: torch.dtype | None = None,
                      tile: int | None = None, bwd_data_cfg=None,
-                     bwd_weight_cfg=None) -> torch.Tensor:
+                     bwd_weight_cfg=None, grad_reduce=None,
+                     grad_reduce_chunks: int | None = None) -> torch.Tensor:
     """Depthwise 1D conv with fused epilogue.  x: (N, C, W), w: (S, C) ->
     (N, C, Q); bias (C,), residual (N, C, Q), the epilogue of ``conv1d``.
     Every backend follows the JAX package's dtype rule: fp32 accumulation
     and epilogue math, output in ``out_dtype`` or x's dtype, whatever the
     weights' dtype.  The backends and the pins are ``conv1d``'s; the
     depthwise kernels have no tile (``tile`` must be None).
+    ``grad_reduce`` / ``grad_reduce_chunks`` as ``conv1d``'s.
 
     Example (CPU, the plain version; the Mamba2 causal conv)::
 
@@ -457,6 +604,7 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
         x = F.pad(x, (lo, hi))
     backward_pinned = bwd_data_cfg is not None or bwd_weight_cfg is not None
     if backend == "ref" and not backward_pinned:
+        w, bias = _reduce_params(grad_reduce, w, bias)
         return _ref.depthwise_conv1d_fused_ref(
             x, w, dilation=dilation, bias=bias, activation=activation,
             residual=residual, out_dtype=out_dtype)
@@ -469,7 +617,8 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
     return fused_depthwise_conv1d(x.contiguous(), w.contiguous(), bias=bias,
                                   residual=residual, activation=activation,
                                   dilation=dilation, out_dtype=out_dtype,
-                                  plan=plan)
+                                  plan=plan, grad_reduce=grad_reduce,
+                                  grad_reduce_chunks=grad_reduce_chunks)
 
 
 def fused_depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
@@ -478,7 +627,9 @@ def fused_depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                            activation: str | None = None, dilation: int = 1,
                            out_dtype: torch.dtype | None = None,
                            plan: tuple[PassConfig, PassConfig,
-                                       PassConfig] | None = None
+                                       PassConfig] | None = None,
+                           grad_reduce=None,
+                           grad_reduce_chunks: int | None = None
                            ) -> torch.Tensor:
     """The depthwise kernel path on an already padded x (N, C, Q + (S-1)*d):
     through :class:`DepthwiseConv1dFunction` when autograd records the
@@ -490,7 +641,7 @@ def fused_depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
             for t in (x, w, bias, residual)):
         return DepthwiseConv1dFunction.apply(
             x, w, bias, residual, dilation, _ep.canon(activation), out_dtype,
-            plan)
+            plan, grad_reduce, int(grad_reduce_chunks or 1))
     kw = dict(bias=bias, residual=residual, activation=activation,
               dilation=dilation, out_dtype=out_dtype or x.dtype)
     if plan is None:
@@ -518,8 +669,9 @@ def _dw_operands(x, w, bias, residual):
 
 class DepthwiseConv1dFunction(torch.autograd.Function):
     """``act(depthwise_conv(x, w) + bias + residual)`` on a padded x with
-    its gradient (single device), the counterpart of the
-    ``_dw_conv1d_pallas`` custom VJP; ``plan`` as :class:`Conv1dFunction`'s.
+    its gradient, the counterpart of the ``_dw_conv1d_pallas`` custom VJP;
+    ``plan``, ``grad_reduce`` and ``grad_reduce_chunks`` as
+    :class:`Conv1dFunction`'s.
 
     The forward saves ``(x, w, saved)`` as :class:`Conv1dFunction` does
     (the fp32 pre-activation only for gelu/silu).  The backward computes
@@ -537,8 +689,9 @@ class DepthwiseConv1dFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, dilation, activation, out_dtype,
-                plan=None):
+                plan=None, grad_reduce=None, grad_reduce_chunks=1):
         ctx.plan = plan
+        ctx.grad_reduce, ctx.chunks = grad_reduce, grad_reduce_chunks
         kw = dict(bias=bias, residual=residual, activation=activation,
                   dilation=dilation, out_dtype=out_dtype or x.dtype,
                   save_preact=_ep.needs_preact(activation))
@@ -573,22 +726,24 @@ class DepthwiseConv1dFunction(torch.autograd.Function):
                                     x_shape=x.shape, dilation=d,
                                     out_dtype=x.dtype, depthwise=True)
         if need_w or need_b:
-            if plan is None or plan[2].backend == "cuda":
-                # the kernel reads x and du each in its own dtype
-                out = _k.depthwise_conv1d_bwd_weight(
-                    x, du, S=S, dilation=d, with_dbias=need_b)
-            else:  # the library and the plain version take one
-                dt = _widest(x.dtype, du.dtype)
-                out = _bwd_weight_pass(plan[2], x.to(dt), du.to(dt), S=S,
-                                       dilation=d, with_dbias=need_b,
-                                       depthwise=True)
-            dw, dbias = out if need_b else (out, None)
-            dw = dw.to(w.dtype) if need_w else None
-            if need_b:
-                dbias = dbias.to(ctx.bias_dtype)
+            def run(xa, ga):
+                if plan is None or plan[2].backend == "cuda":
+                    # the kernel reads x and du each in its own dtype
+                    return _k.depthwise_conv1d_bwd_weight(
+                        xa, ga, S=S, dilation=d, with_dbias=need_b)
+                # the library and the plain version take one
+                dt = _widest(xa.dtype, ga.dtype)
+                return _bwd_weight_pass(plan[2], xa.to(dt), ga.to(dt), S=S,
+                                        dilation=d, with_dbias=need_b,
+                                        depthwise=True)
+
+            dw, dbias = _param_grads(
+                ctx.grad_reduce, run, x, du, span=span, chunks=ctx.chunks,
+                w=w, need_w=need_w,
+                bias_dtype=ctx.bias_dtype if need_b else None)
         if need_r:
             dres = du.to(ctx.residual_dtype)
-        return dx, dw, dbias, dres, None, None, None, None
+        return dx, dw, dbias, dres, None, None, None, None, None, None
 
 
 def conv_stream_state(batch: int, c_in: int, S: int, dilation: int,

@@ -1,0 +1,114 @@
+"""The sum of gradients over a data-parallel group: what the JAX package
+spells ``lax.psum`` over its ``'data'`` axis, here a ``torch.distributed``
+process group.
+
+  * :func:`dp_size` / :func:`dp_rank` read a group; ``None`` (no group) is
+    a world of 1, where every reduce is the identity, as JAX's psum over a
+    size-1 axis is;
+  * :class:`GradReducer` issues a step's gradient all-reduces
+    asynchronously and keeps their handles until :meth:`GradReducer.wait`.
+
+``ops``, ``sharded`` and ``train.data_parallel`` reduce through this
+module; ``launch.mesh`` starts the group and re-exports these names.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def dp_size(group=None) -> int:
+    """Ranks in the data group; 1 without one."""
+    if group is None:
+        return 1
+    return dist.get_world_size(group)
+
+
+def dp_rank(group=None) -> int:
+    """This process's rank in the data group; 0 without one."""
+    if group is None:
+        return 0
+    return dist.get_rank(group)
+
+
+class GradReducer:
+    """The gradient all-reduces of one backward over ``group``, summed.
+
+    :meth:`all_reduce_` issues one ``dist.all_reduce(..., async_op=True)``
+    and keeps its handle with a ``finish`` callable that runs once the
+    reduce is done (the cast to the parameter's dtype, or the fixed-order
+    sum of a layer's chunked partials).  Issued inside a backward, it also
+    queues :meth:`wait` to run when that backward ends, before
+    ``torch.autograd.grad`` returns.  The reduces are asynchronous so that
+    layer *l*'s can run while the backward of layers < *l* computes, and
+    no caller of ``torch.autograd.grad`` sees a gradient whose reduce is
+    in flight.
+
+    The gradient a layer hands to autograd is the buffer being reduced in
+    place, or one that ``finish`` fills.  Autograd must pass it through
+    untouched until the wait: each parameter is used by one call per
+    backward (:meth:`claim` refuses a second, whose sum autograd would take
+    before the reduce ends), and the gradients are read through
+    ``torch.autograd.grad``, not ``.backward()``, whose accumulation into
+    ``.grad`` copies them at once.  A bare process group passed as
+    ``grad_reduce`` has no such rule: its reduces wait where they are
+    issued.
+
+    A backward that raises runs no queued callback: its caller calls
+    :meth:`wait` itself (``make_sharded_grad_fn`` does, in a ``finally``),
+    which also drops the claims, so the next step starts clean."""
+
+    launches = 0  # all-reduces issued, over every reducer
+
+    def __init__(self, group=None):
+        self.group = group
+        self._pending: list = []
+        self._claimed: set[int] = set()
+        self._queued = False
+
+    @property
+    def pending(self) -> int:
+        """All-reduces issued and not yet waited on."""
+        return len(self._pending)
+
+    def claim(self, key: int) -> None:
+        """Refuse a parameter (its ``data_ptr()``) reduced twice before one
+        wait."""
+        if key in self._claimed:
+            raise RuntimeError(
+                "a parameter's gradient was all-reduced twice in one "
+                "backward: a weight under grad_reduce may feed one conv "
+                "call per step (autograd would sum the two gradients "
+                "before their reduces end)")
+        self._claimed.add(key)
+
+    def all_reduce_(self, buf: torch.Tensor, finish=None) -> None:
+        """Sum ``buf`` over the group in place, asynchronously; ``finish``
+        runs after the sum is complete.  Without a group (a world of 1)
+        the sum is ``buf`` itself and ``finish`` runs at once."""
+        if self.group is None:
+            if finish is not None:
+                finish()
+            return
+        work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group,
+                               async_op=True)
+        GradReducer.launches += 1
+        self._pending.append((work, finish))
+        # torch has no public test for "inside a backward"; a graph task id
+        # of -1 means none is running
+        if not self._queued and torch._C._current_graph_task_id() >= 0:
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self.wait)
+            self._queued = True
+
+    def wait(self) -> None:
+        """Wait on every pending reduce, in issue order, and run its
+        ``finish``; the reducer is empty afterwards, even if a wait
+        raises."""
+        pending, self._pending = self._pending, []
+        self._claimed.clear()
+        self._queued = False
+        for work, finish in pending:
+            work.wait()
+            if finish is not None:
+                finish()

@@ -35,22 +35,40 @@ package's format every ``--ckpt-every`` steps and at the end;
 ``--resume`` continues from the newest one, with the same batches the
 steps saw the first time.
 
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch atacworks --steps 10 --batch 8 --seq 60000
+
+trains data-parallel, one process per card (``cuda:LOCAL_RANK``, taken
+modulo the cards present, so ``--dist-backend gloo`` may put every rank
+on one card): ``--batch`` stays the global batch, each rank trains on
+its contiguous share, and every layer's weight and bias gradients are
+all-reduced right after its bwd-weight pass (``train/data_parallel.py``;
+``--grad-reduce-chunks`` splits each into width ranges).  Rank 0 alone
+prints, saves checkpoints (between barriers) and prints the summary,
+which adds ``dp``.  A world of 1 with no ``--dist-backend`` is the
+single-process path; ``--dist-backend`` names the backend (default NCCL
+on the card, gloo on the CPU), and a caller that has started a group
+before ``run`` trains over it.
+
 The JAX launcher's elastic supervisor, fault drills, health and straggler
-monitors, telemetry and meshes wait in ROADMAP.md queue A.
+monitors, telemetry and the model axis wait in ROADMAP.md queue A.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs.base import reduced
 from repro_torch.data.synthetic import SyntheticLoader
+from repro_torch.launch import mesh
 from repro_torch.launch.device import require_device
 from repro_torch.models import init_model
 from repro_torch.train.train_step import init_state, make_train_step
@@ -84,7 +102,24 @@ def _parse_args(argv):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="start a data group with this backend (default "
+                         "under torchrun: nccl on the card, gloo on the CPU)")
+    ap.add_argument("--grad-reduce-chunks", type=int, default=None,
+                    help="data parallel: all-reduce each layer's gradients "
+                         "in this many width ranges")
     return ap.parse_args(argv)
+
+
+def _device(args, group) -> torch.device:
+    """The rank's device: ``cuda:LOCAL_RANK`` modulo the cards present
+    (ranks sharing a card under gloo), or the CPU when asked for."""
+    if group is None or args.device != "cuda":
+        return require_device(args.device)
+    require_device("cuda")
+    dev = torch.device("cuda", mesh.local_rank() % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
 
 
 def run(argv=None) -> dict:
@@ -98,10 +133,17 @@ def run(argv=None) -> dict:
         cfg = reduced(cfg)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    device = require_device(args.device)
-    if args.batch % args.accum:
+    backend = args.dist_backend
+    if backend is None and "WORLD_SIZE" in os.environ:
+        backend = "nccl" if args.device == "cuda" else "gloo"
+    group = mesh.init_data_group(backend)
+    dp, rank = mesh.dp_size(group), mesh.dp_rank(group)
+    lead = rank == 0
+    log = print if lead else (lambda *a, **k: None)
+    device = _device(args, group)
+    if args.batch % (args.accum * dp):
         raise SystemExit(f"--batch {args.batch} must divide by --accum "
-                         f"{args.accum}")
+                         f"{args.accum} x {dp} data-parallel ranks")
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -110,17 +152,28 @@ def run(argv=None) -> dict:
     if ckpt and args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         start = int(state.step)
-        print(f"resumed from step {start}")
+        log(f"resumed from step {start}")
     step_fn = make_train_step(cfg, accum_steps=args.accum, peak_lr=args.lr,
                               warmup_steps=max(2, args.steps // 10),
-                              total_steps=args.steps)
-    print(f"arch={cfg.name} device={device} batch={args.batch} "
-          f"seq={args.seq} accum={args.accum}"
-          + (f" attn_impl={cfg.attn_impl}" if cfg.family == "dense" else ""))
+                              total_steps=args.steps, group=group,
+                              grad_reduce_chunks=args.grad_reduce_chunks)
+    log(f"arch={cfg.name} device={device} batch={args.batch} "
+        f"seq={args.seq} accum={args.accum}"
+        + (f" attn_impl={cfg.attn_impl}" if cfg.family == "dense" else "")
+        + (f" dp={dp} path=data_parallel" if group is not None else ""))
+
+    def save(step):
+        if group is not None:
+            dist.barrier(group)
+        if lead:
+            ckpt.save(state, step)
+        if group is not None:
+            dist.barrier(group)
 
     losses, gnorms, dts, skipped = [], [], [], 0
     loader = SyntheticLoader(cfg, args.batch, args.seq, device=device,
-                             seed=args.seed, start=start)
+                             seed=args.seed, start=start, rank=rank,
+                             world=dp)
     try:
         for i in range(start, args.steps):
             batch = next(loader)
@@ -134,17 +187,17 @@ def run(argv=None) -> dict:
             gnorms.append(float(metrics["grad_norm"]))
             skipped += int(metrics["skipped"])
             dts.append(dt)
-            print(f"step {i:5d} loss {loss:.4f} gnorm {gnorms[-1]:.3f} "
-                  f"dt {dt:.3f}s", flush=True)
+            log(f"step {i:5d} loss {loss:.4f} gnorm {gnorms[-1]:.3f} "
+                f"dt {dt:.3f}s", flush=True)
             if ckpt and (i + 1) % args.ckpt_every == 0:
-                ckpt.save(state, i + 1)
+                save(i + 1)
     finally:
         loader.close()
     if ckpt and args.steps > start:
-        ckpt.save(state, args.steps)
+        save(args.steps)
 
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
-               "attn_impl": cfg.attn_impl,
+               "attn_impl": cfg.attn_impl, "dp": dp,
                "first_step": start, "global_batch": args.batch,
                "seq": args.seq, "accum": args.accum, "losses": losses,
                "grad_norms": gnorms, "skipped_steps": skipped,
@@ -158,18 +211,22 @@ def run(argv=None) -> dict:
         if cfg.family != "conv":
             summary["tokens_per_s"] = args.batch * args.seq / steady
             rate += f", {summary['tokens_per_s']:.0f} tokens/s"
-        print(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step "
-              f"{steady * 1e3:.2f} ms over {len(measured)} steps after "
-              f"warm-up ({rate})")
+        log(f"done: loss {losses[0]:.4f} -> {losses[-1]:.4f}; median step "
+            f"{steady * 1e3:.2f} ms over {len(measured)} steps after "
+            f"warm-up ({rate})")
     if device.type == "cuda":
         summary["peak_memory_gb"] = torch.cuda.max_memory_allocated(
             device) / 1e9
-        print(f"peak device memory {summary['peak_memory_gb']:.2f} GB")
+        log(f"peak device memory {summary['peak_memory_gb']:.2f} GB")
     return summary
 
 
 def main(argv=None) -> int:
-    run(argv)
+    """The command line: ``run``, then end a data group it started."""
+    try:
+        run(argv)
+    finally:
+        mesh.destroy()
     return 0
 
 

@@ -1,0 +1,103 @@
+"""Data-parallel gradients over a ``torch.distributed`` group (counterpart
+of ``repro/train/data_parallel.py``): the paper's data-parallel AtacWorks
+training, one process per card.
+
+``make_sharded_grad_fn`` returns the step's gradient engine,
+``grad_fn(model, batch) -> ((loss, aux), grads)``, run by every rank on
+its own share of the global batch (``SyntheticLoader(rank=, world=)`` or
+:func:`shard_batch`):
+
+  * the local loss is scaled by 1/dp before the backward, so the summed
+    gradients ARE the gradients of the global mean loss (equal shards make
+    the mean of the local means the global mean), with no rescale after;
+  * the conv family threads a per-step ``kernels.reduce.GradReducer`` into
+    every layer (``grad_reduce``), so each layer's (dw, dbias) all-reduce
+    is issued, asynchronously, right after its bwd-weight pass, free to
+    run while the layers before it compute their backward; the reducer
+    waits before the gradients are handed back, and also when the
+    backward raises, so a failed step leaves nothing in flight;
+  * the other families all-reduce the whole gradient list after the
+    backward: correct, not overlapped, as in the JAX package;
+  * the loss and aux come back as their global means, and the gradients
+    are equal on every rank.
+
+Each rank traces the model at its local batch, so a ``backend="auto"``
+conv resolves its plan from the local problem (N / dp).  A world of 1
+(``group=None``) is the single-process gradient.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.reduce import GradReducer, dp_rank, dp_size
+from repro_torch.train.losses import make_loss_fn
+
+
+def shard_batch(batch: dict, group) -> dict:
+    """This rank's contiguous share of a global batch (every leaf sliced
+    on its leading axis); the global batch must divide over the ranks."""
+    dp, r = dp_size(group), dp_rank(group)
+    n = next(iter(batch.values())).shape[0]
+    if n % dp:
+        raise ValueError(
+            f"batch {n} does not divide over {dp} data-parallel shards; pad "
+            "or re-batch the input")
+    m = n // dp
+    return {k: v[r * m:(r + 1) * m] for k, v in batch.items()}
+
+
+def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
+                         grad_reduce_chunks: int | None = None):
+    """``grad_fn(model, batch) -> ((loss, aux), grads)`` over the data group
+    ``group`` (None: a world of 1), ``grads`` a tuple in
+    ``model.named_parameters()`` order.  ``batch`` is this rank's share.
+
+    ``loss_fn(model, batch) -> (loss, aux)`` replaces the family's loss
+    (``make_loss_fn``); its gradients are then all-reduced as a whole
+    after the backward, as the non-conv families' are.
+    ``grad_reduce_chunks`` > 1 (conv family) reduces each layer in that
+    many width ranges, as ``kernels/ops.py`` describes.  A group of one
+    rank still issues every reduce (the identity), so a one-card run
+    exercises the collective path."""
+    dp = dp_size(group)
+    fused_reduce = cfg.family == "conv" and loss_fn is None
+    reducer = GradReducer(group)
+    if fused_reduce:
+        loss_fn = make_loss_fn(cfg, grad_reduce=reducer,
+                               grad_reduce_chunks=grad_reduce_chunks)
+    loss_fn = loss_fn or make_loss_fn(cfg)
+
+    def grad_fn(model, batch):
+        params = [p for _, p in model.named_parameters()]
+        loss, aux = loss_fn(model, batch)
+        # 1/dp before the backward: the summed gradients are the gradients
+        # of the global mean loss
+        try:
+            grads = torch.autograd.grad(loss / dp, params)
+            if not fused_reduce:
+                # one buffer per leaf (autograd may hand one tensor to two)
+                out, seen = [], set()
+                for g in grads:
+                    if id(g) in seen or not g.is_contiguous():
+                        g = g.clone(memory_format=torch.contiguous_format)
+                    seen.add(id(g))
+                    reducer.all_reduce_(g)
+                    out.append(g)
+                grads = tuple(out)
+        finally:
+            # every gradient is read below this line, and only after the
+            # wait; a backward that raised leaves no claim or reduce behind
+            reducer.wait()
+        keys = sorted(aux)
+        metrics = torch.stack([loss.detach().float()]
+                              + [aux[k].detach().float() for k in keys])
+        if group is not None:
+            metrics = metrics / dp
+            dist.all_reduce(metrics, group=group)
+        loss = metrics[0]
+        aux = {k: metrics[i + 1] for i, k in enumerate(keys)}
+        return (loss, aux), grads
+
+    grad_fn.reducer = reducer  # empty between calls
+    return grad_fn

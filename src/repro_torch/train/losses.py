@@ -21,11 +21,20 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - gold).mean()
 
 
-def make_loss_fn(cfg):
-    """``loss(model, batch) -> (loss, aux)`` for the config's family."""
+def make_loss_fn(cfg, *, grad_reduce=None,
+                 grad_reduce_chunks: int | None = None):
+    """``loss(model, batch) -> (loss, aux)`` for the config's family.
+
+    ``grad_reduce`` marks the loss as running on one rank's share of the
+    batch (``train/data_parallel.py``): the conv family threads it, and
+    ``grad_reduce_chunks``, down to every layer, so each layer's weight
+    and bias gradients are summed over the data group right after its
+    bwd-weight pass.  The other families ignore both: their data-parallel
+    gradient function reduces the whole gradient list instead."""
     if cfg.family == "conv":
         def conv_loss(model, batch):
-            return blocks.loss_fn(model, cfg, batch)
+            return blocks.loss_fn(model, cfg, batch, grad_reduce=grad_reduce,
+                                  grad_reduce_chunks=grad_reduce_chunks)
 
         return conv_loss
     if cfg.family not in ("ssm", "dense"):

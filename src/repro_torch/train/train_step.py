@@ -1,5 +1,6 @@
-"""Train step factory (counterpart of ``repro/train/train_step.py``, single
-device): loss -> gradients (with microbatch accumulation) -> non-finite
+"""Train step factory (counterpart of ``repro/train/train_step.py``): loss
+-> gradients (with microbatch accumulation; over a data group through
+``train/data_parallel.py``) -> optional gradient compression -> non-finite
 guard -> AdamW update.
 
 The JAX step is a pure function of an immutable state.  Here the state's
@@ -9,8 +10,12 @@ parameters, the moments and the count leaf by leaf (no whole copy of the
 state is live), and the step counter is replaced.  Nothing in the step
 waits for the device: the learning rate comes from the step counter on
 the device, and a non-finite loss or gradient norm skips the step with
-``torch.where`` (old values kept), not with a host-side branch.  The step returns its metrics as 0-d tensors; the
-caller decides when to read them.
+``torch.where`` (old values kept), not with a host-side branch.  The step
+returns its metrics as 0-d tensors; the caller decides when to read them.
+
+Over a data group every rank holds the same state and steps it with the
+same, already summed gradients: the norm and the non-finite guard read
+them after the all-reduce, so every rank skips the same steps.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from repro_torch.optim import adamw, schedule
+from repro_torch.optim import adamw, compression, schedule
+from repro_torch.train.data_parallel import make_sharded_grad_fn
 from repro_torch.train.losses import make_loss_fn
 
 
@@ -28,13 +34,17 @@ class TrainState:
     params: nn.Module        # the model; its parameters are the params
     opt: adamw.AdamWState
     step: torch.Tensor       # int32, 0-d, on the model's device
+    ef: dict[str, torch.Tensor] | None = None  # fp32 error feedback
 
 
-def init_state(model: nn.Module) -> TrainState:
+def init_state(model: nn.Module, *,
+               grad_compression: bool = False) -> TrainState:
     params = dict(model.named_parameters())
     device = next(iter(params.values())).device
     return TrainState(params=model, opt=adamw.init(params),
-                      step=torch.zeros((), dtype=torch.int32, device=device))
+                      step=torch.zeros((), dtype=torch.int32, device=device),
+                      ef=(compression.init_error_feedback(params)
+                          if grad_compression else None))
 
 
 def _split_microbatches(batch: dict, accum: int) -> list[dict]:
@@ -45,18 +55,36 @@ def _split_microbatches(batch: dict, accum: int) -> list[dict]:
 
 
 def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
-                    warmup_steps: int = 100, total_steps: int = 10_000):
+                    warmup_steps: int = 100, total_steps: int = 10_000,
+                    group=None, grad_compression: bool = False,
+                    grad_reduce_chunks: int | None = None):
     """``train_step(state, batch) -> (state, metrics)``.  With
     ``accum_steps > 1`` the batch is split into that many microbatches;
     their gradients are summed in fp32 and divided, and the loss is their
     mean.  AdamW clips at global norm 1.0 and decays by 0.1 (its
     defaults).  ``metrics``: loss, grad_norm, lr and skipped, 1.0 where a
-    non-finite loss or gradient norm left the state as it was."""
-    loss_fn = make_loss_fn(cfg)
+    non-finite loss or gradient norm left the state as it was.
 
-    def grads_of(model, params, batch):
-        loss, _ = loss_fn(model, batch)
-        return loss.detach(), torch.autograd.grad(loss, params)
+    ``group`` (a data group, ``launch.mesh``) makes ``batch`` this rank's
+    share of the global batch and the gradients those of
+    ``make_sharded_grad_fn`` (each microbatch's reduced on its own);
+    ``grad_reduce_chunks`` is its knob.  ``group=None`` is the
+    single-process step.  ``grad_compression`` rounds the gradients to
+    bf16 with the error feedback carried in ``state.ef``
+    (``init_state(..., grad_compression=True)``)."""
+    if group is None:
+        loss_fn = make_loss_fn(cfg)
+
+        def grads_of(model, params, batch):
+            loss, _ = loss_fn(model, batch)
+            return loss.detach(), torch.autograd.grad(loss, params)
+    else:
+        grad_fn = make_sharded_grad_fn(cfg, group,
+                                       grad_reduce_chunks=grad_reduce_chunks)
+
+        def grads_of(model, params, batch):
+            (loss, _), grads = grad_fn(model, batch)
+            return loss, grads
 
     def train_step(state: TrainState, batch: dict):
         model = state.params
@@ -78,6 +106,13 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
             state.step, peak_lr=peak_lr, warmup_steps=warmup_steps,
             total_steps=total_steps)
         grads = dict(zip(names, grads))
+        if grad_compression:
+            if state.ef is None:
+                raise ValueError("grad_compression needs the state's error "
+                                 "feedback: init_state(model, "
+                                 "grad_compression=True)")
+            q, state.ef = compression.compress(grads, state.ef)
+            grads = compression.decompress(q)
         gnorm = adamw.global_norm(grads)
         finite = torch.isfinite(gnorm) & torch.isfinite(loss)
         adamw.update_(grads, state.opt, dict(zip(names, params)), lr=lr,

@@ -136,12 +136,15 @@ def tune_problem(prob: ConvProblem, *, device=None,
 
 def tune(*, N: int, C: int, K: int, S: int, dilation: int, Q: int, dtype,
          padding: str = "VALID", depthwise: bool = False,
-         epilogue: str = "none", pass_: str = "fwd", device=None,
-         cache: TuneCache | None = None, measure: bool = True,
+         epilogue: str = "none", pass_: str = "fwd", shards: int = 1,
+         device=None, cache: TuneCache | None = None, measure: bool = True,
          top_k: int | None = None, iters: int = 5, warmup: int = 2,
          backends: tuple[str, ...] | None = None) -> TunedConfig:
     """Keyword spelling of ``tune_problem`` (shapes in forward-layer
-    coordinates; ``pass_`` selects the pass tuned).
+    coordinates; ``pass_`` selects the pass tuned).  ``shards`` tunes the
+    per-shard view under that much data parallelism
+    (``ConvProblem.localized``): N is the global batch, the tuned and
+    cached problem has N / shards, the shape each rank runs.
 
     Example (the cost model alone, into an explicit cache)::
 
@@ -156,7 +159,7 @@ def tune(*, N: int, C: int, K: int, S: int, dilation: int, Q: int, dtype,
     """
     prob = _make_problem(N=N, C=C, K=K, S=S, dilation=dilation, Q=Q,
                          dtype=dtype, padding=padding, depthwise=depthwise,
-                         epilogue=epilogue, pass_=pass_)
+                         epilogue=epilogue, pass_=pass_).localized(shards)
     return tune_problem(prob, device=device, cache=cache, measure=measure,
                         top_k=top_k, iters=iters, warmup=warmup,
                         backends=backends)

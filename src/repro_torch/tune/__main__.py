@@ -7,6 +7,7 @@ the JAX package's ``scripts/tune.py``).
         --cache c.json
     PYTHONPATH=src python -m repro_torch.tune --figset serving
     PYTHONPATH=src python -m repro_torch.tune --figset fig4 --device cpu
+    PYTHONPATH=src python -m repro_torch.tune --figset atacworks --dp 2
 
 One entry per (S, Q, pass) cell of the selected figures (``presets``), so
 afterwards ``ops.conv1d(backend="auto")`` on those shapes, forward or
@@ -15,7 +16,9 @@ gradient, finds its plan in the cache.  The default is the cost model
 device (graph-replayed device time on a card; ``--top-k`` only the cost
 model's best k).  It tunes for the card and raises without one unless
 ``--device cpu`` asks for the host, whose candidates are ``ref`` and
-``library``.
+``library``.  ``--dp`` tunes each cell's per-rank view under that much
+data parallelism (N / dp, the shape each rank runs and looks up); a cell
+whose N does not divide is skipped with a message.
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cache", default=None,
                     help="cache file (default: $REPRO_TUNE_CACHE or "
                          "~/.cache/repro_torch/tune_cache.json)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks: tune the local N = N/dp "
+                         "each rank runs")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top-k", type=int, default=None,
                     help="with --measure, time only the cost model's top k "
@@ -77,16 +83,24 @@ def main(argv=None) -> int:
         names = list(FIGSETS) if args.figset == "all" else [args.figset]
         work = [(name, p) for name in names
                 for p in figset_shapes(name, full=args.full)]
+    if args.dp < 1:
+        ap.error(f"--dp must be >= 1, got {args.dp}")
     n = 0
+    dp = f" dp={args.dp}" if args.dp != 1 else ""
     for name, prob in work:
+        if prob["N"] % args.dp:
+            print(f"{name} S={prob['S']:>2} Q={prob['Q']:>6}: skipped "
+                  f"(N={prob['N']} does not divide over dp={args.dp})")
+            continue
         for pass_ in passes:
-            cfg = tune(**prob, pass_=pass_, device=args.device, cache=cache,
+            cfg = tune(**prob, pass_=pass_, shards=args.dp,
+                       device=args.device, cache=cache,
                        measure=args.measure, iters=args.iters,
                        top_k=args.top_k, backends=backends)
             n += 1
             sec = f" {cfg.sec:.3e}s" if cfg.sec is not None else ""
-            print(f"{name} S={prob['S']:>2} Q={prob['Q']:>6} {prob['dtype']} "
-                  f"{pass_:>10}: {cfg.backend} tile={cfg.tile} "
+            print(f"{name} S={prob['S']:>2} Q={prob['Q']:>6} {prob['dtype']}"
+                  f"{dp} {pass_:>10}: {cfg.backend} tile={cfg.tile} "
                   f"body={cfg.body} [{cfg.source}]{sec}")
     print(f"\n{n} entries -> {cache.path} ({len(cache)} total)")
     return 0

@@ -20,8 +20,8 @@ changes what the backward computes.
 same device-kind string: the forward keeps the untagged form, a backward
 pass appends ``|pass:``.  The JAX package's search constraints ``alg``,
 ``nblk`` and ``pipe`` have no axis on this card's kernels and are not
-fields here (its keys carry them only when set); ``localized``, the
-per-shard view, waits for the sharded launchers.
+fields here (its keys carry them only when set).  ``localized`` is the
+per-shard view under data parallelism.
 """
 from __future__ import annotations
 
@@ -105,6 +105,18 @@ class ConvProblem:
 
     def with_pass(self, pass_: str) -> "ConvProblem":
         return dataclasses.replace(self, pass_=pass_)
+
+    def localized(self, shards: int = 1) -> "ConvProblem":
+        """The per-shard view under ``shards``-way data parallelism: the
+        same layer at the local batch ``N / shards``, the shape each rank
+        runs and so the key each rank's ``backend="auto"`` call looks up
+        (``python -m repro_torch.tune --dp``).  The model axis's view waits
+        with tensor parallelism."""
+        if shards < 1 or self.N % shards:
+            raise ValueError(
+                f"cannot shard N={self.N} over {shards} data-parallel "
+                "shards (batch must divide evenly)")
+        return dataclasses.replace(self, N=self.N // shards)
 
     def key(self, device_kind: str) -> str:
         return cache_key(device_kind=device_kind, dtype=self.dtype, N=self.N,
