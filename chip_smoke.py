@@ -175,7 +175,38 @@ Phases (any failed check raises, so the run exits non-zero):
       plain launcher's 10 in this call: the same losses, step p50 of
       each, and the all-reduce's device time per step from
       ``torch.profiler``;
-  16. a JSON line of the six kernels, the card's line, and last the
+  16. tensor parallelism (``kernels/sharded.py``, ``blocks._mp_apply``,
+      the 2D ``make_sharded_grad_fn``) on atacworks-bf16 (C=K=16, S=51,
+      d=8, 25 layers; atacworks' 15 does not divide over 2).  (a) one
+      process, its first bf16 training on the card: the launcher 10
+      steps at 8 x 60,000 (finite losses, 49 + 25 launches a step, step
+      p50, samples/s) and the whole bf16 gradient at 2 x 8,192 against
+      the fp32 one no further than the plain bf16 version's (twice,
+      plus one bf16 rounding: TP_BF16_FACTOR, BF16_ULP); (b) two gloo
+      ranks as (data 1, model 2), fp32 at the same widths, global batch
+      8 x 60,000: the K-sharded forward bitwise the one-process forward,
+      the gradient within BWD_TOL of the one-process kernel gradient
+      (bitwise leaves counted) and GRAD_TOL of the plain one, TP_CHUNKS
+      dx column ranges bitwise the unchunked gradient, a K-sharded
+      16->16 layer's dx within TP_DX_TOL of the unsharded dx; (c) four
+      ranks as (2, 2): within DP_TOL of the one-process gradient and
+      GRAD_TOL of the plain one, chunked too, the ranks bitwise equal;
+      on both layouts the bf16 gradient within TP_BF16_TOL of the
+      one-process bf16 gradient, its leaves that pass no dx sum bitwise
+      the data-parallel bf16 gradient, the ranks bitwise equal; (d) each
+      rank's launches and collectives a gradient against the count read
+      from the code (``_tp_want``); (e) the two dense kernels at the
+      local shapes (forward 16->8 and 1->8, bwd-data 8->16 whole and on
+      one column range with its copy, bwd-weight 16->8 and 1->8), in
+      fp32 and bf16, against their plain versions, timed beside bound
+      and library call, with the tile or body each takes; (f) the
+      launcher with ``--model-parallel 2`` over two gloo ranks from
+      torchrun's variables, 5 steps, its first TP_LAUNCH_HELD losses
+      within TP_LAUNCH_RTOL of the one-process launcher's; (g)
+      ``model_sharded_depthwise_conv1d`` at
+      the Mamba2 conv layer over the two ranks, bitwise the unsharded
+      kernel, no model collective;
+  17. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -183,6 +214,7 @@ Exits non-zero without printing a result when there is no CUDA device.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -292,6 +324,46 @@ SWEEP_ITERS = 5
 DP_RANKS, DP_BATCH, DP_SEQ, DP_CHUNKS, DP_TIMED = 2, 8, 60000, 4, 3
 DP_TOL = 1e-4
 DP_NCCL_BACKEND, DP_NCCL_STEPS, DP_PROFILE_STEPS = "nccl", 10, 4
+# phase 16, tensor parallelism, on atacworks-bf16 (C=K=16, paper §4.4):
+# atacworks' C=K=15 does not divide over TP_MP = 2 model ranks (the JAX
+# launcher refuses it too).  (a) The one-process bf16 gradient through the
+# kernels is held to the fp32 gradient of the same bf16-valued weights and
+# inputs: per leaf, its distance from it within TP_BF16_FACTOR times that
+# of the plain bf16 gradient plus BF16_ULP of the leaf's largest value,
+# one bf16 rounding.  Every path rounds every layer's output to bf16, the
+# kernel's bf16 forward lands on the other bf16 neighbour of the plain
+# value in a few outputs (phase 16's bf16 rows count them), and 25 layers
+# at init carry those steps into every gradient: on an H100 80GB HBM3 at
+# 700 W the plain bf16 gradient itself sits 4.4e-2 of the largest value
+# from the fp32 one at res.0.conv1.w (2 x 8,192), so no fixed bound
+# between the two bf16 paths is safe.  (b, c) The K-sharded bf16
+# gradient on (1, 2) and (2, 2) is held to the one-process bf16 gradient
+# through the kernels: each leaf within TP_BF16_TOL of its largest value,
+# the JAX package's bound for its sharded bf16 gradients
+# (tests/test_model_parallel.py, test_8dev_ksharded_grads); they differ
+# where a dx summed over the model group in another order rounds to the
+# other bf16 neighbour (6.2e-3 at worst on (1, 2) at 8 x 60,000, same
+# card).  Its leaves whose cotangent passes no dx sum (TP_NO_DX_SUM) are
+# bitwise the data-parallel bf16 gradient on the same data group: the
+# sums follow JAX's order, the fp32 data sum, one cast, then the exact
+# model sum of zero-padded blocks.  A K-sharded layer's dx, whose K
+# contraction is split over the ranks and summed, within TP_DX_TOL of its
+# largest value (fp32 sums of 16 x 51 products in another order).
+# TP_CHUNKS dx column ranges; a rank's gradient timed TP_TIMED times after
+# the counted one.  (f) The launcher over TP_MP gloo ranks runs
+# TP_LAUNCH_STEPS steps; its first TP_LAUNCH_HELD losses are held within
+# TP_LAUNCH_RTOL (relative) of the one-process launcher's.  Step 0 is the
+# same forward; steps 1 and 2 start from weights moved by bf16 gradients
+# that differ as in (b) and read 0 and 1.6e-5 on that card.  From step 3
+# the bf16 model's gradient norm, 18.7 at step 0, reaches 1,710 by step 4
+# and the two trajectories part (7.2e-4 at step 3, 9.8e-4 at step 4):
+# those steps are reported, not held.
+TP_ARCH, TP_MP, TP_CHUNKS, TP_TIMED = "atacworks-bf16", 2, 4, 2
+TP_BF16_FACTOR, BF16_ULP, TP_DX_TOL = 2.0, 2.0 ** -8, 1e-5
+TP_BF16_TOL = 3e-2
+TP_NO_DX_SUM = ("res.10.conv2.w", "res.10.conv2.b", "head_signal.w",
+                "head_signal.b", "head_peak.w", "head_peak.b")
+TP_LAUNCH_STEPS, TP_LAUNCH_HELD, TP_LAUNCH_RTOL = 5, 3, 1e-4
 
 
 def _card_line() -> str:
@@ -1000,8 +1072,6 @@ def model_grad_check(torch, configs, blocks, synthetic, adamw,
                      conv1d_brgemm):
     """Phase 5: the whole model's loss and gradients through the kernels
     against autograd over the plain version, then 3 AdamW steps."""
-    import copy
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = configs.get("atacworks")
@@ -2407,6 +2477,715 @@ def _check_dp_counts(o, chunks, rank, sharded_rows):
                                  "and one bwd-weight")
 
 
+def _tp_collectives(mesh, sharded, zero=False):
+    """The tensor-parallel path's collective counters: parameter sums
+    (``GradReducer``), dx sums (``ModelReducer``) and all-gathers
+    (``ModelConcat``); set to 0 first with ``zero``."""
+    if zero:
+        mesh.GradReducer.launches = mesh.ModelReducer.launches = 0
+        sharded.ModelConcat.launches = 0
+    return dict(param_reduces=mesh.GradReducer.launches,
+                dx_reduces=mesh.ModelReducer.launches,
+                gathers=sharded.ModelConcat.launches)
+
+
+def _tp_want(chunks):
+    """A rank's gradient, counted from the code (``blocks._mp_apply``,
+    ``ops._data_grad``, ``ops._param_grads``, ``sharded.ShardParam``):
+    ``conv1d_fwd`` 25 forward launches (every layer) + 22 x chunks
+    bwd-data launches (the 22 body layers, one a column range; the stem's
+    input is data) + 2 (the unsharded heads); 25 ``conv1d_bwd_weight``;
+    23 all-gathers (stem and body), 22 x chunks dx sums, and 71 parameter
+    sums: every layer's fused (dw, dbias) over the data group (25, one
+    width range each), then the 23 sharded layers' zero-padded w and b
+    blocks over the model group (46)."""
+    return (dict(conv1d_fwd=25 + 22 * chunks + 2, conv1d_bwd_weight=25),
+            dict(param_reduces=25 + 2 * 23, dx_reduces=22 * chunks,
+                 gathers=23))
+
+
+def _tp_grads(torch, fn, model, batch, counters, mesh, sharded, timed):
+    """One gradient of ``fn``, its kernels and collectives counted (every
+    count set to 0 just before), then ``timed`` more on the host clock."""
+    _tp_collectives(mesh, sharded, zero=True)
+    ((loss, _), grads), launched = _counted(counters,
+                                            lambda: fn(model, batch))
+    out = dict(loss=float(loss), grads=[g.detach().cpu() for g in grads],
+               launches=launched,
+               collectives=_tp_collectives(mesh, sharded),
+               pending_after=fn.reducer.pending)
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(model, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["grad_ms"] = times
+    return out
+
+
+def _tp_layer(torch, ops, mesh, model_group):
+    """Phase 16 (b), in one rank: one 16->16 layer (b + relu, SAME) at
+    TRAIN_BATCH x TRAIN_SEQ, K-sharded (this rank's 8 filter rows) with dx
+    summed over the model group, against the unsharded layer on the
+    kernels: dx within TP_DX_TOL of its largest value, TP_CHUNKS column
+    ranges bitwise the unchunked dx."""
+    gen = torch.Generator().manual_seed(29)
+    N, C, S, d, Q = TRAIN_BATCH, 16, 51, 8, TRAIN_SEQ
+    x = torch.randn((N, C, Q), generator=gen).to(DEVICE)
+    w = (torch.randn((S, C, C), generator=gen) * (C * S) ** -0.5).to(DEVICE)
+    b = (0.1 * torch.randn((C,), generator=gen)).to(DEVICE)
+    g = torch.randn((N, C, Q), generator=gen).to(DEVICE)
+    k = C // TP_MP
+    rows = slice(mesh.mp_rank(model_group) * k,
+                 (mesh.mp_rank(model_group) + 1) * k)
+
+    def dx_of(ww, bb, gg, **kw):
+        xx = x.clone().requires_grad_()
+        y = ops.conv1d(xx, ww.contiguous(), bias=bb.contiguous(),
+                       activation="relu", dilation=d, padding="SAME", **kw)
+        (y * gg).sum().backward()
+        return xx.grad
+
+    one = dx_of(w, b, g)
+    dx = {c: dx_of(w[:, rows], b[rows], g[:, rows], model_reduce=model_group,
+                   model_reduce_chunks=c) for c in (1, TP_CHUNKS)}
+    _, rel = _check_close("K-sharded layer dx vs one process", dx[1], one,
+                          TP_DX_TOL)
+    if not torch.equal(dx[TP_CHUNKS], dx[1]):
+        raise AssertionError(f"dx in {TP_CHUNKS} column ranges differs from "
+                             "the unchunked dx")
+    return dict(shape=f"16->16 b+relu N={N} Q={Q}", dx_rel_to_max=rel,
+                dx_bitwise_one_process=bool(torch.equal(dx[1], one)),
+                chunked_bitwise=True)
+
+
+def _tp_depthwise(torch, ops, sharded, mesh, data, model_group,
+                  conv1d_brgemm):
+    """Phase 16 (g), in one rank: ``model_sharded_depthwise_conv1d`` at the
+    Mamba2 conv layer (DW_BATCH x DW_CHANNELS x DW_SEQ, S=DW_TAPS, fp32,
+    bias + silu, CAUSAL), this rank's channel group against the unsharded
+    kernel call: the output and the x, w and bias gradients bitwise, and
+    no model collective on any pass."""
+    gen = torch.Generator().manual_seed(31)
+    xs = (DW_BATCH, DW_CHANNELS, DW_SEQ)
+    x = torch.randn(xs, generator=gen).to(DEVICE)
+    w0 = (0.1 * torch.randn((DW_TAPS, DW_CHANNELS), generator=gen)).to(DEVICE)
+    b0 = (0.1 * torch.randn((DW_CHANNELS,), generator=gen)).to(DEVICE)
+    g = torch.randn(xs, generator=gen).to(DEVICE)
+    c = DW_CHANNELS // TP_MP
+    blk = slice(mesh.mp_rank(model_group) * c,
+                (mesh.mp_rank(model_group) + 1) * c)
+
+    def run(fn, gg, **kw):
+        xx = x.clone().requires_grad_()
+        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+        y = fn(xx, w, bias=b, activation="silu", padding="CAUSAL", **kw)
+        (y * gg).sum().backward()
+        return y.detach(), xx.grad, w.grad, b.grad
+
+    _tp_collectives(mesh, sharded, zero=True)
+    got, launched = _counted(
+        (conv1d_brgemm.depthwise_conv1d_fwd,
+         conv1d_brgemm.depthwise_conv1d_bwd_weight),
+        lambda: run(sharded.model_sharded_depthwise_conv1d,
+                    g[:, blk].contiguous(), group=data,
+                    model_group=model_group))
+    coll = _tp_collectives(mesh, sharded)
+    if coll["gathers"] or coll["dx_reduces"]:
+        raise AssertionError(f"model_sharded_depthwise_conv1d ran model "
+                             f"collectives: {coll}")
+    want = run(ops.depthwise_conv1d, g)
+    parts = (want[0][:, blk], want[1][:, blk], want[2][:, blk],
+             want[3][blk])
+    for name, a, p in zip(("y", "dx", "dw", "dbias"), (
+            got[0], got[1][:, blk], got[2][:, blk], got[3][blk]), parts):
+        if not torch.equal(a, p):
+            raise AssertionError(f"model_sharded_depthwise_conv1d {name} "
+                                 "differs from the unsharded kernel's")
+    rest = torch.ones(DW_CHANNELS, dtype=torch.bool)
+    rest[blk] = False
+    if got[1][:, rest].abs().max() or got[2][:, rest].abs().max():
+        raise AssertionError("the depthwise gradients leave the channel "
+                             "group")
+    return dict(shape=f"{DW_BATCH}x{DW_CHANNELS}x{DW_SEQ} S={DW_TAPS}",
+                channels_per_rank=c, bitwise=True, launches=launched,
+                collectives=coll)
+
+
+def _tp_launcher(torch, st, rank, conv1d_brgemm):
+    """Phase 16 (f), in one rank: ``repro_torch.launch.train`` with
+    ``--model-parallel TP_MP`` over TP_MP gloo ranks started from
+    torchrun's variables (``env://`` on a localhost port), TP_LAUNCH_STEPS
+    steps of atacworks-bf16 at TRAIN_BATCH x TRAIN_SEQ; its summary and
+    kernel launches."""
+    from repro_torch.launch import mesh, train
+
+    os.environ.update(WORLD_SIZE=str(TP_MP), RANK=str(rank), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(st["port"]))
+    try:
+        summary, launched = _counted(
+            (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight),
+            lambda: train.run(["--arch", TP_ARCH, "--steps",
+                               str(TP_LAUNCH_STEPS), "--batch",
+                               str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                               "--model-parallel", str(TP_MP),
+                               "--dist-backend", "gloo"]))
+    finally:
+        mesh.destroy()
+    return dict(summary=summary, launches=launched)
+
+
+def _tp_rank(rank, st):
+    """Phase 16, one of ``st["world"]`` gloo ranks sharing the card, laid
+    out as (world / TP_MP, TP_MP): the forward (fp32) and the gradients
+    of atacworks-bf16's widths at this rank's data shard, K-sharded over
+    its model group (fp32 unchunked and in TP_CHUNKS column ranges, bf16
+    unchunked) and, in bf16, over the data group alone; on (1, TP_MP)
+    also the K-sharded layer, the sharded depthwise op and the launcher.
+    Results go to a file the parent reads."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import blocks
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import conv1d_brgemm, ops, sharded
+    from repro_torch.launch import mesh
+    from repro_torch.train.data_parallel import (make_sharded_grad_fn,
+                                                 shard_batch)
+
+    global DEVICE
+    DEVICE = st["device"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = st["world"]
+    pair = world == TP_MP
+    counters = (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight)
+    mesh.init_data_group("gloo", f"file://{st['store']}", world, rank)
+    out = {}
+    try:
+        data, model_group = mesh.init_mesh(world // TP_MP, TP_MP)
+        out["layout"] = [mesh.dp_rank(data), mesh.mp_rank(model_group)]
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get(TP_ARCH), dtype=dtype)
+            model = _seeded_model(torch, blocks, cfg, seed=5)
+            batch = shard_batch(_batch(torch, synthetic, cfg, st["batch"],
+                                       st["seq"], 7), data)
+            if dtype == "float32":
+                with torch.no_grad():
+                    out["forward"] = [t.cpu() for t in blocks.forward(
+                        model, cfg, batch["noisy"],
+                        model_group=model_group)]
+            for chunks in (1, TP_CHUNKS) if dtype == "float32" else (1,):
+                fn = make_sharded_grad_fn(cfg, data, model_group=model_group,
+                                          model_reduce_chunks=chunks)
+                out[f"{dtype}/{chunks}"] = _tp_grads(
+                    torch, fn, model, batch, counters, mesh, sharded,
+                    st["timed"] if dtype == "float32" else 0)
+            if dtype == "bfloat16":
+                out["bfloat16/data"] = _tp_grads(
+                    torch, make_sharded_grad_fn(cfg, data), model, batch,
+                    counters, mesh, sharded, 0)
+            del model, batch
+        if pair:
+            out["layer"] = _tp_layer(torch, ops, mesh, model_group)
+            out["depthwise"] = _tp_depthwise(torch, ops, sharded, mesh, data,
+                                             model_group, conv1d_brgemm)
+    finally:
+        mesh.destroy()
+    if pair:
+        out["launcher"] = _tp_launcher(torch, st, rank, conv1d_brgemm)
+    torch.save(out, os.path.join(st["out"], f"rank{rank}.pt"))
+
+
+def _tp_tiles(torch, conv1d_brgemm, x, w, b, d, label):
+    """Device ms of ``conv1d_fwd`` with each of its tiles pinned that the
+    kernel's rule lets run this shape (the default's choice included):
+    whether a tile of KT <= K would serve K = 8 better than the default
+    the shape gets.  Each pinned call is bitwise the default's."""
+    S, K, C = w.shape
+    base = conv1d_brgemm.conv1d_fwd(x, w, bias=b, activation="relu",
+                                    dilation=d)
+    out = {}
+    for tile in conv1d_brgemm.fwd_tiles(K):
+        if conv1d_brgemm.fwd_tile(x.shape[0], C, K, S, x.shape[-1], d,
+                                  tile=tile) is None:
+            continue
+
+        def run(tile=tile):
+            return conv1d_brgemm.conv1d_fwd(x, w, bias=b, activation="relu",
+                                            dilation=d, tile=tile)
+        if not torch.equal(run(), base):
+            raise AssertionError(f"{label}: tile {tile} changed the result")
+        out[str(tile)] = _device_ms(run)
+    return out
+
+
+def _bf16_ulps(torch, got, want):
+    """How a bf16 result departs from its plain version: the share of
+    outputs that differ and the largest difference in bf16 ulps of the
+    plain value (one ulp at |v| is 2^(floor(log2 |v|) - 7))."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp_min(torch.finfo(torch.bfloat16).tiny))) - 7)
+    return dict(differ_share=(g != w).float().mean().item(),
+                max_ulps=((g - w).abs() / ulp).max().item())
+
+
+def _tp_kernel_rows(torch, conv1d_brgemm):
+    """Phase 16 (e): the dense kernels at the local shapes of a (1, TP_MP)
+    rank of atacworks-bf16's widths (batch TRAIN_BATCH x TRAIN_SEQ, K =
+    16 / TP_MP = 8 filters), in fp32 and in bf16 (the trained config's
+    dtype; bwd-data takes bf16 operands and stores fp32, the partial dx
+    the model sum reads), against their plain versions within BWD_TOL
+    of the largest plain value (as phase 4; the bf16 forward also
+    elementwise within TOL, as phase 2, and its departures counted in
+    ulps), timed beside the bound and the library call, with the tile
+    or body each takes: the forward 16->8 and the stem 1->8, bwd-data
+    8->16 on the whole width and on the first of TP_CHUNKS column ranges
+    (its columns bitwise the whole call's; the range's copy timed on its
+    own), bwd-weight 16->8 and 1->8.  Bounds count each input read once
+    and each output written once, at the peak of the operands' type."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    N, Q, S, d, C = TRAIN_BATCH, TRAIN_SEQ, 51, 8, 16
+    K, span = C // TP_MP, (S - 1) * d
+    W = Q + span
+    lo, hi = ops._chunk_ranges(W, TP_CHUNKS)[0]
+    rows = []
+
+    def add(name, label, dt, kern, plain, lib, flops, nbytes, kind, knob):
+        tol = BWD_TOL[dt]
+        got, want = kern(), plain()
+        if isinstance(got, tuple):
+            errs = [_check_close(f"{label} {part}", a, p_, tol)
+                    for part, a, p_ in zip(("dw", "dbias"), got, want)]
+            max_abs, max_rel = (max(e[0] for e in errs),
+                                max(e[1] for e in errs))
+        else:
+            max_abs, max_rel = _check_close(label, got, want, tol)
+        row = dict(shape=label, pass_=name, dtype=dt, max_abs_err=max_abs,
+                   max_rel_diff=max_rel, tol_rel_to_max_plain=tol,
+                   kernel_ms=_device_ms(kern),
+                   plain_ms=_device_ms(plain, per_graph=2),
+                   library_ms=_device_ms(lib), **knob)
+        if name == "fwd" and dt == "bfloat16":
+            atol, rtol = TOL[dt]
+            diff = (got.float() - want.float()).abs()
+            if not bool((diff <= atol + rtol * want.float().abs()).all()):
+                raise AssertionError(f"{label}: an output is over {atol} + "
+                                     f"{rtol} x |plain| from plain")
+            row.update(atol=atol, rtol=rtol, **_bf16_ulps(torch, got, want))
+        row["bound_ms"], row["bound_by"] = roofline.bound(flops, nbytes,
+                                                          kind)
+        _rates(row, flops=flops)
+        rows.append(row)
+        return got
+
+    for dt in ("float32", "bfloat16"):
+        dtype, tag16 = getattr(torch, dt), "" if dt == "float32" else " bf16"
+        for c_in, tag in ((C, "16->8"), (1, "stem 1->8")):
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device=DEVICE)
+
+            x = rnd(N, c_in, W).to(dtype)
+            w = (rnd(S, K, c_in) * (c_in * S) ** -0.5).to(dtype)
+            b = (0.1 * rnd(K)).to(dtype)
+            g = rnd(N, K, Q).to(dtype)
+            e = x.element_size()
+            w_kcs = w.permute(1, 2, 0).contiguous()
+            fwd_bytes = (N * c_in * W + S * K * c_in + K + N * K * Q) * e
+            add("fwd", f"tp fwd {tag} b+relu N={N} Q={Q}{tag16}", dt,
+                lambda: conv1d_brgemm.conv1d_fwd(x, w, bias=b,
+                                                 activation="relu",
+                                                 dilation=d),
+                lambda: ref.conv1d_fused_ref(x, w, bias=b, activation="relu",
+                                             dilation=d),
+                lambda: F.conv1d(x, w_kcs, b, dilation=d),
+                2.0 * N * K * c_in * S * Q, fwd_bytes, dt,
+                dict(tile=_fwd_tile(conv1d_brgemm, N, c_in, K, S, W, d)))
+            if dt == "float32":
+                rows[-1]["pinned_tiles_ms"] = _tp_tiles(
+                    torch, conv1d_brgemm, x, w, b, d, rows[-1]["shape"])
+            add("bwd_weight", f"tp bwd_weight {tag} N={N} Q={Q}{tag16}", dt,
+                lambda: conv1d_brgemm.conv1d_bwd_weight(x, g, S=S,
+                                                        dilation=d,
+                                                        with_dbias=True),
+                lambda: (ref.conv1d_bwd_weight_ref(x, g, dilation=d),
+                         ref.conv1d_dbias_ref(g)),
+                lambda: torch.nn.grad.conv1d_weight(x, (K, c_in, S), g,
+                                                    dilation=d),
+                roofline.tf32_flops(N, c_in, K, S, Q) if dt == "float32"
+                else 2.0 * N * K * c_in * S * Q,
+                (N * c_in * W + N * K * Q) * e + (S * K * c_in + K) * 4,
+                "tf32" if dt == "float32" else dt,
+                dict(body=conv1d_brgemm.bwd_weight_body(N, c_in, K, S, W, d)))
+            if c_in == 1:
+                continue
+            # bwd-data: the forward kernel on the padded cotangent (K = 8
+            # channels in) against the flipped, transposed taps (16
+            # filters), stored in fp32 (the partial dx the model sum reads)
+            g_pad = F.pad(g, (span, span))
+            w_t = w.flip(0).transpose(1, 2).contiguous()
+            w_t_kcs = w_t.permute(1, 2, 0).contiguous()
+            gc = g_pad[:, :, lo:hi + span].contiguous()
+            f32 = torch.float32
+            bd_flops = 2.0 * N * C * K * S * W
+            whole = add(
+                "bwd_data", f"tp bwd_data 8->16 N={N} Q={Q}{tag16}", dt,
+                lambda: conv1d_brgemm.conv1d_fwd(g_pad, w_t, dilation=d,
+                                                 out_dtype=f32),
+                lambda: ref.conv1d_fused_ref(g_pad, w_t, dilation=d,
+                                             out_dtype=f32),
+                lambda: torch.nn.grad.conv1d_input((N, C, W), w_kcs, g,
+                                                   dilation=d),
+                bd_flops, (N * K * Q + S * K * C) * e + N * C * W * 4, dt,
+                dict(tile=_fwd_tile(conv1d_brgemm, N, K, C, S, W + span, d)))
+            part = add(
+                "bwd_data chunk", f"tp bwd_data 8->16 chunk N={N} "
+                f"cols={hi - lo}{tag16}", dt,
+                lambda: conv1d_brgemm.conv1d_fwd(gc, w_t, dilation=d,
+                                                 out_dtype=f32),
+                lambda: ref.conv1d_fused_ref(gc, w_t, dilation=d,
+                                             out_dtype=f32),
+                lambda: F.conv1d(gc, w_t_kcs, dilation=d),
+                bd_flops * (hi - lo) / W,
+                (N * K * (hi - lo + span) + S * K * C) * e
+                + N * C * (hi - lo) * 4, dt,
+                dict(tile=_fwd_tile(conv1d_brgemm, N, K, C, S,
+                                    hi - lo + span, d)))
+            if not torch.equal(part, whole[:, :, lo:hi]):
+                raise AssertionError("bwd-data on a column range differs "
+                                     "from the same columns of the whole "
+                                     "call")
+            rows[-1]["bitwise_whole_columns"] = True
+            rows[-1]["copy_ms"] = _device_ms(
+                lambda: g_pad[:, :, lo:hi + span].contiguous())
+    torch.cuda.synchronize()
+    for row in rows:
+        print("tp-kernel " + json.dumps(row), flush=True)
+    return rows
+
+
+def _loss_grads(torch, blocks, model, cfg, batch, backend=None):
+    """The AtacWorks loss and its 50 gradients on ``backend``."""
+    loss, _ = blocks.loss_fn(model, cfg, batch, backend=backend)
+    return float(loss.detach()), [g.detach().cpu() for g in
+                                  torch.autograd.grad(loss, list(
+                                      model.parameters()))]
+
+
+def _bf16_vs_fp32(label, got, ref_bf16, fp32, names):
+    """A bf16 (loss, gradients) ``got`` held to the fp32 ones of the same
+    weights: per leaf (and for the loss), ``got``'s distance from fp32,
+    relative to the leaf's largest fp32 value, within TP_BF16_FACTOR x
+    ``ref_bf16``'s plus BF16_ULP.  Returns the worst leaf, its share of
+    its limit, both distances, the largest distance between ``got``
+    and ``ref_bf16``, and (reported, not held) the leaf with the largest
+    normwise distance ||got - fp32|| / ||fp32|| beside the reference's."""
+    def dist(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def norm_rel(a, b):  # reported only: ||a - b|| / ||b||
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    norms = max((norm_rel(g, t), norm_rel(r, t), n) for n, g, r, t in
+                zip(names, got[1], ref_bf16[1], fp32[1]))
+    worst, between = (0.0, "", 0.0, 0.0), 0.0
+    items = [("loss", abs(got[0] - fp32[0]), abs(ref_bf16[0] - fp32[0]),
+              abs(got[0] - ref_bf16[0]), abs(fp32[0]))]
+    items += [(n, dist(g, t), dist(r, t), dist(g, r),
+               t.float().abs().max().item())
+              for n, g, r, t in zip(names, got[1], ref_bf16[1], fp32[1])]
+    for name, d_g, d_r, d_gr, scale in items:
+        scale = max(scale, 1e-30)
+        e_g, e_r = d_g / scale, d_r / scale
+        limit = TP_BF16_FACTOR * e_r + BF16_ULP
+        if not e_g <= limit:
+            raise AssertionError(
+                f"{label}: {name} is {e_g} of its largest value from the "
+                f"fp32 one, over {TP_BF16_FACTOR} x the reference bf16 "
+                f"path's {e_r} + {BF16_ULP}")
+        worst = max(worst, (e_g / limit, name, e_g, e_r))
+        between = max(between, d_gr / scale)
+    print(f"{label}: worst {worst[1]} at {worst[0]:.3f} of its limit "
+          f"({worst[2]:.3e} from fp32; the reference bf16 path "
+          f"{worst[3]:.3e})", flush=True)
+    return dict(worst_share_of_limit=worst[0], worst=worst[1],
+                worst_vs_fp32=worst[2], reference_bf16_vs_fp32=worst[3],
+                max_rel_diff_to_reference_bf16=between,
+                worst_norm_rel_vs_fp32=dict(leaf=norms[2], got=norms[0],
+                                            reference_bf16=norms[1]),
+                factor=TP_BF16_FACTOR, ulp=BF16_ULP)
+
+
+def _tp_one_process(torch, np, configs, blocks, synthetic, train,
+                    counters):
+    """Phase 16 (a): atacworks-bf16 in one process, its first training on
+    the card: the launcher TRAIN_STEPS steps at TRAIN_BATCH x TRAIN_SEQ
+    (finite losses, 49 + 25 launches a step, step p50, samples/s, peak
+    memory), and the whole bf16 gradient at GRAD_BATCH x GRAD_SEQ
+    through the kernels held to the fp32 gradient (autograd over the
+    plain version in fp32, on the bf16 weights widened) no further than
+    the plain bf16 version's (``_bf16_vs_fp32``)."""
+    torch.cuda.reset_peak_memory_stats()
+    summary, launched = _counted(
+        counters, lambda: train.run(["--arch", TP_ARCH, "--steps",
+                                     str(TRAIN_STEPS), "--batch",
+                                     str(TRAIN_BATCH), "--seq",
+                                     str(TRAIN_SEQ)]))
+    losses = summary["losses"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{TP_ARCH} training losses {losses}")
+    if launched != dict(conv1d_fwd=49 * TRAIN_STEPS,
+                        conv1d_bwd_weight=25 * TRAIN_STEPS):
+        raise AssertionError(f"{TP_ARCH}: {launched} launches in "
+                             f"{TRAIN_STEPS} steps; expected 49 and 25 a step")
+    times = np.asarray(summary["step_s"][train.WARMUP_STEPS:])
+    stats = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                 losses=losses, step_s=summary["step_s"],
+                 step_p50_ms=float(np.median(times) * 1e3),
+                 samples_per_s=summary["samples_per_s"],
+                 launches_per_step={k: v / TRAIN_STEPS
+                                    for k, v in launched.items()},
+                 skipped_steps=summary["skipped_steps"],
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    stats.update(_model_rate(TP_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                             stats["step_p50_ms"]))
+    cfg = configs.get(TP_ARCH)
+    model = _seeded_model(torch, blocks, cfg, seed=5)
+    batch = _batch(torch, synthetic, cfg, GRAD_BATCH, GRAD_SEQ, 7)
+    (loss_k, grads_k), glaunched = _counted(
+        counters, lambda: _loss_grads(torch, blocks, model, cfg, batch))
+    if glaunched != dict(conv1d_fwd=49, conv1d_bwd_weight=25):
+        raise AssertionError(f"{TP_ARCH} gradient: {glaunched} launches")
+    stats["grad"] = dict(batch=GRAD_BATCH, seq=GRAD_SEQ, **_bf16_vs_fp32(
+        f"{TP_ARCH} gradient through the kernels", (loss_k, grads_k),
+        _loss_grads(torch, blocks, model, cfg, batch, "ref"),
+        _loss_grads(torch, blocks, copy.deepcopy(model).float(), cfg, batch,
+                    "ref"), [n for n, _ in model.named_parameters()]))
+    print("tp-one-process " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _free_port() -> int:
+    """A free TCP port on localhost, for ``env://``'s MASTER_PORT."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _check_tp_rank(o, chunks, label):
+    """A rank's counted gradient against ``_tp_want``; nothing in flight."""
+    launches, coll = _tp_want(chunks)
+    if o["launches"] != launches or o["collectives"] != coll \
+            or o["pending_after"]:
+        raise AssertionError(
+            f"{label}: launches {o['launches']}, collectives "
+            f"{o['collectives']}, {o['pending_after']} pending; expected "
+            f"{launches} and {coll}")
+
+
+def tp_check(torch, np, configs, train, conv1d_brgemm):
+    """Phase 16: tensor parallelism on atacworks-bf16's widths.  (a) one
+    process in bf16 (``_tp_one_process``); the one-process references at
+    TRAIN_BATCH x TRAIN_SEQ: the fp32 forward and gradient on the kernels
+    and through the plain version, the bf16 gradient on the kernels;
+    (e) the kernels at the local shapes (``_tp_kernel_rows``); the
+    one-process launcher TP_LAUNCH_STEPS steps; then gloo ranks sharing
+    the one card (NCCL refuses two ranks on one GPU): (b, c, f, g) TP_MP
+    ranks as (1, TP_MP) and (d) 2 x TP_MP as (2, TP_MP) (``_tp_rank``),
+    held here against the references and the counts of ``_tp_want``."""
+    import dataclasses
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import blocks
+    from repro_torch.data import synthetic
+    from repro_torch.train.data_parallel import make_sharded_grad_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight)
+    stats = dict(card=_card_line(), arch=TP_ARCH, mp=TP_MP,
+                 chunks=TP_CHUNKS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                 bf16_factor=TP_BF16_FACTOR, bf16_ulp=BF16_ULP,
+                 bf16_tol=TP_BF16_TOL, dx_tol=TP_DX_TOL, dp_tol=DP_TOL,
+                 bwd_tol=BWD_TOL["float32"], grad_tol_plain=GRAD_TOL,
+                 launch_held_steps=TP_LAUNCH_HELD,
+                 launch_rtol=TP_LAUNCH_RTOL)
+    stats["one_process"] = _tp_one_process(torch, np, configs, blocks,
+                                           synthetic, train, counters)
+    cfg16 = configs.get(TP_ARCH)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    model = _seeded_model(torch, blocks, cfg32, seed=5)
+    batch = _batch(torch, synthetic, cfg32, TRAIN_BATCH, TRAIN_SEQ, 7)
+    names = [n for n, _ in model.named_parameters()]
+    with torch.no_grad():
+        fwd1 = [t.cpu() for t in blocks.forward(model, cfg32, batch["noisy"])]
+    (loss1, _), grads1 = make_sharded_grad_fn(cfg32, None)(model, batch)
+    loss1, grads1 = float(loss1), [g.detach().cpu() for g in grads1]
+    loss_p, _ = blocks.loss_fn(model, cfg32, batch, backend="ref")
+    grads_p = [g.detach().cpu() for g in torch.autograd.grad(
+        loss_p, [p for _, p in model.named_parameters()])]
+    loss_p = float(loss_p.detach())
+    # bf16: the one-process gradient through the kernels
+    model = _seeded_model(torch, blocks, cfg16, seed=5)
+    one16 = _loss_grads(torch, blocks, model, cfg16, batch)
+    del model, batch
+    stats["kernel_rows"] = _tp_kernel_rows(torch, conv1d_brgemm)
+    one_launcher = train.run(["--arch", TP_ARCH, "--steps",
+                              str(TP_LAUNCH_STEPS), "--batch",
+                              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+    torch.cuda.empty_cache()
+
+    def vs(label, got, want, tol, plain=False):
+        """Each leaf within ``tol`` of its largest value; the worst leaf
+        and how many are bitwise."""
+        worst = max((_check_close(f"{label} {n}", g, w_, tol)[1], n)
+                    for n, g, w_ in zip(names, got, want))
+        return dict(worst_rel_to_max=worst[0], worst=worst[1],
+                    bitwise_leaves=sum(bool(torch.equal(g, w_))
+                                       for g, w_ in zip(got, want)))
+
+    res, walls = {}, {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for world in (TP_MP, 2 * TP_MP):
+            st = dict(device=DEVICE, world=world, batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, store=f"{tmp}/store{world}",
+                      out=f"{tmp}/w{world}", port=_free_port(),
+                      timed=TP_TIMED)
+            os.makedirs(st["out"])
+            t0 = time.perf_counter()
+            mp.start_processes(_tp_rank, args=(st,), nprocs=world,
+                               start_method="spawn")
+            walls[world] = time.perf_counter() - t0
+            res[world] = [torch.load(os.path.join(st["out"], f"rank{r}.pt"))
+                          for r in range(world)]
+    stats["ranks_wall_s"] = walls
+    for world, ranks in res.items():
+        layout = f"(data {world // TP_MP}, model {TP_MP})"
+        cell = stats[f"dp{world // TP_MP}_mp{TP_MP}"] = {}
+        share = TRAIN_BATCH // (world // TP_MP)
+        for r, o in enumerate(ranks):
+            if o["layout"] != [r // TP_MP, r % TP_MP]:
+                raise AssertionError(f"rank {r} sits at {o['layout']}")
+            rows = slice(r // TP_MP * share, (r // TP_MP + 1) * share)
+            for i, (a, b) in enumerate(zip(o["forward"],
+                                           (t[rows] for t in fwd1))):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{layout} rank {r}: the K-sharded fp32 forward "
+                        f"(output {i}) is not bitwise the one-process "
+                        f"forward (max diff {(a - b).abs().max().item()})")
+            for chunks in (1, TP_CHUNKS):
+                g = o[f"float32/{chunks}"]
+                label = f"{layout} rank {r} chunks {chunks}"
+                _check_tp_rank(g, chunks, label)
+                for ref_loss, what in ((loss1, "one process"),
+                                       (loss_p, "plain")):
+                    if not abs(g["loss"] - ref_loss) <= LOSS_RTOL * abs(
+                            ref_loss):
+                        raise AssertionError(f"{label}: loss {g['loss']} "
+                                             f"vs {what} {ref_loss}")
+                if world == TP_MP:
+                    one = vs(f"{label} grad vs one process", g["grads"],
+                             grads1, BWD_TOL["float32"])
+                else:
+                    worst = (0.0, "")
+                    for n, a, b in zip(names, g["grads"], grads1):
+                        _, rel, _ = _check_elementwise(
+                            f"{label} grad {n} vs one process", a, b, 0.0,
+                            DP_TOL)
+                        worst = max(worst, (rel, n))
+                    one = dict(worst_rel_to_max=worst[0], worst=worst[1])
+                plain = vs(f"{label} grad vs plain", g["grads"], grads_p,
+                           GRAD_TOL)
+                if chunks != 1 and any(
+                        not torch.equal(a, b) for a, b in
+                        zip(g["grads"], o["float32/1"]["grads"])):
+                    raise AssertionError(f"{label}: the chunked dx sums "
+                                         "changed the gradient")
+                if r and any(not torch.equal(a, b) for a, b in zip(
+                        g["grads"], ranks[0][f"float32/{chunks}"]["grads"])):
+                    raise AssertionError(f"{label}: ranks 0 and {r} hold "
+                                         "different gradients")
+                if r == 0:
+                    cell[f"chunks{chunks}"] = dict(
+                        loss=g["loss"], vs_one_process=one, vs_plain=plain,
+                        launches_per_rank_step=g["launches"],
+                        collectives_per_rank_step=g["collectives"],
+                        grad_ms_per_rank=[x[f"float32/{chunks}"]["grad_ms"]
+                                          for x in ranks],
+                        grad_p50_ms=float(np.median(
+                            [t for x in ranks
+                             for t in x[f"float32/{chunks}"]["grad_ms"]])))
+            g = o["bfloat16/1"]
+            label = f"{layout} rank {r} bf16"
+            _check_tp_rank(g, 1, label)
+            if not abs(g["loss"] - one16[0]) <= LOSS_RTOL * abs(one16[0]):
+                raise AssertionError(f"{label}: loss {g['loss']} vs one "
+                                     f"process {one16[0]}")
+            bf16 = vs(f"{label} grad vs one process", g["grads"], one16[1],
+                      TP_BF16_TOL)
+            for n, a, b in zip(names, g["grads"],
+                               o["bfloat16/data"]["grads"]):
+                if n in TP_NO_DX_SUM and not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{label}: {n}, whose cotangent passes no dx sum, "
+                        "is not bitwise the data-parallel bf16 gradient")
+            if r and any(not torch.equal(a, b) for a, b in zip(
+                    g["grads"], ranks[0]["bfloat16/1"]["grads"])):
+                raise AssertionError(f"{label}: ranks 0 and {r} hold "
+                                     "different gradients")
+            if r == 0:
+                cell["bf16"] = dict(loss=g["loss"], loss_one=one16[0],
+                                    vs_one_process=bf16,
+                                    no_dx_sum_bitwise_data_parallel=True)
+        if world == TP_MP:
+            cell["layer"] = [o["layer"] for o in ranks]
+            cell["depthwise"] = [o["depthwise"] for o in ranks]
+            lsum = ranks[0]["launcher"]["summary"]
+            got, want = lsum["losses"], one_launcher["losses"]
+            if len(got) != TP_LAUNCH_STEPS or any(
+                    not abs(a - b) <= TP_LAUNCH_RTOL * abs(b)
+                    for a, b in zip(got[:TP_LAUNCH_HELD],
+                                    want[:TP_LAUNCH_HELD])):
+                raise AssertionError(f"--model-parallel {TP_MP} launcher "
+                                     f"losses {got} vs one process {want} "
+                                     f"(the first {TP_LAUNCH_HELD} held)")
+            launched = ranks[0]["launcher"]["launches"]
+            if launched != dict(conv1d_fwd=49 * TP_LAUNCH_STEPS,
+                                conv1d_bwd_weight=25 * TP_LAUNCH_STEPS):
+                raise AssertionError(f"--model-parallel launcher launched "
+                                     f"{launched}")
+            warm = train.WARMUP_STEPS
+            cell["launcher"] = dict(
+                steps=TP_LAUNCH_STEPS, losses=got, one_process_losses=want,
+                loss_rel_diff=[abs(a - b) / abs(b)
+                               for a, b in zip(got, want)],
+                grad_norms=lsum["grad_norms"],
+                mp=lsum["mp"], dp=lsum["dp"],
+                step_p50_ms=float(np.median(lsum["step_s"][warm:]) * 1e3),
+                one_process_step_p50_ms=float(np.median(
+                    one_launcher["step_s"][warm:]) * 1e3),
+                launches_per_step={k: v / TP_LAUNCH_STEPS
+                                   for k, v in launched.items()})
+    print("tp " + json.dumps(stats), flush=True)
+    return stats
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -2657,6 +3436,14 @@ def main(argv=None) -> int:
     lm_serve = lm_serve_check(torch, configs, init_model, serve, ops, ref,
                               conv1d_brgemm, flash_attention)
     dp = dp_check(torch, np, configs, train, conv1d_brgemm)
+    tp = tp_check(torch, np, configs, train, conv1d_brgemm)
+    tp_rows = {r["pass_"].replace(" ", "_") + (
+        "_stem" if "stem" in r["shape"] else "") + (
+        "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
+            k: r[k] for k in ("tile", "body", "copy_ms", "differ_share",
+                              "max_ulps") if k in r}
+        for r in tp["kernel_rows"]}
+    tp_rank = tp[f"dp1_mp{TP_MP}"]
 
     main_row = next(r for r in rows if r["shape"] == MAIN_SHAPE)
     # device time of the 25 kernels of one stream step, from the per-layer
@@ -2737,6 +3524,11 @@ def main(argv=None) -> int:
                 "conv1d_fwd"],
             **{r["pass_"]: _dp_row(r) for r in dp["kernel_rows"]
                if r["pass_"] in ("fwd", "bwd_data")}),
+        tp=dict(launches_per_rank_step={
+            c: tp_rank[f"chunks{c}"]["launches_per_rank_step"]["conv1d_fwd"]
+            for c in (1, TP_CHUNKS)},
+            **{k: v for k, v in tp_rows.items()
+               if k.startswith(("fwd", "bwd_data"))}),
         serve=dict(shape=MAIN_SHAPE, launches=stats["launches"],
                    launches_per_step=stats["launches_per_step"],
                    ms=main_row["kernel_ms"], plain_ms=main_row["plain_ms"],
@@ -2780,7 +3572,11 @@ def main(argv=None) -> int:
                 "all_reduces_per_rank_step"]) for c in (1, DP_CHUNKS)},
             **{r["pass_"].replace(" ", "_"): _dp_row(r)
                for r in dp["kernel_rows"]
-               if r["pass_"].startswith("bwd_weight")}})
+               if r["pass_"].startswith("bwd_weight")}},
+        tp=dict(launches_per_rank_step=tp_rank["chunks1"][
+            "launches_per_rank_step"]["conv1d_bwd_weight"],
+            **{k: v for k, v in tp_rows.items()
+               if k.startswith("bwd_weight")}))
     # the depthwise pair: times at the Mamba2 layer shape, launches from
     # the Mamba2 training run, and the device time of one step's launches
     dw = {r["pass_"]: r for r in dw_rows if "kernel_ms" in r}
@@ -2896,7 +3692,7 @@ def main(argv=None) -> int:
                            flash_checks=fa_rows, starcoder2_grad=lm_grad,
                            starcoder2_train=lm_train,
                            starcoder2_profile=lm_prof, sweep=sweep_res,
-                           lm_serve=lm_serve, dp=dp,
+                           lm_serve=lm_serve, dp=dp, tp=tp,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

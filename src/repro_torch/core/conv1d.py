@@ -33,16 +33,20 @@ class DilatedConv1D(nn.Module):
                 residual: torch.Tensor | None = None,
                 out_dtype: torch.dtype | None = None,
                 tile: int | None = None, grad_reduce=None,
-                grad_reduce_chunks: int | None = None) -> torch.Tensor:
+                grad_reduce_chunks: int | None = None, model_reduce=None,
+                model_reduce_chunks: int | None = None) -> torch.Tensor:
         """x: (N, C_in, W) -> (N, C_out, Q): ``act(conv(x) + b + residual)``
         in one fused kernel call.  ``backend="auto"`` (or
         ``REPRO_CONV_BACKEND=auto``) runs the tuner's plan for each pass;
         ``tile`` pins the forward kernel's register tile; ``grad_reduce``
-        sums the weight and bias gradients over a data group
-        (``kops.conv1d``)."""
+        sums the weight and bias gradients over a data group and
+        ``model_reduce`` dx over a model group, the layer then holding
+        one rank's filter rows (``kops.conv1d``)."""
         return kops.conv1d(x, self.w, bias=self.b, activation=activation,
                            residual=residual, dilation=dilation,
                            padding=padding, backend=backend,
                            out_dtype=out_dtype, tile=tile,
                            grad_reduce=grad_reduce,
-                           grad_reduce_chunks=grad_reduce_chunks)
+                           grad_reduce_chunks=grad_reduce_chunks,
+                           model_reduce=model_reduce,
+                           model_reduce_chunks=model_reduce_chunks)

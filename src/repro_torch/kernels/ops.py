@@ -66,6 +66,28 @@ in range order.  On ``"ref"``, which autograd differentiates, the weight
 and the bias pass through :class:`ReduceGrad`, whose backward sums their
 cotangents over the group (JAX's ``_psum_cotangent``; one reduce, no
 chunks).  Without a group every reduce is the identity.
+
+**Tensor parallelism** (``model_reduce``, the JAX package's
+``model_reduce_axes``): the model group marks the call as K-sharded: w
+and the bias hold this rank's K/mp filter rows, x all C channels.  The
+forward and bwd-weight need no collective; bwd-data contracts over the
+local K rows only, so :class:`Conv1dFunction`'s backward sums dx over the
+model group right after the bwd-data pass and waits before it returns
+(the layer before reads dx at once; ``reduce.ModelReducer``).  The
+partial dx is computed in fp32 and rounded to x's dtype after the sum,
+so a bf16 dx is rounded once, not once a rank and once more in the sum.
+``model_reduce_chunks`` > 1 runs bwd-data over that many disjoint column
+ranges of dx (``_chunk_ranges`` over its width Q + span; column q reads
+the padded cotangent's ``[q, q + span]``, so range ``[lo, hi)`` runs the
+kernel on ``du_pad[..., lo:hi + span]``, a copy, since the kernel takes
+contiguous operands) and issues each range's sum as soon as the range
+exists, so it can run while the next range computes.  The kernel sums
+each output column in one order whatever its width or tile, and the
+ranges are disjoint, so the chunked dx is bitwise the unchunked one.  On
+``"ref"`` x passes through :class:`ModelReduceGrad`, whose backward sums
+its cotangent over the model group (JAX's ``_model_psum_cotangent``; one
+reduce, no chunks).  ``depthwise_conv1d`` refuses ``model_reduce``: under
+channel groups no pass contracts over a sharded axis.
 """
 from __future__ import annotations
 
@@ -78,7 +100,7 @@ import torch.nn.functional as F
 from . import conv1d_brgemm as _k
 from . import epilogue as _ep
 from . import ref as _ref
-from .reduce import GradReducer
+from .reduce import GradReducer, ModelReducer
 
 Padding = Literal["VALID", "SAME", "CAUSAL"]
 BACKENDS = ("cuda", "ref", "library", "auto")
@@ -186,7 +208,8 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
            padding: Padding = "SAME", backend: str | None = None,
            out_dtype: torch.dtype | None = None, tile: int | None = None,
            bwd_data_cfg=None, bwd_weight_cfg=None, grad_reduce=None,
-           grad_reduce_chunks: int | None = None) -> torch.Tensor:
+           grad_reduce_chunks: int | None = None, model_reduce=None,
+           model_reduce_chunks: int | None = None) -> torch.Tensor:
     """1D dilated convolution with fused epilogue, paper semantics.
 
     x: (N, C, W), w: (S, K, C) -> (N, K, Q); Q == W for SAME/CAUSAL and
@@ -198,7 +221,9 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
     ``bwd_weight_cfg`` (a :class:`PassConfig` or its tuple) pin a backward
     pass, winning over ``"auto"``'s plan.  ``grad_reduce`` /
     ``grad_reduce_chunks``: the data-parallel sum of the weight and bias
-    gradients (module docstring).
+    gradients; ``model_reduce`` / ``model_reduce_chunks``: w and bias are
+    this rank's K rows, and dx is summed over the model group (module
+    docstring).
 
     Example (CPU, the plain version)::
 
@@ -219,6 +244,7 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
     backward_pinned = bwd_data_cfg is not None or bwd_weight_cfg is not None
     if backend == "ref" and not backward_pinned:
         w, bias = _reduce_params(grad_reduce, w, bias)
+        x = ModelReduceGrad.reduce(model_reduce, x)
         return _ref.conv1d_fused_ref(x, w, dilation=dilation, bias=bias,
                                      activation=activation, residual=residual,
                                      out_dtype=out_dtype)
@@ -232,7 +258,9 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
                         residual=residual, activation=activation,
                         dilation=dilation, out_dtype=out_dtype, plan=plan,
                         grad_reduce=grad_reduce,
-                        grad_reduce_chunks=grad_reduce_chunks)
+                        grad_reduce_chunks=grad_reduce_chunks,
+                        model_reduce=model_reduce,
+                        model_reduce_chunks=model_reduce_chunks)
 
 
 def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
@@ -242,7 +270,8 @@ def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                  out_dtype: torch.dtype | None = None,
                  tile: int | None = None,
                  plan: tuple[PassConfig, PassConfig, PassConfig] | None = None,
-                 grad_reduce=None, grad_reduce_chunks: int | None = None
+                 grad_reduce=None, grad_reduce_chunks: int | None = None,
+                 model_reduce=None, model_reduce_chunks: int | None = None
                  ) -> torch.Tensor:
     """The kernel path on an already padded x (N, C, Q + (S-1)*d): through
     :class:`Conv1dFunction` when autograd records the call, else one
@@ -252,8 +281,8 @@ def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
     ``tile`` alone pins the forward kernel's tile; with neither, the
     default, the kernels run with their own tiles.  The wrappers take the
     device from the tensors, so on CPU tensors every ``"cuda"`` pass is
-    its plain version.  ``grad_reduce`` / ``grad_reduce_chunks`` as
-    ``conv1d``'s."""
+    its plain version.  ``grad_reduce`` / ``grad_reduce_chunks`` and
+    ``model_reduce`` / ``model_reduce_chunks`` as ``conv1d``'s."""
     if plan is None and tile is not None:
         plan = (PassConfig("cuda", tile), PassConfig(), PassConfig())
     if torch.is_grad_enabled() and any(
@@ -261,7 +290,9 @@ def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
             for t in (x, w, bias, residual)):
         return Conv1dFunction.apply(x, w, bias, residual, dilation,
                                     _ep.canon(activation), out_dtype, plan,
-                                    grad_reduce, int(grad_reduce_chunks or 1))
+                                    grad_reduce, int(grad_reduce_chunks or 1),
+                                    model_reduce,
+                                    int(model_reduce_chunks or 1))
     if plan is None:
         return _k.conv1d_fwd(x, w, bias=bias, residual=residual,
                              activation=activation, dilation=dilation,
@@ -450,6 +481,9 @@ class ReduceGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p, grad_reduce):
         ctx.grad_reduce, ctx.key = grad_reduce, p.data_ptr()
+        # kept alive until the backward, so that no other tensor (a
+        # K-sharded layer's next parameter block) reuses the key's address
+        ctx.save_for_backward(p)
         return p.view_as(p)
 
     @staticmethod
@@ -475,10 +509,74 @@ def _reduce_params(grad_reduce, w, bias):
             None if bias is None else ReduceGrad.reduce(grad_reduce, bias))
 
 
+class ModelReduceGrad(torch.autograd.Function):
+    """The identity whose backward sums the cotangent over the model group
+    (JAX's ``_model_psum_cotangent``), waited where it is issued: how
+    ``"ref"`` (autograd over the plain version) finishes a K-sharded
+    layer's dx.  ``reduce(model_reduce, x)`` applies it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf = g.clone(memory_format=torch.contiguous_format)
+        reducer = ModelReducer(ctx.group)
+        reducer.all_reduce_(buf)
+        reducer.wait()
+        return buf, None
+
+    @staticmethod
+    def reduce(model_reduce, x: torch.Tensor) -> torch.Tensor:
+        if model_reduce is None or not (torch.is_grad_enabled()
+                                        and x.requires_grad):
+            return x
+        return ModelReduceGrad.apply(x, model_reduce)
+
+
+def _data_grad(plan, du, w, *, x_shape, dilation: int, out_dtype,
+               model_reduce, chunks: int) -> torch.Tensor:
+    """dx (Alg. 3) in ``out_dtype`` from du and w of one dtype: the forward
+    conv on du padded by the span on both sides against the flipped,
+    transposed taps, on the kernel (``plan`` None) or the plan's bwd-data
+    backend.  Under ``model_reduce`` the partial dx (this rank's K rows)
+    is computed in fp32 and summed over the model group, in ``chunks``
+    column ranges (module docstring), before the one cast."""
+    span = (w.shape[0] - 1) * dilation
+    reducer = ModelReducer(model_reduce)
+    dt = out_dtype if model_reduce is None else torch.float32
+    ranges = _chunk_ranges(x_shape[-1], chunks)
+    if model_reduce is None or len(ranges) == 1:
+        if plan is None:
+            dx = _k.conv1d_fwd(F.pad(du, (span, span)),
+                               w.flip(0).transpose(1, 2).contiguous(),
+                               dilation=dilation, out_dtype=dt)
+        else:
+            dx = _bwd_data_pass(plan[1], du, w, x_shape=x_shape,
+                                dilation=dilation, out_dtype=dt)
+        reducer.all_reduce_(dx)
+        reducer.wait()
+        return dx.to(out_dtype)
+    du_pad = F.pad(du, (span, span))
+    w_t = w.flip(0).transpose(1, 2).contiguous()
+    cfg = PassConfig() if plan is None else plan[1]
+    parts = []
+    for lo, hi in ranges:
+        part = _fwd_pass(cfg, du_pad[:, :, lo:hi + span].contiguous(), w_t,
+                         dilation=dilation, out_dtype=dt)
+        reducer.all_reduce_(part)  # in flight while the next range runs
+        parts.append(part)
+    reducer.wait()
+    return torch.cat(parts, dim=-1).to(out_dtype)
+
+
 class Conv1dFunction(torch.autograd.Function):
     """``act(conv(x, w) + bias + residual)`` on a padded x with its
     gradient; with ``grad_reduce`` the weight and bias gradients are
-    summed over the data group right after the bwd-weight pass.
+    summed over the data group right after the bwd-weight pass, with
+    ``model_reduce`` dx over the model group right after bwd-data.
 
     ``plan`` runs each pass on its own backend (:class:`PassConfig`; None:
     the kernels with their own tiles): ``"cuda"`` the kernels, ``"ref"``
@@ -493,7 +591,8 @@ class Conv1dFunction(torch.autograd.Function):
       * dx through the forward conv on du zero-padded by the span on
         both sides against ``w.flip(0).transpose(1, 2)``, (S, C, K),
         stored in x's dtype; skipped when no one wants dx (the stem's
-        input is data);
+        input is data); under ``model_reduce`` summed over the model
+        group in ``model_reduce_chunks`` column ranges (``_data_grad``);
       * (dw, dbias) through ``conv1d_bwd_weight``, cast to w's and the
         bias's dtypes;
       * dresidual = du in the residual's dtype.
@@ -511,9 +610,11 @@ class Conv1dFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, dilation, activation, out_dtype,
-                plan=None, grad_reduce=None, grad_reduce_chunks=1):
+                plan=None, grad_reduce=None, grad_reduce_chunks=1,
+                model_reduce=None, model_reduce_chunks=1):
         ctx.plan = plan
         ctx.grad_reduce, ctx.chunks = grad_reduce, grad_reduce_chunks
+        ctx.model_reduce, ctx.model_chunks = model_reduce, model_reduce_chunks
         kw = dict(bias=bias, residual=residual, activation=activation,
                   dilation=dilation, out_dtype=out_dtype)
         preact = _ep.needs_preact(activation)
@@ -538,15 +639,10 @@ class Conv1dFunction(torch.autograd.Function):
         dx = dw = dbias = dres = None
         if need_x:
             dt = _widest(du.dtype, w.dtype)
-            if plan is None:
-                dx = _k.conv1d_fwd(
-                    F.pad(du.to(dt), (span, span)),
-                    w.flip(0).transpose(1, 2).to(dt).contiguous(),
-                    dilation=d, out_dtype=x.dtype)
-            else:
-                dx = _bwd_data_pass(plan[1], du.to(dt), w.to(dt),
-                                    x_shape=x.shape, dilation=d,
-                                    out_dtype=x.dtype)
+            dx = _data_grad(plan, du.to(dt), w.to(dt), x_shape=x.shape,
+                            dilation=d, out_dtype=x.dtype,
+                            model_reduce=ctx.model_reduce,
+                            chunks=ctx.model_chunks)
         if need_w or need_b:
             dt = _widest(x.dtype, du.dtype)
 
@@ -563,7 +659,7 @@ class Conv1dFunction(torch.autograd.Function):
                 bias_dtype=ctx.bias_dtype if need_b else None)
         if need_r:
             dres = du.to(ctx.residual_dtype)
-        return dx, dw, dbias, dres, None, None, None, None, None, None
+        return (dx, dw, dbias, dres) + (None,) * 8
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
@@ -574,14 +670,16 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                      out_dtype: torch.dtype | None = None,
                      tile: int | None = None, bwd_data_cfg=None,
                      bwd_weight_cfg=None, grad_reduce=None,
-                     grad_reduce_chunks: int | None = None) -> torch.Tensor:
+                     grad_reduce_chunks: int | None = None,
+                     model_reduce=None) -> torch.Tensor:
     """Depthwise 1D conv with fused epilogue.  x: (N, C, W), w: (S, C) ->
     (N, C, Q); bias (C,), residual (N, C, Q), the epilogue of ``conv1d``.
     Every backend follows the JAX package's dtype rule: fp32 accumulation
     and epilogue math, output in ``out_dtype`` or x's dtype, whatever the
     weights' dtype.  The backends and the pins are ``conv1d``'s; the
     depthwise kernels have no tile (``tile`` must be None).
-    ``grad_reduce`` / ``grad_reduce_chunks`` as ``conv1d``'s.
+    ``grad_reduce`` / ``grad_reduce_chunks`` as ``conv1d``'s;
+    ``model_reduce`` is refused (module docstring).
 
     Example (CPU, the plain version; the Mamba2 causal conv)::
 
@@ -594,6 +692,14 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
         ...                      activation="silu").shape
         torch.Size([2, 16, 64])
     """
+    if model_reduce is not None:
+        raise ValueError(
+            "depthwise_conv1d has no model-axis contraction to reduce: "
+            "under channel-group sharding every output channel depends "
+            "only on its own input channel, so dx, dw and dbias all stay "
+            "on the rank; shard x and w on C over the model group and "
+            "drop model_reduce (kernels.sharded."
+            "model_sharded_depthwise_conv1d)")
     if tile is not None:
         raise ValueError("the depthwise kernels have no tile to pin")
     backend = backend or default_backend(x)

@@ -1,15 +1,18 @@
-"""The sum of gradients over a data-parallel group: what the JAX package
-spells ``lax.psum`` over its ``'data'`` axis, here a ``torch.distributed``
-process group.
+"""The sums over the groups of data and tensor parallelism: what the JAX
+package spells ``lax.psum`` over its ``'data'`` and ``'model'`` axes,
+here ``torch.distributed`` process groups.
 
-  * :func:`dp_size` / :func:`dp_rank` read a group; ``None`` (no group) is
-    a world of 1, where every reduce is the identity, as JAX's psum over a
-    size-1 axis is;
+  * :func:`dp_size` / :func:`dp_rank` read the data group, and
+    :func:`mp_size` / :func:`mp_rank` the model group; ``None`` (no group)
+    is a group of 1, where every reduce is the identity, as JAX's psum
+    over a size-1 axis is;
   * :class:`GradReducer` issues a step's gradient all-reduces
-    asynchronously and keeps their handles until :meth:`GradReducer.wait`.
+    asynchronously and keeps their handles until :meth:`GradReducer.wait`;
+  * :class:`ModelReducer` sums a K-sharded layer's data gradient over the
+    model group, waited inside the backward that issued it.
 
 ``ops``, ``sharded`` and ``train.data_parallel`` reduce through this
-module; ``launch.mesh`` starts the group and re-exports these names.
+module; ``launch.mesh`` starts the groups and re-exports these names.
 """
 from __future__ import annotations
 
@@ -29,6 +32,18 @@ def dp_rank(group=None) -> int:
     if group is None:
         return 0
     return dist.get_rank(group)
+
+
+def mp_size(group=None) -> int:
+    """Ranks in the model group (the tensor-parallel width); 1 without
+    one."""
+    return dp_size(group)
+
+
+def mp_rank(group=None) -> int:
+    """This process's rank in the model group: the filter block it holds;
+    0 without one."""
+    return dp_rank(group)
 
 
 class GradReducer:
@@ -53,6 +68,13 @@ class GradReducer:
     ``.grad`` copies them at once.  A bare process group passed as
     ``grad_reduce`` has no such rule: its reduces wait where they are
     issued.
+
+    A second sum that must follow a first (a K-sharded layer's parameter
+    block, summed over the data group and then, zero-padded, over the
+    model group) is :meth:`defer`'d: its callable runs in :meth:`wait`
+    once the reduces issued before it are done, and may issue reduces of
+    its own over another group (``all_reduce_(..., group=)``), which the
+    same wait waits on.
 
     A backward that raises runs no queued callback: its caller calls
     :meth:`wait` itself (``make_sharded_grad_fn`` does, in a ``finally``),
@@ -82,18 +104,30 @@ class GradReducer:
                 "before their reduces end)")
         self._claimed.add(key)
 
-    def all_reduce_(self, buf: torch.Tensor, finish=None) -> None:
-        """Sum ``buf`` over the group in place, asynchronously; ``finish``
-        runs after the sum is complete.  Without a group (a world of 1)
-        the sum is ``buf`` itself and ``finish`` runs at once."""
-        if self.group is None:
+    def all_reduce_(self, buf: torch.Tensor, finish=None,
+                    group=None) -> None:
+        """Sum ``buf`` over ``group`` (by default the reducer's) in place,
+        asynchronously; ``finish`` runs after the sum is complete.  Without
+        a group (a world of 1) the sum is ``buf`` itself and ``finish``
+        runs at once."""
+        group = self.group if group is None else group
+        if group is None:
             if finish is not None:
                 finish()
             return
-        work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group,
+        work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
                                async_op=True)
         GradReducer.launches += 1
         self._pending.append((work, finish))
+        self._queue()
+
+    def defer(self, fn) -> None:
+        """Run ``fn`` in :meth:`wait`, after every reduce issued before it
+        is done and its ``finish`` has run."""
+        self._pending.append((None, fn))
+        self._queue()
+
+    def _queue(self) -> None:
         # torch has no public test for "inside a backward"; a graph task id
         # of -1 means none is running
         if not self._queued and torch._C._current_graph_task_id() >= 0:
@@ -103,12 +137,53 @@ class GradReducer:
 
     def wait(self) -> None:
         """Wait on every pending reduce, in issue order, and run its
-        ``finish``; the reducer is empty afterwards, even if a wait
-        raises."""
+        ``finish`` (and each deferred callable in its place), down to the
+        reduces those issue; the reducer is empty afterwards, even if a
+        wait raises."""
+        try:
+            i = 0
+            while i < len(self._pending):  # grows while deferred steps run
+                work, finish = self._pending[i]
+                i += 1
+                if work is not None:
+                    work.wait()
+                if finish is not None:
+                    finish()
+        finally:
+            self._pending = []
+            self._claimed.clear()
+            self._queued = False
+
+
+class ModelReducer:
+    """The sum of a K-sharded layer's data gradient over the model group
+    (JAX's ``_model_psum`` and ``_chunked_psum_bwd_data``).
+
+    Under K-sharding each rank's dx contracts over its own K/mp filter
+    rows only, a partial sum; the layer before reads dx at once, so the
+    sum is waited inside the backward that issued it, unlike the
+    parameter reduces of :class:`GradReducer`.  :meth:`all_reduce_`
+    issues one asynchronous all-reduce, so a chunked caller can compute
+    chunk i+1 while chunk i's sum is in flight; :meth:`wait` waits on
+    them in issue order.  Without a group every sum is the buffer
+    itself."""
+
+    launches = 0  # model all-reduces issued, over every reducer
+
+    def __init__(self, group=None):
+        self.group = group
+        self._pending: list = []
+
+    def all_reduce_(self, buf: torch.Tensor) -> None:
+        """Sum ``buf`` over the model group in place, asynchronously."""
+        if self.group is None:
+            return
+        self._pending.append(dist.all_reduce(
+            buf, op=dist.ReduceOp.SUM, group=self.group, async_op=True))
+        ModelReducer.launches += 1
+
+    def wait(self) -> None:
+        """Wait on every pending sum, in issue order."""
         pending, self._pending = self._pending, []
-        self._claimed.clear()
-        self._queued = False
-        for work, finish in pending:
+        for work in pending:
             work.wait()
-            if finish is not None:
-                finish()

@@ -1,18 +1,25 @@
-"""The data-parallel group (counterpart of the data half of
-``repro/launch/mesh.py``).
+"""The data and model groups (counterpart of ``repro/launch/mesh.py``'s
+``make_host_mesh(model=)``, ``make_grid_mesh``, ``dp_size``, ``mp_size``
+and ``mp_axis_name``).
 
-The JAX package names a ``('data',)`` mesh axis and lets ``lax.psum``
-reduce over it.  Here the axis is a ``torch.distributed`` process group,
-one process per card:
+The JAX package names ``('data', 'model')`` mesh axes and lets
+``lax.psum`` reduce over them.  Here each axis is a ``torch.distributed``
+process group, one process per card:
 
-  * :func:`init_data_group` starts it, from its arguments or from the
-    variables ``torchrun`` sets (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
-    and ``MASTER_ADDR``/``MASTER_PORT`` through ``env://``);
-  * :func:`dp_size`, :func:`dp_rank` and :class:`GradReducer`, which
-    read the group and reduce over it, live in ``kernels/reduce.py``
-    (the conv Functions reduce through them) and are re-exported here.
-
-The model axis of tensor parallelism waits in ROADMAP.md queue A.
+  * :func:`init_data_group` starts the default group (the world), from
+    its arguments or from the variables ``torchrun`` sets
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, and
+    ``MASTER_ADDR``/``MASTER_PORT`` through ``env://``); alone it is the
+    data group of pure data parallelism;
+  * :func:`init_mesh` lays the started world out as a (dp, mp) grid, as
+    JAX reshapes its devices to ``(data, model)``: rank r sits at data
+    row ``r // mp`` and model column ``r % mp``, its model group being
+    its row (the mp ranks that hold the same data shard) and its data
+    group its column (the dp ranks that hold the same filter block);
+  * :func:`dp_size`, :func:`dp_rank`, :func:`mp_size`, :func:`mp_rank`,
+    :class:`GradReducer` and :class:`ModelReducer`, which read the groups
+    and reduce over them, live in ``kernels/reduce.py`` (the conv
+    Functions reduce through them) and are re-exported here.
 """
 from __future__ import annotations
 
@@ -21,10 +28,11 @@ import os
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels.reduce import GradReducer, dp_rank, dp_size
+from repro_torch.kernels.reduce import (GradReducer, ModelReducer, dp_rank,
+                                        dp_size, mp_rank, mp_size)
 
-__all__ = ["GradReducer", "destroy", "dp_rank", "dp_size", "init_data_group",
-           "local_rank"]
+__all__ = ["GradReducer", "ModelReducer", "destroy", "dp_rank", "dp_size",
+           "init_data_group", "init_mesh", "local_rank", "mp_rank", "mp_size"]
 
 
 def init_data_group(backend: str | None = None, init_method: str | None = None,
@@ -62,6 +70,39 @@ def init_data_group(backend: str | None = None, init_method: str | None = None,
         dist.init_process_group(backend, init_method=init_method or "env://",
                                 world_size=world_size, rank=rank)
     return dist.group.WORLD
+
+
+def init_mesh(dp: int, mp: int):
+    """``(data_group, model_group)`` of this rank on a ``dp`` x ``mp``
+    layout of the started world (``dp * mp`` ranks; rank r at data row
+    ``r // mp``, model column ``r % mp``).
+
+    ``mp == 1`` is pure data parallelism: the data group is the world and
+    there is no model group (None, a model axis of size 1).  Otherwise
+    every rank creates every row and every column group, in the same
+    order, as ``dist.new_group`` requires of all ranks, and keeps the two
+    it is in; a dp of 1 gives a data group of one rank, whose reduces are
+    the identity.  Without a started group the world is one process:
+    ``(None, None)`` for ``dp == mp == 1``."""
+    if dp < 1 or mp < 1:
+        raise ValueError(f"a mesh needs dp >= 1 and mp >= 1, got ({dp}, {mp})")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dp * mp != world:
+        raise ValueError(f"a ({dp}, {mp}) mesh needs {dp * mp} ranks; the "
+                         f"world has {world}")
+    if mp == 1:
+        return (dist.group.WORLD if dist.is_initialized() else None), None
+    rank = dist.get_rank()
+    data = model = None
+    for row in range(dp):
+        g = dist.new_group([row * mp + m for m in range(mp)])
+        if row == rank // mp:
+            model = g
+    for col in range(mp):
+        g = dist.new_group([d * mp + col for d in range(dp)])
+        if col == rank % mp:
+            data = g
+    return data, model
 
 
 def local_rank() -> int:

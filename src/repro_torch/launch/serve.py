@@ -18,9 +18,10 @@ fp32 KV cache the JAX package's bf16 attention output turns fp32 and its
 layer scan refuses the carry (ROADMAP.md queue C), so the model's dtype
 (``make_cache``'s default) is the one it can run.  The decode step runs
 no kernel (as in the JAX package, where XLA takes it); ``--model-parallel``
-above 1 waits for model-axis parallelism (ROADMAP.md queue A item 4), and
-the telemetry spans of the JAX launcher (``with_request_spans``,
-``serve.prefill``) for ``obs`` (queue A item 6).
+above 1, which in the JAX launcher shards the language models'
+parameters (``models/sharding.py``), waits for that sharding (ROADMAP.md
+queue A item 4), and the telemetry spans of the JAX launcher
+(``with_request_spans``, ``serve.prefill``) for ``obs`` (queue A item 2).
 
 Conv family (AtacWorks): a continuous-serving loop over the streaming
 conv1d: a request queue, per-stream positions, and padded-batch
@@ -335,8 +336,9 @@ def serve_lm(args, cfg, model=None) -> dict:
     prompt's last position), the cache's dtype."""
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel > 1 is not ported to repro_torch yet: it waits "
-            "for model-axis tensor parallelism (ROADMAP.md queue A item 4)")
+            "--model-parallel > 1 is not ported to repro_torch yet: in the "
+            "JAX launcher it shards the language models' parameters "
+            "(models/sharding.py), which waits in ROADMAP.md queue A item 4")
     if args.prompt_len < 1 or args.gen < 2:
         raise ValueError("--prompt-len must be >= 1 and --gen >= 2 (the "
                          "first generated token comes from the prefill)")
@@ -416,8 +418,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=16,
                     help="LM: tokens generated per sequence")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="LM: only 1 (model-axis parallelism waits in "
-                         "ROADMAP.md queue A item 4)")
+                    help="LM: only 1 (the language models' parameter "
+                         "sharding waits in ROADMAP.md queue A item 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--streams", type=int, default=8,
                     help="number of queued streaming requests")

@@ -50,8 +50,22 @@ single-process path; ``--dist-backend`` names the backend (default NCCL
 on the card, gloo on the CPU), and a caller that has started a group
 before ``run`` trains over it.
 
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch atacworks-bf16 --model-parallel 2 --steps 10
+
+adds tensor parallelism: the world is laid out as (dp, mp) = (world /
+N, N) (``launch.mesh.init_mesh``), every conv layer whose filter count
+divides is K-sharded over the N ranks of a model group, which hold the
+same data shard (the loader takes ``rank=data_rank, world=dp``), and each
+layer's dx is summed over them after its bwd-data pass
+(``--model-reduce-chunks`` splits that sum into column ranges).  The
+world must divide by N, and so must the config's ``conv_channels``
+(atacworks' 15 does not; atacworks-bf16's 16 does).  Parameters and
+checkpoints stay whole: rank 0 saves one unsharded set.  The summary adds
+``mp``.
+
 The JAX launcher's elastic supervisor, fault drills, health and straggler
-monitors, telemetry and the model axis wait in ROADMAP.md queue A.
+monitors and telemetry wait in ROADMAP.md queue A.
 """
 from __future__ import annotations
 
@@ -108,13 +122,44 @@ def _parse_args(argv):
     ap.add_argument("--grad-reduce-chunks", type=int, default=None,
                     help="data parallel: all-reduce each layer's gradients "
                          "in this many width ranges")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel (model-axis) width: K-shard the "
+                         "conv filters over groups of this many ranks; the "
+                         "world and conv_channels must divide by it")
+    ap.add_argument("--model-reduce-chunks", type=int, default=None,
+                    help="with --model-parallel > 1: sum each layer's dx "
+                         "over the model group in this many column ranges")
     return ap.parse_args(argv)
 
 
-def _device(args, group) -> torch.device:
+def _check_model_parallel(cfg, mp: int, world: int) -> None:
+    """The layout's rules (JAX's launcher's messages): the world divides
+    into rows of ``mp`` ranks, and the conv family's channels divide."""
+    if mp < 1 or world % mp:
+        raise SystemExit(
+            f"--model-parallel {mp} does not divide the {world} rank(s); "
+            "the (data, model) layout needs whole rows of model ranks: "
+            "pick N with world % N == 0")
+    if mp == 1:
+        return
+    if cfg.family != "conv":
+        raise SystemExit(
+            f"--model-parallel needs the conv family (arch {cfg.name} is "
+            f"family {cfg.family!r}): only the conv layers K-shard over the "
+            "model group")
+    if cfg.conv_channels % mp:
+        raise SystemExit(
+            f"--model-parallel {mp} does not divide this model's filter "
+            f"counts: conv_channels={cfg.conv_channels} (every body layer "
+            f"has K=C={cfg.conv_channels} filters), so C % N must be 0; "
+            "use a config with divisible channels (atacworks-bf16) or "
+            "lower --model-parallel")
+
+
+def _device(args, started: bool) -> torch.device:
     """The rank's device: ``cuda:LOCAL_RANK`` modulo the cards present
     (ranks sharing a card under gloo), or the CPU when asked for."""
-    if group is None or args.device != "cuda":
+    if not started or args.device != "cuda":
         return require_device(args.device)
     require_device("cuda")
     dev = torch.device("cuda", mesh.local_rank() % torch.cuda.device_count())
@@ -136,11 +181,15 @@ def run(argv=None) -> dict:
     backend = args.dist_backend
     if backend is None and "WORLD_SIZE" in os.environ:
         backend = "nccl" if args.device == "cuda" else "gloo"
-    group = mesh.init_data_group(backend)
+    started = mesh.init_data_group(backend) is not None
+    world = dist.get_world_size() if started else 1
+    mp = args.model_parallel
+    _check_model_parallel(cfg, mp, world)
+    group, model_group = mesh.init_mesh(world // mp, mp)
     dp, rank = mesh.dp_size(group), mesh.dp_rank(group)
-    lead = rank == 0
+    lead = not started or dist.get_rank() == 0
     log = print if lead else (lambda *a, **k: None)
-    device = _device(args, group)
+    device = _device(args, started)
     if args.batch % (args.accum * dp):
         raise SystemExit(f"--batch {args.batch} must divide by --accum "
                          f"{args.accum} x {dp} data-parallel ranks")
@@ -156,19 +205,22 @@ def run(argv=None) -> dict:
     step_fn = make_train_step(cfg, accum_steps=args.accum, peak_lr=args.lr,
                               warmup_steps=max(2, args.steps // 10),
                               total_steps=args.steps, group=group,
-                              grad_reduce_chunks=args.grad_reduce_chunks)
+                              grad_reduce_chunks=args.grad_reduce_chunks,
+                              model_group=model_group,
+                              model_reduce_chunks=args.model_reduce_chunks)
     log(f"arch={cfg.name} device={device} batch={args.batch} "
         f"seq={args.seq} accum={args.accum}"
         + (f" attn_impl={cfg.attn_impl}" if cfg.family == "dense" else "")
-        + (f" dp={dp} path=data_parallel" if group is not None else ""))
+        + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
+           else f" dp={dp} path=data_parallel" if group is not None else ""))
 
     def save(step):
-        if group is not None:
-            dist.barrier(group)
+        if started:
+            dist.barrier()
         if lead:
             ckpt.save(state, step)
-        if group is not None:
-            dist.barrier(group)
+        if started:
+            dist.barrier()
 
     losses, gnorms, dts, skipped = [], [], [], 0
     loader = SyntheticLoader(cfg, args.batch, args.seq, device=device,
@@ -197,7 +249,7 @@ def run(argv=None) -> dict:
         save(args.steps)
 
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
-               "attn_impl": cfg.attn_impl, "dp": dp,
+               "attn_impl": cfg.attn_impl, "dp": dp, "mp": mp,
                "first_step": start, "global_batch": args.batch,
                "seq": args.seq, "accum": args.accum, "losses": losses,
                "grad_norms": gnorms, "skipped_steps": skipped,

@@ -24,13 +24,26 @@ its own share of the global batch (``SyntheticLoader(rank=, world=)`` or
 Each rank traces the model at its local batch, so a ``backend="auto"``
 conv resolves its plan from the local problem (N / dp).  A world of 1
 (``group=None``) is the single-process gradient.
+
+On a (data, model) layout (``launch.mesh.init_mesh``) with a model group
+of mp > 1 ranks (conv family only), every layer whose filter count
+divides is also K-sharded over the model group (``blocks.forward``): the
+mp ranks of a model group hold the same data shard, so the loss is still
+scaled by 1/dp, not 1/(dp x mp); each layer's dx is summed over the model
+group inside its backward; every layer's (dw, dbias) is summed over the
+data group as above, and a sharded layer's summed block is then
+zero-padded and summed over the model group through the same per-step
+``GradReducer``, after the data sum (JAX's order).  The heads (K=1 < mp)
+run replicated.  Parameters and gradients stay whole and equal on every
+rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels.reduce import GradReducer, dp_rank, dp_size
+from repro_torch.kernels.reduce import (GradReducer, dp_rank, dp_size,
+                                        mp_size)
 from repro_torch.train.losses import make_loss_fn
 
 
@@ -48,7 +61,9 @@ def shard_batch(batch: dict, group) -> dict:
 
 
 def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
-                         grad_reduce_chunks: int | None = None):
+                         grad_reduce_chunks: int | None = None,
+                         model_group=None,
+                         model_reduce_chunks: int | None = None):
     """``grad_fn(model, batch) -> ((loss, aux), grads)`` over the data group
     ``group`` (None: a world of 1), ``grads`` a tuple in
     ``model.named_parameters()`` order.  ``batch`` is this rank's share.
@@ -59,13 +74,38 @@ def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
     ``grad_reduce_chunks`` > 1 (conv family) reduces each layer in that
     many width ranges, as ``kernels/ops.py`` describes.  A group of one
     rank still issues every reduce (the identity), so a one-card run
-    exercises the collective path."""
-    dp = dp_size(group)
+    exercises the collective path.
+
+    ``model_group`` (this rank's model group from ``launch.mesh.init_mesh``,
+    None: mp = 1) of mp > 1 ranks turns on tensor parallelism (conv
+    family, default loss only; module docstring), with
+    ``model_reduce_chunks`` column ranges to each layer's dx sum.
+    Requires cfg.conv_channels % mp == 0 and the world to be the dp x mp
+    ranks."""
+    dp, mp = dp_size(group), mp_size(model_group)
     fused_reduce = cfg.family == "conv" and loss_fn is None
     reducer = GradReducer(group)
+    if mp > 1:
+        if cfg.family != "conv":
+            raise ValueError(
+                f"model-parallel grad fn supports the conv family only "
+                f"(cfg family is {cfg.family!r}); the language models' "
+                "parameter sharding waits in ROADMAP.md queue A")
+        if loss_fn is None and cfg.conv_channels % mp:
+            raise ValueError(
+                f"conv_channels={cfg.conv_channels} does not divide over "
+                f"mp={mp} model shards: every body layer has "
+                f"K=C={cfg.conv_channels} filters, so C % mp must be 0; "
+                "pick a divisible channel count (atacworks-bf16 has 16) "
+                "or lower the model axis")
+        if dist.get_world_size() != dp * mp:
+            raise ValueError(f"the world has {dist.get_world_size()} ranks, "
+                             f"not dp x mp = {dp} x {mp}")
     if fused_reduce:
         loss_fn = make_loss_fn(cfg, grad_reduce=reducer,
-                               grad_reduce_chunks=grad_reduce_chunks)
+                               grad_reduce_chunks=grad_reduce_chunks,
+                               model_group=model_group,
+                               model_reduce_chunks=model_reduce_chunks)
     loss_fn = loss_fn or make_loss_fn(cfg)
 
     def grad_fn(model, batch):

@@ -22,7 +22,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_loss_fn(cfg, *, grad_reduce=None,
-                 grad_reduce_chunks: int | None = None):
+                 grad_reduce_chunks: int | None = None, model_group=None,
+                 model_reduce_chunks: int | None = None):
     """``loss(model, batch) -> (loss, aux)`` for the config's family.
 
     ``grad_reduce`` marks the loss as running on one rank's share of the
@@ -30,11 +31,16 @@ def make_loss_fn(cfg, *, grad_reduce=None,
     ``grad_reduce_chunks``, down to every layer, so each layer's weight
     and bias gradients are summed over the data group right after its
     bwd-weight pass.  The other families ignore both: their data-parallel
-    gradient function reduces the whole gradient list instead."""
+    gradient function reduces the whole gradient list instead.
+    ``model_group`` and ``model_reduce_chunks`` K-shard the conv family's
+    layers (``blocks.forward``); the other families have no model axis
+    here."""
     if cfg.family == "conv":
         def conv_loss(model, batch):
             return blocks.loss_fn(model, cfg, batch, grad_reduce=grad_reduce,
-                                  grad_reduce_chunks=grad_reduce_chunks)
+                                  grad_reduce_chunks=grad_reduce_chunks,
+                                  model_group=model_group,
+                                  model_reduce_chunks=model_reduce_chunks)
 
         return conv_loss
     if cfg.family not in ("ssm", "dense"):

@@ -57,7 +57,8 @@ def _split_microbatches(batch: dict, accum: int) -> list[dict]:
 def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
                     warmup_steps: int = 100, total_steps: int = 10_000,
                     group=None, grad_compression: bool = False,
-                    grad_reduce_chunks: int | None = None):
+                    grad_reduce_chunks: int | None = None, model_group=None,
+                    model_reduce_chunks: int | None = None):
     """``train_step(state, batch) -> (state, metrics)``.  With
     ``accum_steps > 1`` the batch is split into that many microbatches;
     their gradients are summed in fp32 and divided, and the loss is their
@@ -68,19 +69,23 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
     ``group`` (a data group, ``launch.mesh``) makes ``batch`` this rank's
     share of the global batch and the gradients those of
     ``make_sharded_grad_fn`` (each microbatch's reduced on its own);
-    ``grad_reduce_chunks`` is its knob.  ``group=None`` is the
-    single-process step.  ``grad_compression`` rounds the gradients to
-    bf16 with the error feedback carried in ``state.ef``
+    ``grad_reduce_chunks`` is its knob; ``model_group`` (with
+    ``model_reduce_chunks``) K-shards the conv layers over this rank's
+    model group, the layout's other axis.  ``group=None`` and
+    ``model_group=None`` is the single-process step.
+    ``grad_compression`` rounds the gradients to bf16 with the error
+    feedback carried in ``state.ef``
     (``init_state(..., grad_compression=True)``)."""
-    if group is None:
+    if group is None and model_group is None:
         loss_fn = make_loss_fn(cfg)
 
         def grads_of(model, params, batch):
             loss, _ = loss_fn(model, batch)
             return loss.detach(), torch.autograd.grad(loss, params)
     else:
-        grad_fn = make_sharded_grad_fn(cfg, group,
-                                       grad_reduce_chunks=grad_reduce_chunks)
+        grad_fn = make_sharded_grad_fn(
+            cfg, group, grad_reduce_chunks=grad_reduce_chunks,
+            model_group=model_group, model_reduce_chunks=model_reduce_chunks)
 
         def grads_of(model, params, batch):
             (loss, _), grads = grad_fn(model, batch)

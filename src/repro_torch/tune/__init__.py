@@ -137,6 +137,7 @@ def tune_problem(prob: ConvProblem, *, device=None,
 def tune(*, N: int, C: int, K: int, S: int, dilation: int, Q: int, dtype,
          padding: str = "VALID", depthwise: bool = False,
          epilogue: str = "none", pass_: str = "fwd", shards: int = 1,
+         model_shards: int = 1,
          device=None, cache: TuneCache | None = None, measure: bool = True,
          top_k: int | None = None, iters: int = 5, warmup: int = 2,
          backends: tuple[str, ...] | None = None) -> TunedConfig:
@@ -144,7 +145,9 @@ def tune(*, N: int, C: int, K: int, S: int, dilation: int, Q: int, dtype,
     coordinates; ``pass_`` selects the pass tuned).  ``shards`` tunes the
     per-shard view under that much data parallelism
     (``ConvProblem.localized``): N is the global batch, the tuned and
-    cached problem has N / shards, the shape each rank runs.
+    cached problem has N / shards, the shape each rank runs;
+    ``model_shards`` does the same on the model axis (K / model_shards
+    dense filters, or a C / model_shards depthwise channel group).
 
     Example (the cost model alone, into an explicit cache)::
 
@@ -159,7 +162,8 @@ def tune(*, N: int, C: int, K: int, S: int, dilation: int, Q: int, dtype,
     """
     prob = _make_problem(N=N, C=C, K=K, S=S, dilation=dilation, Q=Q,
                          dtype=dtype, padding=padding, depthwise=depthwise,
-                         epilogue=epilogue, pass_=pass_).localized(shards)
+                         epilogue=epilogue, pass_=pass_).localized(
+                             shards, model_shards=model_shards)
     return tune_problem(prob, device=device, cache=cache, measure=measure,
                         top_k=top_k, iters=iters, warmup=warmup,
                         backends=backends)
@@ -199,16 +203,17 @@ def get_config(*, N: int, C: int, K: int, S: int, dilation: int, Q: int,
 
 def get_plan(*, N: int, C: int, K: int, S: int, dilation: int, Q: int,
              dtype, padding: str = "VALID", depthwise: bool = False,
-             epilogue: str = "none", device=None,
-             cache: TuneCache | None = None,
+             epilogue: str = "none", shards: int = 1, model_shards: int = 1,
+             device=None, cache: TuneCache | None = None,
              allow_measure: bool | None = None) -> dict[str, TunedConfig]:
     """All three passes of one layer instance, each through its own key;
-    what ``ops.conv1d(backend="auto")`` runs.  The forward resolves
-    through ``get_config_for`` (a measured search on a miss when
-    allowed); the backward passes from the cache or the default, never
-    measured here: a forward-only caller would tune gradients it never
-    computes (``tune(pass_=...)`` tunes them).  The JAX package's
-    ``get_plan`` measures all three on a miss.
+    what ``ops.conv1d(backend="auto")`` runs.  ``shards`` /
+    ``model_shards`` resolve the per-shard instance (``tune``'s).  The
+    forward resolves through ``get_config_for`` (a measured search on a
+    miss when allowed); the backward passes from the cache or the
+    default, never measured here: a forward-only caller would tune
+    gradients it never computes (``tune(pass_=...)`` tunes them).  The
+    JAX package's ``get_plan`` measures all three on a miss.
 
     Example::
 
@@ -222,7 +227,8 @@ def get_plan(*, N: int, C: int, K: int, S: int, dilation: int, Q: int,
     """
     base = _make_problem(N=N, C=C, K=K, S=S, dilation=dilation, Q=Q,
                          dtype=dtype, padding=padding, depthwise=depthwise,
-                         epilogue=epilogue)
+                         epilogue=epilogue).localized(
+                             shards, model_shards=model_shards)
     return {p: get_config_for(base.with_pass(p), device=device, cache=cache,
                               allow_measure=allow_measure if p == "fwd"
                               else False)

@@ -8,6 +8,7 @@ the JAX package's ``scripts/tune.py``).
     PYTHONPATH=src python -m repro_torch.tune --figset serving
     PYTHONPATH=src python -m repro_torch.tune --figset fig4 --device cpu
     PYTHONPATH=src python -m repro_torch.tune --figset atacworks --dp 2
+    PYTHONPATH=src python -m repro_torch.tune --figset atacworks --mp 2
 
 One entry per (S, Q, pass) cell of the selected figures (``presets``), so
 afterwards ``ops.conv1d(backend="auto")`` on those shapes, forward or
@@ -18,14 +19,20 @@ model's best k).  It tunes for the card and raises without one unless
 ``--device cpu`` asks for the host, whose candidates are ``ref`` and
 ``library``.  ``--dp`` tunes each cell's per-rank view under that much
 data parallelism (N / dp, the shape each rank runs and looks up); a cell
-whose N does not divide is skipped with a message.
+whose N does not divide is skipped with a message.  ``--mp`` tunes each
+cell's views under that much tensor parallelism
+(``presets.model_sharded_shapes``): ``local-K`` (K / mp, the K-sharded
+layer each rank runs) and ``local-C`` (C / mp, a layer reading a
+channel group); a cell where neither divides is skipped with a message
+(atacworks' C=K=15 at mp 2; its bf16 cells, C=K=16, divide).
 """
 from __future__ import annotations
 
 import argparse
 
 from . import TuneCache, get_default_cache, tune
-from .presets import FIGSETS, atacworks_shapes, figset_shapes, serving_shapes
+from .presets import (FIGSETS, atacworks_shapes, figset_shapes,
+                      model_sharded_shapes, serving_shapes)
 from .problem import PASSES
 from .space import BACKENDS
 
@@ -57,6 +64,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel ranks: tune the local N = N/dp "
                          "each rank runs")
+    ap.add_argument("--mp", type=int, default=1,
+                    help="tensor-parallel ranks: tune the local-K and "
+                         "local-C views each model rank runs")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top-k", type=int, default=None,
                     help="with --measure, time only the cost model's top k "
@@ -85,6 +95,8 @@ def main(argv=None) -> int:
                 for p in figset_shapes(name, full=args.full)]
     if args.dp < 1:
         ap.error(f"--dp must be >= 1, got {args.dp}")
+    if args.mp < 1:
+        ap.error(f"--mp must be >= 1, got {args.mp}")
     n = 0
     dp = f" dp={args.dp}" if args.dp != 1 else ""
     for name, prob in work:
@@ -92,16 +104,27 @@ def main(argv=None) -> int:
             print(f"{name} S={prob['S']:>2} Q={prob['Q']:>6}: skipped "
                   f"(N={prob['N']} does not divide over dp={args.dp})")
             continue
-        for pass_ in passes:
-            cfg = tune(**prob, pass_=pass_, shards=args.dp,
-                       device=args.device, cache=cache,
-                       measure=args.measure, iters=args.iters,
-                       top_k=args.top_k, backends=backends)
-            n += 1
-            sec = f" {cfg.sec:.3e}s" if cfg.sec is not None else ""
-            print(f"{name} S={prob['S']:>2} Q={prob['Q']:>6} {prob['dtype']}"
-                  f"{dp} {pass_:>10}: {cfg.backend} tile={cfg.tile} "
-                  f"body={cfg.body} [{cfg.source}]{sec}")
+        views = [("", prob)]
+        if args.mp != 1:
+            views = [(f" mp={args.mp}:{v}", p)
+                     for v, p in model_sharded_shapes([prob], args.mp)]
+            if not views:
+                print(f"{name} S={prob['S']:>2} Q={prob['Q']:>6}: skipped "
+                      f"(neither K={prob['K']} nor C={prob['C']} divides "
+                      f"over mp={args.mp})")
+                continue
+        for mp, vprob in views:
+            for pass_ in passes:
+                cfg = tune(**vprob, pass_=pass_, shards=args.dp,
+                           device=args.device, cache=cache,
+                           measure=args.measure, iters=args.iters,
+                           top_k=args.top_k, backends=backends)
+                n += 1
+                sec = f" {cfg.sec:.3e}s" if cfg.sec is not None else ""
+                print(f"{name} S={prob['S']:>2} Q={prob['Q']:>6} "
+                      f"{prob['dtype']}{dp}{mp} {pass_:>10}: {cfg.backend} "
+                      f"tile={cfg.tile} body={cfg.body} "
+                      f"[{cfg.source}]{sec}")
     print(f"\n{n} entries -> {cache.path} ({len(cache)} total)")
     return 0
 

@@ -99,9 +99,9 @@ def model_sharded_shapes(cells, mp: int):
     A view whose dimension does not divide by ``mp`` is skipped, so
     callers can detect fully-unshardable cells by an empty yield.  These
     are the keys per-shard ``backend='auto'`` lookups build — a
-    global-shape entry never stands in for them (the JAX package's
-    ``scripts/tune.py --mp``; the port's ``--mp`` waits for tensor
-    parallelism).
+    global-shape entry never stands in for them (``python -m
+    repro_torch.tune --mp``, as the JAX package's ``scripts/tune.py
+    --mp``).
     """
     for p in cells:
         p = dict(p)

@@ -21,7 +21,7 @@ same device-kind string: the forward keeps the untagged form, a backward
 pass appends ``|pass:``.  The JAX package's search constraints ``alg``,
 ``nblk`` and ``pipe`` have no axis on this card's kernels and are not
 fields here (its keys carry them only when set).  ``localized`` is the
-per-shard view under data parallelism.
+per-shard view under data and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -106,17 +106,39 @@ class ConvProblem:
     def with_pass(self, pass_: str) -> "ConvProblem":
         return dataclasses.replace(self, pass_=pass_)
 
-    def localized(self, shards: int = 1) -> "ConvProblem":
-        """The per-shard view under ``shards``-way data parallelism: the
-        same layer at the local batch ``N / shards``, the shape each rank
-        runs and so the key each rank's ``backend="auto"`` call looks up
-        (``python -m repro_torch.tune --dp``).  The model axis's view waits
-        with tensor parallelism."""
+    def localized(self, shards: int = 1, *,
+                  model_shards: int = 1) -> "ConvProblem":
+        """The per-shard view under ``shards``-way data parallelism and
+        ``model_shards``-way tensor parallelism: the same layer at the
+        local batch ``N / shards`` and, on the model axis, the local
+        filters ``K / model_shards`` (dense: the input keeps all C
+        channels) or the local channel group ``C / model_shards``
+        (depthwise, whose K is C).  These are the shapes each rank runs
+        and so the keys each rank's ``backend="auto"`` call looks up
+        (``python -m repro_torch.tune --dp``/``--mp``)."""
         if shards < 1 or self.N % shards:
             raise ValueError(
                 f"cannot shard N={self.N} over {shards} data-parallel "
                 "shards (batch must divide evenly)")
-        return dataclasses.replace(self, N=self.N // shards)
+        kw = dict(N=self.N // shards)
+        if model_shards != 1:
+            if model_shards < 1:
+                raise ValueError(f"model_shards must be >= 1, got "
+                                 f"{model_shards}")
+            if self.depthwise:
+                if self.C % model_shards:
+                    raise ValueError(
+                        f"cannot shard C={self.C} over {model_shards} "
+                        "model shards (depthwise channel groups must "
+                        "divide evenly)")
+                kw.update(C=self.C // model_shards, K=self.K // model_shards)
+            else:
+                if self.K % model_shards:
+                    raise ValueError(
+                        f"cannot shard K={self.K} over {model_shards} "
+                        "model shards (filters must divide evenly)")
+                kw.update(K=self.K // model_shards)
+        return dataclasses.replace(self, **kw)
 
     def key(self, device_kind: str) -> str:
         return cache_key(device_kind=device_kind, dtype=self.dtype, N=self.N,

@@ -470,6 +470,7 @@ def test_launcher_lm_default_device_and_model_parallel_raise():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "mamba2-370m", "--smoke", "--batch", "2",
                     "--prompt-len", "8", "--gen", "8"])
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="models/sharding.py.*queue A item 4"):
         serve.main(["--arch", "starcoder2-3b", "--device", "cpu",
                     "--smoke", "--model-parallel", "2"])

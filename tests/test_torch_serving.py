@@ -97,7 +97,8 @@ def test_lm_families_raise_not_implemented():
         configs.get("deepseek-v3-671b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get("zamba2-7b")  # hybrid serving needs shared attention
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(NotImplementedError,
+                       match="models/sharding.py.*queue A item 4"):
         serve.main(["--arch", "mamba2-370m", "--device", "cpu", "--smoke",
                     "--model-parallel", "2"])
 

@@ -1,0 +1,195 @@
+"""Rank-side jobs of ``test_torch_model_parallel.py``: the port's
+tensor-parallel path run by gloo ranks on the CPU.
+
+Kept apart from the test module so that each spawned rank imports torch
+and the port, not JAX.  ``spawn(world, mp, job, tmp, **payload)`` starts
+``world`` ranks (start method ``spawn``, one thread each, a file store
+under ``tmp`` for the rendezvous, never a TCP port), lays them out as
+(world / mp, mp) with ``launch.mesh.init_mesh``, runs the job named
+``job`` in each with its data and model groups and returns every rank's
+result dict.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import io
+import os
+import pickle
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+import torch.nn.functional as F
+
+from repro_torch import configs
+from repro_torch.kernels import ops
+from repro_torch.kernels import sharded as sh
+from repro_torch.launch import mesh
+
+from torch_dp_ranks import atac_model, kernel_path, tensors
+
+
+def _counts() -> dict:
+    return dict(param_reduces=mesh.GradReducer.launches,
+                dx_reduces=mesh.ModelReducer.launches,
+                gathers=sh.ModelConcat.launches)
+
+
+def _since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def _grads(cfg, model, batch, data, model_group, chunks=None,
+           grad_chunks=None):
+    from repro_torch.train.data_parallel import make_sharded_grad_fn
+    fn = make_sharded_grad_fn(cfg, data, model_group=model_group,
+                              model_reduce_chunks=chunks,
+                              grad_reduce_chunks=grad_chunks)
+    before = _counts()
+    (loss, aux), grads = fn(model, batch)
+    return dict(loss=float(loss), aux={k: float(v) for k, v in aux.items()},
+                grads=[g.detach().float().numpy().copy() for g in grads],
+                counts=_since(before),
+                pending=fn.reducer.pending)
+
+
+# --- jobs: job(data, model, rank, tmp, **payload) -> dict -----------------
+
+def job_grads(data, model_group, rank, tmp, *, jparams, batch, chunks,
+              train_batch):
+    """The reduced AtacWorks gradients of this rank's data shard, K-sharded
+    over its model group: the plain version, then the Function path at
+    each dx chunk count and with 2 width ranges to each data sum; in bf16 on the Function path, K-sharded, over the
+    data group alone, and (rank 0) in one process on the global batch;
+    one train step from the same state."""
+    import dataclasses
+
+    from repro_torch.train.data_parallel import shard_batch
+    from repro_torch.train.train_step import init_state, make_train_step
+    local = shard_batch(tensors(batch), data)
+    cfg, model = atac_model(jparams)
+    out = {"ref": _grads(cfg, model, local, data, model_group)}
+    kernel_path()
+    for c in chunks:
+        out[f"function{c}"] = _grads(cfg, model, local, data, model_group,
+                                     chunks=c)
+    out["function_g2"] = _grads(cfg, model, local, data, model_group,
+                                grad_chunks=2)
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    out["bf16"] = _grads(cfg16, model16, local, data, model_group)
+    out["bf16_data_only"] = _grads(cfg16, model16, local, data, None)
+    if rank == 0:
+        out["bf16_one"] = _grads(cfg16, model16, tensors(batch), None, None)
+    state = init_state(model)
+    step = make_train_step(cfg, group=data, model_group=model_group,
+                           total_steps=10)
+    state, m = step(state, shard_batch(tensors(train_batch), data))
+    out["train"] = dict(loss=float(m["loss"]), params={
+        k: p.detach().numpy().copy()
+        for k, p in state.params.named_parameters()})
+    return out
+
+
+def job_ops(data, model_group, rank, tmp, *, x, w, b, wd, bd, chunks):
+    """One K-sharded layer's dx, unchunked and chunked, on the Function
+    path; the sharded wrappers' outputs and gradients (the plain ops);
+    the depthwise wrapper's collectives."""
+    mp_, r = mesh.mp_size(model_group), mesh.mp_rank(model_group)
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    out = {}
+    k = wt.shape[1] // mp_
+    w_l = wt[:, r * k:(r + 1) * k].contiguous()
+    b_l = bt[r * k:(r + 1) * k].contiguous()
+    for c in chunks:
+        xx = xt.clone().requires_grad_()
+        before = _counts()
+        y = ops.fused_conv1d(F.pad(xx, (4, 4)), w_l, bias=b_l,
+                             activation="relu", dilation=2,
+                             model_reduce=model_group, model_reduce_chunks=c)
+        (y ** 2).sum().backward()
+        out[f"dx{c}"] = xx.grad.numpy().copy()
+        out[f"dx{c}_counts"] = _since(before)
+    for name, fn, ww, bb, kw in (
+            ("dense", sh.model_sharded_conv1d, w, b,
+             dict(activation="relu", dilation=2, padding="SAME")),
+            ("depthwise", sh.model_sharded_depthwise_conv1d, wd, bd,
+             dict(activation="silu"))):
+        xx = torch.from_numpy(x).requires_grad_()
+        wg = torch.from_numpy(ww).requires_grad_()
+        bg = torch.from_numpy(bb).requires_grad_()
+        before = _counts()
+        y = fn(xx, wg, group=data, model_group=model_group, bias=bg, **kw)
+        (y ** 2).sum().backward()
+        out[name] = dict(y=y.detach().numpy(), dx=xx.grad.numpy(),
+                         dw=wg.grad.numpy(), db=bg.grad.numpy(),
+                         counts=_since(before))
+    return out
+
+
+def job_refusals(data, model_group, rank, tmp):
+    """The errors of a model axis that cannot shard the config."""
+    from repro_torch.launch import train
+    from repro_torch.train.data_parallel import make_sharded_grad_fn
+    out = {}
+    for key, arch in (("c15", "atacworks"), ("ssm", "mamba2-370m")):
+        try:
+            make_sharded_grad_fn(configs.get(arch), data,
+                                 model_group=model_group)
+            out[f"gradfn_{key}"] = "no error"
+        except ValueError as e:
+            out[f"gradfn_{key}"] = str(e)
+    try:
+        train.run(["--arch", "atacworks", "--device", "cpu",
+                   "--model-parallel", "2"])
+        out["launch_c15"] = "no error"
+    except SystemExit as e:
+        out["launch_c15"] = str(e)
+    return out
+
+
+def job_launcher(data, model_group, rank, tmp, *, argv):
+    """``launch.train.run`` with ``--model-parallel`` over the started
+    world, on the Function path; its summary and printed lines."""
+    from repro_torch.launch import train
+    kernel_path()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = train.run(argv)
+    dist.barrier()
+    return dict(summary=summary, out=buf.getvalue(),
+                ckpts=sorted(os.listdir(os.path.join(tmp, "ckpt"))))
+
+
+JOBS = {f.__name__: f for f in (job_grads, job_ops, job_refusals,
+                                job_launcher)}
+
+
+def _rank_main(rank, world, mp_, tmp, job, payload):
+    torch.set_num_threads(1)
+    mesh.init_data_group("gloo", f"file://{tmp}/store", world, rank)
+    try:
+        data, model_group = mesh.init_mesh(world // mp_, mp_)
+        out = JOBS[job](data, model_group, rank, tmp, **payload)
+        out["layout"] = (mesh.dp_rank(data), mesh.mp_rank(model_group),
+                         mesh.dp_size(data), mesh.mp_size(model_group))
+    finally:
+        mesh.destroy()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn(world: int, mp_: int, job: str, tmp, **payload) -> list[dict]:
+    """Run ``job`` on ``world`` gloo ranks laid out as (world / mp, mp);
+    every rank's result."""
+    tmp = str(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    mp.start_processes(_rank_main, args=(world, mp_, tmp, job, payload),
+                       nprocs=world, start_method="spawn")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
