@@ -206,7 +206,21 @@ Phases (any failed check raises, so the run exits non-zero):
       ``model_sharded_depthwise_conv1d`` at
       the Mamba2 conv layer over the two ranks, bitwise the unsharded
       kernel, no model collective;
-  17. a JSON line of the six kernels, the card's line, and last the
+  17. telemetry (``repro_torch.obs``; ``telemetry_check``): (a) the
+      AtacWorks training cell 6 steps through the launcher without and
+      with ``--telemetry``: losses and gradient norms bitwise equal, 49 +
+      25 launches a step (plus the probe cell's), 25 / 24 / 25 pass spans
+      a step timed by CUDA events, each within (0, 1.05] of its peak, no
+      15->15 span shorter than 0.9 x phase 4's device time of its pass,
+      the step phases, clean monitor rollups, ``report.check`` == [] and
+      a trace export; (b) 2 served streams bitwise equal with telemetry
+      on, a ``serve.conv.chunk`` span a step, ``check_serving`` == [];
+      (c) a fig4 problem tuned into a fresh cache: candidate events and a
+      cache hit; (d) the ``--model-parallel 2`` launcher on two gloo
+      ranks sharing one log: ``check_model_parallel`` == [], both pids;
+      (e) the disabled hooks' cost and a stream step's 25 ``ops.conv1d``
+      calls' host time beside phase 2's;
+  18. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -364,6 +378,17 @@ TP_BF16_TOL = 3e-2
 TP_NO_DX_SUM = ("res.10.conv2.w", "res.10.conv2.b", "head_signal.w",
                 "head_signal.b", "head_peak.w", "head_peak.b")
 TP_LAUNCH_STEPS, TP_LAUNCH_HELD, TP_LAUNCH_RTOL = 5, 3, 1e-4
+# phase 17, telemetry on the card (repro_torch.obs): the training cell
+# TEL_STEPS steps with and without --telemetry; every pass span of the
+# batch-8 cells within (0, TEL_EFF_MAX] of its peak, and no 15->15 span
+# shorter than TEL_DUR_MIN x phase 4's graph-replayed device time of its
+# pass (a span brackets the pass's kernels on the stream, so it can only
+# be longer, up to replay-to-replay noise); TEL_STREAMS streams served;
+# the tensor-parallel launcher over TP_MP gloo ranks at TEL_TP_BATCH x
+# TEL_TP_SEQ for TEL_TP_STEPS steps; disabled hooks timed over
+# TEL_HOOK_CALLS calls
+TEL_STEPS, TEL_EFF_MAX, TEL_DUR_MIN, TEL_STREAMS = 6, 1.05, 0.9, 2
+TEL_TP_BATCH, TEL_TP_SEQ, TEL_TP_STEPS, TEL_HOOK_CALLS = 2, 8192, 2, 20000
 
 
 def _card_line() -> str:
@@ -570,8 +595,9 @@ def kernel_checks(torch, conv1d_brgemm, ops, ref, ep):
     return rows
 
 
-def serve_check(torch, np, configs, blocks, serve, conv1d_brgemm):
-    """Phase 3: the full atacworks config served through the kernel."""
+def _serve_model(torch, configs, blocks):
+    """The served atacworks model: seeded weights, random non-zero
+    biases."""
     cfg = configs.get("atacworks")
     # seed 4: with these biases the signal head's relu passes about two
     # thirds of the columns (seed 0 zeroes nearly all of them, which would
@@ -582,17 +608,29 @@ def serve_check(torch, np, configs, blocks, serve, conv1d_brgemm):
         for name, p in model.named_parameters():
             if name.endswith(".b"):
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return cfg, model
+
+
+def _make_server(np, serve, model, cfg, streams):
+    """A server of the serving cell with ``streams`` seeded ragged streams
+    queued, each with a history."""
+    rng = np.random.default_rng(0)
+    server = serve.ConvStreamServer(model, cfg, batch=SLOTS, chunk=CHUNK,
+                                    prompt_len=PROMPT_LEN, device=DEVICE)
+    for rid in range(streams):
+        n = TRACK_LEN + int(rng.integers(0, CHUNK))
+        server.submit(serve.StreamRequest(
+            rid, rng.normal(size=n).astype(np.float32),
+            history=rng.normal(size=PROMPT_LEN).astype(np.float32)))
+    return server
+
+
+def serve_check(torch, np, configs, blocks, serve, conv1d_brgemm):
+    """Phase 3: the full atacworks config served through the kernel."""
+    cfg, model = _serve_model(torch, configs, blocks)
 
     def make_server():
-        rng = np.random.default_rng(0)
-        server = serve.ConvStreamServer(model, cfg, batch=SLOTS, chunk=CHUNK,
-                                        prompt_len=PROMPT_LEN, device=DEVICE)
-        for rid in range(STREAMS):
-            n = TRACK_LEN + int(rng.integers(0, CHUNK))
-            server.submit(serve.StreamRequest(
-                rid, rng.normal(size=n).astype(np.float32),
-                history=rng.normal(size=PROMPT_LEN).astype(np.float32)))
-        return server
+        return _make_server(np, serve, model, cfg, STREAMS)
 
     def timed_run(server):
         torch.cuda.synchronize()
@@ -3185,6 +3223,321 @@ def tp_check(torch, np, configs, train, conv1d_brgemm):
     print("tp " + json.dumps(stats), flush=True)
     return stats
 
+def _tel_train(torch, np, configs, train, counters, tmp, bwd_rows):
+    """Phase 17 (a): the AtacWorks training cell through the launcher,
+    without and then with ``--telemetry`` (same seed)."""
+    from repro_torch import obs
+    from repro_torch.obs import report, trace_export
+
+    argv = ["--arch", "atacworks", "--steps", str(TEL_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+    plain, plain_n = _counted(counters, lambda: train.run(argv))
+    # the probe step's conv cell through "auto", launched once alone
+    _, probe_n = _counted(counters, lambda: train._telemetry_conv_probe(
+        configs.get("atacworks"), torch.device(DEVICE)))
+    path = os.path.join(tmp, "train.jsonl")
+    told, told_n = _counted(
+        counters, lambda: train.run(argv + ["--telemetry", path]))
+    for k in ("losses", "grad_norms"):
+        if told[k] != plain[k]:
+            raise AssertionError(f"telemetry moved the {k}: {told[k]} vs "
+                                 f"{plain[k]}")
+    want = dict(conv1d_fwd=49 * TEL_STEPS, conv1d_bwd_weight=25 * TEL_STEPS)
+    if plain_n != want or told_n != {k: want[k] + probe_n[k] for k in want}:
+        raise AssertionError(f"launches {plain_n} without and {told_n} with "
+                             f"telemetry (the probe alone {probe_n}); "
+                             f"expected {want} and the probe's")
+    recs = obs.read_events(path)  # strict: every record validated
+    spans = [r for r in recs if r["kind"] == "span"]
+    steps = [r for r in spans if r["name"] == "train.step"]
+    passes = {p: [r for r in spans if r["name"] == f"conv1d.{p}"
+                  and r["attrs"]["N"] == TRAIN_BATCH]
+              for p in ("fwd", "bwd_data", "bwd_weight")}
+    per_step = dict(fwd=25, bwd_data=24, bwd_weight=25)
+    counts = {p: len(v) for p, v in passes.items()}
+    if len(steps) != TEL_STEPS or counts != {
+            p: n * TEL_STEPS for p, n in per_step.items()}:
+        raise AssertionError(f"{len(steps)} train.step spans and pass spans "
+                             f"{counts}; expected {TEL_STEPS} and "
+                             f"{per_step} a step")
+    effs = [r["attrs"].get("efficiency") for v in passes.values() for r in v]
+    if not all(e is not None and 0 < e <= TEL_EFF_MAX for e in effs):
+        raise AssertionError(f"pass efficiencies out of (0, {TEL_EFF_MAX}]: "
+                             f"{sorted(e for e in effs if e is not None)[-3:]}"
+                             f", {effs.count(None)} missing")
+    if not all(r["attrs"].get("clock") == "cuda_event"
+               for v in passes.values() for r in v):
+        raise AssertionError("a pass span was not timed by CUDA events")
+    phase4 = {r["pass_"]: r for r in bwd_rows
+              if (r.get("layer"), r["dtype"]) == ("conv", "float32")}
+    cell = {}
+    for p, v in passes.items():
+        durs = sorted(r["dur"] * 1e3 for r in v
+                      if (r["attrs"]["C"], r["attrs"]["K"]) == (15, 15))
+        floor = TEL_DUR_MIN * phase4[p]["kernel_ms"]
+        if len(durs) != 22 * TEL_STEPS or durs[0] < floor:
+            raise AssertionError(f"{p}: {len(durs)} 15->15 spans, the "
+                                 f"shortest {durs[0]:.4f} ms, under "
+                                 f"{TEL_DUR_MIN} x phase 4's "
+                                 f"{phase4[p]['kernel_ms']:.4f} ms")
+        effs15 = sorted(r["attrs"]["efficiency"] for r in v
+                        if (r["attrs"]["C"], r["attrs"]["K"]) == (15, 15))
+        cell[p] = dict(spans=len(durs), p50_ms=float(np.median(durs)),
+                       min_ms=durs[0], max_ms=durs[-1],
+                       efficiency_p50=float(np.median(effs15)),
+                       peak=v[0]["attrs"]["peak"],
+                       phase4_device_ms=phase4[p]["kernel_ms"],
+                       phase4_call_ms=phase4[p]["kernel_call_ms"])
+    agg = report.aggregate(recs)
+    missing = report.check(agg)
+    phases = {ph: s["p50_s"] * 1e3 for ph, s in agg["steps"]["phases"].items()}
+    if missing or set(phases) != {"forward", "backward", "optimizer"}:
+        raise AssertionError(f"report.check: {missing}; phases {phases}")
+    roll = {r["name"]: r["attrs"] for r in recs if r["name"] in (
+        "train.health.rollup", "train.straggler.rollup")}
+    if roll["train.health.rollup"]["events"] \
+            or roll["train.straggler.rollup"]["stragglers"]:
+        raise AssertionError(f"monitors not ok: {roll}")
+    out = os.path.join(tmp, "trace.json")
+    trace_export.export(path, out)
+    with open(out) as f:
+        trace = json.load(f)
+    n_x = sum(e["ph"] == "X" for e in trace["traceEvents"])
+    if n_x != len(spans):
+        raise AssertionError(f"trace: {n_x} X events for {len(spans)} spans")
+    p50 = {k: float(np.median(r["step_s"][train.WARMUP_STEPS:]) * 1e3)
+           for k, r in (("off", plain), ("on", told))}
+    stats = dict(steps=TEL_STEPS, launches=told_n, probe_launches=probe_n,
+                 pass_spans=counts, cell_15_15=cell, step_p50_ms=p50,
+                 phase_p50_ms=phases, records=len(recs),
+                 trace_events=len(trace["traceEvents"]),
+                 cost_model=agg["cost_model"], tuner=agg["tuner"],
+                 log_bytes=os.path.getsize(path))
+    for p, c in cell.items():
+        print(f"telemetry 15->15 {p}: span p50 {c['p50_ms']:.4f} ms "
+              f"(min {c['min_ms']:.4f}), efficiency {c['efficiency_p50']:.3f}"
+              f" of {c['peak']}; phase 4 device {c['phase4_device_ms']:.4f} "
+              f"ms, call {c['phase4_call_ms']:.4f} ms", flush=True)
+    print(f"telemetry train: step p50 {p50['off']:.2f} ms off, "
+          f"{p50['on']:.2f} ms on; phases " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in phases.items()), flush=True)
+    return stats
+
+
+def _tel_serve(torch, np, configs, blocks, serve, tmp):
+    """Phase 17 (b): the serving cell with TEL_STREAMS streams, without
+    and with telemetry."""
+    from repro_torch import obs
+    from repro_torch.obs import report
+
+    cfg, model = _serve_model(torch, configs, blocks)
+
+    def run():
+        server = _make_server(np, serve, model, cfg, TEL_STREAMS)
+        return server, [np.stack(r.result()) for r in server.run()]
+
+    _, plain = run()
+    path = obs.enable(os.path.join(tmp, "serve.jsonl"))
+    try:
+        server, told = run()
+    finally:
+        obs.disable()
+    if len(told) != TEL_STREAMS or not all(
+            np.array_equal(a, b) for a, b in zip(told, plain)):
+        raise AssertionError("served outputs differ with telemetry on")
+    recs = obs.read_events(path)  # strict: every record validated
+    agg = report.aggregate(recs)
+    chunks = sum(r["name"] == "serve.conv.chunk" for r in recs)
+    missing = report.check_serving(agg)
+    if chunks != server.chunks_run or missing:
+        raise AssertionError(f"{chunks} serve.conv.chunk spans for "
+                             f"{server.chunks_run} steps; {missing}")
+    stats = dict(streams=TEL_STREAMS, chunks_run=server.chunks_run,
+                 serving=agg["serving"])
+    print("telemetry serve " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _tel_tune(tmp):
+    """Phase 17 (c): one fig4 problem tuned into a fresh cache under
+    telemetry, then looked up again."""
+    from repro_torch import obs, tune
+    from repro_torch.obs import report
+
+    prob = next(tune.presets.figset_shapes("fig4"))
+    cache = tune.TuneCache(os.path.join(tmp, "tune.json"))
+    path = obs.enable(os.path.join(tmp, "tune.jsonl"))
+    try:
+        tune.tune(**prob, device=DEVICE, cache=cache, iters=SWEEP_ITERS)
+        tune.get_config(**prob, device=DEVICE, cache=cache)
+    finally:
+        obs.disable()
+    recs = obs.read_events(path)  # strict: every record validated
+    [search] = [r for r in recs if r["name"] == "tune.search"]
+    cands = [r["attrs"] for r in recs if r["name"] == "tune.search.candidate"]
+    agg = report.aggregate(recs)
+    if len(cands) != search["attrs"]["candidates"] or not all(
+            c["predicted_s"] > 0 and c["measured_s"] > 0 for c in cands) \
+            or agg["tuner"]["hits"] != 1:
+        raise AssertionError(f"tuner: {len(cands)} candidate events of "
+                             f"{search['attrs']['candidates']}, "
+                             f"{agg['tuner']}")
+    stats = dict(problem=prob, candidates=cands, cost_model=agg["cost_model"],
+                 tuner=agg["tuner"], traced_passes=sum(
+                     r["name"].endswith(".trace") for r in recs))
+    print("telemetry tune " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _tel_rank(rank, st):
+    """Phase 17 (d), one of TP_MP gloo ranks sharing the card: the
+    launcher with ``--model-parallel TP_MP --telemetry`` on atacworks-bf16,
+    both ranks writing one log."""
+    import torch
+
+    from repro_torch.launch import mesh, train
+
+    if st["device"] == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    mesh.init_data_group("gloo", f"file://{st['store']}", TP_MP, rank)
+    try:
+        train.run(["--arch", TP_ARCH, "--steps", str(TEL_TP_STEPS),
+                   "--batch", str(TEL_TP_BATCH), "--seq", str(TEL_TP_SEQ),
+                   "--model-parallel", str(TP_MP), "--dist-backend", "gloo",
+                   "--device", st["device"], "--telemetry", st["log"]])
+    finally:
+        mesh.destroy()
+
+
+def _tel_tp(tmp):
+    """Phase 17 (d): the tensor-parallel launcher's shared log."""
+    import torch.multiprocessing as mp
+
+    from repro_torch import obs
+    from repro_torch.obs import report
+
+    st = dict(device=DEVICE, store=os.path.join(tmp, "store"),
+              log=os.path.join(tmp, "tp.jsonl"))
+    mp.start_processes(_tel_rank, args=(st,), nprocs=TP_MP,
+                       start_method="spawn")
+    recs = obs.read_events(st["log"])
+    agg = report.aggregate(recs)
+    missing = report.check_model_parallel(agg)
+    pids = sorted({r["pid"] for r in recs})
+    if missing or pids != list(range(TP_MP)):
+        raise AssertionError(f"tensor-parallel log: {missing}, pids {pids}")
+    stats = dict(mesh=agg["mesh"], pids=pids, model_psum=agg["model_psum"],
+                 steps=agg["steps"]["count"])
+    print("telemetry tp " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _tel_disabled(torch, ops, rows):
+    """Phase 17 (e): the disabled hooks' host cost, and the host time of a
+    stream step's 25 ``ops.conv1d`` calls with telemetry off beside
+    phase 2's reading of the same."""
+    import timeit
+
+    import torch.nn.functional as F
+
+    from repro_torch import obs
+
+    dev = torch.device(DEVICE)
+    hooks = dict(counter=lambda: obs.counter("c"),
+                 gauge=lambda: obs.gauge("g", 1.0),
+                 span=lambda: obs.span("s"),
+                 device_span=lambda: obs.device_span("s", dev))
+    ns = {k: min(timeit.repeat(h, number=TEL_HOOK_CALLS, repeat=5))
+          / TEL_HOOK_CALLS * 1e9 for k, h in hooks.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    S, d, N, Q = 51, 8, SLOTS, CHUNK
+    span = (S - 1) * d
+    layers = dict(stem=(1, 15, "relu", False, False),
+                  conv1=(15, 15, "relu", False, False),
+                  conv2=(15, 15, "relu", True, False),
+                  head_signal=(15, 1, "relu", False, True),
+                  head_peak=(15, 1, None, False, True))
+    host = {}
+    for name, (C, K, act, res, f32out) in layers.items():
+        xp = F.pad(torch.randn((N, C, Q), generator=gen, device=DEVICE),
+                   (span, 0)).contiguous()
+        w = torch.randn((S, K, C), generator=gen, device=DEVICE) * 0.1
+        b = torch.randn((K,), generator=gen, device=DEVICE) * 0.1
+        r = (torch.randn((N, K, Q), generator=gen, device=DEVICE)
+             if res else None)
+
+        def via_ops():
+            return ops.conv1d(xp, w, bias=b, residual=r, activation=act,
+                              dilation=d, padding="VALID",
+                              out_dtype=torch.float32 if f32out else None)
+
+        with torch.inference_mode():
+            host[name] = _host_us(via_ops)
+    phase2 = {r["shape"].split()[0]: r["ops_host_us"] for r in rows
+              if "ops_host_us" in r}
+
+    def step(t):
+        return (t["stem"] + 11 * t["conv1"] + 11 * t["conv2"]
+                + t["head_signal"] + t["head_peak"])
+
+    stats = dict(disabled_hook_ns=ns, step_ops_host_us=step(host),
+                 phase2_step_ops_host_us=step(phase2), per_layer_us=host)
+    print("telemetry disabled " + json.dumps(stats), flush=True)
+    return stats
+
+
+def telemetry_check(torch, np, configs, blocks, serve, train, ops,
+                    conv1d_brgemm, rows, bwd_rows):
+    """Phase 17: the port's telemetry (``repro_torch.obs``) on the card.
+    (a) The training cell TEL_STEPS steps through the launcher without and
+    with ``--telemetry`` (tune cache a fresh file): losses and gradient
+    norms bitwise equal; 49 + 25 launches a step, plus the probe cell's
+    own with telemetry; the log validates; TEL_STEPS ``train.step``
+    spans and 25 / 24 / 25 fwd / bwd-data / bwd-weight spans a step in
+    the batch-8 cells, each timed by CUDA events with ``efficiency`` in
+    (0, TEL_EFF_MAX]; no 15->15 span shorter than TEL_DUR_MIN x phase 4's
+    device time of its pass; the three phases; health and straggler
+    rollups clean; ``report.check`` == []; one trace ``X`` event a span.
+    (b) TEL_STREAMS streams served with telemetry, bitwise the outputs
+    without it; a ``serve.conv.chunk`` span a step; ``check_serving`` ==
+    []. (c) A fig4 problem tuned into a fresh cache: one candidate event
+    a timed candidate (predicted and measured seconds > 0) under a
+    ``tune.search`` span, one hit on the repeat lookup; the cost-model
+    ratio. (d) The ``--model-parallel TP_MP`` launcher on TP_MP gloo ranks
+    sharing one log: ``check_model_parallel`` == [], both ranks' pids.
+    (e) The disabled hooks' ns a call and the host time of a stream
+    step's 25 ``ops.conv1d`` calls with telemetry off, beside phase 2's."""
+    import tempfile
+
+    from repro_torch import tune
+    from repro_torch.tune.cache import ENV_CACHE_PATH
+
+    t0 = time.perf_counter()
+    counters = (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight)
+    stats = {}
+    before = os.environ.get(ENV_CACHE_PATH)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        os.environ[ENV_CACHE_PATH] = os.path.join(tmp, "auto.json")
+        tune.reset_default_cache()
+        try:
+            stats["train"] = _tel_train(torch, np, configs, train, counters,
+                                        tmp, bwd_rows)
+        finally:
+            if before is None:
+                os.environ.pop(ENV_CACHE_PATH)
+            else:
+                os.environ[ENV_CACHE_PATH] = before
+            tune.reset_default_cache()
+        torch.cuda.empty_cache()
+        stats["serve"] = _tel_serve(torch, np, configs, blocks, serve, tmp)
+        stats["tune"] = _tel_tune(tmp)
+        stats["tp"] = _tel_tp(tmp)
+    stats["disabled"] = _tel_disabled(torch, ops, rows)
+    stats["seconds"] = time.perf_counter() - t0
+    print(f"telemetry: phase 17 in {stats['seconds']:.1f} s", flush=True)
+    return stats
+
 
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
@@ -3437,6 +3790,8 @@ def main(argv=None) -> int:
                               conv1d_brgemm, flash_attention)
     dp = dp_check(torch, np, configs, train, conv1d_brgemm)
     tp = tp_check(torch, np, configs, train, conv1d_brgemm)
+    tel = telemetry_check(torch, np, configs, blocks, serve, train, ops,
+                          conv1d_brgemm, rows, bwd_rows)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -3692,8 +4047,8 @@ def main(argv=None) -> int:
                            flash_checks=fa_rows, starcoder2_grad=lm_grad,
                            starcoder2_train=lm_train,
                            starcoder2_profile=lm_prof, sweep=sweep_res,
-                           lm_serve=lm_serve, dp=dp, tp=tp,
-                           kernels=kernels), f, indent=1)
+                           lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
+                           kernels=kernels), f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -88,6 +88,24 @@ ranges are disjoint, so the chunked dx is bitwise the unchunked one.  On
 its cotangent over the model group (JAX's ``_model_psum_cotangent``; one
 reduce, no chunks).  ``depthwise_conv1d`` refuses ``model_reduce``: under
 channel groups no pass contracts over a sharded axis.
+
+**Telemetry** (``repro_torch.obs``, the JAX package's ``_obs_conv``):
+with a sink open, every pass of every call is a ``conv1d.<pass>`` span:
+the forward (the Function's, a no-grad call's or the plain version's),
+bwd-data around the whole data gradient with its model sums and column
+ranges, and bwd-weight around the weight and bias gradients up to the
+issue of their reduces (one span a layer, whatever
+``grad_reduce_chunks``).  Its attrs are the JAX package's cell (``N``,
+``C``, ``K``, ``S``, ``dilation``, ``Q``, ``dtype`` by JAX's name,
+``depthwise``), the backend and the pass's knob (``tile`` or ``body``;
+None is the kernel's own), ``pipe_depth`` 0 (no pipelined kernels here),
+``flops`` (JAX's counts), ``gflops_per_s`` and, on a card, ``efficiency``:
+achieved FLOP/s over the peak of ``peak``, the dtype's, except the fp32
+``conv1d_bwd_weight`` kernel's, which computes in TF32 tensor cores
+(``tf32``).  On a card the span is timed by CUDA events
+(``obs.device_span``): no host synchronize is added to a pass.  Each dx
+sum over the model group also logs a ``conv.psum.model`` event (one a
+call and column range; bytes summed).  Disabled, each hook is one check.
 """
 from __future__ import annotations
 
@@ -97,10 +115,12 @@ from typing import Literal, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs as _obs
+
 from . import conv1d_brgemm as _k
 from . import epilogue as _ep
 from . import ref as _ref
-from .reduce import GradReducer, ModelReducer
+from .reduce import GradReducer, ModelReducer, mp_size
 
 Padding = Literal["VALID", "SAME", "CAUSAL"]
 BACKENDS = ("cuda", "ref", "library", "auto")
@@ -191,6 +211,69 @@ def _check_backend(backend: str, x: torch.Tensor) -> None:
                          f"{x.device} (use backend='ref' on the CPU)")
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A dtype by the JAX package's name ("float32", "bfloat16")."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _conv_span(pass_: str, backend: str, x: torch.Tensor, w: torch.Tensor,
+               dilation: int, depthwise: bool, knob=None):
+    """The ``conv1d.<pass_>`` span of one pass of the layer of padded input
+    ``x`` (N, C, W) and weights ``w``; ``knob`` is the pass's tile
+    (forward, bwd-data) or body (bwd-weight).  The shared no-op span while
+    telemetry is off, before anything is read or built."""
+    if not _obs.enabled():
+        return _obs.NOOP_SPAN
+    N, C, W = x.shape
+    S, K = w.shape[0], (C if depthwise else w.shape[1])
+    device = x.device
+    Q = W - (S - 1) * dilation
+    # the JAX package's counts: bwd-data over all W input columns
+    flops = 2.0 * N * C * K * S * (W if pass_ == "bwd_data" else Q)
+    if depthwise:
+        flops /= K
+    dt = _dtype_name(x.dtype)
+    peak = ("tf32" if pass_ == "bwd_weight" and backend == "cuda"
+            and not depthwise and dt == "float32" else dt)
+
+    def close(dur: float) -> dict:
+        out = {"flops": flops,
+               "gflops_per_s": flops / max(dur, 1e-30) / 1e9}
+        if device.type == "cuda":
+            from repro_torch.roofline.analysis import (
+                achieved_fraction_of_peak)
+            try:
+                out["efficiency"] = achieved_fraction_of_peak(
+                    flops, dur, torch.cuda.get_device_name(device), peak)
+                out["peak"] = peak
+            except ValueError:
+                pass  # a card without known peaks: GFLOP/s only
+        return out
+
+    attrs = dict(backend=backend, N=N, C=C, K=K, S=S, dilation=dilation,
+                 Q=Q, dtype=dt, depthwise=depthwise, pipelined=False,
+                 pipe_depth=0, overlap_frac=0.0)
+    if not depthwise:
+        attrs["body" if pass_ == "bwd_weight" else "tile"] = knob
+    return _obs.device_span(f"conv1d.{pass_}", device, close, **attrs)
+
+
+def _model_psum_event(buf: torch.Tensor, group, chunk: int, chunks: int,
+                      x_shape, dtype, S: int, K: int, dilation: int) -> None:
+    """A ``conv.psum.model`` event for one dx sum over the model group
+    (JAX's ``_model_psum_event``): the range's index and count, the
+    group's size and the bytes summed, with the layer's cell (``K`` the
+    rank's filter rows)."""
+    if not _obs.enabled():
+        return
+    N, C, W = x_shape
+    _obs.event("conv.psum.model", axes="model", chunk=chunk, chunks=chunks,
+               mp=mp_size(group), bytes=buf.numel() * buf.element_size(),
+               N=N, C=C, K=K, S=S, dilation=dilation,
+               Q=W - (S - 1) * dilation, dtype=_dtype_name(dtype),
+               depthwise=False)
+
+
 def _pad_amounts(S: int, dilation: int, padding: Padding) -> tuple[int, int]:
     span = (S - 1) * dilation
     if padding == "VALID":
@@ -244,10 +327,12 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, *,
     backward_pinned = bwd_data_cfg is not None or bwd_weight_cfg is not None
     if backend == "ref" and not backward_pinned:
         w, bias = _reduce_params(grad_reduce, w, bias)
-        x = ModelReduceGrad.reduce(model_reduce, x)
-        return _ref.conv1d_fused_ref(x, w, dilation=dilation, bias=bias,
-                                     activation=activation, residual=residual,
-                                     out_dtype=out_dtype)
+        x = ModelReduceGrad.reduce(model_reduce, x, S, K, dilation)
+        with _conv_span("fwd", "ref", x, w, dilation, False):
+            return _ref.conv1d_fused_ref(x, w, dilation=dilation, bias=bias,
+                                         activation=activation,
+                                         residual=residual,
+                                         out_dtype=out_dtype)
     plan = None  # the kernels with their own tiles: the default path
     if backend != "cuda" or tile is not None or backward_pinned:
         plan = _plan(backend, x, C=C, K=K, S=S, dilation=dilation,
@@ -293,13 +378,16 @@ def fused_conv1d(x: torch.Tensor, w: torch.Tensor, *,
                                     grad_reduce, int(grad_reduce_chunks or 1),
                                     model_reduce,
                                     int(model_reduce_chunks or 1))
-    if plan is None:
-        return _k.conv1d_fwd(x, w, bias=bias, residual=residual,
-                             activation=activation, dilation=dilation,
-                             out_dtype=out_dtype)
-    return _fwd_pass(plan[0], x, w, bias=bias, residual=residual,
-                     activation=activation, dilation=dilation,
-                     out_dtype=out_dtype)
+    with _conv_span("fwd", "cuda" if plan is None else plan[0].backend, x,
+                    w, dilation, False,
+                    None if plan is None else plan[0].tile):
+        if plan is None:
+            return _k.conv1d_fwd(x, w, bias=bias, residual=residual,
+                                 activation=activation, dilation=dilation,
+                                 out_dtype=out_dtype)
+        return _fwd_pass(plan[0], x, w, bias=bias, residual=residual,
+                         activation=activation, dilation=dilation,
+                         out_dtype=out_dtype)
 
 
 def _fwd_pass(cfg: PassConfig, x, w, *, save_preact: bool = False,
@@ -416,7 +504,7 @@ def _reducer(grad_reduce) -> GradReducer | None:
 
 
 def _param_grads(grad_reduce, run, x, du, *, span: int, chunks: int,
-                 w: torch.Tensor, need_w: bool, bias_dtype):
+                 w: torch.Tensor, need_w: bool, bias_dtype, obs_span):
     """(dw, dbias) in w's and the bias's dtypes (None where not wanted;
     ``bias_dtype`` None: no dbias) from the bwd-weight pass ``run(x, du)``
     (fp32 dw, or (dw, dbias)).  Under ``grad_reduce`` they are summed over
@@ -426,46 +514,50 @@ def _param_grads(grad_reduce, run, x, du, *, span: int, chunks: int,
     :class:`GradReducer` the reduces stay in flight and the returned
     tensors are filled when it waits (fp32 weights and one range: dw and
     dbias are views of the buffer itself); with a bare group they are
-    waited on here."""
+    waited on here.  ``obs_span`` (``_conv_span``) holds everything up to
+    the last reduce's issue, not its wait."""
     with_dbias = bias_dtype is not None
     if grad_reduce is None:
-        out = run(x, du)
-        dw, db = out if with_dbias else (out, None)
-        return (dw.to(w.dtype) if need_w else None,
-                db.to(bias_dtype) if with_dbias else None)
+        with obs_span:
+            out = run(x, du)
+            dw, db = out if with_dbias else (out, None)
+            return (dw.to(w.dtype) if need_w else None,
+                    db.to(bias_dtype) if with_dbias else None)
     reducer = _reducer(grad_reduce)
     reducer.claim(w.data_ptr())
     Q = du.shape[-1]
     ranges = _chunk_ranges(Q, chunks)
     n = w.numel()
     parts = []
-    for lo, hi in ranges:
-        out = (run(x, du) if (lo, hi) == (0, Q) else
-               run(x[:, :, lo:hi + span].contiguous(),
-                   du[:, :, lo:hi].contiguous()))
-        dw, db = out if with_dbias else (out, None)
-        parts.append(dw.reshape(-1) if db is None
-                     else torch.cat([dw.reshape(-1), db]))
-    if len(parts) == 1 and w.dtype == torch.float32 and (
-            not with_dbias or bias_dtype == torch.float32):
-        buf = parts[0]
-        reducer.all_reduce_(buf)
-        dw, db = buf[:n].view(w.shape), (buf[n:] if with_dbias else None)
-    else:
-        dw = torch.empty_like(w)
-        db = (torch.empty(parts[0].numel() - n, dtype=bias_dtype,
-                          device=w.device) if with_dbias else None)
+    with obs_span:
+        for lo, hi in ranges:
+            out = (run(x, du) if (lo, hi) == (0, Q) else
+                   run(x[:, :, lo:hi + span].contiguous(),
+                       du[:, :, lo:hi].contiguous()))
+            dw, db = out if with_dbias else (out, None)
+            parts.append(dw.reshape(-1) if db is None
+                         else torch.cat([dw.reshape(-1), db]))
+        if len(parts) == 1 and w.dtype == torch.float32 and (
+                not with_dbias or bias_dtype == torch.float32):
+            buf = parts[0]
+            reducer.all_reduce_(buf)
+            dw, db = buf[:n].view(w.shape), (buf[n:] if with_dbias else None)
+        else:
+            dw = torch.empty_like(w)
+            db = (torch.empty(parts[0].numel() - n, dtype=bias_dtype,
+                              device=w.device) if with_dbias else None)
 
-        def finish():
-            total = parts[0]
-            for p in parts[1:]:
-                total = total + p
-            dw.copy_(total[:n].view(w.shape))
-            if db is not None:
-                db.copy_(total[n:])
+            def finish():
+                total = parts[0]
+                for p in parts[1:]:
+                    total = total + p
+                dw.copy_(total[:n].view(w.shape))
+                if db is not None:
+                    db.copy_(total[n:])
 
-        for i, p in enumerate(parts):
-            reducer.all_reduce_(p, finish if i == len(parts) - 1 else None)
+            for i, p in enumerate(parts):
+                reducer.all_reduce_(p, finish if i == len(parts) - 1
+                                    else None)
     if reducer is not grad_reduce:  # a bare group: no reducer waits later
         reducer.wait()
     return (dw if need_w else None), db
@@ -513,27 +605,32 @@ class ModelReduceGrad(torch.autograd.Function):
     """The identity whose backward sums the cotangent over the model group
     (JAX's ``_model_psum_cotangent``), waited where it is issued: how
     ``"ref"`` (autograd over the plain version) finishes a K-sharded
-    layer's dx.  ``reduce(model_reduce, x)`` applies it."""
+    layer's dx.  ``reduce(model_reduce, x, S, K, dilation)`` applies it
+    to the padded input of a layer of S taps and K local filters (the
+    cell of its ``conv.psum.model`` event)."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, S, K, dilation):
+        ctx.group, ctx.cell = group, (S, K, dilation)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         buf = g.clone(memory_format=torch.contiguous_format)
+        _model_psum_event(buf, ctx.group, 0, 1, buf.shape, buf.dtype,
+                          *ctx.cell)
         reducer = ModelReducer(ctx.group)
         reducer.all_reduce_(buf)
         reducer.wait()
-        return buf, None
+        return buf, None, None, None, None
 
     @staticmethod
-    def reduce(model_reduce, x: torch.Tensor) -> torch.Tensor:
+    def reduce(model_reduce, x: torch.Tensor, S: int, K: int,
+               dilation: int) -> torch.Tensor:
         if model_reduce is None or not (torch.is_grad_enabled()
                                         and x.requires_grad):
             return x
-        return ModelReduceGrad.apply(x, model_reduce)
+        return ModelReduceGrad.apply(x, model_reduce, S, K, dilation)
 
 
 def _data_grad(plan, du, w, *, x_shape, dilation: int, out_dtype,
@@ -543,8 +640,10 @@ def _data_grad(plan, du, w, *, x_shape, dilation: int, out_dtype,
     transposed taps, on the kernel (``plan`` None) or the plan's bwd-data
     backend.  Under ``model_reduce`` the partial dx (this rank's K rows)
     is computed in fp32 and summed over the model group, in ``chunks``
-    column ranges (module docstring), before the one cast."""
-    span = (w.shape[0] - 1) * dilation
+    column ranges (module docstring), before the one cast; each sum logs
+    a ``conv.psum.model`` event."""
+    S, K = w.shape[0], w.shape[1]
+    span = (S - 1) * dilation
     reducer = ModelReducer(model_reduce)
     dt = out_dtype if model_reduce is None else torch.float32
     ranges = _chunk_ranges(x_shape[-1], chunks)
@@ -556,6 +655,9 @@ def _data_grad(plan, du, w, *, x_shape, dilation: int, out_dtype,
         else:
             dx = _bwd_data_pass(plan[1], du, w, x_shape=x_shape,
                                 dilation=dilation, out_dtype=dt)
+        if model_reduce is not None:
+            _model_psum_event(dx, model_reduce, 0, 1, x_shape, out_dtype, S,
+                              K, dilation)
         reducer.all_reduce_(dx)
         reducer.wait()
         return dx.to(out_dtype)
@@ -563,9 +665,11 @@ def _data_grad(plan, du, w, *, x_shape, dilation: int, out_dtype,
     w_t = w.flip(0).transpose(1, 2).contiguous()
     cfg = PassConfig() if plan is None else plan[1]
     parts = []
-    for lo, hi in ranges:
+    for i, (lo, hi) in enumerate(ranges):
         part = _fwd_pass(cfg, du_pad[:, :, lo:hi + span].contiguous(), w_t,
                          dilation=dilation, out_dtype=dt)
+        _model_psum_event(part, model_reduce, i, len(ranges), x_shape,
+                          out_dtype, S, K, dilation)
         reducer.all_reduce_(part)  # in flight while the next range runs
         parts.append(part)
     reducer.wait()
@@ -618,8 +722,12 @@ class Conv1dFunction(torch.autograd.Function):
         kw = dict(bias=bias, residual=residual, activation=activation,
                   dilation=dilation, out_dtype=out_dtype)
         preact = _ep.needs_preact(activation)
-        out = (_k.conv1d_fwd(x, w, save_preact=preact, **kw) if plan is None
-               else _fwd_pass(plan[0], x, w, save_preact=preact, **kw))
+        with _conv_span("fwd", "cuda" if plan is None else plan[0].backend,
+                        x, w, dilation, False,
+                        None if plan is None else plan[0].tile):
+            out = (_k.conv1d_fwd(x, w, save_preact=preact, **kw)
+                   if plan is None
+                   else _fwd_pass(plan[0], x, w, save_preact=preact, **kw))
         y, saved = out if preact else (
             out, out if activation == "relu" else None)
         ctx.save_for_backward(x, w, saved)
@@ -639,10 +747,14 @@ class Conv1dFunction(torch.autograd.Function):
         dx = dw = dbias = dres = None
         if need_x:
             dt = _widest(du.dtype, w.dtype)
-            dx = _data_grad(plan, du.to(dt), w.to(dt), x_shape=x.shape,
-                            dilation=d, out_dtype=x.dtype,
-                            model_reduce=ctx.model_reduce,
-                            chunks=ctx.model_chunks)
+            with _conv_span("bwd_data",
+                            "cuda" if plan is None else plan[1].backend, x,
+                            w, d, False, None if plan is None
+                            else plan[1].tile):
+                dx = _data_grad(plan, du.to(dt), w.to(dt), x_shape=x.shape,
+                                dilation=d, out_dtype=x.dtype,
+                                model_reduce=ctx.model_reduce,
+                                chunks=ctx.model_chunks)
         if need_w or need_b:
             dt = _widest(x.dtype, du.dtype)
 
@@ -656,7 +768,10 @@ class Conv1dFunction(torch.autograd.Function):
             dw, dbias = _param_grads(
                 ctx.grad_reduce, run, x.to(dt), du.to(dt), span=span,
                 chunks=ctx.chunks, w=w, need_w=need_w,
-                bias_dtype=ctx.bias_dtype if need_b else None)
+                bias_dtype=ctx.bias_dtype if need_b else None,
+                obs_span=_conv_span(
+                    "bwd_weight", "cuda" if plan is None else plan[2].backend,
+                    x, w, d, False, None if plan is None else plan[2].body))
         if need_r:
             dres = du.to(ctx.residual_dtype)
         return (dx, dw, dbias, dres) + (None,) * 8
@@ -711,9 +826,10 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
     backward_pinned = bwd_data_cfg is not None or bwd_weight_cfg is not None
     if backend == "ref" and not backward_pinned:
         w, bias = _reduce_params(grad_reduce, w, bias)
-        return _ref.depthwise_conv1d_fused_ref(
-            x, w, dilation=dilation, bias=bias, activation=activation,
-            residual=residual, out_dtype=out_dtype)
+        with _conv_span("fwd", "ref", x, w, dilation, True):
+            return _ref.depthwise_conv1d_fused_ref(
+                x, w, dilation=dilation, bias=bias, activation=activation,
+                residual=residual, out_dtype=out_dtype)
     plan = None  # the kernels: the default path
     if backend != "cuda" or backward_pinned:
         plan = _plan(backend, x, C=C, K=C, S=S, dilation=dilation,
@@ -750,9 +866,11 @@ def fused_depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *,
             plan, grad_reduce, int(grad_reduce_chunks or 1))
     kw = dict(bias=bias, residual=residual, activation=activation,
               dilation=dilation, out_dtype=out_dtype or x.dtype)
-    if plan is None:
-        return _dw_fwd(x, w, **kw)
-    return _fwd_pass(plan[0], x, w, depthwise=True, **kw)
+    with _conv_span("fwd", "cuda" if plan is None else plan[0].backend, x,
+                    w, dilation, True):
+        if plan is None:
+            return _dw_fwd(x, w, **kw)
+        return _fwd_pass(plan[0], x, w, depthwise=True, **kw)
 
 
 def _dw_fwd(x, w, *, bias=None, residual=None, **kw):
@@ -801,8 +919,10 @@ class DepthwiseConv1dFunction(torch.autograd.Function):
         kw = dict(bias=bias, residual=residual, activation=activation,
                   dilation=dilation, out_dtype=out_dtype or x.dtype,
                   save_preact=_ep.needs_preact(activation))
-        out = (_dw_fwd(x, w, **kw) if plan is None
-               else _fwd_pass(plan[0], x, w, depthwise=True, **kw))
+        with _conv_span("fwd", "cuda" if plan is None else plan[0].backend,
+                        x, w, dilation, True):
+            out = (_dw_fwd(x, w, **kw) if plan is None
+                   else _fwd_pass(plan[0], x, w, depthwise=True, **kw))
         y, saved = out if kw["save_preact"] else (
             out, out if activation == "relu" else None)
         ctx.save_for_backward(x, w, saved)
@@ -822,15 +942,18 @@ class DepthwiseConv1dFunction(torch.autograd.Function):
         dx = dw = dbias = dres = None
         if need_x:
             dt = _widest(du.dtype, w.dtype)
-            if plan is None:
-                dx = _k.depthwise_conv1d_fwd(
-                    F.pad(du.to(dt), (span, span)),
-                    w.flip(0).to(dt).contiguous(), dilation=d,
-                    out_dtype=x.dtype)
-            else:
-                dx = _bwd_data_pass(plan[1], du.to(dt), w.to(dt),
-                                    x_shape=x.shape, dilation=d,
-                                    out_dtype=x.dtype, depthwise=True)
+            with _conv_span("bwd_data",
+                            "cuda" if plan is None else plan[1].backend, x,
+                            w, d, True):
+                if plan is None:
+                    dx = _k.depthwise_conv1d_fwd(
+                        F.pad(du.to(dt), (span, span)),
+                        w.flip(0).to(dt).contiguous(), dilation=d,
+                        out_dtype=x.dtype)
+                else:
+                    dx = _bwd_data_pass(plan[1], du.to(dt), w.to(dt),
+                                        x_shape=x.shape, dilation=d,
+                                        out_dtype=x.dtype, depthwise=True)
         if need_w or need_b:
             def run(xa, ga):
                 if plan is None or plan[2].backend == "cuda":
@@ -846,7 +969,10 @@ class DepthwiseConv1dFunction(torch.autograd.Function):
             dw, dbias = _param_grads(
                 ctx.grad_reduce, run, x, du, span=span, chunks=ctx.chunks,
                 w=w, need_w=need_w,
-                bias_dtype=ctx.bias_dtype if need_b else None)
+                bias_dtype=ctx.bias_dtype if need_b else None,
+                obs_span=_conv_span(
+                    "bwd_weight", "cuda" if plan is None else plan[2].backend,
+                    x, w, d, True))
         if need_r:
             dres = du.to(ctx.residual_dtype)
         return dx, dw, dbias, dres, None, None, None, None, None, None

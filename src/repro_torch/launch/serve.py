@@ -20,8 +20,7 @@ layer scan refuses the carry (ROADMAP.md queue C), so the model's dtype
 no kernel (as in the JAX package, where XLA takes it); ``--model-parallel``
 above 1, which in the JAX launcher shards the language models'
 parameters (``models/sharding.py``), waits for that sharding (ROADMAP.md
-queue A item 4), and the telemetry spans of the JAX launcher
-(``with_request_spans``, ``serve.prefill``) for ``obs`` (queue A item 2).
+queue A item 4).
 
 Conv family (AtacWorks): a continuous-serving loop over the streaming
 conv1d: a request queue, per-stream positions, and padded-batch
@@ -36,7 +35,12 @@ Streaming is causal-only: ``--conv-padding same`` exits with an error.
 
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
-it raises.
+it raises.  ``--telemetry PATH`` writes a telemetry log
+(``repro_torch.obs``): a ``serve.conv.chunk`` span per stream step and a
+``serve.conv.prefill`` span per admitted history, or a
+``serve.decode_step`` span per decode step and one ``serve.prefill``
+span, with the conv passes' spans; ``python -m repro_torch.obs.report
+PATH --check-serving`` reads it.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.configs.base import reduced
 from repro_torch.core import blocks
 from repro_torch.launch.device import require_device
@@ -55,7 +59,8 @@ from repro_torch.models import init_model
 from repro_torch.train.serve_step import (make_cache, make_conv_prefill_step,
                                           make_conv_stream_state,
                                           make_conv_stream_step,
-                                          make_prefill_step, make_serve_step)
+                                          make_prefill_step, make_serve_step,
+                                          with_request_spans)
 
 # The fused prefill's last logits against the sequential decode's at the
 # same position: max|prefill - decode| <= tol * max|decode| over the real
@@ -147,8 +152,13 @@ class ConvStreamServer:
         self.queue: deque[StreamRequest] = deque()
         self.chunk_times: list[float] = []
         self.chunks_run = 0
-        self._step = make_conv_stream_step(cfg)
-        self._prefill = make_conv_prefill_step(cfg)
+        self._step = with_request_spans(
+            make_conv_stream_step(cfg), "serve.conv.chunk",
+            device=self.device, arch=cfg.name, batch=batch, chunk=chunk)
+        self._prefill = with_request_spans(
+            make_conv_prefill_step(cfg), "serve.conv.prefill",
+            device=self.device, arch=cfg.name, batch=1,
+            prompt_len=prompt_len)
 
     def submit(self, req: StreamRequest) -> None:
         self.queue.append(req)
@@ -349,7 +359,9 @@ def serve_lm(args, cfg, model=None) -> dict:
     cache_dtype = lm_cache_dtype(cfg)
     cache = make_cache(cfg, args.batch, max_len, dtype=cache_dtype,
                        device=device)
-    serve = make_serve_step(cfg)
+    serve = with_request_spans(make_serve_step(cfg), "serve.decode_step",
+                               device=device, arch=cfg.name,
+                               batch=args.batch)
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
@@ -358,11 +370,13 @@ def serve_lm(args, cfg, model=None) -> dict:
     # prefill: sequential teacher-forced decode steps (cache-correct by
     # construction)
     t0 = time.perf_counter()
-    for t in range(args.prompt_len):
-        nxt, cache, logits = serve(model, cache, prompt[:, t:t + 1], t)
+    with obs.span("serve.prefill", arch=cfg.name, batch=args.batch,
+                  prompt_len=args.prompt_len):
+        for t in range(args.prompt_len):
+            nxt, cache, logits = serve(model, cache, prompt[:, t:t + 1], t)
+        out = [nxt.cpu()]
     prompt_logits = logits
     finite = torch.isfinite(logits).all()
-    out = [nxt.cpu()]
     prefill_s = time.perf_counter() - t0
     print(f"prefill {args.prompt_len} tokens x {args.batch} on {device} "
           f"(sequential decode steps, {cache_dtype} cache): "
@@ -432,18 +446,27 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["causal", "same"],
                     help="only 'causal' can stream; 'same' exits with an "
                          "error (needs future context)")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="write a telemetry JSONL log to PATH (as "
+                         "REPRO_TORCH_TELEMETRY=1 with "
+                         "REPRO_TORCH_TELEMETRY_PATH)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.telemetry:
+        obs.enable(args.telemetry)
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
-    if cfg.family == "conv":
-        return serve_conv(args, cfg)
-    serve_lm(args, cfg)
-    return 0
+    try:
+        if cfg.family == "conv":
+            return serve_conv(args, cfg)
+        serve_lm(args, cfg)
+        return 0
+    finally:
+        obs.flush()  # the spans of passes outside a request span
 
 
 if __name__ == "__main__":

@@ -64,8 +64,31 @@ world must divide by N, and so must the config's ``conv_channels``
 checkpoints stay whole: rank 0 saves one unsharded set.  The summary adds
 ``mp``.
 
-The JAX launcher's elastic supervisor, fault drills, health and straggler
-monitors and telemetry wait in ROADMAP.md queue A.
+Each step also feeds the step monitors (``repro_torch.runtime``): a
+``HealthMonitor`` (skipped steps, loss spikes; on a ``restore`` verdict
+the newest checkpoint is restored) and a ``ShardStragglerMonitor`` fed
+this rank's step time; their verdicts end the step's line (``[ok/ok]``)
+and their rollups the run.  A SIGTERM (``PreemptionGuard``) stops the run
+after the step in flight, with a checkpoint of it under ``--ckpt-dir``;
+in a group the ranks agree on it after each step (one all-reduce of a
+flag), so every rank stops at the same step.
+
+``--telemetry PATH`` (or ``REPRO_TORCH_TELEMETRY=1``) writes a telemetry
+log (``repro_torch.obs``), opened once the process group has started so
+every record carries its rank: a ``train.step.data`` and a
+``train.step`` span a step, a ``train.shard.step_time`` gauge per rank
+and step, every conv pass's span (device time on the card), the phases
+of the step at ``WARMUP_STEPS`` after the start (``train.phase.forward``,
+``backward``, ``optimizer``, and ``psum`` when dp > 1;
+``train_step.PhaseProbe``), after that step the arch's conv cell once
+through ``backend="auto"`` (tuner counters and pass spans,
+``_telemetry_conv_probe``), and the health and straggler rollups.
+Telemetry moves no value of the step: losses and gradient norms are
+bitwise those of a run without it.  ``python -m repro_torch.obs.report
+PATH --check`` reads it.
+
+The JAX launcher's elastic supervisor and fault drills wait in
+ROADMAP.md queue A.
 """
 from __future__ import annotations
 
@@ -78,18 +101,46 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs.base import reduced
 from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.launch import mesh
 from repro_torch.launch.device import require_device
 from repro_torch.models import init_model
-from repro_torch.train.train_step import init_state, make_train_step
+from repro_torch.runtime.health import HealthMonitor, PreemptionGuard
+from repro_torch.runtime.straggler import ShardStragglerMonitor
+from repro_torch.train.train_step import (PhaseProbe, init_state,
+                                          make_train_step, psum_probe)
 
 # steps excluded from throughput: the first pays the kernels' build and
 # load, the second first-touch allocation
 WARMUP_STEPS = 2
+# the probe cell's width (JAX's _telemetry_conv_probe)
+PROBE_WIDTH = 512
+
+
+def _telemetry_conv_probe(cfg, device: torch.device) -> None:
+    """The arch's conv cell (C -> C, its taps and dilation, batch 1 x
+    ``PROBE_WIDTH``, SAME, fp32) once through ``backend="auto"``, the JAX
+    launcher's probe: the plan's cache lookups count as tuner hits or
+    misses, and the forward, then a forward and its gradient to x and w
+    (bwd-data and bwd-weight through ``ops.Conv1dFunction``), log their
+    pass spans."""
+    from repro_torch import tune
+    from repro_torch.kernels import ops
+    C, S, d = cfg.conv_channels, cfg.conv_filter, cfg.conv_dilation
+    if not (C and S):
+        return
+    tune.get_plan(N=1, C=C, K=C, S=S, dilation=d, Q=PROBE_WIDTH,
+                  dtype=torch.float32, padding="SAME", device=device)
+    x = torch.ones((1, C, PROBE_WIDTH), device=device)
+    w = torch.full((S, C, C), 0.01, device=device)
+    ops.conv1d(x, w, dilation=d, padding="SAME", backend="auto")
+    x.requires_grad_()
+    w.requires_grad_()
+    y = ops.conv1d(x, w, dilation=d, padding="SAME", backend="auto")
+    torch.autograd.grad(y, (x, w), torch.ones_like(y))
 
 
 def _parse_args(argv):
@@ -129,6 +180,11 @@ def _parse_args(argv):
     ap.add_argument("--model-reduce-chunks", type=int, default=None,
                     help="with --model-parallel > 1: sum each layer's dx "
                          "over the model group in this many column ranges")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="write a telemetry JSONL log to PATH (as "
+                         "REPRO_TORCH_TELEMETRY=1 with "
+                         "REPRO_TORCH_TELEMETRY_PATH); the ranks of a group "
+                         "share it")
     return ap.parse_args(argv)
 
 
@@ -167,11 +223,23 @@ def _device(args, started: bool) -> torch.device:
     return dev
 
 
+def _agree(flag: bool, started: bool, device: torch.device) -> bool:
+    """``flag`` on any rank of the started group (one all-reduce), or this
+    process's own without a group."""
+    if not started:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def run(argv=None) -> dict:
     """Train and return a summary: losses, gradient norms, the number of
     steps skipped for a non-finite loss or gradient, per-step times,
     median step time after warm-up, samples/s (and tokens/s for a
-    language model), and on the card the peak device memory."""
+    language model), on the card the peak device memory, ``status``
+    ("done" or "preempted") and the health and straggler rollups.
+    A telemetry sink ``--telemetry`` opens is closed when the run ends."""
     args = _parse_args(argv)
     cfg = configs.get(args.arch)
     if args.smoke:
@@ -186,6 +254,17 @@ def run(argv=None) -> dict:
     mp = args.model_parallel
     _check_model_parallel(cfg, mp, world)
     group, model_group = mesh.init_mesh(world // mp, mp)
+    if args.telemetry:  # after the group: records carry the rank
+        obs.enable(args.telemetry)
+    try:
+        return _train(args, cfg, started, mp, group, model_group)
+    finally:
+        if args.telemetry:
+            obs.disable()
+
+
+def _train(args, cfg, started: bool, mp: int, group, model_group) -> dict:
+    """``run``'s training loop over the started groups."""
     dp, rank = mesh.dp_size(group), mesh.dp_rank(group)
     lead = not started or dist.get_rank() == 0
     log = print if lead else (lambda *a, **k: None)
@@ -223,29 +302,69 @@ def run(argv=None) -> dict:
             dist.barrier()
 
     losses, gnorms, dts, skipped = [], [], [], 0
+    health, straggler = HealthMonitor(), ShardStragglerMonitor()
+    guard = PreemptionGuard()
+    shard = dist.get_rank() if started else 0
+    probe_at = min(start + WARMUP_STEPS, args.steps - 1)
+    status = "done"
     loader = SyntheticLoader(cfg, args.batch, args.seq, device=device,
                              seed=args.seed, start=start, rank=rank,
                              world=dp)
     try:
         for i in range(start, args.steps):
+            t_data = time.perf_counter()
             batch = next(loader)
+            probe = None
+            if obs.enabled():  # off: one check, no record built
+                obs.span_event("train.step.data",
+                               time.perf_counter() - t_data, step=i)
+                probe = PhaseProbe(device) if i == probe_at else None
             t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
+            state, metrics = step_fn(state, batch, probe=probe)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
             loss = float(metrics["loss"])
             losses.append(loss)
             gnorms.append(float(metrics["grad_norm"]))
-            skipped += int(metrics["skipped"])
+            step_skipped = int(metrics["skipped"])
+            skipped += step_skipped
             dts.append(dt)
+            if obs.enabled():
+                obs.span_event("train.step", dt, step=i, loss=loss)
+                obs.gauge("train.shard.step_time", dt, shard=shard, step=i)
+            sverdict = straggler.record(shard, i, dt)
+            verdict = health.record(i, loss, bool(step_skipped))
             log(f"step {i:5d} loss {loss:.4f} gnorm {gnorms[-1]:.3f} "
-                f"dt {dt:.3f}s", flush=True)
+                f"dt {dt:.3f}s [{verdict}/{sverdict}]", flush=True)
+            obs.flush()
+            if probe is not None:
+                for phase, sec in probe.phases().items():
+                    obs.span_event(f"train.phase.{phase}", sec, step=i)
+                if dp > 1:
+                    obs.span_event("train.phase.psum", psum_probe(
+                        state.params.parameters(), group, device), step=i)
+                if cfg.family == "conv":
+                    _telemetry_conv_probe(cfg, device)
+                    obs.flush()
+            if (verdict == "restore" and ckpt
+                    and ckpt.latest_step() is not None):
+                log("health: restoring the newest checkpoint")
+                state = ckpt.restore(state)
             if ckpt and (i + 1) % args.ckpt_every == 0:
                 save(i + 1)
+            if _agree(guard.preempted(), started, device):
+                log("preemption: saving a checkpoint and stopping")
+                if ckpt:
+                    save(i + 1)
+                status = "preempted"
+                break
     finally:
         loader.close()
-    if ckpt and args.steps > start:
+        guard.close()
+        obs.event("train.health.rollup", **health.rollup())
+        obs.event("train.straggler.rollup", **straggler.rollup())
+    if ckpt and args.steps > start and status == "done":
         save(args.steps)
 
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
@@ -253,7 +372,8 @@ def run(argv=None) -> dict:
                "first_step": start, "global_batch": args.batch,
                "seq": args.seq, "accum": args.accum, "losses": losses,
                "grad_norms": gnorms, "skipped_steps": skipped,
-               "step_s": dts}
+               "step_s": dts, "status": status, "health": health.rollup(),
+               "straggler": straggler.rollup()}
     if dts:
         measured = dts[WARMUP_STEPS:] or dts
         steady = float(np.median(measured))

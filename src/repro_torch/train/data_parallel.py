@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.kernels.reduce import (GradReducer, dp_rank, dp_size,
                                         mp_size)
 from repro_torch.train.losses import make_loss_fn
@@ -66,7 +67,10 @@ def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
                          model_reduce_chunks: int | None = None):
     """``grad_fn(model, batch) -> ((loss, aux), grads)`` over the data group
     ``group`` (None: a world of 1), ``grads`` a tuple in
-    ``model.named_parameters()`` order.  ``batch`` is this rank's share.
+    ``model.named_parameters()`` order.  ``batch`` is this rank's share;
+    ``grad_fn(..., probe=)`` marks the end of the forward and of the
+    backward on a ``train_step.PhaseProbe``.  Making it logs the
+    ``train.mesh`` event (dp, mp) when telemetry is on.
 
     ``loss_fn(model, batch) -> (loss, aux)`` replaces the family's loss
     (``make_loss_fn``); its gradients are then all-reduced as a whole
@@ -107,10 +111,14 @@ def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
                                model_group=model_group,
                                model_reduce_chunks=model_reduce_chunks)
     loss_fn = loss_fn or make_loss_fn(cfg)
+    # the layout, for the report's mesh line (JAX logs it here too)
+    obs.event("train.mesh", dp=dp, mp=mp, axes="data,model")
 
-    def grad_fn(model, batch):
+    def grad_fn(model, batch, probe=None):
         params = [p for _, p in model.named_parameters()]
         loss, aux = loss_fn(model, batch)
+        if probe is not None:
+            probe.mark("forward")
         # 1/dp before the backward: the summed gradients are the gradients
         # of the global mean loss
         try:
@@ -129,6 +137,8 @@ def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
             # every gradient is read below this line, and only after the
             # wait; a backward that raised leaves no claim or reduce behind
             reducer.wait()
+        if probe is not None:
+            probe.mark("backward")
         keys = sorted(aux)
         metrics = torch.stack([loss.detach().float()]
                               + [aux[k].detach().float() for k in keys])

@@ -4,13 +4,36 @@ fused prefill step, and the conv family's streaming steps.
 
 Each step runs under ``torch.inference_mode()``: serving needs no
 gradient (and with ``cfg.remat`` each layer runs once).
+``with_request_spans`` times a step as a client sees it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import streaming
 from repro_torch.models import get_model
+
+
+def with_request_spans(step_fn, name: str, device=None, **attrs):
+    """``step_fn`` with every host-level call timed as a request-latency
+    span ``name`` (JAX's ``with_request_spans``): the call and, on a CUDA
+    ``device``, a ``torch.cuda.synchronize`` of it, what a client waits
+    for (JAX's ``block_until_ready``); the pending device spans of the
+    call's passes are written after it.  With telemetry off the wrapper
+    adds one ``enabled()`` check."""
+
+    def wrapped(*a, **kw):
+        if not obs.enabled():
+            return step_fn(*a, **kw)
+        with obs.span(name, **attrs):
+            out = step_fn(*a, **kw)
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+        obs.flush()
+        return out
+
+    return wrapped
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

@@ -16,12 +16,26 @@ returns its metrics as 0-d tensors; the caller decides when to read them.
 Over a data group every rank holds the same state and steps it with the
 same, already summed gradients: the norm and the non-finite guard read
 them after the all-reduce, so every rank skips the same steps.
+
+**Phase probes** (the ``train.phase.*`` figures of telemetry; JAX's
+``make_phase_probes``).  JAX times jitted prefixes of the step against
+each other on copies of the state.  Here the optimizer updates the live
+state in place, and a copy of a 3 B model's state does not fit beside
+it, so a probe times one real step at its own boundaries instead:
+``train_step(state, batch, probe=PhaseProbe(device))`` marks the end of
+the forward, of the backward (the gradient reduces in flight end inside
+it) and of the optimizer (clip, norm, AdamW), with CUDA events on the
+card, the host clock on the CPU.  Marks add no work to the step and move
+no value in it.  ``psum_probe`` times JAX's fourth phase when dp > 1: an
+all-reduce of a zero tree shaped as the gradients over the data group.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.optim import adamw, compression, schedule
@@ -45,6 +59,54 @@ def init_state(model: nn.Module, *,
                       step=torch.zeros((), dtype=torch.int32, device=device),
                       ef=(compression.init_error_feedback(params)
                           if grad_compression else None))
+
+
+class PhaseProbe:
+    """The phases of one training step, timed at their boundaries on
+    ``device``: :meth:`mark` ends the phase it names (the first phase
+    starts when the probe is made); :meth:`phases` sums each phase's
+    intervals (microbatches alternate forward and backward) once the
+    device is synchronized."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._marks: list = []
+        self.mark(None)
+
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def mark(self, phase: str | None) -> None:
+        self._marks.append((phase, self._now()))
+
+    def phases(self) -> dict[str, float]:
+        """Seconds per phase, in the order the phases first ended."""
+        out: dict[str, float] = {}
+        for (_, a), (phase, b) in zip(self._marks, self._marks[1:]):
+            if self.cuda:
+                b.synchronize()
+                sec = a.elapsed_time(b) / 1e3
+            else:
+                sec = b - a
+            out[phase] = out.get(phase, 0.0) + sec
+        return out
+
+
+def psum_probe(params, group, device: torch.device) -> float:
+    """Seconds of one all-reduce of zeros shaped as ``params`` (one reduce
+    a leaf, fp32) over the data group ``group``: JAX's ``psum`` phase."""
+    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+             for p in params]
+    probe = PhaseProbe(device)
+    works = [dist.all_reduce(z, group=group, async_op=True) for z in zeros]
+    for work in works:
+        work.wait()
+    probe.mark("psum")
+    return probe.phases()["psum"]
 
 
 def _split_microbatches(batch: dict, accum: int) -> list[dict]:
@@ -75,23 +137,30 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
     ``model_group=None`` is the single-process step.
     ``grad_compression`` rounds the gradients to bf16 with the error
     feedback carried in ``state.ef``
-    (``init_state(..., grad_compression=True)``)."""
+    (``init_state(..., grad_compression=True)``).  ``probe`` (a
+    :class:`PhaseProbe`) times the step's phases (module docstring)."""
     if group is None and model_group is None:
         loss_fn = make_loss_fn(cfg)
 
-        def grads_of(model, params, batch):
+        def grads_of(model, params, batch, probe):
             loss, _ = loss_fn(model, batch)
-            return loss.detach(), torch.autograd.grad(loss, params)
+            if probe is not None:
+                probe.mark("forward")
+            grads = torch.autograd.grad(loss, params)
+            if probe is not None:
+                probe.mark("backward")
+            return loss.detach(), grads
     else:
         grad_fn = make_sharded_grad_fn(
             cfg, group, grad_reduce_chunks=grad_reduce_chunks,
             model_group=model_group, model_reduce_chunks=model_reduce_chunks)
 
-        def grads_of(model, params, batch):
-            (loss, _), grads = grad_fn(model, batch)
+        def grads_of(model, params, batch, probe):
+            (loss, _), grads = grad_fn(model, batch, probe=probe)
             return loss, grads
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict,
+                   probe: PhaseProbe | None = None):
         model = state.params
         names, params = zip(*model.named_parameters())
         if accum_steps > 1:
@@ -99,13 +168,13 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
                                 device=p.device) for p in params]
             lsum = 0.0
             for mb in _split_microbatches(batch, accum_steps):
-                loss, g = grads_of(model, params, mb)
+                loss, g = grads_of(model, params, mb, probe)
                 gsum = [a + b.float() for a, b in zip(gsum, g)]
                 lsum = lsum + loss
             grads = [g / accum_steps for g in gsum]
             loss = lsum / accum_steps
         else:
-            loss, grads = grads_of(model, params, batch)
+            loss, grads = grads_of(model, params, batch, probe)
 
         lr = schedule.cosine_with_warmup(
             state.step, peak_lr=peak_lr, warmup_steps=warmup_steps,
@@ -123,6 +192,8 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
         adamw.update_(grads, state.opt, dict(zip(names, params)), lr=lr,
                       grad_norm=gnorm, finite=finite)
         state.step = state.step + 1
+        if probe is not None:
+            probe.mark("optimizer")
         return state, {"grad_norm": gnorm, "skipped": (~finite).float(),
                        "loss": loss, "lr": lr}
 

@@ -32,7 +32,12 @@ Like the launchers, every entry point runs on the card unless the caller
 asks for the CPU (``device="cpu"``); with no card and no device named it
 raises (``launch.device.require_device``).
 
-Telemetry hooks wait for the port of ``obs/``.
+Telemetry (``repro_torch.obs``, the JAX package's hooks): a search runs
+under a ``tune.search`` span with one ``tune.search.candidate`` event per
+timed candidate (``predicted_s`` by the cost model, ``measured_s``), and
+every cache lookup counts ``tune.cache.hit`` or ``tune.cache.miss``.  The
+port's cache holds only its own (``tile``, ``body``) entries, so it never
+counts the JAX package's ``tune.cache.legacy_upgrade``.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import os
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.launch.device import require_device
 
 from . import cost as _cost
@@ -118,18 +124,30 @@ def tune_problem(prob: ConvProblem, *, device=None,
     if not cands:
         raise ValueError(f"no legal candidates for {prob.key(kind)} under "
                          f"backends={backends}")
-    ranked = _cost.rank(cands, prob, device_kind=kind)
-    if measure:
-        timed = [(_measure.time_candidate(c, prob, device=dev, iters=iters,
-                                          warmup=warmup), c)
-                 for c in ranked[:top_k or None]]
-        sec, best = min(timed, key=lambda t: t[0])
-        cfg = TunedConfig(best.backend, best.tile, best.body, "measured", sec)
-    else:
-        best = ranked[0]
-        cfg = TunedConfig(best.backend, best.tile, best.body, "cost")
-    cache.put(prob.key(kind), {**best.as_entry(), "source": cfg.source,
-                               "sec": cfg.sec})
+    key = prob.key(kind)
+    with _obs.span("tune.search", problem=key, candidates=len(cands),
+                   measure=measure, top_k=top_k):
+        ranked = _cost.rank(cands, prob, device_kind=kind)
+        if measure:
+            timed = []
+            for c in ranked[:top_k or None]:
+                sec = _measure.time_candidate(c, prob, device=dev,
+                                              iters=iters, warmup=warmup)
+                timed.append((sec, c))
+                # predicted vs measured: the report's cost-model section
+                _obs.event("tune.search.candidate", problem=key,
+                           backend=c.backend, tile=c.tile, body=c.body,
+                           predicted_s=_cost.estimate_seconds(
+                               c, prob, device_kind=kind),
+                           measured_s=sec)
+            sec, best = min(timed, key=lambda t: t[0])
+            cfg = TunedConfig(best.backend, best.tile, best.body, "measured",
+                              sec)
+        else:
+            best = ranked[0]
+            cfg = TunedConfig(best.backend, best.tile, best.body, "cost")
+    cache.put(key, {**best.as_entry(), "source": cfg.source,
+                    "sec": cfg.sec})
     PLANS.clear()  # a memoised auto plan may predate this entry
     return cfg
 
@@ -177,7 +195,11 @@ def get_config_for(prob: ConvProblem, *, device=None,
     leaves the cache untouched."""
     if cache is None:
         cache = get_default_cache()
-    hit = cache.get(prob.key(device_kind(as_device(device))))
+    key = prob.key(device_kind(as_device(device)))
+    hit = cache.get(key)
+    if _obs.enabled():
+        _obs.counter("tune.cache.hit" if hit is not None
+                     else "tune.cache.miss", problem=key, pass_=prob.pass_)
     if hit is not None:
         return TunedConfig(hit["backend"], hit.get("tile"), hit.get("body"),
                            "cache", hit.get("sec"))

@@ -357,7 +357,10 @@ named = ["repro_torch.launch.train", "repro_torch.train.train_step",
          "repro_torch.configs.starcoder2_3b", "repro_torch.launch.serve",
          "repro_torch.train.serve_step", "repro_torch.convert",
          "repro_torch.launch.mesh", "repro_torch.kernels.sharded",
-         "repro_torch.train.data_parallel", "repro_torch.optim.compression"]
+         "repro_torch.train.data_parallel", "repro_torch.optim.compression",
+         "repro_torch.obs", "repro_torch.obs.report",
+         "repro_torch.obs.trace_export", "repro_torch.runtime.health",
+         "repro_torch.runtime.straggler"]
 assert set(named) <= set(mods), sorted(set(named) - set(mods))
 for m in mods + named:
     importlib.import_module(m)
@@ -370,9 +373,9 @@ print(len(mods))
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Every module of the port (the training, Mamba2, transformer and
-    data-parallel slices' named) and chip_smoke.py import without jax or
-    any module of the JAX package."""
+    """Every module of the port (the training, Mamba2, transformer,
+    data-parallel and telemetry slices' named) and chip_smoke.py import
+    without jax or any module of the JAX package."""
     code = _HYGIENE.format(root=ROOT, src=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,

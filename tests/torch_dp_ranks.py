@@ -26,10 +26,17 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh
 
 
+_OPS_CONV1D = ops.conv1d
+
+
 def routed_conv1d(x, w, *, padding="SAME", dilation=1, backend=None, **kw):
     """``ops.conv1d`` through ``ops.Conv1dFunction`` on CPU tensors (the
-    path a CUDA tensor takes, each pass its plain version)."""
-    assert backend is None
+    path a CUDA tensor takes, each pass its plain version); a call that
+    names a backend (the trainer's telemetry probe: ``"auto"``) goes to
+    ``ops.conv1d`` itself."""
+    if backend is not None:
+        return _OPS_CONV1D(x, w, padding=padding, dilation=dilation,
+                           backend=backend, **kw)
     lo, hi = ops._pad_amounts(w.shape[0], dilation, padding)
     return ops.fused_conv1d(F.pad(x, (lo, hi)).contiguous(), w.contiguous(),
                             dilation=dilation, **kw)
