@@ -220,7 +220,20 @@ Phases (any failed check raises, so the run exits non-zero):
       ranks sharing one log: ``check_model_parallel`` == [], both pids;
       (e) the disabled hooks' cost and a stream step's 25 ``ops.conv1d``
       calls' host time beside phase 2's;
-  18. a JSON line of the six kernels, the card's line, and last the
+  18. the elastic drill (``elastic_check``): 4 gloo ranks sharing the
+      card train the full atacworks config at a global 8 x 60,000
+      through the supervisor of ``launch/train.py``: uninterrupted;
+      ``device_loss@5:2`` (dp 4 -> 2, accumulation 1 -> 2, restore step
+      4, with telemetry and ``check_elastic`` == []); ``preempt@5`` then
+      ``--resume``; ``straggle@5:1x6`` over 14 steps (launch rank 1
+      rotated out, launch rank 3 idle).  The losses before a restore
+      point and after a same-layout resume bitwise the uninterrupted
+      run's, the replay within JAX's cross-mesh bound, the final
+      parameters by phase 5's rule; 49 + 25 launches a rank a
+      microbatch step; the detect and restore times, the step medians
+      before and after, ``post_shrink_efficiency`` and the phase's
+      seconds are printed;
+  19. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -389,6 +402,17 @@ TP_LAUNCH_STEPS, TP_LAUNCH_HELD, TP_LAUNCH_RTOL = 5, 3, 1e-4
 # TEL_HOOK_CALLS calls
 TEL_STEPS, TEL_EFF_MAX, TEL_DUR_MIN, TEL_STREAMS = 6, 1.05, 0.9, 2
 TEL_TP_BATCH, TEL_TP_SEQ, TEL_TP_STEPS, TEL_HOOK_CALLS = 2, 8192, 2, 20000
+# phase 18, the elastic drill (runtime/elastic, runtime/faults, the
+# supervisor in launch/train.py): EL_RANKS gloo ranks sharing the card
+# train the full atacworks config at a global EL_BATCH x EL_SEQ for
+# EL_STEPS steps (the straggle drill EL_STRAGGLE_STEPS; cut those, never
+# the widths, if the phase runs long).  A recovery's replayed steps run
+# dp 2 x accum 2 where the uninterrupted run ran dp 4: the same sums in
+# another fp32 order, held with JAX's cross-mesh bound (losses within
+# EL_RTOL and EL_ATOL, tests/test_elastic_drill.py) and phase 5's rule
+# for the parameters (PARAM_ATOL, PARAM_FLIP_FRAC)
+EL_RANKS, EL_BATCH, EL_SEQ, EL_STEPS, EL_STRAGGLE_STEPS = 4, 8, 60000, 10, 14
+EL_RTOL, EL_ATOL = 1e-3, 1e-4
 
 
 def _card_line() -> str:
@@ -3539,6 +3563,222 @@ def telemetry_check(torch, np, configs, blocks, serve, train, ops,
     return stats
 
 
+def _el_drills(tmp):
+    """Phase 18's runs, in order: (name, argv)."""
+    base = ["--arch", "atacworks", "--batch", str(EL_BATCH), "--seq",
+            str(EL_SEQ), "--device", DEVICE, "--dist-backend", "gloo"]
+    ten = base + ["--steps", str(EL_STEPS)]
+    ck = os.path.join(tmp, "ck")
+    return [
+        ("A", ten + ["--ckpt-dir", ck + "A", "--ckpt-every", "100"]),
+        ("B", ten + ["--ckpt-dir", ck + "B", "--ckpt-every", "2",
+                     "--faults", "device_loss@5:2",
+                     "--telemetry", os.path.join(tmp, "elastic.jsonl")]),
+        ("C", ten + ["--ckpt-dir", ck + "C", "--ckpt-every", "4",
+                     "--faults", "preempt@5"]),
+        ("D", ten + ["--ckpt-dir", ck + "C", "--resume"]),
+        ("E", base + ["--steps", str(EL_STRAGGLE_STEPS), "--ckpt-dir",
+                      ck + "E", "--ckpt-every", "2",
+                      "--faults", "straggle@5:1x6"])]
+
+
+def _el_rank(rank, st):
+    """Phase 18, one of EL_RANKS gloo ranks sharing the card: every drill
+    through ``launch.train.run``, each over a generation 0 of all the
+    ranks started from its own file store; each run's summary, printed
+    lines and the two dense kernels' launches (the telemetry probe's
+    counted apart)."""
+    import contextlib
+    import io
+    import pickle
+
+    import torch
+
+    from repro_torch.kernels import conv1d_brgemm
+    from repro_torch.launch import mesh, train
+    from repro_torch.tune.cache import ENV_CACHE_PATH
+
+    if st["device"] == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    os.environ[ENV_CACHE_PATH] = os.path.join(st["tmp"], f"tune{rank}.json")
+    counters = (conv1d_brgemm.conv1d_fwd, conv1d_brgemm.conv1d_bwd_weight)
+    probe_n = dict.fromkeys((c.__name__ for c in counters), 0)
+    probe = train._telemetry_conv_probe
+
+    def counted_probe(*a, **k):
+        before = {c.__name__: c.launches for c in counters}
+        probe(*a, **k)
+        for c in counters:
+            probe_n[c.__name__] += c.launches - before[c.__name__]
+
+    train._telemetry_conv_probe = counted_probe
+    out = {}
+    try:
+        for name, argv in st["drills"]:
+            mesh.destroy()
+            mesh.init_data_group("gloo", "file://" + os.path.join(
+                st["tmp"], f"store{name}"), EL_RANKS, rank)
+            probe_n.update(dict.fromkeys(probe_n, 0))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                summary, n = _counted(counters, lambda: train.run(argv))
+            out[name] = dict(summary=summary, out=buf.getvalue(),
+                             launches={k: n[k] - probe_n[k] for k in n},
+                             probe_launches=dict(probe_n))
+    finally:
+        mesh.destroy()
+    with open(os.path.join(st["tmp"], f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _el_micro_steps(run, lead, steps):
+    """Microbatch steps (steps x accum) one rank ran in a drill: every
+    rank runs generation 0 up to the fault's step, the tainted step
+    included; the next generation's ranks run on from the restore."""
+    hist = lead["mesh_history"]
+    rec = lead["recoveries"]
+    last = rec[0]["fault_step"] if rec else run["last_step"]
+    n = (last + 1 - hist[0]["from_step"]) * hist[0]["accum"]
+    if rec and run["status"] == "done":
+        n += (steps - rec[0]["restore_step"]) * hist[1]["accum"]
+    return n
+
+
+def _el_arrays(np, path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def elastic_check(torch, np, train):
+    """Phase 18: the elastic drill on EL_RANKS gloo ranks sharing the card
+    (the full atacworks config, fp32, a global EL_BATCH x EL_SEQ).  A: an
+    uninterrupted run.  B: ``device_loss@5:2`` with checkpoints every 2
+    steps and telemetry: launch ranks 2 and 3 leave, the survivors re-plan
+    dp 4 -> 2 at mp 1 with accumulation 1 -> 2, regroup, restore step 4
+    and replay; ``check_elastic`` of its log == []; its losses before the
+    restore point bitwise A's, the rest within EL_RTOL / EL_ATOL, its
+    final parameters within PARAM_ATOL of A's but for PARAM_FLIP_FRAC of
+    them.  C: ``preempt@5`` drains at step 5; D: ``--resume`` from it,
+    its losses and final checkpoint bitwise A's.  E: ``straggle@5:1x6``
+    over EL_STRAGGLE_STEPS steps: launch rank 1 rotated out, 3 healthy
+    ranks plan dp 2, launch rank 3 idle.  Every rank launched 49
+    ``conv1d_fwd`` and 25 ``conv1d_bwd_weight`` kernels a microbatch
+    step it ran (the telemetry probe's apart).  NCCL regrouping across
+    cards is not run: one card holds no two NCCL ranks."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import obs
+    from repro_torch.obs import report
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        st = dict(device=DEVICE, tmp=tmp, drills=_el_drills(tmp))
+        mp.start_processes(_el_rank, args=(st,), nprocs=EL_RANKS,
+                           start_method="spawn")
+        res = []
+        for r in range(EL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+        lead = {name: res[0][name]["summary"] for name in "ABCDE"}
+        status = {name: [r[name]["summary"]["status"] for r in res]
+                  for name in "ABCDE"}
+        want = dict(A=["done"] * 4, B=["done", "done", "lost", "lost"],
+                    C=["preempted"] * 4, D=["done"] * 4,
+                    E=["done", "lost", "done", "idle"])
+        if status != want:
+            raise AssertionError(f"elastic statuses {status}, want {want}")
+        keys = ("kind", "fault_step", "restore_step", "dp_from", "dp_to",
+                "mp", "accum")
+        b_rec = [{k: r[k] for k in keys} for r in lead["B"]["recoveries"]]
+        if b_rec != [dict(kind="device_loss", fault_step=5, restore_step=4,
+                          dp_from=4, dp_to=2, mp=1, accum=2)] or [
+                g["accum"] for g in lead["B"]["mesh_history"]] != [1, 2]:
+            raise AssertionError(f"device-loss recovery {b_rec}, layouts "
+                                 f"{lead['B']['mesh_history']}")
+        e_rec = lead["E"]["recoveries"]
+        if len(e_rec) != 1 or e_rec[0]["kind"] != "straggle" or not (
+                e_rec[0]["dp_from"] == 4 and e_rec[0]["dp_to"] < 4
+                and e_rec[0]["mp"] == 1):
+            raise AssertionError(f"straggle recovery {e_rec}")
+        missing = report.check_elastic(report.aggregate(obs.read_events(
+            os.path.join(tmp, "elastic.jsonl"))))
+        if missing:
+            raise AssertionError(f"check_elastic: {missing}")
+        a, b, c, d = (lead[k]["losses"] for k in "ABCD")
+        r = b_rec[0]["restore_step"]
+        if len(a) != EL_STEPS or not np.isfinite(a).all():
+            raise AssertionError(f"uninterrupted losses {a}")
+        if b[:r] != a[:r] or c != a[:6] or d != a[6:] \
+                or lead["D"]["first_step"] != 6:
+            raise AssertionError(f"losses not bitwise the uninterrupted "
+                                 f"run's: A {a}, B {b}, C {c}, D {d}")
+        if not np.allclose(b[r:], a[r:], rtol=EL_RTOL, atol=EL_ATOL):
+            raise AssertionError(f"replayed losses {b[r:]} vs {a[r:]}")
+        final = {k: _el_arrays(np, os.path.join(
+            tmp, f"ck{k}", f"step_{EL_STEPS:08d}", "arrays.npz"))
+            for k in "ABC"}
+        if any(not np.array_equal(final["C"][k], v)
+               for k, v in final["A"].items()):
+            raise AssertionError("the resumed run's final checkpoint is "
+                                 "not bitwise the uninterrupted run's")
+        diffs = np.concatenate([
+            np.abs(final["B"][k].astype(np.float64) - v).ravel()
+            for k, v in final["A"].items() if k.startswith(".params/")])
+        beyond = int((diffs > PARAM_ATOL).sum())
+        if beyond > PARAM_FLIP_FRAC * diffs.size:
+            raise AssertionError(
+                f"{beyond} of {diffs.size} parameters after the recovery "
+                f"differ by more than {PARAM_ATOL} (max {diffs.max()})")
+        launches = {}
+        for name, steps in zip("ABCDE", [EL_STEPS] * 4 + [EL_STRAGGLE_STEPS]):
+            for rank, rr in enumerate(res):
+                n = _el_micro_steps(rr[name]["summary"], lead[name], steps)
+                got = rr[name]["launches"]
+                if got != dict(conv1d_fwd=49 * n, conv1d_bwd_weight=25 * n):
+                    raise AssertionError(
+                        f"drill {name} rank {rank}: launches {got} in {n} "
+                        "microbatch steps; expected 49 and 25 a step")
+                launches[f"{name}{rank}"] = dict(got, micro_steps=n)
+        recs = {k: lead[k]["recoveries"] for k in "BE"}
+        stats = dict(
+            ranks=EL_RANKS, batch=EL_BATCH, seq=EL_SEQ, statuses=status,
+            recoveries=recs,
+            mesh_history={k: lead[k]["mesh_history"] for k in "BE"},
+            losses={k: lead[k]["losses"] for k in "ABDE"},
+            replay_loss_max_rel_diff=max(
+                abs(x - y) / abs(y) for x, y in zip(b[r:], a[r:])),
+            param_max_abs_diff=float(diffs.max()),
+            params_beyond_atol=beyond, params=int(diffs.size),
+            launches=launches,
+            probe_launches=res[0]["B"]["probe_launches"],
+            out={k: res[0][k]["out"] for k in "ABCDE"})
+    stats["seconds"] = time.perf_counter() - t0
+    for k, rec in recs.items():
+        rec = rec[0]
+        print(f"elastic {k}: {rec['kind']} at step {rec['fault_step']}, dp "
+              f"{rec['dp_from']} -> {rec['dp_to']} (accum {rec['accum']}), "
+              f"restored step {rec['restore_step']}; time_to_detect_s "
+              f"{rec['time_to_detect_s']:.4f}, time_to_restore_s "
+              f"{rec['time_to_restore_s']:.4f}; step p50 pre-fault "
+              f"{rec['pre_fault_step_s']:.4f} s, post-recovery "
+              f"{rec['post_recovery_step_s']:.4f} s, post_shrink_efficiency "
+              f"{rec['post_shrink_efficiency']:.4f}", flush=True)
+    print("elastic " + json.dumps({k: v for k, v in stats.items()
+                                   if k not in ("out", "losses",
+                                                "launches")}), flush=True)
+    micro = sum(v["micro_steps"] for v in launches.values())
+    print(f"elastic: 49 conv1d_fwd and 25 conv1d_bwd_weight launches a "
+          f"rank a microbatch step in every drill ({micro} rank microbatch "
+          "steps)", flush=True)
+    print(f"elastic: phase 18 in {stats['seconds']:.1f} s", flush=True)
+    return stats
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -3792,6 +4032,7 @@ def main(argv=None) -> int:
     tp = tp_check(torch, np, configs, train, conv1d_brgemm)
     tel = telemetry_check(torch, np, configs, blocks, serve, train, ops,
                           conv1d_brgemm, rows, bwd_rows)
+    elastic = elastic_check(torch, np, train)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -4048,7 +4289,8 @@ def main(argv=None) -> int:
                            starcoder2_train=lm_train,
                            starcoder2_profile=lm_prof, sweep=sweep_res,
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
-                           kernels=kernels), f, indent=1, default=str)
+                           elastic=elastic, kernels=kernels), f, indent=1,
+                      default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,15 +24,25 @@ saves the JAX package's bf16 arrays.
   * **Retention**: the ``keep`` newest are kept; deletion goes through a
     rename to ``.trash``; stale ``.tmp``, ``.trash`` and torn directories
     are swept after each save.
-
-The JAX package's asynchronous writer and its elastic re-sharding wait in
-ROADMAP.md queue A.
+  * **Async writer**: ``save_async`` copies every tensor of the state to
+    the host on the caller's thread (a real copy: the optimizer updates
+    the parameters in place, and ``.cpu()`` of a CPU tensor is the same
+    storage) and hands serialization and fsync to a daemon thread, so
+    the training loop goes on at once; ``wait()`` joins it.  ``save`` and
+    ``save_async`` wait first, since the sweep after a save removes
+    ``*.tmp``.  A writer that dies mid-write leaves only a torn
+    ``.tmp`` directory, which no reader sees; ``wait()`` reports its
+    error.
+  * **Elastic restore**: tensors are stored whole, so a checkpoint
+    written by one (data, model) layout restores into any other (the
+    elastic supervisor in ``launch/train.py``).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 import zipfile
 
 import numpy as np
@@ -75,7 +85,8 @@ def state_tensors(state) -> dict[str, torch.Tensor]:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """A host copy of ``t`` as numpy, finished when this returns."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:  # raw 2-byte values, as numpy stores bf16
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -89,27 +100,68 @@ def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(like.dtype)
 
 
+def _snapshot(state, step: int) -> tuple[dict, dict]:
+    """(arrays, manifest): host copies of the state's tensors under their
+    flat keys, and the manifest."""
+    arrays, manifest = {}, {"step": step, "leaves": {}}
+    for k, t in state_tensors(state).items():
+        arrays[k] = _to_numpy(t)
+        manifest["leaves"][k] = {
+            "shape": list(t.shape),
+            "dtype": str(t.dtype).removeprefix("torch.")}
+    return arrays, manifest
+
+
 class Checkpointer:
     def __init__(self, directory: str, *, keep: int = 3):
         self.directory = directory
         self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._failed: tuple[int, Exception] | None = None
         os.makedirs(directory, exist_ok=True)
 
     # -- write ------------------------------------------------------------
 
     def save(self, state, step: int) -> str:
         """Synchronous atomic save; returns the committed path."""
+        self.wait()  # _gc sweeps *.tmp: never while an async write stages
+        return self._write(*_snapshot(state, step))
+
+    def save_async(self, state, step: int) -> None:
+        """Snapshot the state now, serialize it on a daemon thread."""
+        self.wait()
+        snap = _snapshot(state, int(step))
+        self._thread = threading.Thread(target=self._write_reporting,
+                                        args=snap, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the async writer, if one runs; print its error if it
+        died (its step then stays invisible)."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._failed is not None:
+            step, err = self._failed
+            self._failed = None
+            print(f"checkpoint: async save of step {step} failed ({err!r}); "
+                  f"the newest complete checkpoint is {self.latest_step()}")
+
+    def _write_reporting(self, arrays, manifest) -> None:
+        # the writer thread's boundary: a failed write must not kill the
+        # process; wait() reports it
+        try:
+            self._write(arrays, manifest)
+        except Exception as e:
+            self._failed = (manifest["step"], e)
+
+    def _write(self, arrays: dict, manifest: dict) -> str:
+        step = manifest["step"]
         final = _step_dir(self.directory, step)
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        arrays, manifest = {}, {"step": step, "leaves": {}}
-        for k, t in state_tensors(state).items():
-            arrays[k] = _to_numpy(t)
-            manifest["leaves"][k] = {
-                "shape": list(t.shape),
-                "dtype": str(t.dtype).removeprefix("torch.")}
         with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
             np.savez(f, **arrays)
             f.flush()

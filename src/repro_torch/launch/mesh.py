@@ -16,6 +16,13 @@ process group, one process per card:
     row ``r // mp`` and model column ``r % mp``, its model group being
     its row (the mp ranks that hold the same data shard) and its data
     group its column (the dp ranks that hold the same filter block);
+  * :func:`regroup` starts the next *generation* of the default group
+    over the survivors of a fault (counterpart of JAX's
+    ``make_elastic_mesh``): ``torch.distributed`` cannot shrink a group,
+    so the old one is torn down and a new one started from the
+    rendezvous store :func:`init_data_group` kept, each generation under
+    its own key prefix (``elastic/gen<g>``).  A process keeps its
+    :func:`launch_rank`, its rank in generation 0, across generations;
   * :func:`dp_size`, :func:`dp_rank`, :func:`mp_size`, :func:`mp_rank`,
     :class:`GradReducer` and :class:`ModelReducer`, which read the groups
     and reduce over them, live in ``kernels/reduce.py`` (the conv
@@ -32,7 +39,12 @@ from repro_torch.kernels.reduce import (GradReducer, ModelReducer, dp_rank,
                                         dp_size, mp_rank, mp_size)
 
 __all__ = ["GradReducer", "ModelReducer", "destroy", "dp_rank", "dp_size",
-           "init_data_group", "init_mesh", "local_rank", "mp_rank", "mp_size"]
+           "init_data_group", "init_mesh", "launch_rank", "local_rank",
+           "mp_rank", "mp_size", "regroup"]
+
+# the rendezvous of the group init_data_group started: (store, launch
+# rank), beside torch.distributed's own default group, which is as global
+_launch: tuple | None = None
 
 
 def init_data_group(backend: str | None = None, init_method: str | None = None,
@@ -46,7 +58,14 @@ def init_data_group(backend: str | None = None, init_method: str | None = None,
     defaults to ``"nccl"`` when CUDA is available, else ``"gloo"``; a
     world of 1 with no ``backend`` named and no ``torchrun`` needs no
     group.  A group already started is returned as it is, unless it runs
-    another backend than the one named."""
+    another backend than the one named.
+
+    The rendezvous store (``dist.rendezvous``) is kept for
+    :func:`regroup`, and generation 0 starts over its ``elastic/gen0``
+    prefix.  Under ``env://`` outside ``torchrun`` launch rank 0 hosts
+    the TCP store, so it must outlive the run; ``torchrun``'s agent
+    hosts it there, and ``file://`` needs no host."""
+    global _launch
     if dist.is_initialized():
         if backend is not None and dist.get_backend() != backend:
             raise ValueError(f"a {dist.get_backend()} group is already "
@@ -64,11 +83,52 @@ def init_data_group(backend: str | None = None, init_method: str | None = None,
     if init_method is None and world_size == 1 \
             and "MASTER_ADDR" not in os.environ:
         # a world of 1 meets no one: an in-process store, no rendezvous
-        dist.init_process_group(backend, store=dist.HashStore(),
-                                world_size=1, rank=0)
+        store = dist.HashStore()
     else:
-        dist.init_process_group(backend, init_method=init_method or "env://",
-                                world_size=world_size, rank=rank)
+        store, rank, world_size = next(dist.rendezvous(
+            init_method or "env://", rank=rank, world_size=world_size))
+    _launch = (store, rank)
+    dist.init_process_group(backend, store=dist.PrefixStore(
+        "elastic/gen0", store), world_size=world_size, rank=rank)
+    return dist.group.WORLD
+
+
+def launch_rank() -> int:
+    """This process's rank in generation 0 of the group
+    :func:`init_data_group` started (the identity a regroup keeps); the
+    started group's rank otherwise, 0 without one."""
+    if _launch is not None:
+        return _launch[1]
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def regroup(survivors, generation: int):
+    """Start generation ``generation`` of the default group over
+    ``survivors`` (launch ranks, in launch order), ranked by their place
+    in it, with the backend of the group it replaces; return it, or None
+    in a process whose launch rank is not among them, which leaves.
+
+    Every process of the ending generation calls it with the same
+    arguments: all of them meet at one barrier of the old group, so no
+    collective of it is in flight when it is torn down
+    (``dist.destroy_process_group``; the groups that ``init_mesh`` made
+    end with it).  The survivors then meet over
+    ``PrefixStore(f"elastic/gen{generation}", store)`` of the store
+    :func:`init_data_group` kept.  Handles to the old groups (reducers,
+    steps, closures) must not be used again."""
+    if _launch is None:
+        raise ValueError("regroup needs the group init_data_group started "
+                         "(it keeps the rendezvous store)")
+    store, me = _launch
+    backend = dist.get_backend()
+    dist.barrier()
+    dist.destroy_process_group()
+    survivors = list(survivors)
+    if me not in survivors:
+        return None
+    dist.init_process_group(
+        backend, store=dist.PrefixStore(f"elastic/gen{generation}", store),
+        world_size=len(survivors), rank=survivors.index(me))
     return dist.group.WORLD
 
 
@@ -111,6 +171,9 @@ def local_rank() -> int:
 
 
 def destroy() -> None:
-    """End the default process group, if one was started."""
+    """End the default process group, if one was started, and forget its
+    rendezvous."""
+    global _launch
+    _launch = None
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -1,5 +1,5 @@
-"""Training launcher of the port: the single-device path of the JAX
-package's ``launch/train.py`` (``run``), on the card by default.
+"""Training launcher of the port: the JAX package's ``launch/train.py``
+(``run``, its elastic supervisor included), on the card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch atacworks \\
         --steps 10 --batch 8 --seq 60000
@@ -31,9 +31,10 @@ synchronisation), and the run ends with the median step time over the
 steps after the first ``WARMUP_STEPS``, ``samples_per_s = batch /
 median`` (and ``tokens_per_s`` for a language model), and on the card the
 peak device memory.  ``--ckpt-dir`` saves atomic checkpoints in the JAX
-package's format every ``--ckpt-every`` steps and at the end;
-``--resume`` continues from the newest one, with the same batches the
-steps saw the first time.
+package's format every ``--ckpt-every`` steps (asynchronously: the state
+is copied to the host and written on a thread while training goes on)
+and at the end; ``--resume`` continues from the newest one, with the
+same batches the steps saw the first time.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch atacworks --steps 10 --batch 8 --seq 60000
@@ -87,8 +88,52 @@ Telemetry moves no value of the step: losses and gradient norms are
 bitwise those of a run without it.  ``python -m repro_torch.obs.report
 PATH --check`` reads it.
 
-The JAX launcher's elastic supervisor and fault drills wait in
-ROADMAP.md queue A.
+Elastic recovery: the launcher is a *supervisor* over generations of
+its process group.  Each step it consumes the ``HealthMonitor``, the
+``ShardStragglerMonitor``, the ``PreemptionGuard`` and, in a drill,
+a ``runtime.faults.FaultInjector`` that every rank polls with the same
+``--faults`` schedule (``device_loss@STEP:N``, ``straggle@STEP:SHARDxF``,
+``preempt@STEP``), so the ranks agree on a fault without a message.  A
+rank is named by its launch rank, its rank in generation 0.
+
+  * ``device_loss``: the step runs, then is declared tainted; the N
+    highest launch ranks leave (their summary reads ``status: "lost"``)
+    and the survivors re-plan the layout with
+    ``runtime.elastic.make_plan``: the model axis fixed, the data axis
+    shrunk to the widest that divides ``--batch`` (which stays the
+    global batch), accumulation re-derived so the global batch is kept
+    exactly.  ``runtime.elastic.build_groups`` tears the group down
+    behind one barrier and starts the next generation over the
+    survivors (``launch.mesh.regroup``; a survivor beyond the plan's
+    ranks sits out, ``status: "idle"``); the new rank 0 waits for its
+    async write and broadcasts the newest committed step, which every
+    rank restores; the step, the loader and the monitor are rebuilt for
+    the new groups, and the steps from the restore point are replayed on
+    their step-keyed batches, their records overwritten.
+  * ``straggle``: the ranks of data shard SHARD sleep (F - 1) x the
+    fleet's median clean step time after each step; then one gather of
+    every rank's time, outside every timing window, feeds every rank's
+    monitor with every shard's time, so all reach the same verdict; on
+    REPLACE the shard's ranks are rotated out as in a device loss.
+  * ``preempt``: as a SIGTERM: the run drains (waits for the async
+    writer, saves synchronously, stops).
+
+``device_loss`` and ``straggle`` need ``--ckpt-dir`` (a restore point
+is saved at the start when there is none).  Rank 0 of each generation
+writes one ``elastic.fault`` event, one ``elastic.detect`` span and one
+``elastic.recover`` span a fault, and a ``train.straggler.rollup`` per
+finished generation.  The summary adds JAX's ``recoveries`` (detect and
+restore seconds, step medians before and after, and
+``post_shrink_efficiency``) and ``mesh_history``.  One process that
+loses its device stops with JAX's message.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch atacworks --smoke --device cpu --dist-backend gloo \
+        --steps 10 --batch 8 --seq 512 --ckpt-dir /tmp/ck --ckpt-every 2 \
+        --faults device_loss@5:2
+
+drills a recovery on 4 CPU ranks (dp 4 -> 2, accumulation 1 -> 2).  The
+NCCL path regroups the same way; it has not run across cards.
 """
 from __future__ import annotations
 
@@ -108,6 +153,8 @@ from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.launch import mesh
 from repro_torch.launch.device import require_device
 from repro_torch.models import init_model
+from repro_torch.runtime.elastic import build_groups, make_plan
+from repro_torch.runtime.faults import FaultInjector, parse_faults
 from repro_torch.runtime.health import HealthMonitor, PreemptionGuard
 from repro_torch.runtime.straggler import ShardStragglerMonitor
 from repro_torch.train.train_step import (PhaseProbe, init_state,
@@ -156,7 +203,9 @@ def _parse_args(argv):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="the GLOBAL batch, preserved exactly across every "
+                         "elastic re-plan")
     ap.add_argument("--seq", type=int, default=60_000,
                     help="track width (paper §4.2: 50,000 + 2 x 5,000) or "
                          "tokens per sequence")
@@ -180,6 +229,11 @@ def _parse_args(argv):
     ap.add_argument("--model-reduce-chunks", type=int, default=None,
                     help="with --model-parallel > 1: sum each layer's dx "
                          "over the model group in this many column ranges")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="fault-injection drill schedule (runtime/faults.py "
+                         "grammar, e.g. 'device_loss@5:2', 'straggle@5:1x6', "
+                         "'preempt@8'); device_loss and straggle recover "
+                         "from --ckpt-dir")
     ap.add_argument("--telemetry", default=None, metavar="PATH",
                     help="write a telemetry JSONL log to PATH (as "
                          "REPRO_TORCH_TELEMETRY=1 with "
@@ -233,19 +287,74 @@ def _agree(flag: bool, started: bool, device: torch.device) -> bool:
     return bool(t.item())
 
 
+def _gather_times(dt: float, device: torch.device) -> list[float]:
+    """Every rank's ``dt`` of the generation's group, by rank (one
+    all-reduce of a vector with this rank's slot filled)."""
+    t = torch.zeros(dist.get_world_size(), dtype=torch.float64,
+                    device=device)
+    t[dist.get_rank()] = dt
+    dist.all_reduce(t)
+    return t.tolist()
+
+
+def _fleet_times(dt: float, straggle, dp: int, mp: int,
+                 device: torch.device) -> tuple[float, list[float]]:
+    """A drill's per-shard step times: ``(this rank's dt, [each data
+    shard's dt])``, the same list on every rank, so every rank's monitor
+    reaches the same verdict at the same step.
+
+    Under an active straggle the ranks of data shard ``straggle.shard %
+    dp`` sleep ``(factor - 1)`` x the fleet's clean time (the median of
+    every rank's, so the factor holds against the fleet) and add it to
+    their dt.  The second gather comes after that sleep and outside every
+    rank's timing window: the healthy ranks wait for the straggler there,
+    not in their next step.  A shard's time is its slowest rank's."""
+    if straggle is not None:
+        delay = (straggle.factor - 1.0) * float(
+            np.median(_gather_times(dt, device)))
+        if dist.get_rank() // mp == straggle.shard % dp:
+            time.sleep(delay)
+            dt += delay
+    times = _gather_times(dt, device)
+    return dt, [max(times[s * mp:(s + 1) * mp]) for s in range(dp)]
+
+
+def _committed_step(ckpt, started: bool, lead: bool,
+                    device: torch.device) -> int | None:
+    """The newest committed checkpoint's step as the generation's rank 0
+    sees it once its async write has ended, on every rank (a broadcast):
+    a rank reading ``latest_step()`` on its own could see an older one
+    while the write is in flight.  None without a checkpoint."""
+    step = -1
+    if lead:
+        ckpt.wait()
+        latest = ckpt.latest_step()
+        step = -1 if latest is None else latest
+    if started:
+        t = torch.tensor([step], device=device)
+        dist.broadcast(t, src=0)
+        step = int(t.item())
+    return None if step < 0 else step
+
+
 def run(argv=None) -> dict:
-    """Train and return a summary: losses, gradient norms, the number of
-    steps skipped for a non-finite loss or gradient, per-step times,
-    median step time after warm-up, samples/s (and tokens/s for a
-    language model), on the card the peak device memory, ``status``
-    ("done" or "preempted") and the health and straggler rollups.
-    A telemetry sink ``--telemetry`` opens is closed when the run ends."""
+    """Train and return the summary of this process (``_summary``);
+    ``status`` is "done", "preempted", "lost" (a rank a fault took out)
+    or "idle" (a survivor the re-planned layout left out).  A telemetry
+    sink ``--telemetry`` opens is closed when the run ends."""
     args = _parse_args(argv)
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    faults = parse_faults(args.faults) if args.faults else None
+    if faults and any(f.kind in ("device_loss", "straggle") for f in faults) \
+            and not args.ckpt_dir:
+        raise SystemExit(
+            "--faults with device_loss/straggle needs --ckpt-dir: "
+            "recovery restores from the last committed checkpoint "
+            "(the in-memory state lives on the lost devices)")
     backend = args.dist_backend
     if backend is None and "WORLD_SIZE" in os.environ:
         backend = "nccl" if args.device == "cuda" else "gloo"
@@ -253,47 +362,52 @@ def run(argv=None) -> dict:
     world = dist.get_world_size() if started else 1
     mp = args.model_parallel
     _check_model_parallel(cfg, mp, world)
-    group, model_group = mesh.init_mesh(world // mp, mp)
+    # every rank polls its own injector over the launch ranks, with the
+    # same schedule: the ranks agree on each fault without a message
+    injector = FaultInjector(faults, range(world)) if faults else None
     if args.telemetry:  # after the group: records carry the rank
         obs.enable(args.telemetry)
     try:
-        return _train(args, cfg, started, mp, group, model_group)
+        return _train(args, cfg, started, world, mp, injector)
     finally:
         if args.telemetry:
             obs.disable()
 
 
-def _train(args, cfg, started: bool, mp: int, group, model_group) -> dict:
-    """``run``'s training loop over the started groups."""
-    dp, rank = mesh.dp_size(group), mesh.dp_rank(group)
-    lead = not started or dist.get_rank() == 0
-    log = print if lead else (lambda *a, **k: None)
+def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
+    """``run``'s supervisor: the training loop over generations of the
+    process group (module docstring)."""
+    dp0 = world // mp
     device = _device(args, started)
-    if args.batch % (args.accum * dp):
+    if args.batch % (args.accum * dp0):
         raise SystemExit(f"--batch {args.batch} must divide by --accum "
-                         f"{args.accum} x {dp} data-parallel ranks")
+                         f"{args.accum} x {dp0} data-parallel ranks")
+    # the launch layout's per-shard microbatch: every re-plan holds it as
+    # plan_batch's cap, so accum x microbatch is always the global batch
+    micro_cap = max(1, (args.batch // args.accum) // dp0)
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     state = init_state(init_model(cfg, seed=args.seed, device=device))
+    me = mesh.launch_rank()
+    members = list(range(world))  # the generation's launch ranks, by rank
+    health, guard = HealthMonitor(), PreemptionGuard()
+    # a drill feeds the monitor from its third step after a (re)start, so
+    # its own warm-up only needs to cover steady noise
+    straggler = (ShardStragglerMonitor(warmup=WARMUP_STEPS) if injector
+                 else ShardStragglerMonitor())
+    losses: dict[int, float] = {}
+    gnorms: dict[int, float] = {}
+    dts: dict[int, float] = {}
+    skips: dict[int, int] = {}
+    recoveries: list[dict] = []
+    history: list[dict] = []
+    pending = None  # the recovery in flight
     start = 0
-    if ckpt and args.resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
-        start = int(state.step)
-        log(f"resumed from step {start}")
-    step_fn = make_train_step(cfg, accum_steps=args.accum, peak_lr=args.lr,
-                              warmup_steps=max(2, args.steps // 10),
-                              total_steps=args.steps, group=group,
-                              grad_reduce_chunks=args.grad_reduce_chunks,
-                              model_group=model_group,
-                              model_reduce_chunks=args.model_reduce_chunks)
-    log(f"arch={cfg.name} device={device} batch={args.batch} "
-        f"seq={args.seq} accum={args.accum}"
-        + (f" attn_impl={cfg.attn_impl}" if cfg.family == "dense" else "")
-        + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
-           else f" dp={dp} path=data_parallel" if group is not None else ""))
+    dp, accum, lead = dp0, args.accum, True
+    status = "done"
 
-    def save(step):
+    def save(step):  # synchronous: between barriers of the generation
         if started:
             dist.barrier()
         if lead:
@@ -301,83 +415,311 @@ def _train(args, cfg, started: bool, mp: int, group, model_group) -> dict:
         if started:
             dist.barrier()
 
-    losses, gnorms, dts, skipped = [], [], [], 0
-    health, straggler = HealthMonitor(), ShardStragglerMonitor()
-    guard = PreemptionGuard()
-    shard = dist.get_rank() if started else 0
-    probe_at = min(start + WARMUP_STEPS, args.steps - 1)
-    status = "done"
-    loader = SyntheticLoader(cfg, args.batch, args.seq, device=device,
-                             seed=args.seed, start=start, rank=rank,
-                             world=dp)
     try:
-        for i in range(start, args.steps):
-            t_data = time.perf_counter()
-            batch = next(loader)
-            probe = None
-            if obs.enabled():  # off: one check, no record built
-                obs.span_event("train.step.data",
-                               time.perf_counter() - t_data, step=i)
-                probe = PhaseProbe(device) if i == probe_at else None
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch, probe=probe)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            dt = time.perf_counter() - t0
-            loss = float(metrics["loss"])
-            losses.append(loss)
-            gnorms.append(float(metrics["grad_norm"]))
-            step_skipped = int(metrics["skipped"])
-            skipped += step_skipped
-            dts.append(dt)
-            if obs.enabled():
-                obs.span_event("train.step", dt, step=i, loss=loss)
-                obs.gauge("train.shard.step_time", dt, shard=shard, step=i)
-            sverdict = straggler.record(shard, i, dt)
-            verdict = health.record(i, loss, bool(step_skipped))
-            log(f"step {i:5d} loss {loss:.4f} gnorm {gnorms[-1]:.3f} "
-                f"dt {dt:.3f}s [{verdict}/{sverdict}]", flush=True)
-            obs.flush()
-            if probe is not None:
-                for phase, sec in probe.phases().items():
-                    obs.span_event(f"train.phase.{phase}", sec, step=i)
-                if dp > 1:
-                    obs.span_event("train.phase.psum", psum_probe(
-                        state.params.parameters(), group, device), step=i)
-                if cfg.family == "conv":
-                    _telemetry_conv_probe(cfg, device)
+        while True:
+            gen = len(history)
+            if gen == 0:
+                group, model_group = mesh.init_mesh(dp0, mp)
+            else:
+                healthy = injector.healthy()
+                if len(healthy) < mp:
+                    raise SystemExit(
+                        f"only {len(healthy)} healthy device(s) left; the "
+                        f"model axis needs {mp} — cannot re-plan (the model "
+                        "axis never changes across elastic re-plans)")
+                # model axis fixed, data axis shrunk to the largest width
+                # that divides the batch, accumulation re-derived: the same
+                # global batch, the same trajectory
+                plan = make_plan(len(healthy), model_parallel=mp,
+                                 global_batch=args.batch,
+                                 max_microbatch_per_shard=micro_cap)
+                groups = build_groups(plan, healthy, gen)
+                # a survivor the plan leaves out leaves the run for good:
+                # a process that has returned cannot rejoin a later plan
+                injector.mark_lost(healthy[plan.n_devices:])
+                if groups is None:
+                    status = "idle" if me in healthy else "lost"
+                    started, lead = False, False
+                    break
+                group, model_group = groups
+                members = healthy[:plan.n_devices]
+                accum = plan.accum_steps
+            dp, rank = mesh.dp_size(group), mesh.dp_rank(group)
+            lead = not started or dist.get_rank() == 0
+            log = print if lead else (lambda *a, **k: None)
+            if gen == 0:
+                if ckpt and args.resume and ckpt.latest_step() is not None:
+                    state = ckpt.restore(state)
+                    start = int(state.step)
+                    log(f"resumed from step {start}")
+                if injector and ckpt and ckpt.latest_step() is None:
+                    # a restore point for a fault before the first
+                    # periodic save
+                    save(start)
+            else:
+                state = ckpt.restore(state, step=_committed_step(
+                    ckpt, started, lead, device))
+                start = int(state.step)
+            if pending is not None:
+                t_restore = time.perf_counter() - pending["t_detected"]
+                if lead:
+                    obs.span_event(
+                        "elastic.recover", t_restore, kind=pending["kind"],
+                        step=pending["step"], dp_from=pending["dp_from"],
+                        dp_to=dp, mp=mp, restore_step=start)
+                recoveries.append(dict(
+                    kind=pending["kind"], fault_step=pending["step"],
+                    restore_step=start, dp_from=pending["dp_from"], dp_to=dp,
+                    mp=mp, accum=accum, time_to_detect_s=pending["t_detect"],
+                    time_to_restore_s=t_restore))
+                log(f"elastic: recovered dp={pending['dp_from']} -> dp={dp} "
+                    f"(accum {accum}), restored step {start}, detect "
+                    f"{pending['t_detect']:.3f}s restore {t_restore:.3f}s")
+                for rec in (losses, gnorms, dts, skips):
+                    # the replayed steps overwrite their tainted records
+                    for s in [s for s in rec if s >= start]:
+                        del rec[s]
+                pending = None
+            history.append({"dp": dp, "mp": mp, "accum": accum,
+                            "from_step": start})
+            if gen > 0:
+                # a new generation is a new fleet epoch: its per-shard
+                # times legitimately changed, so the baselines re-learn
+                if lead:
+                    obs.event("train.straggler.rollup", generation=gen - 1,
+                              **straggler.rollup())
+                straggler = ShardStragglerMonitor(warmup=WARMUP_STEPS)
+            step_fn = make_train_step(
+                cfg, accum_steps=accum, peak_lr=args.lr,
+                warmup_steps=max(2, args.steps // 10),
+                total_steps=args.steps, group=group,
+                grad_reduce_chunks=args.grad_reduce_chunks,
+                model_group=model_group,
+                model_reduce_chunks=args.model_reduce_chunks)
+            log(f"arch={cfg.name} device={device} batch={args.batch} "
+                f"seq={args.seq} accum={accum}"
+                + (f" attn_impl={cfg.attn_impl}" if cfg.family == "dense"
+                   else "")
+                + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
+                   else f" dp={dp} path=data_parallel" if group is not None
+                   else "")
+                + (f" generation={gen}" if gen else ""))
+            shard = dist.get_rank() if started else 0
+            drill = injector is not None and dp > 1
+            probe_at = min(start + WARMUP_STEPS, args.steps - 1) \
+                if gen == 0 else -1
+            loader = SyntheticLoader(cfg, args.batch, args.seq,
+                                     device=device, seed=args.seed,
+                                     start=start, rank=rank, world=dp)
+            status = "done"
+            try:
+                for i in range(start, args.steps):
+                    fault = injector.poll(i) if injector else None
+                    t_fault = None
+                    if fault is not None and fault.kind == "preempt":
+                        if lead:
+                            obs.event("elastic.fault", kind="preempt",
+                                      step=i)
+                        log(f"fault: preemption delivered at step {i}")
+                        guard.request()
+                    elif fault is not None and fault.kind == "straggle":
+                        if lead:
+                            obs.event("elastic.fault", kind="straggle",
+                                      step=i, shard=fault.shard,
+                                      factor=fault.factor)
+                        log(f"fault: shard {fault.shard} straggling "
+                            f"{fault.factor:g}x from step {i}")
+                        injector.begin_straggle(fault, time.perf_counter())
+                    elif fault is not None:  # device_loss
+                        t_fault = time.perf_counter()
+                        if lead:
+                            obs.event("elastic.fault", kind="device_loss",
+                                      step=i, n_lost=fault.n_devices,
+                                      healthy=len(members) - fault.n_devices)
+
+                    t_data = time.perf_counter()
+                    batch = next(loader)
+                    probe = None
+                    if obs.enabled():  # off: one check, no record built
+                        obs.span_event("train.step.data",
+                                       time.perf_counter() - t_data, step=i)
+                        probe = PhaseProbe(device) if i == probe_at else None
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(state, batch, probe=probe)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    dt = time.perf_counter() - t0
+                    loss = float(metrics["loss"])
+
+                    if t_fault is not None:
+                        # the victims died at the step's start; a
+                        # synchronous step surfaces that only at its sync
+                        # point, so detection costs about one step, and the
+                        # step's result is tainted: recover from the last
+                        # checkpoint
+                        t_detect = time.perf_counter() - t_fault
+                        if lead:
+                            obs.span_event("elastic.detect", t_detect,
+                                           kind="device_loss", step=i)
+                        victims = injector.commit_loss(fault)
+                        log(f"elastic: device loss at step {i} (launch "
+                            f"ranks {sorted(victims)}), detected in "
+                            f"{t_detect:.3f}s; re-planning the layout")
+                        pending = {"kind": "device_loss", "step": i,
+                                   "t_detect": t_detect,
+                                   "t_detected": time.perf_counter(),
+                                   "dp_from": dp}
+                        status = "fault"
+                        break
+
+                    straggle = injector.straggle_active() if injector \
+                        else None
+                    if drill:
+                        dt, shard_dts = _fleet_times(dt, straggle, dp, mp,
+                                                     device)
+                    losses[i], dts[i] = loss, dt
+                    gnorms[i] = float(metrics["grad_norm"])
+                    skips[i] = int(metrics["skipped"])
+                    if obs.enabled():
+                        obs.span_event("train.step", dt, step=i, loss=loss)
+                    if drill:
+                        # the fleet view: every shard's time, the first
+                        # WARMUP_STEPS after a (re)start kept out of the
+                        # healthy baselines
+                        verdicts = set()
+                        for s, dt_s in enumerate(shard_dts):
+                            if lead and obs.enabled():
+                                obs.gauge("train.shard.step_time", dt_s,
+                                          shard=s, step=i)
+                            if i - start >= WARMUP_STEPS:
+                                verdicts.add(straggler.record(s, i, dt_s))
+                        sverdict = ("replace" if "replace" in verdicts
+                                    else "slow" if "slow" in verdicts
+                                    else "ok")
+                    else:
+                        if obs.enabled():
+                            obs.gauge("train.shard.step_time", dt,
+                                      shard=shard, step=i)
+                        sverdict = straggler.record(shard, i, dt)
+                    verdict = health.record(i, loss, bool(skips[i]))
+                    log(f"step {i:5d} loss {loss:.4f} gnorm {gnorms[i]:.3f} "
+                        f"dt {dt:.3f}s [{verdict}/{sverdict}]", flush=True)
                     obs.flush()
-            if (verdict == "restore" and ckpt
-                    and ckpt.latest_step() is not None):
-                log("health: restoring the newest checkpoint")
-                state = ckpt.restore(state)
-            if ckpt and (i + 1) % args.ckpt_every == 0:
-                save(i + 1)
-            if _agree(guard.preempted(), started, device):
-                log("preemption: saving a checkpoint and stopping")
-                if ckpt:
-                    save(i + 1)
-                status = "preempted"
+                    if straggle is not None and sverdict == "replace":
+                        # rotate the slow shard's ranks out of the next
+                        # generation
+                        row = straggle.shard % dp
+                        victims = members[row * mp:(row + 1) * mp]
+                        t_detect = (time.perf_counter()
+                                    - injector.straggle_onset())
+                        if lead:
+                            obs.span_event("elastic.detect", t_detect,
+                                           kind="straggle", step=i,
+                                           shard=row)
+                        log(f"elastic: straggler shard {row} voted REPLACE "
+                            f"at step {i} (launch ranks {victims}), "
+                            f"detected in {t_detect:.3f}s; re-planning the "
+                            "layout")
+                        injector.mark_lost(victims)
+                        injector.end_straggle()
+                        pending = {"kind": "straggle", "step": i,
+                                   "t_detect": t_detect,
+                                   "t_detected": time.perf_counter(),
+                                   "dp_from": dp}
+                        status = "fault"
+                        break
+                    if probe is not None:
+                        for phase, sec in probe.phases().items():
+                            obs.span_event(f"train.phase.{phase}", sec,
+                                           step=i)
+                        if dp > 1:
+                            obs.span_event("train.phase.psum", psum_probe(
+                                state.params.parameters(), group, device),
+                                step=i)
+                        if cfg.family == "conv":
+                            _telemetry_conv_probe(cfg, device)
+                            obs.flush()
+                    if verdict == "restore" and ckpt:
+                        step = _committed_step(ckpt, started, lead, device)
+                        if step is not None:
+                            log("health: restoring the newest checkpoint")
+                            state = ckpt.restore(state, step=step)
+                    if ckpt and lead and (i + 1) % args.ckpt_every == 0:
+                        ckpt.save_async(state, i + 1)
+                    if _agree(guard.preempted(), started, device):
+                        log("preemption: saving a checkpoint and stopping")
+                        if ckpt:
+                            save(i + 1)  # waits for the async writer first
+                        status = "preempted"
+                        break
+            finally:
+                loader.close()
+            if status != "fault":
                 break
     finally:
-        loader.close()
+        if ckpt:
+            ckpt.wait()
         guard.close()
-        obs.event("train.health.rollup", **health.rollup())
-        obs.event("train.straggler.rollup", **straggler.rollup())
+        if status not in ("lost", "idle"):
+            obs.event("train.health.rollup", **health.rollup())
+            obs.event("train.straggler.rollup", **straggler.rollup())
     if ckpt and args.steps > start and status == "done":
         save(args.steps)
+    return _summary(args, cfg, device, dict(
+        status=status, dp=dp, mp=mp, accum=accum, start=start,
+        losses=losses, gnorms=gnorms, dts=dts, skips=skips,
+        recoveries=recoveries, history=history, health=health,
+        straggler=straggler), print if lead else (lambda *a, **k: None))
 
+
+def _summary(args, cfg, device: torch.device, r: dict, log) -> dict:
+    """The run's summary: JAX's keys (``status``, ``first_step``,
+    ``last_step``, ``losses``, ``recoveries``, ``mesh_history``,
+    ``steady_step_s``, ``samples_per_s``) and the port's (``grad_norms``,
+    ``skipped_steps``, ``step_s``, ``median_step_s``, ``dp``, ``mp``,
+    ``accum``, ``health``, ``straggler``, ``tokens_per_s``,
+    ``peak_memory_gb``).  The per-step lists are in step order; a step
+    replayed after a recovery holds its last run's record."""
+    dts, history = r["dts"], r["history"]
+    # per-generation median step time without its first WARMUP_STEPS;
+    # step s belongs to the last generation whose range holds it
+    for g, entry in enumerate(history):
+        lo = entry["from_step"]
+        hi = (history[g + 1]["from_step"] if g + 1 < len(history)
+              else args.steps)
+        owned = [s for s in sorted(dts) if lo <= s < hi]
+        steady = [dts[s] for s in owned[WARMUP_STEPS:]] or \
+                 [dts[s] for s in owned]
+        entry["steps_run"] = len(owned)
+        entry["median_step_s"] = float(np.median(steady)) if steady else None
+    for k, rec in enumerate(r["recoveries"]):
+        pre = history[k]["median_step_s"]
+        post = history[k + 1]["median_step_s"]
+        rec["pre_fault_step_s"] = pre
+        rec["post_recovery_step_s"] = post
+        if pre and post:
+            # per-rank throughput kept across the shrink at a fixed global
+            # batch: (G / post / dp_to) / (G / pre / dp_from)
+            rec["post_shrink_efficiency"] = (
+                (pre * rec["dp_from"]) / (post * rec["dp_to"]))
+    steps = sorted(r["losses"])
+    losses = [r["losses"][s] for s in steps]
+    times = [dts[s] for s in steps]
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
-               "attn_impl": cfg.attn_impl, "dp": dp, "mp": mp,
-               "first_step": start, "global_batch": args.batch,
-               "seq": args.seq, "accum": args.accum, "losses": losses,
-               "grad_norms": gnorms, "skipped_steps": skipped,
-               "step_s": dts, "status": status, "health": health.rollup(),
-               "straggler": straggler.rollup()}
-    if dts:
-        measured = dts[WARMUP_STEPS:] or dts
+               "attn_impl": cfg.attn_impl, "dp": r["dp"], "mp": r["mp"],
+               "first_step": steps[0] if steps else r["start"],
+               "last_step": steps[-1] if steps else None,
+               "global_batch": args.batch, "seq": args.seq,
+               "accum": r["accum"], "losses": losses,
+               "grad_norms": [r["gnorms"][s] for s in steps],
+               "skipped_steps": sum(r["skips"].values()), "step_s": times,
+               "status": r["status"], "recoveries": r["recoveries"],
+               "mesh_history": history, "health": r["health"].rollup(),
+               "straggler": r["straggler"].rollup()}
+    if times:
+        measured = times[WARMUP_STEPS:] or times
         steady = float(np.median(measured))
-        summary.update(median_step_s=steady,
+        summary.update(median_step_s=steady, steady_step_s=steady,
                        samples_per_s=args.batch / steady)
         rate = f"{args.batch / steady:.2f} samples/s"
         if cfg.family != "conv":
@@ -394,7 +736,8 @@ def _train(args, cfg, started: bool, mp: int, group, model_group) -> dict:
 
 
 def main(argv=None) -> int:
-    """The command line: ``run``, then end a data group it started."""
+    """The command line: ``run``, then end the process group it trained
+    over."""
     try:
         run(argv)
     finally:

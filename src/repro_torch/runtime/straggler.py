@@ -11,9 +11,9 @@ What the port's launcher does with it:
   * a ``train.shard.step_time`` gauge per rank and step, and the
     verdict in the step's printed line (always);
   * after ``trip`` consecutive flags the detector recommends REPLACE;
-    swapping the slow rank out of the next mesh generation waits for the
-    port of the JAX package's elastic supervisor, so here it is a
-    recommendation only.
+    in a ``--faults`` drill every rank feeds the monitor every data
+    shard's time, and on REPLACE the supervisor rotates the straggling
+    shard's ranks out of the next generation (``launch/train.py``).
 
 The detector is deliberately stateful-but-tiny: it must never add a
 collective of its own to the hot path.

@@ -360,7 +360,8 @@ named = ["repro_torch.launch.train", "repro_torch.train.train_step",
          "repro_torch.train.data_parallel", "repro_torch.optim.compression",
          "repro_torch.obs", "repro_torch.obs.report",
          "repro_torch.obs.trace_export", "repro_torch.runtime.health",
-         "repro_torch.runtime.straggler"]
+         "repro_torch.runtime.straggler", "repro_torch.runtime.faults",
+         "repro_torch.runtime.elastic"]
 assert set(named) <= set(mods), sorted(set(named) - set(mods))
 for m in mods + named:
     importlib.import_module(m)
@@ -374,8 +375,8 @@ print(len(mods))
 
 def test_port_imports_no_jax_and_no_repro():
     """Every module of the port (the training, Mamba2, transformer,
-    data-parallel and telemetry slices' named) and chip_smoke.py import
-    without jax or any module of the JAX package."""
+    data-parallel, telemetry and elastic slices' named) and chip_smoke.py
+    import without jax or any module of the JAX package."""
     code = _HYGIENE.format(root=ROOT, src=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,

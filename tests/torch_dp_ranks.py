@@ -250,9 +250,29 @@ def job_launcher(group, rank, world, tmp, *, argv):
     return dict(runs=runs)
 
 
+def job_drills(group, rank, world, tmp, *, drills):
+    """``launch.train.run`` once per ``(name, argv)`` of ``drills``, on
+    the Function path, each over a generation 0 of all ``world`` ranks
+    started from its own file store (a drill's regroups leave the ranks
+    in different groups, or in none); each run's summary and this rank's
+    printed lines, by name."""
+    from repro_torch.launch import train
+    kernel_path()
+    out = {}
+    for name, argv in drills:
+        mesh.destroy()
+        mesh.init_data_group("gloo", f"file://{tmp}/store_{name}", world,
+                             rank)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = train.run(argv)
+        out[name] = dict(summary=summary, out=buf.getvalue())
+    return out
+
+
 JOBS = {f.__name__: f for f in (job_atacworks, job_reducer_contract,
                                 job_train, job_sharded, job_auto_keys,
-                                job_mamba2, job_launcher)}
+                                job_mamba2, job_launcher, job_drills)}
 
 
 def _rank_main(rank, world, tmp, job, payload):
