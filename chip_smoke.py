@@ -233,7 +233,28 @@ Phases (any failed check raises, so the run exits non-zero):
       microbatch step; the detect and restore times, the step medians
       before and after, ``post_shrink_efficiency`` and the phase's
       seconds are printed;
-  19. a JSON line of the six kernels, the card's line, and last the
+  19. Whisper-large-v3 at its published widths (``whisper_check``; 32 +
+      32 layers, d_model 1280, 20 heads of 64, bf16, flash), built once:
+      (a) the conv frontend on mel (8, 128, 3,000) through the kernels
+      (2 ``conv1d_fwd`` launches) against the plain version, each
+      element within TOL; 128 -> 1280 and 1280 -> 1280 (S=3, bias +
+      gelu) each checked and timed beside ``F.conv1d`` and the bound;
+      the frontend's fp32 gradient at 1 x 3,000 (4 ``conv1d_fwd``, and
+      ``conv1d_bwd_weight`` once a channel range that fits its shared
+      memory) within BWD_TOL, and ``conv1d_bwd_weight`` at both layers
+      timed beside ``torch.nn.grad.conv1d_weight`` and the bound; (b) ``serve_lm`` at batch
+      8, a 4-token prompt, 64 generated tokens, ``--smoke``: 32
+      ``flash_fwd`` launches in ``fill_cross_cache``, 64 in the fused
+      prefill, none in the decode steps, finite logits, the prefill
+      within ``serve.prefill_tol`` of the decode; encode time, decode
+      p50/p99, tokens/s, peak memory, the decode bound; (c) the launcher
+      6 steps at batch 4 x 448 (128 + 64 flash launches a step, finite,
+      none skipped; step p50, tokens/s, useful TFLOP/s, peak memory),
+      then a 2 + 2-layer fp32 copy's whole gradient over 1,500 frames
+      against plain attention; (d) both flash kernels at the encoder's
+      attention (1,500 frames, G = 1, hd 64, non-causal) against plain,
+      timed beside SDPA and the bound; the phase's seconds;
+  20. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -242,6 +263,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -413,6 +435,34 @@ TEL_TP_BATCH, TEL_TP_SEQ, TEL_TP_STEPS, TEL_HOOK_CALLS = 2, 8192, 2, 20000
 # for the parameters (PARAM_ATOL, PARAM_FLIP_FRAC)
 EL_RANKS, EL_BATCH, EL_SEQ, EL_STEPS, EL_STRAGGLE_STEPS = 4, 8, 60000, 10, 14
 EL_RTOL, EL_ATOL = 1e-3, 1e-4
+# phase 19, Whisper-large-v3 (arXiv:2212.04356) at its published widths,
+# built once in bf16 with attn_impl="flash" (random non-zero biases and
+# norms) and reused.  (a) The conv frontend on seeded mel (WH_MEL_BATCH,
+# 128, WH_MEL_T: 30 s of audio) through the kernels against the plain
+# version, each bf16 element within TOL (as phase 16's bf16 rows), each
+# of its two convolutions timed; its gradient in fp32 at WH_GRAD_MEL_BATCH
+# x WH_MEL_T within BWD_TOL (as phase 4).  (b) ``serve_lm`` at batch
+# WH_SERVE_BATCH, a WH_PROMPT-token prompt (the length of Whisper's
+# start-of-transcript sequence) and WH_GEN generated tokens.  (c) The
+# launcher WH_STEPS steps at WH_BATCH x WH_SEQ (the decoder's 448-token
+# context), then a WH_GRAD_LAYERS + WH_GRAD_LAYERS-layer fp32 copy's whole
+# gradient at WH_GRAD_BATCH x WH_GRAD_SEQ over 1,500 frames against the
+# plain attention (phase 11's rule).  (d) The flash kernels at the
+# encoder's attention (1,500 frames, 20 heads over 20 KV heads of 64,
+# bf16, non-causal): forward timed at batch WH_FA_FWD_B, backward at
+# WH_FA_BWD_B (flash_kernel_checks' rule).
+WH_ARCH = "whisper-large-v3"
+WH_MEL_BATCH, WH_MEL_T, WH_GRAD_MEL_BATCH = 8, 3000, 1
+WH_SERVE_BATCH, WH_PROMPT, WH_GEN = 8, 4, 64
+WH_BATCH, WH_SEQ, WH_STEPS = 4, 448, 6
+WH_GRAD_LAYERS, WH_GRAD_BATCH, WH_GRAD_SEQ = 2, 2, 448
+WH_FA_FWD_B, WH_FA_BWD_B = 8, 4
+# K's self-attention bias: without rotary embeddings it adds q . bk to a
+# whole row of scores, which the softmax ignores, so its exact gradient is
+# zero and both paths hold rounding noise there: held within GRAD_TOL of
+# the K projection's largest gradient
+WH_ZERO_GRAD = {"enc_layers.attn.bk": "enc_layers.attn.wk",
+                "dec_layers.attn.bk": "dec_layers.attn.wk"}
 
 
 def _card_line() -> str:
@@ -1114,7 +1164,7 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
 
 def _batch(torch, synthetic, cfg, batch, seq, seed):
     """A synthetic batch of the config's family on the card."""
-    return {k: torch.from_numpy(v).to(DEVICE) for k, v in
+    return {k: torch.as_tensor(v).to(DEVICE) for k, v in
             synthetic.make_batch(cfg, batch, seq, seed=seed).items()}
 
 
@@ -1335,18 +1385,24 @@ def _mamba2_model(torch, cfg, init_model, seed):
 
 
 def _model_grad_check(torch, losses, label, cfg, model, batch, run_kernel,
-                      run_plain, counters, expected, why, n_grads):
+                      run_plain, counters, expected, why, n_grads,
+                      scale_of=None):
     """The loss and every gradient of ``model`` on ``batch`` through the
     kernels (``run_kernel(tokens)`` -> logits) against autograd over the
     plain version (``run_plain``): the loss within LOSS_RTOL, each of the
     ``n_grads`` gradients finite and within GRAD_TOL of its leaf's
-    largest value; the kernel run must have launched ``counters``
-    ``expected`` times (``why`` says what they are)."""
+    largest value (of leaf ``scale_of[name]``'s where given: a leaf whose
+    exact gradient is zero holds rounding noise on both sides); the
+    kernel run must have launched ``counters`` ``expected`` times (``why``
+    says what they are).  A leaf the loss does not read gets zeros."""
+    from repro_torch.train.data_parallel import param_grads
+
     names, params = zip(*model.named_parameters())
+    scale_of = scale_of or {}
 
     def loss_and_grads(run):
         loss = losses.softmax_xent(run(batch["tokens"]), batch["labels"])
-        return loss.detach(), torch.autograd.grad(loss, params)
+        return loss.detach(), param_grads(loss, params)
 
     (loss_k, grads_k), launched = _counted(
         counters, lambda: loss_and_grads(run_kernel))
@@ -1365,10 +1421,18 @@ def _model_grad_check(torch, losses, label, cfg, model, batch, run_kernel,
     if len(grads_k) != n_grads:
         raise AssertionError(f"{len(grads_k)} gradients, expected {n_grads}")
     worst = (0.0, "")
+    plain = dict(zip(names, grads_p))
     for name, gk, gp in zip(names, grads_k, grads_p):
         if not torch.isfinite(gk).all():
             raise AssertionError(f"non-finite gradient of {name}")
-        _, rel = _check_close(f"{label} grad {name}", gk, gp, GRAD_TOL)
+        if name in scale_of:
+            scale = plain[scale_of[name]].float().abs().max().item()
+            rel = (gk.float() - gp.float()).abs().max().item() / scale
+            if not rel <= GRAD_TOL:
+                raise AssertionError(f"{label} grad {name}: {rel} of "
+                                     f"max|{scale_of[name]}|")
+        else:
+            _, rel = _check_close(f"{label} grad {name}", gk, gp, GRAD_TOL)
         worst = max(worst, (rel, name))
     stats = dict(layers=cfg.n_layers, d_model=cfg.d_model,
                  batch=batch["tokens"].shape[0],
@@ -1534,6 +1598,103 @@ def _flash_err_fields(errs, bf16):
     return fields
 
 
+def _flash_operands(torch, gen, B, T, KV, G, hd, dtype):
+    """Seeded q (a (B, T, KV, G, hd) view of (B, T, H, hd)), k, v and dO."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    q = rnd(B, T, KV * G, hd).view(B, T, KV, G, hd)
+    return q, rnd(B, T, KV, hd), rnd(B, T, KV, hd), rnd(B, T, KV, G, hd)
+
+
+def _flash_check(torch, fa, ref, gen, rows, label, B, T, KV, G, dtype,
+                 causal, timed=(), hd=FA_HD):
+    """One flash-check row (appended to ``rows``): ``flash_fwd`` and
+    ``flash_bwd`` against their plain versions on seeded operands, the
+    backward from the kernel's o and lse, two backward launches bitwise
+    equal, bf16 elements each within their own bound; for each pass in
+    ``timed`` ("fwd", "bwd"; True: both) device, call, plain and SDPA
+    times beside the bound."""
+    import torch.nn.functional as F
+
+    timed = ("fwd", "bwd") if timed is True else tuple(timed)
+    q, k, v, do = _flash_operands(torch, gen, B, T, KV, G, hd, dtype)
+
+    def fwd():
+        return fa.flash_fwd(q, k, v, causal=causal)
+
+    o, lse = fwd()
+
+    def bwd():
+        return fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
+
+    grads, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{label}: two flash_bwd launches differ")
+    o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=causal)
+    grads_p = ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    bf16 = dtype == torch.bfloat16
+    pairs = dict(o=(o, o_p), **{n: (g, gp) for n, g, gp in zip(
+        ("dq", "dk", "dv"), grads, grads_p)})
+    errs = _flash_errs(label, pairs, lse, lse_p, bf16)
+    del o_p, lse_p, grads_p, again, pairs
+    dtype_name = str(dtype).removeprefix("torch.")
+    row = dict(shape=label, B=B, T=T, H=KV * G, KV=KV, hd=hd,
+               dtype=dtype_name, causal=causal,
+               **_flash_err_fields(errs, bf16),
+               bitwise_two_bwd_launches=True, ok=True)
+    if timed:
+        H, es = KV * G, q.element_size()
+        big, small = B * T * H * hd, B * T * KV * hd
+        # fwd: q, k, v in, o and lse out; bwd: q, k, v, o, do, lse in,
+        # dq, dk, dv out (delta is computed inside the call)
+        f_bytes = (2 * big + 2 * small) * es + B * T * H * 4
+        b_bytes = (4 * big + 4 * small) * es + B * T * H * 4
+        qt, kt, vt = (t.transpose(1, 2) for t in (
+            q.reshape(B, T, H, hd), k, v))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        o_lib = F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=causal, enable_gqa=True)
+        do_lib = do.reshape(B, T, H, hd).transpose(1, 2)
+
+        def lib_bwd():
+            return torch.autograd.grad(o_lib, (qg, kg, vg), do_lib,
+                                       retain_graph=True)
+
+        for name, kern, plain, lib, products, nbytes in (
+                ("fwd", fwd, lambda: ref.flash_fwd_ref(
+                    q, k, v, causal=causal), lib_fwd, 2, f_bytes),
+                ("bwd", bwd, lambda: ref.flash_bwd_ref(
+                    q, k, v, o, lse, do, causal=causal), lib_bwd, 5,
+                 b_bytes)):
+            if name not in timed:
+                continue
+            row[f"{name}_kernel_ms"] = _device_ms(kern, per_graph=2,
+                                                  reps=3)
+            row[f"{name}_kernel_call_ms"] = _call_ms(kern, reps=5)
+            row[f"{name}_plain_ms"] = _call_ms(plain, reps=3)
+            row[f"{name}_library_ms"] = _call_ms(lib, reps=5)
+            (row[f"{name}_bound_ms"],
+             row[f"{name}_bound_by"]) = _attn_bound(
+                B, T, H, KV, hd, causal, dtype_name, products, nbytes)
+            # the bound's flops over the kernel's time, and its share
+            # of the bound
+            n_pairs = T * (T + 1) // 2 if causal else T * T
+            row[f"{name}_tflops"] = (2.0 * products * B * H * hd * n_pairs
+                                     / row[f"{name}_kernel_ms"] / 1e9)
+            row[f"{name}_bound_share"] = (row[f"{name}_bound_ms"]
+                                          / row[f"{name}_kernel_ms"])
+        del o_lib
+    rows.append(row)
+    print("flash-check " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+
+
 def flash_kernel_checks(torch, fa, ref):
     """Phase 10: ``flash_fwd`` and ``flash_bwd`` against their plain
     versions at StarCoder2-3B's attention in the training cell (batch 4 x
@@ -1545,94 +1706,10 @@ def flash_kernel_checks(torch, fa, ref):
     offset at head_dim 64, and forward and backward with fewer queries
     than keys.  Device, call, plain and library times
     beside the bound at the cell's shape."""
-    import torch.nn.functional as F
-
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(41)
     rows = []
-
-    def operands(B, T, KV, G, hd, dtype):
-        def rnd(*shape):
-            return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-        q = rnd(B, T, KV * G, hd).view(B, T, KV, G, hd)
-        return q, rnd(B, T, KV, hd), rnd(B, T, KV, hd), rnd(B, T, KV, G, hd)
-
-    def check(label, B, T, KV, G, dtype, causal, timed=False, hd=FA_HD):
-        q, k, v, do = operands(B, T, KV, G, hd, dtype)
-
-        def fwd():
-            return fa.flash_fwd(q, k, v, causal=causal)
-
-        o, lse = fwd()
-
-        def bwd():
-            return fa.flash_bwd(q, k, v, o, lse, do, causal=causal)
-
-        grads, again = bwd(), bwd()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            raise AssertionError(f"{label}: two flash_bwd launches differ")
-        o_p, lse_p = ref.flash_fwd_ref(q, k, v, causal=causal)
-        grads_p = ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
-        bf16 = dtype == torch.bfloat16
-        pairs = dict(o=(o, o_p), **{n: (g, gp) for n, g, gp in zip(
-            ("dq", "dk", "dv"), grads, grads_p)})
-        errs = _flash_errs(label, pairs, lse, lse_p, bf16)
-        del o_p, lse_p, grads_p, again, pairs
-        dtype_name = str(dtype).removeprefix("torch.")
-        row = dict(shape=label, B=B, T=T, H=KV * G, KV=KV, hd=hd,
-                   dtype=dtype_name, causal=causal,
-                   **_flash_err_fields(errs, bf16),
-                   bitwise_two_bwd_launches=True, ok=True)
-        if timed:
-            H, es = KV * G, q.element_size()
-            big, small = B * T * H * hd, B * T * KV * hd
-            # fwd: q, k, v in, o and lse out; bwd: q, k, v, o, do, lse in,
-            # dq, dk, dv out (delta is computed inside the call)
-            f_bytes = (2 * big + 2 * small) * es + B * T * H * 4
-            b_bytes = (4 * big + 4 * small) * es + B * T * H * 4
-            qt, kt, vt = (t.transpose(1, 2) for t in (
-                q.reshape(B, T, H, hd), k, v))
-            qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-
-            def lib_fwd():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)
-
-            o_lib = F.scaled_dot_product_attention(
-                qg, kg, vg, is_causal=causal, enable_gqa=True)
-            do_lib = do.reshape(B, T, H, hd).transpose(1, 2)
-
-            def lib_bwd():
-                return torch.autograd.grad(o_lib, (qg, kg, vg), do_lib,
-                                           retain_graph=True)
-
-            for name, kern, plain, lib, products, nbytes in (
-                    ("fwd", fwd, lambda: ref.flash_fwd_ref(
-                        q, k, v, causal=causal), lib_fwd, 2, f_bytes),
-                    ("bwd", bwd, lambda: ref.flash_bwd_ref(
-                        q, k, v, o, lse, do, causal=causal), lib_bwd, 5,
-                     b_bytes)):
-                row[f"{name}_kernel_ms"] = _device_ms(kern, per_graph=2,
-                                                      reps=3)
-                row[f"{name}_kernel_call_ms"] = _call_ms(kern, reps=5)
-                row[f"{name}_plain_ms"] = _call_ms(plain, reps=3)
-                row[f"{name}_library_ms"] = _call_ms(lib, reps=5)
-                (row[f"{name}_bound_ms"],
-                 row[f"{name}_bound_by"]) = _attn_bound(
-                    B, T, H, KV, hd, causal, dtype_name, products, nbytes)
-                # the bound's flops over the kernel's time, and its share
-                # of the bound
-                n_pairs = T * (T + 1) // 2 if causal else T * T
-                row[f"{name}_tflops"] = (2.0 * products * B * H * hd * n_pairs
-                                         / row[f"{name}_kernel_ms"] / 1e9)
-                row[f"{name}_bound_share"] = (row[f"{name}_bound_ms"]
-                                              / row[f"{name}_kernel_ms"])
-            del o_lib
-        rows.append(row)
-        print("flash-check " + json.dumps(row), flush=True)
-        torch.cuda.empty_cache()
-
+    check = functools.partial(_flash_check, torch, fa, ref, gen, rows)
     bf16, f32 = torch.bfloat16, torch.float32
     check(f"cell B={FA_B} T={FA_T} KV={FA_KV} G={FA_G} bf16 causal", FA_B,
           FA_T, FA_KV, FA_G, bf16, True, timed=True)
@@ -1688,15 +1765,16 @@ def flash_kernel_checks(torch, fa, ref):
 
 
 def _lm_model(torch, cfg, init_model, seed):
-    """StarCoder2 from a seed with random non-zero biases and norm
-    parameters (zeros and ones at init would leave those paths
+    """StarCoder2 or Whisper from a seed with random non-zero biases and
+    norm parameters (zeros and ones at init would leave those paths
     untested)."""
     model = init_model(cfg, seed=seed, device=DEVICE)
     gen = torch.Generator().manual_seed(seed + 100)
+    stacks = ("dense_layers.", "enc_layers.", "dec_layers.")
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() > 2 or (p.dim() == 2 and "dense_layers" not in name):
-                continue  # projections and the embedding keep their init
+            if p.dim() > 2 or (p.dim() == 2 and not name.startswith(stacks)):
+                continue  # projections, taps and the embeddings keep theirs
             noise = 0.1 * torch.randn(p.shape, generator=gen)
             p.copy_(p + noise.to(p.device, p.dtype))
     return model
@@ -3779,6 +3857,327 @@ def elastic_check(torch, np, train):
     return stats
 
 
+def _wh_frontend(torch, ref, conv1d_brgemm, whisper, model, counters):
+    """Phase 19 (a): Whisper's conv frontend (128 -> 1280 and 1280 -> 1280,
+    S=3, d=1, SAME, bias + gelu) on seeded bf16 mel (WH_MEL_BATCH, 128,
+    WH_MEL_T) through ``whisper.conv_frontend`` (2 ``conv1d_fwd``
+    launches) against the plain version, each element within TOL; each
+    convolution alone on the same input, checked and timed beside
+    ``F.conv1d`` and two bounds (the bf16 operands at the tensor cores'
+    peak; the fp32 FMAs the kernel's body runs at 67 TFLOP/s); then the
+    frontend's gradient in fp32 at WH_GRAD_MEL_BATCH x WH_MEL_T through
+    ``Conv1dFunction`` (gelu preact, bwd-data through ``conv1d_fwd``,
+    ``conv1d_bwd_weight`` with dbias, a launch a channel range where the
+    channels do not fit its shared memory at once) against autograd over
+    the plain version, each within BWD_TOL of its largest value; and
+    ``conv1d_bwd_weight`` at those two layers timed beside the plain
+    version, ``torch.nn.grad.conv1d_weight`` and phase 4's two bounds."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(192)
+    N, M, T, D = WH_MEL_BATCH, whisper.N_MELS, WH_MEL_T, cfg.d_model
+    p = {k: t.detach() for k, t in model.frontend.named_parameters()}
+    mel = torch.randn((N, M, T), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    atol, rtol = TOL["bfloat16"]
+
+    def within_tol(label, got, want):
+        diff = (got.float() - want.float()).abs()
+        if not bool((diff <= atol + rtol * want.float().abs()).all()):
+            raise AssertionError(f"{label}: an output is over {atol} + "
+                                 f"{rtol} x |plain| from plain")
+        scale = max(want.float().abs().max().item(), 1e-30)
+        return dict(max_abs_err=diff.max().item(),
+                    max_rel_diff=diff.max().item() / scale, atol=atol,
+                    rtol=rtol, **_bf16_ulps(torch, got, want))
+
+    with torch.no_grad():
+        got, launched = _counted(
+            counters, lambda: whisper.conv_frontend(p, mel, cfg))
+        want = whisper.conv_frontend(p, mel, cfg, backend="ref")
+    torch.cuda.synchronize()
+    if launched != {**{k: 0 for k in launched}, "conv1d_fwd": 2}:
+        raise AssertionError(f"conv_frontend launched {launched}; "
+                             "expected 2 conv1d_fwd")
+    if tuple(got.shape) != (N, T // 2, D) or got.dtype != mel.dtype:
+        raise AssertionError(f"frames {tuple(got.shape)} {got.dtype}")
+    out = dict(shape=f"frontend mel N={N} M={M} T={T} bf16",
+               launches=launched, **within_tol("frontend", got, want))
+    del got, want
+    rows, x = [], mel
+    for name, w, b in (("conv1", p["conv1_w"], p["conv1_b"]),
+                       ("conv2", p["conv2_w"], p["conv2_b"])):
+        S, K, C = w.shape
+        xp = F.pad(x, (1, 1)).contiguous()
+        w_kcs = w.permute(1, 2, 0).contiguous()
+
+        def kern(xp=xp, w=w, b=b):
+            return conv1d_brgemm.conv1d_fwd(xp, w, bias=b, activation="gelu")
+
+        def plain(xp=xp, w=w, b=b):
+            return ref.conv1d_fused_ref(xp, w, bias=b, activation="gelu")
+
+        def library(xp=xp, w_kcs=w_kcs, b=b):
+            return F.conv1d(xp, w_kcs, b)
+
+        y = kern()
+        label = f"whisper {name} b+gelu {C}->{K} S={S} N={N} Q={T} bf16"
+        row = dict(shape=label, **within_tol(label, y, plain()),
+                   tile=_fwd_tile(conv1d_brgemm, N, C, K, S, T + 2, 1),
+                   kernel_ms=_device_ms(kern),
+                   plain_ms=_device_ms(plain, per_graph=2),
+                   library_ms=_device_ms(library), call_ms=_call_ms(kern))
+        flop = 2.0 * N * K * C * S * T
+        nbytes = (N * C * (T + 2) + S * K * C + K + N * K * T) * 2
+        row["bound_ms"], row["bound_by"] = roofline.bound(flop, nbytes,
+                                                          "bfloat16")
+        row["fma_bound_ms"], row["fma_bound_by"] = roofline.bound(
+            flop, nbytes, "float32")
+        _rates(row, flops=flop)
+        row["fma_bound_share"] = row["fma_bound_ms"] / row["kernel_ms"]
+        rows.append(row)
+        print("whisper-frontend-kernel " + json.dumps(row), flush=True)
+        x = y
+    del x, y
+    out["rows"] = rows
+
+    p32 = {k: t.float().requires_grad_() for k, t in p.items()}
+    Ng = WH_GRAD_MEL_BATCH
+    mel32 = torch.randn((Ng, M, T), generator=gen,
+                        device=DEVICE).requires_grad_()
+    cot = torch.randn((Ng, T // 2, D), generator=gen, device=DEVICE)
+    leaves = {"mel": mel32, **p32}
+
+    def grads(backend):
+        y = whisper.conv_frontend(p32, mel32, cfg, backend=backend)
+        return torch.autograd.grad((y * cot).sum(), list(leaves.values()))
+
+    got, launched = _counted(counters, lambda: grads(None))
+    want = grads("ref")
+    torch.cuda.synchronize()
+    # conv1d_bwd_weight stages every channel of a column tile: where they
+    # do not fit, the wrapper takes the channels in ranges, a launch each
+    ranges = {name: conv1d_brgemm.channel_ranges(
+        C, lambda c, C=C: conv1d_brgemm.bwd_weight_body(
+            Ng, c, D, 3, T + 2, 1) is not None)
+        for name, C in (("conv1", M), ("conv2", D))}
+    n_bw = sum(len(r) for r in ranges.values())
+    if launched != {**{k: 0 for k in launched}, "conv1d_fwd": 4,
+                    "conv1d_bwd_weight": n_bw}:
+        raise AssertionError(f"the frontend's gradient launched {launched};"
+                             " expected 4 conv1d_fwd (2 forward, 2 "
+                             f"bwd-data) and {n_bw} conv1d_bwd_weight (the "
+                             f"channel ranges {ranges})")
+    tol = BWD_TOL["float32"]
+    errs = {k: _check_close(f"frontend grad {k}", g, w, tol)
+            for k, g, w in zip(leaves, got, want)}
+    out["grad"] = dict(shape=f"frontend grad N={Ng} T={T} fp32",
+                       launches=launched, bwd_weight_channel_ranges=ranges,
+                       tol_rel_to_max_plain=tol,
+                       max_abs_err={k: e[0] for k, e in errs.items()},
+                       max_rel_diff={k: e[1] for k, e in errs.items()})
+    del got, want, grads, leaves, p32, mel32
+    # conv1d_bwd_weight (with dbias) at the gradient's two layers, timed
+    # beside the plain version, cuDNN's weight gradient and both bounds
+    # (phase 4's: three TF32 terms of the GEMM, and fp32 FMAs)
+    bw_rows = []
+    for name, C in (("conv1", M), ("conv2", D)):
+        x = torch.randn((Ng, C, T + 2), generator=gen, device=DEVICE)
+        g = torch.randn((Ng, D, T), generator=gen, device=DEVICE)
+
+        def kern(x=x, g=g):
+            return conv1d_brgemm.conv1d_bwd_weight(x, g, S=3, dilation=1,
+                                                   with_dbias=True)
+
+        def plain(x=x, g=g):
+            return (ref.conv1d_bwd_weight_ref(x, g, dilation=1),
+                    ref.conv1d_dbias_ref(g))
+
+        def library(x=x, g=g, C=C):
+            return torch.nn.grad.conv1d_weight(x, (D, C, 3), g)
+
+        label = f"whisper {name} bwd_weight {C}->{D} S=3 N={Ng} Q={T} fp32"
+        e = [_check_close(f"{label} {part}", a, b, tol)
+             for part, a, b in zip(("dw", "dbias"), kern(), plain())]
+        row = dict(shape=label, channel_ranges=len(ranges[name]),
+                   max_abs_err=max(v[0] for v in e),
+                   max_rel_diff=max(v[1] for v in e),
+                   tol_rel_to_max_plain=tol, kernel_ms=_device_ms(kern),
+                   plain_ms=_device_ms(plain, per_graph=2),
+                   library_ms=_device_ms(library))
+        flop = 2.0 * Ng * C * D * 3 * T
+        nbytes = (Ng * C * (T + 2) + Ng * D * T + 3 * D * C + D) * 4
+        row["bound_ms"], row["bound_by"] = roofline.bound(
+            roofline.tf32_flops(Ng, C, D, 3, T), nbytes, "tf32")
+        row["fma_bound_ms"], row["fma_bound_by"] = roofline.bound(
+            flop, nbytes, "float32")
+        _rates(row, flops=flop)
+        row["fma_bound_share"] = row["fma_bound_ms"] / row["kernel_ms"]
+        bw_rows.append(row)
+        print("whisper-frontend-kernel " + json.dumps(row), flush=True)
+    out["bwd_weight_rows"] = bw_rows
+    print("whisper-frontend " + json.dumps(out), flush=True)
+    return out
+
+
+def _wh_serve(torch, serve, model, counters):
+    """Phase 19 (b): ``serve_lm`` on the model (``--smoke``: the fused
+    prefill held to the decode's logits within ``serve.prefill_tol``),
+    launches counted around ``fill_cross_cache`` (32 ``flash_fwd``: the
+    encoder), the fused prefill (64: encoder and decoder) and the rest
+    (the decode steps: none); encode time, decode p50/p99, tokens/s, peak
+    memory and the decode step's bound."""
+    cfg = model.cfg
+    args = serve.parse_args([
+        "--arch", WH_ARCH, "--batch", str(WH_SERVE_BATCH), "--prompt-len",
+        str(WH_PROMPT), "--gen", str(WH_GEN), "--seed", "193", "--smoke"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model_bytes = sum(t.numel() * t.element_size() for t in
+                      (*model.parameters(), *model.buffers()))
+    marks = {}
+
+    def marked(key, fn):
+        def run(*a, **k):
+            before = {c.__name__: c.launches for c in counters}
+            result = fn(*a, **k)
+            marks[key] = {c.__name__: c.launches - before[c.__name__]
+                          for c in counters}
+            marks[key + "_result"] = result
+            return result
+        return run
+
+    real = serve.fill_cross_cache, serve.prefill_gap
+    serve.fill_cross_cache = marked("fill", real[0])
+    serve.prefill_gap = marked("prefill", real[1])
+    try:
+        stats, launched = _counted(counters,
+                                   lambda: serve.serve_lm(args, cfg, model))
+    finally:
+        serve.fill_cross_cache, serve.prefill_gap = real
+    peak = (torch.cuda.max_memory_allocated() - held + model_bytes) / 1e9
+    decode = {k: n - marks["fill"][k] - marks["prefill"][k]
+              for k, n in launched.items()}
+    L, Le = cfg.n_layers, cfg.n_encoder_layers
+    for key, got, n in (("fill_cross_cache", marks["fill"], Le),
+                        ("fused prefill", marks["prefill"], Le + L),
+                        ("decode steps", decode, 0)):
+        if got != {**{k: 0 for k in got}, "flash_fwd": n}:
+            raise AssertionError(f"whisper {key} launched {got}; expected "
+                                 f"{n} flash_fwd and nothing else")
+    if not bool(torch.isfinite(stats["prompt_logits"]).all()):
+        raise AssertionError("whisper: non-finite logits")
+    gap = marks["prefill_result"]
+    kv_len = WH_PROMPT + WH_GEN // 2  # the generated steps' middle
+    bound = _decode_bound(cfg, WH_SERVE_BATCH, kv_len,
+                          serve.lm_cache_dtype(cfg))
+    out = dict(arch=WH_ARCH, batch=WH_SERVE_BATCH, prompt_len=WH_PROMPT,
+               gen=WH_GEN, frames=list(stats["frames"].shape),
+               dtype=cfg.dtype, cache_dtype=stats["cache_dtype"],
+               encode_s=stats["encode_s"],
+               sequential_prefill_s=stats["prefill_s"],
+               step_p50_ms=stats["step_p50_ms"],
+               step_p99_ms=stats["step_p99_ms"],
+               tokens_per_s=stats["tokens_per_s"],
+               fill_launches=marks["fill"],
+               prefill_launches=marks["prefill"], decode_launches=decode,
+               prefill_vs_decode=gap, peak_memory_gb=peak,
+               model_gb=model_bytes / 1e9, decode_bound_at_kv_len=kv_len,
+               **bound,
+               decode_bound_share=bound["bound_ms"] / stats["step_p50_ms"])
+    print("whisper-serve " + json.dumps(out), flush=True)
+    return out
+
+
+def _wh_flash_rows(torch, fa, ref, cfg):
+    """Phase 19 (d): ``flash_fwd`` and ``flash_bwd`` at the encoder's
+    attention (``cfg``'s 1,500 frames, 20 heads over 20 KV heads of 64,
+    bf16, non-causal; G = 1, the last key tile ragged), each against its
+    plain version by ``flash_kernel_checks``' rule; the forward timed at
+    batch WH_FA_FWD_B, the backward at WH_FA_BWD_B, beside SDPA and the
+    bound."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(197)
+    rows = []
+    T, H, hd = cfg.encoder_width, cfg.n_heads, cfg.head_dim
+    for B, passes in ((WH_FA_FWD_B, ("fwd",)), (WH_FA_BWD_B, ("bwd",))):
+        _flash_check(torch, fa, ref, gen, rows,
+                     f"whisper encoder B={B} T={T} H={H} KV={H} hd={hd} "
+                     "bf16 non-causal", B, T, H, 1, torch.bfloat16, False,
+                     timed=passes, hd=hd)
+    return rows
+
+
+def whisper_check(torch, np, configs, init_model, serve, train, synthetic,
+                  losses, ref, conv1d_brgemm, fa):
+    """Phase 19: Whisper-large-v3 on the card (see WH_*): the model built
+    once (bf16, flash), the frontend (``_wh_frontend``), serving
+    (``_wh_serve``), then training through the launcher (128 + 64 flash
+    launches a step: 64 forward, 64 remat recompute, 64 backward), the
+    2 + 2-layer fp32 gradient and the encoder's flash rows."""
+    import dataclasses
+
+    from repro_torch.models import whisper
+
+    t0 = time.perf_counter()
+    counters = _counters(conv1d_brgemm, fa)
+    cfg = dataclasses.replace(configs.get(WH_ARCH), attn_impl="flash")
+    model = _lm_model(torch, cfg, init_model, seed=191)
+    out = dict(init_s=time.perf_counter() - t0)
+    out["frontend"] = _wh_frontend(torch, ref, conv1d_brgemm, whisper, model,
+                                   counters)
+    out["serve"] = _wh_serve(torch, serve, model, counters)
+    del model
+    torch.cuda.empty_cache()
+    n = cfg.n_layers + cfg.n_encoder_layers
+    out["train"] = _train_check(
+        np, train, "whisper",
+        ["--arch", WH_ARCH, "--attn-impl", "flash", "--steps",
+         str(WH_STEPS), "--batch", str(WH_BATCH), "--seq", str(WH_SEQ)],
+        WH_STEPS, counters, (0, 0, 0, 0, 2 * n, n), LM_MEMORY_LIMIT_GB)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gcfg = dataclasses.replace(cfg, n_layers=WH_GRAD_LAYERS,
+                               n_encoder_layers=WH_GRAD_LAYERS,
+                               dtype="float32")
+    gmodel = _lm_model(torch, gcfg, init_model, seed=195)
+    batch = _batch(torch, synthetic, gcfg, WH_GRAD_BATCH, WH_GRAD_SEQ, 196)
+
+    def run(attn_impl):
+        def logits(tokens):
+            gmodel.cfg = dataclasses.replace(gcfg, attn_impl=attn_impl)
+            return gmodel(tokens, frames=batch["frames"])
+        return logits
+
+    g = 2 * WH_GRAD_LAYERS
+    out["grad"] = _model_grad_check(
+        torch, losses, "whisper", gcfg, gmodel, batch, run("flash"),
+        run("chunked"), (fa.flash_fwd, fa.flash_bwd), (2 * g, g),
+        "encoder and decoder forward and remat recompute; backward", 52,
+        scale_of=WH_ZERO_GRAD)
+    del gmodel, batch
+    torch.cuda.empty_cache()
+    out["flash_rows"] = _wh_flash_rows(torch, fa, ref, cfg)
+    out["seconds"] = time.perf_counter() - t0
+    s, t, f = out["serve"], out["train"], out["frontend"]["rows"]
+    print(f"whisper: phase 19 in {out['seconds']:.1f} s (model built in "
+          f"{out['init_s']:.1f} s); frontend conv1 {f[0]['kernel_ms']:.4f}"
+          f" ms, conv2 {f[1]['kernel_ms']:.4f} ms (F.conv1d "
+          f"{f[0]['library_ms']:.4f}, {f[1]['library_ms']:.4f}); serving: "
+          f"encode {s['encode_s']:.3f} s, decode p50 "
+          f"{s['step_p50_ms']:.3f} ms, p99 {s['step_p99_ms']:.3f} ms, "
+          f"{s['tokens_per_s']:.1f} tokens/s, peak {s['peak_memory_gb']:.2f}"
+          f" GB, bound {s['bound_ms']:.4f} ms; training: step p50 "
+          f"{t['step_p50_ms']:.1f} ms, {t['tokens_per_s']:.0f} tokens/s, "
+          f"{t['model_tflops_per_s']:.1f} TFLOP/s, peak "
+          f"{t['peak_memory_gb']:.2f} GB", flush=True)
+    return out
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -4033,6 +4432,9 @@ def main(argv=None) -> int:
     tel = telemetry_check(torch, np, configs, blocks, serve, train, ops,
                           conv1d_brgemm, rows, bwd_rows)
     elastic = elastic_check(torch, np, train)
+    wh = whisper_check(torch, np, configs, init_model, serve, train,
+                       synthetic, losses, ref, conv1d_brgemm,
+                       flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -4270,6 +4672,38 @@ def main(argv=None) -> int:
             launches_per_step=lm_train["launches_per_step"][name]))
     flash_entries[0]["prefill"] = _prefill_entry(lm_serve, "starcoder2",
                                                  "flash_fwd", 1)
+    # phase 19: Whisper's frontend convs and its encoder's attention
+    row_keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_share", "max_abs_err")
+    wh_front = wh["frontend"]
+    fwd_entry["whisper"] = dict(
+        launches_per_frontend=wh_front["launches"]["conv1d_fwd"],
+        launches_per_frontend_grad=wh_front["grad"]["launches"][
+            "conv1d_fwd"],
+        **{r["shape"].split()[1]: {k: r[k] for k in row_keys + (
+            "fma_bound_ms", "fma_bound_share", "tile", "call_ms",
+            "differ_share", "max_ulps")} for r in wh_front["rows"]})
+    bw_entry["whisper"] = dict(
+        launches_per_frontend_grad=wh_front["grad"]["launches"][
+            "conv1d_bwd_weight"],
+        max_rel_diff=max(v for k, v in wh_front["grad"][
+            "max_rel_diff"].items() if k.endswith("_w")),
+        **{r["shape"].split()[1]: {k: r[k] for k in row_keys + (
+            "fma_bound_ms", "fma_bound_share", "channel_ranges")}
+           for r in wh_front["bwd_weight_rows"]})
+    launches_wh = wh["train"]["launches_per_step"]
+    for entry, pas in zip(flash_entries, ("fwd", "bwd")):
+        r = next(r for r in wh["flash_rows"] if f"{pas}_kernel_ms" in r)
+        entry["whisper"] = dict(
+            launches_per_train_step=launches_wh[entry["name"]],
+            **{k: r.get(f"{pas}_{k}", r.get(k)) for k in (
+                "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_share", "tflops")})
+    flash_entries[0]["whisper"].update(
+        launches_per_fill_cross_cache=wh["serve"]["fill_launches"][
+            "flash_fwd"],
+        launches_per_prefill=wh["serve"]["prefill_launches"]["flash_fwd"],
+        launches_in_decode=wh["serve"]["decode_launches"]["flash_fwd"])
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     if args.out:
@@ -4289,7 +4723,8 @@ def main(argv=None) -> int:
                            starcoder2_train=lm_train,
                            starcoder2_profile=lm_prof, sweep=sweep_res,
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
-                           elastic=elastic, kernels=kernels), f, indent=1,
+                           elastic=elastic, whisper=wh,
+                           kernels=kernels), f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,9 +2,10 @@
 ``ModelConfig`` (``repro/configs/base.py``) that the ported families read,
 and its registry.
 
-The conv family (AtacWorks), the SSM family (Mamba2) and the dense
-transformers (StarCoder2, Qwen2, Qwen3) are ported.  The other families
-raise ``NotImplementedError`` that names the ROADMAP queue they wait in.
+The conv family (AtacWorks), the SSM family (Mamba2), the dense
+transformers (StarCoder2, Qwen2, Qwen3) and the encoder-decoder family
+(Whisper) are ported.  The other families (MoE, MLA, VLM, hybrid) raise
+``NotImplementedError`` that names the ROADMAP queue they wait in.
 """
 from __future__ import annotations
 
@@ -12,13 +13,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Literal, Optional
 
-Family = Literal["conv", "ssm", "dense"]
+Family = Literal["conv", "ssm", "dense", "encdec"]
 
 # Architectures of the JAX package whose families the port does not have
-# yet (ROADMAP.md, queue A: MoE, MLA, VLM, hybrid and encoder-decoder).
+# yet (ROADMAP.md, queue A: MoE, MLA, VLM and hybrid).
 NOT_PORTED = (
-    "deepseek-v3-671b", "internvl2-2b", "moonshot-v1-16b-a3b",
-    "whisper-large-v3", "zamba2-7b",
+    "deepseek-v3-671b", "internvl2-2b", "moonshot-v1-16b-a3b", "zamba2-7b",
 )
 
 
@@ -38,7 +38,8 @@ class SSMConfig:
 class ModelConfig:
     name: str
     family: Family
-    # language models (the SSM and dense families)
+    # language models (the SSM, dense and encoder-decoder families);
+    # n_layers counts the decoder's layers of an encoder-decoder
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -56,9 +57,14 @@ class ModelConfig:
     mlp_act: str = "swiglu"      # 'swiglu' | 'gelu' (tanh form)
     mlp_bias: bool = False
     tie_embeddings: bool = False
-    pos_embedding: str = "rope"  # 'rope' | 'none' are ported
+    # 'rope' | 'sinusoidal' | 'learned' | 'none'
+    pos_embedding: str = "rope"
     max_position: int = 1 << 20
     ssm: Optional[SSMConfig] = None
+    # encoder-decoder (Whisper): encoder layers, and the frames the
+    # encoder takes (the conv frontend's output width)
+    n_encoder_layers: int = 0
+    encoder_width: int = 0
     # conv nets (AtacWorks)
     conv_channels: int = 0
     conv_filter: int = 0
@@ -99,9 +105,10 @@ def get(name: str) -> ModelConfig:
         raise NotImplementedError(
             f"{name!r} is not ported to repro_torch yet: only the conv "
             "family (atacworks, atacworks-bf16), the SSM family "
-            "(mamba2-370m) and the dense transformers (starcoder2-3b, "
-            "qwen2-7b, qwen3-8b, qwen3-14b) are; the other families wait "
-            "in ROADMAP.md queue A")
+            "(mamba2-370m), the dense transformers (starcoder2-3b, "
+            "qwen2-7b, qwen3-8b, qwen3-14b) and the encoder-decoder "
+            "(whisper-large-v3) are; the other families wait in ROADMAP.md "
+            "queue A")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {names()}")
     return _REGISTRY[name]
@@ -114,10 +121,13 @@ def names() -> list[str]:
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests, fp32.  Conv: C <= 8,
-    S <= 9 (the stack keeps its 25 layers).  SSM and dense: the JAX
-    package's reduction (2 layers, d_model 64, vocab <= 256, remat off;
-    SSM: d_state 16, head_dim 8, chunk 16; dense: 4 heads over <= 2 KV
-    heads of 16, d_ff 128, max_position 4096, attn_chunk 64)."""
+    S <= 9 (the stack keeps its 25 layers).  SSM, dense and
+    encoder-decoder: the JAX package's reduction (2 layers, d_model 64,
+    vocab <= 256, remat off; SSM: d_state 16, head_dim 8, chunk 16; dense
+    and encoder-decoder: 4 heads over <= 2 KV heads of 16, d_ff 128,
+    max_position 4096, attn_chunk 64; encoder-decoder also 2 encoder
+    layers over 64 frames, so its self-attention groups 2 query heads a
+    KV head while its cross-attention keeps the 4 heads)."""
     small: dict = dict(dtype="float32")
     if cfg.family == "conv":
         small.update(conv_channels=min(cfg.conv_channels, 8),
@@ -127,15 +137,18 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                      vocab_size=min(cfg.vocab_size, 256), remat=False,
                      ssm=dataclasses.replace(cfg.ssm, d_state=16,
                                              head_dim=8, chunk=16))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "encdec"):
         small.update(n_layers=min(cfg.n_layers, 2), d_model=64, n_heads=4,
                      n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
                      d_ff=128, vocab_size=min(cfg.vocab_size, 256),
                      max_position=4096, remat=False, attn_chunk=64)
+    if cfg.family == "encdec":
+        small.update(n_encoder_layers=2, encoder_width=64)
     small.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)
 
 
 def _load_all() -> None:
     from . import (atacworks, mamba2_370m, qwen2_7b,  # noqa: F401
-                   qwen3_8b, qwen3_14b, starcoder2_3b)  # (register on import)
+                   qwen3_8b, qwen3_14b, starcoder2_3b,  # (register on import)
+                   whisper_large_v3)

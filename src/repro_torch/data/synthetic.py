@@ -1,15 +1,19 @@
-"""Synthetic data of the conv, SSM and dense families (counterpart of the
-conv and LM parts of ``repro/data/synthetic.py``).
+"""Synthetic data of the conv, SSM, dense and encoder-decoder families
+(counterpart of the conv, LM and encoder-decoder parts of
+``repro/data/synthetic.py``).
 
 The real ATAC-seq data behind the paper's end-to-end experiments is
 access-controlled, so training runs on synthetic coverage tracks with
 matched shape statistics: Poisson-like counts, sparse smoothed peaks,
 50k-wide segments padded by 5k on both sides (paper §4.2).
-``atacseq_batch`` and ``lm_batch`` (uniform random tokens) are the JAX
+``atacseq_batch``, ``lm_batch`` (uniform random tokens) and
+``encdec_batch`` (tokens, then standard-normal frames) are the JAX
 package's functions line for line, with the same numpy generator calls,
-so one seed gives the same batch in both packages.  ``SyntheticLoader``
-makes batches on a producer thread and moves them to the device while the
-step runs (token batches keep JAX's int32).
+so one seed gives the same batch in both packages.  A batch's leaves are
+numpy arrays, except the frames, a tensor in the config's dtype (numpy
+has no bfloat16).  ``SyntheticLoader`` makes batches on a producer thread
+and moves them to the device while the step runs (token batches keep
+JAX's int32).
 """
 from __future__ import annotations
 
@@ -56,17 +60,32 @@ def lm_batch(rng: np.random.Generator, cfg, batch: int, seq: int) -> dict:
             "labels": toks[:, 1:].astype(np.int32)}
 
 
+def encdec_batch(rng: np.random.Generator, cfg, batch: int,
+                 seq: int) -> dict:
+    """``lm_batch``'s tokens and labels (B, seq) from one draw, then
+    ``'frames'`` (B, encoder_width, d_model): standard-normal fp32 draws
+    cast to the config's dtype, as a tensor."""
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1), dtype=np.int64)
+    frames = rng.standard_normal(
+        (batch, cfg.encoder_width, cfg.d_model)).astype(np.float32)
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+            "frames": torch.from_numpy(frames).to(getattr(torch, cfg.dtype))}
+
+
 def make_batch(cfg, batch: int, seq: int, seed: int = 0) -> dict:
-    """One numpy batch of the config's family from ``seed``."""
+    """One batch of the config's family from ``seed``."""
     rng = np.random.default_rng(seed)
     if cfg.family == "conv":
         return atacseq_batch(rng, batch, width=seq)
     if cfg.family in ("ssm", "dense"):
         return lm_batch(rng, cfg, batch, seq)
+    if cfg.family == "encdec":
+        return encdec_batch(rng, cfg, batch, seq)
     raise NotImplementedError(
         f"synthetic {cfg.family!r} batches are not ported to repro_torch "
-        "yet: only the conv, ssm and dense families' are (ROADMAP.md "
-        "queue A)")
+        "yet: only the conv, ssm, dense and encdec families' are "
+        "(ROADMAP.md queue A)")
 
 
 class SyntheticLoader:
@@ -106,7 +125,7 @@ class SyntheticLoader:
         i = 0
         while not self._stop.is_set():
             b = make_batch(self.cfg, self.batch, self.seq, seed=self._seed + i)
-            b = {k: torch.from_numpy(v[self._rows]).to(self.device)
+            b = {k: torch.as_tensor(v[self._rows]).to(self.device)
                  for k, v in b.items()}
             while not self._stop.is_set():
                 try:

@@ -231,6 +231,40 @@ def _bwd_failed(lib, rc: int) -> Exception:
                         + lib.conv1d_bwd_weight_error_string(rc).decode())
 
 
+def channel_ranges(C: int, fits) -> list[tuple[int, int]]:
+    """[0, C) as the fewest contiguous channel ranges of near-equal width
+    that ``fits(width)`` accepts (``fits`` is monotone: a width that fits
+    has every smaller one fit).  Raises if one channel does not fit."""
+    if fits(C):
+        return [(0, C)]
+    lo, hi = 1, C - 1  # the widest range that fits, by bisection
+    if not fits(lo):
+        raise ValueError("conv1d_bwd_weight: " + _BWD_REFUSED[-1])
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    n = -(-C // lo)
+    edges = [C * i // n for i in range(n + 1)]
+    return list(zip(edges, edges[1:]))
+
+
+def by_channel_ranges(x: torch.Tensor, ranges, launch, with_dbias: bool):
+    """The weight gradient assembled from one ``launch(x_range,
+    with_dbias)`` per channel range of x (each range copied contiguous):
+    dw's channels are independent sums, so the ranges' dw concatenate
+    along C; dbias, which reads the cotangent alone, comes with the first
+    range."""
+    parts = [launch(x[:, c0:c1].contiguous(), with_dbias and i == 0)
+             for i, (c0, c1) in enumerate(ranges)]
+    if not with_dbias:
+        return torch.cat(parts, dim=2)
+    dbias = parts[0][1]
+    return torch.cat([parts[0][0]] + parts[1:], dim=2), dbias
+
+
 def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
                       dilation: int = 1, with_dbias: bool = False,
                       body: str | None = None):
@@ -245,6 +279,12 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
     launches on the same inputs give bitwise equal results.  ``body`` pins
     the body (``"unit"`` or ``"taps"``); the two sum in different orders,
     so a pin may change dw within rounding.
+
+    The kernel stages every channel of a column tile in shared memory;
+    where they do not fit (fp32 beyond about 100 channels at S=3, d=1, as
+    Whisper's frontend), the channels go in the fewest ranges that do
+    (``channel_ranges``), one launch each, every launch reading the whole
+    cotangent (``by_channel_ranges``).
     """
     body_code = _body_code(body)
     if x.dim() != 3 or gout.dim() != 3:
@@ -269,8 +309,31 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
                          f"{x.device}")
     lib = _bwd_lib()
     dev = x.device.index
-    rows = lib.conv1d_bwd_weight_rows(N, C, K, S, Wp, dilation, body_code,
-                                      dev)
+
+    def rows_of(c: int) -> int:
+        return lib.conv1d_bwd_weight_rows(N, c, K, S, Wp, dilation,
+                                          body_code, dev)
+
+    def launch(xc: torch.Tensor, dbias: bool):
+        return _bwd_weight_launch(lib, xc, gout, S, dilation, dbias,
+                                  body_code, rows_of(xc.shape[1]))
+
+    rows = rows_of(C)
+    if rows == -1 and C > 1:
+        return by_channel_ranges(
+            x, channel_ranges(C, lambda c: rows_of(c) >= 0), launch,
+            with_dbias)
+    return launch(x, with_dbias)
+
+
+def _bwd_weight_launch(lib, x: torch.Tensor, gout: torch.Tensor, S: int,
+                       dilation: int, with_dbias: bool, body_code: int,
+                       rows: int):
+    """One launch of the weight-gradient kernel (and its ``reduce_partials``
+    pass) on checked operands; ``rows`` is the plan's partial rows."""
+    N, C, Wp = x.shape
+    K = gout.shape[1]
+    dev = x.device.index
     if rows < 0:
         raise _bwd_failed(lib, rows)
     row_len = S * K * C + (K if with_dbias else 0)

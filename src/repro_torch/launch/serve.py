@@ -2,21 +2,32 @@
 batched greedy decode for the language models, batched continuous
 streaming for the conv family.  It runs on the card by default.
 
-Language models (the SSM family, Mamba2, and the dense transformers):
-build the cache of ``--prompt-len`` seeded prompt tokens by sequential
-teacher-forced decode steps, as the JAX launcher does (the fused prefill
-is ``train.serve_step.make_prefill_step``, which ``--smoke`` checks
-against it), then generate ``--gen`` tokens greedily, reporting the
-prefill's time, the decode step's p50/p99 and tokens/s:
+Language models (the SSM family, Mamba2, the dense transformers and the
+encoder-decoder, Whisper): build the cache of ``--prompt-len`` seeded
+prompt tokens by sequential teacher-forced decode steps, as the JAX
+launcher does (the fused prefill is ``train.serve_step.
+make_prefill_step``, which ``--smoke`` checks against it), then generate
+``--gen`` tokens greedily, reporting the prefill's time, the decode
+step's p50/p99 and tokens/s:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --batch 8 --prompt-len 200 --gen 64
 
+Whisper first encodes seeded frames (``data.synthetic.encdec_batch``'s
+draw, (B, 1500, 1280) at full width) and fills the cache's
+cross-attention K/V from them (``models.whisper.fill_cross_cache``,
+timed as ``encode_s``); the JAX launcher skips that step and decodes
+against zero cross K/V, which ignores the audio (ROADMAP.md queue C):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --batch 8 --prompt-len 4 --gen 64
+
 The cache is fp32 where the JAX launcher runs one (the SSM family, and
-fp32 configs) and in the model's dtype for a bf16 dense model: with an
-fp32 KV cache the JAX package's bf16 attention output turns fp32 and its
-layer scan refuses the carry (ROADMAP.md queue C), so the model's dtype
-(``make_cache``'s default) is the one it can run.  The decode step runs
+fp32 configs) and in the model's dtype for a bf16 dense or
+encoder-decoder model: with an fp32 KV cache the JAX package's bf16
+attention output turns fp32 and its layer scan refuses the carry
+(ROADMAP.md queue C), so the model's dtype (``make_cache``'s default) is
+the one it can run.  The decode step runs
 no kernel (as in the JAX package, where XLA takes it); ``--model-parallel``
 above 1, which in the JAX launcher shards the language models'
 parameters (``models/sharding.py``), waits for that sharding (ROADMAP.md
@@ -54,8 +65,10 @@ import torch
 from repro_torch import configs, obs
 from repro_torch.configs.base import reduced
 from repro_torch.core import blocks
+from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.device import require_device
 from repro_torch.models import init_model
+from repro_torch.models.whisper import fill_cross_cache
 from repro_torch.train.serve_step import (make_cache, make_conv_prefill_step,
                                           make_conv_stream_state,
                                           make_conv_stream_step,
@@ -304,22 +317,28 @@ def serve_conv(args, cfg) -> int:
 def lm_cache_dtype(cfg) -> torch.dtype:
     """The decode cache's dtype: fp32 for the SSM family and for fp32
     configs (the JAX launcher's), the model's dtype otherwise (the only
-    one the JAX package runs for a bf16 dense model)."""
+    one the JAX package runs for a bf16 dense or encoder-decoder
+    model)."""
     if cfg.family == "ssm" or cfg.dtype == "float32":
         return torch.float32
     return getattr(torch, cfg.dtype)
 
 
 def prefill_gap(model, cfg, prompt: torch.Tensor,
-                decode_logits: torch.Tensor) -> dict:
-    """The fused prefill step on ``prompt`` against the sequential decode's
+                decode_logits: torch.Tensor,
+                frames: torch.Tensor | None = None) -> dict:
+    """The fused prefill step on ``prompt`` (an encoder-decoder's with the
+    ``frames`` its cross K/V came from) against the sequential decode's
     logits at its last position: ``gap`` = max|prefill - decode| over
     max|decode| (the real vocabulary), ``tol`` = ``prefill_tol``, and
     ``tokens_equal``: whether the greedy tokens agree in every row whose
     top-2 margin exceeds twice the tolerance (each path may move a logit
     by the tolerance, so a smaller margin may flip), counted in
     ``rows_with_clear_margin``."""
-    _, logits = make_prefill_step(cfg)(model, {"tokens": prompt})
+    batch = {"tokens": prompt}
+    if frames is not None:
+        batch["frames"] = frames
+    _, logits = make_prefill_step(cfg)(model, batch)
     V = cfg.vocab_size  # the padded columns are NEG_INF on both sides
     got, want = logits[:, -1, :V].float(), decode_logits[:, -1, :V].float()
     scale = want.abs().max()
@@ -343,7 +362,9 @@ def serve_lm(args, cfg, model=None) -> dict:
     its next tokens copied to the host as a server sends them),
     ``tokens_per_s`` (batch x decode steps over their time), ``tokens``
     (B, gen), ``prompt`` and ``prompt_logits`` (the decode's logits at the
-    prompt's last position), the cache's dtype."""
+    prompt's last position), the cache's dtype; an encoder-decoder's also
+    ``frames`` and ``encode_s``, the time to encode them and fill the
+    cross K/V (host clock to a synchronize)."""
     if args.model_parallel != 1:
         raise NotImplementedError(
             "--model-parallel > 1 is not ported to repro_torch yet: in the "
@@ -359,6 +380,17 @@ def serve_lm(args, cfg, model=None) -> dict:
     cache_dtype = lm_cache_dtype(cfg)
     cache = make_cache(cfg, args.batch, max_len, dtype=cache_dtype,
                        device=device)
+    frames, encode_s = None, None
+    if cfg.family == "encdec":
+        frames = make_batch(cfg, args.batch, args.prompt_len,
+                            seed=args.seed)["frames"].to(device)
+        t0 = time.perf_counter()
+        fill_cross_cache(model, cache, frames)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        encode_s = time.perf_counter() - t0
+        print(f"encode {tuple(frames.shape)} frames and fill the "
+              f"cross-attention cache: {encode_s:.3f} s", flush=True)
     serve = with_request_spans(make_serve_step(cfg), "serve.decode_step",
                                device=device, arch=cfg.name,
                                batch=args.batch)
@@ -400,12 +432,14 @@ def serve_lm(args, cfg, model=None) -> dict:
                  step_p99_ms=float(np.percentile(st, 99)) * 1e3,
                  tokens_per_s=args.batch * len(times) / float(st.sum()),
                  tokens=tokens, prompt=prompt, prompt_logits=prompt_logits)
+    if frames is not None:
+        stats.update(frames=frames, encode_s=encode_s)
     print(f"generated {tokens.shape} tokens, logits finite: step p50 "
           f"{stats['step_p50_ms']:.3f} ms, p99 {stats['step_p99_ms']:.3f} ms,"
           f" {stats['tokens_per_s']:.1f} tokens/s", flush=True)
     print("sample:", tokens[0, :16])
     if args.smoke:
-        gap = prefill_gap(model, cfg, prompt, prompt_logits)
+        gap = prefill_gap(model, cfg, prompt, prompt_logits, frames)
         if gap["gap"] > gap["tol"] or not gap["tokens_equal"]:
             raise AssertionError(f"the fused prefill diverged from the "
                                  f"sequential decode: {gap}")
@@ -421,9 +455,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (conv: C=8, S=9, and a check of "
-                         "stream 0 against the one-shot forward; ssm and "
-                         "dense: 2 layers, d_model 64, and a check of the "
-                         "fused prefill against the sequential decode)")
+                         "stream 0 against the one-shot forward; ssm, dense "
+                         "and encdec: 2 layers, d_model 64, and a check of "
+                         "the fused prefill against the sequential decode)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--batch", type=int, default=4)

@@ -24,6 +24,18 @@ the hand-written flash kernels (``--attn-impl`` sets the config's
 ``attn_impl``, as ``dataclasses.replace(cfg, attn_impl="flash")`` does in
 the JAX package; the configs default to ``chunked``, plain PyTorch).
 
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper-large-v3 --attn-impl flash --steps 6 --batch 4 \
+        --seq 448
+
+trains the full Whisper-large-v3 (32 + 32 layers, bf16, remat on) on
+random tokens and standard-normal frames (B, 1500, 1280): ``--seq`` is
+the decoder's tokens (448, its context), the encoder's self-attention
+runs non-causal and the decoder's causal through the flash kernels, the
+cross-attention plain, as in the JAX package.  tokens/s counts decoder
+tokens.  The conv frontend is not on the path (the frames are given);
+its parameters get zero gradients and AdamW's decay, as in JAX.
+
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
 it raises.  Each step prints its loss, gradient norm and time (to a
@@ -195,11 +207,11 @@ def _parse_args(argv):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (conv: C=8, S=9; "
-                         "ssm and dense: 2 layers, d_model 64)")
+                         "ssm, dense and encdec: 2 layers, d_model 64)")
     ap.add_argument("--attn-impl", choices=("chunked", "flash"), default=None,
-                    help="attention of a dense model: 'chunked' (plain "
-                         "PyTorch) or 'flash' (the flash kernels); default: "
-                         "the config's")
+                    help="self-attention of a dense or encoder-decoder "
+                         "model: 'chunked' (plain PyTorch) or 'flash' (the "
+                         "flash kernels); default: the config's")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--steps", type=int, default=20)
@@ -208,7 +220,8 @@ def _parse_args(argv):
                          "elastic re-plan")
     ap.add_argument("--seq", type=int, default=60_000,
                     help="track width (paper §4.2: 50,000 + 2 x 5,000) or "
-                         "tokens per sequence")
+                         "tokens per sequence (an encoder-decoder's decoder "
+                         "tokens)")
     ap.add_argument("--accum", type=int, default=1,
                     help="microbatches per step (gradients summed in fp32)")
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -498,8 +511,8 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
                 model_reduce_chunks=args.model_reduce_chunks)
             log(f"arch={cfg.name} device={device} batch={args.batch} "
                 f"seq={args.seq} accum={accum}"
-                + (f" attn_impl={cfg.attn_impl}" if cfg.family == "dense"
-                   else "")
+                + (f" attn_impl={cfg.attn_impl}"
+                   if cfg.family in ("dense", "encdec") else "")
                 + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
                    else f" dp={dp} path=data_parallel" if group is not None
                    else "")

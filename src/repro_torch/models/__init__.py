@@ -2,18 +2,22 @@
 ``get_model(cfg)`` returns the module that builds the config's family, and
 ``init_model`` builds the model of any ported family from a seed.
 
-Among the language models the SSM family (Mamba2) and the dense
-transformers are ported, each module with the functional surface of the
-JAX package's (``repro/models/__init__.py``), the model an ``nn.Module``:
+Among the language models the SSM family (Mamba2), the dense transformers
+and the encoder-decoder (Whisper) are ported, each module with the
+functional surface of the JAX package's (``repro/models/__init__.py``),
+the model an ``nn.Module``:
 
     init_params(cfg, *, seed, device) -> model
     forward(model, tokens, *, last_only=False, ...) -> logits
     init_cache(cfg, batch, max_len, dtype, device) -> cache
     decode_step(model, cache, tokens, pos) -> (logits, cache)
 
-``decode_step`` updates the cache in place and returns it.  The conv
-family's model is ``repro_torch.core.blocks``, which serves through
-ring-buffer streaming instead of a cache.
+``decode_step`` updates the cache in place and returns it.  Whisper's
+``forward`` also takes the encoder's ``frames``, its ``init_cache`` an
+``enc_len``, and ``whisper.fill_cross_cache`` fills the cross-attention
+K/V before the first decode step.  The conv family's model is
+``repro_torch.core.blocks``, which serves through ring-buffer streaming
+instead of a cache.
 """
 from __future__ import annotations
 
@@ -26,10 +30,14 @@ def get_model(cfg):
     if cfg.family == "dense":
         from repro_torch.models import transformer
         return transformer
+    if cfg.family == "encdec":
+        from repro_torch.models import whisper
+        return whisper
     raise NotImplementedError(
         f"the {cfg.family!r} family's model is not ported to repro_torch "
-        "yet: among the language models only the ssm (mamba2) and dense "
-        "(transformer) families are (ROADMAP.md queue A)")
+        "yet: among the language models only the ssm (mamba2), dense "
+        "(transformer) and encdec (whisper) families are (ROADMAP.md "
+        "queue A)")
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu"):

@@ -3,7 +3,8 @@ the matching parts of ``repro/models/common.py``): the RMS and layer
 norms, rotary embeddings, grouped-query attention (the chunked plain
 path and the flash kernels) and its single-token decode against a KV
 cache, the MLPs, token embedding, the unembedding
-with its vocabulary padding masked, and activation rematerialisation.
+with its vocabulary padding masked, the learned and sinusoidal position
+embeddings, and activation rematerialisation.
 
 The JAX package's cast points are kept: norms, rotary embeddings, the
 softmax and the MLP's activation run in fp32 and are cast back to the
@@ -248,14 +249,49 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 # --- embedding, unembedding, remat ----------------------------------------------
 
-def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Rows of the (padded_vocab, d_model) table for (B, T) token ids
-    (rotary embeddings act inside attention; none add here)."""
-    if cfg.pos_embedding not in ("none", "rope"):
-        raise NotImplementedError(
-            f"pos_embedding {cfg.pos_embedding!r} is not ported to "
-            "repro_torch yet (ROADMAP.md queue A)")
-    return F.embedding(tokens, tok)
+def sinusoidal_positions(T: int, d: int,
+                         device: torch.device | str | None = None
+                         ) -> torch.Tensor:
+    """(T, d) fp32 sinusoids: sin at the even columns, cos at the odd ones,
+    position t times exp(-ln(10000) i / d) for column pair i (Whisper's
+    encoder positions)."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-torch.log(torch.tensor(10000.0)) / d))
+    pe = torch.zeros((T, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def embedding_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
+    """The embedding's leaves, as ``attention_leaves``: the token table and,
+    for learned positions, a table of ``min(max_position, 65536)`` rows."""
+    p = {"tok": ((cfg.padded_vocab, cfg.d_model), "normal", 0.02)}
+    if cfg.pos_embedding == "learned":
+        p["pos"] = ((min(cfg.max_position, 1 << 16), cfg.d_model), "normal",
+                    0.02)
+    return p
+
+
+def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor, cfg, *,
+                 pos: torch.Tensor | None = None,
+                 positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Rows of the (padded_vocab, d_model) table for (B, T) token ids, plus
+    the position embedding: rows ``positions`` (default 0..T-1) of the
+    learned table ``pos``, or the sinusoids of 0..T-1 in x's dtype (rotary
+    embeddings act inside attention; none add here)."""
+    if cfg.pos_embedding not in ("none", "rope", "learned", "sinusoidal"):
+        raise ValueError(f"unknown pos_embedding {cfg.pos_embedding!r}")
+    x = F.embedding(tokens, tok)
+    if cfg.pos_embedding == "learned":
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        x = x + pos[positions]
+    elif cfg.pos_embedding == "sinusoidal":
+        x = x + sinusoidal_positions(tokens.shape[-1], cfg.d_model,
+                                     tokens.device).to(x.dtype)
+    return x
 
 
 def logits_from_hidden(tok: torch.Tensor, unembed: torch.Tensor | None,

@@ -33,23 +33,58 @@ from repro_torch.models import common as cm
 PREFIX = "dense_layers."
 
 
-def _leaf_spec(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
-    """Every leaf of the model: ``key -> (shape, init, scale)``, the
-    per-layer ones with their leading ``L``."""
-    L, D = cfg.n_layers, cfg.d_model
-    norm = {k: ((D,), "ones" if k == "scale" else "zeros", 0.0)
-            for k in cm.init_norm(cfg, D, torch.float32)}
+def norm_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
+    """A norm's leaves, as ``common.attention_leaves``."""
+    return {k: ((cfg.d_model,), "ones" if k == "scale" else "zeros", 0.0)
+            for k in cm.init_norm(cfg, cfg.d_model, torch.float32)}
+
+
+def layer_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
+    """One layer's leaves without the leading ``L``: ``attn_norm``,
+    ``attn``, ``mlp_norm`` and ``mlp``."""
+    norm = norm_leaves(cfg)
     layer = {f"attn_norm.{k}": v for k, v in norm.items()}
     layer.update({f"attn.{k}": v for k, v in cm.attention_leaves(cfg).items()})
     layer.update({f"mlp_norm.{k}": v for k, v in norm.items()})
     layer.update({f"mlp.{k}": v for k, v in cm.mlp_leaves(cfg).items()})
-    spec = {"embed.tok": ((cfg.padded_vocab, D), "normal", 0.02)}
-    spec.update({PREFIX + k: ((L, *shape), init, scale)
-                 for k, (shape, init, scale) in layer.items()})
-    spec.update({f"final_norm.{k}": v for k, v in norm.items()})
+    return layer
+
+
+def stacked_leaves(prefix: str, n: int, layer: dict) -> dict:
+    """``layer``'s leaves under ``prefix``, each with a leading axis of
+    ``n``."""
+    return {prefix + k: ((n, *shape), init, scale)
+            for k, (shape, init, scale) in layer.items()}
+
+
+def _leaf_spec(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
+    """Every leaf of the model: ``key -> (shape, init, scale)``, the
+    per-layer ones with their leading ``L``."""
+    D = cfg.d_model
+    spec = {f"embed.{k}": v for k, v in cm.embedding_leaves(cfg).items()}
+    spec.update(stacked_leaves(PREFIX, cfg.n_layers, layer_leaves(cfg)))
+    spec.update({f"final_norm.{k}": v for k, v in norm_leaves(cfg).items()})
     if not cfg.tie_embeddings:
         spec["unembed"] = ((D, cfg.padded_vocab), "normal", D ** -0.5)
     return spec
+
+
+def draw_leaves(spec: dict, cfg, *, seed: int,
+                device: torch.device | str) -> dict[str, torch.Tensor]:
+    """``spec``'s leaves drawn in its order on the host from a generator
+    seeded with ``seed`` (the same weights on every device), in the
+    config's dtype, each moved to ``device`` as it is drawn."""
+    gen = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+    leaves = {}
+    for key, (shape, init, scale) in spec.items():
+        if init == "normal":
+            t = (torch.randn(shape, generator=gen) * scale).to(dtype)
+        else:
+            t = (torch.ones if init == "ones" else torch.zeros)(shape,
+                                                                dtype=dtype)
+        leaves[key] = t.to(device)
+    return leaves
 
 
 class Transformer(nn.Module):
@@ -86,17 +121,8 @@ def init_params(cfg, *, seed: int = 0,
         raise NotImplementedError(
             f"the {cfg.family!r} family's transformer is not ported to "
             "repro_torch yet: only the dense one is (ROADMAP.md queue A)")
-    gen = torch.Generator().manual_seed(seed)
-    dtype = getattr(torch, cfg.dtype)
-    leaves = {}
-    for key, (shape, init, scale) in _leaf_spec(cfg).items():
-        if init == "normal":
-            t = (torch.randn(shape, generator=gen) * scale).to(dtype)
-        else:
-            t = (torch.ones if init == "ones" else torch.zeros)(shape,
-                                                                dtype=dtype)
-        leaves[key] = t.to(device)
-    return Transformer(cfg, leaves)
+    return Transformer(cfg, draw_leaves(_leaf_spec(cfg), cfg, seed=seed,
+                                        device=device))
 
 
 def _nest(keys: list[str], values) -> dict:
@@ -118,15 +144,16 @@ def _layer_fwd(lp: dict, x: torch.Tensor, cfg,
     return x + cm.apply_mlp(lp["mlp"], h, cfg)
 
 
-def _stacked(model: Transformer) -> tuple[list[str], list[torch.Tensor]]:
-    """The per-layer leaves' keys below ``PREFIX`` and their stacked
+def _stacked(model: nn.Module, prefix: str = PREFIX
+             ) -> tuple[list[str], list[torch.Tensor]]:
+    """The per-layer leaves' keys below ``prefix`` and their stacked
     tensors."""
-    pairs = [(k[len(PREFIX):], p) for k, p in model.named_parameters()
-             if k.startswith(PREFIX)]
+    pairs = [(k[len(prefix):], p) for k, p in model.named_parameters()
+             if k.startswith(prefix)]
     return [k for k, _ in pairs], [p for _, p in pairs]
 
 
-def _final(model: Transformer, x: torch.Tensor, hidden_only: bool = False
+def _final(model: nn.Module, x: torch.Tensor, hidden_only: bool = False
            ) -> torch.Tensor:
     """The final norm, then the logits unless ``hidden_only``."""
     cfg = model.cfg

@@ -1,7 +1,7 @@
 """Operation and byte counts: the conv layer's, and parameter counts and
 useful flops per step of the port's configs (counterpart of
 ``repro/roofline/flops.py``, for the families the port has: conv, ssm,
-dense).
+dense, encdec).
 
 ``conv1d_flops`` is the paper's efficiency denominator; ``model_flops``
 is the useful compute of one step (6·N·D for training plus the exact
@@ -81,16 +81,42 @@ def param_count(cfg) -> int:
                                      + _mlp_params(cfg, cfg.d_ff))
     if cfg.family == "ssm":
         return emb + cfg.n_layers * _ssm_block_params(cfg)
+    if cfg.family == "encdec":
+        return emb + _encoder_params(cfg) + cfg.n_layers * (
+            _attn_params(cfg) + _cross_params(cfg)
+            + _mlp_params(cfg, cfg.d_ff))
     raise ValueError(f"family {cfg.family!r} is not ported")
 
 
+def _cross_params(cfg) -> int:
+    """A decoder layer's cross-attention: four projections over all H
+    heads."""
+    return 4 * cfg.d_model * cfg.n_heads * cfg.head_dim
+
+
+def _encoder_params(cfg) -> int:
+    """The encoder's layers (JAX's count: projections and MLP, no norms
+    or biases)."""
+    return cfg.n_encoder_layers * (_attn_params(cfg)
+                                   + _mlp_params(cfg, cfg.d_ff))
+
+
 def _attn_seq_flops(cfg, B: int, T: int, causal: bool = True) -> int:
-    """QK^T + AV flops of one full-sequence pass (dense), or the SSD's
+    """QK^T + AV flops of one full-sequence pass (dense; encdec: the
+    encoder's non-causal self-attention over its frames, the decoder's
+    causal one over T tokens and its cross-attention), or the SSD's
     intra-chunk and state flops (ssm), all layers."""
     factor = 0.5 if causal else 1.0
     if cfg.family == "dense":
         return int(4 * B * T * T * cfg.n_heads * cfg.head_dim * factor
                    * cfg.n_layers)
+    if cfg.family == "encdec":
+        Hd, Te = cfg.n_heads * cfg.head_dim, cfg.encoder_width
+        enc = 4 * B * Te ** 2 * Hd
+        dec_self = 4 * B * T * T * Hd * 0.5
+        dec_cross = 4 * B * T * Te * Hd
+        return int(enc * cfg.n_encoder_layers
+                   + (dec_self + dec_cross) * cfg.n_layers)
     if cfg.family == "ssm":
         s = cfg.ssm
         _, H = _ssm_dims(cfg)
@@ -118,9 +144,13 @@ def model_flops(cfg, shape) -> float:
         _, H = _ssm_dims(cfg)
         return float(2 * n * B
                      + 6 * B * H * s.head_dim * s.d_state * cfg.n_layers)
-    # dense decode: one token, attention reads the whole cache
-    return float(2 * n * B
-                 + 4 * B * T * cfg.n_heads * cfg.head_dim * cfg.n_layers)
+    # dense and encdec decode: one token, attention reads the whole cache
+    # (and the encoder-decoder's cross K/V)
+    attn = 4 * B * T * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    if cfg.family == "encdec":
+        attn += (4 * B * cfg.encoder_width * cfg.n_heads * cfg.head_dim
+                 * cfg.n_layers)
+    return float(2 * n * B + attn)
 
 
 def decode_cache_bytes(cfg, batch: int, seq_len: int,
@@ -129,24 +159,32 @@ def decode_cache_bytes(cfg, batch: int, seq_len: int,
     positions in the cache: the SSM's conv window (``cache_itemsize``
     bytes an element) and fp32 states, each read and written whole; or
     the KV rows (``cache_itemsize``), ``seq_len - 1`` read and the new one
-    written."""
+    written, and an encoder-decoder's cross K/V (``encoder_width`` rows of
+    all H heads a layer) read."""
     if cfg.family == "ssm":
         s = cfg.ssm
         d_inner, H = _ssm_dims(cfg)
         window = (s.conv_width - 1) * (d_inner + 2 * s.n_groups * s.d_state)
         state = cache_itemsize * window + 4 * H * s.head_dim * s.d_state
         return float(2 * batch * state * cfg.n_layers)
-    return float(cache_itemsize * batch * seq_len * 2 * cfg.n_kv_heads
-                 * cfg.head_dim * cfg.n_layers)
+    rows = seq_len * cfg.n_kv_heads
+    if cfg.family == "encdec":
+        rows += cfg.encoder_width * cfg.n_heads
+    return float(cache_itemsize * batch * rows * 2 * cfg.head_dim
+                 * cfg.n_layers)
 
 
 def hbm_bytes_decode(cfg, shape, cache_itemsize: int = 2) -> float:
     """Least device-memory traffic of one decode step: the bf16
     parameters, of an untied embedding only the batch's rows, and
-    ``decode_cache_bytes`` at ``shape.seq_len``.  JAX's count reads the
-    whole untied table and leaves the conv window out."""
+    ``decode_cache_bytes`` at ``shape.seq_len``; an encoder-decoder's
+    decode reads no encoder weight.  JAX's count reads the whole untied
+    table and the encoder's weights, and leaves out the conv window and
+    the cross K/V."""
     B, T = shape.global_batch, shape.seq_len
     p_bytes = 2 * param_count(cfg)
+    if cfg.family == "encdec":
+        p_bytes -= 2 * _encoder_params(cfg)
     if cfg.family != "conv" and not cfg.tie_embeddings:  # a row lookup
         p_bytes -= 2 * (cfg.vocab_size - B) * cfg.d_model
     return float(p_bytes + decode_cache_bytes(cfg, B, T, cache_itemsize))

@@ -48,6 +48,16 @@ from repro_torch.kernels.reduce import (GradReducer, dp_rank, dp_size,
 from repro_torch.train.losses import make_loss_fn
 
 
+def param_grads(loss: torch.Tensor, params) -> tuple[torch.Tensor, ...]:
+    """The gradients of ``loss`` to ``params``, zeros (in the parameter's
+    dtype) for a parameter the loss does not read, as JAX's ``grad`` gives
+    (Whisper's conv frontend; AdamW then decays its matrices, as in
+    JAX)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return tuple(torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params))
+
+
 def shard_batch(batch: dict, group) -> dict:
     """This rank's contiguous share of a global batch (every leaf sliced
     on its leading axis); the global batch must divide over the ranks."""
@@ -122,7 +132,7 @@ def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
         # 1/dp before the backward: the summed gradients are the gradients
         # of the global mean loss
         try:
-            grads = torch.autograd.grad(loss / dp, params)
+            grads = param_grads(loss / dp, params)
             if not fused_reduce:
                 # one buffer per leaf (autograd may hand one tensor to two)
                 out, seen = [], set()

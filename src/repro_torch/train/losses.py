@@ -2,10 +2,11 @@
 
 Batch layouts:
   conv: ``{'noisy', 'clean', 'peaks'}``, each (B, W);
-  ssm, dense:  ``{'tokens', 'labels'}``, each (B, T) int32.
+  ssm, dense:  ``{'tokens', 'labels'}``, each (B, T) int32;
+  encdec: those and ``'frames'`` (B, encoder_width, d_model).
 
-The other LM families' losses, and the streamed cross-entropy
-(``cfg.xent_chunk``), wait in ROADMAP.md queue A.
+The other LM families' losses (MoE, VLM, hybrid), and the streamed
+cross-entropy (``cfg.xent_chunk``), wait in ROADMAP.md queue A.
 """
 from __future__ import annotations
 
@@ -43,11 +44,11 @@ def make_loss_fn(cfg, *, grad_reduce=None,
                                   model_reduce_chunks=model_reduce_chunks)
 
         return conv_loss
-    if cfg.family not in ("ssm", "dense"):
+    if cfg.family not in ("ssm", "dense", "encdec"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's loss is not ported to repro_torch "
-            "yet: only the conv, ssm and dense families' are (ROADMAP.md "
-            "queue A)")
+            "yet: only the conv, ssm, dense and encdec families' are "
+            "(ROADMAP.md queue A)")
     if cfg.xent_chunk:
         raise NotImplementedError(
             "the streamed cross-entropy (xent_chunk > 0) is not ported to "
@@ -57,8 +58,13 @@ def make_loss_fn(cfg, *, grad_reduce=None,
         """Mean next-token NLL over the full fp32 logits.  JAX's total is
         ``nll + AUX_WEIGHT * aux``, where aux is the MoE load-balance loss:
         0 for Mamba2 and the dense transformers, so the total is the
-        NLL."""
-        loss = softmax_xent(model(batch["tokens"]), batch["labels"])
+        NLL.  The encoder-decoder's logits are those of the tokens given
+        the batch's frames, and its total is the NLL."""
+        if cfg.family == "encdec":
+            logits = model(batch["tokens"], frames=batch["frames"])
+        else:
+            logits = model(batch["tokens"])
+        loss = softmax_xent(logits, batch["labels"])
         return loss, {"nll": loss}
 
     return lm_loss

@@ -59,25 +59,32 @@ def make_serve_step(cfg):
 
 def make_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> dict:
-    """The family's decode cache (``init_cache``), zeros."""
+               device: torch.device | str = "cpu",
+               enc_len: int | None = None) -> dict:
+    """The family's decode cache (``init_cache``), zeros; ``enc_len`` sets
+    an encoder-decoder's cross-attention length (default
+    ``cfg.encoder_width``)."""
+    kw = {"enc_len": enc_len} if cfg.family == "encdec" else {}
     return get_model(cfg).init_cache(cfg, batch, max_len, dtype=dtype,
-                                     device=device)
+                                     device=device, **kw)
 
 
 def make_prefill_step(cfg):
     """``prefill_step(model, batch) -> (next_tokens, logits)``: the fused
     prefill, ONE full-sequence forward over ``batch["tokens"]`` (B, T)
-    with the logits of the last position only (B, 1, padded_vocab); the
-    (B, T, V) logits are never made.  On the card it runs the family's
-    kernels: Mamba2's conv through ``depthwise_conv1d_fwd``, a dense
-    model's attention through ``flash_fwd`` when ``cfg.attn_impl ==
-    "flash"``."""
+    (with an encoder-decoder's ``batch["frames"]``) with the logits of
+    the last position only (B, 1, padded_vocab); the (B, T, V) logits are
+    never made.  On the card it runs the family's kernels: Mamba2's conv
+    through ``depthwise_conv1d_fwd``, a dense model's attention and
+    Whisper's encoder and decoder self-attention through ``flash_fwd``
+    when ``cfg.attn_impl == "flash"``."""
     model_mod = get_model(cfg)
 
     @torch.inference_mode()
     def prefill_step(model, batch):
-        logits = model_mod.forward(model, batch["tokens"], last_only=True)
+        kw = {"frames": batch["frames"]} if cfg.family == "encdec" else {}
+        logits = model_mod.forward(model, batch["tokens"], last_only=True,
+                                   **kw)
         return _greedy(logits), logits
 
     return prefill_step

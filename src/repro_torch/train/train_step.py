@@ -39,7 +39,7 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.optim import adamw, compression, schedule
-from repro_torch.train.data_parallel import make_sharded_grad_fn
+from repro_torch.train.data_parallel import make_sharded_grad_fn, param_grads
 from repro_torch.train.losses import make_loss_fn
 
 
@@ -146,7 +146,7 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
             loss, _ = loss_fn(model, batch)
             if probe is not None:
                 probe.mark("forward")
-            grads = torch.autograd.grad(loss, params)
+            grads = param_grads(loss, params)
             if probe is not None:
                 probe.mark("backward")
             return loss.detach(), grads

@@ -544,3 +544,56 @@ def test_conv1d_bwd_weight_rejects_bad_inputs(what):
     kw = {"S": 3, "dilation": 2, **kw}
     with pytest.raises(ValueError):
         conv1d_brgemm.conv1d_bwd_weight(x, g, **kw)
+
+
+@pytest.mark.parametrize("C,widest,want", [
+    (15, 15, [(0, 15)]),
+    (128, 108, [(0, 64), (64, 128)]),
+    (1280, 108, [(i * 1280 // 12, (i + 1) * 1280 // 12) for i in range(12)]),
+    (7, 1, [(i, i + 1) for i in range(7)]),
+])
+def test_bwd_weight_channel_ranges(C, widest, want):
+    """The fewest contiguous ranges of near-equal width that fit (the
+    kernel's footprint rule, here a widest width), covering [0, C)."""
+    asked = []
+
+    def fits(c):
+        asked.append(c)
+        return c <= widest
+
+    got = conv1d_brgemm.channel_ranges(C, fits)
+    assert got == want
+    assert got[0][0] == 0 and got[-1][1] == C
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert all(0 < c1 - c0 <= widest for c0, c1 in got)
+    assert len(got) == -(-C // widest)
+    assert len(asked) <= 2 + C.bit_length()  # a bisection, not a scan
+    with pytest.raises(ValueError, match="footprint"):
+        conv1d_brgemm.channel_ranges(C + 1, lambda c: False)
+
+
+@pytest.mark.parametrize("with_dbias", [False, True])
+def test_bwd_weight_by_channel_ranges_is_the_whole_gradient(with_dbias):
+    """One launch a channel range (the plain version standing in for the
+    kernel) concatenates to the whole range's dw, bitwise; dbias from the
+    first range; each range gets a contiguous copy of its channels."""
+    rng = np.random.default_rng(8)
+    x = _torch(rng.standard_normal((2, 10, 26)).astype(np.float32))
+    g = _torch(rng.standard_normal((2, 4, 24)).astype(np.float32))
+    calls = []
+
+    def launch(xc, dbias):
+        assert xc.is_contiguous()
+        calls.append((xc.shape[1], dbias))
+        return conv1d_brgemm.conv1d_bwd_weight(xc, g, S=3, dilation=1,
+                                               with_dbias=dbias)
+
+    got = conv1d_brgemm.by_channel_ranges(
+        x, [(0, 3), (3, 6), (6, 10)], launch, with_dbias)
+    want = conv1d_brgemm.conv1d_bwd_weight(x, g, S=3, dilation=1,
+                                           with_dbias=with_dbias)
+    assert calls == [(3, with_dbias), (3, False), (4, False)]
+    if with_dbias:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got, want)

@@ -46,9 +46,17 @@ def test_model_counts_match_jax(arch):
         want = jflops.model_bytes(jcfg, shape)
         if kind == "decode" and cfg.family != "conv":
             # JAX's count reads the whole untied table and leaves out the
-            # SSM's conv window (bf16, read and written)
+            # SSM's conv window (bf16, read and written); an
+            # encoder-decoder's decode reads no encoder weight and reads
+            # the cross K/V (bf16), which JAX's count leaves out
             if not cfg.tie_embeddings:
                 want -= 2 * (cfg.vocab_size - B) * cfg.d_model
+            if cfg.family == "encdec":
+                per_layer = (jflops._attn_params(jcfg)
+                             + jflops._mlp_params(jcfg, jcfg.d_ff))
+                want -= 2 * cfg.n_encoder_layers * per_layer
+                want += 2 * B * cfg.encoder_width * 2 * cfg.n_heads \
+                    * cfg.head_dim * cfg.n_layers
             if cfg.family == "ssm":
                 s = cfg.ssm
                 conv_dim = s.expand * cfg.d_model + 2 * s.n_groups * s.d_state
@@ -57,12 +65,14 @@ def test_model_counts_match_jax(arch):
         assert flops.model_bytes(cfg, shape) == want, kind
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "starcoder2-3b",
+                                  "whisper-large-v3"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_cache_bytes_are_the_caches(arch, dtype):
     """A decode step's cache bytes are those of the port's own cache
     (``make_cache``): an SSM's leaves each read and written, a KV cache of
-    ``seq_len`` positions read once (the new row written in its place)."""
+    ``seq_len`` positions read once (the new row written in its place),
+    and an encoder-decoder's cross K/V read once."""
     cfg = reduced(configs.get(arch))
     B, T = 3, 7
     cache = serve_step.make_cache(cfg, B, T, dtype=dtype)
