@@ -7,10 +7,13 @@ Phases (any failed check raises, so the run exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      build the six CUDA kernels' libraries from the checkout's sources, in
      parallel and timed, with ptxas' registers, spills and warnings (no
-     kernel of ``conv1d_fwd``, ``depthwise_conv1d_fwd`` or
-     ``conv1d_bwd_weight`` may spill); count the HGMMA (wgmma)
+     kernel of ``conv1d_fwd``, ``depthwise_conv1d_fwd``,
+     ``conv1d_bwd_weight``, ``flash_fwd`` or ``flash_bwd`` may spill, and
+     no flash or ``conv1d_bwd_weight`` kernel may have its wgmmas
+     serialized); count the HGMMA (wgmma)
      instructions of each flash and each ``conv1d_bwd_weight`` kernel in
-     the libraries' SASS (``cuobjdump -sass``): the bf16 flash kernels and
+     the libraries' SASS (``cuobjdump -sass``): the nine bf16 flash
+     kernels (head_dim 64, 112 and 128) and
      every ``bwd_weight_partial`` kernel (the fp32 ones run three TF32
      terms) must have some; the FFMA and LDS instructions of each
      ``conv1d_fwd`` kernel's main loop, and the instructions, HGMMA and LDS
@@ -254,7 +257,25 @@ Phases (any failed check raises, so the run exits non-zero):
       against plain attention; (d) both flash kernels at the encoder's
       attention (1,500 frames, G = 1, hd 64, non-causal) against plain,
       timed beside SDPA and the bound; the phase's seconds;
-  20. a JSON line of the six kernels, the card's line, and last the
+  20. Zamba2-7B at its published widths (``zamba2_check``; 81 Mamba2
+      layers, d_model 3584, conv over 7,296 channels, one shared
+      attention block of 32 heads over 32 KV heads of 112 applied 13
+      times, bf16, flash): (a) the depthwise kernels at (4, 7,296, 4,096)
+      by phase 7's rule and the flash kernels at (4, 4,096, 32 heads of
+      112, causal) in bf16 and at a small shape in fp32 by phase 10's,
+      timed beside the library call and the bound; (b) ``serve_lm`` on
+      the 81 layers at batch 8, a 200-token prompt, 64 generated tokens,
+      ``--smoke``: 81 ``depthwise_conv1d_fwd`` and 13 ``flash_fwd``
+      launches in the fused prefill, none in the decode steps, finite
+      logits, the prefill within ``serve.prefill_tol`` of the decode;
+      decode p50/p99, tokens/s, prefill times, peak memory, the decode's
+      busy share and bound; (c) the launcher 6 steps on the config cut to
+      12 layers (``zamba2-7b-12l``, registered here) at batch 4 x 4,096
+      (36 + 12 depthwise and 4 + 2 flash launches a step; step p50,
+      tokens/s, useful TFLOP/s, peak memory), then its fp32 copy's whole
+      gradient at 1 x 512 against the plain attention and conv; the
+      phase's seconds;
+  21. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -463,6 +484,29 @@ WH_FA_FWD_B, WH_FA_BWD_B = 8, 4
 # the K projection's largest gradient
 WH_ZERO_GRAD = {"enc_layers.attn.bk": "enc_layers.attn.wk",
                 "dec_layers.attn.bk": "dec_layers.attn.wk"}
+# phase 20, Zamba2-7B (arXiv:2411.15242), the hybrid family, at its
+# published widths (conv over 7,296 channels; the shared block's 32 heads
+# of 112).  (a) The kernels at its training shapes: the depthwise pair at
+# (ZB_BATCH, 7,296, ZB_SEQ) by phase 7's rule, the flash pair at (ZB_BATCH,
+# ZB_SEQ, 32 heads over 32 KV heads of 112, bf16, causal) and in fp32 at
+# ZB_FA_F32 (B, T, KV, G) by phase 10's, each timed beside its library call
+# and the bound.  (b) ``serve_lm`` on the full 81 layers, built once in
+# bf16 with attn_impl="flash" (random non-zero norms, conv biases, D,
+# dt_bias and A_log), at batch ZB_SERVE_BATCH, phase 14's LM_PROMPT-token
+# prompt and LM_GEN generated tokens, ``--smoke``; the decode traced over
+# ZB_TRACE_PROMPT + ZB_TRACE_GEN - 1 steps for its busy share (5,360
+# kernels a step: fewer steps than phase 14's keep the trace short).  (c) The
+# launcher ZB_STEPS steps at ZB_BATCH x ZB_SEQ on ZB_TRAIN_ARCH, the config
+# cut to ZB_TRAIN_LAYERS layers (the published widths; its training state
+# at full depth, about 12 bytes a parameter, is 81 GB), then an fp32 copy
+# of that cut's whole gradient at ZB_GRAD_BATCH x ZB_GRAD_SEQ against the
+# plain attention and conv (phase 11's rule; the shared block applied
+# twice, so its gradient is a sum, as is the embedding table's).
+ZB_ARCH, ZB_TRAIN_ARCH, ZB_TRAIN_LAYERS = "zamba2-7b", "zamba2-7b-12l", 12
+ZB_SERVE_BATCH, ZB_BATCH, ZB_SEQ, ZB_STEPS = 8, 4, 4096, 6
+ZB_GRAD_BATCH, ZB_GRAD_SEQ = 1, 512
+ZB_FA_F32 = (1, 1024, 8, 1)
+ZB_TRACE_PROMPT, ZB_TRACE_GEN = 2, 5
 
 
 def _card_line() -> str:
@@ -995,22 +1039,24 @@ def bwd_kernel_checks(torch, conv1d_brgemm, ref):
     return rows
 
 
-def dw_kernel_checks(torch, conv1d_brgemm, ref):
+def dw_kernel_checks(torch, conv1d_brgemm, ref, model="mamba2",
+                     shape=(DW_BATCH, DW_CHANNELS, DW_SEQ), more=True):
     """Phase 7: both depthwise kernels against their plain versions at the
     Mamba2-370M layer shape of the training cell (batch 8 x 2,048, C =
     2304, S = 4, CAUSAL): the forward (bf16 in, silu, fp32 out and
     preact), bwd-data (the padded fp32 cotangent against the flipped,
     widened taps, bf16 out) and bwd-weight (bf16 x, fp32 cotangent) with
-    and without dbias, two launches of each bitwise equal; then one fp32,
-    one residual and one dilation-3 case.  Device, call, plain and library
-    times beside the bound, the rate and the share of the bound for the
-    three passes of the path."""
+    and without dbias, two launches of each bitwise equal; then (``more``)
+    one fp32, one residual and one dilation-3 case.  Device, call, plain
+    and library times beside the bound, the rate and the share of the
+    bound for the three passes of the path.  ``model`` and ``shape`` (N,
+    C, Q) name another model's layer (phase 20: Zamba2's)."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEVICE).manual_seed(11)
-    N, C, Q, S = DW_BATCH, DW_CHANNELS, DW_SEQ, DW_TAPS
+    (N, C, Q), S = shape, DW_TAPS
     bf16, f32 = torch.bfloat16, torch.float32
 
     def rnd(*shape, dtype=f32, scale=1.0):
@@ -1091,7 +1137,7 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
     for pname, (kern, plain, lib, flops, nbytes) in passes.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        label = f"{pname} mamba2 C={C} N={N} Q={Q}"
+        label = f"{pname} {model} C={C} N={N} Q={Q}"
         extra = {}
         if pname in ("fwd", "bwd_data"):
             again = kern()
@@ -1128,6 +1174,8 @@ def dw_kernel_checks(torch, conv1d_brgemm, ref):
             flops, nbytes, "float32")
         _rates(extra, nbytes=nbytes)
         record(label, pname, pairs, extra)
+    if not more:
+        return rows
 
     # one fp32, one residual (gelu, bf16 out) and one dilation-3 case
     x, w, b, g, _ = operands(1, f32)
@@ -1765,12 +1813,13 @@ def flash_kernel_checks(torch, fa, ref):
 
 
 def _lm_model(torch, cfg, init_model, seed):
-    """StarCoder2 or Whisper from a seed with random non-zero biases and
-    norm parameters (zeros and ones at init would leave those paths
+    """StarCoder2, Whisper or Zamba2 from a seed with random non-zero
+    biases and norm parameters, and Zamba2's conv biases, D, dt_bias and
+    A_log moved (zeros, ones and the init's values would leave those paths
     untested)."""
     model = init_model(cfg, seed=seed, device=DEVICE)
     gen = torch.Generator().manual_seed(seed + 100)
-    stacks = ("dense_layers.", "enc_layers.", "dec_layers.")
+    stacks = ("dense_layers.", "enc_layers.", "dec_layers.", "layers.")
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() > 2 or (p.dim() == 2 and not name.startswith(stacks)):
@@ -4178,6 +4227,232 @@ def whisper_check(torch, np, configs, init_model, serve, train, synthetic,
     return out
 
 
+def _zb_flash_rows(torch, fa, ref, cfg):
+    """Phase 20 (a): ``flash_fwd`` and ``flash_bwd`` at Zamba2's shared
+    attention in its training cell (ZB_BATCH x ZB_SEQ, 32 heads over 32
+    KV heads of 112, bf16, causal), timed beside SDPA and the bound, and
+    in fp32 at ZB_FA_F32, each against its plain version by
+    ``flash_kernel_checks``' rule."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(207)
+    rows = []
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"zamba2 B={ZB_BATCH} T={ZB_SEQ} H={H} KV={KV} hd={hd} "
+                 "bf16 causal", ZB_BATCH, ZB_SEQ, KV, H // KV,
+                 torch.bfloat16, True, timed=True, hd=hd)
+    B, T, kv, G = ZB_FA_F32
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"zamba2 B={B} T={T} H={kv * G} KV={kv} hd={hd} fp32 "
+                 "causal", B, T, kv, G, torch.float32, True, hd=hd)
+    return rows
+
+
+def _zb_serve(torch, serve, cfg, model, counters):
+    """Phase 20 (b): ``serve_lm`` on the full Zamba2-7B (``--smoke``: the
+    fused prefill held to the decode's logits within
+    ``serve.prefill_tol``), launches counted around the fused prefill (a
+    ``depthwise_conv1d_fwd`` a layer, a ``flash_fwd`` an application of
+    the shared block) and the rest (the decode steps: none); decode
+    p50/p99, tokens/s, the sequential prefill's seconds, the fused
+    prefill's call time, peak memory, the decode's device busy share and
+    a decode step's bound."""
+    from repro_torch.models import zamba2
+
+    argv = ["--arch", ZB_ARCH, "--batch", str(ZB_SERVE_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--seed",
+            "203"]
+    args = serve.parse_args(argv + ["--smoke"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model_bytes = sum(t.numel() * t.element_size() for t in
+                      (*model.parameters(), *model.buffers()))
+    marks = {}
+    real = serve.prefill_gap
+
+    def prefill_gap(*a, **k):
+        before = {c.__name__: c.launches for c in counters}
+        marks["gap"] = real(*a, **k)
+        marks["prefill"] = {c.__name__: c.launches - before[c.__name__]
+                            for c in counters}
+        return marks["gap"]
+
+    serve.prefill_gap = prefill_gap
+    try:
+        stats, launched = _counted(counters,
+                                   lambda: serve.serve_lm(args, cfg, model))
+    finally:
+        serve.prefill_gap = real
+    peak = (torch.cuda.max_memory_allocated() - held + model_bytes) / 1e9
+    decode = {k: n - marks["prefill"][k] for k, n in launched.items()}
+    n_app = zamba2.n_shared_applications(cfg)
+    want = {**{k: 0 for k in launched},
+            "depthwise_conv1d_fwd": cfg.n_layers, "flash_fwd": n_app}
+    if marks["prefill"] != want:
+        raise AssertionError(f"zamba2: one fused prefill launched "
+                             f"{marks['prefill']}; expected {want}")
+    if any(decode.values()):
+        raise AssertionError(f"zamba2: the decode steps launched {decode}")
+    if not bool(torch.isfinite(stats["prompt_logits"]).all()):
+        raise AssertionError("zamba2: non-finite logits")
+    step = serve.make_prefill_step(cfg)
+    prompt = {"tokens": stats["prompt"]}
+    prefill_call_ms = _call_ms(lambda: step(model, prompt), reps=3)
+    # the decode's busy share: ZB_TRACE_PROMPT + ZB_TRACE_GEN - 1 steps
+    small = serve.parse_args(argv[:2] + [
+        "--batch", str(ZB_SERVE_BATCH), "--prompt-len",
+        str(ZB_TRACE_PROMPT), "--gen", str(ZB_TRACE_GEN)])
+    n = ZB_TRACE_PROMPT + ZB_TRACE_GEN - 1
+    traced, dkernels, _ = _trace(
+        torch, lambda: serve.serve_lm(small, cfg, model), (), n)
+    traced_step_ms = (traced["prefill_s"] + sum(traced["step_s"])) * 1e3 / n
+    busy = sum(k["ms_per_step"] for k in dkernels)
+    kv_len = LM_PROMPT + LM_GEN // 2  # the generated steps' middle
+    bound = _decode_bound(cfg, ZB_SERVE_BATCH, kv_len,
+                          serve.lm_cache_dtype(cfg))
+    out = dict(arch=ZB_ARCH, layers=cfg.n_layers, shared_applications=n_app,
+               batch=ZB_SERVE_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+               dtype=cfg.dtype, cache_dtype=stats["cache_dtype"],
+               sequential_prefill_s=stats["prefill_s"],
+               step_p50_ms=stats["step_p50_ms"],
+               step_p99_ms=stats["step_p99_ms"],
+               tokens_per_s=stats["tokens_per_s"],
+               prefill_launches=marks["prefill"], decode_launches=decode,
+               prefill_vs_decode=marks["gap"],
+               prefill_call_ms=prefill_call_ms, peak_memory_gb=peak,
+               model_gb=model_bytes / 1e9,
+               decode_traced_step_ms=traced_step_ms,
+               decode_device_busy_ms=busy,
+               decode_device_busy_share=busy / traced_step_ms,
+               decode_kernels_per_step=sum(k["calls"] for k in dkernels) / n,
+               decode_bound_at_kv_len=kv_len, **bound,
+               decode_bound_share=bound["bound_ms"] / stats["step_p50_ms"],
+               decode_top=dkernels[:8])
+    print("zamba2-serve " + json.dumps(out), flush=True)
+    return out
+
+
+def zamba2_check(torch, np, configs, init_model, serve, train, synthetic,
+                 losses, ref, conv1d_brgemm, fa):
+    """Phase 20: Zamba2-7B on the card (see ZB_*): the depthwise and flash
+    kernels at its training shapes (``dw_kernel_checks``,
+    ``_zb_flash_rows``), the full model built once (bf16, flash) and
+    served (``_zb_serve``), then the 12-layer cut trained through the
+    launcher (3 L + L depthwise and 2 + 1 flash launches an application
+    a step: forward, remat recompute, backward) and its fp32 copy's whole
+    gradient against the plain attention and conv."""
+    import dataclasses
+
+    from repro_torch.models import mamba2, zamba2
+
+    t0 = time.perf_counter()
+    counters = _counters(conv1d_brgemm, fa)
+    cfg = dataclasses.replace(configs.get(ZB_ARCH), attn_impl="flash")
+    _, _, conv_dim = mamba2.dims(cfg)
+    out = dict(dw_rows=dw_kernel_checks(
+        torch, conv1d_brgemm, ref, "zamba2", (ZB_BATCH, conv_dim, ZB_SEQ),
+        more=False))
+    out["flash_rows"] = _zb_flash_rows(torch, fa, ref, cfg)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = _lm_model(torch, cfg, init_model, seed=201)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["params"] = sum(p.numel() for p in model.parameters())
+    print(f"zamba2: {out['params']} parameters drawn and moved to the card "
+          f"in {out['init_s']:.1f} s", flush=True)
+    out["serve"] = _zb_serve(torch, serve, cfg, model, counters)
+    del model
+    torch.cuda.empty_cache()
+    tcfg = configs.register(dataclasses.replace(
+        configs.get(ZB_ARCH), name=ZB_TRAIN_ARCH, n_layers=ZB_TRAIN_LAYERS))
+    L, n_app = tcfg.n_layers, zamba2.n_shared_applications(tcfg)
+    per_step = (0, 0, 3 * L, L, 2 * n_app, n_app)
+    out["train"] = _train_check(
+        np, train, "zamba2",
+        ["--arch", ZB_TRAIN_ARCH, "--attn-impl", "flash", "--steps",
+         str(ZB_STEPS), "--batch", str(ZB_BATCH), "--seq", str(ZB_SEQ)],
+        ZB_STEPS, counters, per_step, LM_MEMORY_LIMIT_GB)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gcfg = dataclasses.replace(tcfg, dtype="float32", attn_impl="flash")
+    gmodel = _lm_model(torch, gcfg, init_model, seed=205)
+    batch = _batch(torch, synthetic, gcfg, ZB_GRAD_BATCH, ZB_GRAD_SEQ, 206)
+
+    def run(attn_impl, backend):
+        def logits(tokens):
+            gmodel.cfg = dataclasses.replace(gcfg, attn_impl=attn_impl)
+            return gmodel(tokens, backend=backend)
+        return logits
+
+    out["grad"] = _model_grad_check(
+        torch, losses, "zamba2", gcfg, gmodel, batch, run("flash", None),
+        run("chunked", "ref"), counters[2:], per_step[2:],
+        "depthwise forward, remat recompute and bwd-data; bwd-weight; "
+        "flash forward and recompute an application; backward", 21)
+    del gmodel, batch
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    s, tr = out["serve"], out["train"]
+    fl, dw = out["flash_rows"][0], {r["pass_"]: r for r in out["dw_rows"]}
+    print(f"zamba2: phase 20 in {out['seconds']:.1f} s (the "
+          f"{cfg.n_layers}-layer model drawn in {out['init_s']:.1f} s); "
+          f"flash hd {cfg.head_dim} fwd "
+          f"{fl['fwd_kernel_ms']:.3f} ms (SDPA {fl['fwd_library_ms']:.3f}, "
+          f"bound {fl['fwd_bound_ms']:.3f}), bwd {fl['bwd_kernel_ms']:.3f} "
+          f"ms (SDPA {fl['bwd_library_ms']:.3f}, bound "
+          f"{fl['bwd_bound_ms']:.3f}); depthwise fwd "
+          f"{dw['fwd']['kernel_ms']:.3f} ms, bwd-data "
+          f"{dw['bwd_data']['kernel_ms']:.3f} ms, bwd-weight "
+          f"{dw['bwd_weight']['kernel_ms']:.3f} ms; serving: decode p50 "
+          f"{s['step_p50_ms']:.3f} ms, p99 {s['step_p99_ms']:.3f} ms, "
+          f"{s['tokens_per_s']:.1f} tokens/s, fused prefill "
+          f"{s['prefill_call_ms']:.1f} ms, peak {s['peak_memory_gb']:.2f} "
+          f"GB, bound {s['bound_ms']:.4f} ms, decode busy "
+          f"{s['decode_device_busy_share']:.3f}; training {L} layers: step "
+          f"p50 {tr['step_p50_ms']:.1f} ms, {tr['tokens_per_s']:.0f} "
+          f"tokens/s, {tr['model_tflops_per_s']:.1f} TFLOP/s, peak "
+          f"{tr['peak_memory_gb']:.2f} GB", flush=True)
+    return out
+
+
+def _zb_entries(zb, dw_fwd_entry, dw_bw_entry, flash_entries, head_dims):
+    """Phase 20's numbers in the kernels line: Zamba2's conv layer (7,296
+    channels) under the two depthwise kernels and its shared attention
+    (head_dim 112) under the two flash kernels, each with its launches a
+    training step, a fused prefill and a decode step."""
+    keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err")
+    launches = zb["train"]["launches_per_step"]
+    prefill, decode = (zb["serve"]["prefill_launches"],
+                       zb["serve"]["decode_launches"])
+    dw = {r["pass_"]: r for r in zb["dw_rows"]}
+    for entry, pas in ((dw_fwd_entry, "fwd"), (dw_bw_entry, "bwd_weight")):
+        entry["zamba2"] = dict(
+            launches_per_train_step=launches[entry["name"]],
+            **{k: dw[pas][k] for k in keys + ("gb_per_s",)})
+    dw_fwd_entry["zamba2"].update(
+        launches_per_prefill=prefill["depthwise_conv1d_fwd"],
+        launches_in_decode=decode["depthwise_conv1d_fwd"],
+        bwd_data={k: dw["bwd_data"][k] for k in keys})
+    cell = zb["flash_rows"][0]
+    for entry, pas, errs in zip(flash_entries, ("fwd", "bwd"),
+                                (("o", "lse"), ("dq", "dk", "dv"))):
+        entry["head_dims"] = list(head_dims)
+        entry["zamba2"] = dict(
+            launches_per_train_step=launches[entry["name"]],
+            max_abs_err=max(r["max_abs_err"][e] for r in zb["flash_rows"]
+                            for e in errs),
+            **{k: cell.get(f"{pas}_{k}", cell.get(k)) for k in (
+                "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_share", "tflops")})
+    flash_entries[0]["zamba2"].update(
+        launches_per_prefill=prefill["flash_fwd"],
+        launches_in_decode=decode["flash_fwd"])
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -4278,8 +4553,8 @@ def _loops(fn):
 
 def hgmma_counts(build, flash_attention, conv1d_brgemm):
     """HGMMA instructions (wgmma in SASS) of each flash and each
-    conv1d_bwd_weight kernel.  Raises unless all six bf16 flash kernels
-    (``*_wgmma_kernel``, head_dim 64 and 128) and every
+    conv1d_bwd_weight kernel.  Raises unless all nine bf16 flash kernels
+    (``*_wgmma_kernel``, head_dim 64, 112 and 128) and every
     ``bwd_weight_partial`` kernel have some: the proof that their
     products run on the tensor cores."""
     counts = {}
@@ -4288,9 +4563,9 @@ def hgmma_counts(build, flash_attention, conv1d_brgemm):
         for name, fn in _sass_functions(build, lib).items():
             counts[name] = fn.count("HGMMA")
     bf16 = {k: n for k, n in counts.items() if "wgmma" in k}
-    if len(bf16) != 6 or not all(bf16.values()):
+    if len(bf16) != 9 or not all(bf16.values()):
         raise AssertionError(f"flash kernels' HGMMA counts {counts}: each "
-                             "of the six bf16 kernels must have some")
+                             "of the nine bf16 kernels must have some")
     bw = {k: n for k, n in counts.items()
           if k.startswith("bwd_weight_partial")}
     if not any("<float" in k for k in bw) or not all(bw.values()):
@@ -4395,7 +4670,7 @@ def main(argv=None) -> int:
         for ln in lines:
             print(f"ptxas {name}: {ln}")
     _check_no_spills(ptxas, ("conv1d_fwd", "depthwise_conv1d_fwd",
-                             "conv1d_bwd_weight"))
+                             "conv1d_bwd_weight", "flash_fwd", "flash_bwd"))
     _check_wgmma_not_serialized(ptxas, ("conv1d_bwd_weight", "flash_fwd",
                                         "flash_bwd"))
     hgmma = hgmma_counts(build, flash_attention, conv1d_brgemm)
@@ -4435,6 +4710,8 @@ def main(argv=None) -> int:
     wh = whisper_check(torch, np, configs, init_model, serve, train,
                        synthetic, losses, ref, conv1d_brgemm,
                        flash_attention)
+    zb = zamba2_check(torch, np, configs, init_model, serve, train,
+                      synthetic, losses, ref, conv1d_brgemm, flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -4704,6 +4981,8 @@ def main(argv=None) -> int:
             "flash_fwd"],
         launches_per_prefill=wh["serve"]["prefill_launches"]["flash_fwd"],
         launches_in_decode=wh["serve"]["decode_launches"]["flash_fwd"])
+    _zb_entries(zb, dw_fwd_entry, dw_bw_entry, flash_entries,
+                flash_attention._HEAD_DIMS)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     if args.out:
@@ -4723,7 +5002,7 @@ def main(argv=None) -> int:
                            starcoder2_train=lm_train,
                            starcoder2_profile=lm_prof, sweep=sweep_res,
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
-                           elastic=elastic, whisper=wh,
+                           elastic=elastic, whisper=wh, zamba2=zb,
                            kernels=kernels), f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

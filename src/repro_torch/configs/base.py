@@ -3,9 +3,10 @@
 and its registry.
 
 The conv family (AtacWorks), the SSM family (Mamba2), the dense
-transformers (StarCoder2, Qwen2, Qwen3) and the encoder-decoder family
-(Whisper) are ported.  The other families (MoE, MLA, VLM, hybrid) raise
-``NotImplementedError`` that names the ROADMAP queue they wait in.
+transformers (StarCoder2, Qwen2, Qwen3), the encoder-decoder family
+(Whisper) and the hybrid family (Zamba2) are ported.  The other families
+(MoE, MLA, VLM) raise ``NotImplementedError`` that names the ROADMAP queue
+they wait in.
 """
 from __future__ import annotations
 
@@ -13,13 +14,11 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Literal, Optional
 
-Family = Literal["conv", "ssm", "dense", "encdec"]
+Family = Literal["conv", "ssm", "dense", "encdec", "hybrid"]
 
 # Architectures of the JAX package whose families the port does not have
-# yet (ROADMAP.md, queue A: MoE, MLA, VLM and hybrid).
-NOT_PORTED = (
-    "deepseek-v3-671b", "internvl2-2b", "moonshot-v1-16b-a3b", "zamba2-7b",
-)
+# yet (ROADMAP.md, queue A: MoE, MLA and VLM).
+NOT_PORTED = ("deepseek-v3-671b", "internvl2-2b", "moonshot-v1-16b-a3b")
 
 
 @dataclass(frozen=True)
@@ -38,7 +37,8 @@ class SSMConfig:
 class ModelConfig:
     name: str
     family: Family
-    # language models (the SSM, dense and encoder-decoder families);
+    # language models (the SSM, dense, encoder-decoder and hybrid
+    # families);
     # n_layers counts the decoder's layers of an encoder-decoder
     n_layers: int = 0
     d_model: int = 0
@@ -61,6 +61,9 @@ class ModelConfig:
     pos_embedding: str = "rope"
     max_position: int = 1 << 20
     ssm: Optional[SSMConfig] = None
+    # hybrid (Zamba2): the shared attention block is applied after every
+    # layer i with i % attn_every == attn_every - 1
+    attn_every: int = 0
     # encoder-decoder (Whisper): encoder layers, and the frames the
     # encoder takes (the conv frontend's output width)
     n_encoder_layers: int = 0
@@ -106,9 +109,9 @@ def get(name: str) -> ModelConfig:
             f"{name!r} is not ported to repro_torch yet: only the conv "
             "family (atacworks, atacworks-bf16), the SSM family "
             "(mamba2-370m), the dense transformers (starcoder2-3b, "
-            "qwen2-7b, qwen3-8b, qwen3-14b) and the encoder-decoder "
-            "(whisper-large-v3) are; the other families wait in ROADMAP.md "
-            "queue A")
+            "qwen2-7b, qwen3-8b, qwen3-14b), the encoder-decoder "
+            "(whisper-large-v3) and the hybrid (zamba2-7b) are; the other "
+            "families wait in ROADMAP.md queue A")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {names()}")
     return _REGISTRY[name]
@@ -127,23 +130,28 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     and encoder-decoder: 4 heads over <= 2 KV heads of 16, d_ff 128,
     max_position 4096, attn_chunk 64; encoder-decoder also 2 encoder
     layers over 64 frames, so its self-attention groups 2 query heads a
-    KV head while its cross-attention keeps the 4 heads)."""
+    KV head while its cross-attention keeps the 4 heads).  Hybrid: both
+    (the SSM's and the attention's), with 4 layers and ``attn_every`` 2,
+    so the shared block is applied twice, as GQA of 2 heads a KV head
+    where the full width has one."""
     small: dict = dict(dtype="float32")
     if cfg.family == "conv":
         small.update(conv_channels=min(cfg.conv_channels, 8),
                      conv_filter=min(cfg.conv_filter, 9))
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         small.update(n_layers=min(cfg.n_layers, 2), d_model=64,
                      vocab_size=min(cfg.vocab_size, 256), remat=False,
                      ssm=dataclasses.replace(cfg.ssm, d_state=16,
                                              head_dim=8, chunk=16))
-    if cfg.family in ("dense", "encdec"):
+    if cfg.family in ("dense", "encdec", "hybrid"):
         small.update(n_layers=min(cfg.n_layers, 2), d_model=64, n_heads=4,
                      n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
                      d_ff=128, vocab_size=min(cfg.vocab_size, 256),
                      max_position=4096, remat=False, attn_chunk=64)
     if cfg.family == "encdec":
         small.update(n_encoder_layers=2, encoder_width=64)
+    if cfg.attn_every:
+        small.update(attn_every=2, n_layers=4)
     small.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)
 
@@ -151,4 +159,4 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 def _load_all() -> None:
     from . import (atacworks, mamba2_370m, qwen2_7b,  # noqa: F401
                    qwen3_8b, qwen3_14b, starcoder2_3b,  # (register on import)
-                   whisper_large_v3)
+                   whisper_large_v3, zamba2_7b)

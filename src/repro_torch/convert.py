@@ -8,7 +8,9 @@ parameters.  Mamba2's per-layer leaves keep the JAX tree's leading ``L``
 axis in the port (``layers.mixer.in_proj`` is (L, D, d_proj) in both), as
 the transformers' do (Whisper's ``enc_layers.attn.wq`` (L_enc, D, H * hd),
 ``dec_layers.cross.wk`` (L, D, H * hd), beside ``embed.pos`` and
-``frontend.conv1_w`` (3, D, 128)), so nothing is split or joined::
+``frontend.conv1_w`` (3, D, 128)), and Zamba2's (its Mamba2 leaves under
+``layers.`` beside the shared block's ``shared.wq`` (2·D, H * hd) and
+``shared.mlp.w_gate``), so nothing is split or joined::
 
     model.load_state_dict(params_from_jax(jax_tree_as_numpy))
     state = train_state_from_jax(jax_train_state_as_numpy, cfg)
@@ -54,7 +56,8 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu"):
     layout and dtype (Mamba2 ``{"conv": (L, B, S-1, conv_dim), "ssm": (L,
     B, H, N, P)}``, dense ``{"dense": {"k"|"v": (L, B, Tmax, KV, hd)}}``,
     Whisper ``{"k"|"v": (L, B, Tmax, KV, hd), "cross_k"|"cross_v": (L, B,
-    Te, H, hd)}``, its cross K/V filled or not), so ``decode_step`` may
+    Te, H, hd)}``, its cross K/V filled or not; Zamba2 ``{"mamba": {"conv",
+    "ssm"}, "k"|"v": (n_app, B, Tmax, KV, hd)}``), so ``decode_step`` may
     write into it."""
     if isinstance(tree, dict):
         return {k: cache_from_jax(v, device=device) for k, v in tree.items()}

@@ -13,8 +13,9 @@
 //   their element strides (last dimension contiguous), fp32 or bf16, one
 //   dtype; lse and delta (B, Tq, KV, G) contiguous fp32 (delta =
 //   rowsum(dO * o), computed by the caller from the stored o, as the TPU
-//   wrapper does); dq, dk, dv contiguous in the inputs' dtype.  hd is 64
-//   or 128.
+//   wrapper does); dq, dk, dv contiguous in the inputs' dtype.  hd is 64,
+//   112 or 128 (112 in a tile of 128 columns, the last 16 zeros:
+//   flash_common.cuh).
 //
 // Bound.  At StarCoder2-3B's training shape (B 4, T 4,096, 24 heads over
 // 2 KV heads, hd 128, causal) the backward needs five products, each the
@@ -102,7 +103,7 @@ struct Params {
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(Params p) {
-  constexpr int LD = HD + 4, LDS = BK + 4, DH = HD / 64;
+  constexpr int HP = pad64(HD), LD = HP + 4, LDS = BK + 4, DH = HP / 64;
   extern __shared__ float smem[];
   float* Qs = smem;                  // (BM, LD) scaled q
   float* dOs = Qs + BM * LD;         // (BM, LD)
@@ -210,7 +211,8 @@ flash_bwd_dq_kernel(Params p) {
     const long long row = row_index(b, kv, r, p.Tq, p.KV, p.G);
 #pragma unroll
     for (int h = 0; h < DH; ++h)
-      store4(dq + row * HD + 64 * h + tx * 4, scale4(acc[i][h], p.scale));
+      if (HD % 64 == 0 || 64 * h + tx * 4 < HD)  // not a zero column
+        store4(dq + row * HD + 64 * h + tx * 4, scale4(acc[i][h], p.scale));
   }
 }
 
@@ -220,7 +222,7 @@ flash_bwd_dq_kernel(Params p) {
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(Params p) {
-  constexpr int LD = HD + 4, LDT = BM + 4, DH = HD / 64;
+  constexpr int HP = pad64(HD), LD = HP + 4, LDT = BM + 4, DH = HP / 64;
   extern __shared__ float smem[];
   float* Ks = smem;                  // (BK, LD)
   float* Vs = Ks + BK * LD;          // (BK, LD)
@@ -338,6 +340,7 @@ flash_bwd_dkv_kernel(Params p) {
     const long long row = ((long long)b * p.Tk + j) * p.KV + kv;
 #pragma unroll
     for (int h = 0; h < DH; ++h) {
+      if (HD % 64 && 64 * h + tx * 4 >= HD) continue;  // a zero column
       store4(dkp + row * HD + 64 * h + tx * 4, dk[i][h]);
       store4(dvp + row * HD + 64 * h + tx * 4, dv[i][h]);
     }
@@ -354,17 +357,17 @@ constexpr int RT = 64;              // dK/dV: rows a tile
 
 template <int HD>
 constexpr int dq_smem_bytes() {     // Q, dO, then two stages of K and V
-  return 1024 + (2 * ROWS + 4 * KEYS) * HD * 2;
+  return 1024 + (2 * ROWS + 4 * KEYS) * pad64(HD) * 2;
 }
 // a dK/dV stage: Q and dO, then each row's lse, delta and position (3 x
 // RT x 4 bytes, padded so that the next stage's tiles start 1024-aligned)
 template <int HD>
 __host__ __device__ constexpr int dkv_stage_bytes() {
-  return 2 * RT * HD * 2 + 1024;
+  return 2 * RT * pad64(HD) * 2 + 1024;
 }
 template <int HD>
 constexpr int dkv_smem_bytes() {    // K, V, then two stages
-  return 1024 + 2 * BKEYS * HD * 2 + 2 * dkv_stage_bytes<HD>();
+  return 1024 + 2 * BKEYS * pad64(HD) * 2 + 2 * dkv_stage_bytes<HD>();
 }
 
 // dQ: one block per (tile of 128 rows, batch x KV head), heaviest first;
@@ -372,7 +375,8 @@ constexpr int dkv_smem_bytes() {    // K, V, then two stages
 template <int HD>
 __global__ void __launch_bounds__(NWG * WG, 1)
 flash_bwd_dq_wgmma_kernel(Params p) {
-  constexpr int TILE = ROWS * HD * 2, KV_BYTES = KEYS * HD * 2;
+  constexpr int HP = pad64(HD);
+  constexpr int TILE = ROWS * HP * 2, KV_BYTES = KEYS * HP * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t dOs = Qs + TILE, ring = dOs + TILE;  // stage s: K, V
@@ -414,9 +418,9 @@ flash_bwd_dq_wgmma_kernel(Params p) {
   }
   const uint32_t Qw = Qs + w * WG_M * 128, dOw = dOs + w * WG_M * 128;
   const float sl2 = p.scale * LOG2E;
-  float dq[HD / 2];
+  float dq[HP / 2];
 #pragma unroll
-  for (int e = 0; e < HD / 2; ++e) dq[e] = 0.f;
+  for (int e = 0; e < HP / 2; ++e) dq[e] = 0.f;
 
   for (int it = 0; it < ntk; ++it) {
     const uint32_t Ks = ring + (it & 1) * 2 * KV_BYTES, Vs = Ks + KV_BYTES;
@@ -464,8 +468,8 @@ flash_bwd_dq_wgmma_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KEYS / 16; ++kk) {
-      wgmma_rs<HD>(dq, dh[kk], desc_n<KEYS>(Ks, kk));
-      wgmma_rs<HD>(dq, dl[kk], desc_n<KEYS>(Ks, kk));
+      wgmma_rs<HP>(dq, dh[kk], desc_n<KEYS>(Ks, kk));
+      wgmma_rs<HP>(dq, dl[kk], desc_n<KEYS>(Ks, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -496,7 +500,8 @@ flash_bwd_dq_wgmma_kernel(Params p) {
 template <int HD>
 __global__ void __launch_bounds__(NWG * WG, 1)
 flash_bwd_dkv_wgmma_kernel(Params p) {
-  constexpr int KTILE = BKEYS * HD * 2, RTILE = RT * HD * 2;
+  constexpr int HP = pad64(HD);
+  constexpr int KTILE = BKEYS * HP * 2, RTILE = RT * HP * 2;
   constexpr int STAGE = dkv_stage_bytes<HD>();
   static_assert(3 * RT * 4 <= 1024, "row data fits its padding");
   static_assert(3 * RT <= NWG * WG, "a thread for each row datum");
@@ -557,9 +562,9 @@ flash_bwd_dkv_wgmma_kernel(Params p) {
   const int jpos[2] = {k0 + kw, k0 + kw + 8};
   const uint32_t Kw = Ks + w * WG_M * 128, Vw = Vs + w * WG_M * 128;
   const float sl2 = p.scale * LOG2E;
-  float dk[HD / 2], dv[HD / 2];
+  float dk[HP / 2], dv[HP / 2];
 #pragma unroll
-  for (int e = 0; e < HD / 2; ++e) dk[e] = dv[e] = 0.f;
+  for (int e = 0; e < HP / 2; ++e) dk[e] = dv[e] = 0.f;
 
   for (int it = 0; it < nrt; ++it) {
     const uint32_t Qt = ring + (it & 1) * STAGE, dOt = Qt + RTILE;
@@ -614,13 +619,13 @@ flash_bwd_dkv_wgmma_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < RT / 16; ++kk) {
-      wgmma_rs<HD>(dv, ph[kk], desc_n<RT>(dOt, kk));
-      wgmma_rs<HD>(dv, pl[kk], desc_n<RT>(dOt, kk));
+      wgmma_rs<HP>(dv, ph[kk], desc_n<RT>(dOt, kk));
+      wgmma_rs<HP>(dv, pl[kk], desc_n<RT>(dOt, kk));
     }
 #pragma unroll
     for (int kk = 0; kk < RT / 16; ++kk) {
-      wgmma_rs<HD>(dk, dh[kk], desc_n<RT>(Qt, kk));
-      wgmma_rs<HD>(dk, dl[kk], desc_n<RT>(Qt, kk));
+      wgmma_rs<HP>(dk, dh[kk], desc_n<RT>(Qt, kk));
+      wgmma_rs<HP>(dk, dl[kk], desc_n<RT>(Qt, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -668,7 +673,7 @@ int launch(const Params& p, int B, cudaStream_t stream) {
                                      NWG * WG, smem_dkv, stream>>>(p);
     return (int)cudaGetLastError();
   } else {  // fp32: FMAs
-    constexpr int LD = HD + 4;
+    constexpr int LD = pad64(HD) + 4;
     const int smem_dq =
         (2 * BM * LD + 2 * BK * LD + BM * (BK + 4)) * (int)sizeof(float);
     const int smem_dkv =
@@ -692,6 +697,13 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   }
 }
 
+template <typename T>
+int launch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
+  if (hd == 64) return launch<T, 64>(p, B, stream);
+  if (hd == 112) return launch<T, 112>(p, B, stream);
+  return launch<T, 128>(p, B, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -704,7 +716,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* d_o,
               void* dv, int B, int Tq, int Tk, int KV, int G, int hd,
               const long long* strides, int causal, float scale, int dtype,
               int device, void* stream) {
-  if (hd != 64 && hd != 128) return ERR_HEAD_DIM;
+  if (hd != 64 && hd != 112 && hd != 128) return ERR_HEAD_DIM;
   if ((long long)B * KV > 65535) return ERR_GRID;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -713,10 +725,8 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* d_o,
            s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
            s[8], s[9], s[10], s[11], s[12], s[13], scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return hd == 128 ? launch<float, 128>(p, B, st) : launch<float, 64>(p, B, st);
-  return hd == 128 ? launch<__nv_bfloat16, 128>(p, B, st)
-                   : launch<__nv_bfloat16, 64>(p, B, st);
+  if (dtype == DT_F32) return launch_hd<float>(p, B, hd, st);
+  return launch_hd<__nv_bfloat16>(p, B, hd, st);
 }
 
 const char* flash_bwd_error_string(int code) {

@@ -12,6 +12,14 @@
 //     m64n128k16 with A in registers), and the split of an fp32
 //     accumulator into two bf16 A operands, hi and lo;
 //   * the dtype and error codes and the row index of lse, o and dq.
+//
+// Head dimensions: 64, 112 and 128.  A tile is HP = pad64(HD) columns
+// wide (64, 128, 128): a row of hd 112 is loaded into 128 columns whose
+// last 16 are zeros, so one layout and the n64 and n128 wgmma forms serve
+// all three.  A product that sums over hd (Q.K^T and its kin) takes HD/16
+// k-steps and never reads the zero columns; a product whose n is hd (P.V
+// and its kin) runs at n = HP, its zero columns give zero outputs, and
+// only the HD real columns are stored.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,8 +34,11 @@ constexpr int BM = 64;           // fp32 path: query rows (position x group
 constexpr int BK = 64;           // head) per tile, keys per tile,
 constexpr int THREADS = 256;     // threads as 16 x 16
 constexpr int DT_F32 = 0;        // dtype codes: 0 fp32, 1 bf16
-constexpr int ERR_HEAD_DIM = -1; // hd other than 64 or 128
+constexpr int ERR_HEAD_DIM = -1; // hd other than 64, 112 or 128
 constexpr int ERR_GRID = -2;     // B * KV beyond the grid's limit
+
+// a tile's width: hd rounded up to a multiple of 64
+__host__ __device__ constexpr int pad64(int hd) { return (hd + 63) / 64 * 64; }
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -40,34 +51,36 @@ __device__ __forceinline__ float4 scale4(float4 x, float s) {
 }
 
 // Rows r0 .. r0+BM (row r = t*G + g) of (B, Tq, KV, G, hd)-strided x,
-// already offset to its batch and KV head, into (BM, HD + 4) fp32 shared
-// memory, times mul; rows past nrows are zeros.
+// already offset to its batch and KV head, into (BM, HP + 4) fp32 shared
+// memory, times mul; rows past nrows and columns past HD are zeros.
 template <int HD>
 __device__ __forceinline__ void load_rows(float* dst, const float* x,
                                           long long st, long long sg, int r0,
                                           int nrows, int G, float mul) {
-  constexpr int LD = HD + 4;
-  for (int idx = threadIdx.x; idx < BM * (HD / 4); idx += THREADS) {
-    const int rr = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
+  constexpr int HP = pad64(HD), LD = HP + 4;
+  for (int idx = threadIdx.x; idx < BM * (HP / 4); idx += THREADS) {
+    const int rr = idx / (HP / 4), d = (idx % (HP / 4)) * 4;
     const int r = r0 + rr;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nrows) val = scale4(load4(x + (r / G) * st + (r % G) * sg + d), mul);
+    if (r < nrows && d < HD)
+      val = scale4(load4(x + (r / G) * st + (r % G) * sg + d), mul);
     store4(dst + rr * LD + d, val);
   }
 }
 
 // Keys k0 .. k0+BK of (B, Tk, KV, hd)-strided x, already offset to its
-// batch and KV head, into (BK, HD + 4) fp32 shared memory; keys past Tk
-// are zeros.
+// batch and KV head, into (BK, HP + 4) fp32 shared memory; keys past Tk
+// and columns past HD are zeros.
 template <int HD>
 __device__ __forceinline__ void load_keys(float* dst, const float* x,
                                           long long st, int k0, int Tk) {
-  constexpr int LD = HD + 4;
-  for (int idx = threadIdx.x; idx < BK * (HD / 4); idx += THREADS) {
-    const int jj = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
+  constexpr int HP = pad64(HD), LD = HP + 4;
+  for (int idx = threadIdx.x; idx < BK * (HP / 4); idx += THREADS) {
+    const int jj = idx / (HP / 4), d = (idx % (HP / 4)) * 4;
     const int j = k0 + jj;
-    store4(dst + jj * LD + d,
-           j < Tk ? load4(x + j * st + d) : make_float4(0.f, 0.f, 0.f, 0.f));
+    store4(dst + jj * LD + d, j < Tk && d < HD
+                                  ? load4(x + j * st + d)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f));
   }
 }
 
@@ -80,8 +93,9 @@ __device__ __forceinline__ long long row_index(int b, int kv, int r, int Tq,
 
 // ---- the bf16 path: Hopper's tensor cores through wgmma (sm_90a) ---------
 //
-// A tile of R rows by HD bf16 columns lives in shared memory as HD/64
-// column blocks of (R, 64) in hopper.cuh's 128-byte swizzled layout, so
+// A tile of R rows by HD bf16 columns lives in shared memory as HP/64
+// column blocks of (R, 64) in hopper.cuh's 128-byte swizzled layout (the
+// columns past HD zeros), so
 // one layout serves both ways of reading it: K-major (hd as the k
 // dimension: Q.K^T and its kin) and N-major (the rows as the k dimension:
 // P.V and its kin, wgmma's transposed B).
@@ -93,36 +107,37 @@ constexpr float LN2 = 0.6931471805599453f;
 
 // Rows r0 .. r0+R (row r = t*G + g) of (B, Tq, KV, G, hd)-strided x,
 // already offset to its batch and KV head, into the swizzled (R, HD) tile
-// at dst, by NT threads with cp.async; rows past nrows are zeros.
+// at dst (HP columns), by NT threads with cp.async; rows past nrows and
+// columns past HD are zeros.
 template <int R, int HD, int NT>
 __device__ __forceinline__ void cp_rows(uint32_t dst, const bf16* x,
                                         long long st, long long sg, int r0,
                                         int nrows, int G) {
-  constexpr int CH = HD / 8;  // 16-byte chunks a row
+  constexpr int CH = pad64(HD) / 8;  // 16-byte chunks a tile row
   static_assert(R * CH % NT == 0, "whole chunks per thread");
 #pragma unroll
   for (int i = 0; i < R * CH / NT; ++i) {
     const int idx = threadIdx.x + i * NT;
     const int rr = idx / CH, c = idx % CH, r = r0 + rr;
-    const bool ok = r < nrows;
+    const bool ok = r < nrows && c < HD / 8;
     const bf16* src = ok ? x + (r / G) * st + (r % G) * sg + c * 8 : x;
     cp_async16(dst + sw128<R>(rr, c), src, ok);
   }
 }
 
 // Keys k0 .. k0+R of (B, Tk, KV, hd)-strided x, already offset to its
-// batch and KV head, into the swizzled (R, HD) tile at dst; keys past Tk
-// are zeros.
+// batch and KV head, into the swizzled (R, HD) tile at dst (HP columns);
+// keys past Tk and columns past HD are zeros.
 template <int R, int HD, int NT>
 __device__ __forceinline__ void cp_keys(uint32_t dst, const bf16* x,
                                         long long st, int k0, int Tk) {
-  constexpr int CH = HD / 8;
+  constexpr int CH = pad64(HD) / 8;
   static_assert(R * CH % NT == 0, "whole chunks per thread");
 #pragma unroll
   for (int i = 0; i < R * CH / NT; ++i) {
     const int idx = threadIdx.x + i * NT;
     const int jj = idx / CH, c = idx % CH, j = k0 + jj;
-    const bool ok = j < Tk;
+    const bool ok = j < Tk && c < HD / 8;
     cp_async16(dst + sw128<R>(jj, c), ok ? x + j * st + c * 8 : x, ok);
   }
 }
@@ -212,11 +227,12 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (64 x HD) += A . B with A in registers: m64n64k16 or m64n128k16
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+// d (64 x HP) += A . B with A in registers: m64n64k16 or m64n128k16
+template <int HP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HP / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (HD == 64) wgmma_rs_n64(d, a, b);
+  static_assert(HP == 64 || HP == 128, "a tile is 64 or 128 columns wide");
+  if constexpr (HP == 64) wgmma_rs_n64(d, a, b);
   else wgmma_rs_n128(d, a, b);
 }
 

@@ -11,7 +11,8 @@
 //   q (B, Tq, KV, G, hd), k and v (B, Tk, KV, hd), read through their
 //   element strides (the last dimension contiguous), fp32 or bf16, one
 //   dtype; o (B, Tq, KV, G, hd) contiguous in q's dtype; lse (B, Tq, KV, G)
-//   contiguous fp32.  hd is 64 or 128.
+//   contiguous fp32.  hd is 64, 112 or 128 (112 in a tile of 128 columns,
+//   the last 16 zeros: flash_common.cuh).
 //
 // Bound.  At StarCoder2-3B's training shape (B 4, T 4,096, 24 heads over
 // 2 KV heads, hd 128, causal) one launch needs 4.12e11 flops (the causal
@@ -43,7 +44,8 @@
 //         the current one is used; Q is loaded once;
 //       - S = Q.K^T from shared memory (m64n64k16, K K-major); the online
 //         softmax in registers (exp2f, each row's four lanes joined by
-//         shuffles); then O += P_hi.V + P_lo.V (m64n{hd}k16) with P from
+//         shuffles); then O += P_hi.V + P_lo.V (m64n64k16 at hd 64,
+//         m64n128k16 at hd 112 and 128) with P from
 //         the S accumulator in registers, whose layout is A's, and V read
 //         N-major (wgmma's transpose of bf16 B);
 //       - the causal tile skip, the ragged masks and NEG_INF = -1e30 as in
@@ -79,9 +81,10 @@ struct Params {
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(Params p) {
-  constexpr int LD = HD + 4;        // row stride of Q, K, V in shared memory
+  constexpr int HP = pad64(HD);      // the tile's columns
+  constexpr int LD = HP + 4;        // row stride of Q, K, V in shared memory
   constexpr int LDP = BK + 4;       // row stride of P
-  constexpr int DH = HD / 64;       // float4 column groups per thread in O
+  constexpr int DH = HP / 64;       // float4 column groups per thread in O
   extern __shared__ float smem[];
   float* Qs = smem;                 // (BM, LD) scaled q
   float* Ks = Qs + BM * LD;         // (BK, LD)
@@ -222,6 +225,7 @@ flash_fwd_kernel(Params p) {
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int h = 0; h < DH; ++h) {
+      if (HD % 64 && 64 * h + tx * 4 >= HD) continue;  // a zero column
       float4 y = acc[i][h];
       y.x *= inv; y.y *= inv; y.z *= inv; y.w *= inv;
       store4(o + row * HDl + 64 * h + tx * 4, y);
@@ -238,16 +242,16 @@ constexpr int KEYS = 64;            // keys a tile (the S product's N)
 
 template <int HD>
 constexpr int fwd_smem_bytes() {    // Q, then two stages of K and V
-  return 1024 + (ROWS + 4 * KEYS) * HD * 2;
+  return 1024 + (ROWS + 4 * KEYS) * pad64(HD) * 2;
 }
 
 template <int HD>
 __global__ void __launch_bounds__(NWG * WG, 1)
 flash_fwd_wgmma_kernel(Params p) {
-  constexpr int KV_BYTES = KEYS * HD * 2;
+  constexpr int HP = pad64(HD), KV_BYTES = KEYS * HP * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t Qs = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t ring = Qs + ROWS * HD * 2;   // stage s: K, then V
+  const uint32_t ring = Qs + ROWS * HP * 2;   // stage s: K, then V
 
   const int nrows = p.Tq * p.G;
   const int ntiles = (nrows + ROWS - 1) / ROWS;
@@ -281,9 +285,9 @@ flash_fwd_wgmma_kernel(Params p) {
   const uint32_t Qw = Qs + w * WG_M * 128;   // this warpgroup's 64 rows
   const float sl2 = p.scale * LOG2E;         // s in log2 units
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[HD / 2];
+  float o[HP / 2];
 #pragma unroll
-  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+  for (int e = 0; e < HP / 2; ++e) o[e] = 0.f;
 
   for (int it = 0; it < ntk; ++it) {
     const uint32_t Ks = ring + (it & 1) * 2 * KV_BYTES, Vs = Ks + KV_BYTES;
@@ -338,7 +342,7 @@ flash_fwd_wgmma_kernel(Params p) {
       l[h] += s[e];
     }
 #pragma unroll
-    for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e / 2) % 2];
+    for (int e = 0; e < HP / 2; ++e) o[e] *= alpha[(e / 2) % 2];
 
     // O += P_hi V + P_lo V
     uint32_t ph[KEYS / 16][4], pl[KEYS / 16][4];
@@ -347,8 +351,8 @@ flash_fwd_wgmma_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KEYS / 16; ++kk) {
-      wgmma_rs<HD>(o, ph[kk], desc_n<KEYS>(Vs, kk));
-      wgmma_rs<HD>(o, pl[kk], desc_n<KEYS>(Vs, kk));
+      wgmma_rs<HP>(o, ph[kk], desc_n<KEYS>(Vs, kk));
+      wgmma_rs<HP>(o, pl[kk], desc_n<KEYS>(Vs, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -386,7 +390,7 @@ int launch(const Params& p, int B, cudaStream_t stream) {
     const int grid = (nrows + ROWS - 1) / ROWS * B * p.KV;
     flash_fwd_wgmma_kernel<HD><<<grid, NWG * WG, smem, stream>>>(p);
   } else {  // fp32: FMAs
-    constexpr int LD = HD + 4;
+    constexpr int LD = pad64(HD) + 4;
     const int smem =
         (BM * LD + 2 * BK * LD + BM * (BK + 4)) * (int)sizeof(float);
     cudaError_t e = cudaFuncSetAttribute(
@@ -397,6 +401,13 @@ int launch(const Params& p, int B, cudaStream_t stream) {
     flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
+  if (hd == 64) return launch<T, 64>(p, B, stream);
+  if (hd == 112) return launch<T, 112>(p, B, stream);
+  return launch<T, 128>(p, B, stream);
 }
 
 }  // namespace
@@ -410,7 +421,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Tq, int Tk, int KV, int G, int hd,
               const long long* strides, int causal, int q_offset,
               float scale, int dtype, int device, void* stream) {
-  if (hd != 64 && hd != 128) return ERR_HEAD_DIM;
+  if (hd != 64 && hd != 112 && hd != 128) return ERR_HEAD_DIM;
   if ((long long)B * KV > 65535) return ERR_GRID;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -419,10 +430,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
            strides[4], strides[5], strides[6],
            strides[7], strides[8], strides[9], scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    return hd == 128 ? launch<float, 128>(p, B, s) : launch<float, 64>(p, B, s);
-  return hd == 128 ? launch<__nv_bfloat16, 128>(p, B, s)
-                   : launch<__nv_bfloat16, 64>(p, B, s);
+  if (dtype == DT_F32) return launch_hd<float>(p, B, hd, s);
+  return launch_hd<__nv_bfloat16>(p, B, hd, s);
 }
 
 const char* flash_fwd_error_string(int code) {

@@ -33,7 +33,7 @@ from . import build as _build
 from . import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the kernels' templates
+_HEAD_DIMS = (64, 112, 128)  # the kernels' templates
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _REFUSED = {-1: f"head_dim must be one of {_HEAD_DIMS}",
             -2: "batch x KV heads exceeds the grid's limit 65535"}
@@ -135,8 +135,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each query's position, queries sitting at ``q_offset + t``.
 
     q, k and v are fp32 or bf16 of one dtype on one device, each with a
-    contiguous last dimension; on the card hd is 64 or 128 and every
-    stride a multiple of 16 bytes.  Anything else raises.
+    contiguous last dimension; on the card hd is 64, 112 or 128 and every
+    stride a multiple of 16 bytes.  Anything else raises.  The scores are
+    scaled by ``hd ** -0.5`` of q's own hd (at 112 the kernels run in a
+    tile of 128 columns, the last 16 zeros; the scale stays 112's).
     """
     _check_qkv(q, k, v)
     B, Tq, KV, G, hd = q.shape

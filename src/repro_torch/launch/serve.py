@@ -2,8 +2,9 @@
 batched greedy decode for the language models, batched continuous
 streaming for the conv family.  It runs on the card by default.
 
-Language models (the SSM family, Mamba2, the dense transformers and the
-encoder-decoder, Whisper): build the cache of ``--prompt-len`` seeded
+Language models (the SSM family, Mamba2, the dense transformers, the
+encoder-decoder, Whisper, and the hybrid, Zamba2): build the cache of
+``--prompt-len`` seeded
 prompt tokens by sequential teacher-forced decode steps, as the JAX
 launcher does (the fused prefill is ``train.serve_step.
 make_prefill_step``, which ``--smoke`` checks against it), then generate
@@ -22,12 +23,23 @@ against zero cross K/V, which ignores the audio (ROADMAP.md queue C):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-large-v3 --batch 8 --prompt-len 4 --gen 64
 
+Zamba2-7B serves at its full depth (81 Mamba2 layers, the shared block's
+13 applications, 13.6 GB of bf16 weights); the fused prefill that
+``--smoke`` checks runs 81 ``depthwise_conv1d_fwd`` and, with
+``attn_impl="flash"`` (``serve_lm(args, dataclasses.replace(cfg,
+attn_impl="flash"))``; the launcher has no flag for it, as JAX's has
+none), 13 ``flash_fwd`` launches:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --batch 8 --prompt-len 200 --gen 64
+
 The cache is fp32 where the JAX launcher runs one (the SSM family, and
-fp32 configs) and in the model's dtype for a bf16 dense or
-encoder-decoder model: with an fp32 KV cache the JAX package's bf16
-attention output turns fp32 and its layer scan refuses the carry
-(ROADMAP.md queue C), so the model's dtype (``make_cache``'s default) is
-the one it can run.  The decode step runs
+fp32 configs) and in the model's dtype for a bf16 dense, encoder-decoder
+or hybrid model: with an fp32 KV cache the JAX package's bf16 attention
+output turns fp32 and its layer scan (or, for the hybrid, its ``cond``)
+refuses the carry (ROADMAP.md queue C), so the model's dtype
+(``make_cache``'s default) is the one it can run.  A hybrid's Mamba2
+states are fp32 whatever the cache's dtype, as in JAX.  The decode step runs
 no kernel (as in the JAX package, where XLA takes it); ``--model-parallel``
 above 1, which in the JAX launcher shards the language models'
 parameters (``models/sharding.py``), waits for that sharding (ROADMAP.md
@@ -317,8 +329,8 @@ def serve_conv(args, cfg) -> int:
 def lm_cache_dtype(cfg) -> torch.dtype:
     """The decode cache's dtype: fp32 for the SSM family and for fp32
     configs (the JAX launcher's), the model's dtype otherwise (the only
-    one the JAX package runs for a bf16 dense or encoder-decoder
-    model)."""
+    one the JAX package runs for a bf16 dense, encoder-decoder or hybrid
+    model; a hybrid's K/V take it, its Mamba2 states stay fp32)."""
     if cfg.family == "ssm" or cfg.dtype == "float32":
         return torch.float32
     return getattr(torch, cfg.dtype)
@@ -456,8 +468,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (conv: C=8, S=9, and a check of "
                          "stream 0 against the one-shot forward; ssm, dense "
-                         "and encdec: 2 layers, d_model 64, and a check of "
-                         "the fused prefill against the sequential decode)")
+                         "and encdec: 2 layers, hybrid 4, d_model 64, and a "
+                         "check of the fused prefill against the sequential "
+                         "decode)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--batch", type=int, default=4)

@@ -36,6 +36,17 @@ cross-attention plain, as in the JAX package.  tokens/s counts decoder
 tokens.  The conv frontend is not on the path (the frames are given);
 its parameters get zero gradients and AdamW's decay, as in JAX.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --attn-impl flash --steps 6 --batch 4 --seq 4096
+
+trains Zamba2-7B (81 Mamba2 layers and the shared attention block, bf16,
+remat on), its convs through the depthwise kernels and its shared
+attention (head_dim 112) through the flash kernels.  Its training state
+(about 12 bytes a parameter, 81 GB) does not fit one 80 GB card: a
+config cut in depth at the published widths trains (chip_smoke.py
+registers ``zamba2-7b-12l``, 12 layers, the shared block applied twice,
+1.41 B parameters).
+
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
 it raises.  Each step prints its loss, gradient norm and time (to a
@@ -207,7 +218,8 @@ def _parse_args(argv):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (conv: C=8, S=9; "
-                         "ssm, dense and encdec: 2 layers, d_model 64)")
+                         "ssm, dense and encdec: 2 layers, hybrid 4, "
+                         "d_model 64)")
     ap.add_argument("--attn-impl", choices=("chunked", "flash"), default=None,
                     help="self-attention of a dense or encoder-decoder "
                          "model: 'chunked' (plain PyTorch) or 'flash' (the "
@@ -512,7 +524,7 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
             log(f"arch={cfg.name} device={device} batch={args.batch} "
                 f"seq={args.seq} accum={accum}"
                 + (f" attn_impl={cfg.attn_impl}"
-                   if cfg.family in ("dense", "encdec") else "")
+                   if cfg.family in ("dense", "encdec", "hybrid") else "")
                 + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
                    else f" dp={dp} path=data_parallel" if group is not None
                    else "")

@@ -2,8 +2,9 @@
 ``get_model(cfg)`` returns the module that builds the config's family, and
 ``init_model`` builds the model of any ported family from a seed.
 
-Among the language models the SSM family (Mamba2), the dense transformers
-and the encoder-decoder (Whisper) are ported, each module with the
+Among the language models the SSM family (Mamba2), the dense
+transformers, the encoder-decoder (Whisper) and the hybrid (Zamba2) are
+ported, each module with the
 functional surface of the JAX package's (``repro/models/__init__.py``),
 the model an ``nn.Module``:
 
@@ -33,11 +34,14 @@ def get_model(cfg):
     if cfg.family == "encdec":
         from repro_torch.models import whisper
         return whisper
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2
+        return zamba2
     raise NotImplementedError(
         f"the {cfg.family!r} family's model is not ported to repro_torch "
         "yet: among the language models only the ssm (mamba2), dense "
-        "(transformer) and encdec (whisper) families are (ROADMAP.md "
-        "queue A)")
+        "(transformer), encdec (whisper) and hybrid (zamba2) families are "
+        "(ROADMAP.md queue A)")
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu"):

@@ -84,47 +84,80 @@ class Mamba2(nn.Module):
                        hidden_only=hidden_only, backend=backend)
 
 
-def init_params(cfg, *, seed: int = 0,
-                device: torch.device | str = "cpu") -> Mamba2:
-    """The model with weights drawn on the host from a generator seeded
-    with ``seed`` (the same weights on every device), by the JAX
-    package's distributions: normal projections scaled by fan-in ** -0.5,
-    conv taps by conv_width ** -0.5, embeddings by 0.02; zero conv bias,
-    unit norms and D, ``A_log = log(1..H)`` and ``dt_bias`` the inverse
-    softplus of a log-uniform dt in [dt_min, dt_max].  ``dt_bias``,
-    ``A_log`` and ``D`` are fp32 whatever the model's dtype."""
+def normal_leaf(gen: torch.Generator, shape: tuple, scale: float,
+                dtype: torch.dtype, device, *, stacked: bool = False
+                ) -> torch.Tensor:
+    """A leaf of ``shape`` drawn normal on the host from ``gen``, times
+    ``scale``, in ``dtype`` on ``device``.  A ``stacked`` leaf (L, ...)
+    is drawn and moved one layer's slab at a time, so the host never holds
+    more than a slab (Zamba2's ``in_proj`` is 16.9 GB in fp32 whole).
+    Where every slab's size is a multiple of 16, as at every width of
+    Mamba2 and Zamba2, the slabs are the values of one draw of the whole
+    leaf: PyTorch's CPU normal fill turns its uniforms into normals 16 at
+    a time, in order."""
+    if not stacked:
+        return (torch.randn(shape, generator=gen) * scale).to(dtype).to(
+            device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = (torch.randn(shape[1:], generator=gen) * scale).to(dtype)
+    return out
+
+
+def draw_leaves(cfg, gen: torch.Generator,
+                device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Mamba2's leaves under their keys, drawn from ``gen`` leaf by leaf
+    (``normal_leaf``) in a fixed order (dt, ``embed.tok``, ``in_proj``,
+    ``conv_w``, ``out_proj``, ``unembed``) and each moved to ``device``
+    as it is drawn; see :func:`init_params`."""
     s = cfg.ssm
-    gen = torch.Generator().manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     L, D, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
     d_inner, H, conv_dim = dims(cfg)
     d_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + H  # z, xBC, dt
 
-    def normal(*shape, scale):
-        return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    def normal(*shape, scale, stacked=True):
+        return normal_leaf(gen, shape, scale, dtype, device, stacked=stacked)
 
-    norm = cm.init_norm(cfg, D, dtype)["scale"]
+    def const(fill, *shape, dtype=dtype):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    norm = cm.init_norm(cfg, D, dtype)["scale"].to(device)
     dt = torch.exp(torch.rand((L, H), generator=gen)
                    * (math.log(s.dt_max) - math.log(s.dt_min))
                    + math.log(s.dt_min))
-    leaves = {
-        "embed.tok": normal(V, D, scale=0.02),
+    return {
+        "embed.tok": normal(V, D, scale=0.02, stacked=False),
         "layers.norm.scale": norm.repeat(L, 1),
         "layers.mixer.in_proj": normal(L, D, d_proj, scale=D ** -0.5),
         "layers.mixer.conv_w": normal(L, s.conv_width, conv_dim,
                                       scale=s.conv_width ** -0.5),
-        "layers.mixer.conv_b": torch.zeros((L, conv_dim), dtype=dtype),
-        "layers.mixer.dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "layers.mixer.conv_b": const(0.0, L, conv_dim),
+        "layers.mixer.dt_bias": (dt + torch.log(-torch.expm1(-dt))).to(
+            device),
         "layers.mixer.A_log": torch.log(torch.arange(
-            1, H + 1, dtype=torch.float32)).repeat(L, 1),
-        "layers.mixer.D": torch.ones((L, H)),
-        "layers.mixer.gate_norm": torch.ones((L, d_inner), dtype=dtype),
+            1, H + 1, dtype=torch.float32)).repeat(L, 1).to(device),
+        "layers.mixer.D": const(1.0, L, H, dtype=torch.float32),
+        "layers.mixer.gate_norm": const(1.0, L, d_inner),
         "layers.mixer.out_proj": normal(L, d_inner, D,
                                         scale=d_inner ** -0.5),
         "final_norm.scale": norm,
-        "unembed": normal(D, V, scale=D ** -0.5),
+        "unembed": normal(D, V, scale=D ** -0.5, stacked=False),
     }
-    return Mamba2(cfg, {k: v.to(device) for k, v in leaves.items()})
+
+
+def init_params(cfg, *, seed: int = 0,
+                device: torch.device | str = "cpu") -> Mamba2:
+    """The model with weights drawn on the host from a generator seeded
+    with ``seed`` (the same weights on every device), each leaf moved to
+    ``device`` as it is drawn (``draw_leaves``), by the JAX package's
+    distributions: normal projections scaled by fan-in ** -0.5, conv taps
+    by conv_width ** -0.5, embeddings by 0.02; zero conv bias, unit norms
+    and D, ``A_log = log(1..H)`` and ``dt_bias`` the inverse softplus of a
+    log-uniform dt in [dt_min, dt_max].  ``dt_bias``, ``A_log`` and ``D``
+    are fp32 whatever the model's dtype."""
+    gen = torch.Generator().manual_seed(seed)
+    return Mamba2(cfg, draw_leaves(cfg, gen, device))
 
 
 def _conv(p: dict, xBC: torch.Tensor, cfg, backend) -> torch.Tensor:

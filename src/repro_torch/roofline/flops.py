@@ -1,7 +1,7 @@
 """Operation and byte counts: the conv layer's, and parameter counts and
 useful flops per step of the port's configs (counterpart of
 ``repro/roofline/flops.py``, for the families the port has: conv, ssm,
-dense, encdec).
+dense, encdec, hybrid).
 
 ``conv1d_flops`` is the paper's efficiency denominator; ``model_flops``
 is the useful compute of one step (6·N·D for training plus the exact
@@ -65,6 +65,22 @@ def _ssm_block_params(cfg) -> int:
             + s.conv_width * conv_dim + d_inner * cfg.d_model)
 
 
+def _shared_block_params(cfg) -> int:
+    """Zamba2's shared block: Q, K and V from the 2·D concat, ``wo`` and
+    the MLP (JAX's count: no norms)."""
+    D, hd = cfg.d_model, cfg.head_dim
+    return (2 * D * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+            + cfg.n_heads * hd * D + _mlp_params(cfg, cfg.d_ff))
+
+
+def n_shared_applications(cfg) -> int:
+    """The hybrid's applications of its shared block a pass: after every
+    layer i with i % attn_every == attn_every - 1 (``models.zamba2``
+    re-exports it; kept here so counting imports no torch)."""
+    return sum(i % cfg.attn_every == cfg.attn_every - 1
+               for i in range(cfg.n_layers))
+
+
 def _conv_per_point(cfg) -> int:
     """Weights of the AtacWorks stack per tap and input column: stem C,
     22 body convs C*C, 2 heads C."""
@@ -81,6 +97,9 @@ def param_count(cfg) -> int:
                                      + _mlp_params(cfg, cfg.d_ff))
     if cfg.family == "ssm":
         return emb + cfg.n_layers * _ssm_block_params(cfg)
+    if cfg.family == "hybrid":
+        return (emb + cfg.n_layers * _ssm_block_params(cfg)
+                + _shared_block_params(cfg))
     if cfg.family == "encdec":
         return emb + _encoder_params(cfg) + cfg.n_layers * (
             _attn_params(cfg) + _cross_params(cfg)
@@ -102,14 +121,18 @@ def _encoder_params(cfg) -> int:
 
 
 def _attn_seq_flops(cfg, B: int, T: int, causal: bool = True) -> int:
-    """QK^T + AV flops of one full-sequence pass (dense; encdec: the
-    encoder's non-causal self-attention over its frames, the decoder's
-    causal one over T tokens and its cross-attention), or the SSD's
-    intra-chunk and state flops (ssm), all layers."""
+    """QK^T + AV flops of one full-sequence pass (dense; hybrid: the
+    shared block's applications, JAX's count, without the SSD's; encdec:
+    the encoder's non-causal self-attention over its frames, the
+    decoder's causal one over T tokens and its cross-attention), or the
+    SSD's intra-chunk and state flops (ssm), all layers."""
     factor = 0.5 if causal else 1.0
     if cfg.family == "dense":
         return int(4 * B * T * T * cfg.n_heads * cfg.head_dim * factor
                    * cfg.n_layers)
+    if cfg.family == "hybrid":
+        return int(4 * B * T * T * cfg.n_heads * cfg.head_dim * factor
+                   * n_shared_applications(cfg))
     if cfg.family == "encdec":
         Hd, Te = cfg.n_heads * cfg.head_dim, cfg.encoder_width
         enc = 4 * B * Te ** 2 * Hd
@@ -139,11 +162,14 @@ def model_flops(cfg, shape) -> float:
         return float(6 * n * B * T + 3 * _attn_seq_flops(cfg, B, T))
     if shape.kind == "prefill":
         return float(2 * n * B * T + _attn_seq_flops(cfg, B, T))
-    if cfg.family == "ssm":  # decode: one token against the states
+    if cfg.family in ("ssm", "hybrid"):  # decode: one token, the states
         s = cfg.ssm
         _, H = _ssm_dims(cfg)
-        return float(2 * n * B
-                     + 6 * B * H * s.head_dim * s.d_state * cfg.n_layers)
+        state = 6 * B * H * s.head_dim * s.d_state * cfg.n_layers
+        if cfg.family == "hybrid":  # and each application's K/V slot
+            state += (4 * B * T * cfg.n_heads * cfg.head_dim
+                      * n_shared_applications(cfg))
+        return float(2 * n * B + state)
     # dense and encdec decode: one token, attention reads the whole cache
     # (and the encoder-decoder's cross K/V)
     attn = 4 * B * T * cfg.n_heads * cfg.head_dim * cfg.n_layers
@@ -157,16 +183,22 @@ def decode_cache_bytes(cfg, batch: int, seq_len: int,
                        cache_itemsize: int = 2) -> float:
     """Least cache traffic of one decode step that leaves ``seq_len``
     positions in the cache: the SSM's conv window (``cache_itemsize``
-    bytes an element) and fp32 states, each read and written whole; or
-    the KV rows (``cache_itemsize``), ``seq_len - 1`` read and the new one
-    written, and an encoder-decoder's cross K/V (``encoder_width`` rows of
-    all H heads a layer) read."""
-    if cfg.family == "ssm":
+    bytes an element; a hybrid's is fp32 whatever the cache's dtype) and
+    fp32 states, each read and written whole; or the KV rows
+    (``cache_itemsize``), ``seq_len - 1`` read and the new one written, a
+    hybrid's in each application's slot, and an encoder-decoder's cross
+    K/V (``encoder_width`` rows of all H heads a layer) read."""
+    if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
         d_inner, H = _ssm_dims(cfg)
         window = (s.conv_width - 1) * (d_inner + 2 * s.n_groups * s.d_state)
-        state = cache_itemsize * window + 4 * H * s.head_dim * s.d_state
-        return float(2 * batch * state * cfg.n_layers)
+        window_bytes = 4 if cfg.family == "hybrid" else cache_itemsize
+        state = window_bytes * window + 4 * H * s.head_dim * s.d_state
+        total = 2 * batch * state * cfg.n_layers
+        if cfg.family == "hybrid":
+            total += (cache_itemsize * batch * seq_len * cfg.n_kv_heads * 2
+                      * cfg.head_dim * n_shared_applications(cfg))
+        return float(total)
     rows = seq_len * cfg.n_kv_heads
     if cfg.family == "encdec":
         rows += cfg.encoder_width * cfg.n_heads

@@ -2,10 +2,10 @@
 
 Batch layouts:
   conv: ``{'noisy', 'clean', 'peaks'}``, each (B, W);
-  ssm, dense:  ``{'tokens', 'labels'}``, each (B, T) int32;
+  ssm, dense, hybrid:  ``{'tokens', 'labels'}``, each (B, T) int32;
   encdec: those and ``'frames'`` (B, encoder_width, d_model).
 
-The other LM families' losses (MoE, VLM, hybrid), and the streamed
+The other LM families' losses (MoE, VLM), and the streamed
 cross-entropy (``cfg.xent_chunk``), wait in ROADMAP.md queue A.
 """
 from __future__ import annotations
@@ -44,11 +44,11 @@ def make_loss_fn(cfg, *, grad_reduce=None,
                                   model_reduce_chunks=model_reduce_chunks)
 
         return conv_loss
-    if cfg.family not in ("ssm", "dense", "encdec"):
+    if cfg.family not in ("ssm", "dense", "encdec", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's loss is not ported to repro_torch "
-            "yet: only the conv, ssm, dense and encdec families' are "
-            "(ROADMAP.md queue A)")
+            "yet: only the conv, ssm, dense, encdec and hybrid families' "
+            "are (ROADMAP.md queue A)")
     if cfg.xent_chunk:
         raise NotImplementedError(
             "the streamed cross-entropy (xent_chunk > 0) is not ported to "
@@ -57,8 +57,8 @@ def make_loss_fn(cfg, *, grad_reduce=None,
     def lm_loss(model, batch):
         """Mean next-token NLL over the full fp32 logits.  JAX's total is
         ``nll + AUX_WEIGHT * aux``, where aux is the MoE load-balance loss:
-        0 for Mamba2 and the dense transformers, so the total is the
-        NLL.  The encoder-decoder's logits are those of the tokens given
+        0 for Mamba2, the dense transformers and Zamba2, so the total is
+        the NLL.  The encoder-decoder's logits are those of the tokens given
         the batch's frames, and its total is the NLL."""
         if cfg.family == "encdec":
             logits = model(batch["tokens"], frames=batch["frames"])

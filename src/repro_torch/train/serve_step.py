@@ -74,10 +74,11 @@ def make_prefill_step(cfg):
     prefill, ONE full-sequence forward over ``batch["tokens"]`` (B, T)
     (with an encoder-decoder's ``batch["frames"]``) with the logits of
     the last position only (B, 1, padded_vocab); the (B, T, V) logits are
-    never made.  On the card it runs the family's kernels: Mamba2's conv
-    through ``depthwise_conv1d_fwd``, a dense model's attention and
-    Whisper's encoder and decoder self-attention through ``flash_fwd``
-    when ``cfg.attn_impl == "flash"``."""
+    never made.  On the card it runs the family's kernels: Mamba2's and
+    Zamba2's convs through ``depthwise_conv1d_fwd``, a dense model's
+    attention, Whisper's encoder and decoder self-attention and Zamba2's
+    shared block through ``flash_fwd`` when ``cfg.attn_impl ==
+    "flash"``."""
     model_mod = get_model(cfg)
 
     @torch.inference_mode()

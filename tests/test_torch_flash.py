@@ -15,11 +15,15 @@ fp32 outputs and lse (sums in another order), 2e-4 for fp32 gradients
 """
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import flash_attention as jfa
 from repro.models import common as jcm
@@ -381,33 +385,40 @@ def _bf16_terms(x, split):
     return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
 
 
-def _emulate_bf16_kernels(q, k, v, do, o, lse, split_ds):
+def _emulate_bf16_kernels(q, k, v, do, o, lse, split_ds, tile=None,
+                          scale=None):
     """The bf16 kernels' arithmetic in fp32 on the CPU, for B = KV = 1: S =
     Q.K^T and dP = dO.V^T exact products of bf16 inputs with fp32 sums; P
     and dS formed in fp32; every product with P (forward and backward) as
     two bf16 terms, and with dS as two (``split_ds``) or one; l over the
     fp32 p; the backward fed the given o and lse.  -> (o, dq, dk, dv) in
-    bf16."""
+    bf16.  With ``tile`` the operands sit zero-padded in a tile of that
+    many columns, as the kernels hold hd 112 in 128: the products over hd
+    (S, dP) read its first hd columns, the others (P.V, dS.K, dS^T.Q,
+    P^T.dO) run at the tile's width, and the first hd columns of their
+    outputs are kept.  ``scale`` defaults to q's hd ** -0.5."""
     hd = q.shape[-1]
-    scale = hd ** -0.5
-    qf, kf, vf, dof = (t[0, :, 0].float() for t in (q, k, v, do))
+    scale = hd ** -0.5 if scale is None else scale
+    qf, kf, vf, dof = (F.pad(t[0, :, 0].float(), (0, (tile or hd) - hd))
+                       for t in (q, k, v, do))
     T = qf.shape[0]
     keep = torch.ones(T, T, dtype=torch.bool).tril()[:, None, :]
-    s = torch.einsum("qgh,kh->qgk", qf, kf) * scale
+    s = torch.einsum("qgh,kh->qgk", qf[..., :hd], kf[..., :hd]) * scale
     s = s.masked_fill(~keep, ref.NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     o_e = sum(torch.einsum("qgk,kh->qgh", t, vf)
               for t in _bf16_terms(p, True)) / p.sum(-1, keepdim=True)
     p = torch.exp(s - lse[0, :, 0][..., None])
     delta = ref.flash_delta(o, do)[0, :, 0][..., None]
-    ds = p * (torch.einsum("qgh,kh->qgk", dof, vf) - delta)
+    ds = p * (torch.einsum("qgh,kh->qgk", dof[..., :hd], vf[..., :hd])
+              - delta)
     dq = sum(torch.einsum("qgk,kh->qgh", t, kf)
              for t in _bf16_terms(ds, split_ds)) * scale
     dk = sum(torch.einsum("qgk,qgh->kh", t, qf)
              for t in _bf16_terms(ds, split_ds)) * scale
     dv = sum(torch.einsum("qgk,qgh->kh", t, dof)
              for t in _bf16_terms(p, True))
-    return tuple(t.to(torch.bfloat16)[None, :, None]
+    return tuple(t[..., :hd].to(torch.bfloat16)[None, :, None]
                  for t in (o_e, dq, dk, dv))
 
 
@@ -440,3 +451,97 @@ def test_bf16_kernel_scheme_meets_chip_smoke_bound(split_ds):
         with pytest.raises(AssertionError, match="element"):
             for name in ("dq", "dk"):
                 check(name)
+
+
+@pytest.mark.parametrize("scale_hd", [112, 128],
+                         ids=["scale 112 ** -0.5", "scale 128 ** -0.5"])
+def test_bf16_kernel_scheme_at_head_dim_112(scale_hd):
+    """Head_dim 112 in the kernels' tile of 128 columns, the last 16
+    zeros (Zamba2's shared attention, G = 1 as at its full width; T 512):
+    the emulated padded computation equals the unpadded one at the same
+    scale, and at ``112 ** -0.5`` every element of o, dq, dk and dv stays
+    within chip_smoke.py's per-element bf16 bound of the plain version.
+    Padding q, k and v to 128 on the host and running the hd-128 kernel
+    would scale the scores by ``128 ** -0.5``: far outside the bound."""
+    cs = _chip_smoke()
+    q, k, v, do = (_torch(a, torch.bfloat16)
+                   for a in _inputs(1, 512, 512, 1, 1, 112, seed=14))
+    o, lse = ref.flash_fwd_ref(q, k, v, causal=True)
+    plain = dict(zip(("o", "dq", "dk", "dv"), (
+        o, *ref.flash_bwd_ref(q, k, v, o, lse, do, causal=True))))
+    factor = scale_hd ** -0.5
+    padded = _emulate_bf16_kernels(q, k, v, do, o, lse, True, tile=128,
+                                   scale=factor)
+    unpadded = _emulate_bf16_kernels(q, k, v, do, o, lse, True,
+                                     scale=factor)
+    for name, a, b in zip(plain, padded, unpadded):
+        assert a.shape == plain[name].shape
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    got = dict(zip(plain, padded))
+
+    def check(name):
+        return cs._check_elementwise(name, got[name], plain[name],
+                                     cs.FA_RTOL_BF16, cs.FA_ATOL_BF16)[2]
+
+    if scale_hd == 112:
+        for name in plain:
+            assert check(name) <= 1.0
+    else:
+        with pytest.raises(AssertionError, match="element"):
+            check("o")
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_head_dim_112_matches_jax(G):
+    """``FlashAttentionFunction`` at head_dim 112 (Zamba2's shared block:
+    G = 1 at full width, 2 reduced), causal: the forward, lse and the q,
+    k and v gradients against JAX's Pallas flash in interpret mode, whose
+    scale is 112 ** -0.5."""
+    B, T, KV, hd = 1, 64, 2, 112
+    q, k, v, cot = _inputs(B, T, T, KV, G, hd, seed=15)
+    jo, jlse = jfa.flash_fwd(_jax(q), _jax(k), _jax(v), causal=True, bq=32,
+                             interpret=True)
+    o, lse = fa.flash_fwd(_torch(q), _torch(k), _torch(v), causal=True,
+                          bq=32)
+    _close(o, jo, FWD_TOL, "o")
+    _close(lse, jlse, FWD_TOL, "lse")
+
+    def jloss(q, k, v):
+        return jnp.vdot(jfa.flash_attention(q, k, v, True, 32, True),
+                        _jax(cot))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(_jax(q), _jax(k), _jax(v))
+    tq, tk, tv = (_torch(a).requires_grad_() for a in (q, k, v))
+    (fa.flash_attention(tq, tk, tv, True, 32) * _torch(cot)).sum().backward()
+    for t, want, name in zip((tq, tk, tv), jg, "qkv"):
+        _close(t.grad, want, GRAD_TOL, f"d{name}")
+
+
+def test_head_dims_are_the_kernels_templates():
+    """The wrapper's ``_HEAD_DIMS``, read beside the sources: each C entry
+    point refuses every other head dimension and dispatches a template
+    for each, and the wrapper refuses the others on the card (its check
+    runs before any launch, so a CPU test reaches it through
+    ``_check_on_card`` with a stand-in device)."""
+    assert fa._HEAD_DIMS == (64, 112, 128)
+    csrc = Path(fa.__file__).parent / "csrc"
+    for name in ("flash_fwd.cu", "flash_bwd.cu"):
+        src = (csrc / name).read_text()
+        refused = re.search(r"if \((hd != \d+(?: && hd != \d+)*)\) return "
+                            r"ERR_HEAD_DIM;", src)
+        assert refused, name
+        assert tuple(int(d) for d in re.findall(r"\d+", refused[1])) == \
+            fa._HEAD_DIMS, name
+        for hd in fa._HEAD_DIMS:
+            assert re.search(rf"return launch<T, {hd}>\(", src), (name, hd)
+    assert fa._REFUSED[-1] == "head_dim must be one of (64, 112, 128)"
+    common = (csrc / "flash_common.cuh").read_text()
+    assert "constexpr int pad64(int hd)" in common
+
+    class Card:
+        type = "cuda"
+
+    q = torch.zeros(1, 16, 1, 1, 96)
+    with pytest.raises(ValueError, match=r"one of \(64, 112, 128\), got 96"):
+        fa._check_on_card("flash_fwd", ("q", type("T", (), {
+            "device": Card(), "shape": q.shape})()))

@@ -46,7 +46,7 @@ def test_model_counts_match_jax(arch):
         want = jflops.model_bytes(jcfg, shape)
         if kind == "decode" and cfg.family != "conv":
             # JAX's count reads the whole untied table and leaves out the
-            # SSM's conv window (bf16, read and written); an
+            # SSM's conv window (read and written); an
             # encoder-decoder's decode reads no encoder weight and reads
             # the cross K/V (bf16), which JAX's count leaves out
             if not cfg.tie_embeddings:
@@ -57,10 +57,12 @@ def test_model_counts_match_jax(arch):
                 want -= 2 * cfg.n_encoder_layers * per_layer
                 want += 2 * B * cfg.encoder_width * 2 * cfg.n_heads \
                     * cfg.head_dim * cfg.n_layers
-            if cfg.family == "ssm":
+            if cfg.family in ("ssm", "hybrid"):
+                # a hybrid's conv window is fp32, whatever the cache's dtype
                 s = cfg.ssm
                 conv_dim = s.expand * cfg.d_model + 2 * s.n_groups * s.d_state
-                want += 2 * 2 * B * (s.conv_width - 1) * conv_dim \
+                nbytes = 4 if cfg.family == "hybrid" else 2
+                want += 2 * nbytes * B * (s.conv_width - 1) * conv_dim \
                     * cfg.n_layers
         assert flops.model_bytes(cfg, shape) == want, kind
 

@@ -89,14 +89,15 @@ def test_configs_match_jax():
             assert getattr(tr, f) == getattr(jr, f), (name, f)
     assert configs.names() == ["atacworks", "atacworks-bf16", "mamba2-370m",
                                "qwen2-7b", "qwen3-14b", "qwen3-8b",
-                               "starcoder2-3b", "whisper-large-v3"]
+                               "starcoder2-3b", "whisper-large-v3",
+                               "zamba2-7b"]
 
 
 def test_lm_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get("deepseek-v3-671b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("zamba2-7b")  # hybrid serving needs shared attention
+        configs.get("internvl2-2b")  # the VLM's image embeddings
     with pytest.raises(NotImplementedError,
                        match="models/sharding.py.*queue A item 4"):
         serve.main(["--arch", "mamba2-370m", "--device", "cpu", "--smoke",
@@ -362,7 +363,8 @@ named = ["repro_torch.launch.train", "repro_torch.train.train_step",
          "repro_torch.obs.trace_export", "repro_torch.runtime.health",
          "repro_torch.runtime.straggler", "repro_torch.runtime.faults",
          "repro_torch.runtime.elastic", "repro_torch.models.whisper",
-         "repro_torch.configs.whisper_large_v3"]
+         "repro_torch.configs.whisper_large_v3", "repro_torch.models.zamba2",
+         "repro_torch.configs.zamba2_7b"]
 assert set(named) <= set(mods), sorted(set(named) - set(mods))
 for m in mods + named:
     importlib.import_module(m)
@@ -376,7 +378,7 @@ print(len(mods))
 
 def test_port_imports_no_jax_and_no_repro():
     """Every module of the port (the training, Mamba2, transformer,
-    data-parallel, telemetry, elastic and Whisper slices' named) and
+    data-parallel, telemetry, elastic, Whisper and Zamba2 slices' named) and
     chip_smoke.py import without jax or any module of the JAX package."""
     code = _HYGIENE.format(root=ROOT, src=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
