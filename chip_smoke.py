@@ -253,6 +253,9 @@ Phases (any failed check raises, so the run exits non-zero):
       p50/p99, tokens/s, peak memory, the decode bound; (c) the launcher
       6 steps at batch 4 x 448 (128 + 64 flash launches a step, finite,
       none skipped; step p50, tokens/s, useful TFLOP/s, peak memory),
+      BREAKDOWN_STEPS more steps traced (``_train_breakdown``: the
+      device time of the flash kernels, the matrix products, the sorts
+      and gathers, AdamW and the rest, and the idle time),
       then a 2 + 2-layer fp32 copy's whole gradient over 1,500 frames
       against plain attention; (d) both flash kernels at the encoder's
       attention (1,500 frames, G = 1, hd 64, non-causal) against plain,
@@ -272,10 +275,34 @@ Phases (any failed check raises, so the run exits non-zero):
       busy share and bound; (c) the launcher 6 steps on the config cut to
       12 layers (``zamba2-7b-12l``, registered here) at batch 4 x 4,096
       (36 + 12 depthwise and 4 + 2 flash launches a step; step p50,
-      tokens/s, useful TFLOP/s, peak memory), then its fp32 copy's whole
-      gradient at 1 x 512 against the plain attention and conv; the
-      phase's seconds;
-  21. a JSON line of the six kernels, the card's line, and last the
+      tokens/s, useful TFLOP/s, peak memory), BREAKDOWN_STEPS more steps
+      traced (as phase 19), then its fp32 copy's whole gradient at 1 x
+      512 against the plain attention and conv; the phase's seconds;
+  21. Moonlight-16B-A3B at its published widths (``moonlight_check``; 48
+      layers, d_model 2048, the first dense (d_ff 11,264), 47 MoE layers
+      of 64 routed experts top-6 by sigmoid scores (d_ff 1,408) and 2
+      shared, 16 heads over 16 KV heads of 128, bf16, flash): (a) the
+      flash kernels at (4, 4,096, 16 heads of 128, G = 1, causal) in bf16
+      and at a small shape in fp32 by phase 10's rule, timed beside SDPA
+      and the bound; (b) ``serve_lm`` on the 48 layers at batch 8, a
+      200-token prompt, 64 generated tokens, ``--smoke``: the fused
+      prefill within ``serve.prefill_tol`` of the decode with the
+      decode's expert selection replayed, its own selection's flips per
+      layer reported, 48 ``flash_fwd`` launches a fused prefill and none
+      in the decode steps, finite logits; decode p50/p99, tokens/s,
+      prefill times, peak memory, the syncs of a decode step, the
+      decode's busy share and its bound two ways (the weights a token
+      uses, and the experts the batch's selections touch); (c) the
+      launcher 6 steps on the config cut to 6 layers
+      (``moonshot-v1-16b-a3b-6l``, registered here, the streamed
+      cross-entropy over 1,024-position chunks) at batch 4 x 4,096 (12 +
+      6 flash launches a step; step p50, tokens/s, useful TFLOP/s, peak
+      memory), BREAKDOWN_STEPS more steps traced (as phase 19, with the
+      MoE FFNs' own time), then its fp32 copy's whole gradient at 1 x 512
+      against the plain attention, both paths' expert selections equal
+      first (a flip fails), and the syncs of one gradient; the phase's
+      seconds;
+  22. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -507,6 +534,40 @@ ZB_SERVE_BATCH, ZB_BATCH, ZB_SEQ, ZB_STEPS = 8, 4, 4096, 6
 ZB_GRAD_BATCH, ZB_GRAD_SEQ = 1, 512
 ZB_FA_F32 = (1, 1024, 8, 1)
 ZB_TRACE_PROMPT, ZB_TRACE_GEN = 2, 5
+# the training steps of phases 19, 20 and 21 traced by torch.profiler
+# after each launcher run, for where a step's device time goes
+# (``_train_breakdown``)
+BREAKDOWN_STEPS = 2
+# phase 21, Moonlight-16B-A3B (hf:moonshotai/Moonlight-16B-A3B), the MoE
+# family, at its published widths (one dense layer of d_ff 11,264, then
+# 47 layers of 64 routed experts, top-6 by sigmoid scores, of d_ff 1,408
+# and 2 shared; attention 16 over 16 KV heads of 128).  (a) The flash
+# pair at (MN_BATCH, MN_SEQ, 16 heads of 128, G = 1, bf16, causal) and
+# in fp32 at MN_FA_F32 (B, T, KV, G) by phase 10's rule, timed beside
+# SDPA and the bound.  (b) ``serve_lm`` on all 48 layers, built once in
+# bf16 with attn_impl="flash" (random non-zero norms and router biases),
+# at batch MN_SERVE_BATCH, phase 14's LM_PROMPT-token prompt and LM_GEN
+# generated tokens, ``--smoke``: the fused prefill held to the decode
+# within ``serve.prefill_tol`` with the decode's expert selection
+# replayed (routing is discontinuous: where a token's 6th and 7th scores
+# lie closer than bf16's rounding moves them, the prefill picks another
+# expert, a jump no rounding tolerance covers), the prefill's own
+# selection's flips per layer reported; the decode traced over
+# MN_TRACE_PROMPT + MN_TRACE_GEN - 1 steps, the syncs of one decode step
+# counted.  (c) The launcher MN_STEPS steps on MN_TRAIN_ARCH, the config
+# cut to MN_TRAIN_LAYERS layers (the dense one and 5 MoE layers at the
+# published widths: 3.70 B parameters, about 44 GB of training state; the
+# full depth's is about 341 GB) with the streamed cross-entropy over
+# MN_XENT_CHUNK positions at MN_BATCH x MN_SEQ, BREAKDOWN_STEPS more
+# traced; then an fp32 copy of that cut's whole gradient at MN_GRAD_BATCH
+# x MN_GRAD_SEQ against the plain attention (phase 11's rule), each MoE
+# layer's selection recorded on both sides first: a flip fails the phase.
+MN_ARCH, MN_TRAIN_ARCH = "moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b-6l"
+MN_TRAIN_LAYERS, MN_XENT_CHUNK = 6, 1024
+MN_SERVE_BATCH, MN_BATCH, MN_SEQ, MN_STEPS = 8, 4, 4096, 6
+MN_GRAD_BATCH, MN_GRAD_SEQ = 1, 512
+MN_FA_F32 = (1, 1024, 16, 1)
+MN_TRACE_PROMPT, MN_TRACE_GEN = 2, 3
 
 
 def _card_line() -> str:
@@ -1397,6 +1458,83 @@ def _profile_steps(torch, train, argv, steps, port_names):
     return _trace(torch, lambda: train.run(argv), port_names, steps)
 
 
+# device kernels by name: cuBLAS's matrix products, and the sorts,
+# gathers, scatters and searches (a MoE layer's routing and dispatch, the
+# embedding's gradient, the loss's gather)
+PRODUCT_KERNELS = ("nvjet", "gemm", "Gemm", "cutlass", "xmma")
+GATHER_KERNELS = ("sort", "Sort", "radix", "index", "Index", "gather",
+                  "Gather", "scatter", "Scatter", "searchsorted", "embedding",
+                  "topk", "TopK", "bitonic")
+
+
+def _train_breakdown(torch, train, label, argv, steps, port_names):
+    """Where a training step's device time goes: the launcher with
+    ``argv`` (``steps`` steps) under ``torch.profiler``, ``adamw.update_``
+    in a ``record_function`` range and ``moe.moe_ffn`` in another; per
+    step, the device ms of the port's kernels (``port_names``), of the
+    matrix products (PRODUCT_KERNELS, by kernel name), of the sorts,
+    gathers and scatters (GATHER_KERNELS), of AdamW (its range's span on
+    the device's timeline: elementwise chains over every leaf, launched
+    faster than they run, so back to back), the rest (elementwise work:
+    norms, activations, rotary embeddings, the loss, casts, copies), the
+    span of the MoE FFNs' forward and recompute (routing, dispatch, expert
+    products, combine, and the device's waits on the host inside them),
+    and the device's idle time against the steps' host-clock time; the
+    upload of the model before the first step is left out."""
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+
+    def ranged(name, fn):
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return wrapped
+
+    real = adamw.update_, moe.moe_ffn
+    adamw.update_ = ranged("adamw.update_", adamw.update_)
+    moe.moe_ffn = ranged("moe.moe_ffn", moe.moe_ffn)
+    try:
+        torch.cuda.empty_cache()
+        summary, kernels, _ = _profile_steps(torch, train, argv, steps,
+                                             port_names)
+    finally:
+        adamw.update_, moe.moe_ffn = real
+    # the ranges show as device rows, their spans on the device's
+    # timeline, gaps included: not kernels
+    spans = {k["name"]: k["ms_per_step"] for k in kernels
+             if k["name"] in ("adamw.update_", "moe.moe_ffn")}
+    kernels = [k for k in kernels if k["name"] not in spans]
+    step_ms = 1e3 * sum(summary["step_s"]) / steps
+    upload = sum(k["ms_per_step"] for k in kernels
+                 if k["name"].startswith("Memcpy HtoD"))
+    busy = sum(k["ms_per_step"] for k in kernels) - upload
+
+    def named(parts):
+        return sum(k["ms_per_step"] for k in kernels if not k["port"]
+                   and any(p in k["name"] for p in parts))
+
+    ours = sum(k["ms_per_step"] for k in kernels if k["port"])
+    products, gathers = named(PRODUCT_KERNELS), named(GATHER_KERNELS)
+    opt = spans.get("adamw.update_", 0.0)
+    stats = dict(steps=steps, traced_step_ms=step_ms,
+                 upload_ms_per_step=upload, device_busy_ms_per_step=busy,
+                 port_kernels_ms_per_step=ours,
+                 products_ms_per_step=products,
+                 sort_gather_ms_per_step=gathers,
+                 adamw_ms_per_step=opt,
+                 elementwise_and_rest_ms_per_step=(
+                     busy - ours - products - gathers - opt),
+                 moe_ffn_span_ms_per_step=spans.get("moe.moe_ffn", 0.0),
+                 idle_ms_per_step=step_ms - busy,
+                 device_busy_share=busy / step_ms if step_ms else None,
+                 kernels_per_step=sum(
+                     k["calls"] for k in kernels
+                     if not k["name"].startswith("Memcpy HtoD")) / steps,
+                 kernel_names=len(kernels), top=kernels[:15])
+    print(f"{label}-breakdown " + json.dumps(stats), flush=True)
+    return stats
+
+
 def train_profile(torch, train):
     """Phase 6, second part: where a training step's time goes.
     PROFILE_STEPS more steps of the launcher under ``torch.profiler``
@@ -1436,8 +1574,10 @@ def _model_grad_check(torch, losses, label, cfg, model, batch, run_kernel,
                       run_plain, counters, expected, why, n_grads,
                       scale_of=None):
     """The loss and every gradient of ``model`` on ``batch`` through the
-    kernels (``run_kernel(tokens)`` -> logits) against autograd over the
-    plain version (``run_plain``): the loss within LOSS_RTOL, each of the
+    kernels (``run_kernel(tokens)`` -> logits, or an MoE model's (logits,
+    aux), whose loss is JAX's total ``nll + AUX_WEIGHT * aux``) against
+    autograd over the plain version (``run_plain``): the loss within
+    LOSS_RTOL, each of the
     ``n_grads`` gradients finite and within GRAD_TOL of its leaf's
     largest value (of leaf ``scale_of[name]``'s where given: a leaf whose
     exact gradient is zero holds rounding noise on both sides); the
@@ -1449,7 +1589,11 @@ def _model_grad_check(torch, losses, label, cfg, model, batch, run_kernel,
     scale_of = scale_of or {}
 
     def loss_and_grads(run):
-        loss = losses.softmax_xent(run(batch["tokens"]), batch["labels"])
+        out = run(batch["tokens"])
+        logits, aux = out if isinstance(out, tuple) else (out, None)
+        loss = losses.softmax_xent(logits, batch["labels"])
+        if aux is not None:
+            loss = loss + losses.AUX_WEIGHT * aux
         return loss.detach(), param_grads(loss, params)
 
     (loss_k, grads_k), launched = _counted(
@@ -1813,10 +1957,10 @@ def flash_kernel_checks(torch, fa, ref):
 
 
 def _lm_model(torch, cfg, init_model, seed):
-    """StarCoder2, Whisper or Zamba2 from a seed with random non-zero
-    biases and norm parameters, and Zamba2's conv biases, D, dt_bias and
-    A_log moved (zeros, ones and the init's values would leave those paths
-    untested)."""
+    """StarCoder2, Whisper, Zamba2 or Moonlight from a seed with random
+    non-zero biases and norm parameters, Zamba2's conv biases, D, dt_bias
+    and A_log and Moonlight's router biases moved (zeros, ones and the
+    init's values would leave those paths untested)."""
     model = init_model(cfg, seed=seed, device=DEVICE)
     gen = torch.Generator().manual_seed(seed + 100)
     stacks = ("dense_layers.", "enc_layers.", "dec_layers.", "layers.")
@@ -4188,6 +4332,12 @@ def whisper_check(torch, np, configs, init_model, serve, train, synthetic,
         ["--arch", WH_ARCH, "--attn-impl", "flash", "--steps",
          str(WH_STEPS), "--batch", str(WH_BATCH), "--seq", str(WH_SEQ)],
         WH_STEPS, counters, (0, 0, 0, 0, 2 * n, n), LM_MEMORY_LIMIT_GB)
+    out["breakdown"] = _train_breakdown(
+        torch, train, "whisper",
+        ["--arch", WH_ARCH, "--attn-impl", "flash", "--steps",
+         str(BREAKDOWN_STEPS), "--batch", str(WH_BATCH), "--seq",
+         str(WH_SEQ)], BREAKDOWN_STEPS,
+        ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_"))
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     gcfg = dataclasses.replace(cfg, n_layers=WH_GRAD_LAYERS,
@@ -4374,6 +4524,13 @@ def zamba2_check(torch, np, configs, init_model, serve, train, synthetic,
         ["--arch", ZB_TRAIN_ARCH, "--attn-impl", "flash", "--steps",
          str(ZB_STEPS), "--batch", str(ZB_BATCH), "--seq", str(ZB_SEQ)],
         ZB_STEPS, counters, per_step, LM_MEMORY_LIMIT_GB)
+    out["breakdown"] = _train_breakdown(
+        torch, train, "zamba2",
+        ["--arch", ZB_TRAIN_ARCH, "--attn-impl", "flash", "--steps",
+         str(BREAKDOWN_STEPS), "--batch", str(ZB_BATCH), "--seq",
+         str(ZB_SEQ)], BREAKDOWN_STEPS,
+        ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_", "dw_fwd_kernel",
+         "dw_bwd_weight_partial", "dw_reduce_partials"))
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4451,6 +4608,319 @@ def _zb_entries(zb, dw_fwd_entry, dw_bw_entry, flash_entries, head_dims):
     flash_entries[0]["zamba2"].update(
         launches_per_prefill=prefill["flash_fwd"],
         launches_in_decode=decode["flash_fwd"])
+
+
+def _syncs(torch, fn):
+    """``fn()`` and the synchronizing CUDA calls it made (a copy to the
+    host, an ``item``), counted by torch's sync debug mode, which warns at
+    each."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _mn_flash_rows(torch, fa, ref, cfg):
+    """Phase 21 (a): ``flash_fwd`` and ``flash_bwd`` at Moonlight's
+    attention in its training cell (MN_BATCH x MN_SEQ, 16 heads over 16
+    KV heads of 128, bf16, causal), timed beside SDPA and the bound, and
+    in fp32 at MN_FA_F32, each against its plain version by
+    ``flash_kernel_checks``' rule."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(211)
+    rows = []
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"moonlight B={MN_BATCH} T={MN_SEQ} H={H} KV={KV} hd={hd} "
+                 "bf16 causal", MN_BATCH, MN_SEQ, KV, H // KV,
+                 torch.bfloat16, True, timed=True, hd=hd)
+    B, T, kv, G = MN_FA_F32
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"moonlight B={B} T={T} H={kv * G} KV={kv} hd={hd} fp32 "
+                 "causal", B, T, kv, G, torch.float32, True, hd=hd)
+    return rows
+
+
+def _touched_bound(torch, cfg, batch, kv_len, routing, cache_dtype):
+    """A decode step's least bytes counting only the experts its
+    selections touch: every weight a token uses outside the routed experts
+    (the batch's embedding rows), each MoE layer's distinct selected
+    experts (the mean over the decode steps ``routing`` recorded), and
+    the cache; with its time at the card's rates."""
+    from repro_torch.roofline import flops as counts
+    m = cfg.moe
+    expert = 2 * 3 * cfg.d_model * m.d_ff_expert  # bytes, bf16
+    shape = counts.StepShape("decode", kv_len + 1, batch)
+    routed = (cfg.n_layers - m.first_dense_layers) * m.top_k * expert
+    distinct = []
+    for layer in routing.layers():
+        experts, _ = routing.selection(layer)  # (B, T, k)
+        T = experts.shape[1]
+        present = torch.zeros((T, m.n_experts), dtype=torch.bool,
+                              device=experts.device)
+        present.scatter_(1, experts.transpose(0, 1).reshape(T, -1), True)
+        distinct.append(present.sum(1).float().mean().item())
+    nbytes = (counts.hbm_bytes_decode(cfg, shape, cache_dtype.itemsize)
+              - routed + expert * sum(distinct))
+    ms, by = roofline.bound(counts.model_flops(cfg, shape), nbytes,
+                            "bfloat16")
+    return dict(touched_bound_ms=ms, touched_bound_by=by,
+                touched_bytes=nbytes,
+                distinct_experts_per_layer_mean=sum(distinct) / len(distinct),
+                distinct_experts_per_layer_min=min(distinct),
+                distinct_experts_per_layer_max=max(distinct))
+
+
+def _mn_serve(torch, serve, cfg, model, counters):
+    """Phase 21 (b): ``serve_lm`` on all 48 layers (``--smoke``: the fused
+    prefill held to the decode's logits within ``serve.prefill_tol`` with
+    the decode's expert selection replayed, and run with its own, whose
+    flips per layer, smallest margin and largest score difference are
+    reported); the decode steps launch no kernel, the check's two
+    prefills 2 x 48 ``flash_fwd`` and one fused prefill 48; decode
+    p50/p99, tokens/s, the sequential prefill's seconds, the fused
+    prefill's call time, peak memory, the syncs of one decode step, the
+    decode's busy share and kernels a step, and its bound two ways: the
+    roofline's count (every weight a token uses, the batch's embedding
+    rows; JAX's reads the whole table) and the experts the batch's
+    selections touch."""
+    argv = ["--arch", MN_ARCH, "--batch", str(MN_SERVE_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--seed",
+            "213"]
+    args = serve.parse_args(argv + ["--smoke"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model_bytes = sum(t.numel() * t.element_size() for t in
+                      (*model.parameters(), *model.buffers()))
+    marks = {}
+    real = serve.prefill_gap
+
+    def prefill_gap(*a, **k):
+        before = {c.__name__: c.launches for c in counters}
+        marks["gap"] = real(*a, **k)
+        marks["gap_launches"] = {c.__name__: c.launches - before[c.__name__]
+                                 for c in counters}
+        marks["routing"] = k["routing"]
+        return marks["gap"]
+
+    serve.prefill_gap = prefill_gap
+    try:
+        stats, launched = _counted(counters,
+                                   lambda: serve.serve_lm(args, cfg, model))
+    finally:
+        serve.prefill_gap = real
+    peak = (torch.cuda.max_memory_allocated() - held + model_bytes) / 1e9
+    decode = {k: n - marks["gap_launches"][k] for k, n in launched.items()}
+    if any(decode.values()):
+        raise AssertionError(f"moonlight: the decode steps launched {decode}")
+    if not bool(torch.isfinite(stats["prompt_logits"]).all()):
+        raise AssertionError("moonlight: non-finite logits")
+    step = serve.make_prefill_step(cfg)
+    prompt = {"tokens": stats["prompt"]}
+    _, prefill = _counted(counters, lambda: step(model, prompt))
+    want = {**{k: 0 for k in prefill}, "flash_fwd": cfg.n_layers}
+    if prefill != want or marks["gap_launches"] != {
+            k: 2 * n for k, n in want.items()}:
+        raise AssertionError(f"moonlight: a fused prefill launched "
+                             f"{prefill}, the check's two "
+                             f"{marks['gap_launches']}; expected {want}")
+    prefill_call_ms = _call_ms(lambda: step(model, prompt), reps=3)
+    cache_dtype = serve.lm_cache_dtype(cfg)
+    cache = serve.make_cache(cfg, MN_SERVE_BATCH, 2, dtype=cache_dtype,
+                             device=DEVICE)
+    decode_step = serve.make_serve_step(cfg)
+    tok = stats["prompt"][:, :1]
+    decode_step(model, cache, tok, 0)
+    _, syncs = _syncs(torch, lambda: decode_step(model, cache, tok, 1))
+    del cache
+    # the decode's busy share: MN_TRACE_PROMPT + MN_TRACE_GEN - 1 steps
+    small = serve.parse_args(argv[:2] + [
+        "--batch", str(MN_SERVE_BATCH), "--prompt-len",
+        str(MN_TRACE_PROMPT), "--gen", str(MN_TRACE_GEN)])
+    n = MN_TRACE_PROMPT + MN_TRACE_GEN - 1
+    traced, dkernels, _ = _trace(
+        torch, lambda: serve.serve_lm(small, cfg, model), (), n)
+    traced_step_ms = (traced["prefill_s"] + sum(traced["step_s"])) * 1e3 / n
+    busy = sum(k["ms_per_step"] for k in dkernels)
+    kv_len = LM_PROMPT + LM_GEN // 2  # the generated steps' middle
+    bound = _decode_bound(cfg, MN_SERVE_BATCH, kv_len, cache_dtype)
+    touched = _touched_bound(torch, cfg, MN_SERVE_BATCH, kv_len,
+                             marks["routing"], cache_dtype)
+    gap = marks["gap"]
+    r = gap["routing"]
+    out = dict(arch=MN_ARCH, layers=cfg.n_layers, batch=MN_SERVE_BATCH,
+               prompt_len=LM_PROMPT, gen=LM_GEN, dtype=cfg.dtype,
+               cache_dtype=stats["cache_dtype"],
+               sequential_prefill_s=stats["prefill_s"],
+               step_p50_ms=stats["step_p50_ms"],
+               step_p99_ms=stats["step_p99_ms"],
+               tokens_per_s=stats["tokens_per_s"],
+               prefill_launches=prefill, decode_launches=decode,
+               prefill_vs_decode_replayed=gap["gap"],
+               prefill_vs_decode_own_selection=gap["free_gap"],
+               prefill_tol=gap["tol"], flips_per_layer=r["flips"],
+               total_flips=r["total_flips"],
+               selections=MN_SERVE_BATCH * LM_PROMPT * len(r["flips"]),
+               min_selection_margin=r["min_margin"],
+               max_selection_score_diff=r["max_score_diff"],
+               rows_with_clear_margin=gap["rows_with_clear_margin"],
+               prefill_call_ms=prefill_call_ms, peak_memory_gb=peak,
+               model_gb=model_bytes / 1e9, syncs_per_decode_step=syncs,
+               decode_traced_step_ms=traced_step_ms,
+               decode_device_busy_ms=busy,
+               decode_device_busy_share=busy / traced_step_ms,
+               decode_kernels_per_step=sum(k["calls"] for k in dkernels) / n,
+               decode_bound_at_kv_len=kv_len, **bound, **touched,
+               jax_count_bound_ms=roofline.bound(
+                   0.0, bound["param_bytes"] + bound["cache_bytes"]
+                   + 2 * (cfg.vocab_size - MN_SERVE_BATCH) * cfg.d_model,
+                   "bfloat16")[0],
+               decode_bound_share=bound["bound_ms"] / stats["step_p50_ms"],
+               decode_top=dkernels[:8])
+    print("moonlight-serve " + json.dumps(out), flush=True)
+    return out
+
+
+def _mn_grad(torch, losses, synthetic, init_model, moe, tcfg, counters,
+             per_step):
+    """Phase 21 (c), last part: an fp32 copy of the cut's whole gradient
+    at MN_GRAD_BATCH x MN_GRAD_SEQ through the flash kernels against the
+    plain attention (phase 11's rule, the total loss with the load-balance
+    term), TF32 off.  First both paths' expert selections, recorded: a
+    flip fails the check (its smallest margin and largest score
+    difference are printed either way); then the syncs of one gradient
+    (its MoE layers' group sizes, forward and remat recompute)."""
+    import dataclasses
+
+    from repro_torch.train.data_parallel import param_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gcfg = dataclasses.replace(tcfg, dtype="float32", attn_impl="flash")
+    gmodel = _lm_model(torch, gcfg, init_model, seed=217)
+    batch = _batch(torch, synthetic, gcfg, MN_GRAD_BATCH, MN_GRAD_SEQ, 218)
+
+    def run(attn_impl):
+        def logits(tokens):
+            gmodel.cfg = dataclasses.replace(gcfg, attn_impl=attn_impl)
+            return gmodel(tokens)
+        return logits
+
+    logs = {}
+    with torch.no_grad():
+        for impl in ("flash", "chunked"):
+            gmodel.routing = logs[impl] = moe.RoutingLog()
+            run(impl)(batch["tokens"])
+    gmodel.routing = None
+    routing = moe.compare_routing(logs["chunked"], logs["flash"])
+    print("moonlight-grad-routing " + json.dumps(routing), flush=True)
+    if routing["total_flips"]:
+        raise AssertionError(f"moonlight: the kernel and plain paths select "
+                             f"different experts: {routing}")
+    out = _model_grad_check(
+        torch, losses, "moonlight", gcfg, gmodel, batch, run("flash"),
+        run("chunked"), counters[4:], per_step[4:],
+        "forward and remat recompute; backward", 26)
+    gmodel.cfg = gcfg
+    params = [p for _, p in gmodel.named_parameters()]
+    _, syncs = _syncs(torch, lambda: param_grads(
+        losses.make_loss_fn(gcfg)(gmodel, batch)[0], params))
+    out.update(routing=routing, syncs_per_gradient=syncs)
+    return out
+
+
+def moonlight_check(torch, np, configs, init_model, serve, train, synthetic,
+                    losses, ref, conv1d_brgemm, fa):
+    """Phase 21: Moonlight-16B-A3B on the card (see MN_*): the flash
+    kernels at its attention (``_mn_flash_rows``), the full model built
+    once (bf16, flash) and served (``_mn_serve``), then the 6-layer cut
+    trained through the launcher (2 L + L flash launches a step: forward,
+    remat recompute, backward) and traced, and its fp32 copy's whole
+    gradient against the plain attention (``_mn_grad``)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    counters = _counters(conv1d_brgemm, fa)
+    cfg = dataclasses.replace(configs.get(MN_ARCH), attn_impl="flash")
+    out = dict(flash_rows=_mn_flash_rows(torch, fa, ref, cfg))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = _lm_model(torch, cfg, init_model, seed=215)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["params"] = sum(p.numel() for p in model.parameters())
+    print(f"moonlight: {out['params']} parameters drawn and moved to the "
+          f"card in {out['init_s']:.1f} s", flush=True)
+    out["serve"] = _mn_serve(torch, serve, cfg, model, counters)
+    del model
+    torch.cuda.empty_cache()
+    tcfg = configs.register(dataclasses.replace(
+        configs.get(MN_ARCH), name=MN_TRAIN_ARCH, n_layers=MN_TRAIN_LAYERS,
+        xent_chunk=MN_XENT_CHUNK))
+    L = tcfg.n_layers
+    per_step = (0, 0, 0, 0, 2 * L, L)
+    argv = ["--arch", MN_TRAIN_ARCH, "--attn-impl", "flash", "--batch",
+            str(MN_BATCH), "--seq", str(MN_SEQ)]
+    out["train"] = _train_check(np, train, "moonlight",
+                                argv + ["--steps", str(MN_STEPS)], MN_STEPS,
+                                counters, per_step, LM_MEMORY_LIMIT_GB)
+    out["breakdown"] = _train_breakdown(
+        torch, train, "moonlight",
+        argv + ["--steps", str(BREAKDOWN_STEPS)], BREAKDOWN_STEPS,
+        ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_"))
+    torch.cuda.empty_cache()
+    out["grad"] = _mn_grad(torch, losses, synthetic, init_model, moe, tcfg,
+                           counters, per_step)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    s, tr, fl = out["serve"], out["train"], out["flash_rows"][0]
+    print(f"moonlight: phase 21 in {out['seconds']:.1f} s (the "
+          f"{cfg.n_layers}-layer model drawn in {out['init_s']:.1f} s); "
+          f"flash hd {cfg.head_dim} G=1 fwd {fl['fwd_kernel_ms']:.3f} ms "
+          f"(SDPA {fl['fwd_library_ms']:.3f}, bound "
+          f"{fl['fwd_bound_ms']:.3f}), bwd {fl['bwd_kernel_ms']:.3f} ms "
+          f"(SDPA {fl['bwd_library_ms']:.3f}, bound "
+          f"{fl['bwd_bound_ms']:.3f}); serving: decode p50 "
+          f"{s['step_p50_ms']:.3f} ms, p99 {s['step_p99_ms']:.3f} ms, "
+          f"{s['tokens_per_s']:.1f} tokens/s, {s['syncs_per_decode_step']} "
+          f"syncs a step, fused prefill {s['prefill_call_ms']:.1f} ms, peak "
+          f"{s['peak_memory_gb']:.2f} GB, bound {s['bound_ms']:.4f} ms "
+          f"(touched experts {s['touched_bound_ms']:.4f}), decode busy "
+          f"{s['decode_device_busy_share']:.3f}, prefill flips "
+          f"{s['total_flips']} of {s['selections']}; training {L} layers: "
+          f"step p50 {tr['step_p50_ms']:.1f} ms, {tr['tokens_per_s']:.0f} "
+          f"tokens/s, {tr['model_tflops_per_s']:.1f} TFLOP/s, peak "
+          f"{tr['peak_memory_gb']:.2f} GB", flush=True)
+    return out
+
+
+def _mn_entries(mn, flash_entries):
+    """Phase 21's numbers in the kernels line: Moonlight's attention (16
+    heads of 128, G = 1) under the two flash kernels, with their launches
+    a training step, a fused prefill and a decode step."""
+    launches = mn["train"]["launches_per_step"]
+    cell = mn["flash_rows"][0]
+    for entry, pas, errs in zip(flash_entries, ("fwd", "bwd"),
+                                (("o", "lse"), ("dq", "dk", "dv"))):
+        entry["moonlight"] = dict(
+            launches_per_train_step=launches[entry["name"]],
+            max_abs_err=max(r["max_abs_err"][e] for r in mn["flash_rows"]
+                            for e in errs),
+            **{k: cell.get(f"{pas}_{k}", cell.get(k)) for k in (
+                "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_share", "tflops")})
+    flash_entries[0]["moonlight"].update(
+        launches_per_prefill=mn["serve"]["prefill_launches"]["flash_fwd"],
+        launches_in_decode=mn["serve"]["decode_launches"]["flash_fwd"])
 
 
 def _build_all(conv1d_brgemm, flash_attention, build):
@@ -4712,6 +5182,9 @@ def main(argv=None) -> int:
                        flash_attention)
     zb = zamba2_check(torch, np, configs, init_model, serve, train,
                       synthetic, losses, ref, conv1d_brgemm, flash_attention)
+    mn = moonlight_check(torch, np, configs, init_model, serve, train,
+                         synthetic, losses, ref, conv1d_brgemm,
+                         flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -4983,6 +5456,7 @@ def main(argv=None) -> int:
         launches_in_decode=wh["serve"]["decode_launches"]["flash_fwd"])
     _zb_entries(zb, dw_fwd_entry, dw_bw_entry, flash_entries,
                 flash_attention._HEAD_DIMS)
+    _mn_entries(mn, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     if args.out:
@@ -5003,6 +5477,7 @@ def main(argv=None) -> int:
                            starcoder2_profile=lm_prof, sweep=sweep_res,
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
                            elastic=elastic, whisper=wh, zamba2=zb,
+                           moonlight=mn,
                            kernels=kernels), f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

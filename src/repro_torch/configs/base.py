@@ -4,9 +4,9 @@ and its registry.
 
 The conv family (AtacWorks), the SSM family (Mamba2), the dense
 transformers (StarCoder2, Qwen2, Qwen3), the encoder-decoder family
-(Whisper) and the hybrid family (Zamba2) are ported.  The other families
-(MoE, MLA, VLM) raise ``NotImplementedError`` that names the ROADMAP queue
-they wait in.
+(Whisper), the hybrid family (Zamba2) and the MoE family (Moonlight) are
+ported.  The other families (MLA, VLM) raise ``NotImplementedError`` that
+names the ROADMAP queue they wait in.
 """
 from __future__ import annotations
 
@@ -14,11 +14,24 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Literal, Optional
 
-Family = Literal["conv", "ssm", "dense", "encdec", "hybrid"]
+Family = Literal["conv", "ssm", "dense", "encdec", "hybrid", "moe"]
 
 # Architectures of the JAX package whose families the port does not have
-# yet (ROADMAP.md, queue A: MoE, MLA and VLM).
-NOT_PORTED = ("deepseek-v3-671b", "internvl2-2b", "moonshot-v1-16b-a3b")
+# yet (ROADMAP.md, queue A: MLA and VLM).
+NOT_PORTED = ("deepseek-v3-671b", "internvl2-2b")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared: int = 0            # shared (always-on) experts
+    score_fn: str = "softmax"    # 'softmax' | 'sigmoid' (DeepSeek-V3)
+    routed_scaling: float = 1.0
+    first_dense_layers: int = 0  # leading dense layers (DeepSeek/Moonlight)
+    d_ff_dense: int = 0          # d_ff of those dense layers
+    capacity_factor: float = 0.0  # 0: dropless (sorted grouped products)
 
 
 @dataclass(frozen=True)
@@ -60,6 +73,7 @@ class ModelConfig:
     # 'rope' | 'sinusoidal' | 'learned' | 'none'
     pos_embedding: str = "rope"
     max_position: int = 1 << 20
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (Zamba2): the shared attention block is applied after every
     # layer i with i % attn_every == attn_every - 1
@@ -80,8 +94,8 @@ class ModelConfig:
     # attention: 'chunked' (plain PyTorch, the (Tq, Tk) scores per q-chunk)
     # or 'flash' (the hand-written kernels, kernels/flash_attention.py)
     attn_impl: str = "chunked"
-    # chunk of the streamed cross-entropy (0: the full (B, T, V) logits);
-    # only 0 is ported
+    # chunk of the streamed cross-entropy (0: the full (B, T, V) logits;
+    # train/losses.py streamed_xent)
     xent_chunk: int = 0
     source: str = ""
 
@@ -110,8 +124,9 @@ def get(name: str) -> ModelConfig:
             "family (atacworks, atacworks-bf16), the SSM family "
             "(mamba2-370m), the dense transformers (starcoder2-3b, "
             "qwen2-7b, qwen3-8b, qwen3-14b), the encoder-decoder "
-            "(whisper-large-v3) and the hybrid (zamba2-7b) are; the other "
-            "families wait in ROADMAP.md queue A")
+            "(whisper-large-v3), the hybrid (zamba2-7b) and the MoE "
+            "(moonshot-v1-16b-a3b) are; MLA and the VLM wait in ROADMAP.md "
+            "queue A")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {names()}")
     return _REGISTRY[name]
@@ -133,7 +148,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     KV head while its cross-attention keeps the 4 heads).  Hybrid: both
     (the SSM's and the attention's), with 4 layers and ``attn_every`` 2,
     so the shared block is applied twice, as GQA of 2 heads a KV head
-    where the full width has one."""
+    where the full width has one.  MoE: the dense one (its ``d_ff`` stays
+    0) with JAX's caps on the experts: <= 8 experts, top_k <= 2,
+    ``d_ff_expert`` 32, <= 1 leading dense layer of ``d_ff_dense`` 128."""
     small: dict = dict(dtype="float32")
     if cfg.family == "conv":
         small.update(conv_channels=min(cfg.conv_channels, 8),
@@ -143,11 +160,18 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                      vocab_size=min(cfg.vocab_size, 256), remat=False,
                      ssm=dataclasses.replace(cfg.ssm, d_state=16,
                                              head_dim=8, chunk=16))
-    if cfg.family in ("dense", "encdec", "hybrid"):
+    if cfg.family in ("dense", "encdec", "hybrid", "moe"):
         small.update(n_layers=min(cfg.n_layers, 2), d_model=64, n_heads=4,
                      n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
-                     d_ff=128, vocab_size=min(cfg.vocab_size, 256),
+                     d_ff=128 if cfg.d_ff else 0,
+                     vocab_size=min(cfg.vocab_size, 256),
                      max_position=4096, remat=False, attn_chunk=64)
+    if cfg.moe:
+        small["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=min(cfg.moe.n_experts, 8),
+            top_k=min(cfg.moe.top_k, 2), d_ff_expert=32,
+            first_dense_layers=min(cfg.moe.first_dense_layers, 1),
+            d_ff_dense=128 if cfg.moe.d_ff_dense else 0)
     if cfg.family == "encdec":
         small.update(n_encoder_layers=2, encoder_width=64)
     if cfg.attn_every:
@@ -157,6 +181,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from . import (atacworks, mamba2_370m, qwen2_7b,  # noqa: F401
-                   qwen3_8b, qwen3_14b, starcoder2_3b,  # (register on import)
-                   whisper_large_v3, zamba2_7b)
+    from . import (atacworks, mamba2_370m,  # noqa: F401
+                   moonshot_v1_16b_a3b, qwen2_7b,  # (register on import)
+                   qwen3_8b, qwen3_14b, starcoder2_3b, whisper_large_v3,
+                   zamba2_7b)

@@ -10,7 +10,11 @@ the transformers' do (Whisper's ``enc_layers.attn.wq`` (L_enc, D, H * hd),
 ``dec_layers.cross.wk`` (L, D, H * hd), beside ``embed.pos`` and
 ``frontend.conv1_w`` (3, D, 128)), and Zamba2's (its Mamba2 leaves under
 ``layers.`` beside the shared block's ``shared.wq`` (2·D, H * hd) and
-``shared.mlp.w_gate``), so nothing is split or joined::
+``shared.mlp.w_gate``) and an MoE model's (``dense_layers.mlp.w_gate``
+(L_dense, D, d_ff_dense), ``moe_layers.moe.w_gate`` (L_moe, E, D, F),
+``moe_layers.moe.shared.w_up``, and ``moe_layers.moe.router`` (L_moe,
+D, E) and ``router_bias``, fp32 in a bf16 tree and kept so), so nothing
+is split or joined::
 
     model.load_state_dict(params_from_jax(jax_tree_as_numpy))
     state = train_state_from_jax(jax_train_state_as_numpy, cfg)
@@ -57,7 +61,8 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu"):
     B, H, N, P)}``, dense ``{"dense": {"k"|"v": (L, B, Tmax, KV, hd)}}``,
     Whisper ``{"k"|"v": (L, B, Tmax, KV, hd), "cross_k"|"cross_v": (L, B,
     Te, H, hd)}``, its cross K/V filled or not; Zamba2 ``{"mamba": {"conv",
-    "ssm"}, "k"|"v": (n_app, B, Tmax, KV, hd)}``), so ``decode_step`` may
+    "ssm"}, "k"|"v": (n_app, B, Tmax, KV, hd)}``; MoE ``{"dense"|"moe":
+    {"k"|"v": (L_stack, B, Tmax, KV, hd)}}``), so ``decode_step`` may
     write into it."""
     if isinstance(tree, dict):
         return {k: cache_from_jax(v, device=device) for k, v in tree.items()}

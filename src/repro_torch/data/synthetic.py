@@ -1,5 +1,5 @@
-"""Synthetic data of the conv, SSM, dense, encoder-decoder and hybrid
-families (counterpart of the conv, LM and encoder-decoder parts of
+"""Synthetic data of the conv, SSM, dense, MoE, encoder-decoder and
+hybrid families (counterpart of the conv, LM and encoder-decoder parts of
 ``repro/data/synthetic.py``).
 
 The real ATAC-seq data behind the paper's end-to-end experiments is
@@ -78,13 +78,14 @@ def make_batch(cfg, batch: int, seq: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     if cfg.family == "conv":
         return atacseq_batch(rng, batch, width=seq)
-    if cfg.family in ("ssm", "dense", "hybrid"):
+    if cfg.family in ("ssm", "dense", "hybrid", "moe"):
         return lm_batch(rng, cfg, batch, seq)
     if cfg.family == "encdec":
         return encdec_batch(rng, cfg, batch, seq)
     raise NotImplementedError(
         f"synthetic {cfg.family!r} batches are not ported to repro_torch "
-        "yet: only the conv, ssm, dense, encdec and hybrid families' are "
+        "yet: only the conv, ssm, dense, moe, encdec and hybrid families' "
+        "are "
         "(ROADMAP.md queue A)")
 
 

@@ -3,7 +3,8 @@ batched greedy decode for the language models, batched continuous
 streaming for the conv family.  It runs on the card by default.
 
 Language models (the SSM family, Mamba2, the dense transformers, the
-encoder-decoder, Whisper, and the hybrid, Zamba2): build the cache of
+MoE family, Moonlight, the encoder-decoder, Whisper, and the hybrid,
+Zamba2): build the cache of
 ``--prompt-len`` seeded
 prompt tokens by sequential teacher-forced decode steps, as the JAX
 launcher does (the fused prefill is ``train.serve_step.
@@ -32,6 +33,23 @@ none), 13 ``flash_fwd`` launches:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --batch 8 --prompt-len 200 --gen 64
+
+Moonlight-16B-A3B serves at its full depth (48 layers, 28.39 B
+parameters, 56.8 GB of bf16 weights, drawn on the host's cores slab by
+slab); its experts run as plain grouped products, one device sync a MoE
+layer a step for the group sizes; with ``attn_impl="flash"`` the fused
+prefill runs 48 ``flash_fwd`` launches:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot-v1-16b-a3b --batch 8 --prompt-len 200 --gen 64
+
+Its ``--smoke`` check holds the fused prefill to the decode with the
+decode's expert selection replayed (``moe.RoutingLog``): routing is
+discontinuous, and where a token's k-th and (k+1)-th selection scores lie
+closer than the two paths' rounding the prefill would pick another
+expert, a jump no tolerance of rounding covers.  The prefill's own
+selection is compared too: its flips per layer, the smallest selection
+margin and the largest score difference are reported.
 
 The cache is fp32 where the JAX launcher runs one (the SSM family, and
 fp32 configs) and in the model's dtype for a bf16 dense, encoder-decoder
@@ -79,7 +97,7 @@ from repro_torch.configs.base import reduced
 from repro_torch.core import blocks
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.device import require_device
-from repro_torch.models import init_model
+from repro_torch.models import init_model, moe
 from repro_torch.models.whisper import fill_cross_cache
 from repro_torch.train.serve_step import (make_cache, make_conv_prefill_step,
                                           make_conv_stream_state,
@@ -338,7 +356,8 @@ def lm_cache_dtype(cfg) -> torch.dtype:
 
 def prefill_gap(model, cfg, prompt: torch.Tensor,
                 decode_logits: torch.Tensor,
-                frames: torch.Tensor | None = None) -> dict:
+                frames: torch.Tensor | None = None,
+                routing: moe.RoutingLog | None = None) -> dict:
     """The fused prefill step on ``prompt`` (an encoder-decoder's with the
     ``frames`` its cross K/V came from) against the sequential decode's
     logits at its last position: ``gap`` = max|prefill - decode| over
@@ -346,14 +365,38 @@ def prefill_gap(model, cfg, prompt: torch.Tensor,
     ``tokens_equal``: whether the greedy tokens agree in every row whose
     top-2 margin exceeds twice the tolerance (each path may move a logit
     by the tolerance, so a smaller margin may flip), counted in
-    ``rows_with_clear_margin``."""
+    ``rows_with_clear_margin``.
+
+    With ``routing``, the decode's expert selection over the prompt (an
+    MoE model), the prefill runs twice: with its own selection, whose
+    gap is ``free_gap`` and whose selection against the decode's is
+    ``moe.compare_routing``'s ``routing`` (flips per layer, smallest
+    margin, largest score difference); then with the decode's selection
+    replayed, whose gap is ``gap``."""
     batch = {"tokens": prompt}
     if frames is not None:
         batch["frames"] = frames
-    _, logits = make_prefill_step(cfg)(model, batch)
+    step = make_prefill_step(cfg)
+    out = {}
+    if routing is not None:
+        free = moe.RoutingLog()
+        try:
+            model.routing = free
+            _, free_logits = step(model, batch)
+            model.routing = moe.RoutingLog(replay=routing)
+            _, logits = step(model, batch)
+        finally:
+            model.routing = None
+        out["routing"] = moe.compare_routing(routing, free)
+    else:
+        _, logits = step(model, batch)
     V = cfg.vocab_size  # the padded columns are NEG_INF on both sides
-    got, want = logits[:, -1, :V].float(), decode_logits[:, -1, :V].float()
+    want = decode_logits[:, -1, :V].float()
     scale = want.abs().max()
+    if routing is not None:
+        out["free_gap"] = ((free_logits[:, -1, :V].float() - want).abs()
+                           .max() / scale).item()
+    got = logits[:, -1, :V].float()
     rel = prefill_tol(cfg, next(model.parameters()).dtype)
     tol = rel * scale
     top2 = want.topk(2, dim=-1).values
@@ -362,7 +405,7 @@ def prefill_gap(model, cfg, prompt: torch.Tensor,
     return {"gap": ((got - want).abs().max() / scale).item(),
             "tol": rel,
             "tokens_equal": bool((same | ~clear).all()),
-            "rows_with_clear_margin": int(clear.sum())}
+            "rows_with_clear_margin": int(clear.sum()), **out}
 
 
 def serve_lm(args, cfg, model=None) -> dict:
@@ -412,12 +455,22 @@ def serve_lm(args, cfg, model=None) -> dict:
     ).to(device)
 
     # prefill: sequential teacher-forced decode steps (cache-correct by
-    # construction)
+    # construction); under --smoke an MoE model records its selection
+    # for the fused prefill's check
+    routing = (moe.RoutingLog() if args.smoke and cfg.family == "moe"
+               else None)
     t0 = time.perf_counter()
     with obs.span("serve.prefill", arch=cfg.name, batch=args.batch,
                   prompt_len=args.prompt_len):
-        for t in range(args.prompt_len):
-            nxt, cache, logits = serve(model, cache, prompt[:, t:t + 1], t)
+        try:
+            if routing is not None:
+                model.routing = routing
+            for t in range(args.prompt_len):
+                nxt, cache, logits = serve(model, cache, prompt[:, t:t + 1],
+                                           t)
+        finally:
+            if routing is not None:
+                model.routing = None
         out = [nxt.cpu()]
     prompt_logits = logits
     finite = torch.isfinite(logits).all()
@@ -451,13 +504,22 @@ def serve_lm(args, cfg, model=None) -> dict:
           f" {stats['tokens_per_s']:.1f} tokens/s", flush=True)
     print("sample:", tokens[0, :16])
     if args.smoke:
-        gap = prefill_gap(model, cfg, prompt, prompt_logits, frames)
+        gap = prefill_gap(model, cfg, prompt, prompt_logits, frames,
+                          routing=routing)
         if gap["gap"] > gap["tol"] or not gap["tokens_equal"]:
             raise AssertionError(f"the fused prefill diverged from the "
                                  f"sequential decode: {gap}")
         print(f"smoke: fused prefill == sequential decode at position "
               f"{args.prompt_len - 1} (max diff {gap['gap']:.2e} of the "
-              f"largest logit, tol {gap['tol']:.2e})")
+              f"largest logit, tol {gap['tol']:.2e}"
+              + (", the decode's expert selection replayed" if routing
+                 else "") + ")")
+        if routing is not None:
+            r = gap["routing"]
+            print(f"smoke: the prefill's own selection flips {r['flips']} "
+                  f"(layer: tokens; smallest margin {r['min_margin']:.3e}, "
+                  f"largest score difference {r['max_score_diff']:.3e}), "
+                  f"max diff {gap['free_gap']:.2e}")
     return stats
 
 
@@ -467,10 +529,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (conv: C=8, S=9, and a check of "
-                         "stream 0 against the one-shot forward; ssm, dense "
-                         "and encdec: 2 layers, hybrid 4, d_model 64, and a "
-                         "check of the fused prefill against the sequential "
-                         "decode)")
+                         "stream 0 against the one-shot forward; ssm, dense, "
+                         "moe and encdec: 2 layers, hybrid 4, d_model 64, "
+                         "and a check of the fused prefill against the "
+                         "sequential decode)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--batch", type=int, default=4)

@@ -47,6 +47,23 @@ config cut in depth at the published widths trains (chip_smoke.py
 registers ``zamba2-7b-12l``, 12 layers, the shared block applied twice,
 1.41 B parameters).
 
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 3 \
+        --batch 2 --seq 16
+
+trains Moonlight (the MoE family: 64 routed experts top-6 and 2 shared
+a layer after one dense layer, bf16, remat on; here the reduced config
+on the CPU), its attention (16 over 16 heads of 128) through the flash
+kernels with ``--attn-impl flash``, its experts as plain grouped
+products.  The 28.39 B parameters' training state does not fit one card;
+on the card ``chip_smoke.py`` registers and trains the cut
+``moonshot-v1-16b-a3b-6l`` (the dense layer and 5 MoE layers at the
+published widths, 3.70 B parameters, ``xent_chunk`` 1,024: the streamed
+cross-entropy keeps one (B, 1,024, 163,840) chunk of fp32 logits at a
+time) at ``--attn-impl flash --batch 4 --seq 4096``.  Each step's line
+gives the total loss and, apart, the NLL (the total adds 0.01 x the
+load-balance loss); the summary lists both (``losses``, ``nlls``).
+
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
 it raises.  Each step prints its loss, gradient norm and time (to a
@@ -218,7 +235,7 @@ def _parse_args(argv):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (conv: C=8, S=9; "
-                         "ssm, dense and encdec: 2 layers, hybrid 4, "
+                         "ssm, dense, moe and encdec: 2 layers, hybrid 4, "
                          "d_model 64)")
     ap.add_argument("--attn-impl", choices=("chunked", "flash"), default=None,
                     help="self-attention of a dense or encoder-decoder "
@@ -422,6 +439,7 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
     straggler = (ShardStragglerMonitor(warmup=WARMUP_STEPS) if injector
                  else ShardStragglerMonitor())
     losses: dict[int, float] = {}
+    nlls: dict[int, float] = {}
     gnorms: dict[int, float] = {}
     dts: dict[int, float] = {}
     skips: dict[int, int] = {}
@@ -500,7 +518,7 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
                 log(f"elastic: recovered dp={pending['dp_from']} -> dp={dp} "
                     f"(accum {accum}), restored step {start}, detect "
                     f"{pending['t_detect']:.3f}s restore {t_restore:.3f}s")
-                for rec in (losses, gnorms, dts, skips):
+                for rec in (losses, nlls, gnorms, dts, skips):
                     # the replayed steps overwrite their tainted records
                     for s in [s for s in rec if s >= start]:
                         del rec[s]
@@ -524,7 +542,8 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
             log(f"arch={cfg.name} device={device} batch={args.batch} "
                 f"seq={args.seq} accum={accum}"
                 + (f" attn_impl={cfg.attn_impl}"
-                   if cfg.family in ("dense", "encdec", "hybrid") else "")
+                   if cfg.family in ("dense", "encdec", "hybrid", "moe")
+                   else "")
                 + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
                    else f" dp={dp} path=data_parallel" if group is not None
                    else "")
@@ -603,6 +622,8 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
                         dt, shard_dts = _fleet_times(dt, straggle, dp, mp,
                                                      device)
                     losses[i], dts[i] = loss, dt
+                    if "nll" in metrics:
+                        nlls[i] = float(metrics["nll"])
                     gnorms[i] = float(metrics["grad_norm"])
                     skips[i] = int(metrics["skipped"])
                     if obs.enabled():
@@ -627,8 +648,11 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
                                       shard=shard, step=i)
                         sverdict = straggler.record(shard, i, dt)
                     verdict = health.record(i, loss, bool(skips[i]))
-                    log(f"step {i:5d} loss {loss:.4f} gnorm {gnorms[i]:.3f} "
-                        f"dt {dt:.3f}s [{verdict}/{sverdict}]", flush=True)
+                    log(f"step {i:5d} loss {loss:.4f} "
+                        + (f"nll {nlls[i]:.4f} " if cfg.family == "moe"
+                           else "")
+                        + f"gnorm {gnorms[i]:.3f} dt {dt:.3f}s "
+                        f"[{verdict}/{sverdict}]", flush=True)
                     obs.flush()
                     if straggle is not None and sverdict == "replace":
                         # rotate the slow shard's ranks out of the next
@@ -692,7 +716,7 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
         save(args.steps)
     return _summary(args, cfg, device, dict(
         status=status, dp=dp, mp=mp, accum=accum, start=start,
-        losses=losses, gnorms=gnorms, dts=dts, skips=skips,
+        losses=losses, nlls=nlls, gnorms=gnorms, dts=dts, skips=skips,
         recoveries=recoveries, history=history, health=health,
         straggler=straggler), print if lead else (lambda *a, **k: None))
 
@@ -700,7 +724,8 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
 def _summary(args, cfg, device: torch.device, r: dict, log) -> dict:
     """The run's summary: JAX's keys (``status``, ``first_step``,
     ``last_step``, ``losses``, ``recoveries``, ``mesh_history``,
-    ``steady_step_s``, ``samples_per_s``) and the port's (``grad_norms``,
+    ``steady_step_s``, ``samples_per_s``) and the port's (``nlls`` of a
+    language model, ``grad_norms``,
     ``skipped_steps``, ``step_s``, ``median_step_s``, ``dp``, ``mp``,
     ``accum``, ``health``, ``straggler``, ``tokens_per_s``,
     ``peak_memory_gb``).  The per-step lists are in step order; a step
@@ -736,6 +761,7 @@ def _summary(args, cfg, device: torch.device, r: dict, log) -> dict:
                "last_step": steps[-1] if steps else None,
                "global_batch": args.batch, "seq": args.seq,
                "accum": r["accum"], "losses": losses,
+               "nlls": [r["nlls"][s] for s in steps if s in r["nlls"]],
                "grad_norms": [r["gnorms"][s] for s in steps],
                "skipped_steps": sum(r["skips"].values()), "step_s": times,
                "status": r["status"], "recoveries": r["recoveries"],

@@ -3,8 +3,8 @@
 ``init_model`` builds the model of any ported family from a seed.
 
 Among the language models the SSM family (Mamba2), the dense
-transformers, the encoder-decoder (Whisper) and the hybrid (Zamba2) are
-ported, each module with the
+transformers, the MoE transformers (Moonlight), the encoder-decoder
+(Whisper) and the hybrid (Zamba2) are ported, each module with the
 functional surface of the JAX package's (``repro/models/__init__.py``),
 the model an ``nn.Module``:
 
@@ -12,6 +12,10 @@ the model an ``nn.Module``:
     forward(model, tokens, *, last_only=False, ...) -> logits
     init_cache(cfg, batch, max_len, dtype, device) -> cache
     decode_step(model, cache, tokens, pos) -> (logits, cache)
+
+An MoE model's ``forward`` returns ``(logits, aux)``, aux its summed
+load-balance loss, as the JAX package's ``forward`` does for every
+family.
 
 ``decode_step`` updates the cache in place and returns it.  Whisper's
 ``forward`` also takes the encoder's ``frames``, its ``init_cache`` an
@@ -28,7 +32,7 @@ def get_model(cfg):
     if cfg.family == "ssm":
         from repro_torch.models import mamba2
         return mamba2
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models import transformer
         return transformer
     if cfg.family == "encdec":
@@ -39,9 +43,9 @@ def get_model(cfg):
         return zamba2
     raise NotImplementedError(
         f"the {cfg.family!r} family's model is not ported to repro_torch "
-        "yet: among the language models only the ssm (mamba2), dense "
-        "(transformer), encdec (whisper) and hybrid (zamba2) families are "
-        "(ROADMAP.md queue A)")
+        "yet: among the language models only the ssm (mamba2), dense and "
+        "moe (transformer), encdec (whisper) and hybrid (zamba2) families "
+        "are (ROADMAP.md queue A)")
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu"):

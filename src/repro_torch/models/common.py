@@ -215,9 +215,12 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
 
 # --- MLP -------------------------------------------------------------------------
 
-def mlp_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
-    """The MLP's leaves, as ``attention_leaves``."""
-    D, Fd = cfg.d_model, cfg.d_ff
+def mlp_leaves(cfg, d_ff: int | None = None
+               ) -> dict[str, tuple[tuple[int, ...], str, float]]:
+    """The MLP's leaves, as ``attention_leaves``, of width ``d_ff``
+    (default ``cfg.d_ff``; JAX's ``init_mlp(..., d_ff=)``: an MoE model's
+    dense layers and shared experts have their own)."""
+    D, Fd = cfg.d_model, cfg.d_ff if d_ff is None else d_ff
     if cfg.mlp_act == "swiglu":
         p = {"w_gate": ((D, Fd), "normal", D ** -0.5),
              "w_up": ((D, Fd), "normal", D ** -0.5)}

@@ -1,11 +1,12 @@
 """Operation and byte counts: the conv layer's, and parameter counts and
 useful flops per step of the port's configs (counterpart of
 ``repro/roofline/flops.py``, for the families the port has: conv, ssm,
-dense, encdec, hybrid).
+dense, moe, encdec, hybrid).
 
 ``conv1d_flops`` is the paper's efficiency denominator; ``model_flops``
-is the useful compute of one step (6·N·D for training plus the exact
-attention or SSD terms), ``model_bytes`` its memory floor.  A step is
+is the useful compute of one step (6·N·D for training, N the parameters
+a token uses: an MoE model's active ones, plus the exact attention or SSD
+terms), ``model_bytes`` its memory floor.  A step is
 any object with ``kind`` ("train", "prefill" or "decode"),
 ``global_batch`` and ``seq_len`` (``StepShape``).
 """
@@ -50,6 +51,16 @@ def _mlp_params(cfg, d_ff: int) -> int:
     return mult * cfg.d_model * d_ff
 
 
+def _moe_layer_params(cfg, active_only: bool) -> int:
+    """An MoE layer's FFN: the router, the routed experts (``top_k`` of
+    them with ``active_only``) and the shared ones (JAX's count: no
+    ``router_bias``)."""
+    m = cfg.moe
+    n_routed = m.top_k if active_only else m.n_experts
+    return (cfg.d_model * m.n_experts
+            + (n_routed + m.n_shared) * 3 * cfg.d_model * m.d_ff_expert)
+
+
 def _ssm_dims(cfg) -> tuple[int, int]:
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
@@ -88,13 +99,21 @@ def _conv_per_point(cfg) -> int:
     return C + 2 * N_RES_BLOCKS * C * C + 2 * C
 
 
-def param_count(cfg) -> int:
+def param_count(cfg, active_only: bool = False) -> int:
+    """The parameters by JAX's count (no norms or biases); with
+    ``active_only`` an MoE model's a token uses: ``top_k`` of its routed
+    experts a layer."""
     if cfg.family == "conv":
         return cfg.conv_filter * _conv_per_point(cfg)
     emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     if cfg.family == "dense":
         return emb + cfg.n_layers * (_attn_params(cfg)
                                      + _mlp_params(cfg, cfg.d_ff))
+    if cfg.family == "moe":
+        nd = cfg.moe.first_dense_layers
+        return (emb + cfg.n_layers * _attn_params(cfg)
+                + nd * _mlp_params(cfg, cfg.moe.d_ff_dense)
+                + (cfg.n_layers - nd) * _moe_layer_params(cfg, active_only))
     if cfg.family == "ssm":
         return emb + cfg.n_layers * _ssm_block_params(cfg)
     if cfg.family == "hybrid":
@@ -105,6 +124,12 @@ def param_count(cfg) -> int:
             _attn_params(cfg) + _cross_params(cfg)
             + _mlp_params(cfg, cfg.d_ff))
     raise ValueError(f"family {cfg.family!r} is not ported")
+
+
+def active_param_count(cfg) -> int:
+    """The parameters a token uses (``param_count`` for every family but
+    MoE)."""
+    return param_count(cfg, active_only=True)
 
 
 def _cross_params(cfg) -> int:
@@ -127,7 +152,7 @@ def _attn_seq_flops(cfg, B: int, T: int, causal: bool = True) -> int:
     decoder's causal one over T tokens and its cross-attention), or the
     SSD's intra-chunk and state flops (ssm), all layers."""
     factor = 0.5 if causal else 1.0
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return int(4 * B * T * T * cfg.n_heads * cfg.head_dim * factor
                    * cfg.n_layers)
     if cfg.family == "hybrid":
@@ -157,7 +182,7 @@ def model_flops(cfg, shape) -> float:
         per_pt = 2 * cfg.conv_filter * _conv_per_point(cfg)
         mult = 3 if shape.kind == "train" else 1
         return float(mult * B * T * per_pt)
-    n = param_count(cfg)
+    n = active_param_count(cfg)
     if shape.kind == "train":
         return float(6 * n * B * T + 3 * _attn_seq_flops(cfg, B, T))
     if shape.kind == "prefill":
@@ -170,7 +195,8 @@ def model_flops(cfg, shape) -> float:
             state += (4 * B * T * cfg.n_heads * cfg.head_dim
                       * n_shared_applications(cfg))
         return float(2 * n * B + state)
-    # dense and encdec decode: one token, attention reads the whole cache
+    # dense, moe and encdec decode: one token, attention reads the whole
+    # cache
     # (and the encoder-decoder's cross K/V)
     attn = 4 * B * T * cfg.n_heads * cfg.head_dim * cfg.n_layers
     if cfg.family == "encdec":
@@ -208,13 +234,14 @@ def decode_cache_bytes(cfg, batch: int, seq_len: int,
 
 def hbm_bytes_decode(cfg, shape, cache_itemsize: int = 2) -> float:
     """Least device-memory traffic of one decode step: the bf16
-    parameters, of an untied embedding only the batch's rows, and
-    ``decode_cache_bytes`` at ``shape.seq_len``; an encoder-decoder's
-    decode reads no encoder weight.  JAX's count reads the whole untied
-    table and the encoder's weights, and leaves out the conv window and
-    the cross K/V."""
+    parameters a token uses (an MoE model's active ones, as if the batch
+    shared one token's experts), of an untied embedding only the batch's
+    rows, and ``decode_cache_bytes`` at ``shape.seq_len``; an
+    encoder-decoder's decode reads no encoder weight.  JAX's count reads
+    the whole untied table and the encoder's weights, and leaves out the
+    conv window and the cross K/V."""
     B, T = shape.global_batch, shape.seq_len
-    p_bytes = 2 * param_count(cfg)
+    p_bytes = 2 * active_param_count(cfg)
     if cfg.family == "encdec":
         p_bytes -= 2 * _encoder_params(cfg)
     if cfg.family != "conv" and not cfg.tie_embeddings:  # a row lookup
@@ -226,9 +253,12 @@ def model_bytes(cfg, shape) -> float:
     """Least device-memory traffic of one step.  train: bf16 parameters
     read, fp32 gradients, AdamW's moments read and written, parameters
     written, one activations pass; prefill: parameters and activations;
-    decode: ``hbm_bytes_decode``."""
+    decode: ``hbm_bytes_decode``, with an MoE model's every expert (JAX's
+    count: a batch's ``global_batch * top_k`` selections touch about all
+    of them)."""
     if shape.kind == "decode":
-        return hbm_bytes_decode(cfg, shape)
+        return hbm_bytes_decode(cfg, shape) + 2 * (
+            param_count(cfg) - active_param_count(cfg))
     B, T = shape.global_batch, shape.seq_len
     act = 2 * B * T * max(cfg.d_model, 1)
     if cfg.family == "conv":

@@ -75,9 +75,9 @@ def make_prefill_step(cfg):
     (with an encoder-decoder's ``batch["frames"]``) with the logits of
     the last position only (B, 1, padded_vocab); the (B, T, V) logits are
     never made.  On the card it runs the family's kernels: Mamba2's and
-    Zamba2's convs through ``depthwise_conv1d_fwd``, a dense model's
-    attention, Whisper's encoder and decoder self-attention and Zamba2's
-    shared block through ``flash_fwd`` when ``cfg.attn_impl ==
+    Zamba2's convs through ``depthwise_conv1d_fwd``, a dense or MoE
+    model's attention, Whisper's encoder and decoder self-attention and
+    Zamba2's shared block through ``flash_fwd`` when ``cfg.attn_impl ==
     "flash"``."""
     model_mod = get_model(cfg)
 
@@ -86,6 +86,8 @@ def make_prefill_step(cfg):
         kw = {"frames": batch["frames"]} if cfg.family == "encdec" else {}
         logits = model_mod.forward(model, batch["tokens"], last_only=True,
                                    **kw)
+        if cfg.family == "moe":
+            logits, _ = logits  # and the load-balance loss
         return _greedy(logits), logits
 
     return prefill_step

@@ -138,26 +138,28 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
     ``grad_compression`` rounds the gradients to bf16 with the error
     feedback carried in ``state.ef``
     (``init_state(..., grad_compression=True)``).  ``probe`` (a
-    :class:`PhaseProbe`) times the step's phases (module docstring)."""
+    :class:`PhaseProbe`) times the step's phases (module docstring).  A
+    language model's metrics add ``nll``, the loss without an MoE model's
+    ``AUX_WEIGHT * aux`` (the loss itself for the other families)."""
     if group is None and model_group is None:
         loss_fn = make_loss_fn(cfg)
 
         def grads_of(model, params, batch, probe):
-            loss, _ = loss_fn(model, batch)
+            loss, aux = loss_fn(model, batch)
             if probe is not None:
                 probe.mark("forward")
             grads = param_grads(loss, params)
             if probe is not None:
                 probe.mark("backward")
-            return loss.detach(), grads
+            return loss.detach(), aux.get("nll"), grads
     else:
         grad_fn = make_sharded_grad_fn(
             cfg, group, grad_reduce_chunks=grad_reduce_chunks,
             model_group=model_group, model_reduce_chunks=model_reduce_chunks)
 
         def grads_of(model, params, batch, probe):
-            (loss, _), grads = grad_fn(model, batch, probe=probe)
-            return loss, grads
+            (loss, aux), grads = grad_fn(model, batch, probe=probe)
+            return loss, aux.get("nll"), grads
 
     def train_step(state: TrainState, batch: dict,
                    probe: PhaseProbe | None = None):
@@ -166,15 +168,17 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
         if accum_steps > 1:
             gsum = [torch.zeros(p.shape, dtype=torch.float32,
                                 device=p.device) for p in params]
-            lsum = 0.0
+            lsum = nsum = 0.0
             for mb in _split_microbatches(batch, accum_steps):
-                loss, g = grads_of(model, params, mb, probe)
+                loss, nll, g = grads_of(model, params, mb, probe)
                 gsum = [a + b.float() for a, b in zip(gsum, g)]
                 lsum = lsum + loss
+                nsum = None if nll is None else nsum + nll.detach()
             grads = [g / accum_steps for g in gsum]
             loss = lsum / accum_steps
+            nll = None if nsum is None else nsum / accum_steps
         else:
-            loss, grads = grads_of(model, params, batch, probe)
+            loss, nll, grads = grads_of(model, params, batch, probe)
 
         lr = schedule.cosine_with_warmup(
             state.step, peak_lr=peak_lr, warmup_steps=warmup_steps,
@@ -194,7 +198,10 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
         state.step = state.step + 1
         if probe is not None:
             probe.mark("optimizer")
-        return state, {"grad_norm": gnorm, "skipped": (~finite).float(),
-                       "loss": loss, "lr": lr}
+        metrics = {"grad_norm": gnorm, "skipped": (~finite).float(),
+                   "loss": loss, "lr": lr}
+        if nll is not None:
+            metrics["nll"] = nll.detach()
+        return state, metrics
 
     return train_step

@@ -343,13 +343,19 @@ def test_jax_cannot_decode_bf16_dense_with_an_fp32_cache(arch):
 
 
 def test_moe_decode_raises():
+    """The MoE family's decode is ported (``tests/test_torch_moe.py``);
+    the transformer decode paths still missing raise: the MoE model with
+    MLA attention (DeepSeek-V3, whose decode keeps the compressed latent
+    cache) and the VLM family."""
     _, cfg = _cfgs("starcoder2-3b")
-    moe = dataclasses.replace(cfg, family="moe")
+    vlm = dataclasses.replace(cfg, family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(moe, 1, 8)
+        transformer.init_cache(vlm, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.decode_step(
-            type("M", (), {"cfg": moe})(), None, None, 0)
+            type("M", (), {"cfg": vlm})(), None, None, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        configs.get("deepseek-v3-671b")
 
 
 # --- depthwise_conv1d_streaming -------------------------------------------------

@@ -419,13 +419,20 @@ def test_checkpoint_port_writes_jax_restores(cfgs, jparams, tmp_path):
 
 # --- registry, loss and launcher ---------------------------------------------
 
-def test_other_lm_families_raise(cfgs):
+def test_other_lm_families_raise(cfgs, jparams):
+    """The families and options still missing raise (the VLM, the "dots"
+    remat policy); the streamed cross-entropy, which raised here until
+    it was ported, gives Mamba2's full-logits loss."""
     _, cfg = cfgs
-    moe = dataclasses.replace(cfg, family="moe")
+    vlm = dataclasses.replace(cfg, family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.get_model(moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.make_loss_fn(dataclasses.replace(cfg, xent_chunk=64))
+        models.get_model(vlm)
+    model = _model(cfg, jparams)
+    batch = _torch_batch(_batch_np(5, cfg, seq=32))
+    full, _ = losses.make_loss_fn(cfg)(model, batch)
+    streamed, _ = losses.make_loss_fn(dataclasses.replace(
+        cfg, xent_chunk=8))(model, batch)
+    np.testing.assert_allclose(streamed.item(), full.item(), rtol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         common.maybe_remat(lambda x: x, dataclasses.replace(
             cfg, remat=True, remat_policy="dots"))

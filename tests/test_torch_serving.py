@@ -88,9 +88,9 @@ def test_configs_match_jax():
                   "dtype"):
             assert getattr(tr, f) == getattr(jr, f), (name, f)
     assert configs.names() == ["atacworks", "atacworks-bf16", "mamba2-370m",
-                               "qwen2-7b", "qwen3-14b", "qwen3-8b",
-                               "starcoder2-3b", "whisper-large-v3",
-                               "zamba2-7b"]
+                               "moonshot-v1-16b-a3b", "qwen2-7b",
+                               "qwen3-14b", "qwen3-8b", "starcoder2-3b",
+                               "whisper-large-v3", "zamba2-7b"]
 
 
 def test_lm_families_raise_not_implemented():

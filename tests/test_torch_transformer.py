@@ -328,11 +328,11 @@ def test_remat_matches_no_remat(arch, monkeypatch):
 
 def test_decode_path_and_other_families_raise():
     _, cfg = _cfgs("starcoder2-3b")
-    moe = dataclasses.replace(cfg, family="moe")
+    vlm = dataclasses.replace(cfg, family="vlm")  # MoE is ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.get_model(moe)
+        models.get_model(vlm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(moe)
+        transformer.init_params(vlm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get("deepseek-v3-671b")
     assert models.get_model(cfg) is transformer
