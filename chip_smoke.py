@@ -12,8 +12,9 @@ Phases (any failed check raises, so the run exits non-zero):
      no flash or ``conv1d_bwd_weight`` kernel may have its wgmmas
      serialized); count the HGMMA (wgmma)
      instructions of each flash and each ``conv1d_bwd_weight`` kernel in
-     the libraries' SASS (``cuobjdump -sass``): the nine bf16 flash
-     kernels (head_dim 64, 112 and 128) and
+     the libraries' SASS (``cuobjdump -sass``): the 13 bf16 flash kernels
+     (head_dim 64, 112, 128 and 192; at 192 the dK/dV kernel runs as a
+     dV and a dK pass) and
      every ``bwd_weight_partial`` kernel (the fp32 ones run three TF32
      terms) must have some; the FFMA and LDS instructions of each
      ``conv1d_fwd`` kernel's main loop, and the instructions, HGMMA and LDS
@@ -284,15 +285,17 @@ Phases (any failed check raises, so the run exits non-zero):
       shared, 16 heads over 16 KV heads of 128, bf16, flash): (a) the
       flash kernels at (4, 4,096, 16 heads of 128, G = 1, causal) in bf16
       and at a small shape in fp32 by phase 10's rule, timed beside SDPA
-      and the bound; (b) ``serve_lm`` on the 48 layers at batch 8, a
-      200-token prompt, 64 generated tokens, ``--smoke``: the fused
-      prefill within ``serve.prefill_tol`` of the decode with the
-      decode's expert selection replayed, its own selection's flips per
-      layer reported, 48 ``flash_fwd`` launches a fused prefill and none
-      in the decode steps, finite logits; decode p50/p99, tokens/s,
-      prefill times, peak memory, the syncs of a decode step, the
-      decode's busy share and its bound two ways (the weights a token
-      uses, and the experts the batch's selections touch); (c) the
+      and the bound; (b) ``serve_lm`` on the config cut to 12 layers
+      (``moonshot-v1-16b-a3b-12l``, registered here: the dense layer and
+      11 MoE layers) at batch 8, a 200-token prompt, 64 generated tokens,
+      ``--smoke``: the fused prefill within ``serve.prefill_tol`` of the
+      decode with the decode's expert selection replayed, its own
+      selection's flips per layer reported, 12 ``flash_fwd`` launches a
+      fused prefill and none in the decode steps, finite logits; decode
+      p50/p99, tokens/s, prefill times, peak memory, the syncs of a
+      decode step, the decode's busy share and its bound two ways (the
+      weights a token uses, and the experts the batch's selections
+      touch); (c) the
       launcher 6 steps on the config cut to 6 layers
       (``moonshot-v1-16b-a3b-6l``, registered here, the streamed
       cross-entropy over 1,024-position chunks) at batch 4 x 4,096 (12 +
@@ -302,7 +305,29 @@ Phases (any failed check raises, so the run exits non-zero):
       against the plain attention, both paths' expert selections equal
       first (a flip fails), and the syncs of one gradient; the phase's
       seconds;
-  22. a JSON line of the six kernels, the card's line, and last the
+  22. DeepSeek-V3's Multi-head Latent Attention at its published widths
+      (``deepseek_check``; d_model 7,168, 128 heads, q_lora 1,536,
+      kv_lora 512, q and k heads of 128 + 64, v heads of 128, 256 routed
+      experts top-8 by sigmoid scores and 1 shared, bf16, flash): (a) the
+      flash kernels at head_dim 192, v padded from 128 as the MLA block
+      pads it, at (4, 4,096, 128 heads, G = 1, causal) in bf16 and at a
+      small shape in fp32 (padded v, and v of 192 real columns) by phase
+      10's rule, timed beside SDPA on the same q, k and padded v and the
+      bound of the useful work; (b) ``serve_lm`` on the config cut to 4
+      layers (``deepseek-v3-671b-4l``, registered here: the 3 dense
+      layers and 1 MoE layer of all 256 experts) at batch 8, phase 21's
+      traffic and checks (4 ``flash_fwd`` a fused prefill, none in a
+      decode step), then the absorbed decode (``make_serve_step(absorb=
+      True)``) against the plain one on the same cache and tokens with
+      the plain decode's selection replayed, within
+      ``serve.prefill_tol``, no kernel launched; (c) the launcher 6 steps
+      on the config cut to 2 layers of 16 routed experts
+      (``deepseek-v3-671b-2l-16e``, registered here; streamed
+      cross-entropy) at batch 4 x 4,096 (4 + 2 flash launches a step),
+      BREAKDOWN_STEPS more steps traced, then its fp32 copy's whole
+      gradient at 1 x 512 against the plain attention, both paths' expert
+      selections equal first; the phase's seconds;
+  23. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -544,10 +569,12 @@ BREAKDOWN_STEPS = 2
 # and 2 shared; attention 16 over 16 KV heads of 128).  (a) The flash
 # pair at (MN_BATCH, MN_SEQ, 16 heads of 128, G = 1, bf16, causal) and
 # in fp32 at MN_FA_F32 (B, T, KV, G) by phase 10's rule, timed beside
-# SDPA and the bound.  (b) ``serve_lm`` on all 48 layers, built once in
-# bf16 with attn_impl="flash" (random non-zero norms and router biases),
-# at batch MN_SERVE_BATCH, phase 14's LM_PROMPT-token prompt and LM_GEN
-# generated tokens, ``--smoke``: the fused prefill held to the decode
+# SDPA and the bound.  (b) ``serve_lm`` on MN_SERVE_ARCH, the config cut
+# to MN_SERVE_LAYERS layers (the dense one and 11 MoE layers, every
+# width: all 48 layers' draw and host-bound decode took most of the
+# phase's time), built once in bf16 with attn_impl="flash" (random
+# non-zero norms and router biases), at batch MN_SERVE_BATCH, phase 14's
+# LM_PROMPT-token prompt and LM_GEN generated tokens, ``--smoke``: the fused prefill held to the decode
 # within ``serve.prefill_tol`` with the decode's expert selection
 # replayed (routing is discontinuous: where a token's 6th and 7th scores
 # lie closer than bf16's rounding moves them, the prefill picks another
@@ -563,11 +590,45 @@ BREAKDOWN_STEPS = 2
 # x MN_GRAD_SEQ against the plain attention (phase 11's rule), each MoE
 # layer's selection recorded on both sides first: a flip fails the phase.
 MN_ARCH, MN_TRAIN_ARCH = "moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b-6l"
+MN_SERVE_ARCH, MN_SERVE_LAYERS = "moonshot-v1-16b-a3b-12l", 12
 MN_TRAIN_LAYERS, MN_XENT_CHUNK = 6, 1024
 MN_SERVE_BATCH, MN_BATCH, MN_SEQ, MN_STEPS = 8, 4, 4096, 6
 MN_GRAD_BATCH, MN_GRAD_SEQ = 1, 512
 MN_FA_F32 = (1, 1024, 16, 1)
 MN_TRACE_PROMPT, MN_TRACE_GEN = 2, 3
+# phase 22, DeepSeek-V3 (arXiv:2412.19437), Multi-head Latent Attention
+# at the published widths (d_model 7,168; 128 heads; q_lora 1,536,
+# kv_lora 512, nope 128 + rope 64 for q and k, v 128; 256 routed experts
+# top-8 by sigmoid scores of d_ff 2,048 and 1 shared; dense d_ff 18,432;
+# vocab 129,280).  (a) The flash pair at head_dim 192 with v padded from
+# 128, as the MLA block runs it, at (DS_BATCH, DS_SEQ, 128 heads, G = 1,
+# bf16, causal) timed beside SDPA and the bound of the useful work, and in
+# fp32 at DS_FA_F32 (B, T, KV, G), by phase 10's rule.  (b) ``serve_lm`` on
+# DS_SERVE_ARCH, the config cut to DS_SERVE_LAYERS layers (the 3 dense
+# layers and 1 MoE layer of all 256 experts, every width: 15.11 B
+# parameters, 30.2 GB in bf16; the full depth's 671 B cannot be held),
+# built once in bf16 with attn_impl="flash", at batch DS_SERVE_BATCH,
+# phase 14's traffic, ``--smoke``, as phase 21's; then the absorbed
+# decode against the plain one over the prompt's first DS_ABSORB_STEPS
+# positions.  (c) The launcher DS_STEPS steps on DS_TRAIN_ARCH, cut to
+# DS_TRAIN_LAYERS layers (1 dense, 1 MoE) and DS_TRAIN_EXPERTS routed
+# experts (top-8 kept): 3.37 B parameters, about 40 GB of training state
+# (4 layers of 256 experts would need about 180 GB), the streamed
+# cross-entropy over DS_XENT_CHUNK positions, at DS_BATCH x DS_SEQ;
+# BREAKDOWN_STEPS more traced; its fp32 copy's whole gradient at
+# DS_GRAD_BATCH x DS_GRAD_SEQ against the plain attention, selections
+# equal first (as phase 21's).
+DS_ARCH = "deepseek-v3-671b"
+DS_SERVE_ARCH, DS_SERVE_LAYERS = "deepseek-v3-671b-4l", 4
+DS_TRAIN_ARCH = "deepseek-v3-671b-2l-16e"
+DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS, DS_XENT_CHUNK = 2, 16, 1024
+DS_SERVE_BATCH, DS_BATCH, DS_SEQ, DS_STEPS = 8, 4, 4096, 6
+DS_GRAD_BATCH, DS_GRAD_SEQ = 1, 512
+DS_FA_F32 = (1, 1024, 16, 1)
+DS_ABSORB_STEPS = 32
+# the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
+# at 3 and its two passes at 192
+FLASH_WGMMA_KERNELS = 13
 
 
 def _card_line() -> str:
@@ -1751,11 +1812,17 @@ def mamba2_profile(torch, train):
     return stats
 
 
-def _attn_bound(B, T, H, KV, hd, causal, dtype_name, products, nbytes):
-    """Least time of ``products`` (B, H, T, T, hd)-sized products over the
-    (query, key) pairs the mask keeps (see ``_bound``)."""
+def _attn_flops(B, T, H, width, causal):
+    """Flops of (B, H, T, T)-shaped products over the (query, key) pairs
+    the mask keeps, ``width`` the sum of the products' inner or outer
+    widths (a forward at one head dim hd: 2 hd)."""
     pairs = T * (T + 1) // 2 if causal else T * T
-    return roofline.bound(2.0 * products * B * H * hd * pairs, nbytes,
+    return 2.0 * B * H * width * pairs
+
+
+def _attn_bound(B, T, H, width, causal, dtype_name, nbytes):
+    """Least time of ``_attn_flops`` against ``nbytes`` (see ``_bound``)."""
+    return roofline.bound(_attn_flops(B, T, H, width, causal), nbytes,
                           dtype_name)
 
 
@@ -1790,26 +1857,37 @@ def _flash_err_fields(errs, bf16):
     return fields
 
 
-def _flash_operands(torch, gen, B, T, KV, G, hd, dtype):
-    """Seeded q (a (B, T, KV, G, hd) view of (B, T, H, hd)), k, v and dO."""
+def _flash_operands(torch, gen, B, T, KV, G, hd, dtype, vd=None):
+    """Seeded q (a (B, T, KV, G, hd) view of (B, T, H, hd)), k, v and dO;
+    with ``vd`` < hd, v's and dO's columns past vd are zeros (the MLA
+    block's padded v and the cotangent its slice passes back)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
     q = rnd(B, T, KV * G, hd).view(B, T, KV, G, hd)
-    return q, rnd(B, T, KV, hd), rnd(B, T, KV, hd), rnd(B, T, KV, G, hd)
+    k, v, do = rnd(B, T, KV, hd), rnd(B, T, KV, hd), rnd(B, T, KV, G, hd)
+    if vd is not None and vd < hd:
+        v[..., vd:] = 0
+        do[..., vd:] = 0
+    return q, k, v, do
 
 
 def _flash_check(torch, fa, ref, gen, rows, label, B, T, KV, G, dtype,
-                 causal, timed=(), hd=FA_HD):
+                 causal, timed=(), hd=FA_HD, vd=None):
     """One flash-check row (appended to ``rows``): ``flash_fwd`` and
     ``flash_bwd`` against their plain versions on seeded operands, the
     backward from the kernel's o and lse, two backward launches bitwise
     equal, bf16 elements each within their own bound; for each pass in
     ``timed`` ("fwd", "bwd"; True: both) device, call, plain and SDPA
-    times beside the bound."""
+    times beside the bound.  ``vd`` < hd: v's and dO's columns past vd
+    are zeros (MLA's padded v, ``_flash_operands``), and the bound counts
+    the useful work: q and k at hd, v, o and dO at vd (the forward's two
+    products of widths hd and vd, the backward's three of hd and two of
+    vd), so the padding shows as lost share."""
     import torch.nn.functional as F
 
     timed = ("fwd", "bwd") if timed is True else tuple(timed)
-    q, k, v, do = _flash_operands(torch, gen, B, T, KV, G, hd, dtype)
+    vd = hd if vd is None else vd
+    q, k, v, do = _flash_operands(torch, gen, B, T, KV, G, hd, dtype, vd)
 
     def fwd():
         return fa.flash_fwd(q, k, v, causal=causal)
@@ -1835,13 +1913,17 @@ def _flash_check(torch, fa, ref, gen, rows, label, B, T, KV, G, dtype,
                dtype=dtype_name, causal=causal,
                **_flash_err_fields(errs, bf16),
                bitwise_two_bwd_launches=True, ok=True)
+    if vd != hd:
+        row["v_hd"] = vd
     if timed:
         H, es = KV * G, q.element_size()
-        big, small = B * T * H * hd, B * T * KV * hd
+        rows_q, rows_k = B * T * H, B * T * KV
         # fwd: q, k, v in, o and lse out; bwd: q, k, v, o, do, lse in,
-        # dq, dk, dv out (delta is computed inside the call)
-        f_bytes = (2 * big + 2 * small) * es + B * T * H * 4
-        b_bytes = (4 * big + 4 * small) * es + B * T * H * 4
+        # dq, dk, dv out (delta is computed inside the call); q, k, dq
+        # and dk hd wide, v, o, do and dv vd wide
+        f_bytes = ((rows_q + rows_k) * (hd + vd)) * es + rows_q * 4
+        b_bytes = ((2 * rows_q + 2 * rows_k) * hd
+                   + (2 * rows_q + 2 * rows_k) * vd) * es + rows_q * 4
         qt, kt, vt = (t.transpose(1, 2) for t in (
             q.reshape(B, T, H, hd), k, v))
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
@@ -1858,12 +1940,14 @@ def _flash_check(torch, fa, ref, gen, rows, label, B, T, KV, G, dtype,
             return torch.autograd.grad(o_lib, (qg, kg, vg), do_lib,
                                        retain_graph=True)
 
-        for name, kern, plain, lib, products, nbytes in (
+        # the products' widths: fwd q.k^T (hd) and p.v (vd); bwd q.k^T,
+        # dS.k and dS^T.q (hd), dO.v^T and p^T.dO (vd)
+        for name, kern, plain, lib, width, nbytes in (
                 ("fwd", fwd, lambda: ref.flash_fwd_ref(
-                    q, k, v, causal=causal), lib_fwd, 2, f_bytes),
+                    q, k, v, causal=causal), lib_fwd, hd + vd, f_bytes),
                 ("bwd", bwd, lambda: ref.flash_bwd_ref(
-                    q, k, v, o, lse, do, causal=causal), lib_bwd, 5,
-                 b_bytes)):
+                    q, k, v, o, lse, do, causal=causal), lib_bwd,
+                 3 * hd + 2 * vd, b_bytes)):
             if name not in timed:
                 continue
             row[f"{name}_kernel_ms"] = _device_ms(kern, per_graph=2,
@@ -1873,11 +1957,10 @@ def _flash_check(torch, fa, ref, gen, rows, label, B, T, KV, G, dtype,
             row[f"{name}_library_ms"] = _call_ms(lib, reps=5)
             (row[f"{name}_bound_ms"],
              row[f"{name}_bound_by"]) = _attn_bound(
-                B, T, H, KV, hd, causal, dtype_name, products, nbytes)
+                B, T, H, width, causal, dtype_name, nbytes)
             # the bound's flops over the kernel's time, and its share
             # of the bound
-            n_pairs = T * (T + 1) // 2 if causal else T * T
-            row[f"{name}_tflops"] = (2.0 * products * B * H * hd * n_pairs
+            row[f"{name}_tflops"] = (_attn_flops(B, T, H, width, causal)
                                      / row[f"{name}_kernel_ms"] / 1e9)
             row[f"{name}_bound_share"] = (row[f"{name}_bound_ms"]
                                           / row[f"{name}_kernel_ms"])
@@ -1957,13 +2040,15 @@ def flash_kernel_checks(torch, fa, ref):
 
 
 def _lm_model(torch, cfg, init_model, seed):
-    """StarCoder2, Whisper, Zamba2 or Moonlight from a seed with random
-    non-zero biases and norm parameters, Zamba2's conv biases, D, dt_bias
-    and A_log and Moonlight's router biases moved (zeros, ones and the
-    init's values would leave those paths untested)."""
+    """StarCoder2, Whisper, Zamba2, Moonlight or DeepSeek-V3 from a seed
+    with random non-zero biases and norm parameters (MLA's ``q_norm`` and
+    ``kv_norm`` among them), Zamba2's conv biases, D, dt_bias and A_log
+    and the MoE layers' router biases moved (zeros, ones and the init's
+    values would leave those paths untested)."""
     model = init_model(cfg, seed=seed, device=DEVICE)
     gen = torch.Generator().manual_seed(seed + 100)
-    stacks = ("dense_layers.", "enc_layers.", "dec_layers.", "layers.")
+    stacks = ("dense_layers.", "moe_layers.", "enc_layers.", "dec_layers.",
+              "layers.")
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() > 2 or (p.dim() == 2 and not name.startswith(stacks)):
@@ -2318,7 +2403,7 @@ def _prefill_kernel_rows(torch, conv1d_brgemm, fa, ref):
                   library_ms=_device_ms(sdpa), call_ms=_call_ms(fl),
                   library_call_ms=_call_ms(sdpa))
     fl_row["bound_ms"], fl_row["bound_by"] = _attn_bound(
-        B, T, H, KV, hd, True, "bfloat16", 2, f_bytes)
+        B, T, H, 2 * hd, True, "bfloat16", f_bytes)
     fl_row["bound_share"] = fl_row["bound_ms"] / fl_row["kernel_ms"]
     torch.cuda.synchronize()
     for row in (dw_row, fl_row):
@@ -4677,22 +4762,21 @@ def _touched_bound(torch, cfg, batch, kv_len, routing, cache_dtype):
                 distinct_experts_per_layer_max=max(distinct))
 
 
-def _mn_serve(torch, serve, cfg, model, counters):
-    """Phase 21 (b): ``serve_lm`` on all 48 layers (``--smoke``: the fused
-    prefill held to the decode's logits within ``serve.prefill_tol`` with
-    the decode's expert selection replayed, and run with its own, whose
-    flips per layer, smallest margin and largest score difference are
-    reported); the decode steps launch no kernel, the check's two
-    prefills 2 x 48 ``flash_fwd`` and one fused prefill 48; decode
-    p50/p99, tokens/s, the sequential prefill's seconds, the fused
-    prefill's call time, peak memory, the syncs of one decode step, the
-    decode's busy share and kernels a step, and its bound two ways: the
-    roofline's count (every weight a token uses, the batch's embedding
-    rows; JAX's reads the whole table) and the experts the batch's
-    selections touch."""
-    argv = ["--arch", MN_ARCH, "--batch", str(MN_SERVE_BATCH),
-            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--seed",
-            "213"]
+def _moe_serve(torch, serve, label, arch, cfg, model, counters, batch):
+    """Phases 21 (b) and 22 (b): ``serve_lm`` on ``arch`` at ``batch``
+    (``--smoke``: the fused prefill held to the decode's logits within
+    ``serve.prefill_tol`` with the decode's expert selection replayed,
+    and run with its own, whose flips per layer, smallest margin and
+    largest score difference are reported); the decode steps launch no
+    kernel, the check's two prefills 2 x L ``flash_fwd`` and one fused
+    prefill L; decode p50/p99, tokens/s, the sequential prefill's
+    seconds, the fused prefill's call time, peak memory, the syncs of one
+    decode step, the decode's busy share and kernels a step, and its
+    bound two ways: the roofline's count (every weight a token uses, the
+    batch's embedding rows; JAX's reads the whole table) and the experts
+    the batch's selections touch.  Returns the numbers and the prompt."""
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", "213"]
     args = serve.parse_args(argv + ["--smoke"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4719,22 +4803,21 @@ def _mn_serve(torch, serve, cfg, model, counters):
     peak = (torch.cuda.max_memory_allocated() - held + model_bytes) / 1e9
     decode = {k: n - marks["gap_launches"][k] for k, n in launched.items()}
     if any(decode.values()):
-        raise AssertionError(f"moonlight: the decode steps launched {decode}")
+        raise AssertionError(f"{label}: the decode steps launched {decode}")
     if not bool(torch.isfinite(stats["prompt_logits"]).all()):
-        raise AssertionError("moonlight: non-finite logits")
+        raise AssertionError(f"{label}: non-finite logits")
     step = serve.make_prefill_step(cfg)
     prompt = {"tokens": stats["prompt"]}
     _, prefill = _counted(counters, lambda: step(model, prompt))
     want = {**{k: 0 for k in prefill}, "flash_fwd": cfg.n_layers}
     if prefill != want or marks["gap_launches"] != {
             k: 2 * n for k, n in want.items()}:
-        raise AssertionError(f"moonlight: a fused prefill launched "
+        raise AssertionError(f"{label}: a fused prefill launched "
                              f"{prefill}, the check's two "
                              f"{marks['gap_launches']}; expected {want}")
     prefill_call_ms = _call_ms(lambda: step(model, prompt), reps=3)
     cache_dtype = serve.lm_cache_dtype(cfg)
-    cache = serve.make_cache(cfg, MN_SERVE_BATCH, 2, dtype=cache_dtype,
-                             device=DEVICE)
+    cache = serve.make_cache(cfg, batch, 2, dtype=cache_dtype, device=DEVICE)
     decode_step = serve.make_serve_step(cfg)
     tok = stats["prompt"][:, :1]
     decode_step(model, cache, tok, 0)
@@ -4742,20 +4825,20 @@ def _mn_serve(torch, serve, cfg, model, counters):
     del cache
     # the decode's busy share: MN_TRACE_PROMPT + MN_TRACE_GEN - 1 steps
     small = serve.parse_args(argv[:2] + [
-        "--batch", str(MN_SERVE_BATCH), "--prompt-len",
-        str(MN_TRACE_PROMPT), "--gen", str(MN_TRACE_GEN)])
+        "--batch", str(batch), "--prompt-len", str(MN_TRACE_PROMPT),
+        "--gen", str(MN_TRACE_GEN)])
     n = MN_TRACE_PROMPT + MN_TRACE_GEN - 1
     traced, dkernels, _ = _trace(
         torch, lambda: serve.serve_lm(small, cfg, model), (), n)
     traced_step_ms = (traced["prefill_s"] + sum(traced["step_s"])) * 1e3 / n
     busy = sum(k["ms_per_step"] for k in dkernels)
     kv_len = LM_PROMPT + LM_GEN // 2  # the generated steps' middle
-    bound = _decode_bound(cfg, MN_SERVE_BATCH, kv_len, cache_dtype)
-    touched = _touched_bound(torch, cfg, MN_SERVE_BATCH, kv_len,
-                             marks["routing"], cache_dtype)
+    bound = _decode_bound(cfg, batch, kv_len, cache_dtype)
+    touched = _touched_bound(torch, cfg, batch, kv_len, marks["routing"],
+                             cache_dtype)
     gap = marks["gap"]
     r = gap["routing"]
-    out = dict(arch=MN_ARCH, layers=cfg.n_layers, batch=MN_SERVE_BATCH,
+    out = dict(arch=arch, layers=cfg.n_layers, batch=batch,
                prompt_len=LM_PROMPT, gen=LM_GEN, dtype=cfg.dtype,
                cache_dtype=stats["cache_dtype"],
                sequential_prefill_s=stats["prefill_s"],
@@ -4767,7 +4850,7 @@ def _mn_serve(torch, serve, cfg, model, counters):
                prefill_vs_decode_own_selection=gap["free_gap"],
                prefill_tol=gap["tol"], flips_per_layer=r["flips"],
                total_flips=r["total_flips"],
-               selections=MN_SERVE_BATCH * LM_PROMPT * len(r["flips"]),
+               selections=batch * LM_PROMPT * len(r["flips"]),
                min_selection_margin=r["min_margin"],
                max_selection_score_diff=r["max_score_diff"],
                rows_with_clear_margin=gap["rows_with_clear_margin"],
@@ -4780,23 +4863,24 @@ def _mn_serve(torch, serve, cfg, model, counters):
                decode_bound_at_kv_len=kv_len, **bound, **touched,
                jax_count_bound_ms=roofline.bound(
                    0.0, bound["param_bytes"] + bound["cache_bytes"]
-                   + 2 * (cfg.vocab_size - MN_SERVE_BATCH) * cfg.d_model,
+                   + 2 * (cfg.vocab_size - batch) * cfg.d_model,
                    "bfloat16")[0],
                decode_bound_share=bound["bound_ms"] / stats["step_p50_ms"],
                decode_top=dkernels[:8])
-    print("moonlight-serve " + json.dumps(out), flush=True)
-    return out
+    print(f"{label}-serve " + json.dumps(out), flush=True)
+    return out, stats["prompt"]
 
 
-def _mn_grad(torch, losses, synthetic, init_model, moe, tcfg, counters,
-             per_step):
-    """Phase 21 (c), last part: an fp32 copy of the cut's whole gradient
-    at MN_GRAD_BATCH x MN_GRAD_SEQ through the flash kernels against the
-    plain attention (phase 11's rule, the total loss with the load-balance
-    term), TF32 off.  First both paths' expert selections, recorded: a
-    flip fails the check (its smallest margin and largest score
-    difference are printed either way); then the syncs of one gradient
-    (its MoE layers' group sizes, forward and remat recompute)."""
+def _moe_grad(torch, losses, synthetic, init_model, moe, label, tcfg,
+              counters, per_step, batch_size, seq, seed, n_grads):
+    """Phases 21 (c) and 22 (c), last part: an fp32 copy of the cut's
+    whole gradient at ``batch_size`` x ``seq`` through the flash kernels
+    against the plain attention (phase 11's rule, the total loss with the
+    load-balance term), TF32 off.  First both paths' expert selections,
+    recorded: a flip fails the check (its smallest margin and largest
+    score difference are printed either way); then the syncs of one
+    gradient (its MoE layers' group sizes, forward and remat
+    recompute)."""
     import dataclasses
 
     from repro_torch.train.data_parallel import param_grads
@@ -4804,8 +4888,8 @@ def _mn_grad(torch, losses, synthetic, init_model, moe, tcfg, counters,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gcfg = dataclasses.replace(tcfg, dtype="float32", attn_impl="flash")
-    gmodel = _lm_model(torch, gcfg, init_model, seed=217)
-    batch = _batch(torch, synthetic, gcfg, MN_GRAD_BATCH, MN_GRAD_SEQ, 218)
+    gmodel = _lm_model(torch, gcfg, init_model, seed=seed)
+    batch = _batch(torch, synthetic, gcfg, batch_size, seq, seed + 1)
 
     def run(attn_impl):
         def logits(tokens):
@@ -4820,14 +4904,14 @@ def _mn_grad(torch, losses, synthetic, init_model, moe, tcfg, counters,
             run(impl)(batch["tokens"])
     gmodel.routing = None
     routing = moe.compare_routing(logs["chunked"], logs["flash"])
-    print("moonlight-grad-routing " + json.dumps(routing), flush=True)
+    print(f"{label}-grad-routing " + json.dumps(routing), flush=True)
     if routing["total_flips"]:
-        raise AssertionError(f"moonlight: the kernel and plain paths select "
+        raise AssertionError(f"{label}: the kernel and plain paths select "
                              f"different experts: {routing}")
     out = _model_grad_check(
-        torch, losses, "moonlight", gcfg, gmodel, batch, run("flash"),
+        torch, losses, label, gcfg, gmodel, batch, run("flash"),
         run("chunked"), counters[4:], per_step[4:],
-        "forward and remat recompute; backward", 26)
+        "forward and remat recompute; backward", n_grads)
     gmodel.cfg = gcfg
     params = [p for _, p in gmodel.named_parameters()]
     _, syncs = _syncs(torch, lambda: param_grads(
@@ -4839,18 +4923,20 @@ def _mn_grad(torch, losses, synthetic, init_model, moe, tcfg, counters,
 def moonlight_check(torch, np, configs, init_model, serve, train, synthetic,
                     losses, ref, conv1d_brgemm, fa):
     """Phase 21: Moonlight-16B-A3B on the card (see MN_*): the flash
-    kernels at its attention (``_mn_flash_rows``), the full model built
-    once (bf16, flash) and served (``_mn_serve``), then the 6-layer cut
+    kernels at its attention (``_mn_flash_rows``), the 12-layer cut built
+    once (bf16, flash) and served (``_moe_serve``), then the 6-layer cut
     trained through the launcher (2 L + L flash launches a step: forward,
     remat recompute, backward) and traced, and its fp32 copy's whole
-    gradient against the plain attention (``_mn_grad``)."""
+    gradient against the plain attention (``_moe_grad``)."""
     import dataclasses
 
     from repro_torch.models import moe
 
     t0 = time.perf_counter()
     counters = _counters(conv1d_brgemm, fa)
-    cfg = dataclasses.replace(configs.get(MN_ARCH), attn_impl="flash")
+    cfg = dataclasses.replace(configs.register(dataclasses.replace(
+        configs.get(MN_ARCH), name=MN_SERVE_ARCH,
+        n_layers=MN_SERVE_LAYERS)), attn_impl="flash")
     out = dict(flash_rows=_mn_flash_rows(torch, fa, ref, cfg))
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -4860,7 +4946,8 @@ def moonlight_check(torch, np, configs, init_model, serve, train, synthetic,
     out["params"] = sum(p.numel() for p in model.parameters())
     print(f"moonlight: {out['params']} parameters drawn and moved to the "
           f"card in {out['init_s']:.1f} s", flush=True)
-    out["serve"] = _mn_serve(torch, serve, cfg, model, counters)
+    out["serve"], _ = _moe_serve(torch, serve, "moonlight", MN_SERVE_ARCH,
+                                 cfg, model, counters, MN_SERVE_BATCH)
     del model
     torch.cuda.empty_cache()
     tcfg = configs.register(dataclasses.replace(
@@ -4878,8 +4965,9 @@ def moonlight_check(torch, np, configs, init_model, serve, train, synthetic,
         argv + ["--steps", str(BREAKDOWN_STEPS)], BREAKDOWN_STEPS,
         ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_"))
     torch.cuda.empty_cache()
-    out["grad"] = _mn_grad(torch, losses, synthetic, init_model, moe, tcfg,
-                           counters, per_step)
+    out["grad"] = _moe_grad(torch, losses, synthetic, init_model, moe,
+                            "moonlight", tcfg, counters, per_step,
+                            MN_GRAD_BATCH, MN_GRAD_SEQ, 217, 26)
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     s, tr, fl = out["serve"], out["train"], out["flash_rows"][0]
@@ -4921,6 +5009,196 @@ def _mn_entries(mn, flash_entries):
     flash_entries[0]["moonlight"].update(
         launches_per_prefill=mn["serve"]["prefill_launches"]["flash_fwd"],
         launches_in_decode=mn["serve"]["decode_launches"]["flash_fwd"])
+
+
+def _ds_flash_rows(torch, fa, ref, cfg):
+    """Phase 22 (a): ``flash_fwd`` and ``flash_bwd`` at head_dim 192 as
+    DeepSeek-V3's MLA runs them in its training cell (DS_BATCH x DS_SEQ,
+    128 heads of their own (G = 1), q and k of nope + rope = 192 columns,
+    v of 128 padded with zeros to 192, bf16, causal), timed beside SDPA on
+    the same q, k and padded v and beside the bound of the useful work
+    (v at 128); then in fp32 at DS_FA_F32 with the padded v and with v of
+    192 real columns; each against its plain version by
+    ``flash_kernel_checks``' rule."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(221)
+    a, H = cfg.mla, cfg.n_heads
+    hd, vd = a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim
+    rows = []
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"deepseek B={DS_BATCH} T={DS_SEQ} H={H} KV={H} hd={hd} "
+                 f"v={vd} bf16 causal", DS_BATCH, DS_SEQ, H, 1,
+                 torch.bfloat16, True, timed=True, hd=hd, vd=vd)
+    B, T, kv, G = DS_FA_F32
+    for v in (vd, hd):
+        _flash_check(torch, fa, ref, gen, rows,
+                     f"deepseek B={B} T={T} H={kv * G} KV={kv} hd={hd} "
+                     f"v={v} fp32 causal", B, T, kv, G, torch.float32, True,
+                     hd=hd, vd=v)
+    return rows
+
+
+def _ds_absorb(torch, serve, moe, cfg, model, prompt, counters):
+    """Phase 22 (b), last part: the absorbed decode
+    (``make_serve_step(cfg, absorb=True)``) against the plain decode on
+    the same cache and tokens: at each of the prompt's first
+    DS_ABSORB_STEPS positions the plain step runs on the cache, recording
+    its expert selection, and the absorbed step on a copy of the cache
+    taken just before, replaying that selection; its logits within
+    ``serve.prefill_tol`` of the plain step's largest, no kernel
+    launched; both steps' host-clock times (to a synchronize)."""
+    plain = serve.make_serve_step(cfg)
+    absorbed = serve.make_serve_step(cfg, absorb=True)
+    B, V = prompt.shape[0], cfg.vocab_size
+    cache = serve.make_cache(cfg, B, DS_ABSORB_STEPS,
+                             dtype=serve.lm_cache_dtype(cfg), device=DEVICE)
+    tol = serve.prefill_tol(cfg, next(model.parameters()).dtype)
+    log = moe.RoutingLog()
+    gaps, times, launched = [], {"plain": [], "absorbed": []}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t)
+        return out
+
+    try:
+        for t in range(DS_ABSORB_STEPS):
+            tok = prompt[:, t:t + 1]
+            other = {k: {n: c.clone() for n, c in v.items()}
+                     for k, v in cache.items()}
+            model.routing = log
+            _, cache, want = timed("plain",
+                                   lambda: plain(model, cache, tok, t))
+            model.routing = moe.RoutingLog(replay=log)
+            (_, _, got), launched = _counted(counters, lambda: timed(
+                "absorbed", lambda: absorbed(model, other, tok, t)))
+            if any(launched.values()):
+                raise AssertionError(f"deepseek: an absorbed decode step "
+                                     f"launched {launched}")
+            want, got = want[..., :V].float(), got[..., :V].float()
+            gaps.append(((got - want).abs().max() / want.abs().max()).item())
+            if not torch.isfinite(got).all():
+                raise AssertionError("deepseek: non-finite absorbed logits")
+    finally:
+        model.routing = None
+    out = dict(steps=DS_ABSORB_STEPS, batch=B, max_gap=max(gaps), tol=tol,
+               gap_per_step=gaps,
+               plain_step_p50_ms=float(sorted(times["plain"])[
+                   len(times["plain"]) // 2] * 1e3),
+               absorbed_step_p50_ms=float(sorted(times["absorbed"])[
+                   len(times["absorbed"]) // 2] * 1e3))
+    print("deepseek-absorb " + json.dumps(out), flush=True)
+    if not max(gaps) <= tol:
+        raise AssertionError(f"deepseek: the absorbed decode is "
+                             f"{max(gaps)} of the largest logit from the "
+                             f"plain one, tol {tol}")
+    return out
+
+
+def deepseek_check(torch, np, configs, init_model, serve, train, synthetic,
+                   losses, ref, conv1d_brgemm, fa):
+    """Phase 22: DeepSeek-V3's MLA on the card (see DS_*): the flash
+    kernels at head_dim 192 (``_ds_flash_rows``); the 4-layer cut at every
+    published width built once (bf16, flash) and served
+    (``_moe_serve``), its absorbed decode held to the plain one
+    (``_ds_absorb``); then the 2-layer, 16-expert cut trained through the
+    launcher (2 L + L flash launches a step: forward, remat recompute,
+    backward) and traced, and its fp32 copy's whole gradient against the
+    plain attention (``_moe_grad``)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    counters = _counters(conv1d_brgemm, fa)
+    full = configs.get(DS_ARCH)
+    cfg = dataclasses.replace(configs.register(dataclasses.replace(
+        full, name=DS_SERVE_ARCH, n_layers=DS_SERVE_LAYERS)),
+        attn_impl="flash")
+    out = dict(flash_rows=_ds_flash_rows(torch, fa, ref, cfg))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = _lm_model(torch, cfg, init_model, seed=221)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["params"] = sum(p.numel() for p in model.parameters())
+    print(f"deepseek: {out['params']} parameters drawn and moved to the "
+          f"card in {out['init_s']:.1f} s", flush=True)
+    out["serve"], prompt = _moe_serve(torch, serve, "deepseek",
+                                      DS_SERVE_ARCH, cfg, model, counters,
+                                      DS_SERVE_BATCH)
+    out["absorb"] = _ds_absorb(torch, serve, moe, cfg, model, prompt,
+                               counters)
+    del model, prompt
+    torch.cuda.empty_cache()
+    tcfg = configs.register(dataclasses.replace(
+        full, name=DS_TRAIN_ARCH, n_layers=DS_TRAIN_LAYERS,
+        moe=dataclasses.replace(full.moe, n_experts=DS_TRAIN_EXPERTS,
+                                first_dense_layers=1),
+        xent_chunk=DS_XENT_CHUNK))
+    L = tcfg.n_layers
+    per_step = (0, 0, 0, 0, 2 * L, L)
+    argv = ["--arch", DS_TRAIN_ARCH, "--attn-impl", "flash", "--batch",
+            str(DS_BATCH), "--seq", str(DS_SEQ)]
+    out["train"] = _train_check(np, train, "deepseek",
+                                argv + ["--steps", str(DS_STEPS)], DS_STEPS,
+                                counters, per_step, LM_MEMORY_LIMIT_GB)
+    out["breakdown"] = _train_breakdown(
+        torch, train, "deepseek",
+        argv + ["--steps", str(BREAKDOWN_STEPS)], BREAKDOWN_STEPS,
+        ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_"))
+    torch.cuda.empty_cache()
+    out["grad"] = _moe_grad(torch, losses, synthetic, init_model, moe,
+                            "deepseek", tcfg, counters, per_step,
+                            DS_GRAD_BATCH, DS_GRAD_SEQ, 223, 32)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    s, ab, tr, fl = (out["serve"], out["absorb"], out["train"],
+                     out["flash_rows"][0])
+    print(f"deepseek: phase 22 in {out['seconds']:.1f} s (the "
+          f"{cfg.n_layers}-layer model drawn in {out['init_s']:.1f} s); "
+          f"flash hd 192 (v 128) G=1 fwd {fl['fwd_kernel_ms']:.3f} ms "
+          f"(SDPA {fl['fwd_library_ms']:.3f}, bound "
+          f"{fl['fwd_bound_ms']:.3f}), bwd {fl['bwd_kernel_ms']:.3f} ms "
+          f"(SDPA {fl['bwd_library_ms']:.3f}, bound "
+          f"{fl['bwd_bound_ms']:.3f}); serving: decode p50 "
+          f"{s['step_p50_ms']:.3f} ms, p99 {s['step_p99_ms']:.3f} ms, "
+          f"{s['tokens_per_s']:.1f} tokens/s, {s['syncs_per_decode_step']} "
+          f"syncs a step, fused prefill {s['prefill_call_ms']:.1f} ms, peak "
+          f"{s['peak_memory_gb']:.2f} GB, bound {s['bound_ms']:.4f} ms "
+          f"(touched experts {s['touched_bound_ms']:.4f}); absorbed decode "
+          f"{ab['max_gap']:.2e} of the largest logit from the plain one "
+          f"(tol {ab['tol']:.2e}), step p50 {ab['absorbed_step_p50_ms']:.1f}"
+          f" ms against {ab['plain_step_p50_ms']:.1f}; training {L} "
+          f"layers of {DS_TRAIN_EXPERTS} experts: step p50 "
+          f"{tr['step_p50_ms']:.1f} ms, {tr['tokens_per_s']:.0f} tokens/s, "
+          f"{tr['model_tflops_per_s']:.1f} TFLOP/s, peak "
+          f"{tr['peak_memory_gb']:.2f} GB", flush=True)
+    return out
+
+
+def _ds_entries(ds, flash_entries):
+    """Phase 22's numbers in the kernels line: DeepSeek-V3's MLA attention
+    (128 heads, G = 1, head_dim 192, v 128 padded) under the two flash
+    kernels, with their launches a training step, a fused prefill and a
+    decode step."""
+    launches = ds["train"]["launches_per_step"]
+    cell = ds["flash_rows"][0]
+    for entry, pas, errs in zip(flash_entries, ("fwd", "bwd"),
+                                (("o", "lse"), ("dq", "dk", "dv"))):
+        entry["deepseek_v3"] = dict(
+            launches_per_train_step=launches[entry["name"]],
+            max_abs_err=max(r["max_abs_err"][e] for r in ds["flash_rows"]
+                            for e in errs),
+            **{k: cell.get(f"{pas}_{k}", cell.get(k)) for k in (
+                "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_share", "tflops")})
+    flash_entries[0]["deepseek_v3"].update(
+        launches_per_prefill=ds["serve"]["prefill_launches"]["flash_fwd"],
+        launches_in_decode=ds["serve"]["decode_launches"]["flash_fwd"])
 
 
 def _build_all(conv1d_brgemm, flash_attention, build):
@@ -4982,13 +5260,16 @@ def _check_wgmma_not_serialized(ptxas, names):
 
 
 def _kernel_name(mangled):
-    """``flash_fwd_wgmma_kernel<128>``, ``flash_fwd_kernel<float, 64>`` or
-    ``bwd_weight_partial_taps<float, false>`` from a mangled name of
-    the flash or bwd-weight sources; else the name itself."""
+    """``flash_fwd_wgmma_kernel<128>``, ``flash_bwd_dkv_wgmma_kernel<192,
+    1>``, ``flash_fwd_kernel<float, 64>`` or ``bwd_weight_partial_taps<
+    float, false>`` from a mangled name of the flash or bwd-weight
+    sources; else the name itself."""
     import re
-    m = re.search(r"\d+(flash_\w*?kernel)I(f?)Li(\d+)E", mangled)
+    m = re.search(r"\d+(flash_\w*?kernel)I(f?)Li(\d+)E(?:Li(\d+)E)?",
+                  mangled)
     if m:
-        return f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}>"
+        return (f"{m[1]}<{'float, ' if m[2] else ''}{m[3]}"
+                f"{', ' + m[4] if m[4] else ''}>")
     m = re.search(r"\d+(bwd_weight_partial\w*?)I(f|13__nv_bfloat16)"
                   r"((?:L[bi]\d+E)*)E", mangled)
     if m:
@@ -5023,19 +5304,21 @@ def _loops(fn):
 
 def hgmma_counts(build, flash_attention, conv1d_brgemm):
     """HGMMA instructions (wgmma in SASS) of each flash and each
-    conv1d_bwd_weight kernel.  Raises unless all nine bf16 flash kernels
-    (``*_wgmma_kernel``, head_dim 64, 112 and 128) and every
-    ``bwd_weight_partial`` kernel have some: the proof that their
-    products run on the tensor cores."""
+    conv1d_bwd_weight kernel.  Raises unless all FLASH_WGMMA_KERNELS bf16
+    flash kernels (``*_wgmma_kernel``: the forward and dQ at head_dim 64,
+    112, 128 and 192; the fused dK/dV at 64, 112 and 128 and its dV and
+    dK passes at 192) and every ``bwd_weight_partial`` kernel have some:
+    the proof that their products run on the tensor cores."""
     counts = {}
     for lib in (flash_attention._fwd_lib(), flash_attention._bwd_lib(),
                 conv1d_brgemm._bwd_lib()):
         for name, fn in _sass_functions(build, lib).items():
             counts[name] = fn.count("HGMMA")
     bf16 = {k: n for k, n in counts.items() if "wgmma" in k}
-    if len(bf16) != 9 or not all(bf16.values()):
+    if len(bf16) != FLASH_WGMMA_KERNELS or not all(bf16.values()):
         raise AssertionError(f"flash kernels' HGMMA counts {counts}: each "
-                             "of the nine bf16 kernels must have some")
+                             f"of the {FLASH_WGMMA_KERNELS} bf16 kernels "
+                             "must have some")
     bw = {k: n for k, n in counts.items()
           if k.startswith("bwd_weight_partial")}
     if not any("<float" in k for k in bw) or not all(bw.values()):
@@ -5185,6 +5468,9 @@ def main(argv=None) -> int:
     mn = moonlight_check(torch, np, configs, init_model, serve, train,
                          synthetic, losses, ref, conv1d_brgemm,
                          flash_attention)
+    ds = deepseek_check(torch, np, configs, init_model, serve, train,
+                        synthetic, losses, ref, conv1d_brgemm,
+                        flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -5457,6 +5743,7 @@ def main(argv=None) -> int:
     _zb_entries(zb, dw_fwd_entry, dw_bw_entry, flash_entries,
                 flash_attention._HEAD_DIMS)
     _mn_entries(mn, flash_entries)
+    _ds_entries(ds, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     if args.out:
@@ -5477,7 +5764,7 @@ def main(argv=None) -> int:
                            starcoder2_profile=lm_prof, sweep=sweep_res,
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
                            elastic=elastic, whisper=wh, zamba2=zb,
-                           moonlight=mn,
+                           moonlight=mn, deepseek_v3=ds,
                            kernels=kernels), f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

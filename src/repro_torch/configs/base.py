@@ -4,9 +4,10 @@ and its registry.
 
 The conv family (AtacWorks), the SSM family (Mamba2), the dense
 transformers (StarCoder2, Qwen2, Qwen3), the encoder-decoder family
-(Whisper), the hybrid family (Zamba2) and the MoE family (Moonlight) are
-ported.  The other families (MLA, VLM) raise ``NotImplementedError`` that
-names the ROADMAP queue they wait in.
+(Whisper), the hybrid family (Zamba2) and the MoE family (Moonlight, and
+DeepSeek-V3 with its Multi-head Latent Attention, ``MLAConfig``) are
+ported.  The VLM (InternVL2) raises ``NotImplementedError`` that names
+the ROADMAP queue it waits in.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from typing import Literal, Optional
 Family = Literal["conv", "ssm", "dense", "encdec", "hybrid", "moe"]
 
 # Architectures of the JAX package whose families the port does not have
-# yet (ROADMAP.md, queue A: MLA and VLM).
-NOT_PORTED = ("deepseek-v3-671b", "internvl2-2b")
+# yet (ROADMAP.md, queue A: the VLM).
+NOT_PORTED = ("internvl2-2b",)
 
 
 @dataclass(frozen=True)
@@ -32,6 +33,19 @@ class MoEConfig:
     first_dense_layers: int = 0  # leading dense layers (DeepSeek/Moonlight)
     d_ff_dense: int = 0          # d_ff of those dense layers
     capacity_factor: float = 0.0  # 0: dropless (sorted grouped products)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V3): the query through a
+    ``q_lora_rank`` bottleneck, keys and values from a ``kv_lora_rank``
+    latent, each head's key ``qk_nope_head_dim`` wide plus a shared
+    rotary key of ``qk_rope_head_dim``, values ``v_head_dim``."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -74,6 +88,7 @@ class ModelConfig:
     pos_embedding: str = "rope"
     max_position: int = 1 << 20
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid (Zamba2): the shared attention block is applied after every
     # layer i with i % attn_every == attn_every - 1
@@ -125,8 +140,8 @@ def get(name: str) -> ModelConfig:
             "(mamba2-370m), the dense transformers (starcoder2-3b, "
             "qwen2-7b, qwen3-8b, qwen3-14b), the encoder-decoder "
             "(whisper-large-v3), the hybrid (zamba2-7b) and the MoE "
-            "(moonshot-v1-16b-a3b) are; MLA and the VLM wait in ROADMAP.md "
-            "queue A")
+            "(moonshot-v1-16b-a3b, deepseek-v3-671b) are; the VLM waits "
+            "in ROADMAP.md queue A")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {names()}")
     return _REGISTRY[name]
@@ -150,7 +165,9 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     so the shared block is applied twice, as GQA of 2 heads a KV head
     where the full width has one.  MoE: the dense one (its ``d_ff`` stays
     0) with JAX's caps on the experts: <= 8 experts, top_k <= 2,
-    ``d_ff_expert`` 32, <= 1 leading dense layer of ``d_ff_dense`` 128."""
+    ``d_ff_expert`` 32, <= 1 leading dense layer of ``d_ff_dense`` 128.
+    MLA: JAX's ranks and head widths q_lora 32, kv_lora 16, nope 16,
+    rope 8, v 16."""
     small: dict = dict(dtype="float32")
     if cfg.family == "conv":
         small.update(conv_channels=min(cfg.conv_channels, 8),
@@ -172,6 +189,10 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
             top_k=min(cfg.moe.top_k, 2), d_ff_expert=32,
             first_dense_layers=min(cfg.moe.first_dense_layers, 1),
             d_ff_dense=128 if cfg.moe.d_ff_dense else 0)
+    if cfg.mla:
+        small["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                 qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                 v_head_dim=16)
     if cfg.family == "encdec":
         small.update(n_encoder_layers=2, encoder_width=64)
     if cfg.attn_every:
@@ -181,7 +202,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 
 def _load_all() -> None:
-    from . import (atacworks, mamba2_370m,  # noqa: F401
-                   moonshot_v1_16b_a3b, qwen2_7b,  # (register on import)
-                   qwen3_8b, qwen3_14b, starcoder2_3b, whisper_large_v3,
-                   zamba2_7b)
+    from . import (atacworks, deepseek_v3_671b,  # noqa: F401
+                   mamba2_370m, moonshot_v1_16b_a3b,  # (register on import)
+                   qwen2_7b, qwen3_8b, qwen3_14b, starcoder2_3b,
+                   whisper_large_v3, zamba2_7b)

@@ -13,8 +13,10 @@ the transformers' do (Whisper's ``enc_layers.attn.wq`` (L_enc, D, H * hd),
 ``shared.mlp.w_gate``) and an MoE model's (``dense_layers.mlp.w_gate``
 (L_dense, D, d_ff_dense), ``moe_layers.moe.w_gate`` (L_moe, E, D, F),
 ``moe_layers.moe.shared.w_up``, and ``moe_layers.moe.router`` (L_moe,
-D, E) and ``router_bias``, fp32 in a bf16 tree and kept so), so nothing
-is split or joined::
+D, E) and ``router_bias``, fp32 in a bf16 tree and kept so; an MLA
+model's ``dense_layers.attn.kv_up`` (L_dense, kv_lora, H * (nope + v))
+beside ``q_down``, ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``,
+``wo``), so nothing is split or joined::
 
     model.load_state_dict(params_from_jax(jax_tree_as_numpy))
     state = train_state_from_jax(jax_train_state_as_numpy, cfg)
@@ -62,8 +64,9 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu"):
     Whisper ``{"k"|"v": (L, B, Tmax, KV, hd), "cross_k"|"cross_v": (L, B,
     Te, H, hd)}``, its cross K/V filled or not; Zamba2 ``{"mamba": {"conv",
     "ssm"}, "k"|"v": (n_app, B, Tmax, KV, hd)}``; MoE ``{"dense"|"moe":
-    {"k"|"v": (L_stack, B, Tmax, KV, hd)}}``), so ``decode_step`` may
-    write into it."""
+    {"k"|"v": (L_stack, B, Tmax, KV, hd)}}``, with MLA ``{"dense"|"moe":
+    {"c_kv": (L_stack, B, Tmax, kv_lora), "k_rope": (L_stack, B, Tmax,
+    rope)}}``), so ``decode_step`` may write into it."""
     if isinstance(tree, dict):
         return {k: cache_from_jax(v, device=device) for k, v in tree.items()}
     return _tensor(tree).to(device)

@@ -14,8 +14,9 @@
 //   dtype; lse and delta (B, Tq, KV, G) contiguous fp32 (delta =
 //   rowsum(dO * o), computed by the caller from the stored o, as the TPU
 //   wrapper does); dq, dk, dv contiguous in the inputs' dtype.  hd is 64,
-//   112 or 128 (112 in a tile of 128 columns, the last 16 zeros:
-//   flash_common.cuh).
+//   112, 128 or 192 (112 in a tile of 128 columns, the last 16 zeros:
+//   flash_common.cuh; 192 is DeepSeek-V3's MLA, v zero-padded from 128 by
+//   the caller, as the JAX package pads it).
 //
 // Bound.  At StarCoder2-3B's training shape (B 4, T 4,096, 24 heads over
 // 2 KV heads, hd 128, causal) the backward needs five products, each the
@@ -56,7 +57,13 @@
 //         S^T = K.Q^T and dP^T = V.dO^T from shared memory; dV += P^T_hi.dO
 //         + P^T_lo.dO and dK += dS^T_hi.Q + dS^T_lo.Q with both A operands
 //         from the accumulators; dk and dv summed in registers (128 fp32 a
-//         thread).
+//         thread at hd 112 and 128, where ptxas reports 255 registers).
+//         At hd 192 dk and dv alone would take 192 fp32 a thread, S^T and
+//         dP^T 64 more: past the 255 a thread can hold.  There the kernel
+//         runs as two launches of one template, each holding one
+//         accumulator: a dV pass (S^T, then dV += P^T.dO) and a dK pass
+//         (S^T and dP^T, then dK += dS^T.Q): 5 products where the fused
+//         kernel does 4 (S^T twice), the same sums in the same order.
 //   * fp32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): products and sums
 //     in fp32 as FMAs outside the tensor cores, as the TPU kernels compute
 //     them.  fp32 attention runs only where the JAX kernels' exact fp32
@@ -64,7 +71,10 @@
 //     simple one: dQ one block per (batch, KV head, tile of BM rows) over
 //     the key tiles up to the diagonal; dK/dV one block per (batch, KV
 //     head, tile of BK keys) over the row tiles from the diagonal on; the
-//     tiles in padded fp32 shared memory, 256 threads as 16 x 16.
+//     tiles in padded fp32 shared memory, 256 threads as 16 x 16.  dK/dV
+//     keeps one (BK, BM) tile for P^T and then dS^T, its two products in
+//     turn (two buffers would need 236,032 bytes at hd 192, past the
+//     232,448 a block may have).
 #include "flash_common.cuh"
 
 namespace {
@@ -228,9 +238,8 @@ flash_bwd_dkv_kernel(Params p) {
   float* Vs = Ks + BK * LD;          // (BK, LD)
   float* Qs = Vs + BK * LD;          // (BM, LD) scaled q
   float* dOs = Qs + BM * LD;         // (BM, LD)
-  float* Pt = dOs + BM * LD;         // (BK, LDT)
-  float* dSt = Pt + BK * LDT;        // (BK, LDT)
-  float* lse_s = dSt + BK * LDT;     // (BM,)
+  float* Ts = dOs + BM * LD;         // (BK, LDT): P^T, then dS^T
+  float* lse_s = Ts + BK * LDT;      // (BM,)
   float* delta_s = lse_s + BM;       // (BM,)
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -255,7 +264,7 @@ flash_bwd_dkv_kernel(Params p) {
   // rows before position k0 see none of these keys
   const int rstart = p.causal ? (k0 * p.G) / BM * BM : 0;
   for (int r0 = rstart; r0 < nrows; r0 += BM) {
-    __syncthreads();  // the previous row tile's Q, dO, P and dS are consumed
+    __syncthreads();  // the previous row tile's Q, dO and dS are consumed
     load_rows<HD>(Qs, q, p.q_st, p.q_sg, r0, nrows, p.G, p.scale);
     load_rows<HD>(dOs, d_o, p.do_st, p.do_sg, r0, nrows, p.G, 1.f);
     for (int rr = tid; rr < BM; rr += THREADS) {
@@ -301,31 +310,47 @@ flash_bwd_dkv_kernel(Params p) {
         const int j = k0 + ty + 16 * i, rr = tx + 16 * c, r = r0 + rr;
         const bool ok = r < nrows && j < p.Tk && (!p.causal || j <= r / p.G);
         const float pr = ok ? expf(st[i][c] - lse_s[rr]) : 0.f;
-        Pt[(ty + 16 * i) * LDT + rr] = pr;
-        dSt[(ty + 16 * i) * LDT + rr] = pr * (dpt[i][c] - delta_s[rr]);
+        Ts[(ty + 16 * i) * LDT + rr] = pr;
+        st[i][c] = pr * (dpt[i][c] - delta_s[rr]);  // dS^T
       }
     __syncthreads();
 
-    // dv += P^T dO, dk += dS^T (q * scale)
+    // dv += P^T dO
 #pragma unroll 2
     for (int r = 0; r < BM; r += 4) {
-      float4 pa[4], sa[4];
+      float4 pa[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = load4(Pt + (ty + 16 * i) * LDT + r);
-        sa[i] = load4(dSt + (ty + 16 * i) * LDT + r);
-      }
+      for (int i = 0; i < 4; ++i) pa[i] = load4(Ts + (ty + 16 * i) * LDT + r);
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
         for (int h = 0; h < DH; ++h) {
           const float4 ob = load4(dOs + (r + rr) * LD + 64 * h + tx * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fma4(dv[i][h], comp(pa[i], rr), ob);
+        }
+    }
+    __syncthreads();  // P^T is consumed
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        Ts[(ty + 16 * i) * LDT + tx + 16 * c] = st[i][c];
+    __syncthreads();
+
+    // dk += dS^T (q * scale)
+#pragma unroll 2
+    for (int r = 0; r < BM; r += 4) {
+      float4 sa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa[i] = load4(Ts + (ty + 16 * i) * LDT + r);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int h = 0; h < DH; ++h) {
           const float4 qb = load4(Qs + (r + rr) * LD + 64 * h + tx * 4);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            fma4(dv[i][h], comp(pa[i], rr), ob);
-            fma4(dk[i][h], comp(sa[i], rr), qb);
-          }
+          for (int i = 0; i < 4; ++i) fma4(dk[i][h], comp(sa[i], rr), qb);
         }
     }
   }
@@ -354,6 +379,9 @@ constexpr int ROWS = NWG * WG_M;    // dQ: rows a block (128)
 constexpr int KEYS = 64;            // dQ: keys a tile
 constexpr int BKEYS = NWG * WG_M;   // dK/dV: keys a block (128)
 constexpr int RT = 64;              // dK/dV: rows a tile
+// what a dK/dV launch computes: both (hd <= 128), or at hd 192 one pass
+// for dV and one for dK
+constexpr int DV_PASS = 1, DK_PASS = 2, DKV_FUSED = 3;
 
 template <int HD>
 constexpr int dq_smem_bytes() {     // Q, dO, then two stages of K and V
@@ -496,10 +524,12 @@ flash_bwd_dq_wgmma_kernel(Params p) {
 // holding all G heads of its positions, so the loop is the sum over the
 // group.  S^T = K Q^T and dP^T = V dO^T from shared memory; then dV +=
 // P^T_hi dO + P^T_lo dO and dK += dS^T_hi Q + dS^T_lo Q with both A
-// operands from the accumulators.
-template <int HD>
+// operands from the accumulators.  PASS: DKV_FUSED both; DV_PASS only S^T
+// and dV (no V, no dP^T); DK_PASS S^T, dP^T and dK.
+template <int HD, int PASS>
 __global__ void __launch_bounds__(NWG * WG, 1)
 flash_bwd_dkv_wgmma_kernel(Params p) {
+  constexpr bool DV = PASS & DV_PASS, DK = PASS & DK_PASS;
   constexpr int HP = pad64(HD);
   constexpr int KTILE = BKEYS * HP * 2, RTILE = RT * HP * 2;
   constexpr int STAGE = dkv_stage_bytes<HD>();
@@ -552,7 +582,7 @@ flash_bwd_dkv_wgmma_kernel(Params p) {
   };
 
   cp_keys<BKEYS, HD, NWG * WG>(Ks, k, p.k_st, k0, p.Tk);
-  cp_keys<BKEYS, HD, NWG * WG>(Vs, v, p.v_st, k0, p.Tk);
+  if constexpr (DK) cp_keys<BKEYS, HD, NWG * WG>(Vs, v, p.v_st, k0, p.Tk);
   if (nrt > 0) load_tile(0, 0);
   cp_async_commit();
 
@@ -588,13 +618,15 @@ flash_bwd_dkv_wgmma_kernel(Params p) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
       wgmma_ss_n64(s, desc_k<BKEYS>(Kw, kk), desc_k<RT>(Qt, kk), kk > 0);
+    if constexpr (DK) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(dp, desc_k<BKEYS>(Vw, kk), desc_k<RT>(dOt, kk), kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<BKEYS>(Vw, kk), desc_k<RT>(dOt, kk), kk > 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(s);
-    reg_fence(dp);
+    if constexpr (DK) reg_fence(dp);
 
     // P^T = exp(s - lse), 0 where masked, into s; dS^T = P^T (dP^T -
     // delta), into dp
@@ -606,31 +638,35 @@ flash_bwd_dkv_wgmma_kernel(Params p) {
           pos >= 0 && jpos[h] < p.Tk && (!p.causal || jpos[h] <= pos);
       const float pr = ok ? exp2f(s[e] * sl2 - lse_s[c] * LOG2E) : 0.f;
       s[e] = pr;
-      dp[e] = pr * (dp[e] - delta_s[c]);
+      if constexpr (DK) dp[e] = pr * (dp[e] - delta_s[c]);
     }
 
     // dV += P^T_hi dO + P^T_lo dO;  dK += dS^T_hi Q + dS^T_lo Q
     uint32_t ph[RT / 16][4], pl[RT / 16][4], dh[RT / 16][4], dl[RT / 16][4];
 #pragma unroll
     for (int kk = 0; kk < RT / 16; ++kk) {
-      split_frag(s, kk, ph[kk], pl[kk]);
-      split_frag(dp, kk, dh[kk], dl[kk]);
+      if constexpr (DV) split_frag(s, kk, ph[kk], pl[kk]);
+      if constexpr (DK) split_frag(dp, kk, dh[kk], dl[kk]);
     }
     wgmma_fence();
+    if constexpr (DV) {
 #pragma unroll
-    for (int kk = 0; kk < RT / 16; ++kk) {
-      wgmma_rs<HP>(dv, ph[kk], desc_n<RT>(dOt, kk));
-      wgmma_rs<HP>(dv, pl[kk], desc_n<RT>(dOt, kk));
+      for (int kk = 0; kk < RT / 16; ++kk) {
+        wgmma_rs<HP>(dv, ph[kk], desc_n<RT>(dOt, kk));
+        wgmma_rs<HP>(dv, pl[kk], desc_n<RT>(dOt, kk));
+      }
     }
+    if constexpr (DK) {
 #pragma unroll
-    for (int kk = 0; kk < RT / 16; ++kk) {
-      wgmma_rs<HP>(dk, dh[kk], desc_n<RT>(Qt, kk));
-      wgmma_rs<HP>(dk, dl[kk], desc_n<RT>(Qt, kk));
+      for (int kk = 0; kk < RT / 16; ++kk) {
+        wgmma_rs<HP>(dk, dh[kk], desc_n<RT>(Qt, kk));
+        wgmma_rs<HP>(dk, dl[kk], desc_n<RT>(Qt, kk));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
-    reg_fence(dv);
-    reg_fence(dk);
+    if constexpr (DV) reg_fence(dv);
+    if constexpr (DK) reg_fence(dk);
     __syncthreads();  // this stage's Q, dO and row data are consumed
   }
   if (nrt == 0) cp_async_wait<0>();
@@ -644,40 +680,53 @@ flash_bwd_dkv_wgmma_kernel(Params p) {
     const long long row = ((long long)b * p.Tk + jpos[h]) * p.KV + kv;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
-      store2(dkp + row * HD + 8 * j + cq, dk[4 * j + 2 * h] * p.scale,
-             dk[4 * j + 2 * h + 1] * p.scale);
-      store2(dvp + row * HD + 8 * j + cq, dv[4 * j + 2 * h],
-             dv[4 * j + 2 * h + 1]);
+      if constexpr (DK)
+        store2(dkp + row * HD + 8 * j + cq, dk[4 * j + 2 * h] * p.scale,
+               dk[4 * j + 2 * h + 1] * p.scale);
+      if constexpr (DV)
+        store2(dvp + row * HD + 8 * j + cq, dv[4 * j + 2 * h],
+               dv[4 * j + 2 * h + 1]);
     }
   }
+}
+
+template <int HD, int PASS>
+int launch_dkv(const Params& p, int B, cudaStream_t stream) {
+  const int smem = dkv_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<HD, PASS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkv_wgmma_kernel<HD, PASS>
+      <<<(p.Tk + BKEYS - 1) / BKEYS * B * p.KV, NWG * WG, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
 int launch(const Params& p, int B, cudaStream_t stream) {
   const int nrows = p.Tq * p.G;
   if constexpr (sizeof(T) == 2) {  // bf16: wgmma
-    const int smem_dq = dq_smem_bytes<HD>(), smem_dkv = dkv_smem_bytes<HD>();
+    const int smem_dq = dq_smem_bytes<HD>();
     cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_dq_wgmma_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_dkv);
     if (e != cudaSuccess) return (int)e;
     flash_bwd_dq_wgmma_kernel<HD><<<(nrows + ROWS - 1) / ROWS * B * p.KV,
                                     NWG * WG, smem_dq, stream>>>(p);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dkv_wgmma_kernel<HD><<<(p.Tk + BKEYS - 1) / BKEYS * B * p.KV,
-                                     NWG * WG, smem_dkv, stream>>>(p);
-    return (int)cudaGetLastError();
+    if constexpr (HD <= 128) {
+      return launch_dkv<HD, DKV_FUSED>(p, B, stream);
+    } else {  // one accumulator a launch (see the header)
+      const int rc = launch_dkv<HD, DV_PASS>(p, B, stream);
+      return rc != 0 ? rc : launch_dkv<HD, DK_PASS>(p, B, stream);
+    }
   } else {  // fp32: FMAs
     constexpr int LD = pad64(HD) + 4;
     const int smem_dq =
         (2 * BM * LD + 2 * BK * LD + BM * (BK + 4)) * (int)sizeof(float);
     const int smem_dkv =
-        (2 * BK * LD + 2 * BM * LD + 2 * BK * (BM + 4) + 2 * BM) *
+        (2 * BK * LD + 2 * BM * LD + BK * (BM + 4) + 2 * BM) *
         (int)sizeof(float);
     cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<HD>,
@@ -701,7 +750,8 @@ template <typename T>
 int launch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
   if (hd == 64) return launch<T, 64>(p, B, stream);
   if (hd == 112) return launch<T, 112>(p, B, stream);
-  return launch<T, 128>(p, B, stream);
+  if (hd == 128) return launch<T, 128>(p, B, stream);
+  return launch<T, 192>(p, B, stream);
 }
 
 }  // namespace
@@ -716,7 +766,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* d_o,
               void* dv, int B, int Tq, int Tk, int KV, int G, int hd,
               const long long* strides, int causal, float scale, int dtype,
               int device, void* stream) {
-  if (hd != 64 && hd != 112 && hd != 128) return ERR_HEAD_DIM;
+  if (hd != 64 && hd != 112 && hd != 128 && hd != 192) return ERR_HEAD_DIM;
   if ((long long)B * KV > 65535) return ERR_GRID;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;

@@ -8,15 +8,15 @@
 //   * the bf16 path (tensor cores, sm_90a): cp.async 16-byte loads of a row
 //     or key tile into the 128-byte-swizzled layout (hopper.cuh), its
 //     N-major wgmma descriptor (the K-major one is hopper.cuh's), the wgmma
-//     products used (m64n64k16 from shared memory, m64n64k16 and
-//     m64n128k16 with A in registers), and the split of an fp32
+//     products used (m64n64k16 from shared memory; m64n64k16, m64n128k16
+//     and m64n192k16 with A in registers), and the split of an fp32
 //     accumulator into two bf16 A operands, hi and lo;
 //   * the dtype and error codes and the row index of lse, o and dq.
 //
-// Head dimensions: 64, 112 and 128.  A tile is HP = pad64(HD) columns
-// wide (64, 128, 128): a row of hd 112 is loaded into 128 columns whose
-// last 16 are zeros, so one layout and the n64 and n128 wgmma forms serve
-// all three.  A product that sums over hd (Q.K^T and its kin) takes HD/16
+// Head dimensions: 64, 112, 128 and 192.  A tile is HP = pad64(HD)
+// columns wide (64, 128, 128, 192): a row of hd 112 is loaded into 128
+// columns whose last 16 are zeros, so one layout and the n64, n128 and
+// n192 wgmma forms serve all four.  A product that sums over hd (Q.K^T and its kin) takes HD/16
 // k-steps and never reads the zero columns; a product whose n is hd (P.V
 // and its kin) runs at n = HP, its zero columns give zero outputs, and
 // only the HD real columns are stored.
@@ -34,7 +34,7 @@ constexpr int BM = 64;           // fp32 path: query rows (position x group
 constexpr int BK = 64;           // head) per tile, keys per tile,
 constexpr int THREADS = 256;     // threads as 16 x 16
 constexpr int DT_F32 = 0;        // dtype codes: 0 fp32, 1 bf16
-constexpr int ERR_HEAD_DIM = -1; // hd other than 64, 112 or 128
+constexpr int ERR_HEAD_DIM = -1; // hd other than 64, 112, 128, 192
 constexpr int ERR_GRID = -2;     // B * KV beyond the grid's limit
 
 // a tile's width: hd rounded up to a multiple of 64
@@ -227,13 +227,56 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (64 x HP) += A . B with A in registers: m64n64k16 or m64n128k16
+// d (64 x 192, fp32) += A (64 x 16, bf16 fragments in registers) . B (16 x
+// 192), B bf16 in shared memory, N-major (transposed: its rows are the k
+// dimension; its three 64-column blocks one descriptor stride apart).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x HP) += A . B with A in registers: m64n64k16, m64n128k16 or
+// m64n192k16, one instruction whatever the width
 template <int HP>
 __device__ __forceinline__ void wgmma_rs(float (&d)[HP / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-  static_assert(HP == 64 || HP == 128, "a tile is 64 or 128 columns wide");
+  static_assert(HP == 64 || HP == 128 || HP == 192,
+                "a tile is 64, 128 or 192 columns wide");
   if constexpr (HP == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
+  else if constexpr (HP == 128) wgmma_rs_n128(d, a, b);
+  else wgmma_rs_n192(d, a, b);
 }
 
 // The accumulator of an m64nN wgmma: thread t of the warpgroup holds rows

@@ -11,8 +11,11 @@
 //   q (B, Tq, KV, G, hd), k and v (B, Tk, KV, hd), read through their
 //   element strides (the last dimension contiguous), fp32 or bf16, one
 //   dtype; o (B, Tq, KV, G, hd) contiguous in q's dtype; lse (B, Tq, KV, G)
-//   contiguous fp32.  hd is 64, 112 or 128 (112 in a tile of 128 columns,
-//   the last 16 zeros: flash_common.cuh).
+//   contiguous fp32.  hd is 64, 112, 128 or 192 (112 in a tile of 128
+//   columns, the last 16 zeros: flash_common.cuh).  hd 192 is
+//   DeepSeek-V3's MLA (models/mla.py): q and k of 128 + 64 columns, v of
+//   128 padded with zeros to 192 by the caller, as the JAX package's
+//   _flash_mla pads it, so one head dim runs through every product.
 //
 // Bound.  At StarCoder2-3B's training shape (B 4, T 4,096, 24 heads over
 // 2 KV heads, hd 128, causal) one launch needs 4.12e11 flops (the causal
@@ -45,7 +48,8 @@
 //       - S = Q.K^T from shared memory (m64n64k16, K K-major); the online
 //         softmax in registers (exp2f, each row's four lanes joined by
 //         shuffles); then O += P_hi.V + P_lo.V (m64n64k16 at hd 64,
-//         m64n128k16 at hd 112 and 128) with P from
+//         m64n128k16 at hd 112 and 128, m64n192k16 at 192: one
+//         instruction a k-step, O 96 fp32 a thread) with P from
 //         the S accumulator in registers, whose layout is A's, and V read
 //         N-major (wgmma's transpose of bf16 B);
 //       - the causal tile skip, the ragged masks and NEG_INF = -1e30 as in
@@ -407,7 +411,8 @@ template <typename T>
 int launch_hd(const Params& p, int B, int hd, cudaStream_t stream) {
   if (hd == 64) return launch<T, 64>(p, B, stream);
   if (hd == 112) return launch<T, 112>(p, B, stream);
-  return launch<T, 128>(p, B, stream);
+  if (hd == 128) return launch<T, 128>(p, B, stream);
+  return launch<T, 192>(p, B, stream);
 }
 
 }  // namespace
@@ -421,7 +426,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Tq, int Tk, int KV, int G, int hd,
               const long long* strides, int causal, int q_offset,
               float scale, int dtype, int device, void* stream) {
-  if (hd != 64 && hd != 112 && hd != 128) return ERR_HEAD_DIM;
+  if (hd != 64 && hd != 112 && hd != 128 && hd != 192) return ERR_HEAD_DIM;
   if ((long long)B * KV > 65535) return ERR_GRID;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;

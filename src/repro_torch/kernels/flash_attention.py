@@ -33,7 +33,7 @@ from . import build as _build
 from . import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 112, 128)  # the kernels' templates
+_HEAD_DIMS = (64, 112, 128, 192)  # the kernels' templates
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _REFUSED = {-1: f"head_dim must be one of {_HEAD_DIMS}",
             -2: "batch x KV heads exceeds the grid's limit 65535"}
@@ -135,10 +135,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each query's position, queries sitting at ``q_offset + t``.
 
     q, k and v are fp32 or bf16 of one dtype on one device, each with a
-    contiguous last dimension; on the card hd is 64, 112 or 128 and every
-    stride a multiple of 16 bytes.  Anything else raises.  The scores are
-    scaled by ``hd ** -0.5`` of q's own hd (at 112 the kernels run in a
-    tile of 128 columns, the last 16 zeros; the scale stays 112's).
+    contiguous last dimension; on the card hd is 64, 112, 128 or 192 and
+    every stride a multiple of 16 bytes.  Anything else raises.  The
+    scores are scaled by ``hd ** -0.5`` of q's own hd (at 112 the kernels
+    run in a tile of 128 columns, the last 16 zeros; the scale stays
+    112's).  At 192 (DeepSeek-V3's MLA, ``models/mla.py``) v comes padded
+    with zeros from its own width, as the JAX package pads it, and the
+    caller slices the output back.
     """
     _check_qkv(q, k, v)
     B, Tq, KV, G, hd = q.shape
@@ -177,8 +180,9 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     taken in fp32 from the stored o, in its own dtype, before the kernels,
     as the JAX wrapper takes it.  dk and dv sum the G heads of each group.
 
-    On the card the dQ kernel and the dK/dV kernel use no atomics: two
-    launches on the same inputs give bitwise equal results.
+    On the card the dQ kernel and the dK/dV kernel (at hd 192 a dV and
+    a dK launch of it, one accumulator each) use no atomics: two calls on
+    the same inputs give bitwise equal results.
     """
     _check_qkv(q, k, v)
     B, Tq, KV, G, hd = q.shape

@@ -3,8 +3,8 @@ batched greedy decode for the language models, batched continuous
 streaming for the conv family.  It runs on the card by default.
 
 Language models (the SSM family, Mamba2, the dense transformers, the
-MoE family, Moonlight, the encoder-decoder, Whisper, and the hybrid,
-Zamba2): build the cache of
+MoE family, Moonlight and DeepSeek-V3, the encoder-decoder, Whisper, and
+the hybrid, Zamba2): build the cache of
 ``--prompt-len`` seeded
 prompt tokens by sequential teacher-forced decode steps, as the JAX
 launcher does (the fused prefill is ``train.serve_step.
@@ -42,6 +42,16 @@ prefill runs 48 ``flash_fwd`` launches:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch moonshot-v1-16b-a3b --batch 8 --prompt-len 200 --gen 64
+
+DeepSeek-V3 (671 B parameters) serves on one card only cut in depth:
+``chip_smoke.py`` registers ``deepseek-v3-671b-4l`` (its 3 dense layers
+and 1 MoE layer of all 256 experts, every published width, 15.11 B
+parameters, 30.2 GB in bf16) and serves it through ``serve_lm`` at batch
+8; its cache is the compressed MLA cache (each layer's latent and
+rotary key, ``models/mla.py``) and its fused prefill runs 4 ``flash_fwd``
+launches at head_dim 192.  The launcher decodes plainly (the latent
+re-expanded each step), as JAX's, which has no flag for the absorbed
+decode; ``train.serve_step.make_serve_step(cfg, absorb=True)`` gives it.
 
 Its ``--smoke`` check holds the fused prefill to the decode with the
 decode's expert selection replayed (``moe.RoutingLog``): routing is

@@ -63,6 +63,13 @@ cross-entropy keeps one (B, 1,024, 163,840) chunk of fp32 logits at a
 time) at ``--attn-impl flash --batch 4 --seq 4096``.  Each step's line
 gives the total loss and, apart, the NLL (the total adds 0.01 x the
 load-balance loss); the summary lists both (``losses``, ``nlls``).
+DeepSeek-V3 (``--arch deepseek-v3-671b``: MLA attention, 256 routed
+experts top-8, 3 dense layers first) trains the same way, its attention
+through the flash kernels at head_dim 192 (v padded from 128); on the
+card ``chip_smoke.py`` registers and trains the cut
+``deepseek-v3-671b-2l-16e`` (1 dense and 1 MoE layer of 16 routed
+experts at every other published width, 3.37 B parameters, ``xent_chunk``
+1,024) at ``--attn-impl flash --batch 4 --seq 4096``.
 
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag

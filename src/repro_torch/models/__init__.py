@@ -3,8 +3,9 @@
 ``init_model`` builds the model of any ported family from a seed.
 
 Among the language models the SSM family (Mamba2), the dense
-transformers, the MoE transformers (Moonlight), the encoder-decoder
-(Whisper) and the hybrid (Zamba2) are ported, each module with the
+transformers, the MoE transformers (Moonlight; DeepSeek-V3, whose
+attention is MLA, ``models/mla.py``), the encoder-decoder (Whisper) and
+the hybrid (Zamba2) are ported, each module with the
 functional surface of the JAX package's (``repro/models/__init__.py``),
 the model an ``nn.Module``:
 
@@ -12,6 +13,8 @@ the model an ``nn.Module``:
     forward(model, tokens, *, last_only=False, ...) -> logits
     init_cache(cfg, batch, max_len, dtype, device) -> cache
     decode_step(model, cache, tokens, pos) -> (logits, cache)
+
+(an MLA model's ``decode_step`` also takes ``absorb``)
 
 An MoE model's ``forward`` returns ``(logits, aux)``, aux its summed
 load-balance loss, as the JAX package's ``forward`` does for every
@@ -44,8 +47,8 @@ def get_model(cfg):
     raise NotImplementedError(
         f"the {cfg.family!r} family's model is not ported to repro_torch "
         "yet: among the language models only the ssm (mamba2), dense and "
-        "moe (transformer), encdec (whisper) and hybrid (zamba2) families "
-        "are (ROADMAP.md queue A)")
+        "moe (transformer, MLA among them), encdec (whisper) and hybrid "
+        "(zamba2) families are; the vlm waits in ROADMAP.md queue A")
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu"):

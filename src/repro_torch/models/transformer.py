@@ -1,13 +1,15 @@
 """The decoder-only transformer LM, dense and MoE families (counterpart
-of ``repro/models/transformer.py``: StarCoder2, Qwen2, Qwen3; Moonlight).
+of ``repro/models/transformer.py``: StarCoder2, Qwen2, Qwen3; Moonlight,
+DeepSeek-V3).
 
 Each layer is ``x + attn(norm(x))`` then ``x + ffn(norm(x))``, the FFN an
 MLP or, in an MoE model's layers after its ``first_dense_layers``, the
 MoE FFN (``models/moe.py``).  Attention is grouped-query attention with
-rotary embeddings, through the flash kernels
-(``kernels/flash_attention.py``) when ``cfg.attn_impl == "flash"`` and
-through the plain chunked ``common.gqa_attention`` otherwise, as in the
-JAX package.
+rotary embeddings or, where ``cfg.mla`` is set, DeepSeek-V3's
+Multi-head Latent Attention (``models/mla.py``), through the flash
+kernels (``kernels/flash_attention.py``) when ``cfg.attn_impl ==
+"flash"`` and through the plain chunked ``common.gqa_attention``
+otherwise, as in the JAX package.
 
 Parameters are kept as the JAX package keeps them: the per-layer leaves
 stacked with a leading layer axis, under ``dense_layers`` (a dense
@@ -22,13 +24,16 @@ of its MoE layers, as JAX's does; a dense model's returns the logits
 (JAX's aux is 0 there).
 
 Decode (``init_cache``, ``decode_step``) runs one token through every
-layer against a KV cache of (L, B, Tmax, KV, hd) tensors a stack, updated
-in place; it runs no kernel (``common.attention_decode``, as in the JAX
-package).  Not ported (ROADMAP.md queue A): the MLA layers and their
-decode, and the VLM's image embeddings.
+layer against a KV cache of (L, B, Tmax, KV, hd) tensors a stack (an
+MLA model's: the latent (L, B, Tmax, kv_lora) and the rotary key (L, B,
+Tmax, rope)), updated in place; it runs no kernel
+(``common.attention_decode``, ``mla.mla_attention_decode``, as in the
+JAX package).  Not ported (ROADMAP.md queue A): the VLM's image
+embeddings.
 """
 from __future__ import annotations
 
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -36,13 +41,17 @@ import torch
 from torch import nn
 
 from repro_torch.models import common as cm
-from repro_torch.models import moe
+from repro_torch.models import mla, moe
 
 PREFIX = "dense_layers."
 MOE_PREFIX = "moe_layers."
 # the layer stacks (and Whisper's), whose leaves are drawn a layer's slab
-# at a time
+# at a time; the MoE layers' expert leaves, a (layer, expert) slab at a
+# time; any other leaf of more than SLAB values, in blocks of rows
 STACKS = (PREFIX, MOE_PREFIX, "enc_layers.", "dec_layers.")
+EXPERT_KEYS = tuple(f"{MOE_PREFIX}moe.{k}" for k in ("w_gate", "w_up",
+                                                      "w_down"))
+SLAB = 1 << 24
 
 
 def norm_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
@@ -54,11 +63,13 @@ def norm_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
 def layer_leaves(cfg, *, moe_layer: bool = False
                  ) -> dict[str, tuple[tuple[int, ...], str, float]]:
     """One layer's leaves without the leading ``L``: ``attn_norm``,
-    ``attn``, ``mlp_norm`` and ``mlp`` (an MoE model's dense layer: of
-    ``d_ff_dense``), or ``moe`` in an MoE layer (``moe.moe_leaves``)."""
+    ``attn`` (an MLA model's ``mla.mla_leaves``), ``mlp_norm`` and ``mlp``
+    (an MoE model's dense layer: of ``d_ff_dense``), or ``moe`` in an MoE
+    layer (``moe.moe_leaves``)."""
     norm = norm_leaves(cfg)
     layer = {f"attn_norm.{k}": v for k, v in norm.items()}
-    layer.update({f"attn.{k}": v for k, v in cm.attention_leaves(cfg).items()})
+    attn = mla.mla_leaves(cfg) if cfg.mla else cm.attention_leaves(cfg)
+    layer.update({f"attn.{k}": v for k, v in attn.items()})
     layer.update({f"mlp_norm.{k}": v for k, v in norm.items()})
     if moe_layer:
         layer.update({f"moe.{k}": v for k, v in moe.moe_leaves(cfg).items()})
@@ -99,45 +110,65 @@ def _leaf_spec(cfg) -> dict[str, tuple]:
     return spec
 
 
+def _slabs(key: str, shape: tuple[int, ...]) -> list | None:
+    """The indices of the slabs a leaf is drawn in, or None for a leaf
+    drawn whole: a layer stack's leaf a layer at a time, an expert leaf
+    (``EXPERT_KEYS``, (L, E, ...)) a (layer, expert) at a time, another
+    leaf of more than ``SLAB`` values in blocks of rows of at most
+    ``SLAB`` values."""
+    if key in EXPERT_KEYS:
+        return [(i, e) for i in range(shape[0]) for e in range(shape[1])]
+    if key.startswith(STACKS):
+        return list(range(shape[0]))
+    row = math.prod(shape[1:])
+    if row * shape[0] <= SLAB:
+        return None
+    rows = max(1, SLAB // row)
+    return [slice(r, r + rows) for r in range(0, shape[0], rows)]
+
+
 def draw_leaves(spec: dict, cfg, *, seed: int,
                 device: torch.device | str) -> dict[str, torch.Tensor]:
     """``spec``'s leaves (``key -> (shape, init, scale[, dtype])``, the
     dtype defaulting to the config's) drawn on the host from ``seed`` and
-    moved to ``device``.  A leaf of a layer stack (its key under
-    ``STACKS``) is drawn a layer's slab at a time, each slab from a
-    generator of its own seeded from the model's generator in the spec's
-    order, on host threads at once (up to 8); the other leaves whole from
+    moved to ``device``.  A leaf drawn in slabs (``_slabs``: a layer
+    stack's leaf a layer at a time, an expert leaf a (layer, expert) at a
+    time, a large leaf such as the embedding in blocks of rows) takes
+    each slab from a generator of its own, seeded from the model's
+    generator in the spec's order, on up to 8 host threads, which start
+    while the rest of the spec is read; the other leaves come whole from
     the model's generator.  The weights are a function of the seed alone,
     the same on every device whatever the threads' timing, and the host
-    holds one fp32 slab a thread at most (an expert leaf's slab of
-    Moonlight is 185 M values, 0.74 GB): the host's normal draw is
-    serial, about 120 M values a second a core."""
+    holds one fp32 slab a thread at most (a layer of DeepSeek-V3's dense
+    MLP is 132 M values, 0.53 GB; an expert's 15 M): the host's normal
+    draw is serial, about 120 M values a second a core."""
     gen = torch.Generator().manual_seed(seed)
     default = getattr(torch, cfg.dtype)
-    leaves, slabs = {}, []
-    for key, (shape, init, scale, *dt) in spec.items():
-        dtype = getattr(torch, dt[0]) if dt else default
-        if init != "normal":
-            leaves[key] = torch.full(shape, 1.0 if init == "ones" else 0.0,
-                                     dtype=dtype, device=device)
-        elif key.startswith(STACKS):
-            out = torch.empty(shape, dtype=dtype, device=device)
-            seeds = torch.randint(0, 2 ** 62, (shape[0],), generator=gen)
-            slabs += [(out[i], s, scale) for i, s in enumerate(seeds.tolist())]
-            leaves[key] = out
-        else:
-            leaves[key] = (torch.randn(shape, generator=gen) * scale).to(
-                dtype).to(device)
+    leaves, jobs = {}, []
 
-    def fill(job):
-        slab, slab_seed, scale = job
+    def fill(slab, slab_seed, scale):
         g = torch.Generator().manual_seed(slab_seed)
         slab.copy_(torch.randn(slab.shape, generator=g).mul_(scale).to(
             slab.dtype))
 
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-        for _ in pool.map(fill, slabs):  # reads every result: raises
-            pass
+        for key, (shape, init, scale, *dt) in spec.items():
+            dtype = getattr(torch, dt[0]) if dt else default
+            slabs = _slabs(key, shape) if init == "normal" else None
+            if init != "normal":
+                leaves[key] = torch.full(shape, 1.0 if init == "ones" else 0.0,
+                                         dtype=dtype, device=device)
+            elif slabs is None:
+                leaves[key] = (torch.randn(shape, generator=gen) * scale).to(
+                    dtype).to(device)
+            else:
+                out = torch.empty(shape, dtype=dtype, device=device)
+                seeds = torch.randint(0, 2 ** 62, (len(slabs),), generator=gen)
+                jobs += [pool.submit(fill, out[i], s, scale)
+                         for i, s in zip(slabs, seeds.tolist())]
+                leaves[key] = out
+        for job in jobs:  # reads every result: raises
+            job.result()
     return leaves
 
 
@@ -206,7 +237,10 @@ def _attn_half(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor
     """``x + attn(norm(x))`` and its FFN's input, ``norm`` of it."""
     h = cm.apply_norm(lp["attn_norm"]["scale"], x, cfg,
                       lp["attn_norm"].get("bias"))
-    x = x + cm.attention_block(lp["attn"], h, cfg, positions)
+    if cfg.mla:
+        x = x + mla.mla_attention_block(lp["attn"], h, cfg, positions)
+    else:
+        x = x + cm.attention_block(lp["attn"], h, cfg, positions)
     return x, cm.apply_norm(lp["mlp_norm"]["scale"], x, cfg,
                             lp["mlp_norm"].get("bias"))
 
@@ -291,21 +325,31 @@ def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cpu") -> dict:
     """The KV cache, the JAX package's layout: a stack's ``{"k": (L, B,
-    max_len, KV, hd), "v": (...)}`` in ``dtype``, zeros, under
-    ``"dense"`` and (an MoE model's) ``"moe"``."""
+    max_len, KV, hd), "v": (...)}`` (an MLA model's ``{"c_kv": (L, B,
+    max_len, kv_lora), "k_rope": (L, B, max_len, rope)}``) in ``dtype``,
+    zeros, under ``"dense"`` and (an MoE model's) ``"moe"``."""
     _check_family(cfg)
+    if cfg.mla:
+        return {_CACHE_OF[prefix]: mla.mla_init_cache(
+            cfg, batch, max_len, dtype, device, layers=n)
+            for prefix, n, _ in stacks(cfg)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {_CACHE_OF[prefix]: {
         k: torch.zeros((n, *shape), dtype=dtype, device=device)
         for k in ("k", "v")} for prefix, n, _ in stacks(cfg)}
 
 
-def _layer_decode(lp: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
-                  cache_v: torch.Tensor, pos: int, routing=None,
-                  layer: int = 0) -> torch.Tensor:
+def _layer_decode(lp: dict, x: torch.Tensor, cfg, layer_cache: dict,
+                  pos: int, routing=None, layer: int = 0,
+                  absorb: bool = False) -> torch.Tensor:
     h = cm.apply_norm(lp["attn_norm"]["scale"], x, cfg,
                       lp["attn_norm"].get("bias"))
-    x = x + cm.attention_decode(lp["attn"], h, cfg, cache_k, cache_v, pos)
+    if cfg.mla:
+        x = x + mla.mla_attention_decode(lp["attn"], h, cfg, layer_cache,
+                                         pos, absorb=absorb)
+    else:
+        x = x + cm.attention_decode(lp["attn"], h, cfg, layer_cache["k"],
+                                    layer_cache["v"], pos)
     h = cm.apply_norm(lp["mlp_norm"]["scale"], x, cfg,
                       lp["mlp_norm"].get("bias"))
     if "moe" in lp:
@@ -316,14 +360,18 @@ def _layer_decode(lp: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
 
 
 def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
-                pos: int) -> tuple[torch.Tensor, dict]:
+                pos: int, *, absorb: bool = False
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B, 1) int at position ``pos`` (the
     cache's valid length) -> (fp32 logits (B, 1, padded_vocab), cache),
-    each layer's k and v written into the cache at ``pos`` in place; the
-    MoE layers record into ``model.routing`` (at position ``pos``)."""
+    each layer's k and v (an MLA model's latent and rotary key) written
+    into the cache at ``pos`` in place; the MoE layers record into
+    ``model.routing`` (at position ``pos``).  ``absorb`` takes an MLA
+    model's absorbed decode (``mla.mla_attention_decode``); the other
+    models ignore it, as JAX's do."""
     cfg = model.cfg
     _check_family(cfg)
-    slots = next(iter(cache.values()))["k"].shape[2]
+    slots = next(iter(next(iter(cache.values())).values())).shape[2]
     if pos >= slots:
         raise ValueError(f"position {pos} is past the cache's {slots} "
                          "slots")
@@ -332,10 +380,11 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     for prefix, n, _ in stacks(cfg):
         keys, stacked = _stacked(model, prefix)
         c = cache[_CACHE_OF[prefix]]
-        for i, (lp, ck, cv) in enumerate(zip(
-                zip(*(p.unbind(0) for p in stacked)), c["k"].unbind(0),
-                c["v"].unbind(0))):
-            x = _layer_decode(_nest(keys, lp), x, cfg, ck, cv, pos,
-                              model.routing, first + i)
+        layer_caches = [dict(zip(c, slices)) for slices in
+                        zip(*(t.unbind(0) for t in c.values()))]
+        for i, (lp, lc) in enumerate(zip(
+                zip(*(p.unbind(0) for p in stacked)), layer_caches)):
+            x = _layer_decode(_nest(keys, lp), x, cfg, lc, pos,
+                              model.routing, first + i, absorb)
         first += n
     return _final(model, x), cache

@@ -1,7 +1,7 @@
 """Operation and byte counts: the conv layer's, and parameter counts and
 useful flops per step of the port's configs (counterpart of
 ``repro/roofline/flops.py``, for the families the port has: conv, ssm,
-dense, moe, encdec, hybrid).
+dense, moe (MLA among them), encdec, hybrid).
 
 ``conv1d_flops`` is the paper's efficiency denominator; ``model_flops``
 is the useful compute of one step (6·N·D for training, N the parameters
@@ -42,6 +42,15 @@ def conv1d_min_bytes(N: int, C: int, K: int, S: int, Q: int,
 
 
 def _attn_params(cfg) -> int:
+    """An attention block's projections; an MLA block's five (the query's
+    two low-rank ones, the latent's down and up, ``wo``; no norms)."""
+    if cfg.mla is not None:
+        a, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+        qh = a.qk_nope_head_dim + a.qk_rope_head_dim
+        return (D * a.q_lora_rank + a.q_lora_rank * H * qh
+                + D * (a.kv_lora_rank + a.qk_rope_head_dim)
+                + a.kv_lora_rank * H * (a.qk_nope_head_dim + a.v_head_dim)
+                + H * a.v_head_dim * D)
     D, hd = cfg.d_model, cfg.head_dim
     return D * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * D
 
@@ -150,11 +159,15 @@ def _attn_seq_flops(cfg, B: int, T: int, causal: bool = True) -> int:
     shared block's applications, JAX's count, without the SSD's; encdec:
     the encoder's non-causal self-attention over its frames, the
     decoder's causal one over T tokens and its cross-attention), or the
-    SSD's intra-chunk and state flops (ssm), all layers."""
+    SSD's intra-chunk and state flops (ssm), all layers.  MLA counts the
+    mean of its qk (nope + rope) and v widths as the head dim, as JAX's
+    count does."""
     factor = 0.5 if causal else 1.0
     if cfg.family in ("dense", "moe"):
-        return int(4 * B * T * T * cfg.n_heads * cfg.head_dim * factor
-                   * cfg.n_layers)
+        a = cfg.mla
+        hd = ((a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim) / 2
+              if a else cfg.head_dim)
+        return int(4 * B * T * T * cfg.n_heads * hd * factor * cfg.n_layers)
     if cfg.family == "hybrid":
         return int(4 * B * T * T * cfg.n_heads * cfg.head_dim * factor
                    * n_shared_applications(cfg))
@@ -195,6 +208,13 @@ def model_flops(cfg, shape) -> float:
             state += (4 * B * T * cfg.n_heads * cfg.head_dim
                       * n_shared_applications(cfg))
         return float(2 * n * B + state)
+    if cfg.mla is not None:  # the plain decode re-expands the latent cache
+        a = cfg.mla
+        expand = (2 * B * T * a.kv_lora_rank * cfg.n_heads
+                  * (a.qk_nope_head_dim + a.v_head_dim))
+        attn = 2 * B * T * cfg.n_heads * (
+            a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim)
+        return float(2 * n * B + (expand + attn) * cfg.n_layers)
     # dense, moe and encdec decode: one token, attention reads the whole
     # cache
     # (and the encoder-decoder's cross K/V)
@@ -213,7 +233,8 @@ def decode_cache_bytes(cfg, batch: int, seq_len: int,
     fp32 states, each read and written whole; or the KV rows
     (``cache_itemsize``), ``seq_len - 1`` read and the new one written, a
     hybrid's in each application's slot, and an encoder-decoder's cross
-    K/V (``encoder_width`` rows of all H heads a layer) read."""
+    K/V (``encoder_width`` rows of all H heads a layer) read; an MLA
+    model's compressed rows (the latent and the rotary key)."""
     if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
         d_inner, H = _ssm_dims(cfg)
@@ -225,6 +246,10 @@ def decode_cache_bytes(cfg, batch: int, seq_len: int,
             total += (cache_itemsize * batch * seq_len * cfg.n_kv_heads * 2
                       * cfg.head_dim * n_shared_applications(cfg))
         return float(total)
+    if cfg.mla is not None:
+        a = cfg.mla
+        return float(cache_itemsize * batch * seq_len * (
+            a.kv_lora_rank + a.qk_rope_head_dim) * cfg.n_layers)
     rows = seq_len * cfg.n_kv_heads
     if cfg.family == "encdec":
         rows += cfg.encoder_width * cfg.n_heads

@@ -42,16 +42,20 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return logits[:, -1, :].argmax(-1).to(torch.int32)[:, None]
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, absorb: bool = False):
     """``serve_step(model, cache, tokens, pos) -> (next_tokens, cache,
     logits)``: one batched decode step, tokens (B, 1) int at position
     ``pos`` (the cache's valid length), greedy next tokens (B, 1) int32,
-    fp32 logits (B, 1, padded_vocab); the cache is updated in place."""
+    fp32 logits (B, 1, padded_vocab); the cache is updated in place.
+    ``absorb`` reaches an MLA model's decode only (its absorbed branch,
+    ``models/mla.py``), as in JAX's ``make_serve_step``."""
     model_mod = get_model(cfg)
+    kw = {"absorb": absorb} if cfg.mla is not None else {}
 
     @torch.inference_mode()
     def serve_step(model, cache, tokens, pos: int):
-        logits, cache = model_mod.decode_step(model, cache, tokens, pos)
+        logits, cache = model_mod.decode_step(model, cache, tokens, pos,
+                                              **kw)
         return _greedy(logits), cache, logits
 
     return serve_step

@@ -343,10 +343,10 @@ def test_jax_cannot_decode_bf16_dense_with_an_fp32_cache(arch):
 
 
 def test_moe_decode_raises():
-    """The MoE family's decode is ported (``tests/test_torch_moe.py``);
-    the transformer decode paths still missing raise: the MoE model with
-    MLA attention (DeepSeek-V3, whose decode keeps the compressed latent
-    cache) and the VLM family."""
+    """The MoE family's decode is ported (``tests/test_torch_moe.py``), and
+    with MLA attention (DeepSeek-V3's compressed latent cache,
+    ``tests/test_torch_mla.py``); the transformer decode path still
+    missing raises: the VLM family."""
     _, cfg = _cfgs("starcoder2-3b")
     vlm = dataclasses.replace(cfg, family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -355,7 +355,8 @@ def test_moe_decode_raises():
         transformer.decode_step(
             type("M", (), {"cfg": vlm})(), None, None, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("deepseek-v3-671b")
+        configs.get("internvl2-2b")
+    assert configs.get("deepseek-v3-671b").mla is not None
 
 
 # --- depthwise_conv1d_streaming -------------------------------------------------

@@ -517,13 +517,70 @@ def test_head_dim_112_matches_jax(G):
         _close(t.grad, want, GRAD_TOL, f"d{name}")
 
 
+@pytest.mark.parametrize("v_width", [192, 128], ids=["v 192", "v 128 padded"])
+def test_head_dim_192_matches_jax(v_width):
+    """``flash_fwd`` and ``flash_bwd`` at head_dim 192 (DeepSeek-V3's MLA:
+    G = 1, causal) against JAX's Pallas ``flash_fwd`` and ``flash_bwd`` in
+    interpret mode, whose scale is 192 ** -0.5: o, lse, dq, dk and dv, with
+    v (and the cotangent) of 192 real columns, and with v's last 64
+    columns zeros as the MLA block pads them (the output's and dv's last
+    64 columns are zeros then, on both sides)."""
+    B, T, KV, G, hd = 1, 64, 2, 1, 192
+    q, k, v, cot = _inputs(B, T, T, KV, G, hd, seed=16)
+    v[..., v_width:] = 0.0
+    cot[..., v_width:] = 0.0
+    jq, jk, jv = _jax(q), _jax(k), _jax(v)
+    jo, jlse = jfa.flash_fwd(jq, jk, jv, causal=True, bq=32, interpret=True)
+    o, lse = fa.flash_fwd(_torch(q), _torch(k), _torch(v), causal=True,
+                          bq=32)
+    _close(o, jo, FWD_TOL, "o")
+    _close(lse, jlse, FWD_TOL, "lse")
+    want = jfa.flash_bwd(jq, jk, jv, jo, jlse, _jax(cot), causal=True, bq=32,
+                         bk=32, interpret=True)
+    got = fa.flash_bwd(_torch(q), _torch(k), _torch(v), o, lse, _torch(cot),
+                       causal=True)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape
+        _close(g, w, GRAD_TOL, name)
+    if v_width < hd:
+        assert not o[..., v_width:].any() and not got[2][..., v_width:].any()
+
+
+def test_padded_v_slice_is_attention_at_v_width():
+    """The MLA block's flash call (``mla.flash_mla``: v padded with zeros
+    from 128 to the qk width 192, the output sliced back) equals plain
+    attention with v at its own width (``common.gqa_attention``), and so
+    do the gradients of q, k and the unpadded v through the pad and the
+    slice; H = 4 heads of their own (G = 1)."""
+    from repro_torch.models import mla
+
+    B, T, H, qh, vh = 1, 64, 4, 192, 128
+    rng = np.random.default_rng(17)
+    q, k = (rng.standard_normal((B, T, H, qh)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((B, T, H, vh)).astype(np.float32)
+    cot = rng.standard_normal((B, T, H, vh)).astype(np.float32)
+    cfg = type("Cfg", (), {"attn_chunk": 32})()
+    outs = {}
+    for name in ("flash", "plain"):
+        tq, tk, tv = (_torch(a).requires_grad_() for a in (q, k, v))
+        o = (mla.flash_mla(tq, tk, tv, cfg) if name == "flash" else
+             cm.gqa_attention(tq, tk, tv, causal=True))
+        assert o.shape == (B, T, H, vh)
+        (o * _torch(cot)).sum().backward()
+        outs[name] = (o.detach(), tq.grad, tk.grad, tv.grad)
+    for a, b, what in zip(outs["flash"], outs["plain"], ("o", "dq", "dk",
+                                                        "dv")):
+        _close(a, b, GRAD_TOL if what != "o" else FWD_TOL, what)
+
+
 def test_head_dims_are_the_kernels_templates():
     """The wrapper's ``_HEAD_DIMS``, read beside the sources: each C entry
     point refuses every other head dimension and dispatches a template
     for each, and the wrapper refuses the others on the card (its check
     runs before any launch, so a CPU test reaches it through
     ``_check_on_card`` with a stand-in device)."""
-    assert fa._HEAD_DIMS == (64, 112, 128)
+    assert fa._HEAD_DIMS == (64, 112, 128, 192)
     csrc = Path(fa.__file__).parent / "csrc"
     for name in ("flash_fwd.cu", "flash_bwd.cu"):
         src = (csrc / name).read_text()
@@ -534,7 +591,7 @@ def test_head_dims_are_the_kernels_templates():
             fa._HEAD_DIMS, name
         for hd in fa._HEAD_DIMS:
             assert re.search(rf"return launch<T, {hd}>\(", src), (name, hd)
-    assert fa._REFUSED[-1] == "head_dim must be one of (64, 112, 128)"
+    assert fa._REFUSED[-1] == "head_dim must be one of (64, 112, 128, 192)"
     common = (csrc / "flash_common.cuh").read_text()
     assert "constexpr int pad64(int hd)" in common
 
@@ -542,6 +599,7 @@ def test_head_dims_are_the_kernels_templates():
         type = "cuda"
 
     q = torch.zeros(1, 16, 1, 1, 96)
-    with pytest.raises(ValueError, match=r"one of \(64, 112, 128\), got 96"):
+    with pytest.raises(ValueError,
+                       match=r"one of \(64, 112, 128, 192\), got 96"):
         fa._check_on_card("flash_fwd", ("q", type("T", (), {
             "device": Card(), "shape": q.shape})()))

@@ -87,15 +87,14 @@ def test_configs_match_jax():
         for f in ("name", "conv_channels", "conv_filter", "conv_dilation",
                   "dtype"):
             assert getattr(tr, f) == getattr(jr, f), (name, f)
-    assert configs.names() == ["atacworks", "atacworks-bf16", "mamba2-370m",
+    assert configs.names() == ["atacworks", "atacworks-bf16",
+                               "deepseek-v3-671b", "mamba2-370m",
                                "moonshot-v1-16b-a3b", "qwen2-7b",
                                "qwen3-14b", "qwen3-8b", "starcoder2-3b",
                                "whisper-large-v3", "zamba2-7b"]
 
 
 def test_lm_families_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("deepseek-v3-671b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.get("internvl2-2b")  # the VLM's image embeddings
     with pytest.raises(NotImplementedError,

@@ -334,7 +334,7 @@ def test_decode_path_and_other_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init_params(vlm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("deepseek-v3-671b")
+        configs.get("internvl2-2b")
     assert models.get_model(cfg) is transformer
 
 
