@@ -327,7 +327,30 @@ Phases (any failed check raises, so the run exits non-zero):
       BREAKDOWN_STEPS more steps traced, then its fp32 copy's whole
       gradient at 1 x 512 against the plain attention, both paths' expert
       selections equal first; the phase's seconds;
-  23. a JSON line of the six kernels, the card's line, and last the
+  23. InternVL2-2B, the VLM family, at its published widths and full
+      depth (``vlm_check``; 24 layers, d_model 2,048, 16 query heads over
+      8 KV heads of 128, 256 image embeddings before the text, bf16,
+      flash): (a) the flash kernels at its training shape (4, 4,096, 16
+      over 8 heads of 128, G = 2, causal) and its image prefill's (8,
+      456: 256 + 200, ragged against the tile) in bf16, and at a small
+      shape in fp32, by phase 10's rule, timed beside SDPA and the bound;
+      (b) ``serve_lm`` at batch 8, phase 14's traffic (text decode, no
+      kernel in a decode step), the fused text prefill within
+      ``serve.prefill_tol`` of the decode (24 ``flash_fwd``), then the
+      fused prefill of the prompt behind 256 seeded image embeddings
+      through flash against the same prefill with ``attn_impl="chunked"``
+      within ``serve.prefill_tol`` (24 ``flash_fwd``), and a 2-layer fp32
+      copy at full width checked both ways; (c) the launcher 6 steps at
+      batch 4 x 4,096 (48 + 24 flash launches a step; step p50, tokens/s
+      counting the image positions, useful TFLOP/s, peak memory),
+      BREAKDOWN_STEPS more traced; (d) a 2-layer fp32 copy's whole
+      gradient at 2 x 512 (256 image + 256 text positions) against the
+      plain attention; (e) the ``"dots"`` remat policy against
+      ``"nothing"`` at full depth, batch 2 x 4,096: the launcher 2 steps
+      each (losses and gradient norms bitwise equal) and every gradient
+      of one batch bitwise equal, with each policy's peak memory and step
+      time; the phase's seconds;
+  24. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -626,6 +649,32 @@ DS_SERVE_BATCH, DS_BATCH, DS_SEQ, DS_STEPS = 8, 4, 4096, 6
 DS_GRAD_BATCH, DS_GRAD_SEQ = 1, 512
 DS_FA_F32 = (1, 1024, 16, 1)
 DS_ABSORB_STEPS = 32
+# phase 23, InternVL2-2B (arXiv:2404.16821), the VLM family, at its
+# published widths and full depth (1.889 B parameters, about 23 GB of
+# training state).  (a) The flash pair at (VL_BATCH, VL_SEQ, 16 heads over
+# 8 KV heads of 128, G = 2, bf16, causal) and at the image prefill's
+# (VL_SERVE_BATCH, 256 + LM_PROMPT) timed beside SDPA and the bound, and
+# in fp32 at VL_FA_F32 (B, T, KV, G), by phase 10's rule.  (b)
+# ``serve_lm`` at batch VL_SERVE_BATCH and phase 14's traffic (the decode
+# runs text, as JAX's launcher), then the fused prefill of the prompt
+# behind 256 seeded image embeddings through flash against the same
+# prefill through the plain attention, within ``serve.prefill_tol``; a
+# LM_FP32_LAYERS-layer fp32 copy checked both ways.  (c) The launcher
+# VL_STEPS steps at VL_BATCH x VL_SEQ (VL_SEQ counts the 256 image
+# positions, as JAX's ``vlm_batch``), BREAKDOWN_STEPS more traced.  (d)
+# An fp32 copy cut to LM_FP32_LAYERS layers: its whole gradient at
+# VL_GRAD_BATCH x VL_GRAD_SEQ against the plain attention (phase 11's
+# rule).  (e) ``remat_policy="dots"`` (``VL_DOTS_ARCH``, registered in
+# the phase) against "nothing" at full depth, VL_DOTS_STEPS launcher
+# steps each at VL_DOTS_BATCH x VL_SEQ from the same seed, then one
+# batch's every gradient under each; "dots" keeps 7 product outputs a
+# layer, 24,576 bf16 values a position (9.7 GB at 2 x 4,096 over 24
+# layers, 19.3 GB at batch 4, where the "nothing" step peaks near 48 GB).
+VL_ARCH, VL_DOTS_ARCH = "internvl2-2b", "internvl2-2b-dots"
+VL_SERVE_BATCH, VL_BATCH, VL_SEQ, VL_STEPS = 8, 4, 4096, 6
+VL_GRAD_BATCH, VL_GRAD_SEQ = 2, 512
+VL_DOTS_BATCH, VL_DOTS_STEPS = 2, 3
+VL_FA_F32 = (1, 1024, 8, 2)
 # the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
 # at 3 and its two passes at 192
 FLASH_WGMMA_KERNELS = 13
@@ -5201,6 +5250,350 @@ def _ds_entries(ds, flash_entries):
         launches_in_decode=ds["serve"]["decode_launches"]["flash_fwd"])
 
 
+def _vl_flash_rows(torch, fa, ref, cfg):
+    """Phase 23 (a): ``flash_fwd`` and ``flash_bwd`` at InternVL2-2B's
+    attention in its training cell (VL_BATCH x VL_SEQ, 16 heads over 8 KV
+    heads of 128, G = 2, bf16, causal), and at its image prefill's shape
+    (VL_SERVE_BATCH x (256 + LM_PROMPT), ragged against the tile; the
+    forward timed), timed beside SDPA and the bound; then in fp32 at
+    VL_FA_F32; each against its plain version by ``flash_kernel_checks``'
+    rule."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEVICE).manual_seed(231)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T_pre = cfg.n_image_tokens + LM_PROMPT
+    rows = []
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"internvl2 B={VL_BATCH} T={VL_SEQ} H={H} KV={KV} hd={hd} "
+                 "bf16 causal", VL_BATCH, VL_SEQ, KV, H // KV,
+                 torch.bfloat16, True, timed=True, hd=hd)
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"internvl2 prefill B={VL_SERVE_BATCH} T={T_pre} H={H} "
+                 f"KV={KV} hd={hd} bf16 causal", VL_SERVE_BATCH, T_pre, KV,
+                 H // KV, torch.bfloat16, True, timed=("fwd",), hd=hd)
+    B, T, kv, G = VL_FA_F32
+    _flash_check(torch, fa, ref, gen, rows,
+                 f"internvl2 B={B} T={T} H={kv * G} KV={kv} hd={hd} fp32 "
+                 "causal", B, T, kv, G, torch.float32, True, hd=hd)
+    return rows
+
+
+def _vl_image_prefill(torch, serve, cfg, model, prompt, counters, seed):
+    """Phase 23 (b): the fused prefill of ``prompt`` behind
+    ``cfg.n_image_tokens`` image embeddings (``serve.image_prefill``:
+    ``vlm_batch``'s draw from ``seed``, finite logits) through flash,
+    counted (one ``flash_fwd`` a layer, nothing else), against the same prefill through the plain attention
+    (``model.cfg`` switched to ``attn_impl="chunked"``): the last logits
+    within ``serve.prefill_tol`` of the plain ones' largest, the greedy
+    tokens equal wherever the plain top-2 margin exceeds twice the
+    tolerance; the flash prefill's call time."""
+    import dataclasses
+    B, T = prompt.shape
+    res, launched = _counted(counters, lambda: serve.image_prefill(
+        model, cfg, prompt, seed))
+    got, batch = res["image_logits"], {"tokens": prompt,
+                                       "patches": res["patches"]}
+    step = serve.make_prefill_step(cfg)
+    want_launches = {**{k: 0 for k in launched}, "flash_fwd": cfg.n_layers}
+    if launched != want_launches:
+        raise AssertionError(f"internvl2: an image prefill launched "
+                             f"{launched}; expected {want_launches}")
+    try:
+        model.cfg = dataclasses.replace(cfg, attn_impl="chunked")
+        _, want = step(model, batch)
+    finally:
+        model.cfg = cfg
+    V = cfg.vocab_size
+    got, want = got[:, -1, :V].float(), want[:, -1, :V].float()
+    scale = want.abs().max()
+    rel = serve.prefill_tol(cfg, next(model.parameters()).dtype)
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * rel * scale
+    same = got.argmax(-1) == want.argmax(-1)
+    out = dict(batch=B, image_tokens=cfg.n_image_tokens, text_tokens=T,
+               dtype=cfg.dtype,
+               gap=((got - want).abs().max() / scale).item(), tol=rel,
+               tokens_equal=bool((same | ~clear).all()),
+               rows_with_clear_margin=int(clear.sum()),
+               finite=bool(torch.isfinite(got).all()), launches=launched)
+    if not (out["finite"] and out["gap"] <= rel and out["tokens_equal"]):
+        raise AssertionError(f"internvl2: the image prefill through flash "
+                             f"against the plain attention: {out}")
+    if cfg.dtype == "bfloat16":
+        out["call_ms"] = _call_ms(lambda: step(model, batch), reps=5)
+    return out
+
+
+def _vl_serve(torch, serve, init_model, cfg, model, counters):
+    """Phase 23 (b): ``_serve_lm_cell`` (``serve_lm``, the text prefill
+    against the decode, the traces, the decode's bound), the image
+    prefill (``_vl_image_prefill``), then a LM_FP32_LAYERS-layer fp32 copy
+    held both ways, TF32 off."""
+    import dataclasses
+    out = _serve_lm_cell(torch, serve, counters, VL_ARCH, cfg, model,
+                         VL_SERVE_BATCH)
+    want = {**{k: 0 for k in out["prefill_launches"]},
+            "flash_fwd": cfg.n_layers}
+    if out["prefill_launches"] != want:
+        raise AssertionError(f"internvl2: a text prefill launched "
+                             f"{out['prefill_launches']}; expected {want}")
+    gen = torch.Generator().manual_seed(233)
+    prompt = torch.randint(0, cfg.vocab_size, (VL_SERVE_BATCH, LM_PROMPT),
+                           generator=gen, dtype=torch.int32).to(DEVICE)
+    out["image_prefill"] = _vl_image_prefill(torch, serve, cfg, model,
+                                             prompt, counters, 234)
+    print("internvl2-image-prefill " + json.dumps(out["image_prefill"]),
+          flush=True)
+    out["fp32_text"] = _fp32_prefill_check(torch, serve, init_model, cfg,
+                                           VL_ARCH, 235, counters)
+    c = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS, dtype="float32")
+    small = _lm_model(torch, c, init_model, 236)
+    out["fp32_image"] = _vl_image_prefill(torch, serve, c, small,
+                                          prompt[:LM_FP32_BATCH], counters,
+                                          237)
+    print("internvl2-fp32-image-prefill " + json.dumps(out["fp32_image"]),
+          flush=True)
+    del small
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vl_grad(torch, losses, synthetic, init_model, cfg, counters):
+    """Phase 23 (d): an fp32 copy cut to LM_FP32_LAYERS layers at every
+    width: the text loss and every gradient at VL_GRAD_BATCH x VL_GRAD_SEQ
+    (256 image embeddings, then the text) through flash against the plain
+    attention, TF32 off (phase 11's rule)."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gcfg = dataclasses.replace(cfg, n_layers=LM_FP32_LAYERS, dtype="float32",
+                               attn_impl="flash")
+    model = _lm_model(torch, gcfg, init_model, seed=238)
+    b = synthetic.make_batch(gcfg, VL_GRAD_BATCH, VL_GRAD_SEQ, seed=239)
+    batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in b.items()}
+    n_img = gcfg.n_image_tokens
+
+    def run(attn_impl):
+        def logits(tokens):
+            model.cfg = dataclasses.replace(gcfg, attn_impl=attn_impl)
+            return model(tokens, extra_embeds=batch["patches"])[:, n_img:]
+        return logits
+
+    L = gcfg.n_layers
+    out = _model_grad_check(
+        torch, losses, "internvl2", gcfg, model, batch, run("flash"),
+        run("chunked"), counters[4:], (2 * L, L),
+        "forward and remat recompute; backward", 12)
+    out.update(image_tokens=n_img, text_tokens=VL_GRAD_SEQ - n_img)
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vl_dots(torch, np, configs, train, init_model, synthetic, losses, cfg,
+             counters):
+    """Phase 23 (e): ``remat_policy="dots"`` against "nothing" at full
+    depth: the launcher VL_DOTS_STEPS steps each from the same seed at
+    VL_DOTS_BATCH x VL_SEQ (losses and gradient norms bitwise equal, the
+    same flash launches: the kernels run in the recompute under both), then
+    one batch's loss and every gradient under each policy on one model,
+    bitwise equal; each policy's peak memory and gradient time (host clock
+    to a synchronize, the median of 3 after one warm-up), the device
+    memory it takes above what was held before it, the host's time to
+    enqueue the forward alone and its time to the forward's end, and one
+    traced gradient's device busy time and matrix products' time
+    (PRODUCT_KERNELS): "dots" runs fewer products, and its selective
+    checkpoint handles every op of the forward on the host."""
+    import dataclasses
+
+    from repro_torch.train.data_parallel import param_grads
+
+    configs.register(dataclasses.replace(configs.get(VL_ARCH),
+                                         name=VL_DOTS_ARCH,
+                                         remat_policy="dots"))
+    L = cfg.n_layers
+    runs = {}
+    for policy, arch in (("nothing", VL_ARCH), ("dots", VL_DOTS_ARCH)):
+        torch.cuda.empty_cache()
+        argv = ["--arch", arch, "--attn-impl", "flash", "--batch",
+                str(VL_DOTS_BATCH), "--seq", str(VL_SEQ), "--steps",
+                str(VL_DOTS_STEPS)]
+        runs[policy] = _train_check(np, train, f"internvl2-{policy}", argv,
+                                    VL_DOTS_STEPS, counters,
+                                    (0, 0, 0, 0, 2 * L, L),
+                                    LM_MEMORY_LIMIT_GB)
+    a, b = runs["nothing"], runs["dots"]
+    if a["losses"] != b["losses"] or a["grad_norms"] != b["grad_norms"]:
+        raise AssertionError(f"internvl2: 'dots' losses {b['losses']} and "
+                             f"norms {b['grad_norms']} against 'nothing' "
+                             f"{a['losses']}, {a['grad_norms']}")
+    torch.cuda.empty_cache()
+    model = _lm_model(torch, dataclasses.replace(cfg, attn_impl="flash"),
+                      init_model, seed=241)
+    names, params = zip(*model.named_parameters())
+    nb = synthetic.make_batch(cfg, VL_DOTS_BATCH, VL_SEQ, seed=242)
+    batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in nb.items()}
+    grads, stats = {}, {}
+    for policy in ("nothing", "dots"):
+        pcfg = dataclasses.replace(cfg, attn_impl="flash",
+                                   remat_policy=policy)
+        loss_fn = losses.make_loss_fn(pcfg)
+        model.cfg = pcfg
+
+        def step():
+            loss, _ = loss_fn(model, batch)
+            return loss.detach(), param_grads(loss, params)
+
+        times, out = [], None
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()  # the model, earlier gradients
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(4):
+            out = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        grads[policy] = out
+        peak = torch.cuda.max_memory_allocated() - held
+        del out
+        # the forward alone: the host's time to enqueue it, and to its end
+        t = time.perf_counter()
+        loss, _ = loss_fn(model, batch)
+        enqueue = time.perf_counter() - t
+        torch.cuda.synchronize()
+        fwd = time.perf_counter() - t
+        del loss
+        _, kernels, _ = _trace(torch, lambda: step() and None, (), 1)
+        stats[policy] = dict(
+            grad_peak_over_held_gb=peak / 1e9,
+            grad_p50_ms=float(np.median(times[1:]) * 1e3),
+            forward_enqueue_ms=enqueue * 1e3, forward_ms=fwd * 1e3,
+            device_busy_ms=sum(k["ms_per_step"] for k in kernels),
+            products_ms=sum(k["ms_per_step"] for k in kernels if any(
+                n in k["name"] for n in PRODUCT_KERNELS)),
+            kernels=sum(k["calls"] for k in kernels),
+            launcher_step_p50_ms=runs[policy]["step_p50_ms"],
+            peak_memory_gb=runs[policy]["peak_memory_gb"])
+    model.cfg = cfg
+    (l0, g0), (l1, g1) = grads["nothing"], grads["dots"]
+    differ = [n for n, x, y in zip(names, g0, g1) if not torch.equal(x, y)]
+    if not torch.equal(l0, l1) or differ:
+        raise AssertionError(f"internvl2: 'dots' against 'nothing': loss "
+                             f"{l1.item()} vs {l0.item()}, gradients that "
+                             f"differ {differ}")
+    out = dict(batch=VL_DOTS_BATCH, seq=VL_SEQ, layers=L,
+               launcher_losses=a["losses"], loss=l0.item(),
+               n_grads=len(names), bitwise=True, **{
+                   p: stats[p] for p in stats},
+               saved_product_gb=(2 * VL_DOTS_BATCH * VL_SEQ * L * (
+                   2 * cfg.d_model + 2 * cfg.n_kv_heads * cfg.head_dim
+                   + 2 * cfg.d_ff + cfg.d_model)) / 1e9)
+    print("internvl2-dots " + json.dumps(out), flush=True)
+    del model, batch, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_check(torch, np, configs, init_model, serve, train, synthetic,
+              losses, ref, conv1d_brgemm, fa):
+    """Phase 23: InternVL2-2B on the card (see VL_*): the flash kernels at
+    its shapes (``_vl_flash_rows``), the full model built once (bf16,
+    flash) and served (``_vl_serve``), trained through the launcher (2 L
+    + L flash launches a step: forward, remat recompute, backward) and
+    traced, its fp32 copy's whole gradient against the plain attention
+    (``_vl_grad``), and the "dots" remat policy against "nothing"
+    (``_vl_dots``)."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    counters = _counters(conv1d_brgemm, fa)
+    cfg = dataclasses.replace(configs.get(VL_ARCH), attn_impl="flash")
+    out = dict(flash_rows=_vl_flash_rows(torch, fa, ref, cfg))
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = _lm_model(torch, cfg, init_model, seed=231)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["params"] = sum(p.numel() for p in model.parameters())
+    print(f"internvl2: {out['params']} parameters drawn and moved to the "
+          f"card in {out['init_s']:.1f} s", flush=True)
+    out["serve"] = _vl_serve(torch, serve, init_model, cfg, model, counters)
+    del model
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    per_step = (0, 0, 0, 0, 2 * L, L)
+    argv = ["--arch", VL_ARCH, "--attn-impl", "flash", "--batch",
+            str(VL_BATCH), "--seq", str(VL_SEQ)]
+    out["train"] = _train_check(np, train, "internvl2",
+                                argv + ["--steps", str(VL_STEPS)], VL_STEPS,
+                                counters, per_step, LM_MEMORY_LIMIT_GB)
+    out["breakdown"] = _train_breakdown(
+        torch, train, "internvl2",
+        argv + ["--steps", str(BREAKDOWN_STEPS)], BREAKDOWN_STEPS,
+        ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkv_"))
+    torch.cuda.empty_cache()
+    out["grad"] = _vl_grad(torch, losses, synthetic, init_model, cfg,
+                           counters)
+    out["dots"] = _vl_dots(torch, np, configs, train, init_model, synthetic,
+                           losses, cfg, counters)
+    out["seconds"] = time.perf_counter() - t0
+    s, tr, fl, d = (out["serve"], out["train"], out["flash_rows"][0],
+                    out["dots"])
+    ip = s["image_prefill"]
+    print(f"internvl2: phase 23 in {out['seconds']:.1f} s (the "
+          f"{cfg.n_layers}-layer model drawn in {out['init_s']:.1f} s); "
+          f"flash hd {cfg.head_dim} G=2 fwd {fl['fwd_kernel_ms']:.3f} ms "
+          f"(SDPA {fl['fwd_library_ms']:.3f}, bound "
+          f"{fl['fwd_bound_ms']:.3f}), bwd {fl['bwd_kernel_ms']:.3f} ms "
+          f"(SDPA {fl['bwd_library_ms']:.3f}, bound "
+          f"{fl['bwd_bound_ms']:.3f}); serving: decode p50 "
+          f"{s['step_p50_ms']:.3f} ms, p99 {s['step_p99_ms']:.3f} ms, "
+          f"{s['tokens_per_s']:.1f} tokens/s, bound {s['bound_ms']:.4f} ms, "
+          f"decode busy {s['decode_device_busy_share']:.3f}, text prefill "
+          f"gap {s['prefill_vs_decode']['gap']:.2e}, image prefill gap "
+          f"{ip['gap']:.2e} (tol {ip['tol']:.2e}), "
+          f"{ip['call_ms']:.1f} ms; training: step p50 "
+          f"{tr['step_p50_ms']:.1f} ms, {tr['tokens_per_s']:.0f} tokens/s, "
+          f"{tr['model_tflops_per_s']:.1f} TFLOP/s, peak "
+          f"{tr['peak_memory_gb']:.2f} GB; dots at batch {d['batch']}: "
+          f"peak {d['dots']['peak_memory_gb']:.2f} GB against "
+          f"{d['nothing']['peak_memory_gb']:.2f}, gradient "
+          f"{d['dots']['grad_p50_ms']:.1f} ms against "
+          f"{d['nothing']['grad_p50_ms']:.1f} (device busy "
+          f"{d['dots']['device_busy_ms']:.1f} against "
+          f"{d['nothing']['device_busy_ms']:.1f}, forward enqueued in "
+          f"{d['dots']['forward_enqueue_ms']:.1f} against "
+          f"{d['nothing']['forward_enqueue_ms']:.1f}), bitwise", flush=True)
+    return out
+
+
+def _vl_entries(vl, flash_entries):
+    """Phase 23's numbers in the kernels line: InternVL2-2B's attention (16
+    over 8 heads of 128, G = 2) under the two flash kernels, with their
+    launches a training step, a fused prefill (text, and behind the image)
+    and a decode step, and the image prefill's forward row."""
+    launches = vl["train"]["launches_per_step"]
+    cell, pre = vl["flash_rows"][0], vl["flash_rows"][1]
+    keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "tflops")
+    for entry, pas, errs in zip(flash_entries, ("fwd", "bwd"),
+                                (("o", "lse"), ("dq", "dk", "dv"))):
+        entry["internvl2"] = dict(
+            launches_per_train_step=launches[entry["name"]],
+            max_abs_err=max(r["max_abs_err"][e] for r in vl["flash_rows"]
+                            for e in errs),
+            **{k: cell.get(f"{pas}_{k}", cell.get(k)) for k in keys})
+    serve_ = vl["serve"]
+    flash_entries[0]["internvl2"].update(
+        launches_per_prefill=serve_["prefill_launches"]["flash_fwd"],
+        launches_per_image_prefill=serve_["image_prefill"]["launches"][
+            "flash_fwd"],
+        launches_in_decode=serve_["decode_launches"]["flash_fwd"],
+        image_prefill={k: pre.get(f"fwd_{k}", pre.get(k)) for k in keys})
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -5471,6 +5864,8 @@ def main(argv=None) -> int:
     ds = deepseek_check(torch, np, configs, init_model, serve, train,
                         synthetic, losses, ref, conv1d_brgemm,
                         flash_attention)
+    vl = vlm_check(torch, np, configs, init_model, serve, train, synthetic,
+                   losses, ref, conv1d_brgemm, flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -5744,6 +6139,7 @@ def main(argv=None) -> int:
                 flash_attention._HEAD_DIMS)
     _mn_entries(mn, flash_entries)
     _ds_entries(ds, flash_entries)
+    _vl_entries(vl, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     if args.out:
@@ -5764,7 +6160,7 @@ def main(argv=None) -> int:
                            starcoder2_profile=lm_prof, sweep=sweep_res,
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
                            elastic=elastic, whisper=wh, zamba2=zb,
-                           moonlight=mn, deepseek_v3=ds,
+                           moonlight=mn, deepseek_v3=ds, internvl2=vl,
                            kernels=kernels), f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,9 @@ and its registry.
 The conv family (AtacWorks), the SSM family (Mamba2), the dense
 transformers (StarCoder2, Qwen2, Qwen3), the encoder-decoder family
 (Whisper), the hybrid family (Zamba2) and the MoE family (Moonlight, and
-DeepSeek-V3 with its Multi-head Latent Attention, ``MLAConfig``) are
-ported.  The VLM (InternVL2) raises ``NotImplementedError`` that names
-the ROADMAP queue it waits in.
+DeepSeek-V3 with its Multi-head Latent Attention, ``MLAConfig``) and
+the VLM (InternVL2, whose image embeddings come before the text) are
+ported: every architecture of the JAX package's registry.
 """
 from __future__ import annotations
 
@@ -15,11 +15,11 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Literal, Optional
 
-Family = Literal["conv", "ssm", "dense", "encdec", "hybrid", "moe"]
+Family = Literal["conv", "ssm", "dense", "encdec", "hybrid", "moe", "vlm"]
 
 # Architectures of the JAX package whose families the port does not have
-# yet (ROADMAP.md, queue A: the VLM).
-NOT_PORTED = ("internvl2-2b",)
+# yet: none.
+NOT_PORTED: tuple[str, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -97,6 +97,9 @@ class ModelConfig:
     # encoder takes (the conv frontend's output width)
     n_encoder_layers: int = 0
     encoder_width: int = 0
+    # VLM (InternVL2): the image embeddings (B, n_image_tokens, d_model)
+    # put before the text tokens (the vision frontend is not modelled)
+    n_image_tokens: int = 0
     # conv nets (AtacWorks)
     conv_channels: int = 0
     conv_filter: int = 0
@@ -104,7 +107,9 @@ class ModelConfig:
     # numerics
     dtype: str = "float32"
     remat: bool = True
-    remat_policy: str = "nothing"  # only 'nothing' is ported
+    # 'nothing' (recompute every activation) or 'dots' (keep the outputs
+    # of the products with no batch dimension; models/common.py)
+    remat_policy: str = "nothing"
     attn_chunk: int = 256        # q-chunk of the chunked causal attention
     # attention: 'chunked' (plain PyTorch, the (Tq, Tk) scores per q-chunk)
     # or 'flash' (the hand-written kernels, kernels/flash_attention.py)
@@ -133,15 +138,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get(name: str) -> ModelConfig:
     _load_all()
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported to repro_torch yet: only the conv "
-            "family (atacworks, atacworks-bf16), the SSM family "
-            "(mamba2-370m), the dense transformers (starcoder2-3b, "
-            "qwen2-7b, qwen3-8b, qwen3-14b), the encoder-decoder "
-            "(whisper-large-v3), the hybrid (zamba2-7b) and the MoE "
-            "(moonshot-v1-16b-a3b, deepseek-v3-671b) are; the VLM waits "
-            "in ROADMAP.md queue A")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {names()}")
     return _REGISTRY[name]
@@ -167,7 +163,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     0) with JAX's caps on the experts: <= 8 experts, top_k <= 2,
     ``d_ff_expert`` 32, <= 1 leading dense layer of ``d_ff_dense`` 128.
     MLA: JAX's ranks and head widths q_lora 32, kv_lora 16, nope 16,
-    rope 8, v 16."""
+    rope 8, v 16.  VLM: the dense one with 8 image tokens."""
     small: dict = dict(dtype="float32")
     if cfg.family == "conv":
         small.update(conv_channels=min(cfg.conv_channels, 8),
@@ -177,7 +173,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                      vocab_size=min(cfg.vocab_size, 256), remat=False,
                      ssm=dataclasses.replace(cfg.ssm, d_state=16,
                                              head_dim=8, chunk=16))
-    if cfg.family in ("dense", "encdec", "hybrid", "moe"):
+    if cfg.family in ("dense", "encdec", "hybrid", "moe", "vlm"):
         small.update(n_layers=min(cfg.n_layers, 2), d_model=64, n_heads=4,
                      n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
                      d_ff=128 if cfg.d_ff else 0,
@@ -195,6 +191,8 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
                                  v_head_dim=16)
     if cfg.family == "encdec":
         small.update(n_encoder_layers=2, encoder_width=64)
+    if cfg.n_image_tokens:
+        small["n_image_tokens"] = 8
     if cfg.attn_every:
         small.update(attn_every=2, n_layers=4)
     small.update(overrides)
@@ -203,6 +201,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
 
 def _load_all() -> None:
     from . import (atacworks, deepseek_v3_671b,  # noqa: F401
-                   mamba2_370m, moonshot_v1_16b_a3b,  # (register on import)
+                   internvl2_2b, mamba2_370m,  # (register on import)
+                   moonshot_v1_16b_a3b,
                    qwen2_7b, qwen3_8b, qwen3_14b, starcoder2_3b,
                    whisper_large_v3, zamba2_7b)

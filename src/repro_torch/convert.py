@@ -16,7 +16,9 @@ the transformers' do (Whisper's ``enc_layers.attn.wq`` (L_enc, D, H * hd),
 D, E) and ``router_bias``, fp32 in a bf16 tree and kept so; an MLA
 model's ``dense_layers.attn.kv_up`` (L_dense, kv_lora, H * (nope + v))
 beside ``q_down``, ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``,
-``wo``), so nothing is split or joined::
+``wo``; a VLM's tree is the dense one, ``dense_layers.`` with an untied
+``unembed``: the image embeddings are an input, not a leaf), so nothing
+is split or joined::
 
     model.load_state_dict(params_from_jax(jax_tree_as_numpy))
     state = train_state_from_jax(jax_train_state_as_numpy, cfg)

@@ -1,19 +1,19 @@
-"""Synthetic data of the conv, SSM, dense, MoE, encoder-decoder and
-hybrid families (counterpart of the conv, LM and encoder-decoder parts of
+"""Synthetic data of every family of the port (counterpart of
 ``repro/data/synthetic.py``).
 
 The real ATAC-seq data behind the paper's end-to-end experiments is
 access-controlled, so training runs on synthetic coverage tracks with
 matched shape statistics: Poisson-like counts, sparse smoothed peaks,
 50k-wide segments padded by 5k on both sides (paper §4.2).
-``atacseq_batch``, ``lm_batch`` (uniform random tokens) and
+``atacseq_batch``, ``lm_batch`` (uniform random tokens),
+``vlm_batch`` (text tokens, then standard-normal image embeddings) and
 ``encdec_batch`` (tokens, then standard-normal frames) are the JAX
 package's functions line for line, with the same numpy generator calls,
 so one seed gives the same batch in both packages.  A batch's leaves are
-numpy arrays, except the frames, a tensor in the config's dtype (numpy
-has no bfloat16).  ``SyntheticLoader`` makes batches on a producer thread
-and moves them to the device while the step runs (token batches keep
-JAX's int32).
+numpy arrays, except the patches and the frames, tensors in the config's
+dtype (numpy has no bfloat16).  ``SyntheticLoader`` makes batches on a
+producer thread and moves them to the device while the step runs (token
+batches keep JAX's int32).
 """
 from __future__ import annotations
 
@@ -60,6 +60,25 @@ def lm_batch(rng: np.random.Generator, cfg, batch: int, seq: int) -> dict:
             "labels": toks[:, 1:].astype(np.int32)}
 
 
+def vlm_batch(rng: np.random.Generator, cfg, batch: int, seq: int) -> dict:
+    """``seq`` is the TOTAL length, image positions included: the text's
+    tokens and labels (B, seq - n_image_tokens) from one draw, then
+    ``'patches'`` (B, n_image_tokens, d_model): standard-normal fp32
+    draws cast to the config's dtype, as a tensor."""
+    t_text = seq - cfg.n_image_tokens
+    if t_text < 1:
+        raise ValueError(
+            f"seq {seq} leaves no text after the {cfg.n_image_tokens} image "
+            f"positions of {cfg.name}: seq counts both, so it must exceed "
+            f"{cfg.n_image_tokens}")
+    toks = rng.integers(0, cfg.vocab_size, (batch, t_text + 1), dtype=np.int64)
+    patches = rng.standard_normal(
+        (batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+            "patches": torch.from_numpy(patches).to(getattr(torch, cfg.dtype))}
+
+
 def encdec_batch(rng: np.random.Generator, cfg, batch: int,
                  seq: int) -> dict:
     """``lm_batch``'s tokens and labels (B, seq) from one draw, then
@@ -82,11 +101,9 @@ def make_batch(cfg, batch: int, seq: int, seed: int = 0) -> dict:
         return lm_batch(rng, cfg, batch, seq)
     if cfg.family == "encdec":
         return encdec_batch(rng, cfg, batch, seq)
-    raise NotImplementedError(
-        f"synthetic {cfg.family!r} batches are not ported to repro_torch "
-        "yet: only the conv, ssm, dense, moe, encdec and hybrid families' "
-        "are "
-        "(ROADMAP.md queue A)")
+    if cfg.family == "vlm":
+        return vlm_batch(rng, cfg, batch, seq)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 class SyntheticLoader:
@@ -96,7 +113,8 @@ class SyntheticLoader:
     Batches are keyed by STEP index, not production order: batch *i* of a
     loader started at ``start`` is seeded ``seed + start + i``, so a loader
     rebuilt at step *r* on resume replays exactly the batches steps
-    ``r, r+1, ...`` saw the first time.  ``close`` stops the thread.
+    ``r, r+1, ...`` saw the first time.  ``close`` stops the thread.  A
+    batch the producer cannot make raises its error in ``__next__``.
 
     ``rank``/``world``: data parallelism.  ``batch`` stays the global
     batch; every rank draws the same global batch from the step's seed
@@ -125,9 +143,13 @@ class SyntheticLoader:
     def _produce(self):
         i = 0
         while not self._stop.is_set():
-            b = make_batch(self.cfg, self.batch, self.seq, seed=self._seed + i)
-            b = {k: torch.as_tensor(v[self._rows]).to(self.device)
-                 for k, v in b.items()}
+            try:
+                b = make_batch(self.cfg, self.batch, self.seq,
+                               seed=self._seed + i)
+                b = {k: torch.as_tensor(v[self._rows]).to(self.device)
+                     for k, v in b.items()}
+            except Exception as e:  # raised by the next __next__
+                b = e
             while not self._stop.is_set():
                 try:
                     self._q.put(b, timeout=0.1)
@@ -140,7 +162,10 @@ class SyntheticLoader:
         return self
 
     def __next__(self) -> dict:
-        return self._q.get()
+        b = self._q.get()
+        if isinstance(b, Exception):
+            raise b
+        return b
 
     def close(self, timeout: float = 10.0) -> None:
         self._stop.set()

@@ -3,8 +3,8 @@ batched greedy decode for the language models, batched continuous
 streaming for the conv family.  It runs on the card by default.
 
 Language models (the SSM family, Mamba2, the dense transformers, the
-MoE family, Moonlight and DeepSeek-V3, the encoder-decoder, Whisper, and
-the hybrid, Zamba2): build the cache of
+MoE family, Moonlight and DeepSeek-V3, the VLM, InternVL2, the
+encoder-decoder, Whisper, and the hybrid, Zamba2): build the cache of
 ``--prompt-len`` seeded
 prompt tokens by sequential teacher-forced decode steps, as the JAX
 launcher does (the fused prefill is ``train.serve_step.
@@ -53,13 +53,25 @@ launches at head_dim 192.  The launcher decodes plainly (the latent
 re-expanded each step), as JAX's, which has no flag for the absorbed
 decode; ``train.serve_step.make_serve_step(cfg, absorb=True)`` gives it.
 
-Its ``--smoke`` check holds the fused prefill to the decode with the
-decode's expert selection replayed (``moe.RoutingLog``): routing is
-discontinuous, and where a token's k-th and (k+1)-th selection scores lie
-closer than the two paths' rounding the prefill would pick another
-expert, a jump no tolerance of rounding covers.  The prefill's own
-selection is compared too: its flips per layer, the smallest selection
-margin and the largest score difference are reported.
+InternVL2-2B decodes text, as the JAX launcher does (its decode step
+takes no image); the image embeddings reach serving through the fused
+prefill alone.  Its ``--smoke`` check holds the fused text prefill to
+the decode, as for a dense model, then runs the fused prefill once more
+behind ``n_image_tokens`` seeded image embeddings (``vlm_batch``'s draw,
+(B, 256, 2048) at full width) and checks its logits are finite; with
+``attn_impl="flash"`` each fused prefill runs 24 ``flash_fwd`` launches:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \
+        --batch 8 --prompt-len 200 --gen 64
+
+An MoE model's ``--smoke`` check holds the fused prefill to the decode
+with the decode's expert selection replayed (``moe.RoutingLog``):
+routing is discontinuous, and where a token's k-th and (k+1)-th
+selection scores lie closer than the two paths' rounding the prefill
+would pick another expert, a jump no tolerance of rounding covers.  The
+prefill's own selection is compared too: its flips per layer, the
+smallest selection margin and the largest score difference are
+reported.
 
 The cache is fp32 where the JAX launcher runs one (the SSM family, and
 fp32 configs) and in the model's dtype for a bf16 dense, encoder-decoder
@@ -71,7 +83,7 @@ states are fp32 whatever the cache's dtype, as in JAX.  The decode step runs
 no kernel (as in the JAX package, where XLA takes it); ``--model-parallel``
 above 1, which in the JAX launcher shards the language models'
 parameters (``models/sharding.py``), waits for that sharding (ROADMAP.md
-queue A item 4).
+queue A item 5).
 
 Conv family (AtacWorks): a continuous-serving loop over the streaming
 conv1d: a request queue, per-stream positions, and padded-batch
@@ -429,12 +441,15 @@ def serve_lm(args, cfg, model=None) -> dict:
     (B, gen), ``prompt`` and ``prompt_logits`` (the decode's logits at the
     prompt's last position), the cache's dtype; an encoder-decoder's also
     ``frames`` and ``encode_s``, the time to encode them and fill the
-    cross K/V (host clock to a synchronize)."""
+    cross K/V (host clock to a synchronize); under ``args.smoke`` a VLM's
+    also ``patches`` (``vlm_batch``'s image embeddings from
+    ``args.seed``) and ``image_logits``, the last logits of the fused
+    prefill of the prompt behind them."""
     if args.model_parallel != 1:
         raise NotImplementedError(
             "--model-parallel > 1 is not ported to repro_torch yet: in the "
             "JAX launcher it shards the language models' parameters "
-            "(models/sharding.py), which waits in ROADMAP.md queue A item 4")
+            "(models/sharding.py), which waits in ROADMAP.md queue A item 5")
     if args.prompt_len < 1 or args.gen < 2:
         raise ValueError("--prompt-len must be >= 1 and --gen >= 2 (the "
                          "first generated token comes from the prefill)")
@@ -530,7 +545,25 @@ def serve_lm(args, cfg, model=None) -> dict:
                   f"(layer: tokens; smallest margin {r['min_margin']:.3e}, "
                   f"largest score difference {r['max_score_diff']:.3e}), "
                   f"max diff {gap['free_gap']:.2e}")
+        if cfg.family == "vlm":
+            stats.update(image_prefill(model, cfg, prompt, args.seed))
     return stats
+
+
+def image_prefill(model, cfg, prompt: torch.Tensor, seed: int) -> dict:
+    """A VLM's fused prefill of ``prompt`` behind ``cfg.n_image_tokens``
+    image embeddings drawn by ``vlm_batch`` from ``seed``: ``patches``
+    and ``image_logits`` (B, 1, padded_vocab), checked finite."""
+    B, T = prompt.shape
+    patches = make_batch(cfg, B, cfg.n_image_tokens + T, seed=seed)[
+        "patches"].to(prompt.device)
+    _, logits = make_prefill_step(cfg)(model, {"tokens": prompt,
+                                               "patches": patches})
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits after the image prefix")
+    print(f"smoke: fused prefill of {tuple(patches.shape)} image embeddings "
+          f"and {T} tokens: logits finite")
+    return {"patches": patches, "image_logits": logits}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -540,9 +573,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (conv: C=8, S=9, and a check of "
                          "stream 0 against the one-shot forward; ssm, dense, "
-                         "moe and encdec: 2 layers, hybrid 4, d_model 64, "
-                         "and a check of the fused prefill against the "
-                         "sequential decode)")
+                         "moe, vlm and encdec: 2 layers, hybrid 4, d_model "
+                         "64, and a check of the fused prefill against the "
+                         "sequential decode; vlm: and a fused prefill "
+                         "behind its image embeddings)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--batch", type=int, default=4)
@@ -552,7 +586,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="LM: tokens generated per sequence")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="LM: only 1 (the language models' parameter "
-                         "sharding waits in ROADMAP.md queue A item 4)")
+                         "sharding waits in ROADMAP.md queue A item 5)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--streams", type=int, default=8,
                     help="number of queued streaming requests")

@@ -71,6 +71,17 @@ card ``chip_smoke.py`` registers and trains the cut
 experts at every other published width, 3.37 B parameters, ``xent_chunk``
 1,024) at ``--attn-impl flash --batch 4 --seq 4096``.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \
+        --attn-impl flash --steps 6 --batch 4 --seq 4096
+
+trains the full InternVL2-2B (the VLM family: 24 layers, 16 query heads
+over 8 KV heads of 128, bf16, remat on, 1.89 B parameters) on random
+text tokens behind 256 standard-normal image embeddings: ``--seq`` is
+the TOTAL length, image positions included (text = seq - 256, as the JAX
+package's ``vlm_batch``), attention runs causal over all of it through
+the flash kernels, the loss over the text positions only; tokens/s
+counts every position, image ones included.
+
 ``--device cpu`` runs the plain PyTorch version on the CPU (with
 ``--smoke`` for the reduced config); without a GPU and without that flag
 it raises.  Each step prints its loss, gradient norm and time (to a
@@ -242,12 +253,13 @@ def _parse_args(argv):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (conv: C=8, S=9; "
-                         "ssm, dense, moe and encdec: 2 layers, hybrid 4, "
-                         "d_model 64)")
+                         "ssm, dense, moe, vlm and encdec: 2 layers, hybrid "
+                         "4, d_model 64; vlm: 8 image tokens)")
     ap.add_argument("--attn-impl", choices=("chunked", "flash"), default=None,
-                    help="self-attention of a dense or encoder-decoder "
-                         "model: 'chunked' (plain PyTorch) or 'flash' (the "
-                         "flash kernels); default: the config's")
+                    help="self-attention of a transformer (dense, MoE, "
+                         "VLM, encoder-decoder, hybrid): 'chunked' (plain "
+                         "PyTorch) or 'flash' (the flash kernels); default: "
+                         "the config's")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--steps", type=int, default=20)
@@ -257,7 +269,7 @@ def _parse_args(argv):
     ap.add_argument("--seq", type=int, default=60_000,
                     help="track width (paper §4.2: 50,000 + 2 x 5,000) or "
                          "tokens per sequence (an encoder-decoder's decoder "
-                         "tokens)")
+                         "tokens; a VLM's image and text positions)")
     ap.add_argument("--accum", type=int, default=1,
                     help="microbatches per step (gradients summed in fp32)")
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -549,7 +561,8 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
             log(f"arch={cfg.name} device={device} batch={args.batch} "
                 f"seq={args.seq} accum={accum}"
                 + (f" attn_impl={cfg.attn_impl}"
-                   if cfg.family in ("dense", "encdec", "hybrid", "moe")
+                   if cfg.family in ("dense", "encdec", "hybrid", "moe",
+                                     "vlm")
                    else "")
                 + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
                    else f" dp={dp} path=data_parallel" if group is not None

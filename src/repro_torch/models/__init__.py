@@ -2,10 +2,11 @@
 ``get_model(cfg)`` returns the module that builds the config's family, and
 ``init_model`` builds the model of any ported family from a seed.
 
-Among the language models the SSM family (Mamba2), the dense
-transformers, the MoE transformers (Moonlight; DeepSeek-V3, whose
-attention is MLA, ``models/mla.py``), the encoder-decoder (Whisper) and
-the hybrid (Zamba2) are ported, each module with the
+Every language-model family is ported: the SSM family (Mamba2), the
+dense transformers, the MoE transformers (Moonlight; DeepSeek-V3, whose
+attention is MLA, ``models/mla.py``), the VLM (InternVL2: the dense
+transformer behind image embeddings), the encoder-decoder (Whisper) and
+the hybrid (Zamba2), each module with the
 functional surface of the JAX package's (``repro/models/__init__.py``),
 the model an ``nn.Module``:
 
@@ -20,7 +21,8 @@ An MoE model's ``forward`` returns ``(logits, aux)``, aux its summed
 load-balance loss, as the JAX package's ``forward`` does for every
 family.
 
-``decode_step`` updates the cache in place and returns it.  Whisper's
+``decode_step`` updates the cache in place and returns it.  A VLM's
+``forward`` also takes the image embeddings, ``extra_embeds``.  Whisper's
 ``forward`` also takes the encoder's ``frames``, its ``init_cache`` an
 ``enc_len``, and ``whisper.fill_cross_cache`` fills the cross-attention
 K/V before the first decode step.  The conv family's model is
@@ -35,7 +37,7 @@ def get_model(cfg):
     if cfg.family == "ssm":
         from repro_torch.models import mamba2
         return mamba2
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer
         return transformer
     if cfg.family == "encdec":
@@ -44,11 +46,7 @@ def get_model(cfg):
     if cfg.family == "hybrid":
         from repro_torch.models import zamba2
         return zamba2
-    raise NotImplementedError(
-        f"the {cfg.family!r} family's model is not ported to repro_torch "
-        "yet: among the language models only the ssm (mamba2), dense and "
-        "moe (transformer, MLA among them), encdec (whisper) and hybrid "
-        "(zamba2) families are; the vlm waits in ROADMAP.md queue A")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu"):

@@ -14,9 +14,13 @@ dtype.  Layouts are the JAX package's: q (B, T, H, hd), k and v
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -310,23 +314,46 @@ def logits_from_hidden(tok: torch.Tensor, unembed: torch.Tensor | None,
     return logits
 
 
+# the "dots" policy's products with no batch dimension: a projection
+# (B, T, D) @ (D, F) folds to one of these; the attention's einsums
+# (``aten.bmm``) have a batch dimension
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    products with no batch dimension, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
 def maybe_remat(fn, cfg):
-    """``fn`` itself, or with ``cfg.remat`` a function that keeps none of
-    ``fn``'s activations and recomputes them in the backward (JAX's
-    ``nothing_saveable`` policy; the ``"dots"`` policy is not ported).
-    Where autograd records nothing (serving, under ``inference_mode``)
-    the function runs once, as it is."""
+    """``fn`` itself, or with ``cfg.remat`` a function whose activations
+    are recomputed in the backward by ``cfg.remat_policy``: ``"nothing"``
+    keeps none of them (JAX's ``nothing_saveable``), ``"dots"`` keeps
+    the outputs of the products with no batch dimension (``aten.mm``,
+    ``aten.addmm``: the projections and the MLP's products; JAX's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest (the
+    attention's batched products, the elementwise work and the kernels'
+    launches, which reach the card through ctypes, out of the policy's
+    sight, as JAX recomputes its ``pallas_call``s).  The recompute runs
+    the forward's ops on the same inputs, so gradients are bitwise those
+    of either other way.  Where autograd records nothing (serving, under
+    ``inference_mode``) the function runs once, as it is."""
     if not cfg.remat:
         return fn
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported to repro_torch "
-            "yet: only 'nothing' is (ROADMAP.md queue A)")
+    if cfg.remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
 
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
         return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+                                                 use_reentrant=False, **kw)
 
     return remat

@@ -1,6 +1,6 @@
-"""The decoder-only transformer LM, dense and MoE families (counterpart
-of ``repro/models/transformer.py``: StarCoder2, Qwen2, Qwen3; Moonlight,
-DeepSeek-V3).
+"""The decoder-only transformer LM, dense, MoE and VLM families
+(counterpart of ``repro/models/transformer.py``: StarCoder2, Qwen2,
+Qwen3; Moonlight, DeepSeek-V3; InternVL2).
 
 Each layer is ``x + attn(norm(x))`` then ``x + ffn(norm(x))``, the FFN an
 MLP or, in an MoE model's layers after its ``first_dense_layers``, the
@@ -28,8 +28,14 @@ layer against a KV cache of (L, B, Tmax, KV, hd) tensors a stack (an
 MLA model's: the latent (L, B, Tmax, kv_lora) and the rotary key (L, B,
 Tmax, rope)), updated in place; it runs no kernel
 (``common.attention_decode``, ``mla.mla_attention_decode``, as in the
-JAX package).  Not ported (ROADMAP.md queue A): the VLM's image
-embeddings.
+JAX package).
+
+A VLM is the dense model behind a prefix: ``forward(...,
+extra_embeds=)`` puts the (B, n_image_tokens, D) image embeddings,
+cast to the model's dtype, before the token embeddings, and the rotary
+positions and the causal mask run over the whole sequence.  Its decode
+is the dense one over text tokens, as in the JAX package, whose serving
+launcher decodes text only.
 """
 from __future__ import annotations
 
@@ -193,10 +199,12 @@ class Transformer(nn.Module):
                 mod = getattr(mod, part)
             mod.register_parameter(name, nn.Parameter(t))
 
-    def forward(self, tokens: torch.Tensor, *, last_only: bool = False,
+    def forward(self, tokens: torch.Tensor, *,
+                extra_embeds: torch.Tensor | None = None,
+                last_only: bool = False,
                 hidden_only: bool = False) -> torch.Tensor:
-        return forward(self, tokens, last_only=last_only,
-                       hidden_only=hidden_only)
+        return forward(self, tokens, extra_embeds=extra_embeds,
+                       last_only=last_only, hidden_only=hidden_only)
 
 
 def init_params(cfg, *, seed: int = 0,
@@ -212,11 +220,9 @@ def init_params(cfg, *, seed: int = 0,
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's transformer is not ported to "
-            "repro_torch yet: only the dense and MoE ones are (ROADMAP.md "
-            "queue A)")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"the transformer builds the dense, MoE and VLM "
+                         f"families, not {cfg.family!r}")
 
 
 def _nest(keys: list[str], values) -> dict:
@@ -280,17 +286,23 @@ def _final(model: nn.Module, x: torch.Tensor, hidden_only: bool = False
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,
+            extra_embeds: torch.Tensor | None = None,
             last_only: bool = False, hidden_only: bool = False):
     """tokens (B, T) int -> fp32 logits (B, T, padded_vocab), the padded
     columns at ``common.NEG_INF``; for the MoE family ``(logits, aux)``,
     aux the MoE layers' load-balance losses summed (0-d fp32).
+    ``extra_embeds`` (B, T_img, D), a VLM's image embeddings, go before
+    the token embeddings in the model's dtype: the output then covers
+    T_img + T positions, the rotary positions 0..T_img + T - 1.
     ``last_only`` keeps the last position only (B, 1, ...);
     ``hidden_only`` returns the final-normed hidden state instead of
     logits.  With ``cfg.remat`` each layer's activations are recomputed
     in the backward.  The MoE layers record into ``model.routing``."""
     cfg = model.cfg
     x = cm.embed_tokens(model.embed.tok, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=tokens.device)
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if cfg.family == "moe" else None)
     first = 0  # the stack's first layer, counted over both stacks

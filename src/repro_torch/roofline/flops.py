@@ -1,7 +1,8 @@
 """Operation and byte counts: the conv layer's, and parameter counts and
 useful flops per step of the port's configs (counterpart of
-``repro/roofline/flops.py``, for the families the port has: conv, ssm,
-dense, moe (MLA among them), encdec, hybrid).
+``repro/roofline/flops.py``, for every family: conv, ssm, dense, moe
+(MLA among them), vlm (counted as dense, over its image and text
+positions), encdec, hybrid).
 
 ``conv1d_flops`` is the paper's efficiency denominator; ``model_flops``
 is the useful compute of one step (6·N·D for training, N the parameters
@@ -115,7 +116,7 @@ def param_count(cfg, active_only: bool = False) -> int:
     if cfg.family == "conv":
         return cfg.conv_filter * _conv_per_point(cfg)
     emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return emb + cfg.n_layers * (_attn_params(cfg)
                                      + _mlp_params(cfg, cfg.d_ff))
     if cfg.family == "moe":
@@ -155,7 +156,7 @@ def _encoder_params(cfg) -> int:
 
 
 def _attn_seq_flops(cfg, B: int, T: int, causal: bool = True) -> int:
-    """QK^T + AV flops of one full-sequence pass (dense; hybrid: the
+    """QK^T + AV flops of one full-sequence pass (dense and VLM; hybrid: the
     shared block's applications, JAX's count, without the SSD's; encdec:
     the encoder's non-causal self-attention over its frames, the
     decoder's causal one over T tokens and its cross-attention), or the
@@ -163,7 +164,7 @@ def _attn_seq_flops(cfg, B: int, T: int, causal: bool = True) -> int:
     mean of its qk (nope + rope) and v widths as the head dim, as JAX's
     count does."""
     factor = 0.5 if causal else 1.0
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         a = cfg.mla
         hd = ((a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim) / 2
               if a else cfg.head_dim)
@@ -215,7 +216,7 @@ def model_flops(cfg, shape) -> float:
         attn = 2 * B * T * cfg.n_heads * (
             a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim)
         return float(2 * n * B + (expand + attn) * cfg.n_layers)
-    # dense, moe and encdec decode: one token, attention reads the whole
+    # dense, moe, vlm and encdec decode: one token, attention reads the whole
     # cache
     # (and the encoder-decoder's cross K/V)
     attn = 4 * B * T * cfg.n_heads * cfg.head_dim * cfg.n_layers

@@ -3,12 +3,13 @@
 Batch layouts:
   conv: ``{'noisy', 'clean', 'peaks'}``, each (B, W);
   ssm, dense, moe, hybrid:  ``{'tokens', 'labels'}``, each (B, T) int32;
+  vlm: those of the text and ``'patches'`` (B, n_image_tokens, d_model);
   encdec: those and ``'frames'`` (B, encoder_width, d_model).
 
 The language models' total is ``nll + AUX_WEIGHT * aux``, aux the MoE
 load-balance loss (0 outside the MoE family); with ``cfg.xent_chunk``
-the NLL is the streamed cross-entropy.  The VLM's loss waits in
-ROADMAP.md queue A.
+the NLL is the streamed cross-entropy.  The VLM's NLL is over the text
+positions only.
 """
 from __future__ import annotations
 
@@ -82,22 +83,32 @@ def make_loss_fn(cfg, *, grad_reduce=None,
                                   model_reduce_chunks=model_reduce_chunks)
 
         return conv_loss
-    if cfg.family not in ("ssm", "dense", "encdec", "hybrid", "moe"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's loss is not ported to repro_torch "
-            "yet: only the conv, ssm, dense, moe, encdec and hybrid "
-            "families' are (ROADMAP.md queue A)")
+    if cfg.family not in ("ssm", "dense", "encdec", "hybrid", "moe", "vlm"):
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def lm_loss(model, batch):
         """The mean next-token NLL, streamed with ``cfg.xent_chunk``, and
         JAX's total ``nll + AUX_WEIGHT * aux``, aux the MoE load-balance
         loss (the total is the NLL itself for the families without one).
         The encoder-decoder's logits are those of the tokens given the
-        batch's frames, over the full logits (JAX's ``encdec_loss``)."""
+        batch's frames, over the full logits (JAX's ``encdec_loss``).  A
+        VLM's NLL is that of the text positions, after the batch's image
+        embeddings: JAX's ``vlm_loss`` slices the logits of every
+        position to the text's, the port unembeds the text's hidden
+        rows only, the same function without the image rows' logits
+        (streamed with ``cfg.xent_chunk`` as the other families'; JAX's
+        ignores it, and the VLM's config leaves it 0)."""
         if cfg.family == "encdec":
             loss = softmax_xent(model(batch["tokens"], frames=batch["frames"]),
                                 batch["labels"])
             return loss, {"nll": loss}
+        if cfg.family == "vlm":
+            patches = batch["patches"]
+            hidden = model(batch["tokens"], extra_embeds=patches,
+                           hidden_only=True)
+            nll = streamed_xent(model, hidden[:, patches.shape[1]:],
+                                batch["labels"], cfg)
+            return nll, {"nll": nll}
         out = model(batch["tokens"], hidden_only=bool(cfg.xent_chunk))
         out, aux = out if cfg.family == "moe" else (out, None)
         if cfg.xent_chunk:

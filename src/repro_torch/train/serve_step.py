@@ -76,18 +76,23 @@ def make_cache(cfg, batch: int, max_len: int,
 def make_prefill_step(cfg):
     """``prefill_step(model, batch) -> (next_tokens, logits)``: the fused
     prefill, ONE full-sequence forward over ``batch["tokens"]`` (B, T)
-    (with an encoder-decoder's ``batch["frames"]``) with the logits of
-    the last position only (B, 1, padded_vocab); the (B, T, V) logits are
-    never made.  On the card it runs the family's kernels: Mamba2's and
-    Zamba2's convs through ``depthwise_conv1d_fwd``, a dense or MoE
-    model's attention, Whisper's encoder and decoder self-attention and
-    Zamba2's shared block through ``flash_fwd`` when ``cfg.attn_impl ==
-    "flash"``."""
+    (with an encoder-decoder's ``batch["frames"]``, and a VLM's image
+    embeddings ``batch["patches"]`` before the tokens where the batch
+    has them, as JAX's passes them; without them, the text alone, as its
+    decode runs) with the logits of the last position only (B, 1,
+    padded_vocab); the (B, T, V) logits are never made.  On the card it
+    runs the family's kernels: Mamba2's and Zamba2's convs through
+    ``depthwise_conv1d_fwd``, a dense, MoE or VLM model's attention (a
+    VLM's over the image and text positions), Whisper's encoder and
+    decoder self-attention and Zamba2's shared block through
+    ``flash_fwd`` when ``cfg.attn_impl == "flash"``."""
     model_mod = get_model(cfg)
 
     @torch.inference_mode()
     def prefill_step(model, batch):
         kw = {"frames": batch["frames"]} if cfg.family == "encdec" else {}
+        if cfg.family == "vlm":
+            kw["extra_embeds"] = batch.get("patches")
         logits = model_mod.forward(model, batch["tokens"], last_only=True,
                                    **kw)
         if cfg.family == "moe":

@@ -343,19 +343,34 @@ def test_jax_cannot_decode_bf16_dense_with_an_fp32_cache(arch):
 
 
 def test_moe_decode_raises():
-    """The MoE family's decode is ported (``tests/test_torch_moe.py``), and
-    with MLA attention (DeepSeek-V3's compressed latent cache,
-    ``tests/test_torch_mla.py``); the transformer decode path still
-    missing raises: the VLM family."""
+    """Every transformer family decodes: the MoE family
+    (``tests/test_torch_moe.py``), with MLA attention
+    (``tests/test_torch_mla.py``), and the VLM, whose decode is the dense
+    one over text tokens (the same cache, the same logits bitwise on the
+    same weights); a family the transformer does not build raises."""
     _, cfg = _cfgs("starcoder2-3b")
-    vlm = dataclasses.replace(cfg, family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_cache(vlm, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    vlm = dataclasses.replace(cfg, family="vlm", n_image_tokens=8)
+    dense, model = transformer.init_params(cfg, seed=2), \
+        transformer.init_params(vlm, seed=2)
+    tokens = torch.from_numpy(np.arange(6, dtype=np.int32).reshape(2, 3))
+    caches = [transformer.init_cache(c, 2, 4, torch.float32)
+              for c in (cfg, vlm)]
+    assert all(tuple(c["dense"]["k"].shape) == (2, 2, 4, 2, 16)
+               for c in caches)
+    with torch.inference_mode():
+        for t in range(3):
+            want, _ = transformer.decode_step(dense, caches[0],
+                                              tokens[:, t:t + 1], t)
+            got, _ = transformer.decode_step(model, caches[1],
+                                             tokens[:, t:t + 1], t)
+            assert torch.equal(got, want), t
+    conv = dataclasses.replace(cfg, family="conv")
+    with pytest.raises(ValueError, match="not 'conv'"):
+        transformer.init_cache(conv, 1, 8)
+    with pytest.raises(ValueError, match="not 'conv'"):
         transformer.decode_step(
-            type("M", (), {"cfg": vlm})(), None, None, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("internvl2-2b")
+            type("M", (), {"cfg": conv})(), None, None, 0)
+    assert configs.get("internvl2-2b").n_image_tokens == 256
     assert configs.get("deepseek-v3-671b").mla is not None
 
 
@@ -478,6 +493,6 @@ def test_launcher_lm_default_device_and_model_parallel_raise():
         serve.main(["--arch", "mamba2-370m", "--smoke", "--batch", "2",
                     "--prompt-len", "8", "--gen", "8"])
     with pytest.raises(NotImplementedError,
-                       match="models/sharding.py.*queue A item 4"):
+                       match="models/sharding.py.*queue A item 5"):
         serve.main(["--arch", "starcoder2-3b", "--device", "cpu",
                     "--smoke", "--model-parallel", "2"])

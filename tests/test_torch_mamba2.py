@@ -51,7 +51,7 @@ from repro_torch.configs.base import reduced
 from repro_torch.data import synthetic
 from repro_torch.kernels import conv1d_brgemm, ops
 from repro_torch.launch import train
-from repro_torch.models import common, mamba2
+from repro_torch.models import common, mamba2, transformer
 from repro_torch.train import losses
 from repro_torch.train.train_step import init_state, make_train_step
 
@@ -420,22 +420,28 @@ def test_checkpoint_port_writes_jax_restores(cfgs, jparams, tmp_path):
 # --- registry, loss and launcher ---------------------------------------------
 
 def test_other_lm_families_raise(cfgs, jparams):
-    """The families and options still missing raise (the VLM, the "dots"
-    remat policy); the streamed cross-entropy, which raised here until
-    it was ported, gives Mamba2's full-logits loss."""
+    """The families and options that raised here until they were ported
+    build: the VLM's model is the transformer, the "dots" remat policy
+    wraps a layer (``tests/test_torch_vlm.py`` holds it to JAX's), the
+    streamed cross-entropy gives Mamba2's full-logits loss; an unknown
+    remat policy raises."""
     _, cfg = cfgs
     vlm = dataclasses.replace(cfg, family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.get_model(vlm)
+    assert models.get_model(vlm) is transformer
     model = _model(cfg, jparams)
     batch = _torch_batch(_batch_np(5, cfg, seq=32))
     full, _ = losses.make_loss_fn(cfg)(model, batch)
     streamed, _ = losses.make_loss_fn(dataclasses.replace(
         cfg, xent_chunk=8))(model, batch)
     np.testing.assert_allclose(streamed.item(), full.item(), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    x = torch.ones(3, requires_grad=True)
+    dots = common.maybe_remat(lambda x: 2 * x, dataclasses.replace(
+        cfg, remat=True, remat_policy="dots"))
+    dots(x).sum().backward()
+    assert torch.equal(x.grad, torch.full((3,), 2.0))
+    with pytest.raises(ValueError, match="remat_policy 'offload'"):
         common.maybe_remat(lambda x: x, dataclasses.replace(
-            cfg, remat=True, remat_policy="dots"))
+            cfg, remat=True, remat_policy="offload"))
     assert models.get_model(cfg) is mamba2
 
 

@@ -174,15 +174,15 @@ def test_config_is_the_jax_packages(which):
 
 
 def test_config_is_ported_and_the_vlm_alone_waits():
-    """``configs.get`` returns the config; only the VLM stays refused, by
-    the config registry and the model registry."""
+    """``configs.get`` returns the config; the VLM, which waited here
+    last, is ported too (``tests/test_torch_vlm.py``): no architecture is
+    refused, and the model registry gives the transformer for both."""
     cfg = configs.get(ARCH)
     assert cfg.mla.kv_lora_rank == 512 and cfg.moe.n_experts == 256
-    assert NOT_PORTED == ("internvl2-2b",)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        configs.get("internvl2-2b")
-    with pytest.raises(NotImplementedError, match="vlm waits"):
-        models.get_model(dataclasses.replace(cfg, family="vlm"))
+    assert NOT_PORTED == ()
+    assert configs.get("internvl2-2b").family == "vlm"
+    assert models.get_model(dataclasses.replace(cfg, family="vlm")) is \
+        transformer
     assert models.get_model(cfg) is transformer
 
 

@@ -236,16 +236,20 @@ def test_published_counts_are_the_jax_packages():
         2 * flops.active_param_count(cfg) - 2 * (163840 - 8) * D + kv)
 
 
-def test_other_families_stay_refused():
-    assert ARCH not in NOT_PORTED
-    for arch in ("internvl2-2b",):
-        assert arch in NOT_PORTED
-        with pytest.raises(NotImplementedError, match="queue A"):
-            configs.get(arch)
+def test_other_families_stay_refused(monkeypatch):
+    """Every architecture of the JAX package is ported (the VLM last), and
+    the model registry builds each family; what stays refused is the
+    language models' parameter sharding, which the JAX package's model
+    axis gives them (``models/sharding.py``)."""
+    from repro_torch.train import data_parallel
+    assert NOT_PORTED == () and set(configs.names()) == set(jconfigs.names())
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="queue A"):
-        models.get_model(dataclasses.replace(cfg, family="vlm"))
+    assert models.get_model(dataclasses.replace(cfg, family="vlm")) is \
+        transformer
     assert models.get_model(cfg) is transformer
+    monkeypatch.setattr(data_parallel, "mp_size", lambda group: 2)
+    with pytest.raises(ValueError, match="parameter sharding waits"):
+        data_parallel.make_sharded_grad_fn(cfg, None, model_group="two")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

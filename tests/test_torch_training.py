@@ -165,13 +165,24 @@ def test_loss_and_grads_match_jax(cfgs, jparams, path, monkeypatch):
 
 
 def test_loss_fn_of_other_families_raises(cfgs):
+    """Every family's loss and batches are ported, the VLM's last (its
+    batch: text tokens and labels after ``n_image_tokens`` image
+    embeddings, ``seq`` counting both); a family the port does not know
+    raises."""
     import dataclasses
     _, cfg = cfgs
-    # the MoE family's loss and batches are ported; the VLM's are not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.make_loss_fn(dataclasses.replace(cfg, family="vlm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synthetic.make_batch(dataclasses.replace(cfg, family="vlm"), 1, 8)
+    vlm = dataclasses.replace(configs.get("internvl2-2b"), d_model=8,
+                              n_image_tokens=3)
+    b = synthetic.make_batch(vlm, 2, 8)
+    assert b["tokens"].shape == b["labels"].shape == (2, 5)
+    assert b["patches"].shape == (2, 3, 8)
+    assert b["patches"].dtype == torch.bfloat16
+    assert callable(losses.make_loss_fn(vlm))
+    unknown = dataclasses.replace(cfg, family="retrieval")
+    with pytest.raises(ValueError, match="unknown family"):
+        losses.make_loss_fn(unknown)
+    with pytest.raises(ValueError, match="unknown family"):
+        synthetic.make_batch(unknown, 1, 8)
 
 
 @pytest.mark.parametrize("grad_scale", [0.01, 100.0], ids=["unclipped",

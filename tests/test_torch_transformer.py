@@ -327,14 +327,23 @@ def test_remat_matches_no_remat(arch, monkeypatch):
 
 
 def test_decode_path_and_other_families_raise():
+    """The transformer builds the dense, MoE and VLM families (the VLM's
+    leaves are the dense model's: the image embeddings are an input);
+    another family raises in the model registry and in ``init_params``."""
     _, cfg = _cfgs("starcoder2-3b")
-    vlm = dataclasses.replace(cfg, family="vlm")  # MoE is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.get_model(vlm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(vlm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get("internvl2-2b")
+    vlm = dataclasses.replace(cfg, family="vlm", n_image_tokens=8)
+    assert models.get_model(vlm) is transformer
+    a, b = transformer.init_params(cfg, seed=4), transformer.init_params(
+        vlm, seed=4)
+    for (k, va), (kb, vb) in zip(a.state_dict().items(),
+                                 b.state_dict().items()):
+        assert k == kb and torch.equal(va, vb), k
+    assert configs.get("internvl2-2b").family == "vlm"
+    unknown = dataclasses.replace(cfg, family="retrieval")
+    with pytest.raises(ValueError, match="unknown family"):
+        models.get_model(unknown)
+    with pytest.raises(ValueError, match="not 'retrieval'"):
+        transformer.init_params(unknown)
     assert models.get_model(cfg) is transformer
 
 
