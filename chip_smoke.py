@@ -268,8 +268,9 @@ Phases (any failed check raises, so the run exits non-zero):
       by phase 7's rule and the flash kernels at (4, 4,096, 32 heads of
       112, causal) in bf16 and at a small shape in fp32 by phase 10's,
       timed beside the library call and the bound; (b) ``serve_lm`` on
-      the 81 layers at batch 8, a 200-token prompt, 64 generated tokens,
-      ``--smoke``: 81 ``depthwise_conv1d_fwd`` and 13 ``flash_fwd``
+      the config cut to 12 layers (two applications of the shared block)
+      at batch 8, a 200-token prompt, 64 generated
+      tokens, ``--smoke``: 12 ``depthwise_conv1d_fwd`` and 2 ``flash_fwd``
       launches in the fused prefill, none in the decode steps, finite
       logits, the prefill within ``serve.prefill_tol`` of the decode;
       decode p50/p99, tokens/s, prefill times, peak memory, the decode's
@@ -285,9 +286,9 @@ Phases (any failed check raises, so the run exits non-zero):
       shared, 16 heads over 16 KV heads of 128, bf16, flash): (a) the
       flash kernels at (4, 4,096, 16 heads of 128, G = 1, causal) in bf16
       and at a small shape in fp32 by phase 10's rule, timed beside SDPA
-      and the bound; (b) ``serve_lm`` on the config cut to 12 layers
-      (``moonshot-v1-16b-a3b-12l``, registered here: the dense layer and
-      11 MoE layers) at batch 8, a 200-token prompt, 64 generated tokens,
+      and the bound; (b) ``serve_lm`` on the config cut to 6 layers
+      (``moonshot-v1-16b-a3b-6l-serve``, registered here: the dense layer
+      and 5 MoE layers) at batch 8, a 200-token prompt, 64 generated tokens,
       ``--smoke``: the fused prefill within ``serve.prefill_tol`` of the
       decode with the decode's expert selection replayed, its own
       selection's flips per layer reported, 12 ``flash_fwd`` launches a
@@ -350,7 +351,28 @@ Phases (any failed check raises, so the run exits non-zero):
       each (losses and gradient norms bitwise equal) and every gradient
       of one batch bitwise equal, with each policy's peak memory and step
       time; the phase's seconds;
-  24. a JSON line of the six kernels, the card's line, and last the
+  24. tensor-parallel serving (``tp_serve_check``; ``serve
+      --model-parallel 2``, ``models/sharding.py``'s blocks): ``flash_fwd``
+      at a rank's prefill shapes (StarCoder2-3B's (8, 200, 1 KV head, G
+      12, 128); DeepSeek-V3's 64 MLA heads of 192, v padded from 128)
+      timed beside SDPA and the bound; one process serves StarCoder2-3B
+      (30 layers, bf16, flash) at batch 8, a 200-token prompt and 64
+      generated tokens, its 2-layer fp32 copy, and DeepSeek-V3's
+      ``deepseek-v3-671b-2l-16e`` (recording its expert selection) and
+      its fp32 copy (the bf16 weights cast); then 2 gloo ranks on the card serve each through the
+      launcher from torchrun's variables, each drawing the model on the
+      host and keeping its blocks: each rank's logits at the prompt's last
+      position within ``serve.prefill_tol`` (fp32: 1e-5) of the one
+      process's largest logit, greedy tokens equal where the margin is
+      clear, the ranks' logits and tokens bitwise equal, 30 (4: the
+      replayed and the free prefill of 2 layers) ``flash_fwd`` launches
+      a rank's fused prefill at the rank's shape and none a decode step;
+      DeepSeek-V3's decode with the one process's selection replayed,
+      then free (its flips reported, its selections bitwise equal across
+      the ranks), and its absorbed decode on a rank; decode p50/p99,
+      tokens/s, a rank's peak memory, weights and cache bytes, the
+      collectives a step and their host time; the phase's seconds;
+  25. a JSON line of the six kernels, the card's line, and last the
       result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -565,8 +587,8 @@ WH_ZERO_GRAD = {"enc_layers.attn.bk": "enc_layers.attn.wk",
 # (ZB_BATCH, 7,296, ZB_SEQ) by phase 7's rule, the flash pair at (ZB_BATCH,
 # ZB_SEQ, 32 heads over 32 KV heads of 112, bf16, causal) and in fp32 at
 # ZB_FA_F32 (B, T, KV, G) by phase 10's, each timed beside its library call
-# and the bound.  (b) ``serve_lm`` on the full 81 layers, built once in
-# bf16 with attn_impl="flash" (random non-zero norms, conv biases, D,
+# and the bound.  (b) ``serve_lm`` on the config cut to ZB_SERVE_LAYERS
+# layers, built once in bf16 with attn_impl="flash" (random non-zero norms, conv biases, D,
 # dt_bias and A_log), at batch ZB_SERVE_BATCH, phase 14's LM_PROMPT-token
 # prompt and LM_GEN generated tokens, ``--smoke``; the decode traced over
 # ZB_TRACE_PROMPT + ZB_TRACE_GEN - 1 steps for its busy share (5,360
@@ -578,6 +600,10 @@ WH_ZERO_GRAD = {"enc_layers.attn.bk": "enc_layers.attn.wk",
 # plain attention and conv (phase 11's rule; the shared block applied
 # twice, so its gradient is a sum, as is the embedding table's).
 ZB_ARCH, ZB_TRAIN_ARCH, ZB_TRAIN_LAYERS = "zamba2-7b", "zamba2-7b-12l", 12
+# served at a cut depth (the 81 layers' serial draw took 66.7 of the
+# phase's 191.6 s on an H100 80GB HBM3 at 700 W): 12 layers keep two
+# applications of the shared block (attn_every 6), every width kept
+ZB_SERVE_LAYERS = 12
 ZB_SERVE_BATCH, ZB_BATCH, ZB_SEQ, ZB_STEPS = 8, 4, 4096, 6
 ZB_GRAD_BATCH, ZB_GRAD_SEQ = 1, 512
 ZB_FA_F32 = (1, 1024, 8, 1)
@@ -593,7 +619,7 @@ BREAKDOWN_STEPS = 2
 # pair at (MN_BATCH, MN_SEQ, 16 heads of 128, G = 1, bf16, causal) and
 # in fp32 at MN_FA_F32 (B, T, KV, G) by phase 10's rule, timed beside
 # SDPA and the bound.  (b) ``serve_lm`` on MN_SERVE_ARCH, the config cut
-# to MN_SERVE_LAYERS layers (the dense one and 11 MoE layers, every
+# to MN_SERVE_LAYERS layers (the dense one and 5 MoE layers; every
 # width: all 48 layers' draw and host-bound decode took most of the
 # phase's time), built once in bf16 with attn_impl="flash" (random
 # non-zero norms and router biases), at batch MN_SERVE_BATCH, phase 14's
@@ -613,7 +639,7 @@ BREAKDOWN_STEPS = 2
 # x MN_GRAD_SEQ against the plain attention (phase 11's rule), each MoE
 # layer's selection recorded on both sides first: a flip fails the phase.
 MN_ARCH, MN_TRAIN_ARCH = "moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b-6l"
-MN_SERVE_ARCH, MN_SERVE_LAYERS = "moonshot-v1-16b-a3b-12l", 12
+MN_SERVE_ARCH, MN_SERVE_LAYERS = "moonshot-v1-16b-a3b-6l-serve", 6
 MN_TRAIN_LAYERS, MN_XENT_CHUNK = 6, 1024
 MN_SERVE_BATCH, MN_BATCH, MN_SEQ, MN_STEPS = 8, 4, 4096, 6
 MN_GRAD_BATCH, MN_GRAD_SEQ = 1, 512
@@ -675,6 +701,28 @@ VL_SERVE_BATCH, VL_BATCH, VL_SEQ, VL_STEPS = 8, 4, 4096, 6
 VL_GRAD_BATCH, VL_GRAD_SEQ = 2, 512
 VL_DOTS_BATCH, VL_DOTS_STEPS = 2, 3
 VL_FA_F32 = (1, 1024, 8, 2)
+# phase 24, tensor-parallel serving of the transformer language models
+# (``serve --model-parallel``, ``models/sharding.py``'s blocks): TS_MP
+# gloo ranks spawned on the one card run the launcher from torchrun's
+# variables (a localhost port), each drawing the same seeded model on the
+# host (random non-zero biases and norms) and keeping its blocks.  (a)
+# StarCoder2-3B at its published widths, all 30 layers, bf16, flash: one
+# process serves it at phase 14's traffic at batch TS_BATCH, then the
+# ranks serve it with ``--smoke`` (each rank's fused prefill runs 30
+# ``flash_fwd`` on its (TS_BATCH, LM_PROMPT, 1, 12, 128) heads); each
+# rank's decode logits at the prompt's last position within
+# ``serve.prefill_tol`` of the one process's largest logit, the greedy
+# tokens equal where the top-2 margin is clear, the two ranks' logits and
+# tokens bitwise equal; an LM_FP32_LAYERS-layer fp32 copy within
+# TS_F32_TOL.  (b) DeepSeek-V3's DS_TRAIN_ARCH (every width; 1 dense + 1
+# MoE layer of 16 routed experts): 64 MLA heads of 192 and 8 routed
+# experts a rank, as (a) with the one process's expert selection replayed
+# in the ranks' decode, then a free run (its flips over the prompt
+# against the one process reported, its selections bitwise equal across
+# the ranks), the absorbed decode on a rank's blocks against the one
+# process's (gated in fp32, reported in bf16), and the fp32 copy (the cut
+# is 2 layers already; its bf16 weights cast, not drawn again).
+TS_SC2, TS_MP, TS_BATCH, TS_F32_TOL = "starcoder2-3b", 2, 8, 1e-5
 # the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
 # at 3 and its two passes at 192
 FLASH_WGMMA_KERNELS = 13
@@ -1875,6 +1923,12 @@ def _attn_bound(B, T, H, width, causal, dtype_name, nbytes):
                           dtype_name)
 
 
+def _flash_fwd_bytes(rows_q, rows_k, hd, vd, es):
+    """The bytes ``flash_fwd`` must move: q and k in at hd, v in and o
+    out at vd (``es`` bytes an element), lse out in fp32."""
+    return (rows_q + rows_k) * (hd + vd) * es + rows_q * 4
+
+
 def _flash_errs(label, pairs, lse, lse_p, bf16):
     """Each (kernel, plain) pair of ``pairs`` against its tolerance (bf16:
     per element; fp32: FA_TOL_F32 of the largest value) and lse within
@@ -1970,7 +2024,7 @@ def _flash_check(torch, fa, ref, gen, rows, label, B, T, KV, G, dtype,
         # fwd: q, k, v in, o and lse out; bwd: q, k, v, o, do, lse in,
         # dq, dk, dv out (delta is computed inside the call); q, k, dq
         # and dk hd wide, v, o, do and dv vd wide
-        f_bytes = ((rows_q + rows_k) * (hd + vd)) * es + rows_q * 4
+        f_bytes = _flash_fwd_bytes(rows_q, rows_k, hd, vd, es)
         b_bytes = ((2 * rows_q + 2 * rows_k) * hd
                    + (2 * rows_q + 2 * rows_k) * vd) * es + rows_q * 4
         qt, kt, vt = (t.transpose(1, 2) for t in (
@@ -2088,13 +2142,14 @@ def flash_kernel_checks(torch, fa, ref):
     return rows
 
 
-def _lm_model(torch, cfg, init_model, seed):
+def _lm_model(torch, cfg, init_model, seed, device=None):
     """StarCoder2, Whisper, Zamba2, Moonlight or DeepSeek-V3 from a seed
     with random non-zero biases and norm parameters (MLA's ``q_norm`` and
     ``kv_norm`` among them), Zamba2's conv biases, D, dt_bias and A_log
     and the MoE layers' router biases moved (zeros, ones and the init's
-    values would leave those paths untested)."""
-    model = init_model(cfg, seed=seed, device=DEVICE)
+    values would leave those paths untested), on ``device`` (default
+    DEVICE)."""
+    model = init_model(cfg, seed=seed, device=device or DEVICE)
     gen = torch.Generator().manual_seed(seed + 100)
     stacks = ("dense_layers.", "moe_layers.", "enc_layers.", "dec_layers.",
               "layers.")
@@ -4533,7 +4588,8 @@ def _zb_flash_rows(torch, fa, ref, cfg):
 
 
 def _zb_serve(torch, serve, cfg, model, counters):
-    """Phase 20 (b): ``serve_lm`` on the full Zamba2-7B (``--smoke``: the
+    """Phase 20 (b): ``serve_lm`` on Zamba2-7B cut to ZB_SERVE_LAYERS
+    layers (``--smoke``: the
     fused prefill held to the decode's logits within
     ``serve.prefill_tol``), launches counted around the fused prefill (a
     ``depthwise_conv1d_fwd`` a layer, a ``flash_fwd`` an application of
@@ -4621,8 +4677,8 @@ def zamba2_check(torch, np, configs, init_model, serve, train, synthetic,
                  losses, ref, conv1d_brgemm, fa):
     """Phase 20: Zamba2-7B on the card (see ZB_*): the depthwise and flash
     kernels at its training shapes (``dw_kernel_checks``,
-    ``_zb_flash_rows``), the full model built once (bf16, flash) and
-    served (``_zb_serve``), then the 12-layer cut trained through the
+    ``_zb_flash_rows``), the model cut to ZB_SERVE_LAYERS layers built
+    once (bf16, flash) and served (``_zb_serve``), then the 12-layer cut trained through the
     launcher (3 L + L depthwise and 2 + 1 flash launches an application
     a step: forward, remat recompute, backward) and its fp32 copy's whole
     gradient against the plain attention and conv."""
@@ -4632,7 +4688,8 @@ def zamba2_check(torch, np, configs, init_model, serve, train, synthetic,
 
     t0 = time.perf_counter()
     counters = _counters(conv1d_brgemm, fa)
-    cfg = dataclasses.replace(configs.get(ZB_ARCH), attn_impl="flash")
+    cfg = dataclasses.replace(configs.get(ZB_ARCH), n_layers=ZB_SERVE_LAYERS,
+                              attn_impl="flash")
     _, _, conv_dim = mamba2.dims(cfg)
     out = dict(dw_rows=dw_kernel_checks(
         torch, conv1d_brgemm, ref, "zamba2", (ZB_BATCH, conv_dim, ZB_SEQ),
@@ -5147,6 +5204,19 @@ def _ds_absorb(torch, serve, moe, cfg, model, prompt, counters):
     return out
 
 
+def _ds_train_cfg(configs):
+    """DS_TRAIN_ARCH, registered: DeepSeek-V3 at every width cut to
+    DS_TRAIN_LAYERS layers (1 dense, 1 MoE) of DS_TRAIN_EXPERTS routed
+    experts, the streamed cross-entropy over DS_XENT_CHUNK positions."""
+    import dataclasses
+    full = configs.get(DS_ARCH)
+    return configs.register(dataclasses.replace(
+        full, name=DS_TRAIN_ARCH, n_layers=DS_TRAIN_LAYERS,
+        moe=dataclasses.replace(full.moe, n_experts=DS_TRAIN_EXPERTS,
+                                first_dense_layers=1),
+        xent_chunk=DS_XENT_CHUNK))
+
+
 def deepseek_check(torch, np, configs, init_model, serve, train, synthetic,
                    losses, ref, conv1d_brgemm, fa):
     """Phase 22: DeepSeek-V3's MLA on the card (see DS_*): the flash
@@ -5183,11 +5253,7 @@ def deepseek_check(torch, np, configs, init_model, serve, train, synthetic,
                                counters)
     del model, prompt
     torch.cuda.empty_cache()
-    tcfg = configs.register(dataclasses.replace(
-        full, name=DS_TRAIN_ARCH, n_layers=DS_TRAIN_LAYERS,
-        moe=dataclasses.replace(full.moe, n_experts=DS_TRAIN_EXPERTS,
-                                first_dense_layers=1),
-        xent_chunk=DS_XENT_CHUNK))
+    tcfg = _ds_train_cfg(configs)
     L = tcfg.n_layers
     per_step = (0, 0, 0, 0, 2 * L, L)
     argv = ["--arch", DS_TRAIN_ARCH, "--attn-impl", "flash", "--batch",
@@ -5594,6 +5660,463 @@ def _vl_entries(vl, flash_entries):
         image_prefill={k: pre.get(f"fwd_{k}", pre.get(k)) for k in keys})
 
 
+def _served(torch, serve, counters, cfg, model, argv, routing=None):
+    """``serve.serve_lm`` from ``argv`` on ``model`` (one process's, on
+    the card; or a tensor-parallel rank's whole model on the host, which
+    the launcher narrows to its blocks), this process's peak memory, and
+    the kernels' launches split between the fused prefill (the one under
+    ``--smoke``, ``serve.prefill_gap``) and the rest (the decode steps)."""
+    marks = {}
+    real = serve.prefill_gap
+
+    def prefill_gap(*a, **k):
+        before = {c.__name__: c.launches for c in counters}
+        marks["gap"] = real(*a, **k)
+        marks["prefill"] = {c.__name__: c.launches - before[c.__name__]
+                            for c in counters}
+        return marks["gap"]
+
+    serve.prefill_gap = prefill_gap
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        stats, launched = _counted(counters, lambda: serve.serve_lm(
+            serve.parse_args(argv), cfg, model, routing=routing))
+    finally:
+        serve.prefill_gap = real
+    prefill = marks.get("prefill", {k: 0 for k in launched})
+    out = dict(step_p50_ms=stats["step_p50_ms"],
+               step_p99_ms=stats["step_p99_ms"],
+               tokens_per_s=stats["tokens_per_s"],
+               sequential_prefill_s=stats["prefill_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tokens=stats["tokens"],
+               prompt_logits=stats["prompt_logits"].float().cpu(),
+               prompt=stats["prompt"], prefill_launches=prefill,
+               decode_launches={k: n - prefill[k]
+                                for k, n in launched.items()},
+               prefill_gap=marks.get("gap"))
+    out.update({k: stats[k] for k in ("weights_bytes", "cache_bytes",
+                                      "collectives", "draw_s", "coords")
+                if k in stats})
+    return out
+
+
+def _ts_argv(arch, batch, gen, seed, mp=1, smoke=False):
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(gen), "--seed", str(seed)]
+    if mp > 1:
+        argv += ["--model-parallel", str(mp), "--dist-backend", "gloo"]
+    return argv + (["--smoke"] if smoke else [])
+
+
+def _ts_cfgs(configs):
+    """Phase 24's models: StarCoder2-3B in bf16 with flash, its
+    LM_FP32_LAYERS-layer fp32 copy, DeepSeek-V3's DS_TRAIN_ARCH in bf16
+    with flash, and its fp32 copy."""
+    import dataclasses
+    sc2 = dataclasses.replace(configs.get(TS_SC2), attn_impl="flash")
+    ds = dataclasses.replace(_ds_train_cfg(configs), attn_impl="flash")
+    return dict(
+        starcoder2=sc2, deepseek=ds,
+        starcoder2_f32=dataclasses.replace(sc2, n_layers=LM_FP32_LAYERS,
+                                           dtype="float32"),
+        deepseek_f32=dataclasses.replace(ds, dtype="float32"))
+
+
+def _ts_runs():
+    """(name, config key, batch, generated tokens, weights' seed (None:
+    the previous run's weights cast to fp32), prompt's seed, whether the
+    ranks serve it with ``--smoke``)."""
+    return (("starcoder2", "starcoder2", TS_BATCH, LM_GEN, 241, 242, True),
+            ("starcoder2_f32", "starcoder2_f32", LM_FP32_BATCH, 4, 243, 244,
+             False),
+            ("deepseek", "deepseek", TS_BATCH, LM_GEN, 245, 246, True),
+            ("deepseek_f32", "deepseek_f32", LM_FP32_BATCH, 4, None, 248,
+             False))
+
+
+def _as_fp32(model, cfg):
+    """A copy of ``model`` in fp32 under ``cfg`` (its weights the same
+    values: a second seeded draw of an fp32 copy would take as long as the
+    first)."""
+    out = copy.deepcopy(model).float()
+    out.cfg = cfg
+    return out
+
+
+def _ts_prompt_only(moe, log):
+    """``log``'s selections at the prompt's positions (teacher-forced, so
+    both sides' inputs agree there)."""
+    out = moe.RoutingLog()
+    out.entries = {k: v for k, v in log.entries.items() if k[1] < LM_PROMPT}
+    return out
+
+
+def _host_model(torch, cfg, init_model, seed):
+    """``_lm_model``'s weights drawn on the host (the same bits in every
+    process), left there."""
+    return _lm_model(torch, cfg, init_model, seed, device="cpu")
+
+
+def _ts_rank(rank, st):
+    """Phase 24, one of TS_MP gloo ranks sharing the card: the launcher
+    from torchrun's variables (a localhost port) with ``--model-parallel
+    TS_MP`` on each of ``_ts_runs``' models, drawn whole on the host and
+    narrowed to the rank's blocks by the launcher; an MoE run first with
+    the one process's expert selection replayed, then free; the flash
+    inputs' shapes recorded; then DeepSeek-V3's absorbed decode against
+    the plain one on the rank's blocks (``_ds_absorb``).  Results go to
+    a file the parent reads."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import conv1d_brgemm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import common as cm
+    from repro_torch.models import init_model, mla, moe, transformer
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(4)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
+    os.environ.update(WORLD_SIZE=str(TS_MP), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(st["port"]))
+    counters = _counters(conv1d_brgemm, fa)
+    shapes = []
+    for mod in (cm, mla):  # the flash inputs a rank's attention passes
+        def recorded(q, *a, real=mod.flash_attention, **k):
+            shapes.append(tuple(q.shape))
+            return real(q, *a, **k)
+        mod.flash_attention = recorded
+    cfgs = _ts_cfgs(configs)
+    out = {}
+    try:
+        full = None
+        for name, key, batch, gen, seed, pseed, smoke in _ts_runs():
+            cfg = cfgs[key]
+            full = (_host_model(torch, cfg, init_model, seed) if seed
+                    else _as_fp32(full, cfg))
+            argv = _ts_argv(cfg.name, batch, gen, pseed, TS_MP, smoke)
+            del shapes[:]
+            if cfg.moe is None:
+                r = _served(torch, serve, counters, cfg, full, argv)
+            else:
+                one = moe.RoutingLog()
+                one.entries = {k: tuple(t.to(DEVICE) for t in v) for k, v in
+                               torch.load(st[f"{name}_routing"]).items()}
+                r = _served(torch, serve, counters, cfg, full, argv,
+                            routing=moe.RoutingLog(replay=one))
+                # the free run over the prompt (its inputs the one
+                # process's; past it each side feeds its own tokens)
+                free = moe.RoutingLog()
+                r["free"] = _served(torch, serve, counters, cfg, full,
+                                    _ts_argv(cfg.name, batch, 2, pseed,
+                                             TS_MP), routing=free)
+                r["free"]["flips"] = moe.compare_routing(
+                    _ts_prompt_only(moe, one), _ts_prompt_only(moe, free))
+                r["free"]["selection"] = {
+                    i: free.selection(i)[0].cpu() for i in free.layers()}
+                for k in ("prompt", "tokens"):
+                    r["free"].pop(k)
+            r["flash_shapes"] = list(shapes)
+            if cfg.mla:
+                _, group = mesh.init_mesh(1, TS_MP)
+                shape, coords = mesh.make_host_mesh(model=TS_MP)
+                local = transformer.local_model(full, shape, coords, group,
+                                                device=DEVICE)
+                r["absorb"] = _ts_absorb(torch, serve, moe, cfg, local,
+                                         r["prompt"], one, counters)
+                del local
+            r.pop("prompt")
+            out[name] = r
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(st["out"], f"rank{rank}.pt"))
+
+
+def _ts_absorb(torch, serve, moe, cfg, model, prompt, replay, counters):
+    """DeepSeek-V3's plain and absorbed decodes (``make_serve_step(cfg,
+    absorb=)``) over the prompt's first DS_ABSORB_STEPS positions, each
+    on a cache of its own, both replaying ``replay``'s expert selection
+    (the one process's decode, so a rank and the one process route
+    alike); the logits of each step on the host, the largest absorbed
+    vs plain gap, no kernel launched."""
+    B, V = prompt.shape[0], cfg.vocab_size
+    out = {}
+    try:
+        for absorb in (False, True):
+            step = serve.make_serve_step(cfg, absorb=absorb)
+            cache = serve.make_cache(cfg, B, DS_ABSORB_STEPS,
+                                     dtype=serve.lm_cache_dtype(cfg),
+                                     device=DEVICE,
+                                     mp=getattr(model.tp, "size", 1))
+            model.routing = moe.RoutingLog(replay=replay)
+            logits = []
+            for t in range(DS_ABSORB_STEPS):
+                (_, cache, lg), launched = _counted(
+                    counters, lambda: step(model, cache, prompt[:, t:t + 1],
+                                           t))
+                if any(launched.values()):
+                    raise AssertionError(f"deepseek: a decode step "
+                                         f"(absorb={absorb}) launched "
+                                         f"{launched}")
+                logits.append(lg[:, -1, :V].float().cpu())
+            out["absorbed" if absorb else "plain"] = torch.stack(logits)
+    finally:
+        model.routing = None
+    out["absorbed_vs_plain"] = max(
+        _ts_rel(a, p, V) for a, p in zip(out["absorbed"], out["plain"]))
+    return out
+
+
+def _ts_flash_row(torch, fa, ref, label, B, T, KV, G, hd, vd):
+    """``flash_fwd`` at a tensor-parallel rank's prefill shape (bf16,
+    causal; MLA's v padded from ``vd`` to ``hd``) against its plain
+    version by phase 10's rule, timed beside SDPA and the bound of the
+    useful work (q.k at hd, p.v at vd)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(92)
+    q, k, v, _ = _flash_operands(torch, gen, B, T, KV, G, hd,
+                                 torch.bfloat16, vd=vd)
+    H = KV * G
+    bq = min(256, T)  # the model's query tile, min(attn_chunk, T)
+
+    def fl():
+        return fa.flash_fwd(q, k, v, causal=True, bq=bq)
+
+    (o, lse), (o_p, lse_p) = fl(), ref.flash_fwd_ref(q, k, v, causal=True)
+    errs = _flash_errs(f"tp {label} flash", {"o": (o, o_p)}, lse, lse_p,
+                       True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q.reshape(B, T, H, hd), k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    nbytes = _flash_fwd_bytes(B * T * H, B * T * KV, hd, vd, 2)
+    row = dict(shape=f"tp prefill {label} B={B} T={T} H={H} KV={KV} "
+               f"hd={hd} v={vd} bf16 causal", **_flash_err_fields(errs, True),
+               kernel_ms=_device_ms(fl), plain_ms=_device_ms(
+                   lambda: ref.flash_fwd_ref(q, k, v, causal=True)),
+               library_ms=_device_ms(sdpa), call_ms=_call_ms(fl),
+               library_call_ms=_call_ms(sdpa))
+    row["bound_ms"], row["bound_by"] = _attn_bound(
+        B, T, H, hd + vd, True, "bfloat16", nbytes)
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    print("tp-serve-kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def _ts_rel(got, want, V):
+    """max|got - want| over max|want|, the real vocabulary's columns."""
+    got, want = got[..., :V].float(), want[..., :V].float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _ts_check(torch, serve, name, cfg, one, res, tol):
+    """A run's ranks against the one process: each rank's decode logits
+    at the prompt's last position within ``tol`` of the one process's
+    largest logit, the greedy tokens equal in every row whose top-2
+    margin exceeds twice that (``serve.prefill_gap``'s rule), the ranks'
+    logits, tokens (and an MoE model's free selections) bitwise equal,
+    none of the kernels launched in a decode step; the summary."""
+    V = cfg.vocab_size
+    want = one["prompt_logits"][:, -1, :V].float()
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * want.abs().max()
+    gaps = []
+    for r, o in enumerate(res):
+        gaps.append(_ts_rel(o["prompt_logits"][:, -1], want, V))
+        same = o["prompt_logits"][:, -1, :V].argmax(-1) == want.argmax(-1)
+        if not gaps[-1] <= tol or not bool((same | ~clear).all()):
+            raise AssertionError(
+                f"tp-serve {name}: rank {r}'s logits {gaps[-1]} of the "
+                f"largest from one process's (tol {tol}), tokens equal "
+                f"where clear: {bool((same | ~clear).all())}")
+        if any(o["decode_launches"].values()):
+            raise AssertionError(f"tp-serve {name}: rank {r}'s decode "
+                                 f"launched {o['decode_launches']}")
+    a, b = res
+    if not (torch.equal(a["prompt_logits"], b["prompt_logits"])
+            and (a["tokens"] == b["tokens"]).all()):
+        raise AssertionError(f"tp-serve {name}: the ranks' logits or "
+                             "tokens differ")
+    if "free" in a and any(not torch.equal(a["free"]["selection"][i],
+                                           b["free"]["selection"][i])
+                           for i in a["free"]["selection"]):
+        raise AssertionError(f"tp-serve {name}: the ranks' free "
+                             "selections differ")
+    keys = ("step_p50_ms", "step_p99_ms", "tokens_per_s",
+            "sequential_prefill_s", "peak_memory_gb", "weights_bytes",
+            "cache_bytes", "collectives", "draw_s", "prefill_launches",
+            "prefill_gap")
+    out = dict(tol=tol, rank_gaps=gaps, rows_with_clear_margin=int(
+        clear.sum()), tokens_equal_one_process=[
+        float((o["tokens"] == one["tokens"]).mean()) for o in res],
+        one_process={k: v for k, v in one.items() if k in keys},
+        ranks=[{k: v for k, v in o.items() if k in keys}
+               for o in res])
+    if "free" in a:
+        out["free"] = [dict(flips=o["free"]["flips"],
+                            rank_gap=_ts_rel(o["free"]["prompt_logits"][
+                                :, -1], want, V),
+                            step_p50_ms=o["free"]["step_p50_ms"])
+                       for o in res]
+    if "absorb" in a:
+        # the absorbed decode on a rank against the one process's, the
+        # same selection replayed on both: gated in fp32, where rounding
+        # leaves ~1e-6; in bf16 its gap is reported (at 2 layers it sits
+        # past prefill_tol's 2-layer allowance, as the absorbed decode's
+        # gap to the plain one does on either side, which phase 22 gates
+        # at 4 layers); its gap to the plain decode reported on both sides
+        V = cfg.vocab_size
+        want = one["absorb"]["absorbed"]
+        gaps = [max(_ts_rel(g, w, V) for g, w in zip(o["absorb"][
+            "absorbed"], want)) for o in res]
+        gated = cfg.dtype == "float32"
+        if (gated and not max(gaps) <= tol) or not torch.equal(
+                a["absorb"]["absorbed"], b["absorb"]["absorbed"]):
+            raise AssertionError(
+                f"tp-serve {name}: the ranks' absorbed decode {gaps} of the "
+                f"largest logit from one process's (tol {tol}), or the "
+                "ranks differ")
+        out["absorb"] = dict(
+            steps=DS_ABSORB_STEPS, rank_gaps=gaps, gated=gated,
+            absorbed_vs_plain_one_process=one["absorb"]["absorbed_vs_plain"],
+            absorbed_vs_plain_ranks=[o["absorb"]["absorbed_vs_plain"]
+                                     for o in res])
+    return out
+
+
+def tp_serve_check(torch, np, configs, init_model, serve, ref,
+                   conv1d_brgemm, fa):
+    """Phase 24: tensor-parallel serving (see TS_*).  One process serves
+    each of ``_ts_runs``' models on the card (the MoE runs recording
+    their expert selection over the whole decode); then TS_MP spawned
+    gloo ranks serve them through the launcher with ``--model-parallel``
+    (``_ts_rank``) and each is held to the one process (``_ts_check``);
+    the bf16 runs' fused prefill launches ``flash_fwd`` once a layer a
+    rank on the rank's heads, at the shapes ``_ts_flash_row`` times."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import moe, sharding
+
+    t0 = time.perf_counter()
+    counters = _counters(conv1d_brgemm, fa)
+    cfgs = _ts_cfgs(configs)
+    sc2, ds = cfgs["starcoder2"], cfgs["deepseek"]
+    out = dict(card=_card_line(), ranks=TS_MP, backend="gloo")
+    sc2_kv, ds_h = sc2.n_kv_heads // TS_MP, ds.n_heads // TS_MP
+    out["flash_rows"] = [
+        _ts_flash_row(torch, fa, ref, "starcoder2", TS_BATCH, LM_PROMPT,
+                      sc2_kv, sc2.n_heads // sc2.n_kv_heads, sc2.head_dim,
+                      sc2.head_dim),
+        _ts_flash_row(torch, fa, ref, "deepseek", TS_BATCH, LM_PROMPT,
+                      ds_h, 1, ds.mla.qk_nope_head_dim
+                      + ds.mla.qk_rope_head_dim, ds.mla.v_head_dim)]
+    want_shapes = {
+        "starcoder2": (TS_BATCH, LM_PROMPT, sc2_kv,
+                       sc2.n_heads // sc2.n_kv_heads, sc2.head_dim),
+        "deepseek": (TS_BATCH, LM_PROMPT, ds_h, 1,
+                     ds.mla.qk_nope_head_dim + ds.mla.qk_rope_head_dim)}
+    one = {}
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        st = dict(out=tmp, port=_free_port())
+        model = None
+        for name, key, batch, gen, seed, pseed, _ in _ts_runs():
+            cfg = cfgs[key]
+            t = time.perf_counter()
+            model = (_host_model(torch, cfg, init_model, seed).to(DEVICE)
+                     if seed else _as_fp32(model, cfg))
+            draw_s = time.perf_counter() - t
+            log = moe.RoutingLog() if cfg.moe else None
+            one[name] = _served(torch, serve, counters, cfg, model,
+                                _ts_argv(cfg.name, batch, gen, pseed),
+                                routing=log)
+            one[name].update(draw_s=draw_s, weights_bytes=sum(
+                p.numel() * p.element_size() for p in model.parameters()),
+                cache_bytes=serve._nbytes(sharding.tree_leaves(
+                    serve.make_cache(cfg, batch, LM_PROMPT + gen,
+                                     dtype=serve.lm_cache_dtype(cfg),
+                                     device="meta"))))
+            if cfg.mla:
+                one[name]["absorb"] = _ts_absorb(
+                    torch, serve, moe, cfg, model, one[name]["prompt"], log,
+                    counters)
+            if log is not None:
+                st[f"{name}_routing"] = os.path.join(tmp, f"{name}.pt")
+                torch.save({k: tuple(t.cpu() for t in v)
+                            for k, v in log.entries.items()},
+                           st[f"{name}_routing"])
+            del log
+            torch.cuda.empty_cache()
+        del model
+        torch.cuda.empty_cache()
+        out["one_process_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        mp.start_processes(_ts_rank, args=(st,), nprocs=TS_MP,
+                           start_method="spawn")
+        out["ranks_wall_s"] = time.perf_counter() - t
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(TS_MP)]
+    for name, key, *_ in _ts_runs():
+        cfg = cfgs[key]
+        dtype = getattr(torch, cfg.dtype)
+        tol = TS_F32_TOL if dtype == torch.float32 else serve.prefill_tol(
+            cfg, dtype)
+        ranks = [r[name] for r in res]
+        out[name] = _ts_check(torch, serve, name, cfg, one[name], ranks,
+                              tol)
+        if name in want_shapes:
+            layers = cfg.n_layers * (2 if cfg.moe else 1)  # free + replay
+            want = {**{c.__name__: 0 for c in counters},
+                    "flash_fwd": layers}
+            for r, o in enumerate(ranks):
+                if o["prefill_launches"] != want or o["flash_shapes"] != [
+                        want_shapes[name]] * layers:
+                    raise AssertionError(
+                        f"tp-serve {name}: rank {r}'s fused prefill "
+                        f"launched {o['prefill_launches']} at "
+                        f"{set(o['flash_shapes'])}; expected {want} at "
+                        f"{want_shapes[name]}")
+            out[name]["flash_shape"] = want_shapes[name]
+            out[name]["flash_launches_per_rank_prefill"] = layers
+        print(f"tp-serve-{name} " + json.dumps(out[name], default=str),
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    a, d = out["starcoder2"], out["deepseek"]
+    print(f"tp-serve: phase 24 in {out['seconds']:.1f} s ({out['card']}); "
+          f"starcoder2 at mp {TS_MP}: decode p50 "
+          f"{a['ranks'][0]['step_p50_ms']:.2f} ms against one process's "
+          f"{a['one_process']['step_p50_ms']:.2f}, logits "
+          f"{max(a['rank_gaps']):.2e} of the largest (tol {a['tol']:.2e}); "
+          f"deepseek 2l-16e: p50 {d['ranks'][0]['step_p50_ms']:.2f} ms "
+          f"against {d['one_process']['step_p50_ms']:.2f}, "
+          f"{max(d['rank_gaps']):.2e} (tol {d['tol']:.2e}), free flips "
+          f"{[f['flips']['total_flips'] for f in d['free']]}", flush=True)
+    return out
+
+
+def _ts_entries(ts, flash_entries):
+    """Phase 24's numbers in the kernels line: ``flash_fwd`` on a
+    tensor-parallel rank's heads in the fused prefill (launches a rank,
+    the shape, its row)."""
+    keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err")
+    flash_entries[0]["tp_serve"] = {
+        name: dict(ranks=ts["ranks"],
+                   launches_per_rank_prefill=ts[name][
+                       "flash_launches_per_rank_prefill"],
+                   **{k: row[k] for k in keys})
+        for name, row in zip(("starcoder2", "deepseek"), ts["flash_rows"])}
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -5866,6 +6389,8 @@ def main(argv=None) -> int:
                         flash_attention)
     vl = vlm_check(torch, np, configs, init_model, serve, train, synthetic,
                    losses, ref, conv1d_brgemm, flash_attention)
+    ts = tp_serve_check(torch, np, configs, init_model, serve, ref,
+                        conv1d_brgemm, flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -6140,6 +6665,7 @@ def main(argv=None) -> int:
     _mn_entries(mn, flash_entries)
     _ds_entries(ds, flash_entries)
     _vl_entries(vl, flash_entries)
+    _ts_entries(ts, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     if args.out:
@@ -6161,7 +6687,7 @@ def main(argv=None) -> int:
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
                            elastic=elastic, whisper=wh, zamba2=zb,
                            moonlight=mn, deepseek_v3=ds, internvl2=vl,
-                           kernels=kernels), f, indent=1,
+                           tp_serve=ts, kernels=kernels), f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

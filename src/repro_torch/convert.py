@@ -25,13 +25,21 @@ is split or joined::
 
 A decode cache keeps its nesting (``cache_from_jax``): the port's caches
 are the JAX package's trees of the same layouts.
+
+Given a ``models.sharding.MeshShape`` and a device's coordinates on it,
+both give that device's blocks instead (a tensor-parallel rank's):
+``params_from_jax`` by the parameter rules (``sharding.local_state_dict``),
+``cache_from_jax`` by ``sharding.cache_pspecs``, except that an MLA
+model's latent ``c_kv`` stays whole over ``'model'`` (``models/mla.py``)::
+
+    transformer.Transformer(cfg, params_from_jax(tree, mesh=m, coords=c))
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import init_model
+from repro_torch.models import init_model, sharding
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.train.train_step import TrainState
 
@@ -43,9 +51,14 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def params_from_jax(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+def params_from_jax(tree, prefix: str = "", *, mesh=None,
+                    coords=None) -> dict[str, torch.Tensor]:
     """Flatten a parameter tree of dicts, lists and arrays into a state
-    dict of CPU tensors (same values and dtypes)."""
+    dict of CPU tensors (same values and dtypes); with ``mesh`` and
+    ``coords``, each leaf's block that the device there holds."""
+    if mesh is not None:
+        return sharding.local_state_dict(params_from_jax(tree, prefix),
+                                         mesh, coords)
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -58,7 +71,8 @@ def params_from_jax(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     return out
 
 
-def cache_from_jax(tree, *, device: torch.device | str = "cpu"):
+def cache_from_jax(tree, *, device: torch.device | str = "cpu", mesh=None,
+                   coords=None):
     """A JAX decode cache (its leaves as numpy arrays) as the port's: the
     same nesting of dicts, each leaf a tensor of its own with the same
     layout and dtype (Mamba2 ``{"conv": (L, B, S-1, conv_dim), "ssm": (L,
@@ -68,7 +82,21 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu"):
     "ssm"}, "k"|"v": (n_app, B, Tmax, KV, hd)}``; MoE ``{"dense"|"moe":
     {"k"|"v": (L_stack, B, Tmax, KV, hd)}}``, with MLA ``{"dense"|"moe":
     {"c_kv": (L_stack, B, Tmax, kv_lora), "k_rope": (L_stack, B, Tmax,
-    rope)}}``), so ``decode_step`` may write into it."""
+    rope)}}``), so ``decode_step`` may write into it.  With ``mesh`` and
+    ``coords``, the device's blocks (the module docstring)."""
+    if mesh is not None:
+        cache = cache_from_jax(tree)
+        batch = next(sharding.tree_leaves(cache)).shape[1]
+        specs = sharding.cache_pspecs(cache, mesh, batch)
+
+        def block(c, s, name=None):
+            if isinstance(c, dict):
+                return {k: block(c[k], s[k], k) for k in c}
+            if name == "c_kv":  # whole over 'model': each head reads it
+                s = tuple(None if e == "model" else e for e in s)
+            return sharding.local_block(c, s, mesh, coords).contiguous().to(
+                device)
+        return block(cache, specs)
     if isinstance(tree, dict):
         return {k: cache_from_jax(v, device=device) for k, v in tree.items()}
     return _tensor(tree).to(device)

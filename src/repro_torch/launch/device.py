@@ -2,6 +2,8 @@
 asks for the CPU."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -16,4 +18,17 @@ def require_device(device: torch.device | str) -> torch.device:
             "PyTorch version on the CPU")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def rank_device(device: torch.device | str) -> torch.device:
+    """A started group's rank's device: ``cuda:LOCAL_RANK`` modulo the
+    cards present (gloo ranks may share one card), made current; or the
+    CPU when asked for."""
+    if torch.device(device).type != "cuda":
+        return require_device(device)
+    require_device("cuda")
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
     return dev

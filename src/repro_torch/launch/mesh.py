@@ -16,6 +16,10 @@ process group, one process per card:
     row ``r // mp`` and model column ``r % mp``, its model group being
     its row (the mp ranks that hold the same data shard) and its data
     group its column (the dp ranks that hold the same filter block);
+  * :func:`make_host_mesh` gives the started world's ``(data, model)``
+    mesh shape and this rank's coordinates on it, what
+    ``models/sharding.py``'s rules read to place a tensor-parallel
+    model's blocks (JAX's ``make_host_mesh(model=)``);
   * :func:`regroup` starts the next *generation* of the default group
     over the survivors of a fault (counterpart of JAX's
     ``make_elastic_mesh``): ``torch.distributed`` cannot shrink a group,
@@ -37,10 +41,11 @@ import torch.distributed as dist
 
 from repro_torch.kernels.reduce import (GradReducer, ModelReducer, dp_rank,
                                         dp_size, mp_rank, mp_size)
+from repro_torch.models.sharding import MeshShape
 
 __all__ = ["GradReducer", "ModelReducer", "destroy", "dp_rank", "dp_size",
            "init_data_group", "init_mesh", "launch_rank", "local_rank",
-           "mp_rank", "mp_size", "regroup"]
+           "make_host_mesh", "mp_rank", "mp_size", "regroup"]
 
 # the rendezvous of the group init_data_group started: (store, launch
 # rank), beside torch.distributed's own default group, which is as global
@@ -163,6 +168,21 @@ def init_mesh(dp: int, mp: int):
         if col == rank % mp:
             data = g
     return data, model
+
+
+def make_host_mesh(*, model: int = 1) -> tuple[MeshShape, dict[str, int]]:
+    """The started world as a ``("data", "model")`` mesh of ``(world /
+    model, model)`` and this rank's coordinates on it, ``{"data": r //
+    model, "model": r % model}``: the layout :func:`init_mesh` gives its
+    groups (a world of one process without a group: ``(1, 1)``, rank
+    0)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"world of {world} ranks")
+    return (MeshShape(("data", "model"), (world // model, model)),
+            {"data": rank // model, "model": rank % model})
 
 
 def local_rank() -> int:

@@ -80,10 +80,32 @@ output turns fp32 and its layer scan (or, for the hybrid, its ``cond``)
 refuses the carry (ROADMAP.md queue C), so the model's dtype
 (``make_cache``'s default) is the one it can run.  A hybrid's Mamba2
 states are fp32 whatever the cache's dtype, as in JAX.  The decode step runs
-no kernel (as in the JAX package, where XLA takes it); ``--model-parallel``
-above 1, which in the JAX launcher shards the language models'
-parameters (``models/sharding.py``), waits for that sharding (ROADMAP.md
-queue A item 5).
+no kernel (as in the JAX package, where XLA takes it).
+
+``--model-parallel N`` serves a dense, MoE or VLM model tensor-parallel
+over N ranks started by ``torchrun`` (the JAX launcher places the
+parameters by ``models/sharding.py``'s rules and GSPMD partitions the
+decode): each rank draws the same seeded model on the host, keeps the
+blocks the rules give its coordinate on the (1, N) mesh
+(``launch.mesh.make_host_mesh``, ``transformer.local_model``) and its
+KV/N heads of the cache, and runs the model group's sums and logit
+gather where GSPMD inserts them; the fused prefill runs ``flash_fwd`` on
+each rank's heads.  ``--dist-backend gloo`` lets the ranks share one
+card (``cuda:LOCAL_RANK`` modulo the cards present); rank 0 prints, and
+the summary adds ``model_parallel``, a rank's weight and cache bytes and
+the group's collectives a decode step:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch starcoder2-3b --model-parallel 2 --dist-backend gloo \
+        --batch 8 --prompt-len 200 --gen 64
+
+Layouts with no explicit form here are refused, naming ROADMAP.md queue
+A item 6 (``tp_refusal``): heads or KV heads that do not divide over N
+(GSPMD pads them, or shards the cache's head_dim), any leaf whose split
+dimension does not divide (the padded vocabulary, an expert count), a
+world larger than N (the data axis: FSDP placement), and the ssm,
+hybrid and encoder-decoder families.  A failed collective, build or
+launch raises on its rank and the run exits non-zero.
 
 Conv family (AtacWorks): a continuous-serving loop over the streaming
 conv1d: a request queue, per-stream positions, and padded-batch
@@ -113,13 +135,15 @@ from collections import deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, obs
 from repro_torch.configs.base import reduced
 from repro_torch.core import blocks
 from repro_torch.data.synthetic import make_batch
-from repro_torch.launch.device import require_device
-from repro_torch.models import init_model, moe
+from repro_torch.launch import mesh
+from repro_torch.launch.device import rank_device, require_device
+from repro_torch.models import init_model, moe, sharding, transformer
 from repro_torch.models.whisper import fill_cross_cache
 from repro_torch.train.serve_step import (make_cache, make_conv_prefill_step,
                                           make_conv_stream_state,
@@ -430,7 +454,67 @@ def prefill_gap(model, cfg, prompt: torch.Tensor,
             "rows_with_clear_margin": int(clear.sum()), **out}
 
 
-def serve_lm(args, cfg, model=None) -> dict:
+# the refused layouts' message ends here
+TP_ITEM = "ROADMAP.md queue A item 6"
+
+
+def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
+    """Why ``cfg`` cannot serve tensor-parallel over ``mp`` model ranks
+    of a world of ``world`` ranks here, or None: the families and layouts
+    with no explicit form (the module docstring)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        return (f"tensor-parallel serving of the {cfg.family} family: its "
+                f"sharded form waits in {TP_ITEM}")
+    if world is not None and world != mp:
+        return (f"a world of {world} ranks for --model-parallel {mp}: "
+                + ("a data axis (the FSDP placement of the parameters on "
+                   f"'data') has no explicit form here ({TP_ITEM})"
+                   if world > mp else f"the model axis needs {mp} ranks"))
+    if cfg.n_heads % mp:
+        return (f"{cfg.n_heads} heads do not divide over {mp} model ranks "
+                f"(GSPMD pads the head dimension; no explicit form here: "
+                f"{TP_ITEM})")
+    if not cfg.mla and cfg.n_kv_heads % mp:
+        return (f"{cfg.n_kv_heads} KV heads do not divide over {mp} model "
+                f"ranks (JAX's cache_pspecs then shards the cache's "
+                f"head_dim; no explicit form here: {TP_ITEM})")
+    if cfg.padded_vocab % mp:
+        return (f"the padded vocabulary of {cfg.padded_vocab} does not "
+                f"divide over {mp} model ranks ({TP_ITEM})")
+    mesh_shape = sharding.MeshShape(("data", "model"), (1, mp))
+    shapes = {k: v[0] for k, v in transformer._leaf_spec(cfg).items()}
+    for key, spec in sharding.param_pspecs(shapes, mesh_shape).items():
+        try:
+            sharding.local_shape(shapes[key], spec, mesh_shape)
+        except ValueError as e:
+            return f"{key}: {e} (GSPMD pads it; no explicit form: {TP_ITEM})"
+    return None
+
+
+def _tp_start(args, cfg):
+    """Start (or join) the world from torchrun's variables, lay it out as
+    (1, mp): ``(mesh shape, coordinates, model group, device)``."""
+    mp = args.model_parallel
+    why = tp_refusal(cfg, mp)
+    if why:
+        raise ValueError(why)
+    backend = args.dist_backend or ("gloo" if args.device == "cpu" else None)
+    mesh.init_data_group(backend)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    why = tp_refusal(cfg, mp, world)
+    if why:
+        raise ValueError(why)
+    _, model_group = mesh.init_mesh(1, mp)
+    mesh_shape, coords = mesh.make_host_mesh(model=mp)
+    return mesh_shape, coords, model_group, rank_device(args.device)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
+             ) -> dict:
     """The language models' serving path: sequential prefill of a seeded
     prompt through the serve step, then greedy generation.  ``model``
     (on ``args.device``) is served when given, else one is built from
@@ -444,22 +528,46 @@ def serve_lm(args, cfg, model=None) -> dict:
     cross K/V (host clock to a synchronize); under ``args.smoke`` a VLM's
     also ``patches`` (``vlm_batch``'s image embeddings from
     ``args.seed``) and ``image_logits``, the last logits of the fused
-    prefill of the prompt behind them."""
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 is not ported to repro_torch yet: in the "
-            "JAX launcher it shards the language models' parameters "
-            "(models/sharding.py), which waits in ROADMAP.md queue A item 5")
+    prefill of the prompt behind them.
+
+    With ``args.model_parallel`` N > 1 the world is started (or joined)
+    from torchrun's variables and laid out as (1, N); ``model`` (the
+    whole model, anywhere; else one drawn on the host from ``args.seed``)
+    gives this rank its blocks (``transformer.local_model``), and every
+    rank returns its numbers, which add ``model_parallel``,
+    ``weights_bytes``, ``cache_bytes`` (the rank's), ``collectives``
+    (the group's sums and gathers a decode step and their host seconds)
+    and ``draw_s`` (the host draw and the blocks' move to the device).
+    Rank 0 alone prints.  ``routing``: a ``moe.RoutingLog`` the decode
+    records into, replaying its ``replay`` when it has one (an MoE
+    model; under ``--smoke`` one is made)."""
     if args.prompt_len < 1 or args.gen < 2:
         raise ValueError("--prompt-len must be >= 1 and --gen >= 2 (the "
                          "first generated token comes from the prefill)")
-    device = require_device(args.device)
-    if model is None:
-        model = init_model(cfg, seed=args.seed, device=device)
+    mp = args.model_parallel
+    extra = {}
+    if mp == 1:
+        device = require_device(args.device)
+        if model is None:
+            model = init_model(cfg, seed=args.seed, device=device)
+    else:
+        mesh_shape, coords, model_group, device = _tp_start(args, cfg)
+        t0 = time.perf_counter()
+        if model is None:
+            model = init_model(cfg, seed=args.seed, device="cpu")
+        model = transformer.local_model(model, mesh_shape, coords,
+                                        model_group, device=device)
+        extra.update(draw_s=time.perf_counter() - t0, model_parallel=mp,
+                     coords=coords)
+    say = print if mp == 1 or coords["model"] == 0 else (
+        lambda *a, **k: None)
     max_len = args.prompt_len + args.gen
     cache_dtype = lm_cache_dtype(cfg)
     cache = make_cache(cfg, args.batch, max_len, dtype=cache_dtype,
-                       device=device)
+                       device=device, mp=mp)
+    if mp != 1:
+        extra.update(weights_bytes=_nbytes(model.parameters()),
+                     cache_bytes=_nbytes(sharding.tree_leaves(cache)))
     frames, encode_s = None, None
     if cfg.family == "encdec":
         frames = make_batch(cfg, args.batch, args.prompt_len,
@@ -469,8 +577,8 @@ def serve_lm(args, cfg, model=None) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         encode_s = time.perf_counter() - t0
-        print(f"encode {tuple(frames.shape)} frames and fill the "
-              f"cross-attention cache: {encode_s:.3f} s", flush=True)
+        say(f"encode {tuple(frames.shape)} frames and fill the "
+            f"cross-attention cache: {encode_s:.3f} s", flush=True)
     serve = with_request_spans(make_serve_step(cfg), "serve.decode_step",
                                device=device, arch=cfg.name,
                                batch=args.batch)
@@ -481,9 +589,11 @@ def serve_lm(args, cfg, model=None) -> dict:
 
     # prefill: sequential teacher-forced decode steps (cache-correct by
     # construction); under --smoke an MoE model records its selection
-    # for the fused prefill's check
-    routing = (moe.RoutingLog() if args.smoke and cfg.family == "moe"
-               else None)
+    # over the prompt for the fused prefill's check; a caller's log
+    # records (or replays) the whole decode
+    whole = routing
+    if routing is None and args.smoke and cfg.family == "moe":
+        routing = moe.RoutingLog()
     t0 = time.perf_counter()
     with obs.span("serve.prefill", arch=cfg.name, batch=args.batch,
                   prompt_len=args.prompt_len):
@@ -500,17 +610,28 @@ def serve_lm(args, cfg, model=None) -> dict:
     prompt_logits = logits
     finite = torch.isfinite(logits).all()
     prefill_s = time.perf_counter() - t0
-    print(f"prefill {args.prompt_len} tokens x {args.batch} on {device} "
-          f"(sequential decode steps, {cache_dtype} cache): "
-          f"{prefill_s:.3f} s", flush=True)
+    say(f"prefill {args.prompt_len} tokens x {args.batch} on {device} "
+        f"(sequential decode steps, {cache_dtype} cache): "
+        f"{prefill_s:.3f} s", flush=True)
 
     times = []
-    for t in range(args.prompt_len, max_len - 1):
-        t0 = time.perf_counter()
-        nxt, cache, logits = serve(model, cache, nxt, t)
-        out.append(nxt.cpu())
-        times.append(time.perf_counter() - t0)
-        finite &= torch.isfinite(logits).all()
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        before = tp.counts()
+    try:
+        model.routing = whole
+        for t in range(args.prompt_len, max_len - 1):
+            t0 = time.perf_counter()
+            nxt, cache, logits = serve(model, cache, nxt, t)
+            out.append(nxt.cpu())
+            times.append(time.perf_counter() - t0)
+            finite &= torch.isfinite(logits).all()
+    finally:
+        model.routing = None
+    if tp is not None:
+        after = tp.counts()
+        extra["collectives"] = {k: (after[k] - before[k]) / len(times)
+                                for k in after}
     if not bool(finite):
         raise AssertionError("non-finite logits")
     tokens = torch.cat(out, dim=1).numpy()
@@ -521,36 +642,49 @@ def serve_lm(args, cfg, model=None) -> dict:
                  step_p50_ms=float(np.median(st)) * 1e3,
                  step_p99_ms=float(np.percentile(st, 99)) * 1e3,
                  tokens_per_s=args.batch * len(times) / float(st.sum()),
-                 tokens=tokens, prompt=prompt, prompt_logits=prompt_logits)
+                 tokens=tokens, prompt=prompt, prompt_logits=prompt_logits,
+                 **extra)
     if frames is not None:
         stats.update(frames=frames, encode_s=encode_s)
-    print(f"generated {tokens.shape} tokens, logits finite: step p50 "
-          f"{stats['step_p50_ms']:.3f} ms, p99 {stats['step_p99_ms']:.3f} ms,"
-          f" {stats['tokens_per_s']:.1f} tokens/s", flush=True)
-    print("sample:", tokens[0, :16])
+    if routing is not None:
+        stats["routing"] = routing
+    say(f"generated {tokens.shape} tokens, logits finite: step p50 "
+        f"{stats['step_p50_ms']:.3f} ms, p99 {stats['step_p99_ms']:.3f} ms,"
+        f" {stats['tokens_per_s']:.1f} tokens/s", flush=True)
+    if mp != 1:
+        c = extra["collectives"]
+        say(f"model-parallel {mp}: a rank holds {extra['weights_bytes']:,} "
+            f"bytes of weights and {extra['cache_bytes']:,} of cache; a "
+            f"decode step runs {c['sums']:.0f} sums and {c['gathers']:.0f} "
+            f"gathers over the model group ({c['seconds'] * 1e3:.3f} ms of "
+            f"host time)", flush=True)
+    say("sample:", tokens[0, :16])
     if args.smoke:
         gap = prefill_gap(model, cfg, prompt, prompt_logits, frames,
                           routing=routing)
         if gap["gap"] > gap["tol"] or not gap["tokens_equal"]:
             raise AssertionError(f"the fused prefill diverged from the "
                                  f"sequential decode: {gap}")
-        print(f"smoke: fused prefill == sequential decode at position "
-              f"{args.prompt_len - 1} (max diff {gap['gap']:.2e} of the "
-              f"largest logit, tol {gap['tol']:.2e}"
-              + (", the decode's expert selection replayed" if routing
-                 else "") + ")")
+        stats["prefill_gap"] = gap
+        say(f"smoke: fused prefill == sequential decode at position "
+            f"{args.prompt_len - 1} (max diff {gap['gap']:.2e} of the "
+            f"largest logit, tol {gap['tol']:.2e}"
+            + (", the decode's expert selection replayed" if routing
+               else "") + ")")
         if routing is not None:
             r = gap["routing"]
-            print(f"smoke: the prefill's own selection flips {r['flips']} "
-                  f"(layer: tokens; smallest margin {r['min_margin']:.3e}, "
-                  f"largest score difference {r['max_score_diff']:.3e}), "
-                  f"max diff {gap['free_gap']:.2e}")
+            say(f"smoke: the prefill's own selection flips {r['flips']} "
+                f"(layer: tokens; smallest margin {r['min_margin']:.3e}, "
+                f"largest score difference {r['max_score_diff']:.3e}), "
+                f"max diff {gap['free_gap']:.2e}")
         if cfg.family == "vlm":
-            stats.update(image_prefill(model, cfg, prompt, args.seed))
+            stats.update(image_prefill(model, cfg, prompt, args.seed,
+                                       say=say))
     return stats
 
 
-def image_prefill(model, cfg, prompt: torch.Tensor, seed: int) -> dict:
+def image_prefill(model, cfg, prompt: torch.Tensor, seed: int,
+                  say=print) -> dict:
     """A VLM's fused prefill of ``prompt`` behind ``cfg.n_image_tokens``
     image embeddings drawn by ``vlm_batch`` from ``seed``: ``patches``
     and ``image_logits`` (B, 1, padded_vocab), checked finite."""
@@ -561,8 +695,8 @@ def image_prefill(model, cfg, prompt: torch.Tensor, seed: int) -> dict:
                                                "patches": patches})
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("non-finite logits after the image prefix")
-    print(f"smoke: fused prefill of {tuple(patches.shape)} image embeddings "
-          f"and {T} tokens: logits finite")
+    say(f"smoke: fused prefill of {tuple(patches.shape)} image embeddings "
+        f"and {T} tokens: logits finite")
     return {"patches": patches, "image_logits": logits}
 
 
@@ -585,8 +719,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=16,
                     help="LM: tokens generated per sequence")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="LM: only 1 (the language models' parameter "
-                         "sharding waits in ROADMAP.md queue A item 5)")
+                    help="LM (dense, MoE, VLM): serve tensor-parallel over "
+                         "this many ranks started by torchrun")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="with --model-parallel > 1: the group's backend "
+                         "(default nccl on the card, gloo on the CPU; gloo "
+                         "lets the ranks share one card)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--streams", type=int, default=8,
                     help="number of queued streaming requests")
@@ -620,6 +758,8 @@ def main(argv=None) -> int:
         return 0
     finally:
         obs.flush()  # the spans of passes outside a request span
+        if args.model_parallel != 1:
+            mesh.destroy()
 
 
 if __name__ == "__main__":

@@ -209,7 +209,7 @@ from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs.base import reduced
 from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.launch import mesh
-from repro_torch.launch.device import require_device
+from repro_torch.launch.device import rank_device, require_device
 from repro_torch.models import init_model
 from repro_torch.runtime.elastic import build_groups, make_plan
 from repro_torch.runtime.faults import FaultInjector, parse_faults
@@ -330,12 +330,9 @@ def _check_model_parallel(cfg, mp: int, world: int) -> None:
 def _device(args, started: bool) -> torch.device:
     """The rank's device: ``cuda:LOCAL_RANK`` modulo the cards present
     (ranks sharing a card under gloo), or the CPU when asked for."""
-    if not started or args.device != "cuda":
+    if not started:
         return require_device(args.device)
-    require_device("cuda")
-    dev = torch.device("cuda", mesh.local_rank() % torch.cuda.device_count())
-    torch.cuda.set_device(dev)
-    return dev
+    return rank_device(args.device)
 
 
 def _agree(flag: bool, started: bool, device: torch.device) -> bool:

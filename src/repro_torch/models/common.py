@@ -6,6 +6,16 @@ cache, the MLPs, token embedding, the unembedding
 with its vocabulary padding masked, the learned and sinusoidal position
 embeddings, and activation rematerialisation.
 
+Tensor parallelism (serving): each function that takes ``tp``, a
+``sharding.ModelGroup``, reads the blocks of its leaves that
+``models/sharding.py``'s rules give its rank and sums or gathers over the
+group where GSPMD does in the JAX launcher's sharded decode.  The head
+counts come from the blocks' shapes (a rank's ``wq`` holds H/mp heads'
+columns, ``wk`` KV/mp), so the functions run unchanged on a rank's
+blocks; ``wo`` and ``w_down`` are row blocks whose products are summed
+over the group, and a replicated bias after them (``bo``, ``b_down``) is
+added once, after the sum.
+
 The JAX package's cast points are kept: norms, rotary embeddings, the
 softmax and the MLP's activation run in fp32 and are cast back to the
 activations' dtype; projections and their biases stay in the parameters'
@@ -104,15 +114,18 @@ def attention_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
 
 def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     """x (B, T, D) -> q (B, T, H, hd), k and v (B, T, KV, hd): projections
-    (+ biases), qk_norm, rotary embeddings."""
+    (+ biases), qk_norm, rotary embeddings (H and KV those of ``p``'s
+    blocks)."""
     B, T, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, H, hd)
-    k = k.reshape(B, T, KV, hd)
-    v = v.reshape(B, T, KV, hd)
+    # the head counts from the projections' widths: H and KV, or a
+    # tensor-parallel rank's H/mp and KV/mp
+    q = q.reshape(B, T, -1, hd)
+    k = k.reshape(B, T, -1, hd)
+    v = v.reshape(B, T, -1, hd)
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
@@ -174,9 +187,19 @@ def flash_or_phantom(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
     return o.reshape(B, T, H, hd)
 
 
+def row_parallel(o: torch.Tensor, bias: torch.Tensor | None,
+                 tp=None) -> torch.Tensor:
+    """A row-parallel product's output: summed over the model group
+    ``tp`` (when given), then its replicated ``bias`` added once."""
+    if tp is not None:
+        o = tp.sum(o)
+    return o if bias is None else o + bias
+
+
 def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-                    *, causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (train / prefill), x (B, T, D)."""
+                    *, causal: bool = True, tp=None) -> torch.Tensor:
+    """Full-sequence self-attention (train / prefill), x (B, T, D); with
+    ``tp`` on a rank's heads, ``wo``'s product summed over the group."""
     q, k, v = _qkv(p, x, cfg, positions)
     if cfg.attn_impl == "flash":
         o = flash_or_phantom(q, k, v, cfg, causal=causal)
@@ -185,13 +208,12 @@ def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     o = o.reshape(*x.shape[:2], -1) @ p["wo"]
-    if cfg.attn_out_bias:
-        o = o + p["bo"]
-    return o
+    return row_parallel(o, p["bo"] if cfg.attn_out_bias else None, tp)
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: int) -> torch.Tensor:
+                     cache_v: torch.Tensor, pos: int, tp=None
+                     ) -> torch.Tensor:
     """Single-token self-attention.  x (B, 1, D); cache_k and cache_v
     (B, Tmax, KV, hd) are one layer's slices of the KV cache; ``pos`` is
     the token's position, which is the cache's valid length before it.
@@ -202,7 +224,8 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
     cache's dtype (``a.to(v.dtype)``), and ``o @ wo`` promotes as JAX's
     matmul does, so an fp32 cache with bf16 weights gives an fp32 output
     (the JAX package's scan then refuses the fp32 residual; the port's
-    launcher runs such a model with a cache of the model's dtype)."""
+    launcher runs such a model with a cache of the model's dtype).  With
+    ``tp`` the cache holds the rank's KV/mp heads."""
     B = x.shape[0]
     q, k, v = _qkv(p, x, cfg, torch.full((B, 1), pos, device=x.device))
     cache_k[:, pos] = k[:, 0]
@@ -212,9 +235,7 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
     wo = p["wo"]
     dt = torch.promote_types(o.dtype, wo.dtype)
     o = o.to(dt) @ wo.to(dt)
-    if cfg.attn_out_bias:
-        o = o + p["bo"]
-    return o
+    return row_parallel(o, p["bo"] if cfg.attn_out_bias else None, tp)
 
 
 # --- MLP -------------------------------------------------------------------------
@@ -238,9 +259,10 @@ def mlp_leaves(cfg, d_ff: int | None = None
     return p
 
 
-def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """SwiGLU or GELU (``jax.nn.gelu``'s default tanh form) MLP: the
-    activation in fp32, the biases in the parameters' dtype."""
+def mlp_partial(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The MLP up to ``w_down``'s product, without ``b_down``: on a
+    tensor-parallel rank (``w_gate``/``w_up``/``b_up`` column blocks,
+    ``w_down`` a row block) the rank's partial of the output."""
     if cfg.mlp_act == "swiglu":
         h = F.silu((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
     else:
@@ -248,10 +270,14 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         if "b_up" in p:
             h = h + p["b_up"]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    o = h @ p["w_down"]
-    if "b_down" in p:
-        o = o + p["b_down"]
-    return o
+    return h @ p["w_down"]
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
+    """SwiGLU or GELU (``jax.nn.gelu``'s default tanh form) MLP: the
+    activation in fp32, the biases in the parameters' dtype; with ``tp``
+    the rank's partial summed over the group, then ``b_down``."""
+    return row_parallel(mlp_partial(p, x, cfg), p.get("b_down"), tp)
 
 
 # --- embedding, unembedding, remat ----------------------------------------------
@@ -283,14 +309,25 @@ def embedding_leaves(cfg) -> dict[str, tuple[tuple[int, ...], str, float]]:
 
 def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor, cfg, *,
                  pos: torch.Tensor | None = None,
-                 positions: torch.Tensor | None = None) -> torch.Tensor:
+                 positions: torch.Tensor | None = None,
+                 tp=None) -> torch.Tensor:
     """Rows of the (padded_vocab, d_model) table for (B, T) token ids, plus
     the position embedding: rows ``positions`` (default 0..T-1) of the
     learned table ``pos``, or the sinusoids of 0..T-1 in x's dtype (rotary
-    embeddings act inside attention; none add here)."""
+    embeddings act inside attention; none add here).  With ``tp``, ``tok``
+    is the rank's block of vocabulary rows: each rank looks up the tokens
+    in its range, zeros elsewhere, and the group sums (exact: one
+    non-zero term a row)."""
     if cfg.pos_embedding not in ("none", "rope", "learned", "sinusoidal"):
         raise ValueError(f"unknown pos_embedding {cfg.pos_embedding!r}")
-    x = F.embedding(tokens, tok)
+    if tp is None:
+        x = F.embedding(tokens, tok)
+    else:
+        rows = tok.shape[0]
+        local = tokens - tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(torch.where(mine, local, 0), tok)
+        x = tp.sum(x.masked_fill(~mine[..., None], 0))
     if cfg.pos_embedding == "learned":
         if positions is None:
             positions = torch.arange(tokens.shape[-1], device=tokens.device)
@@ -302,16 +339,20 @@ def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor, cfg, *,
 
 
 def logits_from_hidden(tok: torch.Tensor, unembed: torch.Tensor | None,
-                       x: torch.Tensor, cfg) -> torch.Tensor:
+                       x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """fp32 logits (B, T, padded_vocab) from the final hidden state; the
     columns past ``vocab_size`` are ``NEG_INF``, so they take no
-    probability and get no gradient."""
+    probability and get no gradient.  With ``tp`` the tied table's row
+    block (``unembed``'s column block) gives the rank's block of logit
+    columns, masked by their global index, and the blocks are gathered,
+    so every rank holds the same (B, T, padded_vocab)."""
     w = tok.t() if cfg.tie_embeddings else unembed
     logits = (x @ w).float()
     if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, NEG_INF)
-    return logits
+        first = 0 if tp is None else tp.rank * logits.shape[-1]
+        cols = torch.arange(first, first + logits.shape[-1], device=x.device)
+        logits = logits.masked_fill(cols >= cfg.vocab_size, NEG_INF)
+    return logits if tp is None else tp.gather(logits)
 
 
 # the "dots" policy's products with no batch dimension: a projection

@@ -29,6 +29,17 @@ the same weights (ROADMAP.md queue C).  Both read the cache's first
 ``pos + 1`` positions only (JAX masks the rest: those keys take weight
 exactly 0 there).  The JAX package's ``flash_phantom`` branch (a
 roofline probe) is not ported.
+
+Tensor parallelism (serving, ``tp`` a ``sharding.ModelGroup``): a rank
+holds ``q_up``'s and ``kv_up``'s column blocks, whole heads each (a
+head's columns are contiguous, ``_expand_kv``'s layout), and ``wo``'s row
+block, whose product is summed over the group; ``q_down``, ``kv_down``
+and the norms are replicated, so every rank computes the whole latent.
+The head count is read from the blocks.  JAX's ``cache_pspecs`` shards
+the latent ``c_kv`` on its rank dimension (``sharding.py:206-208``); the
+explicit form here needs the whole latent for each of the rank's heads,
+so each rank keeps ``c_kv`` (and ``k_rope``) whole.  That costs memory
+only: mp copies of the compressed cache.
 """
 from __future__ import annotations
 
@@ -74,7 +85,7 @@ def _queries(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     a = cfg.mla
     B, T, _ = x.shape
     q = _rms(x @ p["q_down"], p["q_norm"], cfg.norm_eps) @ p["q_up"]
-    q = q.reshape(B, T, cfg.n_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
+    q = q.reshape(B, T, -1, a.qk_nope_head_dim + a.qk_rope_head_dim)
     q_nope, q_rope = q.split([a.qk_nope_head_dim, a.qk_rope_head_dim], -1)
     return q_nope, cm.apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -100,7 +111,7 @@ def _expand_kv(p: dict, c_kv: torch.Tensor, cfg):
     w = p["kv_up"]
     dt = torch.promote_types(c_kv.dtype, w.dtype)
     kv = (c_kv.to(dt) @ w.to(dt)).reshape(
-        B, T, cfg.n_heads, a.qk_nope_head_dim + a.v_head_dim)
+        B, T, -1, a.qk_nope_head_dim + a.v_head_dim)
     return kv.split([a.qk_nope_head_dim, a.v_head_dim], -1)
 
 
@@ -121,13 +132,14 @@ def flash_mla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg
 
 
 def mla_attention_block(p: dict, x: torch.Tensor, cfg,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        positions: torch.Tensor, tp=None) -> torch.Tensor:
     """Full-sequence causal MLA self-attention (train / prefill), x (B, T,
-    D) -> (B, T, D)."""
+    D) -> (B, T, D); with ``tp`` on the rank's heads, ``wo``'s product
+    summed over the group."""
     a = cfg.mla
     B, T, _ = x.shape
-    H = cfg.n_heads
     q_nope, q_rope = _queries(p, x, cfg, positions)
+    H = q_nope.shape[2]
     c_kv, k_rope = _latent(p, x, cfg, positions)
     k_nope, v = _expand_kv(p, c_kv, cfg)
     q = torch.cat([q_nope, q_rope], -1)
@@ -139,7 +151,8 @@ def mla_attention_block(p: dict, x: torch.Tensor, cfg,
         o = cm.gqa_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    return o.reshape(B, T, H * a.v_head_dim) @ p["wo"]
+    return cm.row_parallel(o.reshape(B, T, H * a.v_head_dim) @ p["wo"],
+                           None, tp)
 
 
 def mla_init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
@@ -157,7 +170,8 @@ def mla_init_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
 
 
 def mla_attention_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
-                         pos: int, *, absorb: bool = False) -> torch.Tensor:
+                         pos: int, *, absorb: bool = False,
+                         tp=None) -> torch.Tensor:
     """Single-token decode against one layer's compressed cache.  x (B, 1,
     D); ``cache`` holds the layer's ``c_kv`` (B, Tmax, kv_lora) and
     ``k_rope`` (B, Tmax, rope); ``pos`` is the token's position, the
@@ -166,12 +180,13 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
     attends to positions 0..pos: plainly (the cache expanded through
     ``kv_up``) or, with ``absorb``, in the latent space.  Scores, softmax
     and the weighted sum in fp32, as JAX's; the output cast to x's dtype
-    before ``wo``."""
+    before ``wo``; with ``tp`` on the rank's heads, ``wo``'s product
+    summed over the group."""
     a = cfg.mla
     B = x.shape[0]
-    H = cfg.n_heads
     positions = torch.full((B, 1), pos, device=x.device)
     q_nope, q_rope = _queries(p, x, cfg, positions)          # (B, 1, H, .)
+    H = q_nope.shape[2]
     c_new, kr_new = _latent(p, x, cfg, positions)
     cache["c_kv"][:, pos] = c_new[:, 0]
     cache["k_rope"][:, pos] = kr_new[:, 0]
@@ -201,4 +216,5 @@ def mla_attention_decode(p: dict, x: torch.Tensor, cfg, cache: dict,
         s = s + torch.einsum("bthe,bse->bhts", q_rope.float() * scale, kr32)
         att = torch.softmax(s, -1)
         o = torch.einsum("bhts,bshv->bthv", att, v.float())
-    return o.reshape(B, 1, H * a.v_head_dim).to(x.dtype) @ p["wo"]
+    return cm.row_parallel(
+        o.reshape(B, 1, H * a.v_head_dim).to(x.dtype) @ p["wo"], None, tp)

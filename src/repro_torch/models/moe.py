@@ -29,6 +29,19 @@ different experts.  :class:`RoutingLog` records every MoE layer's
 selection in a pass (or replays another pass's), and
 :func:`compare_routing` counts the flips between two passes beside the
 smallest selection margin and the largest score difference.
+
+Expert parallelism (serving, ``tp`` a ``sharding.ModelGroup`` over a
+(1, mp) mesh): the expert stacks' ``("ep", ...)`` rule binds the
+combined (data, model) axes, so rank r holds experts [r E/mp, (r+1)
+E/mp).  ``router`` and ``router_bias`` are replicated and every rank
+routes alike.  Each rank sorts and places every assignment as one rank
+does (capacity drops are decided on the global positions, so the kept
+set is the one-rank set), runs the rows of its own experts only, and
+combines them in ascending expert id, zeros for the others' rows; the
+shared experts' row-parallel partial joins it, and one sum over the
+group takes both.  The ranks' partials then add in another order than
+one rank's combine: the output agrees with one rank's to rounding, not
+bitwise.
 """
 from __future__ import annotations
 
@@ -100,15 +113,18 @@ class RoutingLog:
 
 
 def compare_routing(ref: RoutingLog, other: RoutingLog) -> dict:
-    """The two passes' selections layer by layer: ``flips`` (per layer,
-    the (row, position) pairs whose selected sets differ), ``min_margin``
-    (the smallest k-th minus (k+1)-th selection score of ``ref``: score
-    differences below half of it cannot flip a selection) and
-    ``max_score_diff`` (the largest |ref - other| selection score)."""
+    """The two passes' selections layer by layer, over the positions both
+    recorded (from the first): ``flips`` (per layer, the (row, position)
+    pairs whose selected sets differ), ``min_margin`` (the smallest k-th
+    minus (k+1)-th selection score of ``ref``: score differences below
+    half of it cannot flip a selection) and ``max_score_diff`` (the
+    largest |ref - other| selection score)."""
     flips, margin, diff = {}, float("inf"), 0.0
     for layer in ref.layers():
         e_a, s_a = ref.selection(layer)
         e_b, s_b = other.selection(layer)
+        T = min(e_a.shape[1], e_b.shape[1])
+        e_a, s_a, e_b, s_b = (t[:, :T] for t in (e_a, s_a, e_b, s_b))
         k = e_a.shape[-1]
         same = (e_a.sort(-1).values == e_b.sort(-1).values).all(-1)
         flips[layer] = int((~same).sum())
@@ -182,7 +198,10 @@ def _group_starts(e_sorted: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def _dropless(p: dict, x2d: torch.Tensor, w: torch.Tensor,
-              idx: torch.Tensor, cfg) -> torch.Tensor:
+              idx: torch.Tensor, cfg, first: int = 0) -> torch.Tensor:
+    """The routed experts' output; ``p``'s expert stacks hold experts
+    ``first``.. (a rank's block), whose rows alone run, the others'
+    combining as zeros."""
     m = cfg.moe
     n, k = idx.shape
     flat_e = idx.reshape(-1)
@@ -190,14 +209,21 @@ def _dropless(p: dict, x2d: torch.Tensor, w: torch.Tensor,
     xs = x2d[order // k]                          # (n * k, D)
     bounds = _group_starts(flat_e[order], m.n_experts).tolist()  # the sync
     weights = [p[name].unbind(0) for name in ("w_gate", "w_up", "w_down")]
+    last = first + len(weights[0])
     outs = []
-    for e, (start, end) in enumerate(zip(bounds, bounds[1:])):
+    for e in range(first, last):
+        start, end = bounds[e], bounds[e + 1]
         if end > start:
             outs.append(_expert_mlp(xs[start:end],
-                                    *(wt[e] for wt in weights), torch.mm))
+                                    *(wt[e - first] for wt in weights),
+                                    torch.mm))
+    o = torch.cat(outs) if outs else x2d.new_zeros(0, x2d.shape[1])
+    if (first, last) != (0, m.n_experts):  # a rank's experts: rows of
+        o = torch.cat([o.new_zeros(bounds[first], o.shape[1]), o,  # zeros
+                       o.new_zeros(n * k - bounds[last], o.shape[1])])
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(n * k, device=order.device)
-    return _combine(torch.cat(outs), inverse.view(n, k), w, idx)
+    return _combine(o, inverse.view(n, k), w, idx)
 
 
 def capacity(cfg, n: int) -> int:
@@ -208,7 +234,9 @@ def capacity(cfg, n: int) -> int:
 
 
 def _capacity(p: dict, x2d: torch.Tensor, w: torch.Tensor,
-              idx: torch.Tensor, cfg) -> torch.Tensor:
+              idx: torch.Tensor, cfg, first: int = 0) -> torch.Tensor:
+    """As :func:`_dropless`, each expert taking at most ``capacity``
+    rows, placed over all experts (so the drops are one rank's)."""
     m = cfg.moe
     (n, D), k, E = x2d.shape, m.top_k, m.n_experts
     cap = capacity(cfg, n)
@@ -227,8 +255,12 @@ def _capacity(p: dict, x2d: torch.Tensor, w: torch.Tensor,
     slot_token = slot_token[:E * cap]
     valid = (slot_token < n)[:, None].to(x2d.dtype)
     xe = torch.cat([x2d, x2d.new_zeros(1, D)])[slot_token] * valid
-    o = _expert_mlp(xe.view(E, cap, D), p["w_gate"], p["w_up"], p["w_down"],
-                    torch.bmm).view(E * cap, D)
+    last = first + p["w_gate"].shape[0]
+    o = _expert_mlp(xe.view(E, cap, D)[first:last], p["w_gate"], p["w_up"],
+                    p["w_down"], torch.bmm).view(-1, D)
+    if (first, last) != (0, E):  # a rank's experts: the others' slots zero
+        o = torch.cat([o.new_zeros(first * cap, D), o,
+                       o.new_zeros((E - last) * cap, D)])
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(n * k, device=dev)
     return _combine(o, slot[inverse].view(n, k), w, idx,
@@ -237,11 +269,13 @@ def _capacity(p: dict, x2d: torch.Tensor, w: torch.Tensor,
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg, *,
             routing: RoutingLog | None = None, layer: int = 0,
-            pos: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+            pos: int = 0, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, D) -> (out (B, T, D), load-balance loss): the routed
     experts by the config's dispatch (module docstring), plus the shared
     experts.  ``routing`` records (or replays) this layer's selection as
-    layer ``layer`` at positions ``pos``.. ``pos + T - 1``."""
+    layer ``layer`` at positions ``pos``.. ``pos + T - 1``.  With ``tp``
+    the rank's experts and its shared-expert partial, summed over the
+    group."""
     m = cfg.moe
     B, T, D = x.shape
     x2d = x.reshape(B * T, D)
@@ -250,7 +284,15 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg, *,
     if routing is not None:
         routing.record(layer, pos, idx.view(B, T, -1), sel.view(B, T, -1))
     experts = _capacity if m.capacity_factor > 0 else _dropless
-    out = experts(p, x2d, w, idx, cfg).view(B, T, D)
+    if tp is None:
+        out = experts(p, x2d, w, idx, cfg).view(B, T, D)
+        if m.n_shared:
+            out = out + cm.apply_mlp(p["shared"], x, cfg)
+        return out, aux
+    first = tp.rank * p["w_gate"].shape[0]
+    out = experts(p, x2d, w, idx, cfg, first).view(B, T, D)
+    bias = None
     if m.n_shared:
-        out = out + cm.apply_mlp(p["shared"], x, cfg)
-    return out, aux
+        out = out + cm.mlp_partial(p["shared"], x, cfg)
+        bias = p["shared"].get("b_down")
+    return cm.row_parallel(out, bias, tp), aux

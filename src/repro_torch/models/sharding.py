@@ -1,0 +1,399 @@
+"""Parameter, batch and cache placement rules (counterpart of
+``repro/models/sharding.py``), the blocks a device holds under them, and
+the model group a tensor-parallel model reduces over.
+
+The rules are the JAX package's, copied verbatim: tensor-parallel
+dimensions (heads, d_ff, experts, vocabulary) on ``'model'``, the other
+large dimension on ``'data'`` (and ``'pod'``), FSDP-style.  They are
+name-based: :func:`spec_for_path` reads a leaf's dotted state-dict key
+split on ``.``, which is the JAX tree's path (``convert.py``), so the
+layer-stack padding and the ``moe``/``shared`` scoping are JAX's.
+
+A spec is a tuple with one entry a dimension: ``None`` (replicated), an
+axis name, or a tuple of axis names (the dimension split over their
+product, the first axis major), as ``tuple(jax.sharding.PartitionSpec)``
+gives it; a one-name tuple is written as the name, as PartitionSpec
+normalises it.  A mesh is a :class:`MeshShape`: the rules read its axis
+names and sizes and nothing else.
+
+The torch side: :func:`local_block` is the block of a tensor that the
+device at given mesh coordinates holds under even tiling (a dimension
+that does not divide raises: GSPMD would pad it), and
+:func:`local_state_dict` does the same for a whole state dict.
+
+:class:`ModelGroup` is the model axis of a tensor-parallel language
+model (``models/common.py``, ``transformer.py``, ``moe.py``, ``mla.py``
+read it): the all-reduce after each row-parallel product and the gather
+of the logits' column blocks, where GSPMD inserts them in the JAX
+launcher's sharded decode.  Each sum runs in fp32 (a partial cast,
+summed, cast back): the sum itself is exact in fp32 and rounded once.  In a
+bf16 model each rank's partial is already rounded to bf16 by its product
+before the sum, so a two-rank result is rounded three times against one
+process's once; ``serve.prefill_tol`` absorbs that.
+
+Not ported: ``constrain_like_params`` (JAX ``:151``), a
+``with_sharding_constraint`` layout hint to GSPMD for gradients.  Eager
+PyTorch has no compiler to hint, and the hint changes no number
+(``tests/test_perf_features.py::test_constrain_grads_is_noop_numerically``).
+"""
+from __future__ import annotations
+
+import math
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.sharded import _block
+
+# rule: leaf-name -> logical spec for the *trailing* dims (layer-stack dims
+# are detected by ndim surplus and padded with None on the left).
+_RULES: dict[str, tuple] = {
+    # embeddings / unembedding
+    "tok": ("mp", "dp"),
+    "pos": (None, "dp"),
+    "unembed": ("dp", "mp"),
+    # attention
+    "wq": ("dp", "mp"), "wk": ("dp", "mp"), "wv": ("dp", "mp"),
+    "wo": ("mp", "dp"),
+    "bq": ("mp",), "bk": ("mp",), "bv": ("mp",), "bo": (None,),
+    "q_norm": (None,), "k_norm": (None,),
+    # MLA
+    "q_down": ("dp", None), "q_up": (None, "mp"),
+    "kv_down": ("dp", None), "kv_up": (None, "mp"),
+    "kv_norm": (None,),
+    # MLP
+    "w_gate": ("dp", "mp"), "w_up": ("dp", "mp"), "w_down": ("mp", "dp"),
+    "b_up": ("mp",), "b_down": (None,),
+    # MoE (experts on 'mp' = expert parallelism; hidden dims on 'dp' = FSDP)
+    "router": ("dp", None), "router_bias": (None,),
+    # SSM
+    "in_proj": ("dp", "mp"), "out_proj": ("mp", "dp"),
+    "conv_w": (None, "mp"), "conv_b": ("mp",),
+    "dt_bias": ("mp",), "A_log": ("mp",), "D": ("mp",),
+    "gate_norm": ("mp",),
+    # norms
+    "scale": (None,), "bias": (None,),
+    # conv nets (channels are tiny; replicate)
+    "w": (None, None, None), "b": (None,),
+    # whisper frontend
+    "conv1_w": (None, "mp", None), "conv1_b": ("mp",),
+    "conv2_w": (None, "mp", "dp"), "conv2_b": ("mp",),
+}
+
+# MoE expert stacks get a 3D rule keyed on name within a 'moe' scope.
+# 'ep' = expert parallelism over the COMBINED (pod·data·model) axes: each
+# device owns whole experts, so FSDP's per-microbatch weight all-gather
+# disappears (tokens move instead — §Perf cell 1 it-6).  Falls back to the
+# ('mp', 'dp', ·) TP+FSDP layout when n_experts doesn't divide the combined
+# axis size (translation in to_mesh_specs, which sees the leaf shapes).
+_MOE_RULES = {
+    "w_gate": ("ep", "dp", None),
+    "w_up": ("ep", "dp", None),
+    "w_down": ("ep", None, "dp"),
+}
+_EP_FALLBACK = {"ep": "mp"}  # per-dim fallback when divisibility fails
+
+
+class MeshShape:
+    """The axis names and sizes of a device mesh, all the rules read of
+    one: ``MeshShape(("data", "model"), (1, 2))``; ``shape`` maps each
+    name to its size, as a JAX mesh's does."""
+
+    def __init__(self, axis_names, shape):
+        self.axis_names = tuple(axis_names)
+        sizes = tuple(shape.values()) if isinstance(shape, dict) else shape
+        if len(sizes) != len(self.axis_names):
+            raise ValueError(f"{len(self.axis_names)} axis names for "
+                             f"{len(sizes)} sizes")
+        self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.axis_names}, {tuple(self.shape.values())})"
+
+
+def _names(key) -> list[str]:
+    return key.split(".") if isinstance(key, str) else [str(k) for k in key]
+
+
+def spec_for_path(names, shape) -> tuple:
+    """The logical spec (``'dp'``/``'mp'``/``'ep'``/None a dimension) of
+    the leaf at ``names`` (a dotted key, or its parts) of ``shape``."""
+    names = _names(names)
+    ndim = len(shape)
+    leaf_name = names[-1]
+    in_moe = "moe" in names and "shared" not in names
+    rule = None
+    if in_moe and leaf_name in _MOE_RULES:
+        rule = _MOE_RULES[leaf_name]
+    elif leaf_name in _RULES:
+        rule = _RULES[leaf_name]
+    if rule is None:
+        rule = (None,) * ndim
+    # layer-stacked params carry extra leading dims -> replicate those
+    extra = ndim - len(rule)
+    if extra > 0:
+        rule = (None,) * extra + tuple(rule)
+    elif extra < 0:
+        rule = tuple(rule[-ndim:]) if ndim else ()
+    return rule
+
+
+def _shapes(params) -> dict[str, tuple[int, ...]]:
+    """key -> shape of a model's state dict, or of a dict of tensors or
+    shapes."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    return {k: tuple(v.shape) if hasattr(v, "shape") else tuple(v)
+            for k, v in params.items()}
+
+
+def logical_param_specs(params) -> dict[str, tuple]:
+    """key -> logical spec of every leaf of ``params`` (a model, or a
+    dict of tensors or shapes under the state-dict keys)."""
+    return {k: spec_for_path(k, s) for k, s in _shapes(params).items()}
+
+
+def _axis(names: tuple):
+    """A spec entry over ``names``: None, the name, or the tuple."""
+    if not names:
+        return None
+    return names[0] if len(names) == 1 else tuple(names)
+
+
+def _data_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def to_mesh_specs(logical: dict, mesh, shapes: dict | None = None) -> dict:
+    """Translate logical (``'dp'``/``'mp'``/``'ep'``/None) specs to the
+    mesh's axis names.
+
+    ``'ep'`` needs the leaf's dim size (the expert count) to check that
+    it divides the combined ``(data, model)`` size; pass ``shapes`` (key
+    -> shape, or tensors) to enable it; without shapes, ``'ep'``
+    degrades to ``'mp'``.  When ``'ep'`` binds the combined axes, any
+    ``'dp'`` in the same spec is dropped (a mesh axis may appear once a
+    spec)."""
+    names = tuple(mesh.axis_names)
+    dp = _axis(_data_axes(mesh))
+    mp = "model" if "model" in names else None
+    ep_axes = tuple(a for a in ("data", "model") if a in names)
+    ep = _axis(ep_axes)
+    ep_size = math.prod(mesh.shape[a] for a in ep_axes)
+    shapes = None if shapes is None else _shapes(shapes)
+
+    def tr(key, t):
+        use_ep = ("ep" in t and ep is not None and shapes is not None
+                  and shapes[key][t.index("ep")] % ep_size == 0)
+        out = []
+        for a in t:
+            if a == "ep":
+                out.append(ep if use_ep else mp)
+            elif a == "dp":
+                out.append(None if use_ep else dp)
+            elif a == "mp":
+                out.append(mp)
+            else:
+                out.append(None)
+        return tuple(out)
+
+    return {k: tr(k, t) for k, t in logical.items()}
+
+
+def param_pspecs(params, mesh) -> dict[str, tuple]:
+    """key -> mesh spec of every leaf of ``params`` (JAX's
+    ``param_pspecs``)."""
+    return to_mesh_specs(logical_param_specs(params), mesh, shapes=params)
+
+
+def batch_pspec(mesh) -> tuple:
+    """A batch's spec: its leading dimension over the data axes."""
+    return (_axis(_data_axes(mesh)),)
+
+
+def cache_pspecs(cache, mesh, batch_size: int):
+    """KV / SSM caches (nested dicts of tensors or shapes, the port's
+    cache trees): the batch on the data axes when it divides, heads or
+    channels on ``'model'``; the same nesting of specs.
+
+    Cache layouts (leading layer-stack dim handled by padding):
+      k/v        : (L, B, T, KV, hd)   -> (None, dp, None, mp, None)
+      c_kv/k_rope: (L, B, T, r)        -> (None, dp, None, None)
+      conv state : (L, B, S-1, cd)     -> (None, dp, None, mp)
+      ssm state  : (L, B, H, N, P)     -> (None, dp, mp, None, None)
+      cross_k/v  : (L, B, Te, H, hd)   -> (None, dp, None, mp, None)
+    """
+    names = tuple(mesh.axis_names)
+    dp_axes = _data_axes(mesh)
+    dp = _axis(dp_axes)
+    mp = "model" if "model" in names else None
+    n_mp = mesh.shape["model"] if mp else 1
+    n_dp = math.prod(mesh.shape[a] for a in dp_axes)
+    bdp = dp if (dp and batch_size % n_dp == 0) else None
+
+    def spec(name, shape):
+        nd = len(shape)
+        if name in ("k", "v", "cross_k", "cross_v"):
+            # shard KV heads on mp when they divide the axis; otherwise
+            # fall back to sharding head_dim (GQA archs with KV < mp)
+            kv_heads, hd = shape[-2], shape[-1]
+            if kv_heads % n_mp == 0:
+                s = (None, bdp, None, mp, None)
+            elif hd % n_mp == 0:
+                s = (None, bdp, None, None, mp)
+            else:
+                s = (None, bdp, None, None, None)
+        elif name == "c_kv":
+            # latent cache: shard the rank dim on mp (it is 512 — divisible)
+            s = (None, bdp, None, mp)
+        elif name == "k_rope":
+            s = (None, bdp, None, None)
+        elif name == "conv":
+            s = (None, bdp, None, mp)
+        elif name == "ssm":
+            s = (None, bdp, mp, None, None)
+        else:
+            s = (None,) * nd
+        if len(s) > nd:
+            s = s[len(s) - nd:]
+        elif len(s) < nd:
+            s = (None,) * (nd - len(s)) + s
+        return s
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return spec(name, tuple(tree.shape) if hasattr(tree, "shape")
+                    else tuple(tree))
+
+    return walk(cache)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict (a cache tree), in order."""
+    for v in tree.values():
+        yield from (tree_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# --- the blocks a device holds ---------------------------------------------
+
+def _coords(mesh, coords) -> dict[str, int]:
+    if not isinstance(coords, dict):
+        coords = dict(zip(mesh.axis_names, coords))
+    for a in mesh.axis_names:
+        if not 0 <= coords[a] < mesh.shape[a]:
+            raise ValueError(f"coordinate {coords[a]} is off the mesh's "
+                             f"{a!r} axis of {mesh.shape[a]}")
+    return coords
+
+
+def _split(entry, mesh, coords) -> tuple[int, int]:
+    """(parts, index) of a dimension under spec entry ``entry`` at
+    ``coords``: the index row-major over the entry's axes."""
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    parts, index = 1, 0
+    for a in axes:
+        parts *= mesh.shape[a]
+        index = index * mesh.shape[a] + coords[a]
+    return parts, index
+
+
+def local_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """The shape of a device's block of a ``shape`` tensor under
+    ``spec`` (even tiling: a dimension that does not divide raises)."""
+    out = []
+    for dim, (n, entry) in enumerate(zip(shape, spec)):
+        parts, _ = _split(entry, mesh, {a: 0 for a in mesh.axis_names})
+        if n % parts:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} ({n}) does "
+                             f"not divide over {entry!r} ({parts} parts)")
+        out.append(n // parts)
+    return tuple(out)
+
+
+def local_block(t: torch.Tensor, spec: tuple, mesh, coords) -> torch.Tensor:
+    """The block of ``t`` that the device at ``coords`` (a dict axis ->
+    index, or a tuple in the mesh's axis order) holds under ``spec``: a
+    view, each split dimension narrowed to its equal part."""
+    if len(spec) != t.dim():
+        raise ValueError(f"a spec of {len(spec)} entries for a tensor of "
+                         f"{t.dim()} dimensions")
+    coords = _coords(mesh, coords)
+    local_shape(t.shape, spec, mesh)  # raises where a dimension is uneven
+    for dim, entry in enumerate(spec):
+        parts, index = _split(entry, mesh, coords)
+        if parts > 1:
+            t = _block(t, dim, parts, index)
+    return t
+
+
+def local_state_dict(params, mesh, coords,
+                     device=None) -> dict[str, torch.Tensor]:
+    """The state dict of the device at ``coords``: each leaf of
+    ``params`` (a model or a state dict) narrowed to its block under
+    :func:`param_pspecs`, contiguous, on ``device`` (default: where it
+    is)."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    specs = param_pspecs(params, mesh)
+    return {k: local_block(t, specs[k], mesh, coords).contiguous().to(
+        device if device is not None else t.device)
+        for k, t in params.items()}
+
+
+# --- the model group ---------------------------------------------------------
+
+class ModelGroup:
+    """The model axis of a tensor-parallel model: its process group, its
+    size and this rank's place in it, and the two collectives the model
+    runs on it.  ``sums`` and ``gathers`` count the calls, ``seconds``
+    their host time (to the collective's end: gloo and a synchronous
+    call)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.sums = self.gathers = 0
+        self.seconds = 0.0
+
+    def counts(self) -> dict:
+        return dict(sums=self.sums, gathers=self.gathers,
+                    seconds=self.seconds)
+
+    @staticmethod
+    def _check_no_grad(x: torch.Tensor) -> None:
+        if x.requires_grad and torch.is_grad_enabled():
+            raise ValueError("a tensor-parallel language model serves only "
+                             "(no gradient crosses the model group; the JAX "
+                             "package trains no language model on a model "
+                             "axis either)")
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the group, in fp32, cast back to x's dtype:
+        the same tensor on every rank."""
+        self._check_no_grad(x)
+        t0 = time.perf_counter()
+        y = x.to(torch.float32, copy=True)
+        dist.all_reduce(y, group=self.group)
+        self.sums += 1
+        self.seconds += time.perf_counter() - t0
+        return y.to(x.dtype)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' blocks of ``x`` joined along its last dimension in
+        rank order: the same tensor on every rank."""
+        self._check_no_grad(x)
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        self.gathers += 1
+        self.seconds += time.perf_counter() - t0
+        return torch.cat(parts, -1)

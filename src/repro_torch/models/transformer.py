@@ -36,6 +36,16 @@ cast to the model's dtype, before the token embeddings, and the rotary
 positions and the causal mask run over the whole sequence.  Its decode
 is the dense one over text tokens, as in the JAX package, whose serving
 launcher decodes text only.
+
+Tensor-parallel serving (the JAX launcher's ``--model-parallel``, where
+GSPMD partitions the decode by ``models/sharding.py``'s rules): a model
+built from a rank's blocks (``sharding.local_state_dict``) with ``tp``
+set to its ``sharding.ModelGroup`` runs ``forward`` and ``decode_step``
+on those blocks, the group's sums and gather where GSPMD inserts them
+(``models/common.py``, ``moe.py``, ``mla.py``), and its fused prefill
+runs ``flash_fwd`` on the rank's heads; its cache (``init_cache(...,
+mp=)``) holds the rank's KV/mp heads.  It serves only: no gradient
+crosses the group.
 """
 from __future__ import annotations
 
@@ -47,7 +57,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common as cm
-from repro_torch.models import mla, moe
+from repro_torch.models import mla, moe, sharding
 
 PREFIX = "dense_layers."
 MOE_PREFIX = "moe_layers."
@@ -183,9 +193,12 @@ class Transformer(nn.Module):
     parameters are the JAX tree's leaves under their dotted keys
     (``embed.tok``, ``dense_layers.attn.wq``, ``final_norm.scale``, ...).
     ``routing``: a ``moe.RoutingLog`` the MoE layers record their
-    selection into (or replay it from), or None."""
+    selection into (or replay it from), or None.  ``tp``: the
+    ``sharding.ModelGroup`` of a tensor-parallel rank whose leaves are
+    its blocks, or None."""
 
     routing: moe.RoutingLog | None = None
+    tp = None
 
     def __init__(self, cfg, leaves: dict[str, torch.Tensor]):
         super().__init__()
@@ -219,6 +232,18 @@ def init_params(cfg, *, seed: int = 0,
                                         device=device))
 
 
+def local_model(model: Transformer, mesh, coords, model_group,
+                device: torch.device | str | None = None) -> Transformer:
+    """A tensor-parallel rank's model: ``model``'s leaves narrowed to the
+    blocks ``sharding.param_pspecs`` gives the device at ``coords`` of
+    ``mesh`` (``sharding.local_state_dict``), on ``device``, its ``tp``
+    the ``sharding.ModelGroup`` of ``model_group``."""
+    out = Transformer(model.cfg, sharding.local_state_dict(
+        model, mesh, coords, device=device))
+    out.tp = sharding.ModelGroup(model_group)
+    return out
+
+
 def _check_family(cfg) -> None:
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"the transformer builds the dense, MoE and VLM "
@@ -238,29 +263,31 @@ def _nest(keys: list[str], values) -> dict:
     return out
 
 
-def _attn_half(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+def _attn_half(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+               tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``x + attn(norm(x))`` and its FFN's input, ``norm`` of it."""
     h = cm.apply_norm(lp["attn_norm"]["scale"], x, cfg,
                       lp["attn_norm"].get("bias"))
     if cfg.mla:
-        x = x + mla.mla_attention_block(lp["attn"], h, cfg, positions)
+        x = x + mla.mla_attention_block(lp["attn"], h, cfg, positions, tp=tp)
     else:
-        x = x + cm.attention_block(lp["attn"], h, cfg, positions)
+        x = x + cm.attention_block(lp["attn"], h, cfg, positions, tp=tp)
     return x, cm.apply_norm(lp["mlp_norm"]["scale"], x, cfg,
                             lp["mlp_norm"].get("bias"))
 
 
-def _layer_fwd(lp: dict, x: torch.Tensor, cfg,
-               positions: torch.Tensor) -> torch.Tensor:
-    x, h = _attn_half(lp, x, cfg, positions)
-    return x + cm.apply_mlp(lp["mlp"], h, cfg)
+def _layer_fwd(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+               tp=None) -> torch.Tensor:
+    x, h = _attn_half(lp, x, cfg, positions, tp)
+    return x + cm.apply_mlp(lp["mlp"], h, cfg, tp=tp)
 
 
 def _moe_layer_fwd(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-                   routing, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
-    x, h = _attn_half(lp, x, cfg, positions)
-    o, aux = moe.moe_ffn(lp["moe"], h, cfg, routing=routing, layer=layer)
+                   routing, layer: int, tp=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    x, h = _attn_half(lp, x, cfg, positions, tp)
+    o, aux = moe.moe_ffn(lp["moe"], h, cfg, routing=routing, layer=layer,
+                         tp=tp)
     return x + o, aux
 
 
@@ -282,7 +309,8 @@ def _final(model: nn.Module, x: torch.Tensor, hidden_only: bool = False
     if hidden_only:
         return x
     return cm.logits_from_hidden(model.embed.tok,
-                                 getattr(model, "unembed", None), x, cfg)
+                                 getattr(model, "unembed", None), x, cfg,
+                                 tp=model.tp)
 
 
 def forward(model: Transformer, tokens: torch.Tensor, *,
@@ -297,9 +325,11 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     ``last_only`` keeps the last position only (B, 1, ...);
     ``hidden_only`` returns the final-normed hidden state instead of
     logits.  With ``cfg.remat`` each layer's activations are recomputed
-    in the backward.  The MoE layers record into ``model.routing``."""
+    in the backward.  The MoE layers record into ``model.routing``.  A
+    tensor-parallel rank's model (``model.tp``) runs its blocks."""
     cfg = model.cfg
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    tp = model.tp
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=tokens.device)
@@ -314,12 +344,13 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
             if moe_layer:
                 def layer(x, *leaves, keys=keys, i=first + i):
                     return _moe_layer_fwd(_nest(keys, leaves), x, cfg,
-                                          positions, model.routing, i)
+                                          positions, model.routing, i, tp)
                 x, a = cm.maybe_remat(layer, cfg)(x, *lp)
                 aux = aux + a
             else:
                 def layer(x, *leaves, keys=keys):
-                    return _layer_fwd(_nest(keys, leaves), x, cfg, positions)
+                    return _layer_fwd(_nest(keys, leaves), x, cfg, positions,
+                                      tp)
                 x = cm.maybe_remat(layer, cfg)(x, *lp)
         first += n
     if last_only:
@@ -335,17 +366,23 @@ _CACHE_OF = {PREFIX: "dense", MOE_PREFIX: "moe"}
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> dict:
+               device: torch.device | str = "cpu", mp: int = 1) -> dict:
     """The KV cache, the JAX package's layout: a stack's ``{"k": (L, B,
     max_len, KV, hd), "v": (...)}`` (an MLA model's ``{"c_kv": (L, B,
     max_len, kv_lora), "k_rope": (L, B, max_len, rope)}``) in ``dtype``,
-    zeros, under ``"dense"`` and (an MoE model's) ``"moe"``."""
+    zeros, under ``"dense"`` and (an MoE model's) ``"moe"``.  ``mp``: a
+    tensor-parallel rank's cache, KV/mp heads of k and v (their block
+    under ``sharding.cache_pspecs``); an MLA model's latent stays whole
+    (``models/mla.py``)."""
     _check_family(cfg)
     if cfg.mla:
         return {_CACHE_OF[prefix]: mla.mla_init_cache(
             cfg, batch, max_len, dtype, device, layers=n)
             for prefix, n, _ in stacks(cfg)}
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.n_kv_heads % mp:
+        raise ValueError(f"{cfg.n_kv_heads} KV heads do not divide over "
+                         f"{mp} model ranks")
+    shape = (batch, max_len, cfg.n_kv_heads // mp, cfg.head_dim)
     return {_CACHE_OF[prefix]: {
         k: torch.zeros((n, *shape), dtype=dtype, device=device)
         for k in ("k", "v")} for prefix, n, _ in stacks(cfg)}
@@ -353,22 +390,22 @@ def init_cache(cfg, batch: int, max_len: int,
 
 def _layer_decode(lp: dict, x: torch.Tensor, cfg, layer_cache: dict,
                   pos: int, routing=None, layer: int = 0,
-                  absorb: bool = False) -> torch.Tensor:
+                  absorb: bool = False, tp=None) -> torch.Tensor:
     h = cm.apply_norm(lp["attn_norm"]["scale"], x, cfg,
                       lp["attn_norm"].get("bias"))
     if cfg.mla:
         x = x + mla.mla_attention_decode(lp["attn"], h, cfg, layer_cache,
-                                         pos, absorb=absorb)
+                                         pos, absorb=absorb, tp=tp)
     else:
         x = x + cm.attention_decode(lp["attn"], h, cfg, layer_cache["k"],
-                                    layer_cache["v"], pos)
+                                    layer_cache["v"], pos, tp=tp)
     h = cm.apply_norm(lp["mlp_norm"]["scale"], x, cfg,
                       lp["mlp_norm"].get("bias"))
     if "moe" in lp:
         o, _ = moe.moe_ffn(lp["moe"], h, cfg, routing=routing, layer=layer,
-                           pos=pos)
+                           pos=pos, tp=tp)
         return x + o
-    return x + cm.apply_mlp(lp["mlp"], h, cfg)
+    return x + cm.apply_mlp(lp["mlp"], h, cfg, tp=tp)
 
 
 def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
@@ -387,7 +424,7 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     if pos >= slots:
         raise ValueError(f"position {pos} is past the cache's {slots} "
                          "slots")
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=model.tp)
     first = 0
     for prefix, n, _ in stacks(cfg):
         keys, stacked = _stacked(model, prefix)
@@ -397,6 +434,6 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
         for i, (lp, lc) in enumerate(zip(
                 zip(*(p.unbind(0) for p in stacked)), layer_caches)):
             x = _layer_decode(_nest(keys, lp), x, cfg, lc, pos,
-                              model.routing, first + i, absorb)
+                              model.routing, first + i, absorb, model.tp)
         first += n
     return _final(model, x), cache

@@ -64,11 +64,14 @@ def make_serve_step(cfg, absorb: bool = False):
 def make_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cpu",
-               enc_len: int | None = None) -> dict:
+               enc_len: int | None = None, mp: int = 1) -> dict:
     """The family's decode cache (``init_cache``), zeros; ``enc_len`` sets
     an encoder-decoder's cross-attention length (default
-    ``cfg.encoder_width``)."""
+    ``cfg.encoder_width``); ``mp`` > 1 gives a tensor-parallel rank's
+    cache (the dense, MoE and VLM families: ``transformer.init_cache``)."""
     kw = {"enc_len": enc_len} if cfg.family == "encdec" else {}
+    if mp != 1:
+        kw["mp"] = mp
     return get_model(cfg).init_cache(cfg, batch, max_len, dtype=dtype,
                                      device=device, **kw)
 
@@ -80,7 +83,9 @@ def make_prefill_step(cfg):
     embeddings ``batch["patches"]`` before the tokens where the batch
     has them, as JAX's passes them; without them, the text alone, as its
     decode runs) with the logits of the last position only (B, 1,
-    padded_vocab); the (B, T, V) logits are never made.  On the card it
+    padded_vocab); the (B, T, V) logits are never made (on a
+    tensor-parallel rank the last position's column blocks are gathered).
+    On the card it
     runs the family's kernels: Mamba2's and Zamba2's convs through
     ``depthwise_conv1d_fwd``, a dense, MoE or VLM model's attention (a
     VLM's over the image and text positions), Whisper's encoder and

@@ -96,10 +96,10 @@ def test_configs_match_jax():
 def test_lm_families_raise_not_implemented():
     """Every architecture of the JAX package has its config (the VLM was
     the last); the LM launcher's ``--model-parallel``, which shards the
-    parameters in the JAX launcher, is still refused."""
+    parameters in the JAX launcher, serves the dense, MoE and VLM
+    families and still refuses the SSM family."""
     assert configs.get("internvl2-2b").family == "vlm"
-    with pytest.raises(NotImplementedError,
-                       match="models/sharding.py.*queue A item 5"):
+    with pytest.raises(ValueError, match="ssm family.*queue A item 6"):
         serve.main(["--arch", "mamba2-370m", "--device", "cpu", "--smoke",
                     "--model-parallel", "2"])
 

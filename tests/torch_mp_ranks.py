@@ -1,5 +1,6 @@
-"""Rank-side jobs of ``test_torch_model_parallel.py``: the port's
-tensor-parallel path run by gloo ranks on the CPU.
+"""Rank-side jobs of ``test_torch_model_parallel.py`` and
+``test_torch_tp_serve.py``: the port's tensor-parallel paths (AtacWorks
+training, the language models' serving) run by gloo ranks on the CPU.
 
 Kept apart from the test module so that each spawned rank imports torch
 and the port, not JAX.  ``spawn(world, mp, job, tmp, **payload)`` starts
@@ -22,7 +23,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 import torch.nn.functional as F
 
-from repro_torch import configs
+from repro_torch import configs, convert
+from repro_torch.configs.base import reduced
 from repro_torch.kernels import ops
 from repro_torch.kernels import sharded as sh
 from repro_torch.launch import mesh
@@ -162,8 +164,78 @@ def job_launcher(data, model_group, rank, tmp, *, argv):
                 ckpts=sorted(os.listdir(os.path.join(tmp, "ckpt"))))
 
 
+def _selection(log) -> dict:
+    return {layer: log.selection(layer)[0].numpy().copy()
+            for layer in log.layers()}
+
+
+def job_tp_serve(data, model_group, rank, tmp, *, cases, launcher_argv):
+    """Tensor-parallel serving of each case's model (its JAX tree, the
+    rank's blocks over the model group): decode steps teacher-forced over
+    ``prompt``, then ``gen`` greedy ones (logits, tokens, an MoE model's
+    selection, the group's collectives a step), an MLA model's absorbed
+    decode over the prompt, and the fused prefill (behind a VLM's
+    ``patches``); then ``serve.serve_lm`` from ``launcher_argv``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import serve_step
+    mp_ = mesh.mp_size(model_group)
+    shape, coords = mesh.make_host_mesh(model=mp_)
+    out = {}
+    for name, c in cases.items():
+        cfg, prompt = c["cfg"], torch.from_numpy(c["prompt"])
+        B, T = prompt.shape
+        full = transformer.Transformer(cfg, convert.params_from_jax(
+            c["jparams"]))
+        model = transformer.local_model(full, shape, coords, model_group)
+        res = dict(weights={k: p.detach().numpy().copy()
+                            for k, p in model.named_parameters()})
+        for absorb in ((False, True) if cfg.mla else (False,)):
+            model.routing = moe.RoutingLog() if cfg.moe else None
+            cache = serve_step.make_cache(cfg, B, T + c["gen"],
+                                          dtype=torch.float32, mp=mp_)
+            step = serve_step.make_serve_step(cfg, absorb=absorb)
+            logits, tokens = [], []
+            before = model.tp.counts()
+            tok = prompt[:, :1]
+            for t in range(T + (0 if absorb else c["gen"])):
+                tok = prompt[:, t:t + 1] if t < T else tok
+                tok, cache, lg = step(model, cache, tok, t)
+                logits.append(lg.numpy().copy())
+                tokens.append(tok.numpy().copy())
+            after = model.tp.counts()
+            key = "absorbed" if absorb else "decode"
+            res[key] = dict(logits=logits, tokens=tokens,
+                            steps=len(logits),
+                            sums=after["sums"] - before["sums"],
+                            gathers=after["gathers"] - before["gathers"])
+            if model.routing is not None:
+                res[key]["selection"] = _selection(model.routing)
+        model.routing = moe.RoutingLog() if cfg.moe else None
+        batch = {"tokens": prompt}
+        if "patches" in c:
+            batch["patches"] = torch.from_numpy(c["patches"])
+        nxt, lg = serve_step.make_prefill_step(cfg)(model, batch)
+        res["prefill"] = dict(logits=lg.numpy().copy(),
+                              tokens=nxt.numpy().copy())
+        if model.routing is not None:
+            res["prefill"]["selection"] = _selection(model.routing)
+        out[name] = res
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = serve.serve_lm(serve.parse_args(launcher_argv),
+                               reduced(configs.get("starcoder2-3b")))
+    out["launcher"] = dict(
+        out=buf.getvalue(), tokens=stats["tokens"],
+        prompt_logits=stats["prompt_logits"].numpy().copy(),
+        **{k: stats[k] for k in ("model_parallel", "weights_bytes",
+                                 "cache_bytes", "collectives", "coords",
+                                 "prefill_gap")})
+    return out
+
+
 JOBS = {f.__name__: f for f in (job_grads, job_ops, job_refusals,
-                                job_launcher)}
+                                job_launcher, job_tp_serve)}
 
 
 def _rank_main(rank, world, mp_, tmp, job, payload):
