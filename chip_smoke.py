@@ -84,7 +84,7 @@ Phases (any failed check raises, so the run exits non-zero):
      plain version, and 3 x 2 forward and 2 bwd-weight launches;
   9. train ``mamba2-370m`` (48 layers, bf16, remat on) through
      ``repro_torch.launch.train``'s own entry point at batch 8 x 2,048 for
-     10 steps: every loss and gradient norm finite, 144 depthwise forward
+     6 steps: every loss and gradient norm finite, 144 depthwise forward
      launches (forward, recompute, bwd-data) and 48 bwd-weight launches a
      step; step p50, tokens/s, peak memory; then M2_PROFILE_STEPS more
      steps under ``torch.profiler``: device time of the depthwise
@@ -107,7 +107,7 @@ Phases (any failed check raises, so the run exits non-zero):
       2 x 2 ``flash_fwd`` and 2 ``flash_bwd`` launches;
   12. train ``starcoder2-3b`` (30 layers, bf16, remat on) through
       ``repro_torch.launch.train``'s own entry point with ``--attn-impl
-      flash`` at batch 4 x 4,096 for 8 steps: every loss and gradient norm
+      flash`` at batch 4 x 4,096 for 5 steps: every loss and gradient norm
       finite, no step skipped, 60 ``flash_fwd`` (forward and remat
       recompute) and 30 ``flash_bwd`` launches a step, peak memory under
       80 GB; step p50, tokens/s; then LM_PROFILE_STEPS more steps under
@@ -145,7 +145,7 @@ Phases (any failed check raises, so the run exits non-zero):
       step p50/p99, tokens/s, the sequential prefill's seconds, the fused
       prefill's call and device time, peak memory (the model's bytes plus
       the most the cell allocated above what it started with), the
-      decode's device busy share (``torch.profiler`` over 24 steps) and a
+      decode's device busy share (``torch.profiler`` over 6 steps) and a
       decode step's bound (``roofline.flops.hbm_bytes_decode`` at 3.35
       TB/s).  ``depthwise_conv1d_streaming`` at
       Mamba2's conv (8 x 2304, bf16 in, bias + silu, fp32 out) over 2,048
@@ -252,7 +252,7 @@ Phases (any failed check raises, so the run exits non-zero):
       prefill, none in the decode steps, finite logits, the prefill
       within ``serve.prefill_tol`` of the decode; encode time, decode
       p50/p99, tokens/s, peak memory, the decode bound; (c) the launcher
-      6 steps at batch 4 x 448 (128 + 64 flash launches a step, finite,
+      4 steps at batch 4 x 448 (128 + 64 flash launches a step, finite,
       none skipped; step p50, tokens/s, useful TFLOP/s, peak memory),
       BREAKDOWN_STEPS more steps traced (``_train_breakdown``: the
       device time of the flash kernels, the matrix products, the sorts
@@ -274,7 +274,7 @@ Phases (any failed check raises, so the run exits non-zero):
       launches in the fused prefill, none in the decode steps, finite
       logits, the prefill within ``serve.prefill_tol`` of the decode;
       decode p50/p99, tokens/s, prefill times, peak memory, the decode's
-      busy share and bound; (c) the launcher 6 steps on the config cut to
+      busy share and bound; (c) the launcher 4 steps on the config cut to
       12 layers (``zamba2-7b-12l``, registered here) at batch 4 x 4,096
       (36 + 12 depthwise and 4 + 2 flash launches a step; step p50,
       tokens/s, useful TFLOP/s, peak memory), BREAKDOWN_STEPS more steps
@@ -297,7 +297,7 @@ Phases (any failed check raises, so the run exits non-zero):
       decode step, the decode's busy share and its bound two ways (the
       weights a token uses, and the experts the batch's selections
       touch); (c) the
-      launcher 6 steps on the config cut to 6 layers
+      launcher 4 steps on the config cut to 6 layers
       (``moonshot-v1-16b-a3b-6l``, registered here, the streamed
       cross-entropy over 1,024-position chunks) at batch 4 x 4,096 (12 +
       6 flash launches a step; step p50, tokens/s, useful TFLOP/s, peak
@@ -321,7 +321,7 @@ Phases (any failed check raises, so the run exits non-zero):
       decode step), then the absorbed decode (``make_serve_step(absorb=
       True)``) against the plain one on the same cache and tokens with
       the plain decode's selection replayed, within
-      ``serve.prefill_tol``, no kernel launched; (c) the launcher 6 steps
+      ``serve.prefill_tol``, no kernel launched; (c) the launcher 4 steps
       on the config cut to 2 layers of 16 routed experts
       (``deepseek-v3-671b-2l-16e``, registered here; streamed
       cross-entropy) at batch 4 x 4,096 (4 + 2 flash launches a step),
@@ -341,7 +341,7 @@ Phases (any failed check raises, so the run exits non-zero):
       fused prefill of the prompt behind 256 seeded image embeddings
       through flash against the same prefill with ``attn_impl="chunked"``
       within ``serve.prefill_tol`` (24 ``flash_fwd``), and a 2-layer fp32
-      copy at full width checked both ways; (c) the launcher 6 steps at
+      copy at full width checked both ways; (c) the launcher 4 steps at
       batch 4 x 4,096 (48 + 24 flash launches a step; step p50, tokens/s
       counting the image positions, useful TFLOP/s, peak memory),
       BREAKDOWN_STEPS more traced; (d) a 2-layer fp32 copy's whole
@@ -353,33 +353,47 @@ Phases (any failed check raises, so the run exits non-zero):
       time; the phase's seconds;
   24. tensor-parallel serving (``tp_serve_check``; ``serve
       --model-parallel 2``, ``models/sharding.py``'s blocks): ``flash_fwd``
-      at a rank's prefill shapes (StarCoder2-3B's (8, 200, 1 KV head, G
-      12, 128); DeepSeek-V3's 64 MLA heads of 192, v padded from 128)
-      timed beside SDPA and the bound; one process serves StarCoder2-3B
-      (30 layers, bf16, flash) at batch 8, a 200-token prompt and 64
-      generated tokens, its 2-layer fp32 copy, and DeepSeek-V3's
-      ``deepseek-v3-671b-2l-16e`` (recording its expert selection) and
-      its fp32 copy (the bf16 weights cast); then 2 gloo ranks on the card serve each through the
-      launcher from torchrun's variables, each drawing the model on the
-      host and keeping its blocks: each rank's logits at the prompt's last
-      position within ``serve.prefill_tol`` (fp32: 1e-5) of the one
-      process's largest logit, greedy tokens equal where the margin is
-      clear, the ranks' logits and tokens bitwise equal, 30 (4: the
-      replayed and the free prefill of 2 layers) ``flash_fwd`` launches
-      a rank's fused prefill at the rank's shape and none a decode step;
-      DeepSeek-V3's decode with the one process's selection replayed,
-      then free (its flips reported, its selections bitwise equal across
-      the ranks), and its absorbed decode on a rank; decode p50/p99,
-      tokens/s, a rank's peak memory, weights and cache bytes, the
-      collectives a step and their host time; the phase's seconds;
-  25. a JSON line of the six kernels, the card's line, and last the
-      result line.
+      at a rank's prefill shapes (StarCoder2-3B's (8, 72, 1 KV head, G
+      12, 128); DeepSeek-V3's 64 MLA heads of 192, v padded from 128;
+      Zamba2-7B's 16 heads of 112; Whisper's encoder, (8, 1,500, 10
+      heads of 64), non-causal) timed beside SDPA and the bound, and
+      ``depthwise_conv1d_fwd`` at a rank's (8, channels, 72) (Mamba2-370M's
+      1,280, Zamba2-7B's 3,712: the rank's x channels and B and C whole)
+      beside ``F.conv1d`` and the bound; one process serves StarCoder2-3B
+      (cut to 12 layers; phase 14 serves all 30), DeepSeek-V3's
+      ``deepseek-v3-671b-2l-16e`` (recording its expert selection),
+      Mamba2-370M (48 layers), Zamba2-7B's 12-layer cut and
+      Whisper-large-v3 (cut to 8 + 8 layers, a 4-token prompt), each in
+      bf16 at batch 8, a 72-token prompt (DeepSeek-V3: 200) and 16
+      generated tokens, and each one's fp32 copy at a 72-token prompt at
+      most (StarCoder2's drawn, the others the bf16 weights cast and cut
+      to 2 layers, Zamba2's to 6); then 2
+      gloo ranks on the card serve each through the launcher from
+      torchrun's variables, each reading the model the one process drew
+      back from its saved state dict on the host and keeping its blocks:
+      each rank's logits at the prompt's last position within
+      ``serve.prefill_tol`` (fp32: 1e-5) of the one process's largest
+      logit, greedy tokens equal where the margin is clear, the ranks'
+      logits and tokens bitwise equal, each rank's kernel launches and
+      input shapes (``_ts_want``: 12 ``flash_fwd``, StarCoder2's; 4,
+      DeepSeek-V3's replayed and free prefill; 48 ``depthwise_conv1d_fwd``,
+      Mamba2's; 12 and 2, Zamba2's; 8 ``flash_fwd`` a Whisper
+      ``fill_cross_cache`` and 16 a fused prefill) and none in a decode
+      step; DeepSeek-V3's decode with the one process's selection
+      replayed, then free (its flips reported, its selections bitwise
+      equal across the ranks), and its absorbed decode on a rank over
+      the prompt's first 16 positions; decode
+      p50/p99, tokens/s, a rank's peak memory, weights and cache bytes,
+      the collectives a step and their host time; the phase's seconds;
+  25. the seconds of each phase, a JSON line of the six kernels, the
+      card's line, and last the result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import json
@@ -436,8 +450,9 @@ DW_TOL_F32, DW_TOL_BF16 = 1e-5, 2.0 ** -7
 # leaf's largest value (as for AtacWorks)
 M2_GRAD_LAYERS, M2_GRAD_BATCH, M2_GRAD_SEQ = 2, 2, 512
 # the Mamba2-370M training cell: batch 8 x 2,048 (the Mamba-2 paper's
-# pretraining context), 10 steps; then M2_PROFILE_STEPS traced
-M2_BATCH, M2_SEQ, M2_STEPS, M2_PROFILE_STEPS = 8, 2048, 10, 3
+# pretraining context), 6 steps; then M2_PROFILE_STEPS traced (the trace's
+# processing on the host, about 14 s a step, sets the count)
+M2_BATCH, M2_SEQ, M2_STEPS, M2_PROFILE_STEPS = 8, 2048, 6, 1
 
 # StarCoder2-3B's attention in its training cell: batch 4 x 4,096, 24
 # query heads over 2 KV heads (G = 12) of 128, bf16, causal
@@ -461,22 +476,22 @@ FA_RTOL_BF16, FA_ATOL_BF16 = 2.0 ** -7, 1e-3
 # of its leaf's largest value (as for AtacWorks and Mamba2)
 LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 2, 2, 512
 # the StarCoder2-3B training cell: batch 4 x 4,096 (its pretraining
-# context), 8 steps; then LM_PROFILE_STEPS traced
-LM_BATCH, LM_SEQ, LM_STEPS, LM_PROFILE_STEPS = 4, 4096, 8, 2
+# context), 5 steps; then LM_PROFILE_STEPS traced
+LM_BATCH, LM_SEQ, LM_STEPS, LM_PROFILE_STEPS = 4, 4096, 5, 1
 LM_MEMORY_LIMIT_GB = 80.0
 # phase 14, LM serving at the published widths: Mamba2-370M at batch 8
 # and StarCoder2-3B at batch 4 (its flash prefill), a 200-token prompt
 # (not a multiple of the SSD chunk or the flash tile) and 64 generated
-# tokens; the decode's busy share traced over 8 + 17 - 1 steps; a 2-layer
+# tokens; the decode's busy share traced over 2 + 5 - 1 steps; a 2-layer
 # fp32 copy of each at batch 2; Mamba2's conv streamed over 2,048 columns
 # (16 chunks of 1, then chunks of 64, then the ragged rest)
 M2_SERVE_BATCH, SC2_SERVE_BATCH, LM_PROMPT, LM_GEN = 8, 4, 200, 64
-LM_TRACE_PROMPT, LM_TRACE_GEN = 8, 17
+LM_TRACE_PROMPT, LM_TRACE_GEN = 2, 5
 LM_FP32_LAYERS, LM_FP32_BATCH = 2, 2
 STREAM_SEQ, STREAM_ONES, STREAM_CHUNK = 2048, 16, 64
 # the paper's Figs 4-6 sweep: graph replays per timing (cut these, never
 # the cells, if the phase runs long); the tuner times every candidate
-SWEEP_ITERS = 5
+SWEEP_ITERS = 3
 # phase 15, data parallelism: DP_RANKS gloo ranks on the one card, the
 # global batch DP_BATCH x DP_SEQ split between them; each gradient leaf
 # elementwise within DP_TOL of its largest value against the one-process
@@ -572,7 +587,7 @@ EL_RTOL, EL_ATOL = 1e-3, 1e-4
 WH_ARCH = "whisper-large-v3"
 WH_MEL_BATCH, WH_MEL_T, WH_GRAD_MEL_BATCH = 8, 3000, 1
 WH_SERVE_BATCH, WH_PROMPT, WH_GEN = 8, 4, 64
-WH_BATCH, WH_SEQ, WH_STEPS = 4, 448, 6
+WH_BATCH, WH_SEQ, WH_STEPS = 4, 448, 4
 WH_GRAD_LAYERS, WH_GRAD_BATCH, WH_GRAD_SEQ = 2, 2, 448
 WH_FA_FWD_B, WH_FA_BWD_B = 8, 4
 # K's self-attention bias: without rotary embeddings it adds q . bk to a
@@ -592,26 +607,29 @@ WH_ZERO_GRAD = {"enc_layers.attn.bk": "enc_layers.attn.wk",
 # dt_bias and A_log), at batch ZB_SERVE_BATCH, phase 14's LM_PROMPT-token
 # prompt and LM_GEN generated tokens, ``--smoke``; the decode traced over
 # ZB_TRACE_PROMPT + ZB_TRACE_GEN - 1 steps for its busy share (5,360
-# kernels a step: fewer steps than phase 14's keep the trace short).  (c) The
+# kernels a step: as few steps as phase 14's keep the trace short).  (c) The
 # launcher ZB_STEPS steps at ZB_BATCH x ZB_SEQ on ZB_TRAIN_ARCH, the config
 # cut to ZB_TRAIN_LAYERS layers (the published widths; its training state
 # at full depth, about 12 bytes a parameter, is 81 GB), then an fp32 copy
-# of that cut's whole gradient at ZB_GRAD_BATCH x ZB_GRAD_SEQ against the
-# plain attention and conv (phase 11's rule; the shared block applied
-# twice, so its gradient is a sum, as is the embedding table's).
+# of that cut (the served weights cast, ZB_SERVE_LAYERS being
+# ZB_TRAIN_LAYERS) and its whole gradient at ZB_GRAD_BATCH x ZB_GRAD_SEQ
+# against the plain attention and conv (phase 11's rule; the shared block
+# applied twice, so its gradient is a sum, as is the embedding table's).
 ZB_ARCH, ZB_TRAIN_ARCH, ZB_TRAIN_LAYERS = "zamba2-7b", "zamba2-7b-12l", 12
 # served at a cut depth (the 81 layers' serial draw took 66.7 of the
 # phase's 191.6 s on an H100 80GB HBM3 at 700 W): 12 layers keep two
 # applications of the shared block (attn_every 6), every width kept
-ZB_SERVE_LAYERS = 12
-ZB_SERVE_BATCH, ZB_BATCH, ZB_SEQ, ZB_STEPS = 8, 4, 4096, 6
+ZB_SERVE_LAYERS = ZB_TRAIN_LAYERS
+ZB_SERVE_BATCH, ZB_BATCH, ZB_SEQ, ZB_STEPS = 8, 4, 4096, 4
 ZB_GRAD_BATCH, ZB_GRAD_SEQ = 1, 512
 ZB_FA_F32 = (1, 1024, 8, 1)
 ZB_TRACE_PROMPT, ZB_TRACE_GEN = 2, 5
-# the training steps of phases 19, 20 and 21 traced by torch.profiler
-# after each launcher run, for where a step's device time goes
-# (``_train_breakdown``)
-BREAKDOWN_STEPS = 2
+# the training steps of phases 19 to 23 traced by torch.profiler after
+# each launcher run, for where a step's device time goes
+# (``_train_breakdown``): one, the launcher's first (its host work
+# includes the first calls' set-up; the trace's processing on the host,
+# 5-12 s a step, sets the count)
+BREAKDOWN_STEPS = 1
 # phase 21, Moonlight-16B-A3B (hf:moonshotai/Moonlight-16B-A3B), the MoE
 # family, at its published widths (one dense layer of d_ff 11,264, then
 # 47 layers of 64 routed experts, top-6 by sigmoid scores, of d_ff 1,408
@@ -641,7 +659,7 @@ BREAKDOWN_STEPS = 2
 MN_ARCH, MN_TRAIN_ARCH = "moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b-6l"
 MN_SERVE_ARCH, MN_SERVE_LAYERS = "moonshot-v1-16b-a3b-6l-serve", 6
 MN_TRAIN_LAYERS, MN_XENT_CHUNK = 6, 1024
-MN_SERVE_BATCH, MN_BATCH, MN_SEQ, MN_STEPS = 8, 4, 4096, 6
+MN_SERVE_BATCH, MN_BATCH, MN_SEQ, MN_STEPS = 8, 4, 4096, 4
 MN_GRAD_BATCH, MN_GRAD_SEQ = 1, 512
 MN_FA_F32 = (1, 1024, 16, 1)
 MN_TRACE_PROMPT, MN_TRACE_GEN = 2, 3
@@ -671,7 +689,7 @@ DS_ARCH = "deepseek-v3-671b"
 DS_SERVE_ARCH, DS_SERVE_LAYERS = "deepseek-v3-671b-4l", 4
 DS_TRAIN_ARCH = "deepseek-v3-671b-2l-16e"
 DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS, DS_XENT_CHUNK = 2, 16, 1024
-DS_SERVE_BATCH, DS_BATCH, DS_SEQ, DS_STEPS = 8, 4, 4096, 6
+DS_SERVE_BATCH, DS_BATCH, DS_SEQ, DS_STEPS = 8, 4, 4096, 4
 DS_GRAD_BATCH, DS_GRAD_SEQ = 1, 512
 DS_FA_F32 = (1, 1024, 16, 1)
 DS_ABSORB_STEPS = 32
@@ -697,21 +715,22 @@ DS_ABSORB_STEPS = 32
 # layer, 24,576 bf16 values a position (9.7 GB at 2 x 4,096 over 24
 # layers, 19.3 GB at batch 4, where the "nothing" step peaks near 48 GB).
 VL_ARCH, VL_DOTS_ARCH = "internvl2-2b", "internvl2-2b-dots"
-VL_SERVE_BATCH, VL_BATCH, VL_SEQ, VL_STEPS = 8, 4, 4096, 6
+VL_SERVE_BATCH, VL_BATCH, VL_SEQ, VL_STEPS = 8, 4, 4096, 4
 VL_GRAD_BATCH, VL_GRAD_SEQ = 2, 512
 VL_DOTS_BATCH, VL_DOTS_STEPS = 2, 3
 VL_FA_F32 = (1, 1024, 8, 2)
 # phase 24, tensor-parallel serving of the transformer language models
 # (``serve --model-parallel``, ``models/sharding.py``'s blocks): TS_MP
 # gloo ranks spawned on the one card run the launcher from torchrun's
-# variables (a localhost port), each drawing the same seeded model on the
-# host (random non-zero biases and norms) and keeping its blocks.  (a)
-# StarCoder2-3B at its published widths, all 30 layers, bf16, flash: one
-# process serves it at phase 14's traffic at batch TS_BATCH, then the
-# ranks serve it with ``--smoke`` (each rank's fused prefill runs 30
-# ``flash_fwd`` on its (TS_BATCH, LM_PROMPT, 1, 12, 128) heads); each
-# rank's decode logits at the prompt's last position within
-# ``serve.prefill_tol`` of the one process's largest logit, the greedy
+# variables (a localhost port), each reading back on the host the seeded
+# model the one process drew (random non-zero biases and norms; saved in
+# the phase's temporary directory) and keeping its blocks.  (a)
+# StarCoder2-3B at its published widths, TS_SC2_LAYERS layers, bf16,
+# flash: one process serves it at a TS_PROMPT-token prompt at batch
+# TS_BATCH, then the ranks serve it with ``--smoke`` (each rank's fused
+# prefill runs TS_SC2_LAYERS ``flash_fwd`` on its (TS_BATCH, TS_PROMPT, 1,
+# 12, 128) heads); each rank's decode logits at the prompt's last position
+# within ``serve.prefill_tol`` of the one process's largest logit, the greedy
 # tokens equal where the top-2 margin is clear, the two ranks' logits and
 # tokens bitwise equal; an LM_FP32_LAYERS-layer fp32 copy within
 # TS_F32_TOL.  (b) DeepSeek-V3's DS_TRAIN_ARCH (every width; 1 dense + 1
@@ -721,8 +740,37 @@ VL_FA_F32 = (1, 1024, 8, 2)
 # against the one process reported, its selections bitwise equal across
 # the ranks), the absorbed decode on a rank's blocks against the one
 # process's (gated in fp32, reported in bf16), and the fp32 copy (the cut
-# is 2 layers already; its bf16 weights cast, not drawn again).
+# is 2 layers already; its bf16 weights cast, not drawn again).  (c)
+# Mamba2-370M at all 48 layers (each rank's fused prefill runs 48
+# ``depthwise_conv1d_fwd`` on its (TS_BATCH, 1,024 + 256, TS_PROMPT)
+# channels: its heads' x, B and C whole), Zamba2-7B's ZB_TRAIN_ARCH
+# (phase 20's 12-layer cut, every width: 12 ``depthwise_conv1d_fwd`` on
+# 3,584 + 128 channels and 2 ``flash_fwd`` on 16 heads of 112 a rank's
+# prefill) and Whisper-large-v3 at full width, cut to TS_WH_LAYERS encoder
+# and TS_WH_LAYERS decoder layers (a WH_PROMPT-token prompt; 8
+# ``flash_fwd`` on the encoder's 10 heads of 64 a rank's
+# ``fill_cross_cache``, 16 a fused prefill), as (a); their fp32 copies are
+# the bf16 weights cast and cut to their first TS_F32_LAYERS layers
+# (Zamba2's to TS_ZB_F32_LAYERS: one application of the shared block;
+# Whisper's encoder and decoder each).  To keep the phase's time,
+# StarCoder2-3B is served here cut to TS_SC2_LAYERS layers (phase 14
+# serves all 30 in one process), StarCoder2, Mamba2 and Zamba2 serve a
+# TS_PROMPT-token prompt (a rank's sequential prefill runs a decode step
+# a token, about 100 gloo collectives for Mamba2) and every bf16 run
+# generates TS_GEN tokens (15 timed decode steps).  DeepSeek-V3 keeps
+# phase 14's LM_PROMPT: at TS_PROMPT a rank's 2-layer bf16 fused prefill
+# sits 1.26e-2 of the largest logit from its decode, past
+# ``serve.prefill_tol``'s 1.17e-2 (an H100 80GB HBM3 at 700 W); its fp32
+# copy takes TS_PROMPT.  Whisper is cut to TS_WH_LAYERS + TS_WH_LAYERS
+# layers for the time: at 32 + 32 a rank's run took 22 s on that card,
+# the encoder's sums moving (8, 1,500, 1,280) bf16 activations through
+# gloo.  The absorbed decode runs over the prompt's first TS_ABSORB_STEPS
+# positions (phase 22's one process over DS_ABSORB_STEPS).  TS_PROMPT is
+# no multiple of the SSD chunk (128).
 TS_SC2, TS_MP, TS_BATCH, TS_F32_TOL = "starcoder2-3b", 2, 8, 1e-5
+TS_SC2_LAYERS, TS_PROMPT, TS_GEN = 12, 72, 16
+TS_F32_LAYERS, TS_ZB_F32_LAYERS = 2, 6
+TS_WH_LAYERS, TS_ABSORB_STEPS = 8, 16
 # the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
 # at 3 and its two passes at 192
 FLASH_WGMMA_KERNELS = 13
@@ -1608,6 +1656,33 @@ def _trace(torch, fn, port_names, per=1):
             by_op[e.key] = by_op.get(e.key, 0.0) + dev_ms(e, True)
     kernels.sort(key=lambda k: -k["ms_per_step"])
     return result, kernels, by_op
+
+
+@contextlib.contextmanager
+def _drawn_once(torch, train):
+    """Within it, the launcher's ``init_model`` draws a language model's
+    weights on the host once a (config, seed) and gives each run a model
+    of them on its device: the values a draw to the device gives (the
+    draw is on the host, a function of the seed alone), without a second
+    draw's host time (a timed run and its traced run draw alike)."""
+    real, kept = train.init_model, {}
+
+    def init_model(cfg, *, seed=0, device="cpu"):
+        if cfg.family == "conv":
+            return real(cfg, seed=seed, device=device)
+        key = (repr(cfg), seed)
+        if key not in kept:
+            host = real(cfg, seed=seed, device="cpu")
+            kept[key] = type(host), host.state_dict()
+        cls, leaves = kept[key]
+        return cls(cfg, {k: t.to(device, copy=True)
+                         for k, t in leaves.items()})
+
+    train.init_model = init_model
+    try:
+        yield
+    finally:
+        train.init_model = real
 
 
 def _profile_steps(torch, train, argv, steps, port_names):
@@ -4704,6 +4779,10 @@ def zamba2_check(torch, np, configs, init_model, serve, train, synthetic,
     print(f"zamba2: {out['params']} parameters drawn and moved to the card "
           f"in {out['init_s']:.1f} s", flush=True)
     out["serve"] = _zb_serve(torch, serve, cfg, model, counters)
+    # kept on the host for the fp32 gradient copy: the same 12 layers
+    # cast, not drawn again (a draw takes 13-16 s of host time)
+    served = type(model)(cfg, {k: t.cpu() for k, t in
+                               model.state_dict().items()})
     del model
     torch.cuda.empty_cache()
     tcfg = configs.register(dataclasses.replace(
@@ -4726,7 +4805,8 @@ def zamba2_check(torch, np, configs, init_model, serve, train, synthetic,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gcfg = dataclasses.replace(tcfg, dtype="float32", attn_impl="flash")
-    gmodel = _lm_model(torch, gcfg, init_model, seed=205)
+    gmodel = _as_fp32(served, gcfg).to(DEVICE)
+    del served
     batch = _batch(torch, synthetic, gcfg, ZB_GRAD_BATCH, ZB_GRAD_SEQ, 206)
 
     def run(attn_impl, backend):
@@ -5664,27 +5744,32 @@ def _served(torch, serve, counters, cfg, model, argv, routing=None):
     """``serve.serve_lm`` from ``argv`` on ``model`` (one process's, on
     the card; or a tensor-parallel rank's whole model on the host, which
     the launcher narrows to its blocks), this process's peak memory, and
-    the kernels' launches split between the fused prefill (the one under
-    ``--smoke``, ``serve.prefill_gap``) and the rest (the decode steps)."""
+    the kernels' launches split between an encoder-decoder's
+    ``fill_cross_cache``, the fused prefill (the one under ``--smoke``,
+    ``serve.prefill_gap``) and the rest (the decode steps)."""
     marks = {}
-    real = serve.prefill_gap
+    real = serve.prefill_gap, serve.fill_cross_cache
 
-    def prefill_gap(*a, **k):
-        before = {c.__name__: c.launches for c in counters}
-        marks["gap"] = real(*a, **k)
-        marks["prefill"] = {c.__name__: c.launches - before[c.__name__]
-                            for c in counters}
-        return marks["gap"]
+    def marked(key, fn):
+        def run(*a, **k):
+            before = {c.__name__: c.launches for c in counters}
+            marks[key + "_result"] = fn(*a, **k)
+            marks[key] = {c.__name__: c.launches - before[c.__name__]
+                          for c in counters}
+            return marks[key + "_result"]
+        return run
 
-    serve.prefill_gap = prefill_gap
+    serve.prefill_gap = marked("prefill", real[0])
+    serve.fill_cross_cache = marked("fill", real[1])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
         stats, launched = _counted(counters, lambda: serve.serve_lm(
             serve.parse_args(argv), cfg, model, routing=routing))
     finally:
-        serve.prefill_gap = real
+        serve.prefill_gap, serve.fill_cross_cache = real
     prefill = marks.get("prefill", {k: 0 for k in launched})
+    fill = marks.get("fill", {k: 0 for k in launched})
     out = dict(step_p50_ms=stats["step_p50_ms"],
                step_p99_ms=stats["step_p99_ms"],
                tokens_per_s=stats["tokens_per_s"],
@@ -5693,63 +5778,97 @@ def _served(torch, serve, counters, cfg, model, argv, routing=None):
                tokens=stats["tokens"],
                prompt_logits=stats["prompt_logits"].float().cpu(),
                prompt=stats["prompt"], prefill_launches=prefill,
-               decode_launches={k: n - prefill[k]
+               fill_launches=fill,
+               decode_launches={k: n - prefill[k] - fill[k]
                                 for k, n in launched.items()},
-               prefill_gap=marks.get("gap"))
+               prefill_gap=marks.get("prefill_result"))
     out.update({k: stats[k] for k in ("weights_bytes", "cache_bytes",
-                                      "collectives", "draw_s", "coords")
+                                      "collectives", "draw_s", "coords",
+                                      "encode_s")
                 if k in stats})
     return out
 
 
-def _ts_argv(arch, batch, gen, seed, mp=1, smoke=False):
+def _ts_argv(arch, batch, prompt, gen, seed, mp=1, smoke=False):
     argv = ["--arch", arch, "--batch", str(batch), "--prompt-len",
-            str(LM_PROMPT), "--gen", str(gen), "--seed", str(seed)]
+            str(prompt), "--gen", str(gen), "--seed", str(seed)]
     if mp > 1:
         argv += ["--model-parallel", str(mp), "--dist-backend", "gloo"]
     return argv + (["--smoke"] if smoke else [])
 
 
 def _ts_cfgs(configs):
-    """Phase 24's models: StarCoder2-3B in bf16 with flash, its
-    LM_FP32_LAYERS-layer fp32 copy, DeepSeek-V3's DS_TRAIN_ARCH in bf16
-    with flash, and its fp32 copy."""
+    """Phase 24's models (bf16, flash): StarCoder2-3B cut to
+    TS_SC2_LAYERS layers, DeepSeek-V3's DS_TRAIN_ARCH, Mamba2-370M,
+    Zamba2-7B's ZB_TRAIN_ARCH and Whisper-large-v3 cut to TS_WH_LAYERS
+    encoder and TS_WH_LAYERS decoder layers; each one's fp32
+    copy (StarCoder2's LM_FP32_LAYERS layers drawn, the others the bf16
+    weights cast and cut, ``_as_fp32``)."""
     import dataclasses
-    sc2 = dataclasses.replace(configs.get(TS_SC2), attn_impl="flash")
+    sc2 = dataclasses.replace(configs.get(TS_SC2), n_layers=TS_SC2_LAYERS,
+                              attn_impl="flash")
     ds = dataclasses.replace(_ds_train_cfg(configs), attn_impl="flash")
+    m2 = configs.get("mamba2-370m")
+    zb = dataclasses.replace(configs.get(ZB_ARCH), name=ZB_TRAIN_ARCH,
+                             n_layers=ZB_TRAIN_LAYERS, attn_impl="flash")
+    wh = dataclasses.replace(configs.get(WH_ARCH), n_layers=TS_WH_LAYERS,
+                             n_encoder_layers=TS_WH_LAYERS,
+                             attn_impl="flash")
+    f32 = functools.partial(dataclasses.replace, dtype="float32")
     return dict(
-        starcoder2=sc2, deepseek=ds,
-        starcoder2_f32=dataclasses.replace(sc2, n_layers=LM_FP32_LAYERS,
-                                           dtype="float32"),
-        deepseek_f32=dataclasses.replace(ds, dtype="float32"))
+        starcoder2=sc2, deepseek=ds, mamba2=m2, zamba2=zb, whisper=wh,
+        starcoder2_f32=f32(sc2, n_layers=LM_FP32_LAYERS),
+        deepseek_f32=f32(ds), mamba2_f32=f32(m2, n_layers=TS_F32_LAYERS),
+        zamba2_f32=f32(zb, n_layers=TS_ZB_F32_LAYERS),
+        whisper_f32=f32(wh, n_layers=TS_F32_LAYERS,
+                        n_encoder_layers=TS_F32_LAYERS))
 
 
 def _ts_runs():
-    """(name, config key, batch, generated tokens, weights' seed (None:
-    the previous run's weights cast to fp32), prompt's seed, whether the
-    ranks serve it with ``--smoke``)."""
-    return (("starcoder2", "starcoder2", TS_BATCH, LM_GEN, 241, 242, True),
-            ("starcoder2_f32", "starcoder2_f32", LM_FP32_BATCH, 4, 243, 244,
-             False),
-            ("deepseek", "deepseek", TS_BATCH, LM_GEN, 245, 246, True),
-            ("deepseek_f32", "deepseek_f32", LM_FP32_BATCH, 4, None, 248,
-             False))
+    """(name, batch, prompt tokens, generated tokens, weights' seed
+    (None: the previous run's weights cast to fp32), prompt's seed,
+    whether the ranks serve it with ``--smoke``).  The fp32 copies take
+    at most TS_PROMPT tokens: DeepSeek-V3's longer prompt is for its bf16
+    run's fused prefill only."""
+    runs = []
+    for i, (name, prompt) in enumerate((
+            ("starcoder2", TS_PROMPT), ("deepseek", LM_PROMPT),
+            ("mamba2", TS_PROMPT), ("zamba2", TS_PROMPT),
+            ("whisper", WH_PROMPT))):
+        seed = 241 + 4 * i
+        runs += [(name, TS_BATCH, prompt, TS_GEN, seed, seed + 1, True),
+                 (f"{name}_f32", LM_FP32_BATCH, min(prompt, TS_PROMPT), 4,
+                  seed + 2 if name == "starcoder2" else None, seed + 3,
+                  False)]
+    return runs
+
+
+# the layer stacks an fp32 copy cuts, and the config field of each depth
+_STACK_DEPTH = {"layers.": "n_layers", "dec_layers.": "n_layers",
+                "enc_layers.": "n_encoder_layers"}
 
 
 def _as_fp32(model, cfg):
     """A copy of ``model`` in fp32 under ``cfg`` (its weights the same
     values: a second seeded draw of an fp32 copy would take as long as the
-    first)."""
-    out = copy.deepcopy(model).float()
-    out.cfg = cfg
-    return out
+    first), each layer stack cut to its first layers where ``cfg`` is
+    shallower than the model (``_STACK_DEPTH``)."""
+    def leaf(key, t):
+        for prefix, depth in _STACK_DEPTH.items():
+            if key.startswith(prefix):
+                t = t[:getattr(cfg, depth)]
+        out = t.float()  # one copy: a bf16 leaf's cast, an fp32 one cloned
+        return out.clone() if out is t else out
+
+    return type(model)(cfg, {k: leaf(k, t)
+                             for k, t in model.state_dict().items()})
 
 
-def _ts_prompt_only(moe, log):
-    """``log``'s selections at the prompt's positions (teacher-forced, so
-    both sides' inputs agree there)."""
+def _ts_prompt_only(moe, log, prompt):
+    """``log``'s selections at the first ``prompt`` positions, the
+    prompt's (teacher-forced, so both sides' inputs agree there)."""
     out = moe.RoutingLog()
-    out.entries = {k: v for k, v in log.entries.items() if k[1] < LM_PROMPT}
+    out.entries = {k: v for k, v in log.entries.items() if k[1] < prompt}
     return out
 
 
@@ -5759,23 +5878,37 @@ def _host_model(torch, cfg, init_model, seed):
     return _lm_model(torch, cfg, init_model, seed, device="cpu")
 
 
+def _saved_model(torch, cfg, path):
+    """The model of ``cfg`` whose state dict the parent drew on the host
+    (``_host_model``) and saved at ``path``, read back memory-mapped: the
+    ranks do not draw it again (two concurrent draws of Zamba2's 12
+    layers alone take about 15 s of host time each)."""
+    from repro_torch.models import get_model
+    cls = {"ssm": "Mamba2", "hybrid": "Zamba2",
+           "encdec": "Whisper"}.get(cfg.family, "Transformer")
+    return getattr(get_model(cfg), cls)(cfg, torch.load(
+        path, mmap=True, weights_only=True))
+
+
 def _ts_rank(rank, st):
     """Phase 24, one of TS_MP gloo ranks sharing the card: the launcher
     from torchrun's variables (a localhost port) with ``--model-parallel
-    TS_MP`` on each of ``_ts_runs``' models, drawn whole on the host and
-    narrowed to the rank's blocks by the launcher; an MoE run first with
+    TS_MP`` on each of ``_ts_runs``' models, whole on the host (read back
+    from the parent's draw, ``_saved_model``) and narrowed to the rank's
+    blocks by the launcher; an MoE run first with
     the one process's expert selection replayed, then free; the flash
-    inputs' shapes recorded; then DeepSeek-V3's absorbed decode against
-    the plain one on the rank's blocks (``_ds_absorb``).  Results go to
-    a file the parent reads."""
+    and depthwise inputs' shapes recorded; then DeepSeek-V3's absorbed
+    decode against the plain one on the rank's blocks (``_ds_absorb``).
+    Results go to a file the parent reads."""
     import torch
 
     from repro_torch import configs
     from repro_torch.kernels import conv1d_brgemm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     from repro_torch.launch import mesh, serve
     from repro_torch.models import common as cm
-    from repro_torch.models import init_model, mla, moe, transformer
+    from repro_torch.models import local_model, mla, moe
 
     if DEVICE == "cuda":
         torch.cuda.set_device(0)
@@ -5785,22 +5918,30 @@ def _ts_rank(rank, st):
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                       MASTER_PORT=str(st["port"]))
     counters = _counters(conv1d_brgemm, fa)
-    shapes = []
+    shapes, dw_shapes = [], []
     for mod in (cm, mla):  # the flash inputs a rank's attention passes
         def recorded(q, *a, real=mod.flash_attention, **k):
             shapes.append(tuple(q.shape))
             return real(q, *a, **k)
         mod.flash_attention = recorded
+
+    def dw_recorded(x, *a, real=ops.depthwise_conv1d, **k):
+        dw_shapes.append(tuple(x.shape))  # a rank's Mamba2 conv, (B, C, T)
+        return real(x, *a, **k)
+
+    ops.depthwise_conv1d = dw_recorded
     cfgs = _ts_cfgs(configs)
     out = {}
     try:
         full = None
-        for name, key, batch, gen, seed, pseed, smoke in _ts_runs():
-            cfg = cfgs[key]
-            full = (_host_model(torch, cfg, init_model, seed) if seed
+        for name, batch, prompt, gen, seed, pseed, smoke in _ts_runs():
+            cfg = cfgs[name]
+            t0 = time.perf_counter()
+            full = (_saved_model(torch, cfg, st[f"{name}_weights"]) if seed
                     else _as_fp32(full, cfg))
-            argv = _ts_argv(cfg.name, batch, gen, pseed, TS_MP, smoke)
-            del shapes[:]
+            argv = _ts_argv(cfg.name, batch, prompt, gen, pseed, TS_MP,
+                            smoke)
+            del shapes[:], dw_shapes[:]
             if cfg.moe is None:
                 r = _served(torch, serve, counters, cfg, full, argv)
             else:
@@ -5813,20 +5954,22 @@ def _ts_rank(rank, st):
                 # process's; past it each side feeds its own tokens)
                 free = moe.RoutingLog()
                 r["free"] = _served(torch, serve, counters, cfg, full,
-                                    _ts_argv(cfg.name, batch, 2, pseed,
-                                             TS_MP), routing=free)
+                                    _ts_argv(cfg.name, batch, prompt, 2,
+                                             pseed, TS_MP), routing=free)
                 r["free"]["flips"] = moe.compare_routing(
-                    _ts_prompt_only(moe, one), _ts_prompt_only(moe, free))
+                    _ts_prompt_only(moe, one, prompt),
+                    _ts_prompt_only(moe, free, prompt))
                 r["free"]["selection"] = {
                     i: free.selection(i)[0].cpu() for i in free.layers()}
                 for k in ("prompt", "tokens"):
                     r["free"].pop(k)
-            r["flash_shapes"] = list(shapes)
+            r["flash_shapes"], r["dw_shapes"] = list(shapes), list(dw_shapes)
+            r["run_s"] = time.perf_counter() - t0
             if cfg.mla:
                 _, group = mesh.init_mesh(1, TS_MP)
                 shape, coords = mesh.make_host_mesh(model=TS_MP)
-                local = transformer.local_model(full, shape, coords, group,
-                                                device=DEVICE)
+                local = local_model(full, shape, coords, group,
+                                    device=DEVICE)
                 r["absorb"] = _ts_absorb(torch, serve, moe, cfg, local,
                                          r["prompt"], one, counters)
                 del local
@@ -5839,7 +5982,7 @@ def _ts_rank(rank, st):
 
 def _ts_absorb(torch, serve, moe, cfg, model, prompt, replay, counters):
     """DeepSeek-V3's plain and absorbed decodes (``make_serve_step(cfg,
-    absorb=)``) over the prompt's first DS_ABSORB_STEPS positions, each
+    absorb=)``) over the prompt's first TS_ABSORB_STEPS positions, each
     on a cache of its own, both replaying ``replay``'s expert selection
     (the one process's decode, so a rank and the one process route
     alike); the logits of each step on the host, the largest absorbed
@@ -5849,13 +5992,13 @@ def _ts_absorb(torch, serve, moe, cfg, model, prompt, replay, counters):
     try:
         for absorb in (False, True):
             step = serve.make_serve_step(cfg, absorb=absorb)
-            cache = serve.make_cache(cfg, B, DS_ABSORB_STEPS,
+            cache = serve.make_cache(cfg, B, TS_ABSORB_STEPS,
                                      dtype=serve.lm_cache_dtype(cfg),
                                      device=DEVICE,
                                      mp=getattr(model.tp, "size", 1))
             model.routing = moe.RoutingLog(replay=replay)
             logits = []
-            for t in range(DS_ABSORB_STEPS):
+            for t in range(TS_ABSORB_STEPS):
                 (_, cache, lg), launched = _counted(
                     counters, lambda: step(model, cache, prompt[:, t:t + 1],
                                            t))
@@ -5872,11 +6015,11 @@ def _ts_absorb(torch, serve, moe, cfg, model, prompt, replay, counters):
     return out
 
 
-def _ts_flash_row(torch, fa, ref, label, B, T, KV, G, hd, vd):
+def _ts_flash_row(torch, fa, ref, label, B, T, KV, G, hd, vd, causal=True):
     """``flash_fwd`` at a tensor-parallel rank's prefill shape (bf16,
-    causal; MLA's v padded from ``vd`` to ``hd``) against its plain
-    version by phase 10's rule, timed beside SDPA and the bound of the
-    useful work (q.k at hd, p.v at vd)."""
+    causal unless said; MLA's v padded from ``vd`` to ``hd``) against its
+    plain version by phase 10's rule, timed beside SDPA and the bound of
+    the useful work (q.k at hd, p.v at vd)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(92)
     q, k, v, _ = _flash_operands(torch, gen, B, T, KV, G, hd,
@@ -5885,27 +6028,71 @@ def _ts_flash_row(torch, fa, ref, label, B, T, KV, G, hd, vd):
     bq = min(256, T)  # the model's query tile, min(attn_chunk, T)
 
     def fl():
-        return fa.flash_fwd(q, k, v, causal=True, bq=bq)
+        return fa.flash_fwd(q, k, v, causal=causal, bq=bq)
 
-    (o, lse), (o_p, lse_p) = fl(), ref.flash_fwd_ref(q, k, v, causal=True)
+    (o, lse), (o_p, lse_p) = fl(), ref.flash_fwd_ref(q, k, v, causal=causal)
     errs = _flash_errs(f"tp {label} flash", {"o": (o, o_p)}, lse, lse_p,
                        True)
     qt, kt, vt = (t.transpose(1, 2) for t in (q.reshape(B, T, H, hd), k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
     nbytes = _flash_fwd_bytes(B * T * H, B * T * KV, hd, vd, 2)
     row = dict(shape=f"tp prefill {label} B={B} T={T} H={H} KV={KV} "
-               f"hd={hd} v={vd} bf16 causal", **_flash_err_fields(errs, True),
+               f"hd={hd} v={vd} bf16 "
+               + ("causal" if causal else "non-causal"),
+               **_flash_err_fields(errs, True),
                kernel_ms=_device_ms(fl), plain_ms=_device_ms(
-                   lambda: ref.flash_fwd_ref(q, k, v, causal=True)),
+                   lambda: ref.flash_fwd_ref(q, k, v, causal=causal)),
                library_ms=_device_ms(sdpa), call_ms=_call_ms(fl),
                library_call_ms=_call_ms(sdpa))
     row["bound_ms"], row["bound_by"] = _attn_bound(
-        B, T, H, hd + vd, True, "bfloat16", nbytes)
+        B, T, H, hd + vd, causal, "bfloat16", nbytes)
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    print("tp-serve-kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def _ts_dw_row(torch, conv1d_brgemm, ref, label, N, C, Q):
+    """``depthwise_conv1d_fwd`` at a tensor-parallel rank's fused-prefill
+    shape (N x C channels x Q columns after DW_TAPS - 1 of causal
+    padding; bf16 in, bias + silu, fp32 out, as Mamba2's block runs it)
+    against its plain version within DW_TOL_F32 of the largest value,
+    timed beside ``F.conv1d(groups=C)`` and the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(93)
+    bf16, f32, S = torch.bfloat16, torch.float32, DW_TAPS
+    Wp = Q + S - 1
+    x = torch.randn((N, C, Wp), generator=gen, device=DEVICE).to(bf16)
+    w = (S ** -0.5 * torch.randn((S, C), generator=gen, device=DEVICE)
+         ).to(bf16)
+    b = (0.1 * torch.randn((C,), generator=gen, device=DEVICE)).to(bf16)
+    w_c1s = w.t().unsqueeze(1).contiguous()
+
+    def dw():
+        return conv1d_brgemm.depthwise_conv1d_fwd(
+            x, w, bias=b, activation="silu", out_dtype=f32)
+
+    def plain():
+        return ref.depthwise_conv1d_fused_ref(x, w, bias=b,
+                                              activation="silu",
+                                              out_dtype=f32)
+
+    def library():
+        return F.conv1d(x, w_c1s, b, groups=C)
+
+    max_abs, rel = _check_close(f"tp {label} dw", dw(), plain(), DW_TOL_F32)
+    nbytes = N * C * Wp * 2 + (S * C + C) * 2 + N * C * Q * 4
+    row = dict(shape=f"tp prefill {label} N={N} C={C} Q={Q} S={S} bf16 "
+               "silu fp32-out", max_abs_err=max_abs, max_rel_diff=rel,
+               kernel_ms=_device_ms(dw), plain_ms=_device_ms(plain),
+               library_ms=_device_ms(library), call_ms=_call_ms(dw),
+               library_call_ms=_call_ms(library))
+    row["bound_ms"], row["bound_by"] = roofline.bound(
+        2.0 * N * C * S * Q, nbytes, "float32")
+    _rates(row, nbytes=nbytes)
     print("tp-serve-kernel " + json.dumps(row), flush=True)
     return row
 
@@ -5952,7 +6139,7 @@ def _ts_check(torch, serve, name, cfg, one, res, tol):
     keys = ("step_p50_ms", "step_p99_ms", "tokens_per_s",
             "sequential_prefill_s", "peak_memory_gb", "weights_bytes",
             "cache_bytes", "collectives", "draw_s", "prefill_launches",
-            "prefill_gap")
+            "fill_launches", "encode_s", "prefill_gap", "run_s")
     out = dict(tol=tol, rank_gaps=gaps, rows_with_clear_margin=int(
         clear.sum()), tokens_equal_one_process=[
         float((o["tokens"] == one["tokens"]).mean()) for o in res],
@@ -5984,11 +6171,75 @@ def _ts_check(torch, serve, name, cfg, one, res, tol):
                 f"largest logit from one process's (tol {tol}), or the "
                 "ranks differ")
         out["absorb"] = dict(
-            steps=DS_ABSORB_STEPS, rank_gaps=gaps, gated=gated,
+            steps=TS_ABSORB_STEPS, rank_gaps=gaps, gated=gated,
             absorbed_vs_plain_one_process=one["absorb"]["absorbed_vs_plain"],
             absorbed_vs_plain_ranks=[o["absorb"]["absorbed_vs_plain"]
                                      for o in res])
     return out
+
+
+def _ts_want(cfgs):
+    """What each bf16 run's ranks must launch: the kernels' launches a
+    rank's fused prefill (and ``fill_cross_cache``), and the ``flash_fwd``
+    and depthwise input shapes over the whole run, in order (the fill's,
+    then the prefill's): a rank's heads and conv channels."""
+    from repro_torch.models import mamba2, sharding, zamba2
+    sc2, ds, m2, zb, wh = (cfgs[k] for k in ("starcoder2", "deepseek",
+                                             "mamba2", "zamba2", "whisper"))
+    B, T = TS_BATCH, TS_PROMPT
+
+    def conv(cfg):
+        return (B, sharding.ssm_local_width(cfg, "conv", TS_MP), T)
+
+    def heads(cfg, T, hd):
+        kv = cfg.n_kv_heads // TS_MP
+        return (B, T, kv, cfg.n_heads // cfg.n_kv_heads, hd)
+
+    ds_layers = 2 * ds.n_layers  # the prefill replayed and free
+    n_app = zamba2.n_shared_applications(zb)
+    L, Le = wh.n_layers, wh.n_encoder_layers
+    enc = heads(wh, wh.encoder_width, wh.head_dim)
+    assert mamba2.dims(m2)[0] // TS_MP + 2 * m2.ssm.d_state == conv(m2)[1]
+    return {
+        "starcoder2": dict(prefill={"flash_fwd": sc2.n_layers},
+                           flash=[heads(sc2, T, sc2.head_dim)]
+                           * sc2.n_layers),
+        "deepseek": dict(prefill={"flash_fwd": ds_layers},
+                         flash=[(B, LM_PROMPT, ds.n_heads // TS_MP, 1,
+                                 ds.mla.qk_nope_head_dim
+                                 + ds.mla.qk_rope_head_dim)] * ds_layers),
+        "mamba2": dict(prefill={"depthwise_conv1d_fwd": m2.n_layers},
+                       dw=[conv(m2)] * m2.n_layers),
+        "zamba2": dict(prefill={"depthwise_conv1d_fwd": zb.n_layers,
+                                "flash_fwd": n_app},
+                       flash=[heads(zb, T, zb.head_dim)] * n_app,
+                       dw=[conv(zb)] * zb.n_layers),
+        "whisper": dict(fill={"flash_fwd": Le},
+                        prefill={"flash_fwd": Le + L},
+                        flash=[enc] * (2 * Le)
+                        + [heads(wh, WH_PROMPT, wh.head_dim)] * L)}
+
+
+def _ts_launch_gate(name, counters, want, ranks):
+    """Each rank's launches and kernel input shapes against ``want``
+    (``_ts_want``'s entry); the entry, for the summary."""
+    zero = {c.__name__: 0 for c in counters}
+    for r, o in enumerate(ranks):
+        for key in ("prefill", "fill"):
+            if o[f"{key}_launches"] != {**zero, **want.get(key, {})}:
+                raise AssertionError(
+                    f"tp-serve {name}: rank {r}'s {key} launched "
+                    f"{o[f'{key}_launches']}; expected {want.get(key, {})}")
+        for key in ("flash", "dw"):
+            if o[f"{key}_shapes"] != want.get(key, []):
+                raise AssertionError(
+                    f"tp-serve {name}: rank {r}'s {key} inputs "
+                    f"{sorted(set(o[f'{key}_shapes']))} "
+                    f"({len(o[f'{key}_shapes'])}); expected "
+                    f"{sorted(set(want.get(key, [])))} "
+                    f"({len(want.get(key, []))})")
+    return {k: (v if isinstance(v, dict) else dict(
+        shape=v[-1], launches_per_rank_run=len(v))) for k, v in want.items()}
 
 
 def tp_serve_check(torch, np, configs, init_model, serve, ref,
@@ -5998,8 +6249,10 @@ def tp_serve_check(torch, np, configs, init_model, serve, ref,
     their expert selection over the whole decode); then TS_MP spawned
     gloo ranks serve them through the launcher with ``--model-parallel``
     (``_ts_rank``) and each is held to the one process (``_ts_check``);
-    the bf16 runs' fused prefill launches ``flash_fwd`` once a layer a
-    rank on the rank's heads, at the shapes ``_ts_flash_row`` times."""
+    the bf16 runs' fused prefills launch ``flash_fwd`` and
+    ``depthwise_conv1d_fwd`` on each rank's heads and conv channels
+    (``_ts_want``), at the shapes ``_ts_flash_row`` and ``_ts_dw_row``
+    time."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -6009,48 +6262,60 @@ def tp_serve_check(torch, np, configs, init_model, serve, ref,
     t0 = time.perf_counter()
     counters = _counters(conv1d_brgemm, fa)
     cfgs = _ts_cfgs(configs)
-    sc2, ds = cfgs["starcoder2"], cfgs["deepseek"]
+    sc2, ds, zb, wh = (cfgs[k] for k in ("starcoder2", "deepseek", "zamba2",
+                                         "whisper"))
     out = dict(card=_card_line(), ranks=TS_MP, backend="gloo")
-    sc2_kv, ds_h = sc2.n_kv_heads // TS_MP, ds.n_heads // TS_MP
+    want = _ts_want(cfgs)
     out["flash_rows"] = [
-        _ts_flash_row(torch, fa, ref, "starcoder2", TS_BATCH, LM_PROMPT,
-                      sc2_kv, sc2.n_heads // sc2.n_kv_heads, sc2.head_dim,
-                      sc2.head_dim),
+        _ts_flash_row(torch, fa, ref, "starcoder2", TS_BATCH, TS_PROMPT,
+                      *want["starcoder2"]["flash"][0][2:], sc2.head_dim),
         _ts_flash_row(torch, fa, ref, "deepseek", TS_BATCH, LM_PROMPT,
-                      ds_h, 1, ds.mla.qk_nope_head_dim
-                      + ds.mla.qk_rope_head_dim, ds.mla.v_head_dim)]
-    want_shapes = {
-        "starcoder2": (TS_BATCH, LM_PROMPT, sc2_kv,
-                       sc2.n_heads // sc2.n_kv_heads, sc2.head_dim),
-        "deepseek": (TS_BATCH, LM_PROMPT, ds_h, 1,
-                     ds.mla.qk_nope_head_dim + ds.mla.qk_rope_head_dim)}
+                      *want["deepseek"]["flash"][0][2:],
+                      ds.mla.v_head_dim),
+        _ts_flash_row(torch, fa, ref, "zamba2", TS_BATCH, TS_PROMPT,
+                      *want["zamba2"]["flash"][0][2:], zb.head_dim),
+        _ts_flash_row(torch, fa, ref, "whisper encoder", TS_BATCH,
+                      wh.encoder_width, *want["whisper"]["flash"][0][2:],
+                      wh.head_dim, causal=False)]
+    out["dw_rows"] = [
+        _ts_dw_row(torch, conv1d_brgemm, ref, name, TS_BATCH,
+                   want[name]["dw"][0][1], TS_PROMPT)
+        for name in ("mamba2", "zamba2")]
     one = {}
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         st = dict(out=tmp, port=_free_port())
         model = None
-        for name, key, batch, gen, seed, pseed, _ in _ts_runs():
-            cfg = cfgs[key]
+        for name, batch, prompt, gen, seed, pseed, _ in _ts_runs():
+            cfg = cfgs[name]
             t = time.perf_counter()
-            model = (_host_model(torch, cfg, init_model, seed).to(DEVICE)
-                     if seed else _as_fp32(model, cfg))
+            if seed:  # drawn once on the host; the ranks read it back
+                model = _host_model(torch, cfg, init_model, seed)
+                st[f"{name}_weights"] = os.path.join(tmp, f"{name}.pt")
+                torch.save(model.state_dict(), st[f"{name}_weights"])
+                model = model.to(DEVICE)
+            else:
+                model = _as_fp32(model, cfg)
             draw_s = time.perf_counter() - t
             log = moe.RoutingLog() if cfg.moe else None
             one[name] = _served(torch, serve, counters, cfg, model,
-                                _ts_argv(cfg.name, batch, gen, pseed),
+                                _ts_argv(cfg.name, batch, prompt, gen,
+                                         pseed),
                                 routing=log)
             one[name].update(draw_s=draw_s, weights_bytes=sum(
                 p.numel() * p.element_size() for p in model.parameters()),
                 cache_bytes=serve._nbytes(sharding.tree_leaves(
-                    serve.make_cache(cfg, batch, LM_PROMPT + gen,
+                    serve.make_cache(cfg, batch, prompt + gen,
                                      dtype=serve.lm_cache_dtype(cfg),
                                      device="meta"))))
             if cfg.mla:
                 one[name]["absorb"] = _ts_absorb(
                     torch, serve, moe, cfg, model, one[name]["prompt"], log,
                     counters)
+            one[name]["run_s"] = time.perf_counter() - t
             if log is not None:
-                st[f"{name}_routing"] = os.path.join(tmp, f"{name}.pt")
+                st[f"{name}_routing"] = os.path.join(tmp,
+                                                     f"{name}_routing.pt")
                 torch.save({k: tuple(t.cpu() for t in v)
                             for k, v in log.entries.items()},
                            st[f"{name}_routing"])
@@ -6065,56 +6330,62 @@ def tp_serve_check(torch, np, configs, init_model, serve, ref,
         out["ranks_wall_s"] = time.perf_counter() - t
         res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                           weights_only=False) for r in range(TS_MP)]
-    for name, key, *_ in _ts_runs():
-        cfg = cfgs[key]
+    for name, *_ in _ts_runs():
+        cfg = cfgs[name]
         dtype = getattr(torch, cfg.dtype)
         tol = TS_F32_TOL if dtype == torch.float32 else serve.prefill_tol(
             cfg, dtype)
         ranks = [r[name] for r in res]
         out[name] = _ts_check(torch, serve, name, cfg, one[name], ranks,
                               tol)
-        if name in want_shapes:
-            layers = cfg.n_layers * (2 if cfg.moe else 1)  # free + replay
-            want = {**{c.__name__: 0 for c in counters},
-                    "flash_fwd": layers}
-            for r, o in enumerate(ranks):
-                if o["prefill_launches"] != want or o["flash_shapes"] != [
-                        want_shapes[name]] * layers:
-                    raise AssertionError(
-                        f"tp-serve {name}: rank {r}'s fused prefill "
-                        f"launched {o['prefill_launches']} at "
-                        f"{set(o['flash_shapes'])}; expected {want} at "
-                        f"{want_shapes[name]}")
-            out[name]["flash_shape"] = want_shapes[name]
-            out[name]["flash_launches_per_rank_prefill"] = layers
+        if name in want:
+            out[name]["kernels_per_rank"] = _ts_launch_gate(
+                name, counters, want[name], ranks)
         print(f"tp-serve-{name} " + json.dumps(out[name], default=str),
               flush=True)
     out["seconds"] = time.perf_counter() - t0
-    a, d = out["starcoder2"], out["deepseek"]
-    print(f"tp-serve: phase 24 in {out['seconds']:.1f} s ({out['card']}); "
-          f"starcoder2 at mp {TS_MP}: decode p50 "
-          f"{a['ranks'][0]['step_p50_ms']:.2f} ms against one process's "
-          f"{a['one_process']['step_p50_ms']:.2f}, logits "
-          f"{max(a['rank_gaps']):.2e} of the largest (tol {a['tol']:.2e}); "
-          f"deepseek 2l-16e: p50 {d['ranks'][0]['step_p50_ms']:.2f} ms "
-          f"against {d['one_process']['step_p50_ms']:.2f}, "
-          f"{max(d['rank_gaps']):.2e} (tol {d['tol']:.2e}), free flips "
-          f"{[f['flips']['total_flips'] for f in d['free']]}", flush=True)
+    print(f"tp-serve: phase 24 in {out['seconds']:.1f} s ({out['card']}; "
+          f"one process {out['one_process_s']:.1f} s, the ranks "
+          f"{out['ranks_wall_s']:.1f} s) at mp {TS_MP}:", flush=True)
+    for name in want:
+        a = out[name]
+        c = a["ranks"][0]["collectives"]
+        flips = [f["flips"]["total_flips"] for f in a.get("free", ())]
+        print(f"tp-serve:   {name}: decode p50 "
+              f"{a['ranks'][0]['step_p50_ms']:.2f} ms against one process's "
+              f"{a['one_process']['step_p50_ms']:.2f} ({c['sums']:.0f} sums "
+              f"and {c['gathers']:.0f} gathers a step, "
+              f"{c['seconds'] * 1e3:.2f} ms of host time), logits "
+              f"{max(a['rank_gaps']):.2e} of the largest (tol {a['tol']:.2e})"
+              f", fp32 copy {max(out[name + '_f32']['rank_gaps']):.2e}"
+              + (f", free flips {flips}" if flips else ""), flush=True)
     return out
 
 
-def _ts_entries(ts, flash_entries):
-    """Phase 24's numbers in the kernels line: ``flash_fwd`` on a
-    tensor-parallel rank's heads in the fused prefill (launches a rank,
-    the shape, its row)."""
+def _ts_entries(ts, dw_fwd_entry, flash_entries):
+    """Phase 24's numbers in the kernels line: ``flash_fwd`` and
+    ``depthwise_conv1d_fwd`` on a tensor-parallel rank's heads and conv
+    channels in the fused prefill (launches a rank, the shape, its
+    row)."""
     keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "bound_share", "max_abs_err")
+
+    def entry(name, kernel, row):
+        per = ts[name]["kernels_per_rank"]
+        return dict(ranks=ts["ranks"],
+                    launches_per_rank_prefill=per["prefill"][kernel],
+                    **{k: row[k] for k in keys})
+
     flash_entries[0]["tp_serve"] = {
-        name: dict(ranks=ts["ranks"],
-                   launches_per_rank_prefill=ts[name][
-                       "flash_launches_per_rank_prefill"],
-                   **{k: row[k] for k in keys})
-        for name, row in zip(("starcoder2", "deepseek"), ts["flash_rows"])}
+        name: entry(name, "flash_fwd", row) for name, row in zip(
+            ("starcoder2", "deepseek", "zamba2", "whisper"),
+            ts["flash_rows"])}
+    flash_entries[0]["tp_serve"]["whisper"][
+        "launches_per_rank_fill_cross_cache"] = ts["whisper"][
+            "kernels_per_rank"]["fill"]["flash_fwd"]
+    dw_fwd_entry["tp_serve"] = {
+        name: entry(name, "depthwise_conv1d_fwd", row)
+        for name, row in zip(("mamba2", "zamba2"), ts["dw_rows"])}
 
 
 def _build_all(conv1d_brgemm, flash_attention, build):
@@ -6196,13 +6467,27 @@ def _kernel_name(mangled):
     return mangled
 
 
+_SASS: dict = {}  # library file -> {kernel name: its SASS}
+
+
 def _sass_functions(build, lib):
-    """{kernel name: its SASS} of a loaded library (``cuobjdump -sass``)."""
-    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    return {_kernel_name(fn.split()[0]): fn
-            for fn in sass.split("Function :")[1:]}
+    """{kernel name: its SASS} of a loaded library (``cuobjdump -sass``),
+    disassembled once a library."""
+    if lib._name not in _SASS:
+        tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+        sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        _SASS[lib._name] = {_kernel_name(fn.split()[0]): fn
+                            for fn in sass.split("Function :")[1:]}
+    return _SASS[lib._name]
+
+
+def _disassemble(build, libs):
+    """``_sass_functions`` of each of ``libs``, the disassemblers run at
+    once."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: _sass_functions(build, lib), libs))
 
 
 def _loops(fn):
@@ -6329,6 +6614,16 @@ def main(argv=None) -> int:
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+    phase_s = {}  # phase -> seconds of its calls, printed at the end
+
+    def phase(n, fn, *a):
+        t = time.perf_counter()
+        with _drawn_once(torch, train):  # one draw a phase's launcher runs
+            out = fn(*a)
+        phase_s[n] = phase_s.get(n, 0.0) + time.perf_counter() - t
+        return out
+
     print(f"device: {kind}; nvidia-smi: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     build_s, build_each, ptxas = _build_all(conv1d_brgemm, flash_attention,
@@ -6342,55 +6637,56 @@ def main(argv=None) -> int:
                              "conv1d_bwd_weight", "flash_fwd", "flash_bwd"))
     _check_wgmma_not_serialized(ptxas, ("conv1d_bwd_weight", "flash_fwd",
                                         "flash_bwd"))
+    _disassemble(build, (flash_attention._fwd_lib(),
+                         flash_attention._bwd_lib(), conv1d_brgemm._lib(),
+                         conv1d_brgemm._bwd_lib()))
     hgmma = hgmma_counts(build, flash_attention, conv1d_brgemm)
     print("hgmma " + json.dumps(hgmma), flush=True)
     loop_mix = conv_loop_mix(build, conv1d_brgemm)
     print("conv1d_fwd main loops " + json.dumps(loop_mix), flush=True)
     bwd_mix = bwd_loop_mix(build, conv1d_brgemm)
     print("bwd_weight_partial main loops " + json.dumps(bwd_mix), flush=True)
+    phase_s[1] = time.perf_counter() - t_start
 
-    rows = kernel_checks(torch, conv1d_brgemm, ops, ref, ep)
-    stats = serve_check(torch, np, configs, blocks, serve, conv1d_brgemm)
-    bwd_rows = bwd_kernel_checks(torch, conv1d_brgemm, ref)
-    grad_stats = model_grad_check(torch, configs, blocks, synthetic, adamw,
-                                  conv1d_brgemm)
-    train_stats = train_check(torch, np, train, conv1d_brgemm)
-    profile_stats = train_profile(torch, train)
-    dw_rows = dw_kernel_checks(torch, conv1d_brgemm, ref)
-    m2_grad = mamba2_grad_check(torch, configs, init_model, synthetic,
-                                losses, conv1d_brgemm)
+    rows = phase(2, kernel_checks, torch, conv1d_brgemm, ops, ref, ep)
+    stats = phase(3, serve_check, torch, np, configs, blocks, serve,
+                  conv1d_brgemm)
+    bwd_rows = phase(4, bwd_kernel_checks, torch, conv1d_brgemm, ref)
+    grad_stats = phase(5, model_grad_check, torch, configs, blocks,
+                       synthetic, adamw, conv1d_brgemm)
+    train_stats = phase(6, train_check, torch, np, train, conv1d_brgemm)
+    profile_stats = phase(6, train_profile, torch, train)
+    dw_rows = phase(7, dw_kernel_checks, torch, conv1d_brgemm, ref)
+    m2_grad = phase(8, mamba2_grad_check, torch, configs, init_model,
+                    synthetic, losses, conv1d_brgemm)
     m2_layers = configs.get("mamba2-370m").n_layers
-    m2_train = mamba2_train_check(torch, np, train, conv1d_brgemm, m2_layers)
-    m2_profile = mamba2_profile(torch, train)
-    fa_rows = flash_kernel_checks(torch, flash_attention, ref)
-    lm_grad = lm_grad_check(torch, configs, init_model, synthetic, losses,
-                            flash_attention)
+    m2_train, m2_profile = phase(9, lambda: (
+        mamba2_train_check(torch, np, train, conv1d_brgemm, m2_layers),
+        mamba2_profile(torch, train)))
+    fa_rows = phase(10, flash_kernel_checks, torch, flash_attention, ref)
+    lm_grad = phase(11, lm_grad_check, torch, configs, init_model,
+                    synthetic, losses, flash_attention)
     lm_layers = configs.get("starcoder2-3b").n_layers
-    lm_train = lm_train_check(torch, np, train, flash_attention, lm_layers)
-    lm_prof = lm_profile(torch, train)
-    sweep_res = sweep_check(sweep)
-    lm_serve = lm_serve_check(torch, configs, init_model, serve, ops, ref,
-                              conv1d_brgemm, flash_attention)
-    dp = dp_check(torch, np, configs, train, conv1d_brgemm)
-    tp = tp_check(torch, np, configs, train, conv1d_brgemm)
-    tel = telemetry_check(torch, np, configs, blocks, serve, train, ops,
-                          conv1d_brgemm, rows, bwd_rows)
-    elastic = elastic_check(torch, np, train)
-    wh = whisper_check(torch, np, configs, init_model, serve, train,
-                       synthetic, losses, ref, conv1d_brgemm,
-                       flash_attention)
-    zb = zamba2_check(torch, np, configs, init_model, serve, train,
-                      synthetic, losses, ref, conv1d_brgemm, flash_attention)
-    mn = moonlight_check(torch, np, configs, init_model, serve, train,
-                         synthetic, losses, ref, conv1d_brgemm,
-                         flash_attention)
-    ds = deepseek_check(torch, np, configs, init_model, serve, train,
-                        synthetic, losses, ref, conv1d_brgemm,
-                        flash_attention)
-    vl = vlm_check(torch, np, configs, init_model, serve, train, synthetic,
-                   losses, ref, conv1d_brgemm, flash_attention)
-    ts = tp_serve_check(torch, np, configs, init_model, serve, ref,
-                        conv1d_brgemm, flash_attention)
+    lm_train, lm_prof = phase(12, lambda: (
+        lm_train_check(torch, np, train, flash_attention, lm_layers),
+        lm_profile(torch, train)))
+    sweep_res = phase(13, sweep_check, sweep)
+    lm_serve = phase(14, lm_serve_check, torch, configs, init_model, serve,
+                     ops, ref, conv1d_brgemm, flash_attention)
+    dp = phase(15, dp_check, torch, np, configs, train, conv1d_brgemm)
+    tp = phase(16, tp_check, torch, np, configs, train, conv1d_brgemm)
+    tel = phase(17, telemetry_check, torch, np, configs, blocks, serve,
+                train, ops, conv1d_brgemm, rows, bwd_rows)
+    elastic = phase(18, elastic_check, torch, np, train)
+    model_args = (torch, np, configs, init_model, serve, train, synthetic,
+                  losses, ref, conv1d_brgemm, flash_attention)
+    wh = phase(19, whisper_check, *model_args)
+    zb = phase(20, zamba2_check, *model_args)
+    mn = phase(21, moonlight_check, *model_args)
+    ds = phase(22, deepseek_check, *model_args)
+    vl = phase(23, vlm_check, *model_args)
+    ts = phase(24, tp_serve_check, torch, np, configs, init_model, serve,
+               ref, conv1d_brgemm, flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -6665,9 +6961,12 @@ def main(argv=None) -> int:
     _mn_entries(mn, flash_entries)
     _ds_entries(ds, flash_entries)
     _vl_entries(vl, flash_entries)
-    _ts_entries(ts, flash_entries)
+    _ts_entries(ts, dw_fwd_entry, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
+    print(f"phase times in {time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{n} {v:.1f}" for n, v in phase_s.items()),
+          flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -6687,8 +6986,8 @@ def main(argv=None) -> int:
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
                            elastic=elastic, whisper=wh, zamba2=zb,
                            moonlight=mn, deepseek_v3=ds, internvl2=vl,
-                           tp_serve=ts, kernels=kernels), f, indent=1,
-                      default=str)
+                           tp_serve=ts, phase_s=phase_s, kernels=kernels),
+                      f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -82,29 +82,37 @@ refuses the carry (ROADMAP.md queue C), so the model's dtype
 states are fp32 whatever the cache's dtype, as in JAX.  The decode step runs
 no kernel (as in the JAX package, where XLA takes it).
 
-``--model-parallel N`` serves a dense, MoE or VLM model tensor-parallel
-over N ranks started by ``torchrun`` (the JAX launcher places the
-parameters by ``models/sharding.py``'s rules and GSPMD partitions the
-decode): each rank draws the same seeded model on the host, keeps the
-blocks the rules give its coordinate on the (1, N) mesh
-(``launch.mesh.make_host_mesh``, ``transformer.local_model``) and its
-KV/N heads of the cache, and runs the model group's sums and logit
-gather where GSPMD inserts them; the fused prefill runs ``flash_fwd`` on
-each rank's heads.  ``--dist-backend gloo`` lets the ranks share one
-card (``cuda:LOCAL_RANK`` modulo the cards present); rank 0 prints, and
-the summary adds ``model_parallel``, a rank's weight and cache bytes and
-the group's collectives a decode step:
+``--model-parallel N`` serves any language model tensor-parallel over N
+ranks started by ``torchrun`` (the JAX launcher places the parameters
+by ``models/sharding.py``'s rules and GSPMD partitions the decode): each
+rank draws the same seeded model on the host, keeps the blocks it
+executes at its coordinate on the (1, N) mesh
+(``launch.mesh.make_host_mesh``, ``models.local_model``: the rules'
+blocks, an SSM model's fused ``in_proj`` and conv segment-aligned) and
+its share of the cache (KV/N heads; an SSM model's H/N heads and conv
+channels; Whisper's H/N heads of the cross K/V), and runs the model
+group's sums and logit gather where GSPMD inserts them (Mamba2's and
+Zamba2's also over each gated norm's sum of squares).  The fused
+prefill runs ``flash_fwd`` on each rank's heads (Zamba2's shared block,
+Whisper's encoder and decoder) and ``depthwise_conv1d_fwd`` on its
+conv channels (Mamba2, Zamba2).  ``--dist-backend gloo`` lets the ranks
+share one card (``cuda:LOCAL_RANK`` modulo the cards present); rank 0
+prints, and the summary adds ``model_parallel``, a rank's weight and
+cache bytes and the group's collectives a decode step:
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch starcoder2-3b --model-parallel 2 --dist-backend gloo \
         --batch 8 --prompt-len 200 --gen 64
 
+(``--arch mamba2-370m``, ``zamba2-7b`` or ``whisper-large-v3`` alike;
+with ``--device cpu --smoke`` the reduced config on the CPU.)
+
 Layouts with no explicit form here are refused, naming ROADMAP.md queue
-A item 6 (``tp_refusal``): heads or KV heads that do not divide over N
-(GSPMD pads them, or shards the cache's head_dim), any leaf whose split
-dimension does not divide (the padded vocabulary, an expert count), a
-world larger than N (the data axis: FSDP placement), and the ssm,
-hybrid and encoder-decoder families.  A failed collective, build or
+A item 7 (``tp_refusal``): heads, KV heads or SSM heads that do not
+divide over N (GSPMD pads them, or shards the cache's head_dim), SSM
+groups that do not, any other leaf whose split dimension does not
+divide (the padded vocabulary, an expert count), and a world larger
+than N (the data axis: FSDP placement).  A failed collective, build or
 launch raises on its rank and the run exits non-zero.
 
 Conv family (AtacWorks): a continuous-serving loop over the streaming
@@ -143,7 +151,8 @@ from repro_torch.core import blocks
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch import mesh
 from repro_torch.launch.device import rank_device, require_device
-from repro_torch.models import init_model, moe, sharding, transformer
+from repro_torch.models import (init_model, leaf_shapes, local_model, moe,
+                                 sharding)
 from repro_torch.models.whisper import fill_cross_cache
 from repro_torch.train.serve_step import (make_cache, make_conv_prefill_step,
                                           make_conv_stream_state,
@@ -455,16 +464,16 @@ def prefill_gap(model, cfg, prompt: torch.Tensor,
 
 
 # the refused layouts' message ends here
-TP_ITEM = "ROADMAP.md queue A item 6"
+TP_ITEM = "ROADMAP.md queue A item 7"
 
 
 def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
     """Why ``cfg`` cannot serve tensor-parallel over ``mp`` model ranks
-    of a world of ``world`` ranks here, or None: the families and layouts
-    with no explicit form (the module docstring)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        return (f"tensor-parallel serving of the {cfg.family} family: its "
-                f"sharded form waits in {TP_ITEM}")
+    of a world of ``world`` ranks here, or None: the layouts with no
+    explicit form (the module docstring)."""
+    if cfg.family == "conv":
+        return ("the conv family serves by streaming, on one process; its "
+                "model axis is training's (launch/train.py)")
     if world is not None and world != mp:
         return (f"a world of {world} ranks for --model-parallel {mp}: "
                 + ("a data axis (the FSDP placement of the parameters on "
@@ -481,9 +490,17 @@ def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
     if cfg.padded_vocab % mp:
         return (f"the padded vocabulary of {cfg.padded_vocab} does not "
                 f"divide over {mp} model ranks ({TP_ITEM})")
+    if cfg.ssm is not None:
+        try:
+            sharding.ssm_segments(cfg, "in_proj", mp)
+        except ValueError as e:
+            return f"{e} (no explicit form here: {TP_ITEM})"
     mesh_shape = sharding.MeshShape(("data", "model"), (1, mp))
-    shapes = {k: v[0] for k, v in transformer._leaf_spec(cfg).items()}
+    shapes = leaf_shapes(cfg)
     for key, spec in sharding.param_pspecs(shapes, mesh_shape).items():
+        if cfg.ssm is not None and key.split(".")[-1] in (
+                sharding.SSM_SEGMENTS):
+            continue  # segment-aligned: checked above
         try:
             sharding.local_shape(shapes[key], spec, mesh_shape)
         except ValueError as e:
@@ -533,7 +550,7 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
     With ``args.model_parallel`` N > 1 the world is started (or joined)
     from torchrun's variables and laid out as (1, N); ``model`` (the
     whole model, anywhere; else one drawn on the host from ``args.seed``)
-    gives this rank its blocks (``transformer.local_model``), and every
+    gives this rank its blocks (``models.local_model``), and every
     rank returns its numbers, which add ``model_parallel``,
     ``weights_bytes``, ``cache_bytes`` (the rank's), ``collectives``
     (the group's sums and gathers a decode step and their host seconds)
@@ -555,8 +572,8 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
         t0 = time.perf_counter()
         if model is None:
             model = init_model(cfg, seed=args.seed, device="cpu")
-        model = transformer.local_model(model, mesh_shape, coords,
-                                        model_group, device=device)
+        model = local_model(model, mesh_shape, coords, model_group,
+                            device=device)
         extra.update(draw_s=time.perf_counter() - t0, model_parallel=mp,
                      coords=coords)
     say = print if mp == 1 or coords["model"] == 0 else (
@@ -719,8 +736,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=16,
                     help="LM: tokens generated per sequence")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="LM (dense, MoE, VLM): serve tensor-parallel over "
-                         "this many ranks started by torchrun")
+                    help="LM: serve tensor-parallel over this many ranks "
+                         "started by torchrun")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                     help="with --model-parallel > 1: the group's backend "
                          "(default nccl on the card, gloo on the CPU; gloo "

@@ -28,6 +28,11 @@ family.
 K/V before the first decode step.  The conv family's model is
 ``repro_torch.core.blocks``, which serves through ring-buffer streaming
 instead of a cache.
+
+Every language-model family serves tensor-parallel: ``local_model``
+gives a rank its blocks (``models/sharding.py``) and its model group,
+and each family's ``forward`` and ``decode_step`` run them; its
+``init_cache`` takes ``mp=``.
 """
 from __future__ import annotations
 
@@ -56,3 +61,31 @@ def init_model(cfg, *, seed: int = 0, device="cpu"):
         from repro_torch.core import blocks
         return blocks.init_params(cfg, seed=seed, device=device)
     return get_model(cfg).init_params(cfg, seed=seed, device=device)
+
+
+def leaf_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """key -> shape of every leaf of the config's language model, read
+    from the family's leaf specs without drawing a value."""
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models import mamba2, zamba2
+        shapes = mamba2.leaf_shapes(cfg)
+        if cfg.family == "hybrid":
+            shapes.update({f"shared.{k}": v[0] for k, v in
+                           zamba2.shared_leaves(cfg).items()})
+        return shapes
+    return {k: v[0] for k, v in get_model(cfg)._leaf_spec(cfg).items()}
+
+
+def local_model(model, mesh, coords, model_group, device=None):
+    """A tensor-parallel rank's model of any language-model family: a
+    model of ``model``'s class and config whose leaves are the blocks
+    the device at ``coords`` of ``mesh`` executes
+    (``sharding.local_state_dict(..., cfg=)``: JAX's blocks, an SSM
+    model's fused leaves segment-aligned), on ``device`` (default: where
+    they are), its ``tp`` the ``sharding.ModelGroup`` of
+    ``model_group``."""
+    from repro_torch.models import sharding
+    out = type(model)(model.cfg, sharding.local_state_dict(
+        model, mesh, coords, device=device, cfg=model.cfg))
+    out.tp = sharding.ModelGroup(model_group)
+    return out

@@ -25,6 +25,22 @@ unchanged.  The forward takes each layer's slice through one ``unbind``
 per stacked leaf, whose backward stacks the L gradients once; indexing
 the stacked leaf per layer instead would add a full (L, ...) gradient
 per layer.
+
+Tensor-parallel serving (the JAX launcher's ``--model-parallel``): a
+model built from a rank's blocks (``models.local_model``) with ``tp``
+set to its ``sharding.ModelGroup`` runs ``forward`` and ``decode_step``
+on its SSM heads.  Its fused leaves are segment-aligned
+(``sharding.segment_block``): ``in_proj`` gives the rank's z, x and dt
+and the whole B and C, and its prefill's conv launches
+``depthwise_conv1d_fwd`` on the rank's x channels and the whole B and C
+(``d_inner / N + 2·G·N``).  The sizes a block runs at come from its
+leaves' shapes (``_local_dims``).  Two sums a layer cross the group: the
+gated RMS norm's fp32 sum of squares, whose mean JAX takes over the
+whole ``d_inner`` (``gated_norm``), and ``out_proj``'s row-parallel
+product; the embedding and the logits go as in
+``models/transformer.py``.  Its cache (``init_cache(..., mp=)``) holds
+the rank's conv channels and SSM heads.  It serves only: no gradient
+crosses the group.
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
+from repro_torch.models import sharding
 
 # the per-layer mixer leaves, in the JAX tree's order
 MIXER_KEYS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D",
@@ -63,8 +80,12 @@ class Mamba2(nn.Module):
 
     Parameters (JAX's keys): ``embed.tok`` (padded_vocab, D),
     ``layers.norm.scale`` (L, D), ``layers.mixer.<MIXER_KEYS>`` (L, ...),
-    ``final_norm.scale`` (D,), ``unembed`` (D, padded_vocab).
+    ``final_norm.scale`` (D,), ``unembed`` (D, padded_vocab).  ``tp``:
+    the ``sharding.ModelGroup`` of a tensor-parallel rank whose leaves
+    are its blocks, or None.
     """
+
+    tp = None
 
     def __init__(self, cfg, leaves: dict[str, torch.Tensor]):
         super().__init__()
@@ -102,6 +123,21 @@ def normal_leaf(gen: torch.Generator, shape: tuple, scale: float,
     for i in range(shape[0]):
         out[i] = (torch.randn(shape[1:], generator=gen) * scale).to(dtype)
     return out
+
+
+def leaf_shapes(cfg) -> dict[str, tuple[int, ...]]:
+    """Mamba2's leaves' shapes under their keys, as ``draw_leaves``
+    draws them."""
+    s = cfg.ssm
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+    d_inner, H, conv_dim = dims(cfg)
+    d_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + H  # z, xBC, dt
+    mixer = {"in_proj": (D, d_proj), "conv_w": (s.conv_width, conv_dim),
+             "conv_b": (conv_dim,), "dt_bias": (H,), "A_log": (H,),
+             "D": (H,), "gate_norm": (d_inner,), "out_proj": (d_inner, D)}
+    return {"embed.tok": (V, D), "layers.norm.scale": (L, D),
+            **{f"layers.mixer.{k}": (L, *v) for k, v in mixer.items()},
+            "final_norm.scale": (D,), "unembed": (D, V)}
 
 
 def draw_leaves(cfg, gen: torch.Generator,
@@ -241,13 +277,39 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(b, T, H, P)
 
 
-def block_fwd(p: dict, xres: torch.Tensor, cfg, *,
-              backend: str | None = None) -> torch.Tensor:
-    """One Mamba2 block over the full sequence.  xres: (B, T, D), already
-    normed; ``p`` holds one layer's ``MIXER_KEYS``."""
+def _local_dims(p: dict, cfg) -> tuple[int, int, int]:
+    """``(d_inner, n_heads, n_groups)`` of the block ``p`` holds: the
+    layer's, or a tensor-parallel rank's (its heads, and B and C whole or
+    its groups), read from the leaves' shapes."""
     s = cfg.ssm
-    d_inner, H, _ = dims(cfg)
-    P, G, N = s.head_dim, s.n_groups, s.d_state
+    H = p["D"].shape[-1]
+    d_inner = H * s.head_dim
+    return d_inner, H, (p["conv_w"].shape[-1] - d_inner) // (2 * s.d_state)
+
+
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, cfg,
+               dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """The gated RMS norm: fp32 ``y * silu(z)`` over its mean square,
+    times ``scale``, cast to ``dtype``.  On a tensor-parallel rank (``y``
+    its channels) the fp32 sum of squares is summed over the group and
+    divided by the whole width, JAX's mean over the whole ``d_inner``."""
+    y = y * F.silu(z.float())
+    if tp is None:
+        ms = (y * y).mean(-1, keepdim=True)
+    else:
+        ms = tp.sum((y * y).sum(-1, keepdim=True)) / (y.shape[-1] * tp.size)
+    y = y * torch.rsqrt(ms + cfg.norm_eps)
+    return (y * scale.float()).to(dtype)
+
+
+def block_fwd(p: dict, xres: torch.Tensor, cfg, *,
+              backend: str | None = None, tp=None) -> torch.Tensor:
+    """One Mamba2 block over the full sequence.  xres: (B, T, D), already
+    normed; ``p`` holds one layer's ``MIXER_KEYS`` (with ``tp``, the
+    rank's blocks: ``out_proj``'s product summed over the group)."""
+    s = cfg.ssm
+    d_inner, H, G = _local_dims(p, cfg)
+    P, N = s.head_dim, s.d_state
     b, T, _ = xres.shape
     z, xBC, dt = torch.split(xres @ p["in_proj"],
                              [d_inner, d_inner + 2 * G * N, H], dim=-1)
@@ -260,12 +322,9 @@ def block_fwd(p: dict, xres: torch.Tensor, cfg, *,
     A = -torch.exp(p["A_log"])
     y = ssd_chunked(x_ssm, dt_act, A, B, C, s.chunk)
     y = y + p["D"][None, None, :, None] * x_ssm
-    y = y.reshape(b, T, d_inner)
-    y = y * F.silu(z.float())
-    # gated RMS norm, cast back to the residual stream's dtype
-    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps)
-    y = (y * p["gate_norm"].float()).to(xres.dtype)
-    return y @ p["out_proj"]
+    y = gated_norm(y.reshape(b, T, d_inner), z, p["gate_norm"], cfg,
+                   xres.dtype, tp)
+    return cm.row_parallel(y @ p["out_proj"], None, tp)
 
 
 def _layers(model: Mamba2):
@@ -287,14 +346,15 @@ def forward(model: Mamba2, tokens: torch.Tensor, *, last_only: bool = False,
     hidden state (B, T, D) instead.  ``backend`` picks the conv's
     (``None``: the kernels for CUDA tensors, the plain version for CPU
     ones).  With ``cfg.remat`` each layer's activations are recomputed in
-    the backward."""
-    cfg = model.cfg
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    the backward.  A tensor-parallel rank's model (``model.tp``) runs its
+    blocks."""
+    cfg, tp = model.cfg, model.tp
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
 
     def layer(x, scale, *leaves):
         p = dict(zip(MIXER_KEYS, leaves))
         return x + block_fwd(p, cm.apply_norm(scale, x, cfg), cfg,
-                             backend=backend)
+                             backend=backend, tp=tp)
 
     step = cm.maybe_remat(layer, cfg)
     for scale, p in _layers(model):
@@ -304,35 +364,40 @@ def forward(model: Mamba2, tokens: torch.Tensor, *, last_only: bool = False,
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
     if hidden_only:
         return x
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg)
+    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
+                                 tp=tp)
 
 
 # --- decode ------------------------------------------------------------------
 
 def init_block_state(cfg, batch: int, dtype: torch.dtype = torch.float32,
-                     device: torch.device | str = "cpu") -> dict:
+                     device: torch.device | str = "cpu", mp: int = 1) -> dict:
     """One layer's decode state: ``conv`` (B, S-1, conv_dim), the last S-1
     conv inputs, in ``dtype``; ``ssm`` (B, H, N, P), the recurrent state,
     in fp32 whatever ``dtype``: the JAX package's decode returns it in
     fp32 from its first step on (h is an fp32 product), so a narrower
-    leaf would round a state JAX keeps."""
+    leaf would round a state JAX keeps.  ``mp``: a tensor-parallel
+    rank's state, its conv channels (``sharding.ssm_local_width``) and
+    H/mp heads."""
     s = cfg.ssm
-    _, H, conv_dim = dims(cfg)
+    _, H, _ = dims(cfg)
+    conv_dim = sharding.ssm_local_width(cfg, "conv", mp)
     return {"conv": torch.zeros((batch, s.conv_width - 1, conv_dim),
                                 dtype=dtype, device=device),
-            "ssm": torch.zeros((batch, H, s.d_state, s.head_dim),
+            "ssm": torch.zeros((batch, H // mp, s.d_state, s.head_dim),
                                dtype=torch.float32, device=device)}
 
 
-def block_decode(p: dict, xres: torch.Tensor, cfg,
-                 state: dict) -> torch.Tensor:
+def block_decode(p: dict, xres: torch.Tensor, cfg, state: dict,
+                 tp=None) -> torch.Tensor:
     """One Mamba2 block on one token.  xres: (B, 1, D), already normed;
     ``state`` as :func:`init_block_state`, updated in place (the conv
     window slides by one, the SSM state takes the token).  Returns the
-    block's output (B, 1, D)."""
+    block's output (B, 1, D).  With ``tp``, the rank's blocks and state,
+    as :func:`block_fwd`."""
     s = cfg.ssm
-    d_inner, H, _ = dims(cfg)
-    P, G, N = s.head_dim, s.n_groups, s.d_state
+    d_inner, H, G = _local_dims(p, cfg)
+    P, N = s.head_dim, s.d_state
     b = xres.shape[0]
     z, xBC, dt = torch.split(xres @ p["in_proj"],
                              [d_inner, d_inner + 2 * G * N, H], dim=-1)
@@ -353,21 +418,20 @@ def block_decode(p: dict, xres: torch.Tensor, cfg,
          + (dt_act[:, :, None] * B)[..., None] * x_ssm[:, :, None, :])
     state["ssm"].copy_(h)
     y = (C[:, :, None, :] @ h).squeeze(2) + p["D"][None, :, None] * x_ssm
-    y = y.reshape(b, 1, d_inner)
-    y = y * F.silu(z.float())
-    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps)
-    y = (y * p["gate_norm"].float()).to(xres.dtype)
-    return y @ p["out_proj"]
+    y = gated_norm(y.reshape(b, 1, d_inner), z, p["gate_norm"], cfg,
+                   xres.dtype, tp)
+    return cm.row_parallel(y @ p["out_proj"], None, tp)
 
 
 def init_cache(cfg, batch: int, max_len: int = 0,
                dtype: torch.dtype = torch.float32,
-               device: torch.device | str = "cpu") -> dict:
+               device: torch.device | str = "cpu", mp: int = 1) -> dict:
     """The decode cache, O(1) in the sequence length (``max_len`` unused):
     ``{"conv": (L, B, S-1, conv_dim), "ssm": (L, B, H, N, P)}``, the JAX
     package's layout, each leaf a tensor of its own (not a broadcast of one
-    layer's: ``decode_step`` writes every layer's slice in place)."""
-    one = init_block_state(cfg, batch, dtype, device)
+    layer's: ``decode_step`` writes every layer's slice in place).
+    ``mp``: a tensor-parallel rank's (``init_block_state``)."""
+    one = init_block_state(cfg, batch, dtype, device, mp)
     return {k: v[None].repeat(cfg.n_layers, *(1,) * v.dim())
             for k, v in one.items()}
 
@@ -377,11 +441,12 @@ def decode_step(model: Mamba2, cache: dict, tokens: torch.Tensor,
     """One decode step.  tokens (B, 1) int -> (fp32 logits (B, 1,
     padded_vocab), cache), the cache updated in place.  ``pos`` is unused:
     the state holds the whole history."""
-    cfg = model.cfg
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    cfg, tp = model.cfg, model.tp
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
     for i, (scale, p) in enumerate(_layers(model)):
         state = {k: v[i] for k, v in cache.items()}
-        x = x + block_decode(p, cm.apply_norm(scale, x, cfg), cfg, state)
+        x = x + block_decode(p, cm.apply_norm(scale, x, cfg), cfg, state,
+                             tp)
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x,
-                                 cfg), cache
+    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
+                                 tp=tp), cache

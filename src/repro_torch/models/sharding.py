@@ -19,13 +19,18 @@ names and sizes and nothing else.
 The torch side: :func:`local_block` is the block of a tensor that the
 device at given mesh coordinates holds under even tiling (a dimension
 that does not divide raises: GSPMD would pad it), and
-:func:`local_state_dict` does the same for a whole state dict.
+:func:`local_state_dict` does the same for a whole state dict.  Where
+an explicit form cannot follow JAX's block, a rank's execution block
+departs from it: an SSM model's fused ``in_proj``, ``conv_w`` and
+``conv_b`` (and its cache's conv state) take segment-aligned blocks
+(:func:`segment_block`), every rank keeping B and C whole.
 
 :class:`ModelGroup` is the model axis of a tensor-parallel language
-model (``models/common.py``, ``transformer.py``, ``moe.py``, ``mla.py``
-read it): the all-reduce after each row-parallel product and the gather
-of the logits' column blocks, where GSPMD inserts them in the JAX
-launcher's sharded decode.  Each sum runs in fp32 (a partial cast,
+model (``models/common.py``, ``transformer.py``, ``moe.py``, ``mla.py``,
+``mamba2.py``, ``zamba2.py``, ``whisper.py`` read it): the all-reduce
+after each row-parallel product (and of Mamba2's gated norm's sum of
+squares) and the gather of the logits' column blocks, where GSPMD
+inserts them in the JAX launcher's sharded decode.  Each sum runs in fp32 (a partial cast,
 summed, cast back): the sum itself is exact in fp32 and rounded once.  In a
 bf16 model each rank's partial is already rounded to bf16 by its product
 before the sum, so a two-rank result is rounded three times against one
@@ -333,18 +338,96 @@ def local_block(t: torch.Tensor, spec: tuple, mesh, coords) -> torch.Tensor:
     return t
 
 
-def local_state_dict(params, mesh, coords,
-                     device=None) -> dict[str, torch.Tensor]:
+def local_state_dict(params, mesh, coords, device=None,
+                     cfg=None) -> dict[str, torch.Tensor]:
     """The state dict of the device at ``coords``: each leaf of
     ``params`` (a model or a state dict) narrowed to its block under
     :func:`param_pspecs`, contiguous, on ``device`` (default: where it
-    is)."""
+    is).  With the model's ``cfg``, the blocks a rank executes: an SSM
+    model's fused leaves (:data:`SSM_SEGMENTS`) take their
+    segment-aligned blocks over ``'model'`` (:func:`segment_block`)
+    instead of JAX's contiguous ones."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     specs = param_pspecs(params, mesh)
-    return {k: local_block(t, specs[k], mesh, coords).contiguous().to(
-        device if device is not None else t.device)
-        for k, t in params.items()}
+    coords = _coords(mesh, coords)
+    out = {}
+    for k, t in params.items():
+        name = _names(k)[-1]
+        if cfg is None or cfg.ssm is None or name not in SSM_SEGMENTS:
+            b = local_block(t, specs[k], mesh, coords)
+        else:
+            *lead, last = specs[k]
+            parts, index = _split(last, mesh, coords)
+            b = segment_block(local_block(t, (*lead, None), mesh, coords),
+                              ssm_segments(cfg, name, parts), parts, index)
+        out[k] = b.contiguous().to(device if device is not None
+                                   else t.device)
+    return out
+
+
+# --- the segment-aligned blocks of the fused SSM leaves ----------------------
+#
+# Mamba2 fuses its projections: ``in_proj``'s columns are [z | x | B | C |
+# dt] (widths d_inner, d_inner, G·N, G·N, H), ``conv_w``'s and
+# ``conv_b``'s channels and the cache's conv state [x | B | C].  JAX's
+# rule splits the fused dimension contiguously on 'model' and GSPMD
+# re-lays it out at run time; at Mamba2-370M and mp 2, rank 0's contiguous
+# half of ``in_proj`` (2,192 of 4,384 columns) is all of z and 144
+# columns of x, no rank's share of the heads.  A rank's execution block
+# instead takes its heads' share of each segment: z, x and dt split by
+# heads; B and C split by groups where the groups divide over the ranks,
+# else (one group, every config's) whole on every rank, 2·G·N columns of
+# ``in_proj`` and channels of the conv more than JAX's block.  The specs
+# (``param_pspecs``, ``cache_pspecs``) stay JAX's.
+
+SSM_SEGMENTS = {"in_proj": "zxBCt", "conv_w": "xBC", "conv_b": "xBC",
+                "conv": "xBC"}
+
+
+def ssm_segments(cfg, name: str, parts: int) -> list[tuple[int, bool]]:
+    """The segments of the last dimension of the fused SSM leaf ``name``
+    (``SSM_SEGMENTS``: a parameter, or ``"conv"``, the cache's state) of
+    ``cfg`` over ``parts`` model ranks: ``(width, split)`` each, in
+    order.  Raises where the heads do not divide over ``parts``, or where
+    more than one group does not."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H, G = d_inner // s.head_dim, s.n_groups
+    if H % parts:
+        raise ValueError(f"{H} SSM heads do not divide over {parts} model "
+                         "ranks")
+    groups = G % parts == 0
+    if G > 1 and not groups:
+        raise ValueError(f"{G} SSM groups do not divide over {parts} model "
+                         "ranks (a rank's heads would read another's)")
+    width = {"z": (d_inner, True), "x": (d_inner, True),
+             "B": (G * s.d_state, groups), "C": (G * s.d_state, groups),
+             "t": (H, True)}
+    return [width[c] for c in SSM_SEGMENTS[name]]
+
+
+def ssm_local_width(cfg, name: str, parts: int) -> int:
+    """The width of a rank's segment-aligned block of ``name``."""
+    return sum(w // parts if split else w
+               for w, split in ssm_segments(cfg, name, parts))
+
+
+def segment_block(t: torch.Tensor, segments, parts: int,
+                  index: int) -> torch.Tensor:
+    """Block ``index`` of ``parts`` of ``t``'s last dimension, taken
+    segment by segment (``segments``: ``(width, split)`` in order): a
+    split segment's ``index``-th equal part, a whole one entire, joined
+    in order (a copy)."""
+    if sum(w for w, _ in segments) != t.shape[-1]:
+        raise ValueError(f"segments {segments} do not tile a last "
+                         f"dimension of {t.shape[-1]}")
+    out, start = [], 0
+    for w, split in segments:
+        seg = t.narrow(-1, start, w)
+        out.append(_block(seg, t.dim() - 1, parts, index) if split else seg)
+        start += w
+    return torch.cat(out, -1)
 
 
 # --- the model group ---------------------------------------------------------

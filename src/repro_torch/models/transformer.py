@@ -39,8 +39,8 @@ launcher decodes text only.
 
 Tensor-parallel serving (the JAX launcher's ``--model-parallel``, where
 GSPMD partitions the decode by ``models/sharding.py``'s rules): a model
-built from a rank's blocks (``sharding.local_state_dict``) with ``tp``
-set to its ``sharding.ModelGroup`` runs ``forward`` and ``decode_step``
+built from a rank's blocks (``models.local_model``) with ``tp`` set to
+its ``sharding.ModelGroup`` runs ``forward`` and ``decode_step``
 on those blocks, the group's sums and gather where GSPMD inserts them
 (``models/common.py``, ``moe.py``, ``mla.py``), and its fused prefill
 runs ``flash_fwd`` on the rank's heads; its cache (``init_cache(...,
@@ -57,7 +57,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common as cm
-from repro_torch.models import mla, moe, sharding
+from repro_torch.models import mla, moe
 
 PREFIX = "dense_layers."
 MOE_PREFIX = "moe_layers."
@@ -230,18 +230,6 @@ def init_params(cfg, *, seed: int = 0,
     _check_family(cfg)
     return Transformer(cfg, draw_leaves(_leaf_spec(cfg), cfg, seed=seed,
                                         device=device))
-
-
-def local_model(model: Transformer, mesh, coords, model_group,
-                device: torch.device | str | None = None) -> Transformer:
-    """A tensor-parallel rank's model: ``model``'s leaves narrowed to the
-    blocks ``sharding.param_pspecs`` gives the device at ``coords`` of
-    ``mesh`` (``sharding.local_state_dict``), on ``device``, its ``tp``
-    the ``sharding.ModelGroup`` of ``model_group``."""
-    out = Transformer(model.cfg, sharding.local_state_dict(
-        model, mesh, coords, device=device))
-    out.tp = sharding.ModelGroup(model_group)
-    return out
 
 
 def _check_family(cfg) -> None:

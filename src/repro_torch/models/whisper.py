@@ -36,6 +36,19 @@ fills them from ``encode`` and ``cross_kv``, which is what the JAX
 functions give when composed.  ``decode_step`` then runs one token
 through every decoder layer, updating the self-attention cache in place;
 it runs no kernel.
+
+Tensor-parallel serving: a rank's model (``models.local_model``, ``tp``
+its ``sharding.ModelGroup``) runs the encoder and decoder on its heads,
+as ``models/common.py``'s ``tp=`` paths do: Q, K, V and the MLP's up
+projection (and ``bq``, ``bk``, ``bv``, ``b_up``) are its column blocks,
+``wo`` and ``w_down`` row blocks summed over the group before ``bo`` and
+``b_down`` are added once.  The cross-attention takes the rank's H/N
+heads, and so does its cache (``init_cache(..., mp=)``: KV/N heads of
+the self-attention K/V, H/N of the cross K/V, ``cache_pspecs``'
+blocks).  The decoder's learned position table stays whole; the token
+table and the logits are vocabulary blocks, as in
+``models/transformer.py``.  The conv frontend is on no serving path: a
+rank keeps its blocks of it and never runs them.
 """
 from __future__ import annotations
 
@@ -144,23 +157,26 @@ def _norm(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 def cross_kv(p: dict, enc: torch.Tensor, cfg
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The encoder states (B, Te, D) -> cross-attention k and v (B, Te, H,
-    hd); k has no bias."""
+    hd) (H that of ``p``'s blocks: a tensor-parallel rank's H/N); k has
+    no bias."""
     B, Te, _ = enc.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    k = (enc @ p["wk"]).reshape(B, Te, H, hd)
-    v = (enc @ p["wv"] + p["bv"]).reshape(B, Te, H, hd)
+    hd = cfg.head_dim
+    k = (enc @ p["wk"]).reshape(B, Te, -1, hd)
+    v = (enc @ p["wv"] + p["bv"]).reshape(B, Te, -1, hd)
     return k, v
 
 
 def cross_attention(p: dict, x: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor, cfg) -> torch.Tensor:
+                    v: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """x (B, T, D) attends to every key of k, v (B, Te, H, hd): the plain
-    ``gqa_attention`` (G = 1), whatever ``cfg.attn_impl`` is."""
+    ``gqa_attention`` (G = 1), whatever ``cfg.attn_impl`` is; with ``tp``
+    on the rank's heads, ``wo``'s product summed over the group before
+    ``bo``."""
     B, T, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"] + p["bq"]).reshape(B, T, H, hd)
+    hd = cfg.head_dim
+    q = (x @ p["wq"] + p["bq"]).reshape(B, T, -1, hd)
     o = cm.gqa_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    return o.reshape(B, T, H * hd) @ p["wo"] + p["bo"]
+    return cm.row_parallel(o.reshape(B, T, -1) @ p["wo"], p["bo"], tp)
 
 
 def _layers(model: Whisper, prefix: str):
@@ -172,8 +188,9 @@ def _layers(model: Whisper, prefix: str):
 def encode(model: Whisper, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, W_enc, D) -> the encoder's states (B, W_enc, D), in the
     frames' dtype.  With ``cfg.remat`` each layer's activations are
-    recomputed in the backward."""
-    cfg = model.cfg
+    recomputed in the backward.  A tensor-parallel rank's model
+    (``model.tp``) runs its heads and MLP columns."""
+    cfg, tp = model.cfg, model.tp
     T = frames.shape[1]
     x = frames + cm.sinusoidal_positions(T, cfg.d_model,
                                          frames.device).to(frames.dtype)
@@ -184,9 +201,9 @@ def encode(model: Whisper, frames: torch.Tensor) -> torch.Tensor:
         lp = transformer._nest(keys, leaves)
         h = _norm(lp["attn_norm"], x, cfg)
         x = x + cm.attention_block(lp["attn"], h, cfg, positions,
-                                   causal=False)
+                                   causal=False, tp=tp)
         return x + cm.apply_mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg),
-                                cfg)
+                                cfg, tp=tp)
 
     step = cm.maybe_remat(layer, cfg)
     for lp in layers:
@@ -203,27 +220,28 @@ def forward(model: Whisper, tokens: torch.Tensor, *,
     (``extra_embeds`` is the same argument under the VLM's name, as in the
     JAX package) -> fp32 logits (B, T, padded_vocab), the padded columns
     at ``common.NEG_INF``.  ``last_only`` and ``hidden_only`` as in
-    ``transformer.forward``."""
-    cfg = model.cfg
+    ``transformer.forward``; a tensor-parallel rank's model (``model.tp``)
+    runs its blocks."""
+    cfg, tp = model.cfg, model.tp
     frames = frames if frames is not None else extra_embeds
     if frames is None:
         raise ValueError("the encoder-decoder needs frames (B, W_enc, D)")
     enc = encode(model, frames)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = cm.embed_tokens(model.embed.tok, tokens, cfg, pos=model.embed.pos,
-                        positions=positions)
+                        positions=positions, tp=tp)
     keys, layers = _layers(model, DEC)
 
     def layer(x, enc, *leaves):
         lp = transformer._nest(keys, leaves)
         h = _norm(lp["attn_norm"], x, cfg)
         x = x + cm.attention_block(lp["attn"], h, cfg, positions,
-                                   causal=True)
+                                   causal=True, tp=tp)
         h = _norm(lp["cross_norm"], x, cfg)
         k, v = cross_kv(lp["cross"], enc, cfg)
-        x = x + cross_attention(lp["cross"], h, k, v, cfg)
+        x = x + cross_attention(lp["cross"], h, k, v, cfg, tp)
         return x + cm.apply_mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg),
-                                cfg)
+                                cfg, tp=tp)
 
     step = cm.maybe_remat(layer, cfg)
     for lp in layers:
@@ -238,21 +256,25 @@ def forward(model: Whisper, tokens: torch.Tensor, *,
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cpu",
-               enc_len: int | None = None) -> dict:
+               enc_len: int | None = None, mp: int = 1) -> dict:
     """The JAX package's cache, zeros in ``dtype``: ``k``, ``v`` (L, B,
     max_len, KV, hd) and ``cross_k``, ``cross_v`` (L, B, Te, H, hd), Te
     being ``enc_len`` or ``cfg.encoder_width``.  ``fill_cross_cache``
-    fills the cross K/V from the frames."""
-    L, H, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
+    fills the cross K/V from the frames.  ``mp``: a tensor-parallel
+    rank's, KV/mp and H/mp heads."""
+    L, H, KV, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if H % mp or KV % mp:
+        raise ValueError(f"{H} heads over {KV} KV heads do not divide over "
+                         f"{mp} model ranks")
     Te = enc_len or cfg.encoder_width
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return {"k": zeros(L, batch, max_len, cfg.n_kv_heads, hd),
-            "v": zeros(L, batch, max_len, cfg.n_kv_heads, hd),
-            "cross_k": zeros(L, batch, Te, H, hd),
-            "cross_v": zeros(L, batch, Te, H, hd)}
+    return {"k": zeros(L, batch, max_len, KV // mp, hd),
+            "v": zeros(L, batch, max_len, KV // mp, hd),
+            "cross_k": zeros(L, batch, Te, H // mp, hd),
+            "cross_v": zeros(L, batch, Te, H // mp, hd)}
 
 
 @torch.inference_mode()
@@ -281,23 +303,25 @@ def decode_step(model: Whisper, cache: dict, tokens: torch.Tensor,
     """One decode step: tokens (B, 1) int at position ``pos`` (the
     self-attention cache's valid length) -> (fp32 logits (B, 1,
     padded_vocab), cache), each layer's k and v written into the cache at
-    ``pos`` in place; the cross K/V are read in x's dtype."""
-    cfg = model.cfg
+    ``pos`` in place; the cross K/V are read in x's dtype.  A
+    tensor-parallel rank's model runs its blocks on its cache."""
+    cfg, tp = model.cfg, model.tp
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"position {pos} is past the cache's "
                          f"{cache['k'].shape[2]} slots")
     x = cm.embed_tokens(model.embed.tok, tokens, cfg, pos=model.embed.pos,
                         positions=torch.full((1,), pos,
-                                             device=tokens.device))
+                                             device=tokens.device), tp=tp)
     keys, layers = _layers(model, DEC)
     caches = zip(*(cache[k].unbind(0)
                    for k in ("k", "v", "cross_k", "cross_v")))
     for lp, (ck, cv, xk, xv) in zip(layers, caches):
         lp = transformer._nest(keys, lp)
         h = _norm(lp["attn_norm"], x, cfg)
-        x = x + cm.attention_decode(lp["attn"], h, cfg, ck, cv, pos)
+        x = x + cm.attention_decode(lp["attn"], h, cfg, ck, cv, pos, tp)
         h = _norm(lp["cross_norm"], x, cfg)
         x = x + cross_attention(lp["cross"], h, xk.to(x.dtype),
-                                xv.to(x.dtype), cfg)
-        x = x + cm.apply_mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg), cfg)
+                                xv.to(x.dtype), cfg, tp)
+        x = x + cm.apply_mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg), cfg,
+                             tp=tp)
     return transformer._final(model, x), cache

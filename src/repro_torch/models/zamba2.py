@@ -35,6 +35,15 @@ Parameters are the JAX tree's leaves under its dotted keys
 d_proj), ``shared.in_norm.scale`` (2·D,), ``shared.wq`` (2·D, H·hd),
 ``shared.mlp.w_gate``, ``final_norm.scale``, ``unembed``), so
 ``convert.params_from_jax`` carries a JAX tree over unchanged.
+
+Tensor-parallel serving: a rank's model (``models.local_model``, ``tp``
+its ``sharding.ModelGroup``) runs its Mamba2 layers as
+``models/mamba2.py`` does and the shared block on its heads: Q, K and V
+from the replicated 2·D concat through their column blocks, flash (or
+the plain attention) on the rank's H/N heads over KV/N, ``wo`` and the
+MLP's ``w_down`` row-parallel (``common.attention_block``'s and
+``apply_mlp``'s sums); its cache holds the rank's SSM heads and conv
+channels and KV/N heads of each slot.
 """
 from __future__ import annotations
 
@@ -110,25 +119,28 @@ def _shared(model: Zamba2) -> dict:
 
 def _shared_qkv(p: dict, xcat: torch.Tensor, cfg, positions: torch.Tensor):
     """xcat (B, T, 2·D) -> q (B, T, H, hd), k and v (B, T, KV, hd): the
-    norm over 2·D, the projections (no biases), rotary embeddings."""
+    norm over 2·D, the projections (no biases), rotary embeddings (H and
+    KV those of ``p``'s blocks: a tensor-parallel rank's H/N and KV/N)."""
     B, T, _ = xcat.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     h = cm.apply_norm(p["in_norm"], xcat, cfg)
-    q = (h @ p["wq"]).reshape(B, T, H, hd)
-    k = (h @ p["wk"]).reshape(B, T, KV, hd)
-    v = (h @ p["wv"]).reshape(B, T, KV, hd)
+    q = (h @ p["wq"]).reshape(B, T, -1, hd)
+    k = (h @ p["wk"]).reshape(B, T, -1, hd)
+    v = (h @ p["wv"]).reshape(B, T, -1, hd)
     return (cm.apply_rope(q, positions, cfg.rope_theta),
             cm.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def _mlp(p: dict, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     return x + cm.apply_mlp(p["mlp"], cm.apply_norm(p["mlp_norm"], x, cfg),
-                            cfg)
+                            cfg, tp=tp)
 
 
 def shared_block_fwd(p: dict, x: torch.Tensor, emb: torch.Tensor, cfg,
-                     positions: torch.Tensor) -> torch.Tensor:
-    """The shared block over the full sequence: x and emb (B, T, D)."""
+                     positions: torch.Tensor, tp=None) -> torch.Tensor:
+    """The shared block over the full sequence: x and emb (B, T, D); with
+    ``tp`` on the rank's heads, ``wo`` and ``w_down`` summed over the
+    group."""
     q, k, v = _shared_qkv(p, torch.cat([x, emb], dim=-1), cfg, positions)
     if cfg.attn_impl == "flash":
         o = cm.flash_or_phantom(q, k, v, cfg, causal=True)
@@ -136,8 +148,9 @@ def shared_block_fwd(p: dict, x: torch.Tensor, emb: torch.Tensor, cfg,
         o = cm.gqa_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    x = x + o.reshape(*x.shape[:2], -1) @ p["wo"]
-    return _mlp(p, x, cfg)
+    o = o.reshape(*x.shape[:2], -1) @ p["wo"]
+    x = x + cm.row_parallel(o, None, tp)
+    return _mlp(p, x, cfg, tp)
 
 
 def forward(model: Zamba2, tokens: torch.Tensor, *, last_only: bool = False,
@@ -148,9 +161,10 @@ def forward(model: Zamba2, tokens: torch.Tensor, *, last_only: bool = False,
     only (B, 1, ...), the prefill's; with ``hidden_only`` the final-normed
     hidden state (B, T, D) instead.  ``backend`` picks the Mamba2 conv's
     (``None``: the kernels for CUDA tensors, the plain version for CPU
-    ones)."""
-    cfg = model.cfg
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    ones).  A tensor-parallel rank's model (``model.tp``) runs its
+    blocks."""
+    cfg, tp = model.cfg, model.tp
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
     emb = x
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     shared = _shared(model)
@@ -158,9 +172,9 @@ def forward(model: Zamba2, tokens: torch.Tensor, *, last_only: bool = False,
     def layer(with_shared, x, scale, *leaves):
         p = dict(zip(mamba2.MIXER_KEYS, leaves))
         x = x + mamba2.block_fwd(p, cm.apply_norm(scale, x, cfg), cfg,
-                                 backend=backend)
+                                 backend=backend, tp=tp)
         if with_shared:
-            x = shared_block_fwd(shared, x, emb, cfg, positions)
+            x = shared_block_fwd(shared, x, emb, cfg, positions, tp)
         return x
 
     steps = [cm.maybe_remat(functools.partial(layer, w), cfg)
@@ -172,33 +186,41 @@ def forward(model: Zamba2, tokens: torch.Tensor, *, last_only: bool = False,
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
     if hidden_only:
         return x
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg)
+    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
+                                 tp=tp)
 
 
 # --- decode ------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu") -> dict:
+               device: torch.device | str = "cpu", mp: int = 1) -> dict:
     """The decode cache, the JAX package's layout: ``{"mamba": {"conv":
     (L, B, S-1, conv_dim), "ssm": (L, B, H, N, P)}}`` in fp32 whatever
     ``dtype`` (``mamba2.init_cache``), and ``"k"``, ``"v"``: (n_app, B,
-    max_len, KV, hd) in ``dtype``, one slot per application; zeros."""
-    shape = (n_shared_applications(cfg), batch, max_len, cfg.n_kv_heads,
-             cfg.head_dim)
-    return {"mamba": mamba2.init_cache(cfg, batch, 0, torch.float32, device),
+    max_len, KV, hd) in ``dtype``, one slot per application; zeros.
+    ``mp``: a tensor-parallel rank's, its SSM heads and conv channels and
+    KV/mp heads."""
+    if cfg.n_kv_heads % mp:
+        raise ValueError(f"{cfg.n_kv_heads} KV heads do not divide over "
+                         f"{mp} model ranks")
+    shape = (n_shared_applications(cfg), batch, max_len,
+             cfg.n_kv_heads // mp, cfg.head_dim)
+    return {"mamba": mamba2.init_cache(cfg, batch, 0, torch.float32, device,
+                                       mp),
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def shared_block_decode(p: dict, x: torch.Tensor, emb: torch.Tensor, cfg,
-                        ck: torch.Tensor, cv: torch.Tensor,
-                        pos: int) -> torch.Tensor:
+                        ck: torch.Tensor, cv: torch.Tensor, pos: int,
+                        tp=None) -> torch.Tensor:
     """The shared block on one token: x and emb (B, 1, D); ck and cv (B,
     Tmax, KV, hd) are this application's slot, into which k and v are
     written at ``pos`` (in place, in the cache's dtype); the query
     attends to positions 0..pos.  ``o @ wo`` promotes as JAX's matmul
-    does (see ``common.attention_decode``)."""
+    does (see ``common.attention_decode``).  With ``tp``, the rank's
+    heads, as :func:`shared_block_fwd`."""
     B = x.shape[0]
     q, k, v = _shared_qkv(p, torch.cat([x, emb], dim=-1), cfg,
                           torch.full((B, 1), pos, device=x.device))
@@ -207,8 +229,8 @@ def shared_block_decode(p: dict, x: torch.Tensor, emb: torch.Tensor, cfg,
     o = cm.gqa_attention(q, ck, cv, causal=False, kv_len=pos + 1)
     o = o.reshape(B, 1, -1)
     dt = torch.promote_types(o.dtype, p["wo"].dtype)
-    x = x + o.to(dt) @ p["wo"].to(dt)
-    return _mlp(p, x, cfg)
+    x = x + cm.row_parallel(o.to(dt) @ p["wo"].to(dt), None, tp)
+    return _mlp(p, x, cfg, tp)
 
 
 def decode_step(model: Zamba2, cache: dict, tokens: torch.Tensor,
@@ -216,21 +238,21 @@ def decode_step(model: Zamba2, cache: dict, tokens: torch.Tensor,
     """One decode step.  tokens (B, 1) int at position ``pos`` (the K/V
     slots' valid length) -> (fp32 logits (B, 1, padded_vocab), cache),
     the cache updated in place."""
-    cfg = model.cfg
+    cfg, tp = model.cfg, model.tp
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"position {pos} is past the cache's "
                          f"{cache['k'].shape[2]} slots")
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg)
+    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
     emb = x
     shared = _shared(model)
     for i, (scale, p) in enumerate(mamba2._layers(model)):
         state = {k: v[i] for k, v in cache["mamba"].items()}
         x = x + mamba2.block_decode(p, cm.apply_norm(scale, x, cfg), cfg,
-                                    state)
+                                    state, tp)
         if _applies(cfg, i):
             a = i // cfg.attn_every
             x = shared_block_decode(shared, x, emb, cfg, cache["k"][a],
-                                    cache["v"][a], pos)
+                                    cache["v"][a], pos, tp)
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x,
-                                 cfg), cache
+    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
+                                 tp=tp), cache

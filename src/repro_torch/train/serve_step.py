@@ -68,7 +68,7 @@ def make_cache(cfg, batch: int, max_len: int,
     """The family's decode cache (``init_cache``), zeros; ``enc_len`` sets
     an encoder-decoder's cross-attention length (default
     ``cfg.encoder_width``); ``mp`` > 1 gives a tensor-parallel rank's
-    cache (the dense, MoE and VLM families: ``transformer.init_cache``)."""
+    cache (its heads and, for an SSM model, its conv channels)."""
     kw = {"enc_len": enc_len} if cfg.family == "encdec" else {}
     if mp != 1:
         kw["mp"] = mp

@@ -96,12 +96,14 @@ def test_configs_match_jax():
 def test_lm_families_raise_not_implemented():
     """Every architecture of the JAX package has its config (the VLM was
     the last); the LM launcher's ``--model-parallel``, which shards the
-    parameters in the JAX launcher, serves the dense, MoE and VLM
-    families and still refuses the SSM family."""
+    parameters in the JAX launcher, serves every LM family and still
+    refuses the layouts with no explicit form: SSM heads that do not
+    divide over the model ranks among them."""
     assert configs.get("internvl2-2b").family == "vlm"
-    with pytest.raises(ValueError, match="ssm family.*queue A item 6"):
+    with pytest.raises(ValueError,
+                       match="SSM heads do not divide.*queue A item 7"):
         serve.main(["--arch", "mamba2-370m", "--device", "cpu", "--smoke",
-                    "--model-parallel", "2"])
+                    "--model-parallel", "32"])
 
 
 def test_state_dict_mirrors_the_jax_tree(cfgs, params):

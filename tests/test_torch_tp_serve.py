@@ -1,6 +1,6 @@
 """Tensor-parallel serving of the port's transformer language models
 (``models/sharding.py``'s blocks, ``ModelGroup``'s sums and gather,
-``transformer.local_model``, ``serve --model-parallel``) against the JAX
+``models.local_model``, ``serve --model-parallel``) against the JAX
 package's single-device decode and prefill, on the CPU.
 
 Two gloo ranks at (1, 2), spawned once a module (``torch_mp_ranks``:
@@ -111,7 +111,7 @@ def _ranks():
     with tempfile.TemporaryDirectory() as tmp:
         return ranks.spawn(2, 2, "job_tp_serve", tmp,
                            cases={c: _case(c) for c in CASES},
-                           launcher_argv=LAUNCHER)
+                           launchers={"starcoder2": LAUNCHER})
 
 
 @functools.cache
@@ -260,7 +260,7 @@ def test_launcher_serves_over_two_ranks():
     the tied table, heads and MLP, and KV/2 heads of cache."""
     one = serve.serve_lm(serve.parse_args(LAUNCHER[:-2]),
                          reduced(configs.get("starcoder2-3b")))
-    a, b = (res["launcher"] for res in _ranks())
+    a, b = (res["launchers"]["starcoder2"] for res in _ranks())
     np.testing.assert_array_equal(a["tokens"], b["tokens"])
     np.testing.assert_array_equal(a["prompt_logits"], b["prompt_logits"])
     np.testing.assert_array_equal(a["tokens"], one["tokens"])
@@ -298,9 +298,9 @@ def _args(*extra):
      "padded vocabulary of 256 does not divide over 3"),
     ("moonshot-v1-16b-a3b", 2, {"n_experts": 5},
      "moe_layers.moe.w_gate: dimension 1"),
-    ("mamba2-370m", 2, {}, "the ssm family"),
-    ("zamba2-7b", 2, {}, "the hybrid family"),
-    ("whisper-large-v3", 2, {}, "the encdec family"),
+    ("mamba2-370m", 32, {}, "16 SSM heads do not divide over 32"),
+    ("zamba2-7b", 3, {}, "4 heads do not divide over 3"),
+    ("whisper-large-v3", 3, {}, "4 heads do not divide over 3"),
 ])
 def test_refused_layouts_raise(arch, mp, over, match):
     """Each layout with no explicit form raises its message (naming

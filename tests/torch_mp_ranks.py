@@ -1,6 +1,7 @@
-"""Rank-side jobs of ``test_torch_model_parallel.py`` and
-``test_torch_tp_serve.py``: the port's tensor-parallel paths (AtacWorks
-training, the language models' serving) run by gloo ranks on the CPU.
+"""Rank-side jobs of ``test_torch_model_parallel.py``,
+``test_torch_tp_serve.py`` and ``test_torch_tp_serve_ssm.py``: the port's
+tensor-parallel paths (AtacWorks training, the language models' serving)
+run by gloo ranks on the CPU.
 
 Kept apart from the test module so that each spawned rank imports torch
 and the port, not JAX.  ``spawn(world, mp, job, tmp, **payload)`` starts
@@ -169,15 +170,23 @@ def _selection(log) -> dict:
             for layer in log.layers()}
 
 
-def job_tp_serve(data, model_group, rank, tmp, *, cases, launcher_argv):
+def _arch(argv) -> str:
+    return argv[argv.index("--arch") + 1]
+
+
+def job_tp_serve(data, model_group, rank, tmp, *, cases, launchers):
     """Tensor-parallel serving of each case's model (its JAX tree, the
-    rank's blocks over the model group): decode steps teacher-forced over
+    rank's blocks over the model group, ``models.local_model``): an
+    encoder-decoder's cross K/V filled from the case's ``frames`` (the
+    group's collectives counted), decode steps teacher-forced over
     ``prompt``, then ``gen`` greedy ones (logits, tokens, an MoE model's
     selection, the group's collectives a step), an MLA model's absorbed
     decode over the prompt, and the fused prefill (behind a VLM's
-    ``patches``); then ``serve.serve_lm`` from ``launcher_argv``."""
+    ``patches``, with Whisper's ``frames``); then ``serve.serve_lm`` from
+    each of ``launchers``' argv (``--smoke``: the arch's reduced
+    config)."""
     from repro_torch.launch import serve
-    from repro_torch.models import moe, transformer
+    from repro_torch.models import init_model, local_model, moe, whisper
     from repro_torch.train import serve_step
     mp_ = mesh.mp_size(model_group)
     shape, coords = mesh.make_host_mesh(model=mp_)
@@ -185,15 +194,25 @@ def job_tp_serve(data, model_group, rank, tmp, *, cases, launcher_argv):
     for name, c in cases.items():
         cfg, prompt = c["cfg"], torch.from_numpy(c["prompt"])
         B, T = prompt.shape
-        full = transformer.Transformer(cfg, convert.params_from_jax(
-            c["jparams"]))
-        model = transformer.local_model(full, shape, coords, model_group)
+        full = init_model(cfg)
+        full.load_state_dict(convert.params_from_jax(c["jparams"]))
+        model = local_model(full, shape, coords, model_group)
         res = dict(weights={k: p.detach().numpy().copy()
                             for k, p in model.named_parameters()})
+        frames = (torch.from_numpy(c["frames"]) if "frames" in c else None)
         for absorb in ((False, True) if cfg.mla else (False,)):
             model.routing = moe.RoutingLog() if cfg.moe else None
             cache = serve_step.make_cache(cfg, B, T + c["gen"],
                                           dtype=torch.float32, mp=mp_)
+            if frames is not None:
+                before = model.tp.counts()
+                whisper.fill_cross_cache(model, cache, frames)
+                after = model.tp.counts()
+                res["fill"] = dict(
+                    cross={k: cache[k].numpy().copy()
+                           for k in ("cross_k", "cross_v")},
+                    sums=after["sums"] - before["sums"],
+                    gathers=after["gathers"] - before["gathers"])
             step = serve_step.make_serve_step(cfg, absorb=absorb)
             logits, tokens = [], []
             before = model.tp.counts()
@@ -215,22 +234,26 @@ def job_tp_serve(data, model_group, rank, tmp, *, cases, launcher_argv):
         batch = {"tokens": prompt}
         if "patches" in c:
             batch["patches"] = torch.from_numpy(c["patches"])
+        if frames is not None:
+            batch["frames"] = frames
         nxt, lg = serve_step.make_prefill_step(cfg)(model, batch)
         res["prefill"] = dict(logits=lg.numpy().copy(),
                               tokens=nxt.numpy().copy())
         if model.routing is not None:
             res["prefill"]["selection"] = _selection(model.routing)
         out[name] = res
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        stats = serve.serve_lm(serve.parse_args(launcher_argv),
-                               reduced(configs.get("starcoder2-3b")))
-    out["launcher"] = dict(
-        out=buf.getvalue(), tokens=stats["tokens"],
-        prompt_logits=stats["prompt_logits"].numpy().copy(),
-        **{k: stats[k] for k in ("model_parallel", "weights_bytes",
-                                 "cache_bytes", "collectives", "coords",
-                                 "prefill_gap")})
+    out["launchers"] = {}
+    for name, argv in launchers.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats = serve.serve_lm(serve.parse_args(argv),
+                                   reduced(configs.get(_arch(argv))))
+        out["launchers"][name] = dict(
+            out=buf.getvalue(), tokens=stats["tokens"],
+            prompt_logits=stats["prompt_logits"].numpy().copy(),
+            **{k: stats[k] for k in ("model_parallel", "weights_bytes",
+                                     "cache_bytes", "collectives", "coords",
+                                     "prefill_gap")})
     return out
 
 
