@@ -84,7 +84,7 @@ Phases (any failed check raises, so the run exits non-zero):
      plain version, and 3 x 2 forward and 2 bwd-weight launches;
   9. train ``mamba2-370m`` (48 layers, bf16, remat on) through
      ``repro_torch.launch.train``'s own entry point at batch 8 x 2,048 for
-     6 steps: every loss and gradient norm finite, 144 depthwise forward
+     4 steps: every loss and gradient norm finite, 144 depthwise forward
      launches (forward, recompute, bwd-data) and 48 bwd-weight launches a
      step; step p50, tokens/s, peak memory; then M2_PROFILE_STEPS more
      steps under ``torch.profiler``: device time of the depthwise
@@ -107,7 +107,7 @@ Phases (any failed check raises, so the run exits non-zero):
       2 x 2 ``flash_fwd`` and 2 ``flash_bwd`` launches;
   12. train ``starcoder2-3b`` (30 layers, bf16, remat on) through
       ``repro_torch.launch.train``'s own entry point with ``--attn-impl
-      flash`` at batch 4 x 4,096 for 5 steps: every loss and gradient norm
+      flash`` at batch 4 x 4,096 for 4 steps: every loss and gradient norm
       finite, no step skipped, 60 ``flash_fwd`` (forward and remat
       recompute) and 30 ``flash_bwd`` launches a step, peak memory under
       80 GB; step p50, tokens/s; then LM_PROFILE_STEPS more steps under
@@ -133,8 +133,8 @@ Phases (any failed check raises, so the run exits non-zero):
   14. serve the language models at their published widths through
       ``repro_torch.launch.serve.serve_lm`` (seeded weights, random
       non-zero biases and norms): Mamba2-370M (bf16, fp32 cache) at batch
-      8 and StarCoder2-3B (bf16, bf16 cache) at batch 4, a 200-token
-      prompt prefilled by sequential decode steps and 64 tokens generated
+      8 and StarCoder2-3B (bf16, bf16 cache) at batch 4, a 100-token
+      prompt prefilled by sequential decode steps and 32 tokens generated
       greedily, with no kernel launched in any decode step; then the
       fused prefill step (``make_prefill_step``) on the same prompt: 48
       ``depthwise_conv1d_fwd`` launches (Mamba2), 30 ``flash_fwd``
@@ -247,12 +247,12 @@ Phases (any failed check raises, so the run exits non-zero):
       ``conv1d_bwd_weight`` once a channel range that fits its shared
       memory) within BWD_TOL, and ``conv1d_bwd_weight`` at both layers
       timed beside ``torch.nn.grad.conv1d_weight`` and the bound; (b) ``serve_lm`` at batch
-      8, a 4-token prompt, 64 generated tokens, ``--smoke``: 32
+      8, a 4-token prompt, 32 generated tokens, ``--smoke``: 32
       ``flash_fwd`` launches in ``fill_cross_cache``, 64 in the fused
       prefill, none in the decode steps, finite logits, the prefill
       within ``serve.prefill_tol`` of the decode; encode time, decode
       p50/p99, tokens/s, peak memory, the decode bound; (c) the launcher
-      4 steps at batch 4 x 448 (128 + 64 flash launches a step, finite,
+      3 steps at batch 4 x 448 (128 + 64 flash launches a step, finite,
       none skipped; step p50, tokens/s, useful TFLOP/s, peak memory),
       BREAKDOWN_STEPS more steps traced (``_train_breakdown``: the
       device time of the flash kernels, the matrix products, the sorts
@@ -269,12 +269,12 @@ Phases (any failed check raises, so the run exits non-zero):
       112, causal) in bf16 and at a small shape in fp32 by phase 10's,
       timed beside the library call and the bound; (b) ``serve_lm`` on
       the config cut to 12 layers (two applications of the shared block)
-      at batch 8, a 200-token prompt, 64 generated
+      at batch 8, a 100-token prompt, 32 generated
       tokens, ``--smoke``: 12 ``depthwise_conv1d_fwd`` and 2 ``flash_fwd``
       launches in the fused prefill, none in the decode steps, finite
       logits, the prefill within ``serve.prefill_tol`` of the decode;
       decode p50/p99, tokens/s, prefill times, peak memory, the decode's
-      busy share and bound; (c) the launcher 4 steps on the config cut to
+      busy share and bound; (c) the launcher 3 steps on the config cut to
       12 layers (``zamba2-7b-12l``, registered here) at batch 4 x 4,096
       (36 + 12 depthwise and 4 + 2 flash launches a step; step p50,
       tokens/s, useful TFLOP/s, peak memory), BREAKDOWN_STEPS more steps
@@ -288,7 +288,7 @@ Phases (any failed check raises, so the run exits non-zero):
       and at a small shape in fp32 by phase 10's rule, timed beside SDPA
       and the bound; (b) ``serve_lm`` on the config cut to 6 layers
       (``moonshot-v1-16b-a3b-6l-serve``, registered here: the dense layer
-      and 5 MoE layers) at batch 8, a 200-token prompt, 64 generated tokens,
+      and 5 MoE layers) at batch 8, a 100-token prompt, 32 generated tokens,
       ``--smoke``: the fused prefill within ``serve.prefill_tol`` of the
       decode with the decode's expert selection replayed, its own
       selection's flips per layer reported, 12 ``flash_fwd`` launches a
@@ -297,7 +297,7 @@ Phases (any failed check raises, so the run exits non-zero):
       decode step, the decode's busy share and its bound two ways (the
       weights a token uses, and the experts the batch's selections
       touch); (c) the
-      launcher 4 steps on the config cut to 6 layers
+      launcher 3 steps on the config cut to 6 layers
       (``moonshot-v1-16b-a3b-6l``, registered here, the streamed
       cross-entropy over 1,024-position chunks) at batch 4 x 4,096 (12 +
       6 flash launches a step; step p50, tokens/s, useful TFLOP/s, peak
@@ -321,7 +321,7 @@ Phases (any failed check raises, so the run exits non-zero):
       decode step), then the absorbed decode (``make_serve_step(absorb=
       True)``) against the plain one on the same cache and tokens with
       the plain decode's selection replayed, within
-      ``serve.prefill_tol``, no kernel launched; (c) the launcher 4 steps
+      ``serve.prefill_tol``, no kernel launched; (c) the launcher 3 steps
       on the config cut to 2 layers of 16 routed experts
       (``deepseek-v3-671b-2l-16e``, registered here; streamed
       cross-entropy) at batch 4 x 4,096 (4 + 2 flash launches a step),
@@ -333,7 +333,7 @@ Phases (any failed check raises, so the run exits non-zero):
       8 KV heads of 128, 256 image embeddings before the text, bf16,
       flash): (a) the flash kernels at its training shape (4, 4,096, 16
       over 8 heads of 128, G = 2, causal) and its image prefill's (8,
-      456: 256 + 200, ragged against the tile) in bf16, and at a small
+      356: 256 + 100, ragged against the tile) in bf16, and at a small
       shape in fp32, by phase 10's rule, timed beside SDPA and the bound;
       (b) ``serve_lm`` at batch 8, phase 14's traffic (text decode, no
       kernel in a decode step), the fused text prefill within
@@ -341,7 +341,7 @@ Phases (any failed check raises, so the run exits non-zero):
       fused prefill of the prompt behind 256 seeded image embeddings
       through flash against the same prefill with ``attn_impl="chunked"``
       within ``serve.prefill_tol`` (24 ``flash_fwd``), and a 2-layer fp32
-      copy at full width checked both ways; (c) the launcher 4 steps at
+      copy at full width checked both ways; (c) the launcher 3 steps at
       batch 4 x 4,096 (48 + 24 flash launches a step; step p50, tokens/s
       counting the image positions, useful TFLOP/s, peak memory),
       BREAKDOWN_STEPS more traced; (d) a 2-layer fp32 copy's whole
@@ -357,15 +357,15 @@ Phases (any failed check raises, so the run exits non-zero):
       12, 128); DeepSeek-V3's 64 MLA heads of 192, v padded from 128;
       Zamba2-7B's 16 heads of 112; Whisper's encoder, (8, 1,500, 10
       heads of 64), non-causal) timed beside SDPA and the bound, and
-      ``depthwise_conv1d_fwd`` at a rank's (8, channels, 72) (Mamba2-370M's
+      ``depthwise_conv1d_fwd`` at a rank's (8, channels, 40) (Mamba2-370M's
       1,280, Zamba2-7B's 3,712: the rank's x channels and B and C whole)
       beside ``F.conv1d`` and the bound; one process serves StarCoder2-3B
       (cut to 12 layers; phase 14 serves all 30), DeepSeek-V3's
       ``deepseek-v3-671b-2l-16e`` (recording its expert selection),
       Mamba2-370M (48 layers), Zamba2-7B's 12-layer cut and
       Whisper-large-v3 (cut to 8 + 8 layers, a 4-token prompt), each in
-      bf16 at batch 8, a 72-token prompt (DeepSeek-V3: 200) and 16
-      generated tokens, and each one's fp32 copy at a 72-token prompt at
+      bf16 at batch 8, a 40-token prompt (DeepSeek-V3: 200) and 8
+      generated tokens, and each one's fp32 copy at a 40-token prompt at
       most (StarCoder2's drawn, the others the bf16 weights cast and cut
       to 2 layers, Zamba2's to 6); then 2
       gloo ranks on the card serve each through the launcher from
@@ -385,7 +385,30 @@ Phases (any failed check raises, so the run exits non-zero):
       the prompt's first 16 positions; decode
       p50/p99, tokens/s, a rank's peak memory, weights and cache bytes,
       the collectives a step and their host time; the phase's seconds;
-  25. the seconds of each phase, a JSON line of the six kernels, the
+  25. FSDP training of the language models (``fsdp_check``; the JAX
+      launcher's placement on a (dp, 1) mesh): ``flash_fwd`` and
+      ``flash_bwd`` at a rank's StarCoder2-3B attention (2 x 4,096, 24
+      heads over 2 KV heads of 128, bf16, causal) and both depthwise
+      kernels at a rank's Mamba2-370M layer (4 x 2,304 x 2,048) against
+      their plain versions, timed beside the library and the bound; one
+      process trains StarCoder2-3B cut to 4 layers (bf16, flash, remat;
+      phase 12 trains all 30) at 4 x 4,096 and Mamba2-370M (48 layers) at
+      8 x 2,048 through the launcher, 3 steps each; then 2 gloo ranks on
+      the card do the same FSDP through the launcher from torchrun's
+      variables, reading the one process's draws: (a) the first step's
+      gradient blocks bitwise those of the whole-parameter data-parallel
+      path on the same ranks and batch, (b)
+      the first loss within 1e-3 of the one process's, (c) each later one
+      within FS_LATER_RTOL, (d) an fp32 copy (the bf16 weights cast, cut
+      to 2 layers; 2 steps at 2 x 512, TF32 off) trained FSDP within 1e-5
+      of the largest parameter of the same copy trained in one process on
+      the rank, (e) a rank's
+      parameter and moment bytes its blocks' (about half the one
+      process's), (f) each rank's kernel launches a step (8 + 4 flash,
+      144 + 48 depthwise) and its gathers and scatters (2 x layers + the
+      tables', layers + the tables'); step p50, tokens/s a rank, peak
+      memory against the one process's, the collectives' host seconds;
+  26. the seconds of each phase, a JSON line of the six kernels, the
       card's line, and last the result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -397,6 +420,7 @@ import contextlib
 import copy
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -450,9 +474,9 @@ DW_TOL_F32, DW_TOL_BF16 = 1e-5, 2.0 ** -7
 # leaf's largest value (as for AtacWorks)
 M2_GRAD_LAYERS, M2_GRAD_BATCH, M2_GRAD_SEQ = 2, 2, 512
 # the Mamba2-370M training cell: batch 8 x 2,048 (the Mamba-2 paper's
-# pretraining context), 6 steps; then M2_PROFILE_STEPS traced (the trace's
-# processing on the host, about 14 s a step, sets the count)
-M2_BATCH, M2_SEQ, M2_STEPS, M2_PROFILE_STEPS = 8, 2048, 6, 1
+# pretraining context), 4 steps; then M2_PROFILE_STEPS traced (the
+# trace's processing on the host, about 14 s a step, sets the count)
+M2_BATCH, M2_SEQ, M2_STEPS, M2_PROFILE_STEPS = 8, 2048, 4, 1
 
 # StarCoder2-3B's attention in its training cell: batch 4 x 4,096, 24
 # query heads over 2 KV heads (G = 12) of 128, bf16, causal
@@ -476,22 +500,23 @@ FA_RTOL_BF16, FA_ATOL_BF16 = 2.0 ** -7, 1e-3
 # of its leaf's largest value (as for AtacWorks and Mamba2)
 LM_GRAD_LAYERS, LM_GRAD_BATCH, LM_GRAD_SEQ = 2, 2, 512
 # the StarCoder2-3B training cell: batch 4 x 4,096 (its pretraining
-# context), 5 steps; then LM_PROFILE_STEPS traced
-LM_BATCH, LM_SEQ, LM_STEPS, LM_PROFILE_STEPS = 4, 4096, 5, 1
+# context), 4 steps; then LM_PROFILE_STEPS traced
+LM_BATCH, LM_SEQ, LM_STEPS, LM_PROFILE_STEPS = 4, 4096, 4, 1
 LM_MEMORY_LIMIT_GB = 80.0
 # phase 14, LM serving at the published widths: Mamba2-370M at batch 8
-# and StarCoder2-3B at batch 4 (its flash prefill), a 200-token prompt
-# (not a multiple of the SSD chunk or the flash tile) and 64 generated
-# tokens; the decode's busy share traced over 2 + 5 - 1 steps; a 2-layer
-# fp32 copy of each at batch 2; Mamba2's conv streamed over 2,048 columns
+# and StarCoder2-3B at batch 4 (its flash prefill), a 100-token prompt
+# (not a multiple of the SSD chunk or the flash tile) and 32 generated
+# tokens (phases 19-23 serve the same traffic); the decode's busy share
+# traced over 2 + 5 - 1 steps; a 2-layer fp32 copy of each at batch 2;
+# Mamba2's conv streamed over 2,048 columns
 # (16 chunks of 1, then chunks of 64, then the ragged rest)
-M2_SERVE_BATCH, SC2_SERVE_BATCH, LM_PROMPT, LM_GEN = 8, 4, 200, 64
+M2_SERVE_BATCH, SC2_SERVE_BATCH, LM_PROMPT, LM_GEN = 8, 4, 100, 32
 LM_TRACE_PROMPT, LM_TRACE_GEN = 2, 5
 LM_FP32_LAYERS, LM_FP32_BATCH = 2, 2
 STREAM_SEQ, STREAM_ONES, STREAM_CHUNK = 2048, 16, 64
 # the paper's Figs 4-6 sweep: graph replays per timing (cut these, never
 # the cells, if the phase runs long); the tuner times every candidate
-SWEEP_ITERS = 3
+SWEEP_ITERS = 2
 # phase 15, data parallelism: DP_RANKS gloo ranks on the one card, the
 # global batch DP_BATCH x DP_SEQ split between them; each gradient leaf
 # elementwise within DP_TOL of its largest value against the one-process
@@ -586,8 +611,8 @@ EL_RTOL, EL_ATOL = 1e-3, 1e-4
 # WH_FA_BWD_B (flash_kernel_checks' rule).
 WH_ARCH = "whisper-large-v3"
 WH_MEL_BATCH, WH_MEL_T, WH_GRAD_MEL_BATCH = 8, 3000, 1
-WH_SERVE_BATCH, WH_PROMPT, WH_GEN = 8, 4, 64
-WH_BATCH, WH_SEQ, WH_STEPS = 4, 448, 4
+WH_SERVE_BATCH, WH_PROMPT, WH_GEN = 8, 4, 32
+WH_BATCH, WH_SEQ, WH_STEPS = 4, 448, 3
 WH_GRAD_LAYERS, WH_GRAD_BATCH, WH_GRAD_SEQ = 2, 2, 448
 WH_FA_FWD_B, WH_FA_BWD_B = 8, 4
 # K's self-attention bias: without rotary embeddings it adds q . bk to a
@@ -620,7 +645,7 @@ ZB_ARCH, ZB_TRAIN_ARCH, ZB_TRAIN_LAYERS = "zamba2-7b", "zamba2-7b-12l", 12
 # phase's 191.6 s on an H100 80GB HBM3 at 700 W): 12 layers keep two
 # applications of the shared block (attn_every 6), every width kept
 ZB_SERVE_LAYERS = ZB_TRAIN_LAYERS
-ZB_SERVE_BATCH, ZB_BATCH, ZB_SEQ, ZB_STEPS = 8, 4, 4096, 4
+ZB_SERVE_BATCH, ZB_BATCH, ZB_SEQ, ZB_STEPS = 8, 4, 4096, 3
 ZB_GRAD_BATCH, ZB_GRAD_SEQ = 1, 512
 ZB_FA_F32 = (1, 1024, 8, 1)
 ZB_TRACE_PROMPT, ZB_TRACE_GEN = 2, 5
@@ -659,7 +684,7 @@ BREAKDOWN_STEPS = 1
 MN_ARCH, MN_TRAIN_ARCH = "moonshot-v1-16b-a3b", "moonshot-v1-16b-a3b-6l"
 MN_SERVE_ARCH, MN_SERVE_LAYERS = "moonshot-v1-16b-a3b-6l-serve", 6
 MN_TRAIN_LAYERS, MN_XENT_CHUNK = 6, 1024
-MN_SERVE_BATCH, MN_BATCH, MN_SEQ, MN_STEPS = 8, 4, 4096, 4
+MN_SERVE_BATCH, MN_BATCH, MN_SEQ, MN_STEPS = 8, 4, 4096, 3
 MN_GRAD_BATCH, MN_GRAD_SEQ = 1, 512
 MN_FA_F32 = (1, 1024, 16, 1)
 MN_TRACE_PROMPT, MN_TRACE_GEN = 2, 3
@@ -689,7 +714,7 @@ DS_ARCH = "deepseek-v3-671b"
 DS_SERVE_ARCH, DS_SERVE_LAYERS = "deepseek-v3-671b-4l", 4
 DS_TRAIN_ARCH = "deepseek-v3-671b-2l-16e"
 DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS, DS_XENT_CHUNK = 2, 16, 1024
-DS_SERVE_BATCH, DS_BATCH, DS_SEQ, DS_STEPS = 8, 4, 4096, 4
+DS_SERVE_BATCH, DS_BATCH, DS_SEQ, DS_STEPS = 8, 4, 4096, 3
 DS_GRAD_BATCH, DS_GRAD_SEQ = 1, 512
 DS_FA_F32 = (1, 1024, 16, 1)
 DS_ABSORB_STEPS = 32
@@ -715,7 +740,7 @@ DS_ABSORB_STEPS = 32
 # layer, 24,576 bf16 values a position (9.7 GB at 2 x 4,096 over 24
 # layers, 19.3 GB at batch 4, where the "nothing" step peaks near 48 GB).
 VL_ARCH, VL_DOTS_ARCH = "internvl2-2b", "internvl2-2b-dots"
-VL_SERVE_BATCH, VL_BATCH, VL_SEQ, VL_STEPS = 8, 4, 4096, 4
+VL_SERVE_BATCH, VL_BATCH, VL_SEQ, VL_STEPS = 8, 4, 4096, 3
 VL_GRAD_BATCH, VL_GRAD_SEQ = 2, 512
 VL_DOTS_BATCH, VL_DOTS_STEPS = 2, 3
 VL_FA_F32 = (1, 1024, 8, 2)
@@ -757,9 +782,9 @@ VL_FA_F32 = (1, 1024, 8, 2)
 # serves all 30 in one process), StarCoder2, Mamba2 and Zamba2 serve a
 # TS_PROMPT-token prompt (a rank's sequential prefill runs a decode step
 # a token, about 100 gloo collectives for Mamba2) and every bf16 run
-# generates TS_GEN tokens (15 timed decode steps).  DeepSeek-V3 keeps
-# phase 14's LM_PROMPT: at TS_PROMPT a rank's 2-layer bf16 fused prefill
-# sits 1.26e-2 of the largest logit from its decode, past
+# generates TS_GEN tokens (7 timed decode steps).  DeepSeek-V3 keeps
+# TS_DS_PROMPT: at 72 a rank's 2-layer bf16 fused prefill sat 1.26e-2
+# of the largest logit from its decode, past
 # ``serve.prefill_tol``'s 1.17e-2 (an H100 80GB HBM3 at 700 W); its fp32
 # copy takes TS_PROMPT.  Whisper is cut to TS_WH_LAYERS + TS_WH_LAYERS
 # layers for the time: at 32 + 32 a rank's run took 22 s on that card,
@@ -768,9 +793,38 @@ VL_FA_F32 = (1, 1024, 8, 2)
 # positions (phase 22's one process over DS_ABSORB_STEPS).  TS_PROMPT is
 # no multiple of the SSD chunk (128).
 TS_SC2, TS_MP, TS_BATCH, TS_F32_TOL = "starcoder2-3b", 2, 8, 1e-5
-TS_SC2_LAYERS, TS_PROMPT, TS_GEN = 12, 72, 16
+TS_SC2_LAYERS, TS_PROMPT, TS_GEN, TS_DS_PROMPT = 12, 40, 8, 200
 TS_F32_LAYERS, TS_ZB_F32_LAYERS = 2, 6
 TS_WH_LAYERS, TS_ABSORB_STEPS = 8, 16
+# phase 25, FSDP training of the language models (the JAX launcher's
+# placement on a (dp, 1) mesh): FS_DP gloo ranks on the one card (NCCL
+# refuses two ranks on one GPU) run the launcher from torchrun's variables
+# on StarCoder2-3B (bf16, flash, remat) cut to FS_SC2_LAYERS layers
+# (registered as FS_SC2_ARCH) at a global batch of FS_SC2_BATCH x LM_SEQ,
+# and on Mamba2-370M (48 layers) at M2_BATCH x M2_SEQ, FS_STEPS steps each
+# (the first not timed) from seed FS_SEED; one process trains the same
+# models on the same global batches.  (a) The first gradient's blocks are
+# bitwise the whole-parameter data-parallel path's on the same ranks (a
+# sum of two does not depend on its order); (b) the first loss within
+# FS_LOSS_RTOL of the one process's: the same parameters, only the batch
+# split differs, so only the products' rounding at half the rows does;
+# (c) each later loss within FS_LATER_RTOL: at lr 0 in the first step
+# (the warm-up) the second step's forward again differs by the split
+# alone, and the third's parameters also by the first update's bf16
+# rounding of values whose gradients summed in another order (PERF.md
+# gives the prediction this tolerance was set by, before the first run);
+# (d) fp32 copies (the bf16 weights cast) cut to LM_FP32_LAYERS layers,
+# TF32 off, FS_F32_STEPS steps at FS_F32_BATCH x FS_F32_SEQ, trained FSDP
+# and in one process on each rank: each parameter within FS_F32_TOL
+# times the one process's largest parameter (a unit norm scale) of its
+# value there; AdamW's first updates are sign-like, and a zero-initialised
+# bias holds values of about lr after them, so a bound on each leaf's own
+# largest value would hold those leaves to the rounding of their near-zero
+# gradients' signs
+FS_DP, FS_SC2_LAYERS, FS_SC2_BATCH, FS_STEPS, FS_SEED = 2, 4, 4, 3, 0
+FS_SC2_ARCH = "starcoder2-3b-4l"
+FS_LOSS_RTOL, FS_LATER_RTOL = 1e-3, 5e-3
+FS_F32_BATCH, FS_F32_SEQ, FS_F32_STEPS, FS_F32_TOL = 2, 512, 2, 1e-5
 # the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
 # at 3 and its two passes at 192
 FLASH_WGMMA_KERNELS = 13
@@ -5832,7 +5886,7 @@ def _ts_runs():
     run's fused prefill only."""
     runs = []
     for i, (name, prompt) in enumerate((
-            ("starcoder2", TS_PROMPT), ("deepseek", LM_PROMPT),
+            ("starcoder2", TS_PROMPT), ("deepseek", TS_DS_PROMPT),
             ("mamba2", TS_PROMPT), ("zamba2", TS_PROMPT),
             ("whisper", WH_PROMPT))):
         seed = 241 + 4 * i
@@ -6205,7 +6259,7 @@ def _ts_want(cfgs):
                            flash=[heads(sc2, T, sc2.head_dim)]
                            * sc2.n_layers),
         "deepseek": dict(prefill={"flash_fwd": ds_layers},
-                         flash=[(B, LM_PROMPT, ds.n_heads // TS_MP, 1,
+                         flash=[(B, TS_DS_PROMPT, ds.n_heads // TS_MP, 1,
                                  ds.mla.qk_nope_head_dim
                                  + ds.mla.qk_rope_head_dim)] * ds_layers),
         "mamba2": dict(prefill={"depthwise_conv1d_fwd": m2.n_layers},
@@ -6269,7 +6323,7 @@ def tp_serve_check(torch, np, configs, init_model, serve, ref,
     out["flash_rows"] = [
         _ts_flash_row(torch, fa, ref, "starcoder2", TS_BATCH, TS_PROMPT,
                       *want["starcoder2"]["flash"][0][2:], sc2.head_dim),
-        _ts_flash_row(torch, fa, ref, "deepseek", TS_BATCH, LM_PROMPT,
+        _ts_flash_row(torch, fa, ref, "deepseek", TS_BATCH, TS_DS_PROMPT,
                       *want["deepseek"]["flash"][0][2:],
                       ds.mla.v_head_dim),
         _ts_flash_row(torch, fa, ref, "zamba2", TS_BATCH, TS_PROMPT,
@@ -6386,6 +6440,386 @@ def _ts_entries(ts, dw_fwd_entry, flash_entries):
     dw_fwd_entry["tp_serve"] = {
         name: entry(name, "depthwise_conv1d_fwd", row)
         for name, row in zip(("mamba2", "zamba2"), ts["dw_rows"])}
+
+
+def _fs_cfgs(configs):
+    """Phase 25's models: name -> the launched config (StarCoder2-3B cut
+    to FS_SC2_LAYERS layers, registered as FS_SC2_ARCH, with flash;
+    Mamba2-370M whole), the launcher's argv, the global batch and
+    sequence, and its fp32 copy cut to LM_FP32_LAYERS layers."""
+    import dataclasses
+    sc2 = configs.register(dataclasses.replace(
+        configs.get("starcoder2-3b"), name=FS_SC2_ARCH,
+        n_layers=FS_SC2_LAYERS))
+    out = {}
+    for name, cfg, batch, seq, impl in (
+            ("starcoder2", sc2, FS_SC2_BATCH, LM_SEQ, "flash"),
+            ("mamba2", configs.get("mamba2-370m"), M2_BATCH, M2_SEQ, None)):
+        run = dataclasses.replace(cfg, attn_impl=impl) if impl else cfg
+        out[name] = dict(
+            cfg=run, batch=batch, seq=seq,
+            argv=["--arch", cfg.name, "--steps", str(FS_STEPS), "--batch",
+                  str(batch), "--seq", str(seq), "--seed", str(FS_SEED)]
+            + (["--attn-impl", impl] if impl else []),
+            f32=dataclasses.replace(run, n_layers=LM_FP32_LAYERS,
+                                    dtype="float32"))
+    return out
+
+
+def _fs_f32(torch, synthetic, model, cfg):
+    """Gate (d): ``model``'s weights (on the host) cast to fp32 and each
+    layer stack cut to ``cfg``'s layers, then FS_F32_STEPS steps of
+    ``make_train_step`` on FS_F32_BATCH x FS_F32_SEQ batches from FS_SEED,
+    TF32 off, in one process (no group) and FSDP over the started data
+    group on this rank's share: the losses both ways, and each leaf's
+    largest gap between the rank's blocks and the one process's, over the
+    one process's largest parameter."""
+    import torch.distributed as dist
+
+    from repro_torch.models import fsdp_model
+    from repro_torch.train.data_parallel import shard_batch
+    from repro_torch.train.train_step import init_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stacks = ("layers.", "dense_layers.")
+
+    def leaf(key, t):
+        out = (t[:cfg.n_layers] if key.startswith(stacks) else t).float()
+        return out.clone() if out is t else out
+
+    base = type(model)(cfg, {k: leaf(k, t)
+                             for k, t in model.state_dict().items()})
+    batches = [{k: torch.as_tensor(v).to(DEVICE) for k, v in
+                synthetic.make_batch(cfg, FS_F32_BATCH, FS_F32_SEQ,
+                                     seed=FS_SEED + 1 + i).items()}
+               for i in range(FS_F32_STEPS)]
+    runs = []
+    for group in (None, dist.group.WORLD):
+        state = init_state(fsdp_model(base, group, DEVICE) if group else
+                           type(base)(cfg, {k: t.to(DEVICE, copy=True) for
+                                            k, t in base.state_dict().items()}))
+        step = make_train_step(cfg, group=group, peak_lr=3e-4,
+                               warmup_steps=2, total_steps=FS_F32_STEPS)
+        losses = []
+        for b in batches:
+            state, m = step(state, b if group is None else shard_batch(
+                b, group))
+            losses.append(float(m["loss"]))
+        runs.append((losses, state.params))
+        del state
+    (one_losses, one), (losses, ranks) = runs
+    whole = dict(one.named_parameters())
+    scale = max(float(p.detach().abs().max()) for p in whole.values())
+    return dict(one_losses=one_losses, losses=losses, largest=scale, gaps={
+        k: float((p.detach() - ranks.ds.block(k, whole[k].detach())).abs()
+                 .max()) / scale for k, p in ranks.named_parameters()})
+
+
+def _fs_summary(summary, launches):
+    """A launcher run's numbers that phase 25 reads."""
+    steps = summary["step_s"][1:]  # the first is not timed
+    out = dict(losses=summary["losses"], grad_norms=summary["grad_norms"],
+               skipped=summary["skipped_steps"], step_s=summary["step_s"],
+               step_p50_ms=float(sorted(steps)[len(steps) // 2] * 1e3),
+               path=summary["path"], state_bytes=summary["state_bytes"],
+               peak_memory_gb=summary.get("peak_memory_gb"),
+               launches=launches)
+    if "fsdp" in summary:
+        out["collectives"] = summary["fsdp"]
+    return out
+
+
+def _fs_first_grads(record):
+    """Within it, every gradient function the train step makes records,
+    into ``record``, its first call's batch and reduced gradients (copied
+    to the host: the first step is not timed, and the card's memory stays
+    the run's)."""
+    from repro_torch.train import train_step
+
+    real = train_step.make_sharded_grad_fn
+
+    def make(*a, **k):
+        fn = real(*a, **k)
+
+        def grad_fn(model, batch, probe=None):
+            out = fn(model, batch, probe=probe)
+            if not record:
+                record.update(batch={n: v.cpu() for n, v in batch.items()},
+                              grads=[g.cpu() for g in out[1]],
+                              loss=float(out[0][0]))
+            return out
+
+        grad_fn.reducer = fn.reducer
+        return grad_fn
+
+    train_step.make_sharded_grad_fn = make
+    return real
+
+
+def _fs_rank(rank, st):
+    """Phase 25, one of FS_DP gloo ranks sharing the card, its models read
+    from the one process's draws (``_saved_model``): for each of
+    ``_fs_cfgs``' models (b, c, e, f) the launcher from torchrun's
+    variables, its kernels counted, (a) its first step's reduced gradient
+    blocks against the whole-parameter data-parallel gradient of the same
+    batch on the whole model, (d) its fp32 copy in one process and FSDP
+    (``_fs_f32``).  Results go to a file the parent reads."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import conv1d_brgemm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh, train
+    from repro_torch.models import sharding
+    from repro_torch.train import train_step
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(4)
+    os.environ.update(WORLD_SIZE=str(FS_DP), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(st["port"]))
+    counters = _counters(conv1d_brgemm, fa)
+
+    def init_model(cfg, *, seed=0, device="cpu"):
+        return _saved_model(torch, cfg, st["weights"][repr(cfg), seed]).to(
+            device)
+
+    train.init_model = init_model
+    out = {}
+    try:
+        group = mesh.init_data_group("gloo")
+        while not os.path.exists(st["ready"]):  # the one process's draws
+            time.sleep(0.1)
+        for name, c in _fs_cfgs(configs).items():
+            cfg, r, first = c["cfg"], {}, {}
+            t = time.perf_counter()
+            real = _fs_first_grads(first)
+            try:
+                r["launcher"] = _fs_summary(*_counted(
+                    counters, lambda: train.run(
+                        c["argv"] + ["--dist-backend", "gloo"])))
+            finally:
+                train_step.make_sharded_grad_fn = real
+            r["launcher_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            whole = init_model(cfg, seed=FS_SEED, device=DEVICE)
+            ds = sharding.DataShards(group, whole)
+            (lw, _), gw = real(cfg, group)(whole, {
+                k: v.to(DEVICE) for k, v in first["batch"].items()})
+            names = [k for k, _ in whole.named_parameters()]
+            r["bitwise"] = dict(
+                mismatch=[k for k, a, b in zip(names, gw, first["grads"])
+                          if not torch.equal(ds.block(k, a.cpu()), b)],
+                losses=(float(lw), first["loss"]))
+            r["blocks_bytes"] = sum(
+                math.prod(ds.block_shape(k)) * (p.element_size() + 8)
+                for k, p in whole.named_parameters())
+            del whole, gw, first
+            r["bitwise_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            r["f32"] = _fs_f32(torch, synthetic, init_model(
+                cfg, seed=FS_SEED), c["f32"])
+            r["f32_s"] = time.perf_counter() - t
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+            out[name] = r
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(st["out"], f"rank{rank}.pt"))
+
+
+def _fs_want(cfg):
+    """The kernels' launches a rank a step, and the gathers and scatters:
+    StarCoder2's flash forward twice a layer (forward, remat recompute)
+    and its backward once; Mamba2's depthwise forward three times a layer
+    (forward, recompute, bwd-data) and its weight gradient once; a layer's
+    gather in the forward and the recompute, its scatter in the backward,
+    and the tables' (a tied embedding once, an untied one and the
+    unembedding each once) once each way."""
+    L = cfg.n_layers
+    launches = ({"flash_fwd": 2 * L, "flash_bwd": L} if cfg.family == "dense"
+                else {"depthwise_conv1d_fwd": 3 * L,
+                      "depthwise_conv1d_bwd_weight": L})
+    tables = 1 if cfg.tie_embeddings else 2
+    return launches, 2 * L + tables, L + tables
+
+
+def _fs_gates(torch, name, c, one, ranks, counters):
+    """Phase 25's gates (a)-(f) for one model, and its report."""
+    cfg = c["cfg"]
+    launches, gathers, scatters = _fs_want(cfg)
+    zero = {k.__name__: 0 for k in counters}
+    want = {**zero, **{k: n * FS_STEPS for k, n in launches.items()}}
+    if one["launches"] != want:
+        raise AssertionError(f"fsdp {name}: one process launched "
+                             f"{one['launches']}; expected {want}")
+    if ranks[0]["launcher"]["losses"] != ranks[1]["launcher"]["losses"]:
+        raise AssertionError(f"fsdp {name}: the ranks' losses differ")
+    base = one["losses"]
+    for r, o in enumerate(ranks):
+        b, run = o["bitwise"], o["launcher"]
+        if b["mismatch"] or b["losses"][0] != b["losses"][1]:  # (a)
+            raise AssertionError(
+                f"fsdp {name}: rank {r}'s gradient blocks differ from the "
+                f"whole-parameter path's at {b['mismatch']} (losses "
+                f"{b['losses']})")
+        losses = run["losses"]
+        if (run["path"] != "fsdp" or run["skipped"]
+                or len(losses) != FS_STEPS):
+            raise AssertionError(f"fsdp {name}: rank {r}'s run {run}")
+        gaps = [abs(a - w) / abs(w) for a, w in zip(losses, base)]
+        if gaps[0] > FS_LOSS_RTOL or max(gaps[1:]) > FS_LATER_RTOL:  # (b, c)
+            raise AssertionError(
+                f"fsdp {name}: losses {losses} against the one process's "
+                f"{base} (relative gaps {gaps}; tolerances {FS_LOSS_RTOL} "
+                f"first, {FS_LATER_RTOL} later)")
+        f32 = max(o["f32"]["gaps"].values())
+        if f32 > FS_F32_TOL:  # (d)
+            worst = max(o["f32"]["gaps"], key=o["f32"]["gaps"].get)
+            raise AssertionError(
+                f"fsdp {name}: fp32 copy's {worst} {f32:.3e} of the one "
+                f"process's largest parameter from its value after "
+                f"{FS_F32_STEPS} steps")
+        if run["state_bytes"] != o["blocks_bytes"]:  # (e)
+            raise AssertionError(
+                f"fsdp {name}: rank {r} holds {run['state_bytes']} bytes "
+                f"of parameters and moments; its blocks are "
+                f"{o['blocks_bytes']}")
+        if run["launches"] != want:  # (f)
+            raise AssertionError(f"fsdp {name}: rank {r} launched "
+                                 f"{run['launches']}; expected {want}")
+        col = run["collectives"]
+        if (col["gathers"], col["scatters"]) != (gathers * FS_STEPS,
+                                                 scatters * FS_STEPS):
+            raise AssertionError(f"fsdp {name}: rank {r}'s launcher ran "
+                                 f"{col}; expected {gathers} gathers and "
+                                 f"{scatters} scatters a step")
+    r0 = ranks[0]["launcher"]
+    tokens = c["batch"] * c["seq"]
+    return dict(
+        one_process=one, ranks=ranks, loss_gaps=[
+            abs(a - w) / abs(w) for a, w in zip(r0["losses"], base)],
+        f32_max_gap=max(max(o["f32"]["gaps"].values()) for o in ranks),
+        step_p50_ms=r0["step_p50_ms"],
+        tokens_per_s_rank=tokens / FS_DP / (r0["step_p50_ms"] / 1e3),
+        one_tokens_per_s=tokens / (one["step_p50_ms"] / 1e3),
+        state_bytes_rank=r0["state_bytes"],
+        state_bytes_one=one["state_bytes"],
+        state_share=r0["state_bytes"] / one["state_bytes"],
+        peak_memory_gb_rank=r0["peak_memory_gb"],
+        peak_memory_gb_one=one["peak_memory_gb"],
+        gathers_per_step=gathers, scatters_per_step=scatters,
+        collective_host_s_per_step=r0["collectives"]["seconds"] / FS_STEPS,
+        launches_per_rank_step=launches)
+
+
+def fsdp_check(torch, configs, train, synthetic, ref, conv1d_brgemm, fa):
+    """Phase 25: FSDP training of the language models (see FS_*).  The
+    kernels at a rank's shapes against their plain versions (flash at
+    StarCoder2's attention on FS_SC2_BATCH / FS_DP sequences, depthwise
+    at Mamba2's layer on M2_BATCH / FS_DP); one process trains each model
+    through the launcher and saves its draw while FS_DP spawned gloo ranks
+    (``_fs_rank``) start up; then the ranks do the same FSDP and are held
+    to it (``_fs_gates``)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    counters = _counters(conv1d_brgemm, fa)
+    cfgs = _fs_cfgs(configs)
+    out = dict(card=_card_line(), ranks=FS_DP, backend="gloo")
+    sc2 = cfgs["starcoder2"]["cfg"]
+    B, KV = FS_SC2_BATCH // FS_DP, sc2.n_kv_heads
+    G = sc2.n_heads // KV
+    rows = []
+    _flash_check(torch, fa, ref, torch.Generator(device=DEVICE).manual_seed(
+        251), rows, f"fsdp rank B={B} T={LM_SEQ} KV={KV} G={G} bf16 causal",
+        B, LM_SEQ, KV, G, torch.bfloat16, True, timed=True, hd=sc2.head_dim)
+    out["flash_row"] = rows[0]
+    out["dw_rows"] = dw_kernel_checks(
+        torch, conv1d_brgemm, ref, model="mamba2 fsdp rank",
+        shape=(M2_BATCH // FS_DP, DW_CHANNELS, M2_SEQ), more=False)
+    out["kernel_rows_s"] = time.perf_counter() - t0
+    one = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        # the ranks start up while the one process trains, then wait for
+        # its draws (saved state dicts, read back by ``_saved_model``)
+        st = dict(out=tmp, port=_free_port(), ready=os.path.join(tmp, "go"),
+                  weights={(repr(c["cfg"]), FS_SEED): os.path.join(
+                      tmp, f"{name}.pt") for name, c in cfgs.items()})
+        ranks = mp.start_processes(_fs_rank, args=(st,), nprocs=FS_DP,
+                                   start_method="spawn", join=False)
+        try:
+            for name, c in cfgs.items():
+                torch.cuda.empty_cache()
+                one[name] = _fs_summary(*_counted(
+                    counters, lambda: train.run(c["argv"])))
+                torch.save(train.init_model(c["cfg"], seed=FS_SEED)
+                           .state_dict(), st["weights"][repr(c["cfg"]),
+                                                        FS_SEED])
+                torch.cuda.empty_cache()
+            open(st["ready"], "w").close()
+            out["one_process_s"] = time.perf_counter() - t0 - out[
+                "kernel_rows_s"]
+            t = time.perf_counter()
+            while not ranks.join():
+                pass
+            out["ranks_wall_s"] = time.perf_counter() - t
+        finally:  # a failed one process leaves no rank waiting
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False) for r in range(FS_DP)]
+    for name, c in cfgs.items():
+        out[name] = _fs_gates(torch, name, c, one[name],
+                              [r[name] for r in res], counters)
+        print(f"fsdp-{name} " + json.dumps(out[name], default=str),
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"fsdp: phase 25 in {out['seconds']:.1f} s ({out['card']}; "
+          f"kernel rows {out['kernel_rows_s']:.1f} s, one process "
+          f"{out['one_process_s']:.1f} s, the ranks "
+          f"{out['ranks_wall_s']:.1f} s) at dp {FS_DP}:", flush=True)
+    for name in cfgs:
+        a = out[name]
+        print(f"fsdp:   {name}: step p50 {a['step_p50_ms']:.1f} ms a rank "
+              f"({a['tokens_per_s_rank']:.0f} tokens/s a rank; one process "
+              f"{a['one_process']['step_p50_ms']:.1f} ms, "
+              f"{a['one_tokens_per_s']:.0f} tokens/s), parameters and "
+              f"moments {a['state_bytes_rank'] / 1e9:.3f} GB a rank of "
+              f"{a['state_bytes_one'] / 1e9:.3f} GB, peak "
+              f"{a['peak_memory_gb_rank']:.2f} GB against "
+              f"{a['peak_memory_gb_one']:.2f} GB, {a['gathers_per_step']} "
+              f"gathers and {a['scatters_per_step']} scatters a step "
+              f"({a['collective_host_s_per_step']:.2f} s of host time), "
+              f"loss gaps {['%.2e' % g for g in a['loss_gaps']]}, fp32 "
+              f"copy {a['f32_max_gap']:.2e}", flush=True)
+    return out
+
+
+def _fs_entries(fs, dw_fwd_entry, dw_bw_entry, flash_entries):
+    """Phase 25's numbers in the kernels line: each kernel's launches a
+    rank a FSDP step and its row at a rank's shape."""
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share")
+    row = fs["flash_row"]
+    for entry, pas in zip(flash_entries, ("fwd", "bwd")):
+        entry["fsdp"] = dict(
+            ranks=fs["ranks"], shape=row["shape"],
+            launches_per_rank_step=fs["starcoder2"][
+                "launches_per_rank_step"][entry["name"]],
+            **{k: row[f"{pas}_{k}"] for k in keys})
+    dw = {r["pass_"]: r for r in fs["dw_rows"] if "kernel_ms" in r}
+    per = fs["mamba2"]["launches_per_rank_step"]
+    for entry, pas in ((dw_fwd_entry, "fwd"), (dw_bw_entry, "bwd_weight")):
+        entry["fsdp"] = dict(
+            ranks=fs["ranks"], shape=dw[pas]["shape"],
+            launches_per_rank_step=per[entry["name"]],
+            **{k: dw[pas][k] for k in keys})
 
 
 def _build_all(conv1d_brgemm, flash_attention, build):
@@ -6687,6 +7121,8 @@ def main(argv=None) -> int:
     vl = phase(23, vlm_check, *model_args)
     ts = phase(24, tp_serve_check, torch, np, configs, init_model, serve,
                ref, conv1d_brgemm, flash_attention)
+    fs = phase(25, fsdp_check, torch, configs, train, synthetic, ref,
+               conv1d_brgemm, flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -6962,6 +7398,7 @@ def main(argv=None) -> int:
     _ds_entries(ds, flash_entries)
     _vl_entries(vl, flash_entries)
     _ts_entries(ts, dw_fwd_entry, flash_entries)
+    _fs_entries(fs, dw_fwd_entry, dw_bw_entry, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     print(f"phase times in {time.perf_counter() - t_start:.1f} s: "
@@ -6986,7 +7423,8 @@ def main(argv=None) -> int:
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
                            elastic=elastic, whisper=wh, zamba2=zb,
                            moonlight=mn, deepseek_v3=ds, internvl2=vl,
-                           tp_serve=ts, phase_s=phase_s, kernels=kernels),
+                           tp_serve=ts, fsdp=fs, phase_s=phase_s,
+                           kernels=kernels),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

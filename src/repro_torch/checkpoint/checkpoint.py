@@ -36,6 +36,14 @@ saves the JAX package's bf16 arrays.
   * **Elastic restore**: tensors are stored whole, so a checkpoint
     written by one (data, model) layout restores into any other (the
     elastic supervisor in ``launch/train.py``).
+  * **FSDP states** (``state.params.ds``, a ``sharding.DataShards``: each
+    rank holds blocks of the parameters and moments): every rank of the
+    data group calls ``save`` / ``save_async``, which gather each split
+    leaf whole (collectives, in the same order on every rank, on the
+    caller's thread), and the group's rank 0 alone writes; ``restore``
+    reads the whole arrays on every rank and keeps the rank's blocks.  The
+    files are the same as a whole state's, so a checkpoint moves between
+    dp 1 and dp 2 and between the packages.
 """
 from __future__ import annotations
 
@@ -100,11 +108,36 @@ def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(like.dtype)
 
 
+def _param_key(flat: str) -> str | None:
+    """The parameter's state-dict key of a flat key of its value, its
+    moments or its error feedback; None for the count and the step."""
+    for head in (f".params{SEP}", f".opt{SEP}.m{SEP}", f".opt{SEP}.v{SEP}",
+                 f".ef{SEP}"):
+        if flat.startswith(head):
+            return flat[len(head):].replace(SEP, ".")
+    return None
+
+
+def _shards(state):
+    return getattr(state.params, "ds", None)
+
+
+def _writes(state) -> bool:
+    """Whether this process writes the state's checkpoints: always, or
+    rank 0 of an FSDP state's data group."""
+    shards = _shards(state)
+    return shards is None or shards.rank == 0
+
+
 def _snapshot(state, step: int) -> tuple[dict, dict]:
     """(arrays, manifest): host copies of the state's tensors under their
-    flat keys, and the manifest."""
+    flat keys, whole (an FSDP state's blocks gathered: a collective), and
+    the manifest."""
     arrays, manifest = {}, {"step": step, "leaves": {}}
+    shards = _shards(state)
     for k, t in state_tensors(state).items():
+        if shards is not None and _param_key(k) is not None:
+            t = shards.whole(_param_key(k), t)
         arrays[k] = _to_numpy(t)
         manifest["leaves"][k] = {
             "shape": list(t.shape),
@@ -122,15 +155,19 @@ class Checkpointer:
 
     # -- write ------------------------------------------------------------
 
-    def save(self, state, step: int) -> str:
-        """Synchronous atomic save; returns the committed path."""
+    def save(self, state, step: int) -> str | None:
+        """Synchronous atomic save; returns the committed path (None on an
+        FSDP rank that does not write)."""
         self.wait()  # _gc sweeps *.tmp: never while an async write stages
-        return self._write(*_snapshot(state, step))
+        snap = _snapshot(state, step)
+        return self._write(*snap) if _writes(state) else None
 
     def save_async(self, state, step: int) -> None:
         """Snapshot the state now, serialize it on a daemon thread."""
         self.wait()
         snap = _snapshot(state, int(step))
+        if not _writes(state):
+            return
         self._thread = threading.Thread(target=self._write_reporting,
                                         args=snap, daemon=True)
         self._thread.start()
@@ -254,14 +291,21 @@ class Checkpointer:
 
     def _load(self, state, path: str):
         want = state_tensors(state)
+        shards = _shards(state)
         loaded = {}
         with np.load(os.path.join(path, "arrays.npz")) as data:
             for k, like in want.items():
                 a = data[k]
-                if tuple(a.shape) != tuple(like.shape):
+                key = _param_key(k)
+                whole = (tuple(like.shape) if shards is None or key is None
+                         else shards.shapes[key])
+                if tuple(a.shape) != whole:
                     raise ValueError(f"{k}: stored shape {a.shape}, state "
-                                     f"has {tuple(like.shape)}")
-                loaded[k] = _from_numpy(a, like).to(like.device)
+                                     f"has {whole}")
+                t = _from_numpy(a, like)
+                if whole != tuple(like.shape):  # an FSDP rank's block
+                    t = shards.block(key, t).contiguous()
+                loaded[k] = t.to(like.device)
         with torch.no_grad():
             for k, p in state.params.named_parameters():
                 p.copy_(loaded[f".params{SEP}{_key(k)}"])

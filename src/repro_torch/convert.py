@@ -26,20 +26,32 @@ is split or joined::
 A decode cache keeps its nesting (``cache_from_jax``): the port's caches
 are the JAX package's trees of the same layouts.
 
-Given a ``models.sharding.MeshShape`` and a device's coordinates on it,
-both give that device's blocks instead (a tensor-parallel rank's):
-``params_from_jax`` by the parameter rules (``sharding.local_state_dict``),
-``cache_from_jax`` by ``sharding.cache_pspecs``, except that an MLA
-model's latent ``c_kv`` stays whole over ``'model'`` (``models/mla.py``)::
+Given a ``models.sharding.MeshShape``, a device's coordinates on it and
+the model's config, both give the blocks that device executes instead
+(a tensor-parallel rank's): ``params_from_jax`` by the parameter rules
+(``sharding.local_state_dict(..., cfg=)``), ``cache_from_jax`` by
+``sharding.cache_pspecs``, except that an MLA model's latent ``c_kv``
+stays whole over ``'model'`` (``models/mla.py``) and an SSM model's fused
+leaves and conv state take their segment-aligned blocks
+(``sharding.segment_block``), as ``models.local_model`` and
+``init_cache(mp=)`` lay them out::
 
-    transformer.Transformer(cfg, params_from_jax(tree, mesh=m, coords=c))
+    model = models.model_class(cfg)(cfg, params_from_jax(
+        tree, mesh=m, coords=c, cfg=cfg))
+    model.tp = sharding.ModelGroup(model_group)
+    cache = cache_from_jax(jax_cache, mesh=m, coords=c, cfg=cfg)
+
+``train_state_from_jax(state, cfg, group=data_group)`` gives an FSDP
+rank's state: its blocks of the parameters and of both moments on a
+``(dp, 1)`` mesh, the model's ``ds`` set (``models.fsdp_model``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import init_model, sharding
+from repro_torch.models import (fsdp_model, init_model, model_class,
+                                sharding)
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.train.train_step import TrainState
 
@@ -51,14 +63,15 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def params_from_jax(tree, prefix: str = "", *, mesh=None,
-                    coords=None) -> dict[str, torch.Tensor]:
+def params_from_jax(tree, prefix: str = "", *, mesh=None, coords=None,
+                    cfg=None) -> dict[str, torch.Tensor]:
     """Flatten a parameter tree of dicts, lists and arrays into a state
     dict of CPU tensors (same values and dtypes); with ``mesh`` and
-    ``coords``, each leaf's block that the device there holds."""
+    ``coords``, each leaf's block that the device there executes
+    (``sharding.local_state_dict``; an SSM model's needs ``cfg``)."""
     if mesh is not None:
         return sharding.local_state_dict(params_from_jax(tree, prefix),
-                                         mesh, coords)
+                                         mesh, coords, cfg=cfg)
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -72,7 +85,7 @@ def params_from_jax(tree, prefix: str = "", *, mesh=None,
 
 
 def cache_from_jax(tree, *, device: torch.device | str = "cpu", mesh=None,
-                   coords=None):
+                   coords=None, cfg=None):
     """A JAX decode cache (its leaves as numpy arrays) as the port's: the
     same nesting of dicts, each leaf a tensor of its own with the same
     layout and dtype (Mamba2 ``{"conv": (L, B, S-1, conv_dim), "ssm": (L,
@@ -83,7 +96,8 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu", mesh=None,
     {"k"|"v": (L_stack, B, Tmax, KV, hd)}}``, with MLA ``{"dense"|"moe":
     {"c_kv": (L_stack, B, Tmax, kv_lora), "k_rope": (L_stack, B, Tmax,
     rope)}}``), so ``decode_step`` may write into it.  With ``mesh`` and
-    ``coords``, the device's blocks (the module docstring)."""
+    ``coords``, the device's blocks (the module docstring; an SSM
+    model's need ``cfg``)."""
     if mesh is not None:
         cache = cache_from_jax(tree)
         batch = next(sharding.tree_leaves(cache)).shape[1]
@@ -94,8 +108,16 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu", mesh=None,
                 return {k: block(c[k], s[k], k) for k in c}
             if name == "c_kv":  # whole over 'model': each head reads it
                 s = tuple(None if e == "model" else e for e in s)
-            return sharding.local_block(c, s, mesh, coords).contiguous().to(
-                device)
+            if name == "conv" and cfg is not None and cfg.ssm is not None:
+                # segment-aligned over 'model', as init_cache(mp=) has it
+                *lead, last = s
+                parts, index = sharding.split_index(last, mesh, coords)
+                b = sharding.segment_block(
+                    sharding.local_block(c, (*lead, None), mesh, coords),
+                    sharding.ssm_segments(cfg, "conv", parts), parts, index)
+            else:
+                b = sharding.local_block(c, s, mesh, coords)
+            return b.contiguous().to(device)
         return block(cache, specs)
     if isinstance(tree, dict):
         return {k: cache_from_jax(v, device=device) for k, v in tree.items()}
@@ -103,16 +125,29 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu", mesh=None,
 
 
 def train_state_from_jax(state, cfg, *,
-                         device: torch.device | str = "cpu") -> TrainState:
+                         device: torch.device | str = "cpu", mesh=None,
+                         coords=None, group=None) -> TrainState:
     """The JAX ``TrainState`` (params, AdamW moments and count, step; its
-    leaves as numpy arrays) as the port's, on ``device``."""
-    model = init_model(cfg, device=device)
-    model.load_state_dict(params_from_jax(state.params))
+    leaves as numpy arrays) as the port's, on ``device``.  With ``mesh``
+    and ``coords``, a device's blocks of the parameters and of both
+    moments (``params_from_jax``); with ``group`` (a data group), this
+    rank's blocks on the ``(dp, 1)`` mesh of an FSDP rank, the model's
+    ``ds`` its ``sharding.DataShards``."""
+    if group is not None:
+        model = fsdp_model(model_class(cfg)(cfg, params_from_jax(
+            state.params)), group, device)
+        mesh, coords = model.ds.mesh, model.ds.coords
 
-    def moments(tree):
-        return {k: t.to(device) for k, t in params_from_jax(tree).items()}
+    def leaves(tree):
+        return {k: t.to(device) for k, t in params_from_jax(
+            tree, mesh=mesh, coords=coords, cfg=cfg).items()}
 
-    opt = AdamWState(m=moments(state.opt.m), v=moments(state.opt.v),
+    if mesh is None:
+        model = init_model(cfg, device=device)
+        model.load_state_dict(params_from_jax(state.params))
+    elif group is None:
+        model = model_class(cfg)(cfg, leaves(state.params))
+    opt = AdamWState(m=leaves(state.opt.m), v=leaves(state.opt.v),
                      count=_tensor(state.opt.count).to(device, torch.int32))
     return TrainState(params=model, opt=opt,
                       step=_tensor(state.step).to(device, torch.int32))

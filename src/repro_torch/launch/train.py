@@ -109,6 +109,23 @@ single-process path; ``--dist-backend`` names the backend (default NCCL
 on the card, gloo on the CPU), and a caller that has started a group
 before ``run`` trains over it.
 
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch starcoder2-3b --attn-impl flash --steps 8 --batch 4 \
+        --seq 4096
+
+trains a language model FSDP (``path=fsdp``), as the JAX launcher places
+it on a (dp, 1) mesh: each rank draws the model on the host and keeps
+its blocks (``models.fsdp_model``: every ``'dp'`` dimension of the
+sharding rules split over the ranks, an MoE stack's experts on
+``'ep'``), of the parameters and of both AdamW moments, and each layer
+gathers its whole weights as it runs and reduce-scatters its gradients
+back to the blocks (``models/sharding.py DataShards``).  Checkpoints stay
+whole: every rank gathers, rank 0 writes, and a restore (after an elastic
+re-plan too) keeps the new layout's blocks.  The summary adds ``path``,
+this rank's ``state_bytes`` (parameters and moments) and ``fsdp``, its
+gathers, scatters and their host seconds.  On the CPU: add ``--smoke
+--device cpu --dist-backend gloo``.
+
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch atacworks-bf16 --model-parallel 2 --steps 10
 
@@ -210,7 +227,7 @@ from repro_torch.configs.base import reduced
 from repro_torch.data.synthetic import SyntheticLoader
 from repro_torch.launch import mesh
 from repro_torch.launch.device import rank_device, require_device
-from repro_torch.models import init_model
+from repro_torch.models import fsdp_model, fsdp_template, init_model
 from repro_torch.runtime.elastic import build_groups, make_plan
 from repro_torch.runtime.faults import FaultInjector, parse_faults
 from repro_torch.runtime.health import HealthMonitor, PreemptionGuard
@@ -446,7 +463,7 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state = init_state(init_model(cfg, seed=args.seed, device=device))
+    state = None
     me = mesh.launch_rank()
     members = list(range(world))  # the generation's launch ranks, by rank
     health, guard = HealthMonitor(), PreemptionGuard()
@@ -463,13 +480,13 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
     history: list[dict] = []
     pending = None  # the recovery in flight
     start = 0
-    dp, accum, lead = dp0, args.accum, True
+    dp, accum, lead, fsdp = dp0, args.accum, True, False
     status = "done"
 
     def save(step):  # synchronous: between barriers of the generation
         if started:
             dist.barrier()
-        if lead:
+        if lead or fsdp:  # an FSDP state's ranks gather; rank 0 writes
             ckpt.save(state, step)
         if started:
             dist.barrier()
@@ -506,6 +523,11 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
             dp, rank = mesh.dp_size(group), mesh.dp_rank(group)
             lead = not started or dist.get_rank() == 0
             log = print if lead else (lambda *a, **k: None)
+            # a language model on data ranks alone: FSDP, each rank
+            # holding its blocks of the parameters and moments
+            fsdp = cfg.family != "conv" and mp == 1 and dp > 1
+            state = _place(cfg, state, group if fsdp else None, args.seed,
+                           device)
             if gen == 0:
                 if ckpt and args.resume and ckpt.latest_step() is not None:
                     state = ckpt.restore(state)
@@ -562,6 +584,7 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
                                      "vlm")
                    else "")
                 + (f" dp={dp} mp={mp} path=model_parallel" if mp > 1
+                   else f" dp={dp} path=fsdp" if fsdp
                    else f" dp={dp} path=data_parallel" if group is not None
                    else "")
                 + (f" generation={gen}" if gen else ""))
@@ -710,7 +733,8 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
                         if step is not None:
                             log("health: restoring the newest checkpoint")
                             state = ckpt.restore(state, step=step)
-                    if ckpt and lead and (i + 1) % args.ckpt_every == 0:
+                    if ckpt and (lead or fsdp) \
+                            and (i + 1) % args.ckpt_every == 0:
                         ckpt.save_async(state, i + 1)
                     if _agree(guard.preempted(), started, device):
                         log("preemption: saving a checkpoint and stopping")
@@ -735,7 +759,26 @@ def _train(args, cfg, started: bool, world: int, mp: int, injector) -> dict:
         status=status, dp=dp, mp=mp, accum=accum, start=start,
         losses=losses, nlls=nlls, gnorms=gnorms, dts=dts, skips=skips,
         recoveries=recoveries, history=history, health=health,
-        straggler=straggler), print if lead else (lambda *a, **k: None))
+        straggler=straggler, state=state),
+        print if lead else (lambda *a, **k: None))
+
+
+def _place(cfg, state, group, seed: int, device: torch.device):
+    """The generation's state: at the start, the model drawn from
+    ``seed`` (on the host, then this rank's blocks over the data group
+    ``group`` moved to ``device``: FSDP; whole on ``device`` for None);
+    after a re-plan, a language model's state laid out anew for the new
+    group (blocks or whole, values to be restored from the checkpoint),
+    another's as it was."""
+    if state is None:
+        if group is None:
+            return init_state(init_model(cfg, seed=seed, device=device))
+        return init_state(fsdp_model(init_model(cfg, seed=seed,
+                                                device="cpu"),
+                                     group, device))
+    if cfg.family == "conv":
+        return state
+    return init_state(fsdp_template(state.params, cfg, group, device))
 
 
 def _summary(args, cfg, device: torch.device, r: dict, log) -> dict:
@@ -772,6 +815,8 @@ def _summary(args, cfg, device: torch.device, r: dict, log) -> dict:
     steps = sorted(r["losses"])
     losses = [r["losses"][s] for s in steps]
     times = [dts[s] for s in steps]
+    state = r["state"]
+    shards = None if state is None else getattr(state.params, "ds", None)
     summary = {"arch": cfg.name, "device": str(device), "steps": args.steps,
                "attn_impl": cfg.attn_impl, "dp": r["dp"], "mp": r["mp"],
                "first_step": steps[0] if steps else r["start"],
@@ -783,7 +828,16 @@ def _summary(args, cfg, device: torch.device, r: dict, log) -> dict:
                "skipped_steps": sum(r["skips"].values()), "step_s": times,
                "status": r["status"], "recoveries": r["recoveries"],
                "mesh_history": history, "health": r["health"].rollup(),
-               "straggler": r["straggler"].rollup()}
+               "straggler": r["straggler"].rollup(),
+               "path": ("model_parallel" if r["mp"] > 1 else "fsdp" if shards
+                        else "data_parallel" if r["dp"] > 1 else "single"),
+               # this rank's parameters and AdamW moments, in bytes
+               "state_bytes": None if state is None else sum(
+                   t.numel() * t.element_size() for t in (
+                       *state.params.parameters(), *state.opt.m.values(),
+                       *state.opt.v.values()))}
+    if shards is not None:  # the data shards' collectives, this rank's
+        summary["fsdp"] = shards.counts()
     if times:
         measured = times[WARMUP_STEPS:] or times
         steady = float(np.median(measured))

@@ -32,7 +32,10 @@ instead of a cache.
 Every language-model family serves tensor-parallel: ``local_model``
 gives a rank its blocks (``models/sharding.py``) and its model group,
 and each family's ``forward`` and ``decode_step`` run them; its
-``init_cache`` takes ``mp=``.
+``init_cache`` takes ``mp=``.  Every one trains FSDP on a data group:
+``fsdp_model`` gives a rank its blocks on a (dp, 1) mesh and its
+``sharding.DataShards``, and each family's ``forward`` gathers the whole
+leaves where it reads them.
 """
 from __future__ import annotations
 
@@ -52,6 +55,14 @@ def get_model(cfg):
         from repro_torch.models import zamba2
         return zamba2
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def model_class(cfg):
+    """The ``nn.Module`` class of the config's language model, built as
+    ``model_class(cfg)(cfg, leaves)`` from a state dict of its leaves."""
+    mod = get_model(cfg)
+    return getattr(mod, {"ssm": "Mamba2", "hybrid": "Zamba2",
+                         "encdec": "Whisper"}.get(cfg.family, "Transformer"))
 
 
 def init_model(cfg, *, seed: int = 0, device="cpu"):
@@ -88,4 +99,42 @@ def local_model(model, mesh, coords, model_group, device=None):
     out = type(model)(model.cfg, sharding.local_state_dict(
         model, mesh, coords, device=device, cfg=model.cfg))
     out.tp = sharding.ModelGroup(model_group)
+    return out
+
+
+def fsdp_model(model, group, device=None):
+    """An FSDP rank's language model (JAX's launcher's placement on a
+    ``(dp, 1)`` mesh): a model of ``model``'s class and config whose
+    leaves are this rank's blocks of ``model``'s (whole) leaves
+    (``sharding.DataShards`` over the data group ``group``), on
+    ``device`` (default: where they are), its ``ds`` that
+    ``DataShards``; each family's forward gathers the whole leaves where
+    it reads them."""
+    from repro_torch.models import sharding
+    ds = sharding.DataShards(group, model)
+    out = type(model)(model.cfg, sharding.local_state_dict(
+        model, ds.mesh, ds.coords, device=device))
+    out.ds = ds
+    if model.cfg.moe is not None:  # the load-balance loss's global batch
+        out.data_group = group
+    return out
+
+
+def fsdp_template(model, cfg, group, device):
+    """An uninitialised model of ``model``'s class under ``cfg`` whose
+    leaves (of ``model``'s dtypes) are this rank's blocks over the data
+    group ``group`` (whole for None), on ``device``: what a checkpoint
+    restores into once the data axis has changed."""
+    import torch
+
+    from repro_torch.models import sharding
+    dtypes = {k: p.dtype for k, p in model.named_parameters()}
+    shapes = leaf_shapes(cfg)
+    ds = None if group is None else sharding.DataShards(group, shapes)
+    out = type(model)(cfg, {k: torch.empty(
+        shapes[k] if ds is None else ds.block_shape(k), dtype=dtypes[k],
+        device=device) for k in shapes})
+    out.ds = ds
+    if cfg.moe is not None:
+        out.data_group = group
     return out

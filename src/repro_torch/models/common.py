@@ -6,6 +6,11 @@ cache, the MLPs, token embedding, the unembedding
 with its vocabulary padding masked, the learned and sinusoidal position
 embeddings, and activation rematerialisation.
 
+FSDP (training on a data group): a rank's model holds blocks of its
+leaves (``models.fsdp_model``); :func:`gathered`, :func:`gather_layer`
+and :func:`unembedding` hand each family the whole leaves where it
+reads them.
+
 Tensor parallelism (serving): each function that takes ``tp``, a
 ``sharding.ModelGroup``, reads the blocks of its leaves that
 ``models/sharding.py``'s rules give its rank and sums or gathers over the
@@ -353,6 +358,38 @@ def logits_from_hidden(tok: torch.Tensor, unembed: torch.Tensor | None,
         cols = torch.arange(first, first + logits.shape[-1], device=x.device)
         logits = logits.masked_fill(cols >= cfg.vocab_size, NEG_INF)
     return logits if tp is None else tp.gather(logits)
+
+
+# --- FSDP: whole weights gathered where they are read ------------------------
+
+def gathered(model, keys) -> list[torch.Tensor]:
+    """The model's leaves ``keys`` (state-dict keys) as it reads them:
+    its parameters, or on an FSDP rank (``model.ds``, a
+    ``sharding.DataShards``) their blocks gathered whole, in one
+    collective."""
+    params = dict(model.named_parameters())
+    leaves = [params[k] for k in keys]
+    return leaves if model.ds is None else model.ds.gather(list(keys), leaves)
+
+
+def gather_layer(ds, keys, leaves) -> list[torch.Tensor]:
+    """One layer's leaves (slices of the stacked leaves ``keys``) as the
+    layer reads them: themselves, or on an FSDP rank (``ds``) gathered
+    whole in one collective.  A layer calls it inside its (remat)
+    function, so the whole weights live while the layer runs, the
+    recompute gathers again, and the gradients go back to the blocks as
+    the layer's backward ends."""
+    return list(leaves) if ds is None else ds.gather(keys, leaves)
+
+
+def unembedding(model, tok: torch.Tensor | None = None):
+    """``(tok, unembed)`` for :func:`logits_from_hidden`: a tied model's
+    embedding table (``tok``, the one its forward gathered, or gathered
+    now), or the ``unembed`` table, gathered on an FSDP rank."""
+    if model.cfg.tie_embeddings:
+        return (tok if tok is not None
+                else gathered(model, ["embed.tok"])[0]), None
+    return None, gathered(model, ["unembed"])[0]
 
 
 # the "dots" policy's products with no batch dimension: a projection

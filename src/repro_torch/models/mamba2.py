@@ -57,6 +57,9 @@ from repro_torch.models import sharding
 # the per-layer mixer leaves, in the JAX tree's order
 MIXER_KEYS = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D",
               "gate_norm", "out_proj")
+# a layer's leaves as ``forward`` passes them: the norm's scale, then the
+# mixer's, under their state-dict keys
+LAYER_KEYS = ("layers.norm.scale", *(f"layers.mixer.{k}" for k in MIXER_KEYS))
 
 
 def dims(cfg) -> tuple[int, int, int]:
@@ -86,6 +89,7 @@ class Mamba2(nn.Module):
     """
 
     tp = None
+    ds = None  # an FSDP rank's sharding.DataShards (models.fsdp_model)
 
     def __init__(self, cfg, leaves: dict[str, torch.Tensor]):
         super().__init__()
@@ -347,11 +351,14 @@ def forward(model: Mamba2, tokens: torch.Tensor, *, last_only: bool = False,
     (``None``: the kernels for CUDA tensors, the plain version for CPU
     ones).  With ``cfg.remat`` each layer's activations are recomputed in
     the backward.  A tensor-parallel rank's model (``model.tp``) runs its
-    blocks."""
-    cfg, tp = model.cfg, model.tp
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
+    blocks; an FSDP rank's (``model.ds``) gathers each layer's leaves
+    inside the layer and the tables where they are read."""
+    cfg, tp, ds = model.cfg, model.tp, model.ds
+    x = cm.embed_tokens(cm.gathered(model, ["embed.tok"])[0], tokens, cfg,
+                        tp=tp)
 
     def layer(x, scale, *leaves):
+        scale, *leaves = cm.gather_layer(ds, LAYER_KEYS, (scale, *leaves))
         p = dict(zip(MIXER_KEYS, leaves))
         return x + block_fwd(p, cm.apply_norm(scale, x, cfg), cfg,
                              backend=backend, tp=tp)
@@ -364,8 +371,7 @@ def forward(model: Mamba2, tokens: torch.Tensor, *, last_only: bool = False,
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
     if hidden_only:
         return x
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
-                                 tp=tp)
+    return cm.logits_from_hidden(*cm.unembedding(model), x, cfg, tp=tp)
 
 
 # --- decode ------------------------------------------------------------------

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.models import sharding
 
 def moe_leaves(cfg) -> dict[str, tuple]:
     """The MoE FFN's leaves (JAX's ``init_moe``): ``name -> (shape, init,
@@ -137,12 +138,15 @@ def compare_routing(ref: RoutingLog, other: RoutingLog) -> dict:
 
 
 def route(p: dict, x2d: torch.Tensor, cfg,
-          forced: torch.Tensor | None = None):
+          forced: torch.Tensor | None = None, data_group=None):
     """x2d (n, D) -> weights (n, k) fp32, experts (n, k) int64, the
     load-balance loss (0-d fp32: E * sum_e f_e * mean p_e) and the
     selection scores (n, E) fp32.  The logits are fp32 (``x.float() @
     router``).  ``forced`` (n, k) replaces the top-k selection (the
-    weights still come from this pass's scores)."""
+    weights still come from this pass's scores).  ``data_group``: the
+    data group whose ranks hold equal shares of the batch; f and the
+    mean p are then the global batch's (``sharding.data_mean``), as
+    GSPMD computes them in the JAX launcher's sharded step."""
     m = cfg.moe
     logits = x2d.float() @ p["router"].float()
     if m.score_fn == "sigmoid":
@@ -159,7 +163,11 @@ def route(p: dict, x2d: torch.Tensor, cfg,
         w = w * m.routed_scaling
     probs = scores / (scores.sum(-1, keepdim=True) + 1e-9)
     onehot = F.one_hot(idx, m.n_experts).float().sum(1)  # (n, E)
-    aux = m.n_experts * (onehot.mean(0) * probs.mean(0)).sum()
+    f, pbar = onehot.mean(0), probs.mean(0)
+    if data_group is not None:
+        f, pbar = sharding.data_mean(torch.stack([f, pbar]),
+                                     data_group).unbind(0)
+    aux = m.n_experts * (f * pbar).sum()
     return w, idx, aux, sel.detach()
 
 
@@ -269,18 +277,21 @@ def _capacity(p: dict, x2d: torch.Tensor, w: torch.Tensor,
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg, *,
             routing: RoutingLog | None = None, layer: int = 0,
-            pos: int = 0, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
+            pos: int = 0, tp=None, data_group=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, D) -> (out (B, T, D), load-balance loss): the routed
     experts by the config's dispatch (module docstring), plus the shared
     experts.  ``routing`` records (or replays) this layer's selection as
     layer ``layer`` at positions ``pos``.. ``pos + T - 1``.  With ``tp``
     the rank's experts and its shared-expert partial, summed over the
-    group."""
+    group; with ``data_group`` the loss's statistics over the global
+    batch (``route``)."""
     m = cfg.moe
     B, T, D = x.shape
     x2d = x.reshape(B * T, D)
     forced = None if routing is None else routing.forced(layer, pos, B, T)
-    w, idx, aux, sel = route(p, x2d, cfg, forced=forced)
+    w, idx, aux, sel = route(p, x2d, cfg, forced=forced,
+                             data_group=data_group)
     if routing is not None:
         routing.record(layer, pos, idx.view(B, T, -1), sel.view(B, T, -1))
     experts = _capacity if m.capacity_factor > 0 else _dropless

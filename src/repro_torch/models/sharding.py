@@ -36,6 +36,13 @@ bf16 model each rank's partial is already rounded to bf16 by its product
 before the sum, so a two-rank result is rounded three times against one
 process's once; ``serve.prefill_tol`` absorbs that.
 
+:class:`DataShards` is the data axis of a language model trained FSDP
+(JAX's launcher's placement on a ``(dp, 1)`` mesh, ``models.fsdp_model``):
+a rank holds :func:`local_block` of each leaf, gathers a layer's whole
+weights where the layer runs and reduce-scatters their gradients back to
+its blocks.  :func:`data_mean` takes a statistic of the global batch
+(an MoE layer's load-balance means) over the data group.
+
 Not ported: ``constrain_like_params`` (JAX ``:151``), a
 ``with_sharding_constraint`` layout hint to GSPMD for gradients.  Eager
 PyTorch has no compiler to hint, and the hint changes no number
@@ -297,7 +304,7 @@ def _coords(mesh, coords) -> dict[str, int]:
     return coords
 
 
-def _split(entry, mesh, coords) -> tuple[int, int]:
+def split_index(entry, mesh, coords) -> tuple[int, int]:
     """(parts, index) of a dimension under spec entry ``entry`` at
     ``coords``: the index row-major over the entry's axes."""
     axes = () if entry is None else (
@@ -314,7 +321,7 @@ def local_shape(shape, spec, mesh) -> tuple[int, ...]:
     ``spec`` (even tiling: a dimension that does not divide raises)."""
     out = []
     for dim, (n, entry) in enumerate(zip(shape, spec)):
-        parts, _ = _split(entry, mesh, {a: 0 for a in mesh.axis_names})
+        parts, _ = split_index(entry, mesh, {a: 0 for a in mesh.axis_names})
         if n % parts:
             raise ValueError(f"dimension {dim} of {tuple(shape)} ({n}) does "
                              f"not divide over {entry!r} ({parts} parts)")
@@ -332,7 +339,7 @@ def local_block(t: torch.Tensor, spec: tuple, mesh, coords) -> torch.Tensor:
     coords = _coords(mesh, coords)
     local_shape(t.shape, spec, mesh)  # raises where a dimension is uneven
     for dim, entry in enumerate(spec):
-        parts, index = _split(entry, mesh, coords)
+        parts, index = split_index(entry, mesh, coords)
         if parts > 1:
             t = _block(t, dim, parts, index)
     return t
@@ -358,7 +365,7 @@ def local_state_dict(params, mesh, coords, device=None,
             b = local_block(t, specs[k], mesh, coords)
         else:
             *lead, last = specs[k]
-            parts, index = _split(last, mesh, coords)
+            parts, index = split_index(last, mesh, coords)
             b = segment_block(local_block(t, (*lead, None), mesh, coords),
                               ssm_segments(cfg, name, parts), parts, index)
         out[k] = b.contiguous().to(device if device is not None
@@ -480,3 +487,217 @@ class ModelGroup:
         self.gathers += 1
         self.seconds += time.perf_counter() - t0
         return torch.cat(parts, -1)
+
+
+# --- the data axis of an FSDP-placed model ------------------------------------
+
+def fsdp_mesh(dp: int) -> MeshShape:
+    """The ``(data, model)`` mesh of ``dp`` data ranks and a model axis of
+    one: the layout JAX's launcher trains a language model on."""
+    return MeshShape(("data", "model"), (dp, 1))
+
+
+def fsdp_dims(shapes, dp: int) -> tuple[dict, dict]:
+    """(key -> spec, key -> the dimension split over ``dp`` data ranks or
+    None) of every leaf of ``shapes`` on :func:`fsdp_mesh`; raises where a
+    leaf would split two dimensions or a split one does not divide."""
+    mesh = fsdp_mesh(dp)
+    specs = param_pspecs(shapes, mesh)
+    shapes, dims = _shapes(shapes), {}
+    for k, spec in specs.items():
+        split = [d for d, e in enumerate(spec)
+                 if split_index(e, mesh, {"data": 0, "model": 0})[0] > 1]
+        if len(split) > 1:
+            raise ValueError(f"{k}: {spec} splits {len(split)} dimensions "
+                             "over the data ranks")
+        local_shape(shapes[k], spec, mesh)  # raises where it is uneven
+        dims[k] = split[0] if split else None
+    return specs, dims
+
+
+class _DataMean(torch.autograd.Function):
+    """The mean over a data group; the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def data_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over the data group ``group`` (one all-reduce),
+    for a statistic of the global batch that every rank then uses alike
+    (an MoE layer's load-balance means).  Its backward hands each rank's
+    ``x`` the mean's gradient: what is computed from the mean is the same
+    on every rank, so the gradient of the global loss (each rank's
+    gradient of its loss over dp, summed over the ranks) reaches every
+    rank's ``x`` scaled by 1/dp, as the mean's own derivative asks."""
+    return _DataMean.apply(x, group)
+
+
+class _Gather(torch.autograd.Function):
+    """Blocks -> whole leaves (:meth:`DataShards.gather`); the backward
+    reduce-scatters the whole leaves' gradients back to the blocks."""
+
+    @staticmethod
+    def forward(ctx, shards, keys, *blocks):
+        ctx.shards, ctx.keys = shards, keys
+        ctx.metas = [(b.shape, b.dtype, b.device) for b in blocks]
+        return tuple(shards._all_gather(keys, blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        shards = ctx.shards
+        grads = [torch.zeros(shards.whole_shape(k, len(shape)), dtype=dtype,
+                             device=device) if g is None else g
+                 for g, k, (shape, dtype, device) in zip(grads, ctx.keys,
+                                                         ctx.metas)]
+        return (None, None, *shards._reduce_scatter(ctx.keys, grads))
+
+
+class DataShards:
+    """The data axis of a language model trained FSDP-style (JAX's
+    launcher: the parameters placed by :func:`param_pspecs` on a ``(dp,
+    1)`` mesh): its process group, the leaves' whole shapes and the one
+    dimension of each that is split over the data ranks, and the
+    collectives that move the blocks.
+
+    A rank holds :func:`local_block` of each leaf, its parameters and
+    both AdamW moments alike: every ``'dp'`` dimension split over the
+    ranks, an MoE stack's ``'ep'`` dimension (the experts) where they
+    divide, every other leaf whole.  A model reads its whole weights
+    through :meth:`gather`, a layer's leaves at once where the layer
+    runs (``models/common.py gather_layer``): one all-gather of a flat
+    buffer a dtype, whose backward reduce-scatters the whole leaves'
+    gradients back to the blocks (the sum over the ranks, in the
+    gradient's dtype).  ``gathers`` and ``scatters`` count those calls,
+    ``seconds`` their host time, as :class:`ModelGroup` counts its.
+
+    The collectives are ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor``, which gloo takes on CUDA tensors as on CPU
+    ones (``tools/gloo_bench.py --fsdp``: torch 2.11 on an H100, moving
+    a CUDA tensor through the host at about 0.8 GB/s)."""
+
+    def __init__(self, group, shapes):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.mesh = fsdp_mesh(self.size)
+        self.coords = {"data": self.rank, "model": 0}
+        self.shapes = _shapes(shapes)
+        self.specs, self.dims = fsdp_dims(self.shapes, self.size)
+        self.gathers = self.scatters = 0
+        self.seconds = 0.0
+
+    def counts(self) -> dict:
+        return dict(gathers=self.gathers, scatters=self.scatters,
+                    seconds=self.seconds)
+
+    def split(self, key: str) -> bool:
+        """Whether the leaf ``key`` is held as blocks."""
+        return self.dims[key] is not None
+
+    def whole_shape(self, key: str, ndim: int) -> tuple[int, ...]:
+        """The whole shape of ``key``'s last ``ndim`` dimensions (a layer's
+        slice of a stacked leaf has one fewer than the leaf)."""
+        return self.shapes[key][len(self.shapes[key]) - ndim:]
+
+    def block_shape(self, key: str, ndim: int | None = None
+                    ) -> tuple[int, ...]:
+        """The shape of this rank's block of ``key`` (its last ``ndim``
+        dimensions)."""
+        shape = local_shape(self.shapes[key], self.specs[key], self.mesh)
+        return shape[len(shape) - (ndim or len(shape)):]
+
+    def block(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``t`` of ``key`` (a view)."""
+        if tuple(t.shape) != self.shapes[key]:
+            raise ValueError(f"{key}: a whole leaf of {self.shapes[key]}, "
+                             f"got {tuple(t.shape)}")
+        return local_block(t, self.specs[key], self.mesh, self.coords)
+
+    def _dim(self, key: str, t: torch.Tensor) -> int:
+        """The split dimension of ``t``, ``key``'s block or a layer's
+        slice of it; raises where ``t`` is not that block's shape."""
+        want = self.block_shape(key, t.dim())
+        if tuple(t.shape) != want:
+            raise ValueError(
+                f"{key}: this data rank holds blocks of {want}, and was "
+                f"handed {tuple(t.shape)} (a whole leaf where a block is "
+                "expected?)")
+        return self.dims[key] - (len(self.shapes[key]) - t.dim())
+
+    def _all_gather(self, keys, blocks) -> list[torch.Tensor]:
+        t0 = time.perf_counter()
+        dims = [self._dim(k, b) for k, b in zip(keys, blocks)]
+        out: list = [None] * len(blocks)
+        for dtype in dict.fromkeys(b.dtype for b in blocks):
+            idx = [i for i, b in enumerate(blocks) if b.dtype == dtype]
+            flat = torch.cat([blocks[i].reshape(-1) for i in idx])
+            buf = flat.new_empty(self.size * flat.numel())
+            dist.all_gather_into_tensor(buf, flat, group=self.group)
+            buf = buf.view(self.size, -1)
+            start = 0
+            for i in idx:
+                n, shape = blocks[i].numel(), blocks[i].shape
+                out[i] = torch.cat([row.narrow(0, start, n).view(shape)
+                                    for row in buf.unbind(0)], dims[i])
+                start += n
+        self.gathers += 1
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def _reduce_scatter(self, keys, grads) -> list[torch.Tensor]:
+        t0 = time.perf_counter()
+        dims = []
+        for k, g in zip(keys, grads):
+            if tuple(g.shape) != self.whole_shape(k, g.dim()):
+                raise ValueError(f"{k}: a whole gradient of "
+                                 f"{self.whole_shape(k, g.dim())}, got "
+                                 f"{tuple(g.shape)}")
+            dims.append(self.dims[k] - (len(self.shapes[k]) - g.dim()))
+        out: list = [None] * len(grads)
+        for dtype in dict.fromkeys(g.dtype for g in grads):
+            idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+            parts = [grads[i].chunk(self.size, dims[i]) for i in idx]
+            buf = torch.cat([p[r].reshape(-1) for r in range(self.size)
+                             for p in parts])
+            flat = buf.new_empty(buf.numel() // self.size)
+            dist.reduce_scatter_tensor(flat, buf, group=self.group)
+            start = 0
+            for j, i in enumerate(idx):
+                shape = parts[j][self.rank].shape
+                n = parts[j][self.rank].numel()
+                out[i] = flat.narrow(0, start, n).view(shape)
+                start += n
+        self.scatters += 1
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def gather(self, keys, tensors) -> list[torch.Tensor]:
+        """The whole leaves of ``tensors`` (each ``keys``' leaf, or a
+        layer's slice of it): a split leaf's block gathered over the data
+        group (one collective a dtype, differentiable: the backward
+        reduce-scatters the gradient), any other passed as it is."""
+        idx = [i for i, k in enumerate(keys) if self.dims[k] is not None]
+        out = list(tensors)
+        if idx:
+            whole = _Gather.apply(self, [keys[i] for i in idx],
+                                  *(tensors[i] for i in idx))
+            for i, t in zip(idx, whole):
+                out[i] = t
+        return out
+
+    @torch.no_grad()
+    def whole(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of ``key`` from this rank's block ``t`` (every
+        rank of the group calls it, in the same order); a whole leaf is
+        returned as it is."""
+        if self.dims[key] is None:
+            return t
+        return self._all_gather([key], [t.detach()])[0]

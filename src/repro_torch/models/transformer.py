@@ -199,6 +199,10 @@ class Transformer(nn.Module):
 
     routing: moe.RoutingLog | None = None
     tp = None
+    ds = None  # an FSDP rank's sharding.DataShards (models.fsdp_model)
+    # the data group whose global batch an MoE model's load-balance
+    # statistics are taken over (an FSDP rank's, JAX's sharded step's)
+    data_group = None
 
     def __init__(self, cfg, leaves: dict[str, torch.Tensor]):
         super().__init__()
@@ -271,11 +275,11 @@ def _layer_fwd(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 
 def _moe_layer_fwd(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-                   routing, layer: int, tp=None
+                   routing, layer: int, tp=None, data_group=None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     x, h = _attn_half(lp, x, cfg, positions, tp)
     o, aux = moe.moe_ffn(lp["moe"], h, cfg, routing=routing, layer=layer,
-                         tp=tp)
+                         tp=tp, data_group=data_group)
     return x + o, aux
 
 
@@ -288,16 +292,16 @@ def _stacked(model: nn.Module, prefix: str = PREFIX
     return [k for k, _ in pairs], [p for _, p in pairs]
 
 
-def _final(model: nn.Module, x: torch.Tensor, hidden_only: bool = False
-           ) -> torch.Tensor:
-    """The final norm, then the logits unless ``hidden_only``."""
+def _final(model: nn.Module, x: torch.Tensor, hidden_only: bool = False,
+           tok: torch.Tensor | None = None) -> torch.Tensor:
+    """The final norm, then the logits unless ``hidden_only`` (``tok``:
+    the embedding table the forward read, gathered on an FSDP rank)."""
     cfg = model.cfg
     fn = model.final_norm
     x = cm.apply_norm(fn.scale, x, cfg, getattr(fn, "bias", None))
     if hidden_only:
         return x
-    return cm.logits_from_hidden(model.embed.tok,
-                                 getattr(model, "unembed", None), x, cfg,
+    return cm.logits_from_hidden(*cm.unembedding(model, tok), x, cfg,
                                  tp=model.tp)
 
 
@@ -314,10 +318,13 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     ``hidden_only`` returns the final-normed hidden state instead of
     logits.  With ``cfg.remat`` each layer's activations are recomputed
     in the backward.  The MoE layers record into ``model.routing``.  A
-    tensor-parallel rank's model (``model.tp``) runs its blocks."""
+    tensor-parallel rank's model (``model.tp``) runs its blocks; an FSDP
+    rank's (``model.ds``) gathers each layer's leaves inside the layer
+    (``common.gather_layer``) and the embedding where it is read."""
     cfg = model.cfg
-    tp = model.tp
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
+    tp, ds = model.tp, model.ds
+    tok, = cm.gathered(model, ["embed.tok"])
+    x = cm.embed_tokens(tok, tokens, cfg, tp=tp)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=tokens.device)
@@ -326,24 +333,28 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     first = 0  # the stack's first layer, counted over both stacks
     for prefix, n, moe_layer in stacks(cfg):
         keys, stacked = _stacked(model, prefix)
+        full = [prefix + k for k in keys]
         # keys and the layer's index bound now: remat calls the layer
         # again in the backward, after the loop has moved on
         for i, lp in enumerate(zip(*(p.unbind(0) for p in stacked))):
             if moe_layer:
-                def layer(x, *leaves, keys=keys, i=first + i):
+                def layer(x, *leaves, keys=keys, full=full, i=first + i):
+                    leaves = cm.gather_layer(ds, full, leaves)
                     return _moe_layer_fwd(_nest(keys, leaves), x, cfg,
-                                          positions, model.routing, i, tp)
+                                          positions, model.routing, i, tp,
+                                          model.data_group)
                 x, a = cm.maybe_remat(layer, cfg)(x, *lp)
                 aux = aux + a
             else:
-                def layer(x, *leaves, keys=keys):
+                def layer(x, *leaves, keys=keys, full=full):
+                    leaves = cm.gather_layer(ds, full, leaves)
                     return _layer_fwd(_nest(keys, leaves), x, cfg, positions,
                                       tp)
                 x = cm.maybe_remat(layer, cfg)(x, *lp)
         first += n
     if last_only:
         x = x[:, -1:]
-    out = _final(model, x, hidden_only)
+    out = _final(model, x, hidden_only, tok)
     return (out, aux) if cfg.family == "moe" else out
 
 

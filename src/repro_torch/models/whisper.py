@@ -190,15 +190,16 @@ def encode(model: Whisper, frames: torch.Tensor) -> torch.Tensor:
     frames' dtype.  With ``cfg.remat`` each layer's activations are
     recomputed in the backward.  A tensor-parallel rank's model
     (``model.tp``) runs its heads and MLP columns."""
-    cfg, tp = model.cfg, model.tp
+    cfg, tp, ds = model.cfg, model.tp, model.ds
     T = frames.shape[1]
     x = frames + cm.sinusoidal_positions(T, cfg.d_model,
                                          frames.device).to(frames.dtype)
     positions = torch.arange(T, device=frames.device)
     keys, layers = _layers(model, ENC)
+    full = [ENC + k for k in keys]
 
     def layer(x, *leaves):
-        lp = transformer._nest(keys, leaves)
+        lp = transformer._nest(keys, cm.gather_layer(ds, full, leaves))
         h = _norm(lp["attn_norm"], x, cfg)
         x = x + cm.attention_block(lp["attn"], h, cfg, positions,
                                    causal=False, tp=tp)
@@ -222,18 +223,20 @@ def forward(model: Whisper, tokens: torch.Tensor, *,
     at ``common.NEG_INF``.  ``last_only`` and ``hidden_only`` as in
     ``transformer.forward``; a tensor-parallel rank's model (``model.tp``)
     runs its blocks."""
-    cfg, tp = model.cfg, model.tp
+    cfg, tp, ds = model.cfg, model.tp, model.ds
     frames = frames if frames is not None else extra_embeds
     if frames is None:
         raise ValueError("the encoder-decoder needs frames (B, W_enc, D)")
     enc = encode(model, frames)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, pos=model.embed.pos,
-                        positions=positions, tp=tp)
+    tok, pos = cm.gathered(model, ["embed.tok", "embed.pos"])
+    x = cm.embed_tokens(tok, tokens, cfg, pos=pos, positions=positions,
+                        tp=tp)
     keys, layers = _layers(model, DEC)
+    full = [DEC + k for k in keys]
 
     def layer(x, enc, *leaves):
-        lp = transformer._nest(keys, leaves)
+        lp = transformer._nest(keys, cm.gather_layer(ds, full, leaves))
         h = _norm(lp["attn_norm"], x, cfg)
         x = x + cm.attention_block(lp["attn"], h, cfg, positions,
                                    causal=True, tp=tp)
@@ -248,7 +251,7 @@ def forward(model: Whisper, tokens: torch.Tensor, *,
         x = step(x, enc, *lp)
     if last_only:
         x = x[:, -1:]
-    return transformer._final(model, x, hidden_only)
+    return transformer._final(model, x, hidden_only, tok)
 
 
 # --- decode (self-attention KV cache, cross-attention K/V) -------------------

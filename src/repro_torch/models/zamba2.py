@@ -109,12 +109,19 @@ def init_params(cfg, *, seed: int = 0,
     return Zamba2(cfg, leaves)
 
 
-def _shared(model: Zamba2) -> dict:
-    """The shared block's leaves by their names in the JAX tree."""
-    sh = model.shared
-    return {"in_norm": sh.in_norm.scale, "wq": sh.wq, "wk": sh.wk,
-            "wv": sh.wv, "wo": sh.wo, "mlp_norm": sh.mlp_norm.scale,
-            "mlp": dict(sh.mlp.named_parameters())}
+def _shared(model: Zamba2, leaves: dict | None = None) -> dict:
+    """The shared block's leaves by their names in the JAX tree, from
+    ``leaves`` (state-dict key -> tensor; default: the model's
+    parameters)."""
+    if leaves is None:
+        leaves = dict(model.named_parameters())
+    sh = {k[len("shared."):]: t for k, t in leaves.items()
+          if k.startswith("shared.")}
+    return {"in_norm": sh["in_norm.scale"], "wq": sh["wq"], "wk": sh["wk"],
+            "wv": sh["wv"], "wo": sh["wo"],
+            "mlp_norm": sh["mlp_norm.scale"],
+            "mlp": {k[len("mlp."):]: t for k, t in sh.items()
+                    if k.startswith("mlp.")}}
 
 
 def _shared_qkv(p: dict, xcat: torch.Tensor, cfg, positions: torch.Tensor):
@@ -162,14 +169,22 @@ def forward(model: Zamba2, tokens: torch.Tensor, *, last_only: bool = False,
     hidden state (B, T, D) instead.  ``backend`` picks the Mamba2 conv's
     (``None``: the kernels for CUDA tensors, the plain version for CPU
     ones).  A tensor-parallel rank's model (``model.tp``) runs its
-    blocks."""
-    cfg, tp = model.cfg, model.tp
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
+    blocks; an FSDP rank's (``model.ds``) gathers each Mamba2 layer's
+    leaves inside the layer, and the embedding with the shared block's
+    leaves once, at the start (the block's gradient summed over its
+    applications before it goes back to the blocks)."""
+    cfg, tp, ds = model.cfg, model.tp, model.ds
+    keys = ["embed.tok"] + [k for k, _ in model.named_parameters()
+                            if k.startswith("shared.")]
+    leaves = dict(zip(keys, cm.gathered(model, keys)))
+    x = cm.embed_tokens(leaves["embed.tok"], tokens, cfg, tp=tp)
     emb = x
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    shared = _shared(model)
+    shared = _shared(model, leaves)
 
     def layer(with_shared, x, scale, *leaves):
+        scale, *leaves = cm.gather_layer(ds, mamba2.LAYER_KEYS,
+                                         (scale, *leaves))
         p = dict(zip(mamba2.MIXER_KEYS, leaves))
         x = x + mamba2.block_fwd(p, cm.apply_norm(scale, x, cfg), cfg,
                                  backend=backend, tp=tp)
@@ -186,8 +201,7 @@ def forward(model: Zamba2, tokens: torch.Tensor, *, last_only: bool = False,
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
     if hidden_only:
         return x
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
-                                 tp=tp)
+    return cm.logits_from_hidden(*cm.unembedding(model), x, cfg, tp=tp)
 
 
 # --- decode ------------------------------------------------------------------

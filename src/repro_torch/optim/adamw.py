@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 # the JAX package's defaults, the only values the train step uses
 B1, B2, EPS = 0.9, 0.95, 1e-8
@@ -57,11 +58,31 @@ def _slices(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return t.split(rows, dim=0)
 
 
+def _squares(ts, device) -> torch.Tensor:
+    """The sum of squares of the tensors ``ts`` in fp32, a large one a
+    slice at a time (0 for none)."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for t in ts:
+        for s in _slices(t):
+            g = s.float()
+            total = total + torch.sum(g * g)
+    return total
+
+
 @torch.no_grad()
-def global_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:
-    """The global L2 norm of the gradients in fp32 (a 0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(g * g) for t in grads.values()
-                          for g in (s.float() for s in _slices(t))))
+def global_norm(grads: dict[str, torch.Tensor], *, group=None,
+                split=()) -> torch.Tensor:
+    """The global L2 norm of the gradients in fp32 (a 0-d tensor).  An
+    FSDP rank's (``group`` its data group, ``split`` the keys of the
+    leaves it holds as blocks): the square root of the blocks' sum of
+    squares summed over the group, plus the whole leaves' counted once."""
+    device = next(iter(grads.values())).device
+    if group is None:
+        return torch.sqrt(_squares(grads.values(), device))
+    blocks = _squares((g for k, g in grads.items() if k in split), device)
+    dist.all_reduce(blocks, group=group)
+    return torch.sqrt(blocks + _squares(
+        (g for k, g in grads.items() if k not in split), device))
 
 
 @torch.no_grad()

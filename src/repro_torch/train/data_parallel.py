@@ -17,7 +17,14 @@ its own share of the global batch (``SyntheticLoader(rank=, world=)`` or
     waits before the gradients are handed back, and also when the
     backward raises, so a failed step leaves nothing in flight;
   * the other families all-reduce the whole gradient list after the
-    backward: correct, not overlapped, as in the JAX package;
+    backward: correct, not overlapped, as in the JAX package's
+    ``shard_map`` path; or, on an FSDP rank (``models.fsdp_model``:
+    ``model.ds``, the placement JAX's launcher trains them with), each
+    layer's blocks are gathered in its forward and its gradients
+    reduce-scattered back to the blocks as its backward ends
+    (``models/sharding.py DataShards``), and only the whole leaves (norm
+    scales, biases, leaves with no split dimension) are all-reduced
+    after the backward;
   * the loss and aux come back as their global means, and the gradients
     are equal on every rank.
 
@@ -125,7 +132,11 @@ def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
     obs.event("train.mesh", dp=dp, mp=mp, axes="data,model")
 
     def grad_fn(model, batch, probe=None):
-        params = [p for _, p in model.named_parameters()]
+        names, params = zip(*model.named_parameters())
+        shards = getattr(model, "ds", None)
+        if shards is not None and (group is None or shards.group != group):
+            raise ValueError("an FSDP model's blocks are over another data "
+                             "group than the gradient function's")
         loss, aux = loss_fn(model, batch)
         if probe is not None:
             probe.mark("forward")
@@ -134,9 +145,13 @@ def make_sharded_grad_fn(cfg, group, *, loss_fn=None,
         try:
             grads = param_grads(loss / dp, params)
             if not fused_reduce:
-                # one buffer per leaf (autograd may hand one tensor to two)
+                # one buffer per leaf (autograd may hand one tensor to two);
+                # an FSDP rank's blocks were reduce-scattered in the backward
                 out, seen = [], set()
-                for g in grads:
+                for name, g in zip(names, grads):
+                    if shards is not None and shards.split(name):
+                        out.append(g)
+                        continue
                     if id(g) in seen or not g.is_contiguous():
                         g = g.clone(memory_format=torch.contiguous_format)
                     seen.add(id(g))

@@ -41,7 +41,7 @@ def streamed_xent(model, hidden: torch.Tensor, labels: torch.Tensor,
     than it, the full logits, as JAX does."""
     B, T, _ = hidden.shape
     c = cfg.xent_chunk
-    tok, unembed = model.embed.tok, getattr(model, "unembed", None)
+    tok, unembed = cm.unembedding(model)  # an FSDP rank's: gathered once
     if not c or T <= c or T % c:
         return softmax_xent(cm.logits_from_hidden(tok, unembed, hidden, cfg),
                             labels)

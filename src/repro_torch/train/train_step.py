@@ -15,7 +15,12 @@ returns its metrics as 0-d tensors; the caller decides when to read them.
 
 Over a data group every rank holds the same state and steps it with the
 same, already summed gradients: the norm and the non-finite guard read
-them after the all-reduce, so every rank skips the same steps.
+them after the all-reduce, so every rank skips the same steps.  An FSDP
+rank (``models.fsdp_model``: ``model.ds``) holds its blocks of the
+parameters, and ``init_state`` gives it moments of the same blocks; its
+gradients are the blocks' (fp32 sums over microbatches too), the norm
+sums the blocks' squares over the group and the whole leaves' once
+(``adamw.global_norm(group=, split=)``), and AdamW steps the blocks.
 
 **Phase probes** (the ``train.phase.*`` figures of telemetry; JAX's
 ``make_phase_probes``).  JAX times jitted prefixes of the step against
@@ -191,7 +196,10 @@ def make_train_step(cfg, *, accum_steps: int = 1, peak_lr: float = 3e-4,
                                  "grad_compression=True)")
             q, state.ef = compression.compress(grads, state.ef)
             grads = compression.decompress(q)
-        gnorm = adamw.global_norm(grads)
+        shards = getattr(model, "ds", None)
+        gnorm = (adamw.global_norm(grads) if shards is None else
+                 adamw.global_norm(grads, group=shards.group, split={
+                     k for k in names if shards.split(k)}))
         finite = torch.isfinite(gnorm) & torch.isfinite(loss)
         adamw.update_(grads, state.opt, dict(zip(names, params)), lr=lr,
                       grad_norm=gnorm, finite=finite)
