@@ -353,22 +353,22 @@ Phases (any failed check raises, so the run exits non-zero):
       time; the phase's seconds;
   24. tensor-parallel serving (``tp_serve_check``; ``serve
       --model-parallel 2``, ``models/sharding.py``'s blocks): ``flash_fwd``
-      at a rank's prefill shapes (StarCoder2-3B's (8, 72, 1 KV head, G
+      at a rank's prefill shapes (StarCoder2-3B's (8, 24, 1 KV head, G
       12, 128); DeepSeek-V3's 64 MLA heads of 192, v padded from 128;
       Zamba2-7B's 16 heads of 112; Whisper's encoder, (8, 1,500, 10
       heads of 64), non-causal) timed beside SDPA and the bound, and
-      ``depthwise_conv1d_fwd`` at a rank's (8, channels, 40) (Mamba2-370M's
+      ``depthwise_conv1d_fwd`` at a rank's (8, channels, 24) (Mamba2-370M's
       1,280, Zamba2-7B's 3,712: the rank's x channels and B and C whole)
       beside ``F.conv1d`` and the bound; one process serves StarCoder2-3B
       (cut to 12 layers; phase 14 serves all 30), DeepSeek-V3's
       ``deepseek-v3-671b-2l-16e`` (recording its expert selection),
       Mamba2-370M (48 layers), Zamba2-7B's 12-layer cut and
       Whisper-large-v3 (cut to 8 + 8 layers, a 4-token prompt), each in
-      bf16 at batch 8, a 40-token prompt (DeepSeek-V3: 200) and 8
-      generated tokens, and each one's fp32 copy at a 40-token prompt at
+      bf16 at batch 8, a 24-token prompt (DeepSeek-V3: 200) and 8
+      generated tokens, and each one's fp32 copy at a 24-token prompt at
       most (StarCoder2's drawn, the others the bf16 weights cast and cut
-      to 2 layers, Zamba2's to 6); then 2
-      gloo ranks on the card serve each through the launcher from
+      to 2 layers, Zamba2's to 6); 2 gloo ranks start up meanwhile, then
+      serve each on the card through the launcher from
       torchrun's variables, each reading the model the one process drew
       back from its saved state dict on the host and keeping its blocks:
       each rank's logits at the prompt's last position within
@@ -408,7 +408,29 @@ Phases (any failed check raises, so the run exits non-zero):
       144 + 48 depthwise) and its gathers and scatters (2 x layers + the
       tables', layers + the tables'); step p50, tokens/s a rank, peak
       memory against the one process's, the collectives' host seconds;
-  26. the seconds of each phase, a JSON line of the six kernels, the
+  26. serving on the JAX serve launcher's (world / mp, mp) host mesh
+      (``dp_serve_check``; the parameters FSDP-placed on 'data', the
+      batch and cache on 'data'): ``flash_fwd`` at a data row's
+      StarCoder2-3B prefill (4 x 4, 2 KV heads at (2, 1), 1 at (2, 2), G
+      12, 128) and ``depthwise_conv1d_fwd`` at a data row's Mamba2-370M
+      prefill (4 x 2,304 x 4) against their plain versions, timed beside
+      SDPA and ``F.conv1d`` and the bound; one process serves
+      StarCoder2-3B cut to 2 layers (bf16, flash) and Mamba2-370M (48
+      layers) at batch 8 over 4 + 4 tokens, and each one's fp32 copy (the
+      bf16 weights cast, 2 layers) over 2 + 2; then gloo ranks on the
+      card serve each through the launcher from torchrun's variables, as
+      (2, 1) on 2 ranks (both models) and as (2, 2) on 4 (StarCoder2-3B):
+      the fp32 copies' logits within 1e-5 of the one process's largest
+      logit and their tokens equal, the bf16 runs' within
+      ``serve.prefill_tol`` (tokens equal where the margin is clear), the
+      ranks bitwise equal, a rank's weight bytes its blocks', a decode
+      step's data gathers (one a layer and the tables: 3 StarCoder2, 50
+      Mamba2) and model sums, each data row's fused prefill (``--smoke``)
+      launching 2 ``flash_fwd`` or 48 ``depthwise_conv1d_fwd`` at its
+      rows' shapes and no decode step launching any; a rank's decode
+      p50/p99, tokens/s, gathers a step and their host seconds, weights
+      and peak memory beside the one process's;
+  27. the seconds of each phase, a JSON line of the six kernels, the
       card's line, and last the result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -791,9 +813,10 @@ VL_FA_F32 = (1, 1024, 8, 2)
 # the encoder's sums moving (8, 1,500, 1,280) bf16 activations through
 # gloo.  The absorbed decode runs over the prompt's first TS_ABSORB_STEPS
 # positions (phase 22's one process over DS_ABSORB_STEPS).  TS_PROMPT is
-# no multiple of the SSD chunk (128).
+# no multiple of the SSD chunk (128); it was 72, then 40, before it was
+# cut for the whole script's time.
 TS_SC2, TS_MP, TS_BATCH, TS_F32_TOL = "starcoder2-3b", 2, 8, 1e-5
-TS_SC2_LAYERS, TS_PROMPT, TS_GEN, TS_DS_PROMPT = 12, 40, 8, 200
+TS_SC2_LAYERS, TS_PROMPT, TS_GEN, TS_DS_PROMPT = 12, 24, 8, 200
 TS_F32_LAYERS, TS_ZB_F32_LAYERS = 2, 6
 TS_WH_LAYERS, TS_ABSORB_STEPS = 8, 16
 # phase 25, FSDP training of the language models (the JAX launcher's
@@ -825,6 +848,34 @@ FS_DP, FS_SC2_LAYERS, FS_SC2_BATCH, FS_STEPS, FS_SEED = 2, 4, 4, 3, 0
 FS_SC2_ARCH = "starcoder2-3b-4l"
 FS_LOSS_RTOL, FS_LATER_RTOL = 1e-3, 5e-3
 FS_F32_BATCH, FS_F32_SEQ, FS_F32_STEPS, FS_F32_TOL = 2, 512, 2, 1e-5
+# phase 26, serving on JAX's serve launcher's (world / mp, mp) host mesh:
+# the parameters FSDP-placed on 'data' (a rank holds its 2-D blocks and
+# gathers a layer's column block over its data group where the layer
+# runs), the batch and cache on 'data'.  Gloo ranks on the one card (NCCL
+# refuses two ranks on one GPU) serve through the launcher from torchrun's
+# variables, as (2, 1) on 2 ranks: StarCoder2-3B (bf16, flash) cut to
+# DPS_SC2_LAYERS layers and Mamba2-370M (48 layers); as (2, 2) on 4
+# ranks: the same StarCoder2-3B; batch DPS_BATCH (DPS_BATCH / 2 rows a
+# data row), DPS_PROMPT sequential prefill tokens and DPS_GEN generated
+# (``--smoke``: each data row's fused prefill held to its decode), and
+# fp32 copies (the bf16 weights cast, cut to LM_FP32_LAYERS layers) over
+# DPS_F32_PROMPT + DPS_F32_GEN tokens.  One process serves each model at
+# the same batch.  Gates: the fp32 copies' logits within DPS_F32_TOL of
+# one process's largest logit and their tokens equal; the bf16 runs
+# within ``serve.prefill_tol``; the ranks bitwise equal (their gathered
+# rows, each data row's computed by its model row); a rank's parameter
+# bytes exactly its blocks'; a decode step's data gathers one a layer
+# plus the tables (StarCoder2's tied one, Mamba2's two); the fused
+# prefill's launches and the kernels' input shapes a data row's.  A data
+# rank's decode step moves each layer's column block through gloo at
+# about 0.8 GB/s (``tools/gloo_bench.py --fsdp``), 0.6-0.9 s a decode
+# step of a rank of either model at (2, 1) on an H100 80GB HBM3 at 700 W:
+# the token counts are cut for the phase's time (16 + 4 and 4 + 2 took
+# the phase 93.6 s there, 8 + 4 and 2 + 2 66.6 s in the whole script on
+# a slower host)
+DPS_BATCH, DPS_SC2_LAYERS, DPS_PROMPT, DPS_GEN = 8, 2, 4, 4
+DPS_F32_PROMPT, DPS_F32_GEN, DPS_F32_TOL = 2, 2, 1e-5
+DPS_LAYOUTS = ((2, 1), (2, 2))
 # the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
 # at 3 and its two passes at 192
 FLASH_WGMMA_KERNELS = 13
@@ -5797,7 +5848,9 @@ def _vl_entries(vl, flash_entries):
 def _served(torch, serve, counters, cfg, model, argv, routing=None):
     """``serve.serve_lm`` from ``argv`` on ``model`` (one process's, on
     the card; or a tensor-parallel rank's whole model on the host, which
-    the launcher narrows to its blocks), this process's peak memory, and
+    the launcher narrows to its blocks), this process's peak memory (the
+    most the call allocated, plus ``model``'s parameters where they lie
+    on the card; what earlier work left allocated is not counted), and
     the kernels' launches split between an encoder-decoder's
     ``fill_cross_cache``, the fused prefill (the one under ``--smoke``,
     ``serve.prefill_gap``) and the rest (the decode steps)."""
@@ -5807,7 +5860,9 @@ def _served(torch, serve, counters, cfg, model, argv, routing=None):
     def marked(key, fn):
         def run(*a, **k):
             before = {c.__name__: c.launches for c in counters}
+            t = time.perf_counter()
             marks[key + "_result"] = fn(*a, **k)
+            marks[key + "_s"] = time.perf_counter() - t
             marks[key] = {c.__name__: c.launches - before[c.__name__]
                           for c in counters}
             return marks[key + "_result"]
@@ -5816,6 +5871,9 @@ def _served(torch, serve, counters, cfg, model, argv, routing=None):
     serve.prefill_gap = marked("prefill", real[0])
     serve.fill_cross_cache = marked("fill", real[1])
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    on_card = sum(p.numel() * p.element_size() for p in model.parameters()
+                  if p.is_cuda)
     torch.cuda.reset_peak_memory_stats()
     try:
         stats, launched = _counted(counters, lambda: serve.serve_lm(
@@ -5828,17 +5886,19 @@ def _served(torch, serve, counters, cfg, model, argv, routing=None):
                step_p99_ms=stats["step_p99_ms"],
                tokens_per_s=stats["tokens_per_s"],
                sequential_prefill_s=stats["prefill_s"],
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_memory_gb=(torch.cuda.max_memory_allocated() - held
+                               + on_card) / 1e9,
                tokens=stats["tokens"],
                prompt_logits=stats["prompt_logits"].float().cpu(),
                prompt=stats["prompt"], prefill_launches=prefill,
                fill_launches=fill,
                decode_launches={k: n - prefill[k] - fill[k]
                                 for k, n in launched.items()},
-               prefill_gap=marks.get("prefill_result"))
+               prefill_gap=marks.get("prefill_result"),
+               smoke_prefill_s=marks.get("prefill_s"))
     out.update({k: stats[k] for k in ("weights_bytes", "cache_bytes",
                                       "collectives", "draw_s", "coords",
-                                      "encode_s")
+                                      "encode_s", "row_tokens_per_s")
                 if k in stats})
     return out
 
@@ -5945,7 +6005,8 @@ def _saved_model(torch, cfg, path):
 
 
 def _ts_rank(rank, st):
-    """Phase 24, one of TS_MP gloo ranks sharing the card: the launcher
+    """Phase 24, one of TS_MP gloo ranks sharing the card, started while
+    the one process serves and waiting for its go file: the launcher
     from torchrun's variables (a localhost port) with ``--model-parallel
     TS_MP`` on each of ``_ts_runs``' models, whole on the host (read back
     from the parent's draw, ``_saved_model``) and narrowed to the rank's
@@ -5987,6 +6048,9 @@ def _ts_rank(rank, st):
     cfgs = _ts_cfgs(configs)
     out = {}
     try:
+        mesh.init_data_group("gloo")
+        while not os.path.exists(st["go"]):  # the one process's draws
+            time.sleep(0.1)
         full = None
         for name, batch, prompt, gen, seed, pseed, smoke in _ts_runs():
             cfg = cfgs[name]
@@ -6296,13 +6360,65 @@ def _ts_launch_gate(name, counters, want, ranks):
         shape=v[-1], launches_per_rank_run=len(v))) for k, v in want.items()}
 
 
+def _ts_one_process(torch, serve, init_model, cfgs, counters, st, one, t0,
+                    out, ranks):
+    """Phase 24's one process: each of ``_ts_runs``' models served on the
+    card into ``one`` (each bf16 model drawn on the host and saved where
+    ``st`` names, an MoE model's selection saved too), then the go file
+    for the waiting ``ranks``; their results."""
+    from repro_torch.models import moe, sharding
+    model = None
+    for name, batch, prompt, gen, seed, pseed, _ in _ts_runs():
+        cfg = cfgs[name]
+        t = time.perf_counter()
+        if seed:  # drawn once on the host; the ranks read it back
+            model = _host_model(torch, cfg, init_model, seed)
+            torch.save(model.state_dict(), st[f"{name}_weights"])
+            model = model.to(DEVICE)
+        else:
+            model = _as_fp32(model, cfg)
+        draw_s = time.perf_counter() - t
+        log = moe.RoutingLog() if cfg.moe else None
+        one[name] = _served(torch, serve, counters, cfg, model,
+                            _ts_argv(cfg.name, batch, prompt, gen, pseed),
+                            routing=log)
+        one[name].update(draw_s=draw_s, weights_bytes=sum(
+            p.numel() * p.element_size() for p in model.parameters()),
+            cache_bytes=serve._nbytes(sharding.tree_leaves(
+                serve.make_cache(cfg, batch, prompt + gen,
+                                 dtype=serve.lm_cache_dtype(cfg),
+                                 device="meta"))))
+        if cfg.mla:
+            one[name]["absorb"] = _ts_absorb(
+                torch, serve, moe, cfg, model, one[name]["prompt"], log,
+                counters)
+        one[name]["run_s"] = time.perf_counter() - t
+        if log is not None:
+            torch.save({k: tuple(t.cpu() for t in v)
+                        for k, v in log.entries.items()},
+                       st[f"{name}_routing"])
+        del log
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    out["one_process_s"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    open(st["go"], "w").close()
+    while not ranks.join():
+        pass
+    out["ranks_wall_s"] = time.perf_counter() - t
+    return [torch.load(os.path.join(st["out"], f"rank{r}.pt"),
+                       weights_only=False) for r in range(TS_MP)]
+
+
 def tp_serve_check(torch, np, configs, init_model, serve, ref,
                    conv1d_brgemm, fa):
     """Phase 24: tensor-parallel serving (see TS_*).  One process serves
     each of ``_ts_runs``' models on the card (the MoE runs recording
-    their expert selection over the whole decode); then TS_MP spawned
-    gloo ranks serve them through the launcher with ``--model-parallel``
-    (``_ts_rank``) and each is held to the one process (``_ts_check``);
+    their expert selection over the whole decode; ``_ts_one_process``)
+    while TS_MP gloo ranks start up; then the ranks serve them through
+    the launcher with ``--model-parallel`` (``_ts_rank``) and each is
+    held to the one process (``_ts_check``);
     the bf16 runs' fused prefills launch ``flash_fwd`` and
     ``depthwise_conv1d_fwd`` on each rank's heads and conv channels
     (``_ts_want``), at the shapes ``_ts_flash_row`` and ``_ts_dw_row``
@@ -6310,8 +6426,6 @@ def tp_serve_check(torch, np, configs, init_model, serve, ref,
     import tempfile
 
     import torch.multiprocessing as mp
-
-    from repro_torch.models import moe, sharding
 
     t0 = time.perf_counter()
     counters = _counters(conv1d_brgemm, fa)
@@ -6338,52 +6452,24 @@ def tp_serve_check(torch, np, configs, init_model, serve, ref,
     one = {}
     torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        st = dict(out=tmp, port=_free_port())
-        model = None
-        for name, batch, prompt, gen, seed, pseed, _ in _ts_runs():
-            cfg = cfgs[name]
-            t = time.perf_counter()
-            if seed:  # drawn once on the host; the ranks read it back
-                model = _host_model(torch, cfg, init_model, seed)
+        # the ranks start up while the one process serves, then wait for
+        # its draws and selections (files at paths named here)
+        st = dict(out=tmp, port=_free_port(), go=os.path.join(tmp, "go"))
+        for name, *_, seed, _, _ in _ts_runs():
+            if seed:
                 st[f"{name}_weights"] = os.path.join(tmp, f"{name}.pt")
-                torch.save(model.state_dict(), st[f"{name}_weights"])
-                model = model.to(DEVICE)
-            else:
-                model = _as_fp32(model, cfg)
-            draw_s = time.perf_counter() - t
-            log = moe.RoutingLog() if cfg.moe else None
-            one[name] = _served(torch, serve, counters, cfg, model,
-                                _ts_argv(cfg.name, batch, prompt, gen,
-                                         pseed),
-                                routing=log)
-            one[name].update(draw_s=draw_s, weights_bytes=sum(
-                p.numel() * p.element_size() for p in model.parameters()),
-                cache_bytes=serve._nbytes(sharding.tree_leaves(
-                    serve.make_cache(cfg, batch, prompt + gen,
-                                     dtype=serve.lm_cache_dtype(cfg),
-                                     device="meta"))))
-            if cfg.mla:
-                one[name]["absorb"] = _ts_absorb(
-                    torch, serve, moe, cfg, model, one[name]["prompt"], log,
-                    counters)
-            one[name]["run_s"] = time.perf_counter() - t
-            if log is not None:
+            if cfgs[name].moe:
                 st[f"{name}_routing"] = os.path.join(tmp,
                                                      f"{name}_routing.pt")
-                torch.save({k: tuple(t.cpu() for t in v)
-                            for k, v in log.entries.items()},
-                           st[f"{name}_routing"])
-            del log
-            torch.cuda.empty_cache()
-        del model
-        torch.cuda.empty_cache()
-        out["one_process_s"] = time.perf_counter() - t0
-        t = time.perf_counter()
-        mp.start_processes(_ts_rank, args=(st,), nprocs=TS_MP,
-                           start_method="spawn")
-        out["ranks_wall_s"] = time.perf_counter() - t
-        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                          weights_only=False) for r in range(TS_MP)]
+        procs = mp.start_processes(_ts_rank, args=(st,), nprocs=TS_MP,
+                                   start_method="spawn", join=False)
+        try:
+            res = _ts_one_process(torch, serve, init_model, cfgs, counters,
+                                  st, one, t0, out, procs)
+        finally:  # a failed one process leaves no rank waiting
+            for proc in procs.processes:
+                if proc.is_alive():
+                    proc.terminate()
     for name, *_ in _ts_runs():
         cfg = cfgs[name]
         dtype = getattr(torch, cfg.dtype)
@@ -6822,6 +6908,439 @@ def _fs_entries(fs, dw_fwd_entry, dw_bw_entry, flash_entries):
             **{k: dw[pas][k] for k in keys})
 
 
+def _dps_cfgs(configs):
+    """Phase 26's models: StarCoder2-3B (bf16, flash) cut to
+    DPS_SC2_LAYERS layers, Mamba2-370M, and each one's fp32 copy cut to
+    LM_FP32_LAYERS layers."""
+    import dataclasses
+    sc2 = dataclasses.replace(configs.get(TS_SC2), n_layers=DPS_SC2_LAYERS,
+                              attn_impl="flash")
+    m2 = configs.get("mamba2-370m")
+    f32 = functools.partial(dataclasses.replace, dtype="float32",
+                            n_layers=LM_FP32_LAYERS)
+    return dict(starcoder2=sc2, mamba2=m2, starcoder2_f32=f32(sc2),
+                mamba2_f32=f32(m2))
+
+
+def _dps_runs(layout):
+    """(name, prompt tokens, generated tokens, weights' seed (None: the
+    previous run's weights cast to fp32), prompt's seed, ``--smoke``) of
+    each model a layout serves: StarCoder2-3B on both, Mamba2-370M on (2,
+    1)."""
+    names = ("starcoder2", "mamba2") if layout == (2, 1) else (
+        "starcoder2",)
+    runs = []
+    for i, name in enumerate(names):
+        seed = 271 + 4 * i
+        runs += [(name, DPS_PROMPT, DPS_GEN, seed, seed + 1, True),
+                 (f"{name}_f32", DPS_F32_PROMPT, DPS_F32_GEN, None,
+                  seed + 3, False)]
+    return runs
+
+
+def _dps_argv(cfg, prompt, gen, seed, mp, smoke):
+    return (_ts_argv(cfg.name, DPS_BATCH, prompt, gen, seed, smoke=smoke)
+            + ["--model-parallel", str(mp), "--dist-backend", "gloo"])
+
+
+def _dps_rank(rank, st):
+    """Phase 26, one of dp x mp gloo ranks sharing the card (``st``: its
+    layout, port, the one process's saved draws): the launcher from
+    torchrun's variables on each of ``_dps_runs``' models, whole on the
+    host and narrowed to the rank's 2-D blocks by the launcher; the flash
+    and depthwise inputs' shapes recorded; the bytes of the rank's blocks
+    from the leaves' shapes (``_dps_blocks_bytes``).
+    Waits for the parent's go file before it serves.  Results go to a
+    file the parent reads."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import conv1d_brgemm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import common as cm
+    from repro_torch.models import sharding
+
+    dp, mp = st["layout"]
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
+    os.environ.update(WORLD_SIZE=str(dp * mp), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(st["port"]))
+    counters = _counters(conv1d_brgemm, fa)
+    shapes, dw_shapes = [], []
+
+    def recorded(q, *a, real=cm.flash_attention, **k):
+        shapes.append(tuple(q.shape))  # a data row's heads (B, T, KV, G, hd)
+        return real(q, *a, **k)
+
+    def dw_recorded(x, *a, real=ops.depthwise_conv1d, **k):
+        dw_shapes.append(tuple(x.shape))  # a data row's conv (B, C, T)
+        return real(x, *a, **k)
+
+    cm.flash_attention, ops.depthwise_conv1d = recorded, dw_recorded
+    cfgs = _dps_cfgs(configs)
+    out = {}
+    try:
+        mesh.init_data_group("gloo")
+        out["ready_at"] = time.time()
+        while not os.path.exists(st["go"]):  # the one process's draws
+            time.sleep(0.1)
+        full = None
+        for name, prompt, gen, seed, pseed, smoke in _dps_runs((dp, mp)):
+            cfg = cfgs[name]
+            t0 = time.perf_counter()
+            full = (_saved_model(torch, cfg, st[f"{name}_weights"]) if seed
+                    else _as_fp32(full, cfg))
+            load_s = time.perf_counter() - t0
+            del shapes[:], dw_shapes[:]
+            r = _served(torch, serve, counters, cfg, full,
+                        _dps_argv(cfg, prompt, gen, pseed, mp, smoke))
+            r["load_s"] = load_s
+            r["flash_shapes"], r["dw_shapes"] = list(shapes), list(dw_shapes)
+            r["blocks_bytes"] = _dps_blocks_bytes(
+                sharding, full, cfg, *mesh.make_host_mesh(model=mp))
+            r["run_s"] = time.perf_counter() - t0
+            r.pop("prompt")
+            out[name] = r
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(st["out"], f"rank{rank}.pt"))
+
+
+def _dps_blocks_bytes(sharding, model, cfg, mesh, coords) -> int:
+    """The bytes of the 2-D blocks of ``model``'s leaves that the device
+    at ``coords`` holds, from the leaves' shapes and the specs (an SSM
+    model's fused leaves at their segment-aligned width on 'model')."""
+    specs = sharding.param_pspecs(model, mesh)
+    total = 0
+    for key, t in model.state_dict().items():
+        name, spec = key.split(".")[-1], specs[key]
+        ssm = cfg.ssm is not None and name in sharding.SSM_SEGMENTS
+        shape = list(sharding.local_shape(
+            t.shape, (*spec[:-1], None) if ssm else spec, mesh))
+        if ssm:
+            shape[-1] = sharding.ssm_local_width(cfg, name,
+                                                 mesh.shape["model"])
+        total += math.prod(shape) * t.element_size()
+    return total
+
+
+def _dps_peak_parts(sharding, model, cfg, layout) -> dict:
+    """The bytes a rank of ``layout`` holds at its peak in a decode step
+    beyond its blocks and cache, from ``model``'s (whole) leaves: a
+    gather (``DataShards._all_gather``) holds at once the flat copy of
+    the rank's blocks of its leaves, the gathered buffer and the
+    reassembled leaves (``staging``: the blocks plus twice the column
+    block); a tied model keeps the gathered table (``table_held``) from
+    the embedding to the unembedding, over its layers' gathers.  ``peak``
+    is the most of: a table's staging, and a layer's beside the held
+    table."""
+    from repro_torch.models import leaf_shapes
+    mesh = sharding.MeshShape(("data", "model"), layout)
+    shapes = leaf_shapes(cfg)
+    specs, dims = sharding.fsdp_dims(shapes, mesh)
+    sizes = {k: t.element_size() for k, t in model.state_dict().items()}
+    layer, tables = 0, {}
+    for k, shape in shapes.items():
+        if dims[k] is None:
+            continue
+        whole = math.prod(sharding.model_block_shape(
+            k, shape, specs[k], mesh, cfg)) * sizes[k]
+        staged = whole // layout[0] + 2 * whole
+        if k.split(".")[0].endswith("layers"):  # a layer's slice of a stack
+            layer += staged // shape[0]
+        else:
+            tables[k] = (whole, staged)
+    held = tables["embed.tok"][0] if cfg.tie_embeddings else 0
+    return dict(table_held=held, layer_staging=layer,
+                table_staging=max(st for _, st in tables.values()),
+                peak=max(max(st for _, st in tables.values()),
+                         held + layer))
+
+
+def _dps_want(cfgs, layout):
+    """What a rank of ``layout`` must show for each bf16 run: its fused
+    prefill's launches, the kernels' input shapes (a data row's DPS_BATCH
+    / dp rows, its model column's heads and conv channels), and a decode
+    step's data gathers (a layer's column block each, then the tables)
+    and model-group sums (2 a layer and the embedding's, at mp > 1)."""
+    from repro_torch.models import sharding
+    dp, mp = layout
+    B, T = DPS_BATCH // dp, DPS_PROMPT
+    out = {}
+    for name in ("starcoder2", "mamba2"):
+        cfg = cfgs[name]
+        L = cfg.n_layers
+        w = dict(data_gathers=L + (1 if cfg.tie_embeddings else 2),
+                 sums=2 * L + 1 if mp > 1 else 0, gathers=int(mp > 1))
+        if cfg.family == "dense":
+            w.update(prefill={"flash_fwd": L}, flash=[
+                (B, T, cfg.n_kv_heads // mp, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.head_dim)] * L, dw=[])
+        else:
+            w.update(prefill={"depthwise_conv1d_fwd": L}, flash=[], dw=[
+                (B, sharding.ssm_local_width(cfg, "conv", mp), T)] * L)
+        for f32 in (False, True):
+            L32 = LM_FP32_LAYERS if f32 else L
+            out[name + ("_f32" if f32 else "")] = dict(
+                w, data_gathers=L32 + (1 if cfg.tie_embeddings else 2),
+                sums=2 * L32 + 1 if mp > 1 else 0)
+    return out
+
+
+def _dps_gate(torch, serve, name, cfg, layout, one, ranks, want, counters):
+    """A run's ranks against the one process and ``want``: the fp32
+    copies' prompt logits within DPS_F32_TOL of the one process's largest
+    logit and every token equal; a bf16 run's within ``prefill_tol``,
+    tokens equal where the top-2 margin is clear (``serve.prefill_gap``'s
+    rule); every rank's gathered logits and tokens bitwise rank 0's (each
+    data row's rows come from its model row); a rank's weight bytes its
+    blocks'; the collectives a decode step; no launch in a decode step,
+    the fused prefill's launches and the kernels' input shapes; the
+    summary."""
+    V = cfg.vocab_size
+    f32 = cfg.dtype == "float32"
+    tol = DPS_F32_TOL if f32 else serve.prefill_tol(cfg, torch.bfloat16)
+    want_l = one["prompt_logits"][:, -1, :V].float()
+    top2 = want_l.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * want_l.abs().max()
+    zero = {c.__name__: 0 for c in counters}
+    gaps = []
+    for r, o in enumerate(ranks):
+        where = f"dp-serve {layout} {name} rank {r}"
+        gaps.append(_ts_rel(o["prompt_logits"][:, -1], want_l, V))
+        same = o["prompt_logits"][:, -1, :V].argmax(-1) == want_l.argmax(-1)
+        if not gaps[-1] <= tol or not bool((same | (
+                torch.zeros_like(clear) if f32 else ~clear)).all()):
+            raise AssertionError(f"{where}: logits {gaps[-1]:.3e} of the "
+                                 f"largest from one process's (tol {tol})"
+                                 f", greedy tokens {same.tolist()}")
+        if f32 and not (o["tokens"] == one["tokens"]).all():
+            raise AssertionError(f"{where}: tokens differ from one "
+                                 "process's")
+        if not (torch.equal(o["prompt_logits"], ranks[0]["prompt_logits"])
+                and (o["tokens"] == ranks[0]["tokens"]).all()):
+            raise AssertionError(f"{where}: its logits or tokens differ "
+                                 "from rank 0's")
+        if o["weights_bytes"] != o["blocks_bytes"]:
+            raise AssertionError(f"{where}: holds {o['weights_bytes']} "
+                                 f"bytes of weights; its blocks are "
+                                 f"{o['blocks_bytes']}")
+        c = o["collectives"]
+        got = dict(data_gathers=c["data_gathers"], sums=c["sums"],
+                   gathers=c["gathers"])
+        if got != {k: want[k] for k in got}:
+            raise AssertionError(f"{where}: a decode step ran {got}; "
+                                 f"expected {want}")
+        if any(o["decode_launches"].values()):
+            raise AssertionError(f"{where}: a decode step launched "
+                                 f"{o['decode_launches']}")
+        if "prefill" in want and not f32:
+            if o["prefill_launches"] != {**zero, **want["prefill"]}:
+                raise AssertionError(f"{where}: the fused prefill launched "
+                                     f"{o['prefill_launches']}; expected "
+                                     f"{want['prefill']}")
+            for key in ("flash", "dw"):
+                if o[f"{key}_shapes"] != want[key]:
+                    raise AssertionError(
+                        f"{where}: {key} inputs {set(o[f'{key}_shapes'])} "
+                        f"({len(o[f'{key}_shapes'])}); expected "
+                        f"{set(want[key])} ({len(want[key])})")
+    r0 = ranks[0]
+    return dict(
+        tol=tol, rank_gaps=gaps, rows_with_clear_margin=int(clear.sum()),
+        tokens_equal_one_process=[float((o["tokens"] == one[
+            "tokens"]).mean()) for o in ranks],
+        step_p50_ms=r0["step_p50_ms"], step_p99_ms=r0["step_p99_ms"],
+        tokens_per_s=r0["tokens_per_s"],
+        row_tokens_per_s=r0["row_tokens_per_s"],
+        one_step_p50_ms=one["step_p50_ms"],
+        one_step_p99_ms=one["step_p99_ms"],
+        one_tokens_per_s=one["tokens_per_s"],
+        collectives=r0["collectives"], weights_bytes=[
+            o["weights_bytes"] for o in ranks],
+        one_weights_bytes=one["weights_bytes"], cache_bytes=[
+            o["cache_bytes"] for o in ranks],
+        peak_memory_gb=[o["peak_memory_gb"] for o in ranks],
+        one_peak_memory_gb=one["peak_memory_gb"],
+        prefill_gap=[o["prefill_gap"] and o["prefill_gap"]["gap"]
+                     for o in ranks],
+        prefill_launches=r0["prefill_launches"],
+        sequential_prefill_s=r0["sequential_prefill_s"],
+        smoke_prefill_s=r0["smoke_prefill_s"], load_s=r0["load_s"],
+        draw_s=r0["draw_s"], run_s=[o["run_s"] for o in ranks])
+
+
+def dp_serve_check(torch, configs, init_model, serve, ref, conv1d_brgemm,
+                   fa):
+    """Phase 26: serving on the (world / mp, mp) mesh (see DPS_*).  The
+    kernels at a data row's prefill shapes against their plain versions;
+    one process serves each model on the card and saves its draw while
+    the ranks of both layouts (``_dps_rank``) start up; then the (2, 1)
+    ranks serve, then the (2, 2) ones, each held to the one process
+    (``_dps_gate``)."""
+    import tempfile
+
+    import torch.multiprocessing as mp_
+
+    from repro_torch.models import sharding
+
+    t0, wall0 = time.perf_counter(), time.time()
+    counters = _counters(conv1d_brgemm, fa)
+    cfgs = _dps_cfgs(configs)
+    sc2 = cfgs["starcoder2"]
+    out = dict(card=_card_line(), backend="gloo")
+    wants = {lay: _dps_want(cfgs, lay) for lay in DPS_LAYOUTS}
+    out["flash_rows"], out["dw_rows"] = {}, {}
+    for lay in DPS_LAYOUTS:
+        w = wants[lay]["starcoder2"]["flash"][0]
+        out["flash_rows"]["%dx%d" % lay] = _ts_flash_row(
+            torch, fa, ref, f"dp-serve {lay} starcoder2", w[0], w[1], w[2],
+            w[3], w[4], sc2.head_dim)
+    w = wants[(2, 1)]["mamba2"]["dw"][0]
+    out["dw_rows"]["2x1"] = _ts_dw_row(
+        torch, conv1d_brgemm, ref, "dp-serve (2, 1) mamba2", w[0], w[1], w[2])
+    out["kernel_rows_s"] = time.perf_counter() - t0
+    one = {}
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        sts, procs = {}, {}
+        weights = {f"{name}_weights": os.path.join(tmp, f"{name}.pt")
+                   for name, *_, seed, _, _ in _dps_runs((2, 1)) if seed}
+        for lay in DPS_LAYOUTS:  # they start up while the one process runs
+            sts[lay] = dict(out=os.path.join(tmp, "x".join(map(str, lay))),
+                            layout=lay, port=_free_port(),
+                            go=os.path.join(tmp, f"go{lay[0]}{lay[1]}"),
+                            **weights)
+            os.makedirs(sts[lay]["out"])
+            procs[lay] = mp_.start_processes(
+                _dps_rank, args=(sts[lay],), nprocs=lay[0] * lay[1],
+                start_method="spawn", join=False)
+        res = {}
+        try:
+            model = None
+            for name, prompt, gen, seed, pseed, _ in _dps_runs((2, 1)):
+                cfg = cfgs[name]
+                if seed:  # drawn once on the host; the ranks read it back
+                    model = _host_model(torch, cfg, init_model, seed)
+                    torch.save(model.state_dict(), weights[f"{name}_weights"])
+                    model = model.to(DEVICE)
+                else:
+                    model = _as_fp32(model, cfg)
+                t = time.time() - wall0
+                one[name] = _served(torch, serve, counters, cfg, model,
+                                    _ts_argv(cfg.name, DPS_BATCH, prompt,
+                                             gen, pseed))
+                one[name]["served_at"] = (t, time.time() - wall0)
+                one[name]["weights_bytes"] = serve._nbytes(
+                    model.parameters())
+                one[name]["peak_parts"] = {
+                    lay: _dps_peak_parts(sharding, model, cfg, lay)
+                    for lay in DPS_LAYOUTS}
+                torch.cuda.empty_cache()
+            del model
+            torch.cuda.empty_cache()
+            out["one_process_s"] = time.perf_counter() - t0 - out[
+                "kernel_rows_s"]
+            for lay in DPS_LAYOUTS:  # one layout at a time on the card
+                st = sts[lay]
+                t = time.perf_counter()
+                open(st["go"], "w").close()
+                while not procs[lay].join():
+                    pass
+                out[f"ranks_{lay[0]}x{lay[1]}_s"] = time.perf_counter() - t
+                res[lay] = [torch.load(os.path.join(st["out"],
+                                                    f"rank{r}.pt"),
+                                       weights_only=False)
+                            for r in range(lay[0] * lay[1])]
+                out[f"ranks_{lay[0]}x{lay[1]}_ready_at"] = max(
+                    r["ready_at"] for r in res[lay]) - wall0
+        finally:  # a failed run leaves no rank waiting
+            for ctx in procs.values():
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.terminate()
+    for lay in DPS_LAYOUTS:
+        for name, *_ in _dps_runs(lay):
+            key = f"{lay[0]}x{lay[1]} {name}"
+            out[key] = _dps_gate(torch, serve, name, cfgs[name], lay,
+                                 one[name], [r[name] for r in res[lay]],
+                                 wants[lay][name], counters)
+            parts = one[name]["peak_parts"][lay]
+            out[key].update(peak_parts=parts, peak_predicted_gb=[
+                (o[name]["blocks_bytes"] + o[name]["cache_bytes"]
+                 + parts["peak"]) / 1e9 for o in res[lay]])
+            print(f"dp-serve-{key} " + json.dumps(out[key], default=str),
+                  flush=True)
+    out["blocks_share"] = {
+        key: out[key]["weights_bytes"][0] / out[key]["one_weights_bytes"]
+        for key in out if key.endswith(("starcoder2", "mamba2"))}
+    served = [one[name]["served_at"] for name in one]
+    out["one_process_served_at"] = (served[0][0], served[-1][1])
+    out["one_overlaps_rank_startup"] = any(
+        out[f"ranks_{a}x{b}_ready_at"] > served[0][0]
+        for a, b in DPS_LAYOUTS)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dp-serve: phase 26 in {out['seconds']:.1f} s ({out['card']}; "
+          f"kernel rows {out['kernel_rows_s']:.1f} s, one process "
+          f"{out['one_process_s']:.1f} s, ranks (2, 1) "
+          f"{out['ranks_2x1_s']:.1f} s, (2, 2) {out['ranks_2x2_s']:.1f} s)",
+          flush=True)
+    print(f"dp-serve: one process served at +{served[0][0]:.1f} to "
+          f"+{served[-1][1]:.1f} s; the ranks ready at +"
+          f"{out['ranks_2x1_ready_at']:.1f} (2, 1) and +"
+          f"{out['ranks_2x2_ready_at']:.1f} s (2, 2): the one process's "
+          + ("times overlap the ranks' start-up"
+             if out["one_overlaps_rank_startup"] else
+             "times follow the ranks' start-up"), flush=True)
+    for key in out:
+        if not key.endswith(("starcoder2", "mamba2")):
+            continue
+        a = out[key]
+        c = a["collectives"]
+        print(f"dp-serve:   {key}: decode p50 {a['step_p50_ms']:.1f} ms, "
+              f"p99 {a['step_p99_ms']:.1f} a rank, "
+              f"{a['tokens_per_s']:.1f} tokens/s the batch, "
+              f"{a['row_tokens_per_s']:.1f} a data row (one process "
+              f"{a['one_step_p50_ms']:.1f} ms, {a['one_tokens_per_s']:.1f} "
+              f"tokens/s); {c['data_gathers']:.0f} data gathers a step "
+              f"({c['data_seconds'] * 1e3:.1f} ms of host time), "
+              f"{c['sums']:.0f} model sums ({c['seconds'] * 1e3:.1f} ms); "
+              f"weights {a['weights_bytes'][0] / 1e9:.3f} GB a rank of "
+              f"{a['one_weights_bytes'] / 1e9:.3f}, peak "
+              f"{max(a['peak_memory_gb']):.3f} GB a rank (its blocks "
+              f"{a['weights_bytes'][0] / 1e9:.3f}, cache "
+              f"{a['cache_bytes'][0] / 1e9:.3f}, the gathers' staging "
+              f"{a['peak_parts']['peak'] / 1e9:.3f}, of it a held table "
+              f"{a['peak_parts']['table_held'] / 1e9:.3f}: "
+              f"{max(a['peak_predicted_gb']):.3f} predicted) against "
+              f"{a['one_peak_memory_gb']:.3f} one process; logits "
+              f"{max(a['rank_gaps']):.2e} of the largest (tol "
+              f"{a['tol']:.2e})", flush=True)
+    return out
+
+
+def _dps_entries(dps, dw_fwd_entry, flash_entries):
+    """Phase 26's numbers in the kernels line: ``flash_fwd`` and
+    ``depthwise_conv1d_fwd`` at a data row's fused-prefill shapes
+    (launches a rank, the shape, its row)."""
+    keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err")
+    flash_entries[0]["dp_serve"] = {
+        lay: dict(launches_per_rank_prefill=dps[f"{lay} starcoder2"][
+            "prefill_launches"]["flash_fwd"], **{k: row[k] for k in keys})
+        for lay, row in dps["flash_rows"].items()}
+    dw_fwd_entry["dp_serve"] = {
+        lay: dict(launches_per_rank_prefill=dps[f"{lay} mamba2"][
+            "prefill_launches"]["depthwise_conv1d_fwd"],
+            **{k: row[k] for k in keys})
+        for lay, row in dps["dw_rows"].items()}
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -7123,6 +7642,8 @@ def main(argv=None) -> int:
                ref, conv1d_brgemm, flash_attention)
     fs = phase(25, fsdp_check, torch, configs, train, synthetic, ref,
                conv1d_brgemm, flash_attention)
+    dps = phase(26, dp_serve_check, torch, configs, init_model, serve, ref,
+                conv1d_brgemm, flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -7399,6 +7920,7 @@ def main(argv=None) -> int:
     _vl_entries(vl, flash_entries)
     _ts_entries(ts, dw_fwd_entry, flash_entries)
     _fs_entries(fs, dw_fwd_entry, dw_bw_entry, flash_entries)
+    _dps_entries(dps, dw_fwd_entry, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     print(f"phase times in {time.perf_counter() - t_start:.1f} s: "
@@ -7423,7 +7945,8 @@ def main(argv=None) -> int:
                            lm_serve=lm_serve, dp=dp, tp=tp, telemetry=tel,
                            elastic=elastic, whisper=wh, zamba2=zb,
                            moonlight=mn, deepseek_v3=ds, internvl2=vl,
-                           tp_serve=ts, fsdp=fs, phase_s=phase_s,
+                           tp_serve=ts, fsdp=fs, dp_serve=dps,
+                           phase_s=phase_s,
                            kernels=kernels),
                       f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

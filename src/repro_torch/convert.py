@@ -34,12 +34,18 @@ the model's config, both give the blocks that device executes instead
 stays whole over ``'model'`` (``models/mla.py``) and an SSM model's fused
 leaves and conv state take their segment-aligned blocks
 (``sharding.segment_block``), as ``models.local_model`` and
-``init_cache(mp=)`` lay them out::
+``init_cache(mp=)`` lay them out, and ``models.place_rank`` gives the
+model its groups (and an MoE model its expert ids)::
 
-    model = models.model_class(cfg)(cfg, params_from_jax(
-        tree, mesh=m, coords=c, cfg=cfg))
-    model.tp = sharding.ModelGroup(model_group)
+    model = models.place_rank(models.model_class(cfg)(cfg, params_from_jax(
+        tree, mesh=m, coords=c, cfg=cfg)), m, c, model_group)
     cache = cache_from_jax(jax_cache, mesh=m, coords=c, cfg=cfg)
+
+On JAX's serve launcher's ``(dp, mp)`` host mesh the same calls give a
+rank's 2-D blocks (every ``'dp'`` dimension split over the data rows)
+and a data row's rows of the cache (the batch on ``'data'`` where it
+divides); ``place_rank(..., data_group=, batch=)`` then sets the model's
+``ds``.
 
 ``train_state_from_jax(state, cfg, group=data_group)`` gives an FSDP
 rank's state: its blocks of the parameters and of both moments on a

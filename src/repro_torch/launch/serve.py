@@ -107,13 +107,33 @@ cache bytes and the group's collectives a decode step:
 (``--arch mamba2-370m``, ``zamba2-7b`` or ``whisper-large-v3`` alike;
 with ``--device cpu --smoke`` the reduced config on the CPU.)
 
+A world larger than N is JAX's serve launcher's ``(world / N, N)`` host
+mesh (``make_host_mesh(model=N)``), ``--model-parallel 1`` on a world of
+more than one rank included: the parameters are placed FSDP-style by the
+same rules, every ``'dp'`` dimension split over the data rows (an MoE
+stack's experts over ``('data', 'model')`` where they divide), so a rank
+holds its 2-D blocks; where a layer runs, its column block is gathered
+over the rank's data group (``sharding.DataShards``) and the model
+group's collectives run on it as above; no gathered weight outlives its
+layer.  The batch splits over the data rows where it divides (each row's
+cache holds its rows; an MoE model's capacity drops are the global
+batch's), else every row serves the whole batch; the tokens and prompt
+logits are gathered, the whole batch's on every rank.  The fused prefill
+runs ``flash_fwd`` and ``depthwise_conv1d_fwd`` at a data row's rows:
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch starcoder2-3b --model-parallel 2 --dist-backend gloo \
+        --batch 8 --prompt-len 200 --gen 64
+
 Layouts with no explicit form here are refused, naming ROADMAP.md queue
 A item 7 (``tp_refusal``): heads, KV heads or SSM heads that do not
 divide over N (GSPMD pads them, or shards the cache's head_dim), SSM
 groups that do not, any other leaf whose split dimension does not
-divide (the padded vocabulary, an expert count), and a world larger
-than N (the data axis: FSDP placement).  A failed collective, build or
-launch raises on its rank and the run exits non-zero.
+divide over its axes (the padded vocabulary, an expert count, a
+``'dp'`` dimension over the data rows); a world that is no multiple of N
+is refused too, and the conv family on any world (JAX's ``serve_conv``
+builds no mesh).  A failed collective, build or launch raises on its
+rank and the run exits non-zero.
 
 Conv family (AtacWorks): a continuous-serving loop over the streaming
 conv1d: a request queue, per-stream positions, and padded-batch
@@ -138,6 +158,7 @@ PATH --check-serving`` reads it.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from collections import deque
 
@@ -468,17 +489,20 @@ TP_ITEM = "ROADMAP.md queue A item 7"
 
 
 def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
-    """Why ``cfg`` cannot serve tensor-parallel over ``mp`` model ranks
-    of a world of ``world`` ranks here, or None: the layouts with no
-    explicit form (the module docstring)."""
+    """Why ``cfg`` cannot serve over ``mp`` model ranks of a world of
+    ``world`` ranks (None: the model axis alone) laid out as JAX's serve
+    launcher's ``(world / mp, mp)`` host mesh here, or None: the layouts
+    with no explicit form (the module docstring)."""
     if cfg.family == "conv":
-        return ("the conv family serves by streaming, on one process; its "
-                "model axis is training's (launch/train.py)")
-    if world is not None and world != mp:
+        return ("the conv family serves by streaming, on one process: the "
+                "JAX package's serve_conv builds no mesh (its model axis is "
+                "training's, launch/train.py)")
+    if world is not None and world % mp:
         return (f"a world of {world} ranks for --model-parallel {mp}: "
-                + ("a data axis (the FSDP placement of the parameters on "
-                   f"'data') has no explicit form here ({TP_ITEM})"
-                   if world > mp else f"the model axis needs {mp} ranks"))
+                + (f"the model axis needs {mp} ranks" if world < mp else
+                   f"the (world / mp, mp) mesh needs a multiple of {mp} "
+                   "ranks"))
+    dp = 1 if world is None else world // mp
     if cfg.n_heads % mp:
         return (f"{cfg.n_heads} heads do not divide over {mp} model ranks "
                 f"(GSPMD pads the head dimension; no explicit form here: "
@@ -495,22 +519,39 @@ def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
             sharding.ssm_segments(cfg, "in_proj", mp)
         except ValueError as e:
             return f"{e} (no explicit form here: {TP_ITEM})"
-    mesh_shape = sharding.MeshShape(("data", "model"), (1, mp))
+    mesh_shape = sharding.MeshShape(("data", "model"), (dp, mp))
     shapes = leaf_shapes(cfg)
     for key, spec in sharding.param_pspecs(shapes, mesh_shape).items():
         if cfg.ssm is not None and key.split(".")[-1] in (
                 sharding.SSM_SEGMENTS):
-            continue  # segment-aligned: checked above
+            # segment-aligned on 'model' (checked above); the rest even
+            spec = (*spec[:-1], None)
         try:
             sharding.local_shape(shapes[key], spec, mesh_shape)
         except ValueError as e:
             return f"{key}: {e} (GSPMD pads it; no explicit form: {TP_ITEM})"
+    if dp > 1:
+        try:
+            sharding.fsdp_dims(shapes, mesh_shape)
+        except ValueError as e:
+            return f"{e} ({TP_ITEM})"
     return None
 
 
+def distributed(args) -> bool:
+    """Whether the launcher serves over a world of ranks:
+    ``--model-parallel`` above 1, or a world of more than one rank, from
+    torchrun's variables or already started (``--model-parallel 1``
+    there is the ``(world, 1)`` mesh)."""
+    return (args.model_parallel != 1
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1
+            or (dist.is_initialized() and dist.get_world_size() > 1))
+
+
 def _tp_start(args, cfg):
-    """Start (or join) the world from torchrun's variables, lay it out as
-    (1, mp): ``(mesh shape, coordinates, model group, device)``."""
+    """Start (or join) the world from torchrun's variables and lay it out
+    as JAX's serve launcher's ``(world / mp, mp)`` host mesh: ``(mesh
+    shape, coordinates, data group, model group, device)``."""
     mp = args.model_parallel
     why = tp_refusal(cfg, mp)
     if why:
@@ -521,9 +562,10 @@ def _tp_start(args, cfg):
     why = tp_refusal(cfg, mp, world)
     if why:
         raise ValueError(why)
-    _, model_group = mesh.init_mesh(1, mp)
+    data_group, model_group = mesh.init_mesh(world // mp, mp)
     mesh_shape, coords = mesh.make_host_mesh(model=mp)
-    return mesh_shape, coords, model_group, rank_device(args.device)
+    return (mesh_shape, coords, data_group, model_group,
+            rank_device(args.device))
 
 
 def _nbytes(tensors) -> int:
@@ -547,48 +589,72 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
     ``args.seed``) and ``image_logits``, the last logits of the fused
     prefill of the prompt behind them.
 
-    With ``args.model_parallel`` N > 1 the world is started (or joined)
-    from torchrun's variables and laid out as (1, N); ``model`` (the
-    whole model, anywhere; else one drawn on the host from ``args.seed``)
-    gives this rank its blocks (``models.local_model``), and every
-    rank returns its numbers, which add ``model_parallel``,
-    ``weights_bytes``, ``cache_bytes`` (the rank's), ``collectives``
-    (the group's sums and gathers a decode step and their host seconds)
-    and ``draw_s`` (the host draw and the blocks' move to the device).
-    Rank 0 alone prints.  ``routing``: a ``moe.RoutingLog`` the decode
-    records into, replaying its ``replay`` when it has one (an MoE
-    model; under ``--smoke`` one is made)."""
+    With ``args.model_parallel`` N > 1, or under torchrun with a world
+    of more than one rank (``distributed``), the world is started (or
+    joined) from torchrun's variables and laid out as JAX's serve
+    launcher's ``(world / N, N)`` host mesh; ``model`` (the whole model,
+    anywhere; else one drawn on the host from ``args.seed``) gives this
+    rank its 2-D blocks (``models.local_model``: on a data axis of more
+    than one rank each layer's column block is gathered over the data
+    group where the layer runs, and no gathered weight outlives its
+    layer).  Where the batch divides over the data rows, data row d
+    serves prompt rows ``[d B/dp, (d+1) B/dp)`` and its cache holds only
+    those (JAX's ``cache_pspecs``); otherwise every data row serves the
+    whole batch.  ``tokens``, ``prompt``, ``prompt_logits`` and a VLM's
+    ``patches`` and ``image_logits`` are gathered over the data group,
+    the whole batch's as in one process, and ``tokens_per_s`` is the
+    whole batch's (its tokens over the slowest data row's decode time);
+    ``row_tokens_per_s`` is the data row's own.  Every rank returns its
+    numbers, which add ``model_parallel``, ``data_parallel``,
+    ``coords``, ``rows`` (the data row's prompt rows), ``weights_bytes``,
+    ``cache_bytes`` (the rank's), ``peak_bytes`` (the card's peak
+    allocation on the rank's device over the run, None on the CPU),
+    ``collectives`` (a decode step's model-group ``sums`` and
+    ``gathers``, data-group ``data_gathers``, and their host
+    ``seconds`` and ``data_seconds``) and ``draw_s`` (the host draw and
+    the blocks' move to the device).  Rank 0 alone prints.  ``routing``:
+    a ``moe.RoutingLog`` the decode records into, replaying its
+    ``replay`` when it has one (an MoE model; under ``--smoke`` one is
+    made)."""
     if args.prompt_len < 1 or args.gen < 2:
         raise ValueError("--prompt-len must be >= 1 and --gen >= 2 (the "
                          "first generated token comes from the prefill)")
-    mp = args.model_parallel
-    extra = {}
-    if mp == 1:
+    mp, dp = args.model_parallel, 1
+    rows, extra, data_group = slice(0, args.batch), {}, None
+    if not distributed(args):
         device = require_device(args.device)
         if model is None:
             model = init_model(cfg, seed=args.seed, device=device)
     else:
-        mesh_shape, coords, model_group, device = _tp_start(args, cfg)
+        (mesh_shape, coords, data_group, model_group,
+         device) = _tp_start(args, cfg)
+        dp = mesh_shape.shape["data"]
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         if model is None:
             model = init_model(cfg, seed=args.seed, device="cpu")
         model = local_model(model, mesh_shape, coords, model_group,
-                            device=device)
+                            device=device, data_group=data_group,
+                            batch=args.batch)
+        rows = sharding.batch_rows(args.batch, dp, coords["data"])
         extra.update(draw_s=time.perf_counter() - t0, model_parallel=mp,
-                     coords=coords)
-    say = print if mp == 1 or coords["model"] == 0 else (
+                     data_parallel=dp, coords=coords,
+                     rows=(rows.start, rows.stop))
+    say = print if dp * mp == 1 or coords == {"data": 0, "model": 0} else (
         lambda *a, **k: None)
+    batch = rows.stop - rows.start  # this data row's
     max_len = args.prompt_len + args.gen
     cache_dtype = lm_cache_dtype(cfg)
     cache = make_cache(cfg, args.batch, max_len, dtype=cache_dtype,
-                       device=device, mp=mp)
-    if mp != 1:
+                       device=device, mp=mp, dp=dp)
+    if dp * mp != 1:
         extra.update(weights_bytes=_nbytes(model.parameters()),
                      cache_bytes=_nbytes(sharding.tree_leaves(cache)))
     frames, encode_s = None, None
     if cfg.family == "encdec":
         frames = make_batch(cfg, args.batch, args.prompt_len,
-                            seed=args.seed)["frames"].to(device)
+                            seed=args.seed)["frames"][rows].to(device)
         t0 = time.perf_counter()
         fill_cross_cache(model, cache, frames)
         if device.type == "cuda":
@@ -602,7 +668,7 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
     rng = np.random.default_rng(args.seed)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
-    ).to(device)
+    )[rows].to(device)
 
     # prefill: sequential teacher-forced decode steps (cache-correct by
     # construction); under --smoke an MoE model records its selection
@@ -632,9 +698,8 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
         f"{prefill_s:.3f} s", flush=True)
 
     times = []
-    tp = getattr(model, "tp", None)
-    if tp is not None:
-        before = tp.counts()
+    tp, ds = model.tp, model.ds
+    before = [g.counts() for g in (tp, ds) if g is not None]
     try:
         model.routing = whole
         for t in range(args.prompt_len, max_len - 1):
@@ -645,20 +710,43 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
             finite &= torch.isfinite(logits).all()
     finally:
         model.routing = None
-    if tp is not None:
-        after = tp.counts()
-        extra["collectives"] = {k: (after[k] - before[k]) / len(times)
-                                for k in after}
+    if dp * mp != 1:
+        c = {"sums": 0, "gathers": 0, "seconds": 0.0, "data_gathers": 0,
+             "data_seconds": 0.0}
+        if tp is not None:
+            after = tp.counts()
+            c.update({k: (after[k] - before[0][k]) / len(times)
+                      for k in after})
+        if ds is not None:
+            after = ds.counts()
+            c.update(data_gathers=(after["gathers"] - before[-1]["gathers"])
+                     / len(times), data_seconds=(
+                         after["seconds"] - before[-1]["seconds"])
+                     / len(times))
+        extra["collectives"] = c
     if not bool(finite):
         raise AssertionError("non-finite logits")
-    tokens = torch.cat(out, dim=1).numpy()
+    tokens = torch.cat(out, dim=1)
     st = np.asarray(times)
+    decode_s = float(st.sum())
+    if dp * mp != 1:
+        extra["row_tokens_per_s"] = batch * len(times) / decode_s
+    row_prompt, row_logits = prompt, prompt_logits
+    if batch != args.batch:  # the data rows' shares, in row order
+        tokens = _gather_rows(tokens.to(device), data_group).cpu()
+        prompt = _gather_rows(prompt, data_group)
+        prompt_logits = _gather_rows(prompt_logits, data_group)
+        slowest = torch.tensor([decode_s], dtype=torch.float64,
+                               device=device)
+        dist.all_reduce(slowest, op=dist.ReduceOp.MAX, group=data_group)
+        decode_s = float(slowest)
+    tokens = tokens.numpy()
     stats = dict(device=str(device), cache_dtype=str(cache_dtype),
                  batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
                  prefill_s=prefill_s, steps=len(times), step_s=times,
                  step_p50_ms=float(np.median(st)) * 1e3,
                  step_p99_ms=float(np.percentile(st, 99)) * 1e3,
-                 tokens_per_s=args.batch * len(times) / float(st.sum()),
+                 tokens_per_s=args.batch * len(times) / decode_s,
                  tokens=tokens, prompt=prompt, prompt_logits=prompt_logits,
                  **extra)
     if frames is not None:
@@ -667,17 +755,23 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
         stats["routing"] = routing
     say(f"generated {tokens.shape} tokens, logits finite: step p50 "
         f"{stats['step_p50_ms']:.3f} ms, p99 {stats['step_p99_ms']:.3f} ms,"
-        f" {stats['tokens_per_s']:.1f} tokens/s", flush=True)
-    if mp != 1:
+        f" {stats['tokens_per_s']:.1f} tokens/s"
+        + (f" ({extra['row_tokens_per_s']:.1f} a data row)" if dp > 1
+           else ""), flush=True)
+    if dp * mp != 1:
         c = extra["collectives"]
-        say(f"model-parallel {mp}: a rank holds {extra['weights_bytes']:,} "
-            f"bytes of weights and {extra['cache_bytes']:,} of cache; a "
-            f"decode step runs {c['sums']:.0f} sums and {c['gathers']:.0f} "
-            f"gathers over the model group ({c['seconds'] * 1e3:.3f} ms of "
-            f"host time)", flush=True)
+        say(f"model-parallel {mp}, mesh (data {dp}, model {mp}): a rank "
+            f"holds {extra['weights_bytes']:,} bytes of weights and "
+            f"{extra['cache_bytes']:,} of cache for rows "
+            f"{rows.start}:{rows.stop}; a decode step runs "
+            f"{c['data_gathers']:.0f} gathers over the data group "
+            f"({c['data_seconds'] * 1e3:.3f} ms of host time) and "
+            f"{c['sums']:.0f} sums and {c['gathers']:.0f} gathers over the "
+            f"model group ({c['seconds'] * 1e3:.3f} ms)", flush=True)
     say("sample:", tokens[0, :16])
     if args.smoke:
-        gap = prefill_gap(model, cfg, prompt, prompt_logits, frames,
+        # each data row holds its fused prefill to its own rows' decode
+        gap = prefill_gap(model, cfg, row_prompt, row_logits, frames,
                           routing=routing)
         if gap["gap"] > gap["tol"] or not gap["tokens_equal"]:
             raise AssertionError(f"the fused prefill diverged from the "
@@ -695,19 +789,43 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
                 f"largest score difference {r['max_score_diff']:.3e}), "
                 f"max diff {gap['free_gap']:.2e}")
         if cfg.family == "vlm":
-            stats.update(image_prefill(model, cfg, prompt, args.seed,
-                                       say=say))
+            image = image_prefill(model, cfg, row_prompt, args.seed,
+                                  say=say, rows=rows, batch=args.batch)
+            if batch != args.batch:
+                image = {k: _gather_rows(v, data_group)
+                         for k, v in image.items()}
+            stats.update(image)
+    if device.type == "cuda" and dp * mp != 1:
+        stats["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    elif dp * mp != 1:
+        stats["peak_bytes"] = None
     return stats
 
 
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every data row's ``t`` (its rows of the batch, equal shares)
+    joined along the first dimension in data-rank order: the whole
+    batch's, on every rank."""
+    t = t.contiguous()
+    buf = t.new_empty((dist.get_world_size(group) * t.shape[0],
+                       *t.shape[1:]))
+    dist.all_gather_into_tensor(buf, t, group=group)
+    return buf
+
+
 def image_prefill(model, cfg, prompt: torch.Tensor, seed: int,
-                  say=print) -> dict:
+                  say=print, rows: slice | None = None,
+                  batch: int | None = None) -> dict:
     """A VLM's fused prefill of ``prompt`` behind ``cfg.n_image_tokens``
     image embeddings drawn by ``vlm_batch`` from ``seed``: ``patches``
-    and ``image_logits`` (B, 1, padded_vocab), checked finite."""
+    and ``image_logits`` (B, 1, padded_vocab), checked finite.  On a data
+    row, ``prompt`` is its ``rows`` of a ``batch`` whose patches are
+    drawn whole, and the row's are taken."""
     B, T = prompt.shape
-    patches = make_batch(cfg, B, cfg.n_image_tokens + T, seed=seed)[
-        "patches"].to(prompt.device)
+    patches = make_batch(cfg, batch or B, cfg.n_image_tokens + T,
+                         seed=seed)["patches"]
+    patches = patches[rows if rows is not None else slice(None)].to(
+        prompt.device)
     _, logits = make_prefill_step(cfg)(model, {"tokens": prompt,
                                                "patches": patches})
     if not bool(torch.isfinite(logits).all()):
@@ -736,10 +854,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=16,
                     help="LM: tokens generated per sequence")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="LM: serve tensor-parallel over this many ranks "
-                         "started by torchrun")
+                    help="LM: the model axis of the (world / N, N) mesh of "
+                         "the ranks started by torchrun (tensor-parallel "
+                         "over N, the parameters FSDP-placed on the data "
+                         "axis, the batch split over the data rows)")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
-                    help="with --model-parallel > 1: the group's backend "
+                    help="on a world of more than one rank: the backend "
                          "(default nccl on the card, gloo on the CPU; gloo "
                          "lets the ranks share one card)")
     ap.add_argument("--seed", type=int, default=0)
@@ -768,6 +888,8 @@ def main(argv=None) -> int:
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    if cfg.family == "conv" and distributed(args):
+        raise ValueError(tp_refusal(cfg, args.model_parallel))
     try:
         if cfg.family == "conv":
             return serve_conv(args, cfg)
@@ -775,7 +897,7 @@ def main(argv=None) -> int:
         return 0
     finally:
         obs.flush()  # the spans of passes outside a request span
-        if args.model_parallel != 1:
+        if distributed(args):
             mesh.destroy()
 
 

@@ -29,13 +29,16 @@ K/V before the first decode step.  The conv family's model is
 ``repro_torch.core.blocks``, which serves through ring-buffer streaming
 instead of a cache.
 
-Every language-model family serves tensor-parallel: ``local_model``
-gives a rank its blocks (``models/sharding.py``) and its model group,
-and each family's ``forward`` and ``decode_step`` run them; its
-``init_cache`` takes ``mp=``.  Every one trains FSDP on a data group:
-``fsdp_model`` gives a rank its blocks on a (dp, 1) mesh and its
-``sharding.DataShards``, and each family's ``forward`` gathers the whole
-leaves where it reads them.
+Every language-model family serves on JAX's serve launcher's ``(dp,
+mp)`` host mesh: ``local_model`` gives a rank its 2-D blocks
+(``models/sharding.py``), its model group and, for dp > 1, its
+``sharding.DataShards``, and each family's ``forward`` and
+``decode_step`` gather a layer's column block over the data group where
+the layer runs and run the model group's collectives on it; its
+``init_cache`` takes ``mp=`` and a data row's batch.  Every one trains
+FSDP on a data group: ``fsdp_model`` gives a rank its blocks on a (dp,
+1) mesh and its ``sharding.DataShards``, and each family's ``forward``
+gathers the whole leaves where it reads them.
 """
 from __future__ import annotations
 
@@ -87,19 +90,61 @@ def leaf_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return {k: v[0] for k, v in get_model(cfg)._leaf_spec(cfg).items()}
 
 
-def local_model(model, mesh, coords, model_group, device=None):
-    """A tensor-parallel rank's model of any language-model family: a
-    model of ``model``'s class and config whose leaves are the blocks
-    the device at ``coords`` of ``mesh`` executes
-    (``sharding.local_state_dict(..., cfg=)``: JAX's blocks, an SSM
-    model's fused leaves segment-aligned), on ``device`` (default: where
-    they are), its ``tp`` the ``sharding.ModelGroup`` of
-    ``model_group``."""
+def local_model(model, mesh, coords, model_group, device=None,
+                data_group=None, batch=None):
+    """A rank's serving model of any language-model family on ``mesh``
+    (JAX's serve launcher's ``(world / mp, mp)`` host mesh): a model of
+    ``model``'s class and config whose leaves are the blocks the device
+    at ``coords`` holds (``sharding.local_state_dict(..., cfg=)``: JAX's
+    2-D blocks, an SSM model's fused leaves segment-aligned on
+    ``'model'``), on ``device`` (default: where they are), placed by
+    :func:`place_rank`."""
     from repro_torch.models import sharding
-    out = type(model)(model.cfg, sharding.local_state_dict(
-        model, mesh, coords, device=device, cfg=model.cfg))
-    out.tp = sharding.ModelGroup(model_group)
-    return out
+    cfg = model.cfg
+    return place_rank(type(model)(cfg, sharding.local_state_dict(
+        model, mesh, coords, device=device, cfg=cfg)), mesh, coords,
+        model_group, data_group, batch)
+
+
+def place_rank(model, mesh, coords, model_group, data_group=None,
+               batch=None):
+    """Give ``model``, whose leaves are the 2-D blocks the device at
+    ``coords`` of ``mesh`` holds (``local_model``, or
+    ``convert.params_from_jax(..., mesh=, coords=, cfg=)``), the groups
+    it serves over; returns it.
+
+    Its ``tp`` is the ``sharding.ModelGroup`` of ``model_group`` (None on
+    a model axis of one).  On a data axis of more than one rank its
+    ``ds`` is the ``sharding.DataShards`` of ``data_group`` over the
+    mesh: each family's ``forward`` and ``decode_step`` gather over the
+    data group, where a layer runs, the block its model column executes,
+    then run the model group's sums and gathers on it; no gathered weight
+    outlives its layer, so a rank's memory holds its 2-D blocks and one
+    layer's column block at a time.  An MoE model's ``expert_ids`` are
+    the experts its column runs (``sharding.expert_ids``; None: all);
+    its ``data_group``, over whose global batch the capacity dispatch
+    drops, is ``data_group`` where ``batch`` (the global batch served;
+    None: a split one) splits over the data rows
+    (``sharding.batch_splits``), None where every data row serves the
+    whole batch."""
+    from repro_torch.models import sharding
+    cfg = model.cfg
+    dp = mesh.shape["data"]
+    shapes = leaf_shapes(cfg)
+    model.tp = None if model_group is None else sharding.ModelGroup(
+        model_group)
+    if dp > 1:
+        model.ds = sharding.DataShards(data_group, shapes, mesh, coords, cfg)
+    if cfg.moe is not None:
+        key = next(k for k in shapes if k.endswith("moe.w_gate"))
+        ids = sharding.expert_ids(cfg.moe.n_experts,
+                                  sharding.param_pspecs(shapes, mesh)[key][1],
+                                  mesh, coords)
+        model.expert_ids = None if ids == list(range(cfg.moe.n_experts)) \
+            else ids
+        if dp > 1 and (batch is None or sharding.batch_splits(batch, dp)):
+            model.data_group = data_group
+    return model
 
 
 def fsdp_model(model, group, device=None):

@@ -442,17 +442,32 @@ def init_cache(cfg, batch: int, max_len: int = 0,
             for k, v in one.items()}
 
 
+def layer_decode(model, scale: torch.Tensor, p: dict, x: torch.Tensor,
+                 state: dict) -> torch.Tensor:
+    """One layer's block on one token (``block_decode`` of the normed
+    ``x``), its leaves (``scale`` and the mixer's ``p``, a layer's slices)
+    gathered over a data rank's group first (``model.ds``): the gathered
+    leaves die with the call."""
+    scale, *leaves = cm.gather_layer(model.ds, LAYER_KEYS,
+                                     (scale, *p.values()))
+    return block_decode(dict(zip(MIXER_KEYS, leaves)),
+                        cm.apply_norm(scale, x, model.cfg), model.cfg, state,
+                        model.tp)
+
+
 def decode_step(model: Mamba2, cache: dict, tokens: torch.Tensor,
                 pos: int) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B, 1) int -> (fp32 logits (B, 1,
     padded_vocab), cache), the cache updated in place.  ``pos`` is unused:
-    the state holds the whole history."""
+    the state holds the whole history.  A data rank's model
+    (``model.ds``) gathers each layer's leaves, and the tables, where
+    they are read."""
     cfg, tp = model.cfg, model.tp
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
+    x = cm.embed_tokens(cm.gathered(model, ["embed.tok"])[0], tokens, cfg,
+                        tp=tp)
     for i, (scale, p) in enumerate(_layers(model)):
-        state = {k: v[i] for k, v in cache.items()}
-        x = x + block_decode(p, cm.apply_norm(scale, x, cfg), cfg, state,
-                             tp)
+        x = x + layer_decode(model, scale, p, x,
+                             {k: v[i] for k, v in cache.items()})
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
+    return cm.logits_from_hidden(*cm.unembedding(model), x, cfg,
                                  tp=tp), cache

@@ -39,7 +39,11 @@ The head count is read from the blocks.  JAX's ``cache_pspecs`` shards
 the latent ``c_kv`` on its rank dimension (``sharding.py:206-208``); the
 explicit form here needs the whole latent for each of the rank's heads,
 so each rank keeps ``c_kv`` (and ``k_rope``) whole.  That costs memory
-only: mp copies of the compressed cache.
+only: mp copies of the compressed cache.  On a data rank of the (dp, mp)
+serving mesh both decodes and the block run on the layer's leaves as
+``transformer.decode_step`` and ``forward`` gather them over the data
+group (the model column's blocks), and the cache holds the data row's
+rows.
 """
 from __future__ import annotations
 

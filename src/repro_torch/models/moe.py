@@ -15,7 +15,9 @@ Two dispatches, as in the JAX package:
 * capacity (``capacity_factor > 0``): each expert takes at most ``cap =
   ceil(n * k / E * capacity_factor)`` rows, gathered into an (E, cap, D)
   buffer (empty slots zero) for three ``torch.bmm``; assignments past an
-  expert's capacity are dropped.  No host sync.
+  expert's capacity are dropped.  No host sync.  On data ranks that hold
+  shares of one batch the drops are the whole batch's, ranked in its
+  order, n its token count, as JAX's GSPMD step decides them.
 
 The combine is deterministic: each token's k outputs are gathered back
 to (n, k, D), weighted and summed one after another in ascending expert
@@ -30,11 +32,15 @@ selection in a pass (or replays another pass's), and
 :func:`compare_routing` counts the flips between two passes beside the
 smallest selection margin and the largest score difference.
 
-Expert parallelism (serving, ``tp`` a ``sharding.ModelGroup`` over a
-(1, mp) mesh): the expert stacks' ``("ep", ...)`` rule binds the
-combined (data, model) axes, so rank r holds experts [r E/mp, (r+1)
-E/mp).  ``router`` and ``router_bias`` are replicated and every rank
-routes alike.  Each rank sorts and places every assignment as one rank
+Expert parallelism (serving, ``tp`` a ``sharding.ModelGroup``): the
+expert stacks' ``("ep", ...)`` rule binds the combined (data, model)
+axes, so on a (1, mp) mesh rank r holds experts [r E/mp, (r+1) E/mp);
+on a (dp, mp) mesh a model column's stacks, gathered over its data
+group, hold the chunks ``d' mp + m`` of every data row ``d'``, its
+``experts`` ids (``sharding.expert_ids``; where the experts do not
+divide dp mp, ``'ep'`` falls back to ``'mp'``: a contiguous block).
+``router`` and ``router_bias`` are replicated and every rank routes
+alike.  Each rank sorts and places every assignment as one rank
 does (capacity drops are decided on the global positions, so the kept
 set is the one-rank set), runs the rows of its own experts only, and
 combines them in ascending expert id, zeros for the others' rows; the
@@ -206,10 +212,12 @@ def _group_starts(e_sorted: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def _dropless(p: dict, x2d: torch.Tensor, w: torch.Tensor,
-              idx: torch.Tensor, cfg, first: int = 0) -> torch.Tensor:
-    """The routed experts' output; ``p``'s expert stacks hold experts
-    ``first``.. (a rank's block), whose rows alone run, the others'
-    combining as zeros."""
+              idx: torch.Tensor, cfg, experts=None) -> torch.Tensor:
+    """The routed experts' output; ``p``'s expert stacks hold the experts
+    ``experts`` (a rank's ids, in the stacks' order; None: all), whose
+    rows alone run, the others' combining as zeros.  A dropless dispatch
+    keeps every assignment, so its rows do not depend on the other data
+    ranks'."""
     m = cfg.moe
     n, k = idx.shape
     flat_e = idx.reshape(-1)
@@ -217,18 +225,13 @@ def _dropless(p: dict, x2d: torch.Tensor, w: torch.Tensor,
     xs = x2d[order // k]                          # (n * k, D)
     bounds = _group_starts(flat_e[order], m.n_experts).tolist()  # the sync
     weights = [p[name].unbind(0) for name in ("w_gate", "w_up", "w_down")]
-    last = first + len(weights[0])
-    outs = []
-    for e in range(first, last):
+    o = x2d.new_zeros(n * k, x2d.shape[1])
+    for j, e in enumerate(range(m.n_experts) if experts is None
+                          else experts):
         start, end = bounds[e], bounds[e + 1]
         if end > start:
-            outs.append(_expert_mlp(xs[start:end],
-                                    *(wt[e - first] for wt in weights),
-                                    torch.mm))
-    o = torch.cat(outs) if outs else x2d.new_zeros(0, x2d.shape[1])
-    if (first, last) != (0, m.n_experts):  # a rank's experts: rows of
-        o = torch.cat([o.new_zeros(bounds[first], o.shape[1]), o,  # zeros
-                       o.new_zeros(n * k - bounds[last], o.shape[1])])
+            o[start:end] = _expert_mlp(xs[start:end],
+                                       *(wt[j] for wt in weights), torch.mm)
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(n * k, device=order.device)
     return _combine(o, inverse.view(n, k), w, idx)
@@ -242,18 +245,30 @@ def capacity(cfg, n: int) -> int:
 
 
 def _capacity(p: dict, x2d: torch.Tensor, w: torch.Tensor,
-              idx: torch.Tensor, cfg, first: int = 0) -> torch.Tensor:
+              idx: torch.Tensor, cfg, experts=None,
+              group=None) -> torch.Tensor:
     """As :func:`_dropless`, each expert taking at most ``capacity``
-    rows, placed over all experts (so the drops are one rank's)."""
+    rows, placed over all experts (so the drops are one rank's).  With
+    ``group``, a data group whose ranks hold consecutive equal shares of
+    the global batch (rank 0's rows first), the drops are the global
+    batch's, as JAX's dispatch decides them over the whole batch: the
+    capacity is the global token count's, and each assignment is ranked
+    within its expert behind those of the lower data ranks' rows
+    (``sharding.assignments_ahead``: one all-gather of the expert ids)."""
     m = cfg.moe
     (n, D), k, E = x2d.shape, m.top_k, m.n_experts
-    cap = capacity(cfg, n)
     dev = x2d.device
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
     rank = torch.arange(n * k, device=dev) - _group_starts(e_sorted, E)[
         e_sorted]
+    n_all = n
+    if group is not None:
+        ahead, shares = sharding.assignments_ahead(flat_e, E, group)
+        rank = rank + ahead[e_sorted]
+        n_all = n * shares
+    cap = capacity(cfg, n_all)
     keep = rank < cap
     slot = e_sorted * cap + torch.where(keep, rank, 0)
     # slot -> source token, n for an empty slot; a dropped assignment
@@ -262,46 +277,51 @@ def _capacity(p: dict, x2d: torch.Tensor, w: torch.Tensor,
     slot_token.scatter_(0, torch.where(keep, slot, E * cap), order // k)
     slot_token = slot_token[:E * cap]
     valid = (slot_token < n)[:, None].to(x2d.dtype)
-    xe = torch.cat([x2d, x2d.new_zeros(1, D)])[slot_token] * valid
-    last = first + p["w_gate"].shape[0]
-    o = _expert_mlp(xe.view(E, cap, D)[first:last], p["w_gate"], p["w_up"],
-                    p["w_down"], torch.bmm).view(-1, D)
-    if (first, last) != (0, E):  # a rank's experts: the others' slots zero
-        o = torch.cat([o.new_zeros(first * cap, D), o,
-                       o.new_zeros((E - last) * cap, D)])
+    xe = (torch.cat([x2d, x2d.new_zeros(1, D)])[slot_token] * valid).view(
+        E, cap, D)
+    if experts is None:
+        o = _expert_mlp(xe, p["w_gate"], p["w_up"], p["w_down"], torch.bmm)
+    else:  # a rank's experts: the others' slots zero
+        ids = torch.as_tensor(experts, device=dev)
+        o = xe.new_zeros(E, cap, D)
+        o[ids] = _expert_mlp(xe[ids], p["w_gate"], p["w_up"], p["w_down"],
+                             torch.bmm)
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(n * k, device=dev)
-    return _combine(o, slot[inverse].view(n, k), w, idx,
+    return _combine(o.view(-1, D), slot[inverse].view(n, k), w, idx,
                     kept=keep[inverse].view(n, k))
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg, *,
             routing: RoutingLog | None = None, layer: int = 0,
-            pos: int = 0, tp=None, data_group=None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            pos: int = 0, tp=None, data_group=None, experts=None,
+            want_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, D) -> (out (B, T, D), load-balance loss): the routed
     experts by the config's dispatch (module docstring), plus the shared
     experts.  ``routing`` records (or replays) this layer's selection as
     layer ``layer`` at positions ``pos``.. ``pos + T - 1``.  With ``tp``
     the rank's experts and its shared-expert partial, summed over the
-    group; with ``data_group`` the loss's statistics over the global
-    batch (``route``)."""
+    group.  ``experts``: the ids of the experts ``p``'s stacks hold (a
+    rank's, ``sharding.expert_ids``); None is every expert.
+    ``data_group``: the data group whose ranks hold consecutive equal
+    shares of the batch, over which the loss's statistics (``route``;
+    not taken without ``want_aux``, whose loss is then this rank's own)
+    and the capacity dispatch's drops are the global batch's."""
     m = cfg.moe
     B, T, D = x.shape
     x2d = x.reshape(B * T, D)
     forced = None if routing is None else routing.forced(layer, pos, B, T)
     w, idx, aux, sel = route(p, x2d, cfg, forced=forced,
-                             data_group=data_group)
+                             data_group=data_group if want_aux else None)
     if routing is not None:
         routing.record(layer, pos, idx.view(B, T, -1), sel.view(B, T, -1))
-    experts = _capacity if m.capacity_factor > 0 else _dropless
+    out = (_capacity(p, x2d, w, idx, cfg, experts, data_group)
+           if m.capacity_factor > 0 else
+           _dropless(p, x2d, w, idx, cfg, experts)).view(B, T, D)
     if tp is None:
-        out = experts(p, x2d, w, idx, cfg).view(B, T, D)
         if m.n_shared:
             out = out + cm.apply_mlp(p["shared"], x, cfg)
         return out, aux
-    first = tp.rank * p["w_gate"].shape[0]
-    out = experts(p, x2d, w, idx, cfg, first).view(B, T, D)
     bias = None
     if m.n_shared:
         out = out + cm.mlp_partial(p["shared"], x, cfg)

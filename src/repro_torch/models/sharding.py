@@ -36,12 +36,18 @@ bf16 model each rank's partial is already rounded to bf16 by its product
 before the sum, so a two-rank result is rounded three times against one
 process's once; ``serve.prefill_tol`` absorbs that.
 
-:class:`DataShards` is the data axis of a language model trained FSDP
-(JAX's launcher's placement on a ``(dp, 1)`` mesh, ``models.fsdp_model``):
-a rank holds :func:`local_block` of each leaf, gathers a layer's whole
-weights where the layer runs and reduce-scatters their gradients back to
-its blocks.  :func:`data_mean` takes a statistic of the global batch
-(an MoE layer's load-balance means) over the data group.
+:class:`DataShards` is the data axis of a language model placed
+FSDP-style: trained on JAX's launcher's ``(dp, 1)`` mesh
+(``models.fsdp_model``), served on its serve launcher's ``(dp, mp)``
+host mesh (``models.local_model``).  A rank holds :func:`local_block` of
+each leaf (the 2-D block), gathers over its data group the block its
+model column executes where a layer runs, and in training
+reduce-scatters the gradients back to its blocks.  :func:`expert_ids`
+names the experts a model column's gathered stacks hold,
+:func:`batch_rows` the rows a data row serves.  :func:`data_mean` takes
+a statistic of the global batch (an MoE layer's load-balance means) over
+the data group, :func:`assignments_ahead` ranks a capacity dispatch's
+assignments over it.
 
 Not ported: ``constrain_like_params`` (JAX ``:151``), a
 ``with_sharding_constraint`` layout hint to GSPMD for gradients.  Eager
@@ -286,6 +292,23 @@ def cache_pspecs(cache, mesh, batch_size: int):
     return walk(cache)
 
 
+def batch_splits(batch: int, dp: int) -> bool:
+    """Whether a ``batch`` splits over ``dp`` data rows: where it divides
+    (the batch on the data axes, :func:`cache_pspecs`' ``bdp``); else
+    the spec replicates it."""
+    return batch % dp == 0
+
+
+def batch_rows(batch: int, dp: int, d: int) -> slice:
+    """The rows of a ``batch`` that data row ``d`` of ``dp`` serves: its
+    equal share ``[d B/dp, (d+1) B/dp)`` where the batch splits
+    (:func:`batch_splits`), else the whole batch."""
+    if not batch_splits(batch, dp):
+        return slice(0, batch)
+    n = batch // dp
+    return slice(d * n, (d + 1) * n)
+
+
 def tree_leaves(tree):
     """The leaves of a nested dict (a cache tree), in order."""
     for v in tree.values():
@@ -497,22 +520,79 @@ def fsdp_mesh(dp: int) -> MeshShape:
     return MeshShape(("data", "model"), (dp, 1))
 
 
-def fsdp_dims(shapes, dp: int) -> tuple[dict, dict]:
-    """(key -> spec, key -> the dimension split over ``dp`` data ranks or
-    None) of every leaf of ``shapes`` on :func:`fsdp_mesh`; raises where a
-    leaf would split two dimensions or a split one does not divide."""
-    mesh = fsdp_mesh(dp)
+def fsdp_dims(shapes, dp) -> tuple[dict, dict]:
+    """(key -> spec, key -> the dimension split over the data ranks or
+    None) of every leaf of ``shapes`` on :func:`fsdp_mesh` of ``dp`` data
+    ranks, or on ``dp`` itself, a ``(data, model)`` :class:`MeshShape`;
+    raises where a leaf would split two dimensions over the data axis or
+    a split one does not divide."""
+    mesh = dp if isinstance(dp, MeshShape) else fsdp_mesh(dp)
     specs = param_pspecs(shapes, mesh)
     shapes, dims = _shapes(shapes), {}
     for k, spec in specs.items():
-        split = [d for d, e in enumerate(spec)
-                 if split_index(e, mesh, {"data": 0, "model": 0})[0] > 1]
+        split = [d for d, e in enumerate(spec) if e is not None
+                 and "data" in ((e,) if isinstance(e, str) else e)]
         if len(split) > 1:
             raise ValueError(f"{k}: {spec} splits {len(split)} dimensions "
                              "over the data ranks")
         local_shape(shapes[k], spec, mesh)  # raises where it is uneven
-        dims[k] = split[0] if split else None
+        dims[k] = split[0] if split and mesh.shape["data"] > 1 else None
     return specs, dims
+
+
+def model_block_shape(key: str, shape, spec, mesh, cfg=None
+                      ) -> tuple[int, ...]:
+    """The shape of the block of leaf ``key`` (of ``shape``, under
+    ``spec``) that a model column of ``mesh`` executes once its data
+    ranks' blocks are joined: every ``'model'``-split dimension (an MoE
+    stack's experts on ``('data', 'model')`` too) divided by the model
+    axis, the ``'data'`` ones whole; an SSM model's fused leaves
+    segment-aligned (``ssm_local_width``, with ``cfg``)."""
+    mp = mesh.shape.get("model", 1)
+    out = [n // mp if e is not None and "model" in (
+        (e,) if isinstance(e, str) else e) else n
+        for n, e in zip(shape, spec)]
+    name = _names(key)[-1]
+    if cfg is not None and cfg.ssm is not None and name in SSM_SEGMENTS:
+        out[-1] = ssm_local_width(cfg, name, mp)
+    return tuple(out)
+
+
+def expert_ids(n_experts: int, entry, mesh, coords) -> list[int]:
+    """The ids of the experts, in order, that the model column of the
+    device at ``coords`` runs under an expert stack's spec entry
+    ``entry`` once its data ranks' blocks are joined (data rank order):
+    on ``('data', 'model')`` (JAX's ``'ep'`` where the experts divide
+    the combined axes) rank ``(d, m)`` holds chunk ``d * mp + m`` of ``dp
+    * mp``, so the column runs chunks ``d' * mp + m`` for every ``d'``;
+    on ``'model'`` (the fallback) chunk ``m`` of ``mp``; replicated, all
+    of them."""
+    coords = _coords(mesh, coords)
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    rows = range(mesh.shape["data"]) if "data" in axes else (
+        coords["data"],)
+    ids: list[int] = []
+    for d in rows:
+        parts, index = split_index(entry, mesh, {**coords, "data": d})
+        n = n_experts // parts
+        ids.extend(range(index * n, (index + 1) * n))
+    return ids
+
+
+def assignments_ahead(ids: torch.Tensor, n_ids: int, group
+                      ) -> tuple[torch.Tensor, int]:
+    """(the count of each of ``n_ids`` ids among the lower ranks' ``ids``
+    of the data group ``group``, (n_ids,) int64 on ids' device; the
+    group's size): every rank's flat ``ids`` (equal sizes) gathered in
+    one all-gather, then counted without a host sync."""
+    size, me = dist.get_world_size(group), dist.get_rank(group)
+    ids = ids.contiguous()
+    buf = ids.new_empty(size * ids.numel())
+    dist.all_gather_into_tensor(buf, ids, group=group)
+    lower = buf[:me * ids.numel()]
+    ahead = torch.zeros(n_ids, dtype=torch.long, device=ids.device)
+    return ahead.scatter_add_(0, lower, torch.ones_like(lower)), size
 
 
 class _DataMean(torch.autograd.Function):
@@ -561,36 +641,54 @@ class _Gather(torch.autograd.Function):
 
 
 class DataShards:
-    """The data axis of a language model trained FSDP-style (JAX's
+    """The data axis of a language model placed FSDP-style (JAX's
     launcher: the parameters placed by :func:`param_pspecs` on a ``(dp,
-    1)`` mesh): its process group, the leaves' whole shapes and the one
-    dimension of each that is split over the data ranks, and the
-    collectives that move the blocks.
+    mp)`` mesh, trained on ``(dp, 1)``, served on any): its process
+    group, the leaves' shapes and the one dimension of each that is
+    split over the data ranks, and the collectives that move the blocks.
 
-    A rank holds :func:`local_block` of each leaf, its parameters and
-    both AdamW moments alike: every ``'dp'`` dimension split over the
-    ranks, an MoE stack's ``'ep'`` dimension (the experts) where they
-    divide, every other leaf whole.  A model reads its whole weights
-    through :meth:`gather`, a layer's leaves at once where the layer
+    A rank holds :func:`local_block` of each leaf (JAX's 2-D block; an
+    SSM model's fused leaves segment-aligned on ``'model'``), its
+    parameters and, in training, both AdamW moments alike: every
+    ``'dp'`` dimension split over the data ranks, an MoE stack's ``'ep'``
+    dimension (the experts) where they divide, every other leaf whole
+    over the data axis.  A model reads its "whole" weights through
+    :meth:`gather`: the block its model column executes (on a model axis
+    of one, the whole leaf), a layer's leaves at once where the layer
     runs (``models/common.py gather_layer``): one all-gather of a flat
-    buffer a dtype, whose backward reduce-scatters the whole leaves'
+    buffer a dtype, whose backward reduce-scatters the gathered leaves'
     gradients back to the blocks (the sum over the ranks, in the
-    gradient's dtype).  ``gathers`` and ``scatters`` count those calls,
-    ``seconds`` their host time, as :class:`ModelGroup` counts its.
+    gradient's dtype).  ``shapes`` holds those gathered shapes.
+    ``gathers`` and ``scatters`` count those calls, ``seconds`` their
+    host time, as :class:`ModelGroup` counts its.
+
+    A gathered weight lives while its layer runs and no longer: the
+    placement exists so that no rank holds its column's whole block, and
+    the model keeps nothing gathered across calls.
 
     The collectives are ``all_gather_into_tensor`` and
     ``reduce_scatter_tensor``, which gloo takes on CUDA tensors as on CPU
     ones (``tools/gloo_bench.py --fsdp``: torch 2.11 on an H100, moving
     a CUDA tensor through the host at about 0.8 GB/s)."""
 
-    def __init__(self, group, shapes):
+    def __init__(self, group, shapes, mesh=None, coords=None, cfg=None):
         self.group = group
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
-        self.mesh = fsdp_mesh(self.size)
-        self.coords = {"data": self.rank, "model": 0}
-        self.shapes = _shapes(shapes)
-        self.specs, self.dims = fsdp_dims(self.shapes, self.size)
+        self.mesh = fsdp_mesh(self.size) if mesh is None else mesh
+        if self.mesh.shape["data"] != self.size:
+            raise ValueError(f"a data group of {self.size} ranks for "
+                             f"{self.mesh!r}")
+        self.coords = _coords(self.mesh, {"data": self.rank, "model": 0}
+                              if coords is None else coords)
+        if self.coords["data"] != self.rank:
+            raise ValueError(f"data rank {self.rank} at coordinates "
+                             f"{self.coords}")
+        whole = _shapes(shapes)
+        self.specs, self.dims = fsdp_dims(whole, self.mesh)
+        self.shapes = {k: model_block_shape(k, s, self.specs[k], self.mesh,
+                                            cfg)
+                       for k, s in whole.items()}
         self.gathers = self.scatters = 0
         self.seconds = 0.0
 
@@ -611,15 +709,20 @@ class DataShards:
                     ) -> tuple[int, ...]:
         """The shape of this rank's block of ``key`` (its last ``ndim``
         dimensions)."""
-        shape = local_shape(self.shapes[key], self.specs[key], self.mesh)
-        return shape[len(shape) - (ndim or len(shape)):]
+        shape = list(self.shapes[key])
+        if self.dims[key] is not None:
+            shape[self.dims[key]] //= self.size
+        return tuple(shape[len(shape) - (ndim or len(shape)):])
 
     def block(self, key: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole leaf ``t`` of ``key`` (a view)."""
+        """This rank's block of the gathered leaf ``t`` of ``key`` (a
+        view)."""
         if tuple(t.shape) != self.shapes[key]:
             raise ValueError(f"{key}: a whole leaf of {self.shapes[key]}, "
                              f"got {tuple(t.shape)}")
-        return local_block(t, self.specs[key], self.mesh, self.coords)
+        if self.dims[key] is None:
+            return t
+        return _block(t, self.dims[key], self.size, self.rank)
 
     def _dim(self, key: str, t: torch.Tensor) -> int:
         """The split dimension of ``t``, ``key``'s block or a layer's

@@ -199,10 +199,14 @@ class Transformer(nn.Module):
 
     routing: moe.RoutingLog | None = None
     tp = None
-    ds = None  # an FSDP rank's sharding.DataShards (models.fsdp_model)
+    # a data rank's sharding.DataShards (models.fsdp_model, local_model)
+    ds = None
     # the data group whose global batch an MoE model's load-balance
-    # statistics are taken over (an FSDP rank's, JAX's sharded step's)
+    # statistics and capacity drops are taken over (an FSDP rank's, JAX's
+    # sharded step's; a serving data row's where the batch is split)
     data_group = None
+    # the experts a rank's (gathered) expert stacks hold, None for all
+    expert_ids = None
 
     def __init__(self, cfg, leaves: dict[str, torch.Tensor]):
         super().__init__()
@@ -275,11 +279,11 @@ def _layer_fwd(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 
 def _moe_layer_fwd(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
-                   routing, layer: int, tp=None, data_group=None
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   routing, layer: int, tp=None, data_group=None,
+                   experts=None) -> tuple[torch.Tensor, torch.Tensor]:
     x, h = _attn_half(lp, x, cfg, positions, tp)
     o, aux = moe.moe_ffn(lp["moe"], h, cfg, routing=routing, layer=layer,
-                         tp=tp, data_group=data_group)
+                         tp=tp, data_group=data_group, experts=experts)
     return x + o, aux
 
 
@@ -342,7 +346,7 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
                     leaves = cm.gather_layer(ds, full, leaves)
                     return _moe_layer_fwd(_nest(keys, leaves), x, cfg,
                                           positions, model.routing, i, tp,
-                                          model.data_group)
+                                          model.data_group, model.expert_ids)
                 x, a = cm.maybe_remat(layer, cfg)(x, *lp)
                 aux = aux + a
             else:
@@ -389,7 +393,8 @@ def init_cache(cfg, batch: int, max_len: int,
 
 def _layer_decode(lp: dict, x: torch.Tensor, cfg, layer_cache: dict,
                   pos: int, routing=None, layer: int = 0,
-                  absorb: bool = False, tp=None) -> torch.Tensor:
+                  absorb: bool = False, tp=None, data_group=None,
+                  experts=None) -> torch.Tensor:
     h = cm.apply_norm(lp["attn_norm"]["scale"], x, cfg,
                       lp["attn_norm"].get("bias"))
     if cfg.mla:
@@ -402,7 +407,8 @@ def _layer_decode(lp: dict, x: torch.Tensor, cfg, layer_cache: dict,
                       lp["mlp_norm"].get("bias"))
     if "moe" in lp:
         o, _ = moe.moe_ffn(lp["moe"], h, cfg, routing=routing, layer=layer,
-                           pos=pos, tp=tp)
+                           pos=pos, tp=tp, data_group=data_group,
+                           experts=experts, want_aux=False)
         return x + o
     return x + cm.apply_mlp(lp["mlp"], h, cfg, tp=tp)
 
@@ -416,23 +422,28 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     into the cache at ``pos`` in place; the MoE layers record into
     ``model.routing`` (at position ``pos``).  ``absorb`` takes an MLA
     model's absorbed decode (``mla.mla_attention_decode``); the other
-    models ignore it, as JAX's do."""
+    models ignore it, as JAX's do.  A data rank's model (``model.ds``)
+    gathers each layer's leaves, and the tables, where they are read."""
     cfg = model.cfg
     _check_family(cfg)
     slots = next(iter(next(iter(cache.values())).values())).shape[2]
     if pos >= slots:
         raise ValueError(f"position {pos} is past the cache's {slots} "
                          "slots")
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=model.tp)
+    tok, = cm.gathered(model, ["embed.tok"])
+    x = cm.embed_tokens(tok, tokens, cfg, tp=model.tp)
     first = 0
     for prefix, n, _ in stacks(cfg):
         keys, stacked = _stacked(model, prefix)
+        full = [prefix + k for k in keys]
         c = cache[_CACHE_OF[prefix]]
         layer_caches = [dict(zip(c, slices)) for slices in
                         zip(*(t.unbind(0) for t in c.values()))]
         for i, (lp, lc) in enumerate(zip(
                 zip(*(p.unbind(0) for p in stacked)), layer_caches)):
+            lp = cm.gather_layer(model.ds, full, lp)
             x = _layer_decode(_nest(keys, lp), x, cfg, lc, pos,
-                              model.routing, first + i, absorb, model.tp)
+                              model.routing, first + i, absorb, model.tp,
+                              model.data_group, model.expert_ids)
         first += n
-    return _final(model, x), cache
+    return _final(model, x, tok=tok), cache

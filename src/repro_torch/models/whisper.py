@@ -294,8 +294,12 @@ def fill_cross_cache(model: Whisper, cache: dict,
                          f"{tuple(cache['cross_k'].shape[1:3])}")
     enc = encode(model, frames)
     keys, layers = _layers(model, DEC)
+    cross = [i for i, k in enumerate(keys) if k.startswith("cross.")]
     for layer, lp in enumerate(layers):
-        k, v = cross_kv(transformer._nest(keys, lp)["cross"], enc, cfg)
+        lp = cm.gather_layer(model.ds, [DEC + keys[i] for i in cross],
+                             [lp[i] for i in cross])
+        k, v = cross_kv(transformer._nest([keys[i] for i in cross], lp)[
+            "cross"], enc, cfg)
         cache["cross_k"][layer].copy_(k)
         cache["cross_v"][layer].copy_(v)
     return cache
@@ -307,19 +311,23 @@ def decode_step(model: Whisper, cache: dict, tokens: torch.Tensor,
     self-attention cache's valid length) -> (fp32 logits (B, 1,
     padded_vocab), cache), each layer's k and v written into the cache at
     ``pos`` in place; the cross K/V are read in x's dtype.  A
-    tensor-parallel rank's model runs its blocks on its cache."""
+    tensor-parallel rank's model runs its blocks on its cache; a data
+    rank's (``model.ds``) gathers each layer's leaves, and the tables,
+    where they are read."""
     cfg, tp = model.cfg, model.tp
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"position {pos} is past the cache's "
                          f"{cache['k'].shape[2]} slots")
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, pos=model.embed.pos,
+    tok, pos_table = cm.gathered(model, ["embed.tok", "embed.pos"])
+    x = cm.embed_tokens(tok, tokens, cfg, pos=pos_table,
                         positions=torch.full((1,), pos,
                                              device=tokens.device), tp=tp)
     keys, layers = _layers(model, DEC)
+    full = [DEC + k for k in keys]
     caches = zip(*(cache[k].unbind(0)
                    for k in ("k", "v", "cross_k", "cross_v")))
     for lp, (ck, cv, xk, xv) in zip(layers, caches):
-        lp = transformer._nest(keys, lp)
+        lp = transformer._nest(keys, cm.gather_layer(model.ds, full, lp))
         h = _norm(lp["attn_norm"], x, cfg)
         x = x + cm.attention_decode(lp["attn"], h, cfg, ck, cv, pos, tp)
         h = _norm(lp["cross_norm"], x, cfg)
@@ -327,4 +335,4 @@ def decode_step(model: Whisper, cache: dict, tokens: torch.Tensor,
                                 xv.to(x.dtype), cfg, tp)
         x = x + cm.apply_mlp(lp["mlp"], _norm(lp["mlp_norm"], x, cfg), cfg,
                              tp=tp)
-    return transformer._final(model, x), cache
+    return transformer._final(model, x, tok=tok), cache

@@ -251,22 +251,27 @@ def decode_step(model: Zamba2, cache: dict, tokens: torch.Tensor,
                 pos: int) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B, 1) int at position ``pos`` (the K/V
     slots' valid length) -> (fp32 logits (B, 1, padded_vocab), cache),
-    the cache updated in place."""
+    the cache updated in place.  A data rank's model (``model.ds``)
+    gathers each Mamba2 layer's leaves where the layer runs, the
+    embedding with the shared block's leaves once a step (as
+    :func:`forward` does), and the unembedding where it is read."""
     cfg, tp = model.cfg, model.tp
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"position {pos} is past the cache's "
                          f"{cache['k'].shape[2]} slots")
-    x = cm.embed_tokens(model.embed.tok, tokens, cfg, tp=tp)
+    keys = ["embed.tok"] + [k for k, _ in model.named_parameters()
+                            if k.startswith("shared.")]
+    leaves = dict(zip(keys, cm.gathered(model, keys)))
+    x = cm.embed_tokens(leaves["embed.tok"], tokens, cfg, tp=tp)
     emb = x
-    shared = _shared(model)
+    shared = _shared(model, leaves)
     for i, (scale, p) in enumerate(mamba2._layers(model)):
-        state = {k: v[i] for k, v in cache["mamba"].items()}
-        x = x + mamba2.block_decode(p, cm.apply_norm(scale, x, cfg), cfg,
-                                    state, tp)
+        x = x + mamba2.layer_decode(model, scale, p, x, {
+            k: v[i] for k, v in cache["mamba"].items()})
         if _applies(cfg, i):
             a = i // cfg.attn_every
             x = shared_block_decode(shared, x, emb, cfg, cache["k"][a],
                                     cache["v"][a], pos, tp)
     x = cm.apply_norm(model.final_norm.scale, x, cfg)
-    return cm.logits_from_hidden(model.embed.tok, model.unembed, x, cfg,
+    return cm.logits_from_hidden(*cm.unembedding(model), x, cfg,
                                  tp=tp), cache

@@ -70,7 +70,13 @@ JITTER = {"scale": 1.0, "bias": 0.0, "bq": 0.0, "bk": 0.0, "bv": 0.0,
           "bo": 0.0, "b_up": 0.0, "b_down": 0.0}
 PROMPT, GEN = 6, 4  # the tensor-parallel Mamba2 rank's decode
 # the JAX references in two children side by side (about 25 s each)
-JAX_CHILDREN = (("hybrid", "encdec", "vlm", "dense"), ("ssm", "moe", "mla"))
+JAX_CHILDREN = (("hybrid", "encdec", "vlm", "dense"),
+                ("ssm", "moe", "mla", "moe_capacity"))
+# cases beside CASES' families: (arch, MoE overrides); Moonlight's
+# capacity dispatch drops assignments ranked over the global batch
+EXTRA = {"moe_capacity": ("moonshot-v1-16b-a3b", {"capacity_factor": 1.0})}
+# the cases whose JAX child also returns the first gradient
+WITH_GRAD = ("moe_capacity",)
 LAUNCH = ["--arch", "starcoder2-3b", "--smoke", "--device", "cpu",
           "--dist-backend", "gloo", "--steps", "6", "--batch", "4",
           "--seq", "16", "--ckpt-every", "2"]
@@ -81,8 +87,11 @@ def _case(name):
     """The case's weights in the JAX tree's shapes, drawn with numpy (a
     matrix normal by fan-in ** -0.5, JITTER's leaves about their value,
     other vectors normal), and STEPS global batches as numpy."""
-    arch = CASES[name]
+    arch, moe_kw = EXTRA.get(name, (CASES.get(name), {}))
     jcfg, cfg = jreduced(jconfigs.get(arch)), reduced(configs.get(arch))
+    if moe_kw:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe_kw))
     tree = jax.eval_shape(lambda k: jget_model(jcfg).init_params(k, jcfg),
                           jax.random.key(0))
     rng = np.random.default_rng(11)
@@ -100,13 +109,13 @@ def _case(name):
                 for k, v in synthetic.make_batch(cfg, BATCH, SEQ,
                                                  seed=100 + i).items()}
                for i in range(STEPS)]
-    return dict(arch=arch, cfg=cfg,
+    return dict(arch=arch, moe_kw=moe_kw, cfg=cfg,
                 jparams=jax.tree_util.tree_map_with_path(draw, tree),
                 batches=batches)
 
 
 _JAX_CHILD = r"""
-import os, sys
+import dataclasses, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import pickle
 import jax, jax.numpy as jnp
@@ -115,6 +124,7 @@ from repro import configs
 from repro.configs.base import reduced
 from repro.launch.mesh import compat_make_mesh
 from repro.models import sharding as shd
+from repro.train.losses import make_loss_fn
 from repro.train.train_step import init_state, make_train_step
 
 with open(sys.argv[1], "rb") as f:
@@ -123,8 +133,11 @@ assert len(jax.devices()) == 2
 mesh = compat_make_mesh((2, 1), ("data", "model"))
 named = lambda s: jax.sharding.NamedSharding(mesh, s)
 out = {}
-for name, (arch, jparams, batches) in cases.items():
+for name, (arch, moe_kw, jparams, batches, grad) in cases.items():
     cfg = reduced(configs.get(arch))
+    if moe_kw:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe_kw))
     with mesh:  # the launcher's _build_state, then its loop
         params = jax.tree.map(jnp.asarray, jparams)
         params = jax.tree.map(lambda p, s: jax.device_put(p, named(s)),
@@ -138,6 +151,10 @@ for name, (arch, jparams, batches) in cases.items():
         step = jax.jit(make_train_step(cfg, **kw)).lower(
             state, batches[0]).compile()
         placement = step.input_shardings[0][0]
+        if grad:  # the first gradient, on the launcher's placement
+            g = jax.jit(jax.grad(lambda p, b: make_loss_fn(cfg)(p, b)[0]))(
+                state.params, batches[0])
+            out[name + "/grad"] = jax.tree.map(np.asarray, g)
         losses = []
         for b in batches:
             state, m = step(jax.device_put(state, placement), b)
@@ -154,14 +171,15 @@ def run(tmp_path_factory):
     rank's results): the JAX child and the spawned ranks run side by
     side, once a module."""
     tmp = str(tmp_path_factory.mktemp("fsdp"))
-    cases = {name: _case(name) for name in CASES}
+    cases = {name: _case(name) for name in (*CASES, *EXTRA)}
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     procs = []
     for i, names in enumerate(JAX_CHILDREN):
         with open(os.path.join(tmp, f"in{i}.pkl"), "wb") as f:
-            pickle.dump(({n: (cases[n]["arch"], cases[n]["jparams"],
-                              cases[n]["batches"]) for n in names}, KW), f)
+            pickle.dump(({n: (cases[n]["arch"], cases[n]["moe_kw"],
+                              cases[n]["jparams"], cases[n]["batches"],
+                              n in WITH_GRAD) for n in names}, KW), f)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", _JAX_CHILD,
              os.path.join(tmp, f"in{i}.pkl"),
@@ -171,7 +189,11 @@ def run(tmp_path_factory):
     rng = np.random.default_rng(3)
     parts = [(f"parity_{n}", "part_parity", dict(
         arch=c["arch"], jparams=c["jparams"], batches=c["batches"], kw=KW))
-        for n, c in cases.items()]
+        for n, c in cases.items() if n in CASES]
+    cap = cases["moe_capacity"]
+    parts += [("capacity", "part_capacity", dict(
+        arch=cap["arch"], moe_kw=cap["moe_kw"], jparams=cap["jparams"],
+        batch=cap["batches"][0]))]
     parts += [(f"convert_state_{n}", "part_convert_state", dict(
         arch=cases[n]["arch"], jparams=cases[n]["jparams"]))
         for n in ("moe", "ssm")]
@@ -300,6 +322,30 @@ def test_train_state_from_jax_gives_blocks(run, name):
     and the step whole."""
     for o in _part(run, f"convert_state_{name}"):
         assert o == dict(params=True, moments=True, count=3, step=3)
+
+
+def test_capacity_dispatch_drops_over_the_global_batch(run):
+    """Moonlight with ``capacity_factor=1.0`` on 2 FSDP ranks: each rank
+    keeps exactly the assignments JAX's step keeps of the global batch
+    (every assignment ranked behind those of the lower data ranks, the
+    capacity of the global token count), so the loss is within rtol 1e-5
+    of JAX's first step and every first-gradient block within 1e-5 of
+    JAX's gradient on the launcher's placement; a rank's dispatch that
+    ranked its own rows alone would drop other tokens."""
+    _, jax_out, _ = run
+    jlosses, _ = jax_out["moe_capacity"]
+    jgrad = convert.params_from_jax(jax_out["moe_capacity/grad"])
+    res = _part(run, "capacity")
+    assert res[0]["loss"] == res[1]["loss"]
+    for r, o in enumerate(res):
+        np.testing.assert_allclose(o["loss"], jlosses[0], rtol=TOL)
+        blocks = sharding.local_state_dict(jgrad, sharding.fsdp_mesh(2),
+                                           (r, 0))
+        assert set(o["grads"]) == set(blocks)
+        for k, g in o["grads"].items():
+            np.testing.assert_allclose(g, blocks[k].numpy(), rtol=0,
+                                       atol=TOL, err_msg=k)
+        assert o["dropped"] > 0  # the capacity binds on this batch
 
 
 # --- the FSDP property and the collectives ---------------------------------

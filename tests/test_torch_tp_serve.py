@@ -317,11 +317,13 @@ def test_refused_layouts_raise(arch, mp, over, match):
 
 
 def test_a_data_axis_is_refused():
-    """A world larger than the model axis (the FSDP data axis) is refused,
-    and a world smaller than it too."""
+    """A world larger than the model axis (the FSDP data axis: JAX's
+    serve launcher's (world / mp, mp) mesh) now serves
+    (``tests/test_torch_dp_serve.py``); a world that is no multiple of
+    the model axis, or smaller than it, is still refused."""
     cfg = reduced(configs.get("starcoder2-3b"))
-    assert "data axis" in serve.tp_refusal(cfg, 2, world=4)
-    assert serve.TP_ITEM in serve.tp_refusal(cfg, 2, world=4)
+    assert serve.tp_refusal(cfg, 2, world=4) is None
+    assert "multiple of 2 ranks" in serve.tp_refusal(cfg, 2, world=3)
     assert "needs 2 ranks" in serve.tp_refusal(cfg, 2, world=1)
     assert serve.tp_refusal(cfg, 2, world=2) is None
 

@@ -103,6 +103,36 @@ def part_parity(group, rank, world, tmp, *, arch, jparams, batches, kw):
     return out
 
 
+def part_capacity(group, rank, world, tmp, *, arch, moe_kw, jparams,
+                  batch):
+    """Moonlight with the capacity dispatch (``moe_kw``) on the FSDP
+    rank: the first gradient's blocks and the global loss; ``dropped``,
+    the assignments the one-process dispatch drops of the global batch
+    (so the capacity binds)."""
+    from repro_torch.models import moe
+    from repro_torch.train.data_parallel import (make_sharded_grad_fn,
+                                                 shard_batch)
+    cfg = _cfg(arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_kw))
+    whole = _whole(cfg, jparams)
+    model = models.fsdp_model(whole, group)
+    (loss, _), grads = make_sharded_grad_fn(cfg, group)(
+        model, shard_batch(tensors(batch), group))
+    names = [k for k, _ in model.named_parameters()]
+    whole.routing = moe.RoutingLog()
+    with torch.no_grad():
+        whole(tensors(batch)["tokens"])
+    dropped = 0
+    for layer in whole.routing.layers():
+        experts, _ = whole.routing.selection(layer)
+        counts = torch.bincount(experts.reshape(-1),
+                                minlength=cfg.moe.n_experts)
+        cap = moe.capacity(cfg, experts.shape[0] * experts.shape[1])
+        dropped += int((counts - cap).clamp(min=0).sum())
+    return dict(loss=float(loss), dropped=dropped,
+                grads={k: _np(g) for k, g in zip(names, grads)})
+
+
 def part_convert_state(group, rank, world, tmp, *, arch, jparams):
     """``train_state_from_jax`` with a mesh and coordinates: a data
     rank's blocks of the parameters and of random moments."""
@@ -218,9 +248,9 @@ def part_convert_ssm(group, rank, world, tmp, *, jparams, prompt, gen):
     whole = mamba2.Mamba2(cfg, convert.params_from_jax(jparams))
     shape, coords = mesh.make_host_mesh(model=world)
     _, model_group = mesh.init_mesh(1, world)
-    loaded = mamba2.Mamba2(cfg, convert.params_from_jax(
-        jparams, mesh=shape, coords=coords, cfg=cfg))
-    loaded.tp = sharding.ModelGroup(model_group)
+    loaded = models.place_rank(mamba2.Mamba2(cfg, convert.params_from_jax(
+        jparams, mesh=shape, coords=coords, cfg=cfg)), shape, coords,
+        model_group)
     ref = models.local_model(whole, shape, coords, model_group)
     out = dict(blocks_equal=all(torch.equal(a, b) for a, b in zip(
         loaded.state_dict().values(), ref.state_dict().values())))
@@ -266,7 +296,8 @@ def part_launcher(group, rank, world, tmp, *, runs):
     return out
 
 
-PARTS = {f.__name__: f for f in (part_parity, part_convert_state,
+PARTS = {f.__name__: f for f in (part_parity, part_capacity,
+                                 part_convert_state,
                                  part_property, part_checkpoint,
                                  part_convert_ssm, part_launcher)}
 

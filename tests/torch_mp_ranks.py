@@ -29,6 +29,7 @@ from repro_torch.configs.base import reduced
 from repro_torch.kernels import ops
 from repro_torch.kernels import sharded as sh
 from repro_torch.launch import mesh
+from repro_torch.models import sharding
 
 from torch_dp_ranks import atac_model, kernel_path, tensors
 
@@ -257,8 +258,205 @@ def job_tp_serve(data, model_group, rank, tmp, *, cases, launchers):
     return out
 
 
+def _gathers_spy(ds):
+    """Record each of ``ds``'s gathers: (a layer's?, weak references to
+    the gathered tensors); ``seen`` the layers' gathers alive after each
+    gather.  Returns (groups, seen, undo)."""
+    import weakref
+    real = ds._all_gather
+    groups: list = []
+    seen: list = []
+
+    def spy(keys, blocks):
+        out = real(keys, blocks)
+        groups.append((all(k.startswith(LAYER_STACKS) for k in keys),
+                       [weakref.ref(t) for t in out]))
+        seen.append(sum(any(r() is not None for r in refs)
+                        for layer, refs in groups if layer))
+        return out
+
+    ds._all_gather = spy
+    return groups, seen, lambda: setattr(ds, "_all_gather", real)
+
+
+LAYER_STACKS = ("dense_layers.", "moe_layers.", "enc_layers.", "dec_layers.",
+                "layers.")
+
+
+def _counts_of(group) -> dict:
+    """A ModelGroup's or DataShards' counts, zeros for None."""
+    if group is None:
+        return dict(sums=0, gathers=0, scatters=0, seconds=0.0)
+    return dict(dict(sums=0, scatters=0), **group.counts())
+
+
+def _dp_run(model, cfg, c, batch, rows, absorb):
+    """One decode over the case's prompt rows ``rows`` of its first
+    ``batch`` (teacher-forced, then ``gen`` greedy steps; an MLA model's
+    absorbed decode over the prompt alone), and the fused prefill: the
+    logits, tokens and the collectives of the decode's steps."""
+    import gc
+
+    from repro_torch.models import moe, whisper
+    from repro_torch.train import serve_step
+    prompt = torch.from_numpy(c["prompt"][:batch][rows])
+    B, T = prompt.shape
+    frames = (torch.from_numpy(c["frames"][:batch][rows])
+              if "frames" in c else None)
+    model.routing = moe.RoutingLog() if cfg.moe else None
+    cache = serve_step.make_cache(cfg, batch, T + c["gen"],
+                                  dtype=torch.float32,
+                                  mp=1 if model.tp is None else model.tp.size,
+                                  dp=1 if model.ds is None else model.ds.size)
+    if frames is not None:
+        whisper.fill_cross_cache(model, cache, frames)
+    step = serve_step.make_serve_step(cfg, absorb=absorb)
+    groups = seen = None
+    if model.ds is not None:
+        groups, seen, undo = _gathers_spy(model.ds)
+    counts = [_counts_of(g) for g in (model.tp, model.ds)]
+    logits, tokens = [], []
+    tok = prompt[:, :1]
+    for t in range(T + (0 if absorb else c["gen"])):
+        tok = prompt[:, t:t + 1] if t < T else tok
+        tok, cache, lg = step(model, cache, tok, t)
+        logits.append(lg.numpy().copy())
+        tokens.append(tok.numpy().copy())
+    del lg
+    gc.collect()
+    after = [_counts_of(g) for g in (model.tp, model.ds)]
+    res = dict(logits=logits, tokens=tokens, steps=len(logits),
+               sums=after[0]["sums"] - counts[0]["sums"],
+               gathers=after[0]["gathers"] - counts[0]["gathers"],
+               data_gathers=after[1]["gathers"] - counts[1]["gathers"],
+               cache_batch=next(sharding.tree_leaves(cache)).shape[1])
+    if groups is not None:
+        undo()
+        res["alive_at_gather"] = max(seen)
+        res["alive_after"] = sum(r() is not None for _, refs in groups
+                                 for r in refs)
+    if model.routing is not None:
+        res["selection"] = _selection(model.routing)
+    if absorb:
+        return res
+    model.routing = moe.RoutingLog() if cfg.moe else None
+    pb = {"tokens": prompt}
+    if "patches" in c:
+        pb["patches"] = torch.from_numpy(c["patches"][:batch][rows])
+    if frames is not None:
+        pb["frames"] = frames
+    before = model.ds.counts()["gathers"]
+    nxt, lg = serve_step.make_prefill_step(cfg)(model, pb)
+    res["prefill"] = dict(logits=lg.numpy().copy(), tokens=nxt.numpy().copy(),
+                          data_gathers=model.ds.counts()["gathers"] - before)
+    model.routing = None
+    return res
+
+
+def _dp_cache(model, whole, cfg, c, rows, shape, coords):
+    """``convert.cache_from_jax`` of the one process's cache after the
+    prompt (the whole model on the case's whole batch) on the mesh,
+    against the rank's own cache after its rows' prompt: the shapes of
+    each leaf, and the largest difference over the cache's largest
+    value."""
+    from repro_torch.train import serve_step
+    prompt = torch.from_numpy(c["prompt"])
+    B, T = prompt.shape
+    step = serve_step.make_serve_step(cfg)
+    one = serve_step.make_cache(cfg, B, T, dtype=torch.float32)
+    mine = serve_step.make_cache(
+        cfg, B, T, dtype=torch.float32,
+        mp=1 if model.tp is None else model.tp.size, dp=model.ds.size)
+    for t in range(T):
+        step(whole, one, prompt[:, t:t + 1], t)
+        step(model, mine, prompt[rows, t:t + 1], t)
+    got = convert.cache_from_jax(
+        {k: (v.numpy() if torch.is_tensor(v) else
+             {kk: vv.numpy() for kk, vv in v.items()})
+         for k, v in one.items()}, mesh=shape, coords=coords, cfg=cfg)
+    pairs = list(zip(sharding.tree_leaves(got), sharding.tree_leaves(mine)))
+    scale = max(float(b.abs().max()) for _, b in pairs)
+    return dict(shapes=[(tuple(a.shape), tuple(b.shape)) for a, b in pairs],
+                gap=max(float((a - b).abs().max()) for a, b in pairs) / scale)
+
+
+def job_dp_serve(data, model_group, rank, tmp, *, cases, launchers, main,
+                 convert_cache=()):
+    """Serving on the (world / mp, mp) mesh: each case's model (its JAX
+    tree, ``models.local_model`` with the data group) at each of its
+    batches, its data row's prompt rows (``sharding.batch_rows``) decoded
+    and prefilled by ``_dp_run`` (plain and, for MLA, absorbed); the
+    blocks against ``convert.params_from_jax(..., mesh=, coords=, cfg=)``
+    and ``local_state_dict``; ``serve.serve_lm`` from each of
+    ``launchers``' argv, then ``serve.main(main)``, which ends the
+    group; for the cases in ``convert_cache``, ``_dp_cache``."""
+    from repro_torch import models
+    from repro_torch.launch import serve
+    mp_ = mesh.mp_size(model_group)
+    shape, coords = mesh.make_host_mesh(model=mp_)
+    dp = shape.shape["data"]
+    out = {}
+    for name, c in cases.items():
+        cfg = c["cfg"]
+        whole = models.model_class(cfg)(cfg, convert.params_from_jax(
+            c["jparams"]))
+        model = models.local_model(whole, shape, coords, model_group,
+                                   data_group=data)
+        loaded = convert.params_from_jax(c["jparams"], mesh=shape,
+                                         coords=coords, cfg=cfg)
+        want = sharding.local_state_dict(whole, shape, coords, cfg=cfg)
+        held = model.state_dict()
+        res = dict(
+            blocks_equal=(set(held) == set(loaded) == set(want) and all(
+                torch.equal(p, loaded[k]) and torch.equal(p, want[k])
+                for k, p in held.items())),
+            block_shapes={k: tuple(p.shape) for k, p in held.items()},
+            weights_bytes=sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+            expert_ids=model.expert_ids if cfg.moe else None,
+            ds_shapes=dict(model.ds.shapes))
+        for batch in c["batches"]:
+            rows = sharding.batch_rows(batch, dp, coords["data"])
+            model = models.local_model(whole, shape, coords, model_group,
+                                       data_group=data, batch=batch)
+            res[batch] = dict(rows=(rows.start, rows.stop),
+                              global_drops=getattr(
+                                  model, "data_group", None) is not None,
+                              decode=_dp_run(model, cfg, c, batch, rows,
+                                             False))
+            if cfg.mla:
+                res[batch]["absorbed"] = _dp_run(model, cfg, c, batch, rows,
+                                                 True)
+        if name in convert_cache:
+            rows = sharding.batch_rows(len(c["prompt"]), dp, coords["data"])
+            res["cache"] = _dp_cache(model, whole, cfg, c, rows, shape,
+                                     coords)
+        out[name] = res
+    out["launchers"] = {}
+    for name, argv in launchers.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats = serve.serve_lm(serve.parse_args(argv),
+                                   reduced(configs.get(_arch(argv))))
+        out["launchers"][name] = dict(
+            out=buf.getvalue(), tokens=stats["tokens"],
+            prompt=stats["prompt"].numpy().copy(),
+            prompt_logits=stats["prompt_logits"].numpy().copy(),
+            **{k: stats[k] for k in (
+                "model_parallel", "data_parallel", "weights_bytes",
+                "tokens_per_s", "row_tokens_per_s", "steps", "step_s",
+                "cache_bytes", "collectives", "coords", "rows",
+                "prefill_gap", "peak_bytes")})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = serve.main(main)
+    out["main"] = dict(code=code, out=buf.getvalue(),
+                       group_left=dist.is_initialized())
+    return out
+
+
 JOBS = {f.__name__: f for f in (job_grads, job_ops, job_refusals,
-                                job_launcher, job_tp_serve)}
+                                job_launcher, job_tp_serve, job_dp_serve)}
 
 
 def _rank_main(rank, world, mp_, tmp, job, payload):
@@ -266,9 +464,10 @@ def _rank_main(rank, world, mp_, tmp, job, payload):
     mesh.init_data_group("gloo", f"file://{tmp}/store", world, rank)
     try:
         data, model_group = mesh.init_mesh(world // mp_, mp_)
+        layout = (mesh.dp_rank(data), mesh.mp_rank(model_group),
+                  mesh.dp_size(data), mesh.mp_size(model_group))
         out = JOBS[job](data, model_group, rank, tmp, **payload)
-        out["layout"] = (mesh.dp_rank(data), mesh.mp_rank(model_group),
-                         mesh.dp_size(data), mesh.mp_size(model_group))
+        out["layout"] = layout  # a job may end the group
     finally:
         mesh.destroy()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
