@@ -430,7 +430,33 @@ Phases (any failed check raises, so the run exits non-zero):
       rows' shapes and no decode step launching any; a rank's decode
       p50/p99, tokens/s, gathers a step and their host seconds, weights
       and peak memory beside the one process's;
-  27. the seconds of each phase, a JSON line of the six kernels, the
+  27. tensor-parallel serving where the heads or KV heads do not divide
+      the model axis (``head_layouts_check``; ``sharding.head_blocks``'
+      head-aligned blocks): ``flash_fwd`` at each new rank prefill shape
+      (Qwen2-7B's G 4 and 3 at 8 x 8, StarCoder2-3B's G 6 at a (2, 4)
+      data row's 4 x 8, Whisper-large-v3's encoder on 3 and 2 heads of
+      64 over 8 x 1,500 frames and its decoder at 8 x 4) against its plain
+      version, timed beside SDPA and the bound; one process serves
+      Qwen2-7B and StarCoder2-3B cut to 2 layers and Whisper-large-v3 cut
+      to 2 + 2 (bf16, flash, every width; batch 8 over 8 + 4 tokens,
+      Whisper 4 + 4) and each one's fp32 copy (the bf16 weights cast;
+      batch 2 over 4 + 2) and saves both draws; then one world of 8 gloo
+      ranks on the card serves each (once its draws are saved) through
+      the launcher from torchrun's variables, Qwen2-7B and Whisper as (1,
+      8) (a KV head on 2 ranks, 4 and 3 query heads a rank; 3, 3, 3, 3,
+      2, 2, 2, 2 heads),
+      StarCoder2-3B as (2, 4) (a KV head on 2 ranks of a data row, 6 query
+      heads a rank): the fp32 copies' logits within 1e-5 of the one
+      process's largest logit and their tokens equal, the bf16 runs'
+      within ``serve.prefill_tol`` (tokens equal where the margin is
+      clear), the ranks bitwise equal, a rank's weight bytes exactly its
+      head-aligned blocks (its replicated KV heads' columns included) and
+      its cache bytes those of its heads, the collectives a decode step,
+      each fused prefill (``--smoke``) launching one ``flash_fwd`` a layer
+      at the rank's heads (Whisper's ``fill_cross_cache`` one an encoder
+      layer) and no decode step launching any; a rank's decode p50/p99,
+      tokens/s and peak memory beside the one process's;
+  28. the seconds of each phase, a JSON line of the six kernels, the
       card's line, and last the result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -538,7 +564,7 @@ LM_FP32_LAYERS, LM_FP32_BATCH = 2, 2
 STREAM_SEQ, STREAM_ONES, STREAM_CHUNK = 2048, 16, 64
 # the paper's Figs 4-6 sweep: graph replays per timing (cut these, never
 # the cells, if the phase runs long); the tuner times every candidate
-SWEEP_ITERS = 2
+SWEEP_ITERS = 1
 # phase 15, data parallelism: DP_RANKS gloo ranks on the one card, the
 # global batch DP_BATCH x DP_SEQ split between them; each gradient leaf
 # elementwise within DP_TOL of its largest value against the one-process
@@ -814,7 +840,12 @@ VL_FA_F32 = (1, 1024, 8, 2)
 # gloo.  The absorbed decode runs over the prompt's first TS_ABSORB_STEPS
 # positions (phase 22's one process over DS_ABSORB_STEPS).  TS_PROMPT is
 # no multiple of the SSD chunk (128); it was 72, then 40, before it was
-# cut for the whole script's time.
+# cut for the whole script's time.  The ranks serve a model once the one
+# process has drawn, saved and served it (an MoE model's selection
+# saved), while the one process goes on with the next: from the second
+# model on, the one process's times are taken beside the ranks' runs
+# (with the ranks waiting for every model the phase took 144.5 s of a
+# whole script's 1,031.7 s on an H100 80GB HBM3 at 700 W).
 TS_SC2, TS_MP, TS_BATCH, TS_F32_TOL = "starcoder2-3b", 2, 8, 1e-5
 TS_SC2_LAYERS, TS_PROMPT, TS_GEN, TS_DS_PROMPT = 12, 24, 8, 200
 TS_F32_LAYERS, TS_ZB_F32_LAYERS = 2, 6
@@ -876,6 +907,46 @@ FS_F32_BATCH, FS_F32_SEQ, FS_F32_STEPS, FS_F32_TOL = 2, 512, 2, 1e-5
 DPS_BATCH, DPS_SC2_LAYERS, DPS_PROMPT, DPS_GEN = 8, 2, 4, 4
 DPS_F32_PROMPT, DPS_F32_GEN, DPS_F32_TOL = 2, 2, 1e-5
 DPS_LAYOUTS = ((2, 1), (2, 2))
+# phase 27, tensor-parallel serving where the heads or KV heads do not
+# divide the model axis (``sharding.head_blocks``: a rank holds whole
+# query heads of one group and the KV heads they read).  One world of
+# HL_WORLD gloo ranks on the one card (NCCL refuses two ranks on one GPU)
+# serves through the launcher from torchrun's variables, every published
+# width kept, each model cut to HL_LAYERS layers (Whisper-large-v3 to
+# HL_LAYERS encoder and HL_LAYERS decoder layers): Qwen2-7B as (1, 8)
+# (each of its 4 KV heads on 2 ranks, 4 and 3 of each group's 7 query
+# heads a rank, its QKV biases), Whisper-large-v3 as (1, 8) (its 20 heads
+# 3, 3, 3, 3, 2, 2, 2, 2; the encoder over 8 x 1,500 frames) and
+# StarCoder2-3B as (2, 4) (each of its 2 KV heads on 2 ranks of a data
+# row, 6 query heads a rank; the parameters FSDP-placed on 'data', 4 rows
+# a data row): bf16 with flash at batch HL_BATCH over HL_PROMPT + HL_GEN
+# tokens (Whisper WH_PROMPT + HL_GEN), each data row's fused prefill held
+# to its decode (``--smoke``), and fp32 copies (the bf16 weights cast) at
+# LM_FP32_BATCH over HL_F32_PROMPT + HL_F32_GEN.  One process serves each
+# model on the card at the same batch and saves both dtypes' weights,
+# which the ranks read back memory-mapped (a rank's own fp32 cast of
+# Qwen2-7B's 2-layer cut would hold 6.2 GB of host memory, 50 GB over 8
+# ranks); the ranks serve a model once its go file is written, while the
+# one process goes on with the next (so the one process's Whisper and
+# StarCoder2 runs are timed beside the ranks' Qwen2 runs).  The token
+# counts are cut for the script's time: 24 + 8 and 8 + 4 took the phase
+# 75.6-81.9 s, the whole script 1,031.7 s (the (2, 4) decode is its data
+# gathers, 0.44 s a bf16 step, 0.78 fp32).  Gates: the fp32 copies'
+# logits within HL_F32_TOL of the one process's largest logit and their
+# tokens equal; the bf16 runs' within ``serve.prefill_tol``, tokens equal
+# where the top-2 margin is clear; the ranks bitwise equal; each rank's
+# heads HL_HEADS' and its weight bytes exactly its head-aligned blocks
+# (``_hl_blocks_bytes``), its cache bytes its heads'; a decode step's
+# model sums, logit gathers and data gathers; each fused prefill's
+# ``flash_fwd`` launches (one a layer, Whisper's ``fill_cross_cache`` one
+# an encoder layer) at the rank's heads; no launch in a decode step
+HL_WORLD, HL_LAYERS, HL_BATCH, HL_PROMPT, HL_GEN = 8, 2, 8, 8, 4
+HL_F32_PROMPT, HL_F32_GEN, HL_F32_TOL = 4, 2, 1e-5
+HL_LAYOUTS = {"qwen2": (1, 8), "whisper": (1, 8), "starcoder2": (2, 4)}
+# each model rank's (query heads, KV heads) at its model's layout
+HL_HEADS = {"qwen2": [(4, 1), (3, 1)] * 4,
+            "whisper": [(3, 3)] * 4 + [(2, 2)] * 4,
+            "starcoder2": [(6, 1)] * 4}
 # the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
 # at 3 and its two passes at 192
 FLASH_WGMMA_KERNELS = 13
@@ -6006,11 +6077,11 @@ def _saved_model(torch, cfg, path):
 
 def _ts_rank(rank, st):
     """Phase 24, one of TS_MP gloo ranks sharing the card, started while
-    the one process serves and waiting for its go file: the launcher
-    from torchrun's variables (a localhost port) with ``--model-parallel
-    TS_MP`` on each of ``_ts_runs``' models, whole on the host (read back
-    from the parent's draw, ``_saved_model``) and narrowed to the rank's
-    blocks by the launcher; an MoE run first with
+    the one process serves: the launcher from torchrun's variables (a
+    localhost port) with ``--model-parallel TS_MP`` on each of
+    ``_ts_runs``' models once the one process's go file for it is written,
+    whole on the host (read back from the parent's draw, ``_saved_model``)
+    and narrowed to the rank's blocks by the launcher; an MoE run first with
     the one process's expert selection replayed, then free; the flash
     and depthwise inputs' shapes recorded; then DeepSeek-V3's absorbed
     decode against the plain one on the rank's blocks (``_ds_absorb``).
@@ -6049,11 +6120,11 @@ def _ts_rank(rank, st):
     out = {}
     try:
         mesh.init_data_group("gloo")
-        while not os.path.exists(st["go"]):  # the one process's draws
-            time.sleep(0.1)
         full = None
         for name, batch, prompt, gen, seed, pseed, smoke in _ts_runs():
             cfg = cfgs[name]
+            while seed and not os.path.exists(st[f"{name}_go"]):
+                time.sleep(0.1)  # the one process's draw and selection
             t0 = time.perf_counter()
             full = (_saved_model(torch, cfg, st[f"{name}_weights"]) if seed
                     else _as_fp32(full, cfg))
@@ -6363,9 +6434,10 @@ def _ts_launch_gate(name, counters, want, ranks):
 def _ts_one_process(torch, serve, init_model, cfgs, counters, st, one, t0,
                     out, ranks):
     """Phase 24's one process: each of ``_ts_runs``' models served on the
-    card into ``one`` (each bf16 model drawn on the host and saved where
-    ``st`` names, an MoE model's selection saved too), then the go file
-    for the waiting ``ranks``; their results."""
+    card into ``one`` (each drawn model drawn on the host and saved where
+    ``st`` names, an MoE model's selection saved too), then its go file
+    for the waiting ``ranks``, which serve it (and the fp32 copy cast from
+    it) while the one process goes on with the next; their results."""
     from repro_torch.models import moe, sharding
     model = None
     for name, batch, prompt, gen, seed, pseed, _ in _ts_runs():
@@ -6399,14 +6471,15 @@ def _ts_one_process(torch, serve, init_model, cfgs, counters, st, one, t0,
                        st[f"{name}_routing"])
         del log
         torch.cuda.empty_cache()
+        if seed:  # its ranks may serve it now
+            open(st[f"{name}_go"], "w").close()
+            out.setdefault("ranks_from", time.perf_counter())
     del model
     torch.cuda.empty_cache()
     out["one_process_s"] = time.perf_counter() - t0
-    t = time.perf_counter()
-    open(st["go"], "w").close()
     while not ranks.join():
         pass
-    out["ranks_wall_s"] = time.perf_counter() - t
+    out["ranks_wall_s"] = time.perf_counter() - out.pop("ranks_from")
     return [torch.load(os.path.join(st["out"], f"rank{r}.pt"),
                        weights_only=False) for r in range(TS_MP)]
 
@@ -6454,10 +6527,11 @@ def tp_serve_check(torch, np, configs, init_model, serve, ref,
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         # the ranks start up while the one process serves, then wait for
         # its draws and selections (files at paths named here)
-        st = dict(out=tmp, port=_free_port(), go=os.path.join(tmp, "go"))
+        st = dict(out=tmp, port=_free_port())
         for name, *_, seed, _, _ in _ts_runs():
             if seed:
                 st[f"{name}_weights"] = os.path.join(tmp, f"{name}.pt")
+                st[f"{name}_go"] = os.path.join(tmp, f"go_{name}")
             if cfgs[name].moe:
                 st[f"{name}_routing"] = os.path.join(tmp,
                                                      f"{name}_routing.pt")
@@ -7341,6 +7415,429 @@ def _dps_entries(dps, dw_fwd_entry, flash_entries):
         for lay, row in dps["dw_rows"].items()}
 
 
+def _hl_cfgs(configs):
+    """Phase 27's models (bf16, flash, every width): Qwen2-7B and
+    StarCoder2-3B cut to HL_LAYERS layers, Whisper-large-v3 to HL_LAYERS
+    encoder and HL_LAYERS decoder layers, and each one's fp32 copy."""
+    import dataclasses
+    cut = dict(n_layers=HL_LAYERS, attn_impl="flash")
+    out = dict(qwen2=dataclasses.replace(configs.get("qwen2-7b"), **cut),
+               whisper=dataclasses.replace(configs.get(WH_ARCH),
+                                           n_encoder_layers=HL_LAYERS, **cut),
+               starcoder2=dataclasses.replace(configs.get(TS_SC2), **cut))
+    out.update({f"{k}_f32": dataclasses.replace(v, dtype="float32")
+                for k, v in list(out.items())})
+    return out
+
+
+def _hl_runs():
+    """(name, batch, prompt tokens, generated tokens, weights' seed (None:
+    the previous run's weights cast to fp32), prompt's seed, ``--smoke``)
+    of each run, in order: each model in bf16, then its fp32 copy."""
+    runs = []
+    for i, name in enumerate(HL_LAYOUTS):
+        seed = 311 + 4 * i
+        prompt = WH_PROMPT if name == "whisper" else HL_PROMPT
+        runs += [(name, HL_BATCH, prompt, HL_GEN, seed, seed + 1, True),
+                 (f"{name}_f32", LM_FP32_BATCH, min(prompt, HL_F32_PROMPT),
+                  HL_F32_GEN, None, seed + 3, False)]
+    return runs
+
+
+def _hl_layout(name):
+    return HL_LAYOUTS[name.removesuffix("_f32")]
+
+
+def _hl_argv(name, cfg, batch, prompt, gen, seed, smoke):
+    return (_ts_argv(cfg.name, batch, prompt, gen, seed, smoke=smoke)
+            + ["--model-parallel", str(_hl_layout(name)[1]),
+               "--dist-backend", "gloo"])
+
+
+def _hl_rank(rank, st):
+    """Phase 27, one of HL_WORLD gloo ranks sharing the card (``st``: its
+    port and the one process's saved draws, both dtypes): the launcher
+    from torchrun's variables on each of ``_hl_runs``' models once the
+    parent's go file for it is written, whole on the host (read back
+    memory-mapped) and narrowed to the rank's head-aligned blocks by the
+    launcher, at its model's layout; the flash inputs' shapes recorded.
+    Results go to a file the parent reads."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import conv1d_brgemm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import common as cm
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
+    os.environ.update(WORLD_SIZE=str(HL_WORLD), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(st["port"]))
+    counters = _counters(conv1d_brgemm, fa)
+    shapes = []
+
+    def recorded(q, *a, real=cm.flash_attention, **k):
+        shapes.append(tuple(q.shape))  # the rank's heads (B, T, KV, G, hd)
+        return real(q, *a, **k)
+
+    cm.flash_attention = recorded
+    cfgs = _hl_cfgs(configs)
+    out = {}
+    try:
+        mesh.init_data_group("gloo")
+        out["ready_at"] = time.time()
+        for name, batch, prompt, gen, _, pseed, smoke in _hl_runs():
+            cfg = cfgs[name]
+            go = st[f"{name.removesuffix('_f32')}_go"]
+            while not os.path.exists(go):  # the one process's draws
+                time.sleep(0.1)
+            t0 = time.perf_counter()
+            full = _saved_model(torch, cfg, st[f"{name}_weights"])
+            del shapes[:]
+            r = _served(torch, serve, counters, cfg, full, _hl_argv(
+                name, cfg, batch, prompt, gen, pseed, smoke))
+            del full
+            r["flash_shapes"] = list(shapes)
+            r["run_s"] = time.perf_counter() - t0
+            r["started_at"] = time.time() - r["run_s"]
+            r.pop("prompt")
+            out[name] = r
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(st["out"], f"rank{rank}.pt"))
+
+
+def _hl_blocks_bytes(sharding, cfg, shapes, sizes, layout, heads) -> int:
+    """The bytes of the blocks a rank of ``layout`` holding ``heads``
+    ((query heads, KV heads) counts) executes, from the leaves' whole
+    ``shapes`` and element ``sizes`` under JAX's specs: each ``'data'``
+    dimension split evenly; the ``'model'`` dimension of an attention leaf
+    as many heads' slices as the rank holds (the query heads' of ``wq``,
+    ``bq``, ``wo`` and Whisper's cross-attention, the KV heads' of the
+    self-attention's ``wk``, ``wv``, ``bk``, ``bv``: the whole columns of
+    a KV head the rank shares), any other split evenly."""
+    mesh = sharding.MeshShape(("data", "model"), layout)
+    specs = sharding.param_pspecs(shapes, mesh)
+    total = 0
+    for key, shape in shapes.items():
+        names = key.split(".")
+        dims = []
+        for n, e in zip(shape, specs[key]):
+            axes = () if e is None else ((e,) if isinstance(e, str) else e)
+            if "model" in axes and names[-1] in ("wq", "bq", "wo", "wk",
+                                                 "wv", "bk", "bv"):
+                kv = names[-1] in ("wk", "wv", "bk", "bv") and (
+                    "cross" not in names)
+                n = n // (cfg.n_kv_heads if kv else cfg.n_heads) * heads[kv]
+                axes = tuple(a for a in axes if a != "model")
+            dims.append(n // math.prod(mesh.shape[a] for a in axes))
+        total += math.prod(dims) * sizes[key]
+    return total
+
+
+def _hl_cache_bytes(cfg, batch, prompt, gen, layout, heads) -> int:
+    """A rank's cache bytes from its heads: each layer's K and V of its
+    data row's rows over prompt + gen positions and its KV heads, and an
+    encoder-decoder's cross K/V over the frames and its query heads, in
+    the launcher's cache dtype (the model's)."""
+    es = 4 if cfg.dtype == "float32" else 2
+    rows = batch // layout[0] if batch % layout[0] == 0 else batch
+    out = 2 * cfg.n_layers * rows * (prompt + gen) * heads[1] * cfg.head_dim
+    if cfg.family == "encdec":
+        out += 2 * cfg.n_layers * rows * cfg.encoder_width * heads[0] * (
+            cfg.head_dim)
+    return out * es
+
+
+def _hl_want(cfgs):
+    """What each run's rank m must show: a decode step's collectives
+    (model sums: 2 a layer and the embedding's, Whisper's decoder 3 a
+    layer; one logit gather; a data row's gathers at dp > 1: one a layer
+    and the tied table), and for a bf16 run its fused prefill's and
+    ``fill_cross_cache``'s ``flash_fwd`` launches and input shapes at the
+    rank's heads (fill first, then the prefill: the encoder's, then the
+    decoder's)."""
+    want = {}
+    for name, batch, prompt, *_ in _hl_runs():
+        cfg = cfgs[name]
+        dp, mp = _hl_layout(name)
+        L = cfg.n_layers
+        enc = cfg.family == "encdec"
+        base = dict(sums=(3 if enc else 2) * L + 1, gathers=1,
+                    data_gathers=L + (1 if cfg.tie_embeddings else 2)
+                    if dp > 1 else 0)
+        ranks = []
+        for m in range(mp):
+            q, kv = HL_HEADS[name.removesuffix("_f32")][m]
+            w = dict(base, heads=(q, kv))
+            if cfg.dtype != "float32":
+                rows = batch // dp
+                dec = (rows, prompt, kv, q // kv, cfg.head_dim)
+                if enc:
+                    e = (rows, cfg.encoder_width, kv, 1, cfg.head_dim)
+                    w.update(fill={"flash_fwd": L},
+                             prefill={"flash_fwd": 2 * L},
+                             flash=[e] * (2 * L) + [dec] * L)
+                else:
+                    w.update(prefill={"flash_fwd": L}, flash=[dec] * L)
+            elif enc:
+                w.update(fill={"flash_fwd": L})
+            ranks.append(w)
+        want[name] = ranks
+    return want
+
+
+def _hl_gate(torch, sharding, serve, name, cfg, one, ranks, want, counters,
+             shapes, sizes):
+    """A run's HL_WORLD ranks against the one process and ``want``: the
+    fp32 copies' prompt logits within HL_F32_TOL of the one process's
+    largest logit and every token equal; a bf16 run's within
+    ``prefill_tol``, tokens equal where the top-2 margin is clear; every
+    rank's logits and tokens bitwise rank 0's (at (2, 4) each data row's
+    rows gathered from its model row); each rank's heads, weight bytes
+    (``_hl_blocks_bytes``) and cache bytes (``_hl_cache_bytes``); the
+    collectives a decode step; no launch in a decode step; the fused
+    prefill's and the fill's launches and flash inputs; the summary."""
+    V = cfg.vocab_size
+    layout = _hl_layout(name)
+    f32 = cfg.dtype == "float32"
+    tol = HL_F32_TOL if f32 else serve.prefill_tol(cfg, torch.bfloat16)
+    want_l = one["prompt_logits"][:, -1, :V].float()
+    top2 = want_l.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol * want_l.abs().max()
+    zero = {c.__name__: 0 for c in counters}
+    blocks = [(len(q), len(kv)) for q, kv in sharding.head_blocks(
+        cfg, layout[1])]
+    gaps = []
+    for r, o in enumerate(ranks):
+        where = f"head-layouts {layout} {name} rank {r}"
+        w = want[r % layout[1]]
+        if blocks[r % layout[1]] != w["heads"]:
+            raise AssertionError(f"{where}: head_blocks gives it "
+                                 f"{blocks[r % layout[1]]}; expected "
+                                 f"{w['heads']}")
+        gaps.append(_ts_rel(o["prompt_logits"][:, -1], want_l, V))
+        same = o["prompt_logits"][:, -1, :V].argmax(-1) == want_l.argmax(-1)
+        if not gaps[-1] <= tol or not bool((same | (
+                torch.zeros_like(clear) if f32 else ~clear)).all()):
+            raise AssertionError(f"{where}: logits {gaps[-1]:.3e} of the "
+                                 f"largest from one process's (tol {tol})"
+                                 f", greedy tokens {same.tolist()}")
+        if f32 and not (o["tokens"] == one["tokens"]).all():
+            raise AssertionError(f"{where}: tokens differ from one "
+                                 "process's")
+        if not (torch.equal(o["prompt_logits"], ranks[0]["prompt_logits"])
+                and (o["tokens"] == ranks[0]["tokens"]).all()):
+            raise AssertionError(f"{where}: its logits or tokens differ "
+                                 "from rank 0's")
+        blk = _hl_blocks_bytes(sharding, cfg, shapes, sizes, layout,
+                               w["heads"])
+        cache = _hl_cache_bytes(cfg, one["batch"], one["prompt_len"],
+                                one["gen"], layout, w["heads"])
+        if (o["weights_bytes"], o["cache_bytes"]) != (blk, cache):
+            raise AssertionError(
+                f"{where}: holds {o['weights_bytes']} bytes of weights and "
+                f"{o['cache_bytes']} of cache; its heads' blocks are {blk} "
+                f"and their cache {cache}")
+        c = o["collectives"]
+        got = dict(sums=c["sums"], gathers=c["gathers"],
+                   data_gathers=c["data_gathers"])
+        if got != {k: w[k] for k in got}:
+            raise AssertionError(f"{where}: a decode step ran {got}; "
+                                 f"expected {w}")
+        if any(o["decode_launches"].values()):
+            raise AssertionError(f"{where}: a decode step launched "
+                                 f"{o['decode_launches']}")
+        for key in ("prefill", "fill"):
+            if o[f"{key}_launches"] != {**zero, **w.get(key, {})}:
+                raise AssertionError(f"{where}: its {key} launched "
+                                     f"{o[f'{key}_launches']}; expected "
+                                     f"{w.get(key, {})}")
+        if o["flash_shapes"] != w.get("flash", o["flash_shapes"]):
+            raise AssertionError(
+                f"{where}: flash inputs {sorted(set(o['flash_shapes']))} "
+                f"({len(o['flash_shapes'])}); expected "
+                f"{sorted(set(w['flash']))} ({len(w['flash'])})")
+    r0 = ranks[0]
+    return dict(
+        layout=layout, tol=tol, rank_gaps=gaps,
+        rows_with_clear_margin=int(clear.sum()),
+        tokens_equal_one_process=[float((o["tokens"] == one[
+            "tokens"]).mean()) for o in ranks],
+        heads=blocks, step_p50_ms=[o["step_p50_ms"] for o in ranks],
+        step_p99_ms=[o["step_p99_ms"] for o in ranks],
+        tokens_per_s=r0["tokens_per_s"],
+        one_step_p50_ms=one["step_p50_ms"],
+        one_step_p99_ms=one["step_p99_ms"],
+        one_tokens_per_s=one["tokens_per_s"], collectives=r0["collectives"],
+        weights_bytes=[o["weights_bytes"] for o in ranks],
+        one_weights_bytes=one["weights_bytes"],
+        cache_bytes=[o["cache_bytes"] for o in ranks],
+        one_cache_bytes=one["cache_bytes"],
+        peak_memory_gb=[o["peak_memory_gb"] for o in ranks],
+        one_peak_memory_gb=one["peak_memory_gb"],
+        prefill_gap=[o["prefill_gap"] and o["prefill_gap"]["gap"]
+                     for o in ranks],
+        prefill_launches=r0["prefill_launches"],
+        fill_launches=r0["fill_launches"], encode_s=r0.get("encode_s"),
+        sequential_prefill_s=r0["sequential_prefill_s"],
+        smoke_prefill_s=r0["smoke_prefill_s"], draw_s=r0["draw_s"],
+        run_s=[o["run_s"] for o in ranks])
+
+
+def head_layouts_check(torch, configs, init_model, serve, ref,
+                       conv1d_brgemm, fa):
+    """Phase 27: tensor-parallel serving where the heads or KV heads do
+    not divide the model axis (see HL_*).  ``flash_fwd`` at each new rank
+    prefill shape against its plain version (``_ts_flash_row``); one
+    process serves each model on the card and saves its draws (bf16 and
+    the fp32 copy) while HL_WORLD gloo ranks start up (``_hl_rank``);
+    then the ranks serve each through the launcher at its layout, each
+    run held to the one process (``_hl_gate``)."""
+    import tempfile
+
+    import torch.multiprocessing as mp_
+
+    from repro_torch.models import leaf_shapes, sharding
+
+    t0, wall0 = time.perf_counter(), time.time()
+    counters = _counters(conv1d_brgemm, fa)
+    cfgs = _hl_cfgs(configs)
+    want = _hl_want(cfgs)
+    out = dict(card=_card_line(), backend="gloo", world=HL_WORLD)
+    wh = cfgs["whisper"]
+    rows = {}
+    for name, label, m, T, causal in (
+            ("qwen2", "qwen2 G 4", 0, HL_PROMPT, True),
+            ("qwen2", "qwen2 G 3", 1, HL_PROMPT, True),
+            ("starcoder2", "starcoder2 G 6", 0, HL_PROMPT, True),
+            ("whisper", "whisper encoder 3 heads", 0, wh.encoder_width,
+             False),
+            ("whisper", "whisper encoder 2 heads", -1, wh.encoder_width,
+             False),
+            ("whisper", "whisper decoder 3 heads", 0, WH_PROMPT, True),
+            ("whisper", "whisper decoder 2 heads", -1, WH_PROMPT, True)):
+        cfg = cfgs[name]
+        q, kv = HL_HEADS[name][m]
+        rows[label] = _ts_flash_row(
+            torch, fa, ref, f"head-layouts {label}",
+            HL_BATCH // _hl_layout(name)[0], T, kv, q // kv, cfg.head_dim,
+            cfg.head_dim, causal=causal)
+    out["flash_rows"] = rows
+    out["kernel_rows_s"] = time.perf_counter() - t0
+    one = {}
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 copies
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        st = dict(out=tmp, port=_free_port(),
+                  **{f"{name}_weights": os.path.join(tmp, f"{name}.pt")
+                     for name, *_ in _hl_runs()},
+                  **{f"{name}_go": os.path.join(tmp, f"go_{name}")
+                     for name in HL_LAYOUTS})
+        procs = mp_.start_processes(_hl_rank, args=(st,), nprocs=HL_WORLD,
+                                    start_method="spawn", join=False)
+        try:
+            model = None
+            for name, batch, prompt, gen, seed, pseed, _ in _hl_runs():
+                cfg = cfgs[name]
+                t = time.perf_counter()
+                if seed:  # drawn once on the host
+                    model = _host_model(torch, cfg, init_model, seed)
+                    torch.save(model.state_dict(), st[f"{name}_weights"])
+                    model = model.to(DEVICE)
+                else:  # the bf16 weights cast, saved for the ranks
+                    model = _as_fp32(model, cfg)
+                    torch.save({k: v.cpu() for k, v in
+                                model.state_dict().items()},
+                               st[f"{name}_weights"])
+                save_s = time.perf_counter() - t
+                one[name] = _served(torch, serve, counters, cfg, model,
+                                    _ts_argv(cfg.name, batch, prompt, gen,
+                                             pseed))
+                one[name].update(
+                    save_s=save_s, batch=batch, prompt_len=prompt, gen=gen,
+                    weights_bytes=serve._nbytes(model.parameters()),
+                    cache_bytes=serve._nbytes(sharding.tree_leaves(
+                        serve.make_cache(cfg, batch, prompt + gen,
+                                         dtype=serve.lm_cache_dtype(cfg),
+                                         device="meta"))),
+                    shapes=leaf_shapes(cfg), sizes={
+                        k: v.element_size()
+                        for k, v in model.state_dict().items()})
+                if cfg.dtype == "float32":  # its ranks may serve it now
+                    del model
+                    model = None
+                    open(st[f"{name.removesuffix('_f32')}_go"], "w").close()
+                    out[f"{name}_go_at"] = time.time() - wall0
+                torch.cuda.empty_cache()
+            out["one_process_s"] = time.perf_counter() - t0 - out[
+                "kernel_rows_s"]
+            while not procs.join():
+                pass
+            out["ranks_s"] = time.time() - wall0 - out[
+                f"{next(iter(HL_LAYOUTS))}_f32_go_at"]
+            res = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                              weights_only=False) for r in range(HL_WORLD)]
+        finally:  # a failed run leaves no rank waiting
+            for proc in procs.processes:
+                if proc.is_alive():
+                    proc.terminate()
+    out["ranks_ready_at"] = max(r["ready_at"] for r in res) - wall0
+    for name, *_ in _hl_runs():
+        o = one[name]
+        out[name] = _hl_gate(torch, sharding, serve, name, cfgs[name], o,
+                             [r[name] for r in res], want[name], counters,
+                             o.pop("shapes"), o.pop("sizes"))
+        out[name].update(save_s=o["save_s"], started_at=min(
+            r[name]["started_at"] for r in res) - wall0)
+        print(f"head-layouts-{name} " + json.dumps(out[name], default=str),
+              flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"head-layouts: phase 27 in {out['seconds']:.1f} s ({out['card']}; "
+          f"kernel rows {out['kernel_rows_s']:.1f} s, one process "
+          f"{out['one_process_s']:.1f} s, {HL_WORLD} ranks ready at +"
+          f"{out['ranks_ready_at']:.1f} s, serving from the first go file "
+          f"for {out['ranks_s']:.1f} s; the go files at " + ", ".join(
+              f"+{out[k]:.1f}" for k in out if k.endswith("_go_at"))
+          + " s, the ranks' runs from " + ", ".join(
+              f"+{out[n]['started_at']:.1f}" for n, *_ in _hl_runs())
+          + " s)", flush=True)
+    for name, *_ in _hl_runs():
+        a = out[name]
+        c = a["collectives"]
+        print(f"head-layouts:   {name} {a['layout']}: heads {a['heads']}; "
+              f"decode p50 {max(a['step_p50_ms']):.1f} ms, p99 "
+              f"{max(a['step_p99_ms']):.1f} the slowest rank (one process "
+              f"{a['one_step_p50_ms']:.1f} ms); {c['sums']:.0f} sums, "
+              f"{c['gathers']:.0f} gathers and {c['data_gathers']:.0f} data "
+              f"gathers a step ({c['seconds'] * 1e3:.1f} + "
+              f"{c['data_seconds'] * 1e3:.1f} ms of host time); weights "
+              f"{min(a['weights_bytes']) / 1e9:.3f}-"
+              f"{max(a['weights_bytes']) / 1e9:.3f} GB a rank of "
+              f"{a['one_weights_bytes'] / 1e9:.3f}, cache "
+              f"{max(a['cache_bytes']) / 1e9:.4f} of "
+              f"{a['one_cache_bytes'] / 1e9:.4f}, peak "
+              f"{max(a['peak_memory_gb']):.3f} GB a rank (one process "
+              f"{a['one_peak_memory_gb']:.3f}); logits "
+              f"{max(a['rank_gaps']):.2e} of the largest (tol "
+              f"{a['tol']:.2e})", flush=True)
+    return out
+
+
+def _hl_entries(hl, flash_entries):
+    """Phase 27's numbers in the kernels line: ``flash_fwd`` at each new
+    rank prefill shape (launches a rank's fused prefill, the row)."""
+    keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err")
+    flash_entries[0]["head_layouts"] = {
+        label: dict(launches_per_rank_prefill=hl[label.split()[0]][
+            "prefill_launches"]["flash_fwd"], **{k: row[k] for k in keys})
+        for label, row in hl["flash_rows"].items()}
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -7644,6 +8141,8 @@ def main(argv=None) -> int:
                conv1d_brgemm, flash_attention)
     dps = phase(26, dp_serve_check, torch, configs, init_model, serve, ref,
                 conv1d_brgemm, flash_attention)
+    hl = phase(27, head_layouts_check, torch, configs, init_model, serve,
+               ref, conv1d_brgemm, flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -7921,6 +8420,7 @@ def main(argv=None) -> int:
     _ts_entries(ts, dw_fwd_entry, flash_entries)
     _fs_entries(fs, dw_fwd_entry, dw_bw_entry, flash_entries)
     _dps_entries(dps, dw_fwd_entry, flash_entries)
+    _hl_entries(hl, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     print(f"phase times in {time.perf_counter() - t_start:.1f} s: "
@@ -7946,6 +8446,7 @@ def main(argv=None) -> int:
                            elastic=elastic, whisper=wh, zamba2=zb,
                            moonlight=mn, deepseek_v3=ds, internvl2=vl,
                            tp_serve=ts, fsdp=fs, dp_serve=dps,
+                           head_layouts=hl,
                            phase_s=phase_s,
                            kernels=kernels),
                       f, indent=1, default=str)

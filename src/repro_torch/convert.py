@@ -31,11 +31,14 @@ the model's config, both give the blocks that device executes instead
 (a tensor-parallel rank's): ``params_from_jax`` by the parameter rules
 (``sharding.local_state_dict(..., cfg=)``), ``cache_from_jax`` by
 ``sharding.cache_pspecs``, except that an MLA model's latent ``c_kv``
-stays whole over ``'model'`` (``models/mla.py``) and an SSM model's fused
+stays whole over ``'model'`` (``models/mla.py``), an SSM model's fused
 leaves and conv state take their segment-aligned blocks
-(``sharding.segment_block``), as ``models.local_model`` and
-``init_cache(mp=)`` lay them out, and ``models.place_rank`` gives the
-model its groups (and an MoE model its expert ids)::
+(``sharding.segment_block``), and the attention's leaves and the
+cache's K and V their head-aligned ones (``sharding.head_blocks``: whole
+KV heads, where JAX's ``cache_pspecs`` splits the head_dim of KV heads
+that do not divide over ``'model'``), as ``models.local_model`` and
+``init_cache(mp=, rank=)`` lay them out, and ``models.place_rank`` gives
+the model its groups (and an MoE model its expert ids)::
 
     model = models.place_rank(models.model_class(cfg)(cfg, params_from_jax(
         tree, mesh=m, coords=c, cfg=cfg)), m, c, model_group)
@@ -90,6 +93,11 @@ def params_from_jax(tree, prefix: str = "", *, mesh=None, coords=None,
     return out
 
 
+# a cache's head-carrying leaves: the self-attention's K and V hold KV
+# heads, Whisper's cross K and V every query head's
+CACHE_HEADS = {"k": "kv", "v": "kv", "cross_k": "q", "cross_v": "q"}
+
+
 def cache_from_jax(tree, *, device: torch.device | str = "cpu", mesh=None,
                    coords=None, cfg=None):
     """A JAX decode cache (its leaves as numpy arrays) as the port's: the
@@ -114,7 +122,16 @@ def cache_from_jax(tree, *, device: torch.device | str = "cpu", mesh=None,
                 return {k: block(c[k], s[k], k) for k in c}
             if name == "c_kv":  # whole over 'model': each head reads it
                 s = tuple(None if e == "model" else e for e in s)
-            if name == "conv" and cfg is not None and cfg.ssm is not None:
+            if name in CACHE_HEADS and cfg is not None:
+                # whole KV heads (query heads of the cross K/V), the rank's
+                # head block, where JAX may split the head_dim
+                q, kv = sharding.rank_heads(cfg, mesh, coords)
+                heads = ((kv, cfg.n_kv_heads) if CACHE_HEADS[name] == "kv"
+                         else (q, cfg.n_heads))
+                s = tuple(None if e == "model" else e for e in s)
+                b = sharding.head_block(sharding.local_block(
+                    c, s, mesh, coords), c.dim() - 2, *heads)
+            elif name == "conv" and cfg is not None and cfg.ssm is not None:
                 # segment-aligned over 'model', as init_cache(mp=) has it
                 *lead, last = s
                 parts, index = sharding.split_index(last, mesh, coords)

@@ -88,9 +88,10 @@ by ``models/sharding.py``'s rules and GSPMD partitions the decode): each
 rank draws the same seeded model on the host, keeps the blocks it
 executes at its coordinate on the (1, N) mesh
 (``launch.mesh.make_host_mesh``, ``models.local_model``: the rules'
-blocks, an SSM model's fused ``in_proj`` and conv segment-aligned) and
-its share of the cache (KV/N heads; an SSM model's H/N heads and conv
-channels; Whisper's H/N heads of the cross K/V), and runs the model
+blocks, an SSM model's fused ``in_proj`` and conv segment-aligned, the
+attention's head-aligned) and its share of the cache (the KV heads its
+query heads read; an SSM model's H/N heads and conv channels; Whisper's
+query heads of the cross K/V), and runs the model
 group's sums and logit gather where GSPMD inserts them (Mamba2's and
 Zamba2's also over each gated norm's sum of squares).  The fused
 prefill runs ``flash_fwd`` on each rank's heads (Zamba2's shared block,
@@ -125,13 +126,32 @@ runs ``flash_fwd`` and ``depthwise_conv1d_fwd`` at a data row's rows:
         --arch starcoder2-3b --model-parallel 2 --dist-backend gloo \
         --batch 8 --prompt-len 200 --gen 64
 
+Heads and KV heads that do not divide over N serve with head-aligned
+blocks (``sharding.head_blocks``): where N divides over the KV heads,
+each KV head is replicated on N / KV ranks (its ``wk``/``wv`` columns,
+``bk``/``bv`` and cache) and its group's query heads split among them,
+the larger blocks first; multi-head attention's heads go in contiguous
+blocks as even as they go.  So StarCoder2-3B (24 heads over 2 KV heads)
+serves at N 4 and 8, Qwen2-7B (28 over 4) and Whisper-large-v3 (20 MHA
+heads) at N 8, on every world a multiple of N:
+
+    torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.serve \
+        --arch qwen2-7b --model-parallel 8 --dist-backend gloo \
+        --batch 8 --prompt-len 200 --gen 64
+
+A rank caches the KV heads it reads (1/KV of the whole cache where a KV
+head is replicated), where JAX's ``cache_pspecs`` splits the cache's
+head_dim (1/N): a divergence of memory only (ROADMAP.md queue A).
+
 Layouts with no explicit form here are refused, naming ROADMAP.md queue
-A item 7 (``tp_refusal``): heads, KV heads or SSM heads that do not
-divide over N (GSPMD pads them, or shards the cache's head_dim), SSM
-groups that do not, any other leaf whose split dimension does not
-divide over its axes (the padded vocabulary, an expert count, a
-``'dp'`` dimension over the data rows); a world that is no multiple of N
-is refused too, and the conv family on any world (JAX's ``serve_conv``
+A item 7 (``tp_refusal``): a rank's heads that would straddle two KV
+heads' groups (neither N nor the KV heads divide the other, G > 1) or a
+rank with no head, SSM heads that do not divide over N, SSM groups that
+do not, any other leaf whose split dimension does not divide over its
+axes (d_ff, the padded vocabulary, an expert count, a ``'dp'``
+dimension over the data rows); only an odd model axis (N 3 or 6) meets
+them among the ported configs.  A world that is no multiple of N is
+refused too, and the conv family on any world (JAX's ``serve_conv``
 builds no mesh).  A failed collective, build or launch raises on its
 rank and the run exits non-zero.
 
@@ -503,14 +523,11 @@ def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
                    f"the (world / mp, mp) mesh needs a multiple of {mp} "
                    "ranks"))
     dp = 1 if world is None else world // mp
-    if cfg.n_heads % mp:
-        return (f"{cfg.n_heads} heads do not divide over {mp} model ranks "
-                f"(GSPMD pads the head dimension; no explicit form here: "
-                f"{TP_ITEM})")
-    if not cfg.mla and cfg.n_kv_heads % mp:
-        return (f"{cfg.n_kv_heads} KV heads do not divide over {mp} model "
-                f"ranks (JAX's cache_pspecs then shards the cache's "
-                f"head_dim; no explicit form here: {TP_ITEM})")
+    if cfg.n_heads:
+        try:  # whole heads of one group a rank (GSPMD pads them instead)
+            sharding.head_blocks(cfg, mp)
+        except ValueError as e:
+            return f"{e} (no explicit form here: {TP_ITEM})"
     if cfg.padded_vocab % mp:
         return (f"the padded vocabulary of {cfg.padded_vocab} does not "
                 f"divide over {mp} model ranks ({TP_ITEM})")
@@ -526,6 +543,9 @@ def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
                 sharding.SSM_SEGMENTS):
             # segment-aligned on 'model' (checked above); the rest even
             spec = (*spec[:-1], None)
+        elif sharding.leaf_heads(cfg, key):
+            # head-aligned on 'model' (checked above); the rest even
+            spec = tuple(None if e == "model" else e for e in spec)
         try:
             sharding.local_shape(shapes[key], spec, mesh_shape)
         except ValueError as e:
@@ -647,7 +667,8 @@ def serve_lm(args, cfg, model=None, routing: moe.RoutingLog | None = None
     max_len = args.prompt_len + args.gen
     cache_dtype = lm_cache_dtype(cfg)
     cache = make_cache(cfg, args.batch, max_len, dtype=cache_dtype,
-                       device=device, mp=mp, dp=dp)
+                       device=device, mp=mp, dp=dp,
+                       rank=coords["model"] if dp * mp != 1 else 0)
     if dp * mp != 1:
         extra.update(weights_bytes=_nbytes(model.parameters()),
                      cache_bytes=_nbytes(sharding.tree_leaves(cache)))

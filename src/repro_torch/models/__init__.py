@@ -96,9 +96,9 @@ def local_model(model, mesh, coords, model_group, device=None,
     (JAX's serve launcher's ``(world / mp, mp)`` host mesh): a model of
     ``model``'s class and config whose leaves are the blocks the device
     at ``coords`` holds (``sharding.local_state_dict(..., cfg=)``: JAX's
-    2-D blocks, an SSM model's fused leaves segment-aligned on
-    ``'model'``), on ``device`` (default: where they are), placed by
-    :func:`place_rank`."""
+    2-D blocks, an SSM model's fused leaves segment-aligned and the
+    attention's leaves head-aligned on ``'model'``), on ``device``
+    (default: where they are), placed by :func:`place_rank`."""
     from repro_torch.models import sharding
     cfg = model.cfg
     return place_rank(type(model)(cfg, sharding.local_state_dict(
@@ -117,7 +117,9 @@ def place_rank(model, mesh, coords, model_group, data_group=None,
     a model axis of one).  On a data axis of more than one rank its
     ``ds`` is the ``sharding.DataShards`` of ``data_group`` over the
     mesh: each family's ``forward`` and ``decode_step`` gather over the
-    data group, where a layer runs, the block its model column executes,
+    data group, where a layer runs, the block its model column executes
+    (its own head-aligned shapes, ``sharding.model_block_shape``, the same
+    on every rank of the data group),
     then run the model group's sums and gathers on it; no gathered weight
     outlives its layer, so a rank's memory holds its 2-D blocks and one
     layer's column block at a time.  An MoE model's ``expert_ids`` are

@@ -15,9 +15,11 @@ Tensor parallelism (serving): each function that takes ``tp``, a
 ``sharding.ModelGroup``, reads the blocks of its leaves that
 ``models/sharding.py``'s rules give its rank and sums or gathers over the
 group where GSPMD does in the JAX launcher's sharded decode.  The head
-counts come from the blocks' shapes (a rank's ``wq`` holds H/mp heads'
-columns, ``wk`` KV/mp), so the functions run unchanged on a rank's
-blocks; ``wo`` and ``w_down`` are row blocks whose products are summed
+counts come from the blocks' shapes (a rank's ``wq`` holds its query
+heads' columns, ``wk`` those of the KV heads they read:
+``sharding.head_blocks``, H/mp over KV/mp where the KV heads divide), so
+the functions run unchanged on a rank's blocks, one group size over its
+KV heads; ``wo`` and ``w_down`` are row blocks whose products are summed
 over the group, and a replicated bias after them (``bo``, ``b_down``) is
 added once, after the sum.
 
@@ -127,7 +129,7 @@ def _qkv(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     # the head counts from the projections' widths: H and KV, or a
-    # tensor-parallel rank's H/mp and KV/mp
+    # tensor-parallel rank's (sharding.head_blocks)
     q = q.reshape(B, T, -1, hd)
     k = k.reshape(B, T, -1, hd)
     v = v.reshape(B, T, -1, hd)
@@ -230,7 +232,7 @@ def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
     matmul does, so an fp32 cache with bf16 weights gives an fp32 output
     (the JAX package's scan then refuses the fp32 residual; the port's
     launcher runs such a model with a cache of the model's dtype).  With
-    ``tp`` the cache holds the rank's KV/mp heads."""
+    ``tp`` the cache holds the rank's KV heads."""
     B = x.shape[0]
     q, k, v = _qkv(p, x, cfg, torch.full((B, 1), pos, device=x.device))
     cache_k[:, pos] = k[:, 0]

@@ -23,7 +23,11 @@ that does not divide raises: GSPMD would pad it), and
 an explicit form cannot follow JAX's block, a rank's execution block
 departs from it: an SSM model's fused ``in_proj``, ``conv_w`` and
 ``conv_b`` (and its cache's conv state) take segment-aligned blocks
-(:func:`segment_block`), every rank keeping B and C whole.
+(:func:`segment_block`), every rank keeping B and C whole; the
+attention's leaves (and its cache's K and V) take head-aligned blocks
+(:func:`head_blocks`), whole query heads of one group and the KV heads
+they read, a KV head replicated on the ranks that share it where the KV
+heads do not divide over the model axis.
 
 :class:`ModelGroup` is the model axis of a tensor-parallel language
 model (``models/common.py``, ``transformer.py``, ``moe.py``, ``mla.py``,
@@ -352,14 +356,25 @@ def local_shape(shape, spec, mesh) -> tuple[int, ...]:
     return tuple(out)
 
 
-def local_block(t: torch.Tensor, spec: tuple, mesh, coords) -> torch.Tensor:
+def local_block(t: torch.Tensor, spec: tuple, mesh, coords,
+                heads: tuple[range, int] | None = None) -> torch.Tensor:
     """The block of ``t`` that the device at ``coords`` (a dict axis ->
     index, or a tuple in the mesh's axis order) holds under ``spec``: a
-    view, each split dimension narrowed to its equal part."""
+    view, each split dimension narrowed to its equal part.  ``heads``,
+    ``(range, n)``: the ``'model'`` dimension holds ``n`` heads' equal
+    slices, and the block takes the range's (:func:`head_blocks`)
+    instead of an equal part."""
     if len(spec) != t.dim():
         raise ValueError(f"a spec of {len(spec)} entries for a tensor of "
                          f"{t.dim()} dimensions")
     coords = _coords(mesh, coords)
+    if heads is not None:
+        dim = _model_dim(spec)
+        if dim is None:
+            raise ValueError(f"a head block of a spec {spec} with no "
+                             "'model' dimension")
+        t = head_block(t, dim, *heads)
+        spec = (*spec[:dim], None, *spec[dim + 1:])
     local_shape(t.shape, spec, mesh)  # raises where a dimension is uneven
     for dim, entry in enumerate(spec):
         parts, index = split_index(entry, mesh, coords)
@@ -376,7 +391,8 @@ def local_state_dict(params, mesh, coords, device=None,
     is).  With the model's ``cfg``, the blocks a rank executes: an SSM
     model's fused leaves (:data:`SSM_SEGMENTS`) take their
     segment-aligned blocks over ``'model'`` (:func:`segment_block`)
-    instead of JAX's contiguous ones."""
+    instead of JAX's contiguous ones, and the attention's leaves
+    (:data:`HEAD_LEAVES`) their head-aligned ones (:func:`head_blocks`)."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     specs = param_pspecs(params, mesh)
@@ -385,7 +401,9 @@ def local_state_dict(params, mesh, coords, device=None,
     for k, t in params.items():
         name = _names(k)[-1]
         if cfg is None or cfg.ssm is None or name not in SSM_SEGMENTS:
-            b = local_block(t, specs[k], mesh, coords)
+            b = local_block(t, specs[k], mesh, coords,
+                            heads=leaf_head_range(cfg, k, specs[k], mesh,
+                                                  coords))
         else:
             *lead, last = specs[k]
             parts, index = split_index(last, mesh, coords)
@@ -458,6 +476,129 @@ def segment_block(t: torch.Tensor, segments, parts: int,
         out.append(_block(seg, t.dim() - 1, parts, index) if split else seg)
         start += w
     return torch.cat(out, -1)
+
+
+# --- the head-aligned blocks of the attention's leaves ---------------------
+#
+# JAX's rules split the attention's head dimensions contiguously on 'model'
+# (``wq``'s H·hd columns, ``wk``'s KV·hd, ``wo``'s H·hd rows), and GSPMD
+# pads or re-lays out a split that does not fall on whole heads; where the
+# KV heads do not divide the axis, ``cache_pspecs`` splits the cache's
+# head_dim.  A rank's execution block instead takes whole heads
+# (:func:`head_blocks`): where the KV heads divide over the ranks, JAX's
+# even blocks; where the ranks divide over the KV heads, each KV head on
+# mp/KV consecutive ranks (its ``wk``/``wv`` columns, ``bk``/``bv`` and
+# cache replicated on each) and its group's query heads split among them;
+# multi-head attention's heads in contiguous blocks as even as they go.
+# Every rank then holds whole query heads of one uniform group size and
+# the KV heads they read.  The specs stay JAX's.
+
+# leaf name -> the heads its 'model' dimension holds: the query heads
+# ("q": also MLA's ``q_up``, ``kv_up`` and ``wo``, whose K and V are
+# per query head) or the KV heads ("kv"); Whisper's cross-attention
+# leaves hold every query head's (``leaf_heads``)
+HEAD_LEAVES = {"wq": "q", "bq": "q", "wo": "q", "q_up": "q", "kv_up": "q",
+               "wk": "kv", "wv": "kv", "bk": "kv", "bv": "kv"}
+
+
+def _even_part(n: int, parts: int, index: int) -> range:
+    """Part ``index`` of ``n`` items split into ``parts`` contiguous parts
+    as even as they go, the larger parts first."""
+    base, extra = divmod(n, parts)
+    start = index * base + min(index, extra)
+    return range(start, start + base + (index < extra))
+
+
+def head_blocks(cfg, mp: int) -> list[tuple[range, range]]:
+    """The query heads and KV heads each of ``mp`` model ranks holds,
+    ``[(q_heads, kv_heads)] * mp`` (query head h reads KV head h // G,
+    G = H / KV): the KV heads' equal blocks with their groups where they
+    divide over the ranks; else, where the ranks divide over the KV heads,
+    each KV head on mp / KV consecutive ranks, its G query heads split
+    among them as evenly as they go, the larger blocks first (Qwen2-7B's
+    7 a group over 2 ranks: 4 and 3); else for multi-head attention (G =
+    1) contiguous blocks as even as they go (Whisper's 20 over 8: 3, 3,
+    3, 3, 2, 2, 2, 2).  Raises where a rank's heads would straddle two
+    groups, or where a rank would hold none.  MLA's heads each expand
+    their own K and V from the latent: multi-head attention whatever
+    ``n_kv_heads`` says."""
+    H = cfg.n_heads
+    KV = H if cfg.mla else cfg.n_kv_heads
+    if H < 1 or KV < 1 or H % KV:
+        raise ValueError(f"{H} heads over {KV} KV heads")
+    G = H // KV
+    if KV % mp == 0:
+        n = KV // mp
+        return [(range(m * n * G, (m + 1) * n * G), range(m * n, (m + 1) * n))
+                for m in range(mp)]
+    if (mp % KV == 0 and G < mp // KV) or (G == 1 and H < mp):
+        raise ValueError(f"{H} heads over {KV} KV heads leave some of {mp} "
+                         "model ranks no head")
+    if mp % KV == 0:
+        per = mp // KV  # ranks a KV head
+        out = []
+        for m in range(mp):
+            kv, j = divmod(m, per)
+            q = _even_part(G, per, j)
+            out.append((range(kv * G + q.start, kv * G + q.stop),
+                        range(kv, kv + 1)))
+        return out
+    if G == 1:
+        return [(_even_part(H, mp, m),) * 2 for m in range(mp)]
+    raise ValueError(f"{H} heads do not divide over {mp} model ranks in whole "
+                     f"groups of {G}: neither {KV} KV heads over {mp} ranks "
+                     f"nor {mp} ranks over {KV} KV heads divide, so a rank's "
+                     "heads would straddle two groups")
+
+
+def rank_heads(cfg, mesh, coords) -> tuple[range, range]:
+    """``(query heads, KV heads)`` of the model rank at ``coords`` of
+    ``mesh`` (:func:`head_blocks`)."""
+    coords = _coords(mesh, coords)
+    return head_blocks(cfg, mesh.shape.get("model", 1))[
+        coords.get("model", 0)]
+
+
+def leaf_heads(cfg, key) -> str | None:
+    """Which heads the ``'model'`` dimension of leaf ``key`` holds:
+    ``"q"`` or ``"kv"`` (:data:`HEAD_LEAVES`; a Whisper cross-attention
+    leaf's are the query heads), None for a leaf of no head, a config
+    with no attention, or no config."""
+    names = _names(key)
+    kind = HEAD_LEAVES.get(names[-1])
+    if kind is None or cfg is None or not cfg.n_heads:
+        return None
+    return "q" if "cross" in names else kind
+
+
+def _model_dim(spec) -> int | None:
+    """The dimension of ``spec`` split over ``'model'``, or None."""
+    return next((d for d, e in enumerate(spec) if e is not None
+                 and "model" in ((e,) if isinstance(e, str) else e)), None)
+
+
+def leaf_head_range(cfg, key, spec, mesh, coords) -> tuple[range, int] | None:
+    """``(heads, n)`` of leaf ``key`` under ``spec`` at ``coords``: the
+    heads (of its ``n``) the model rank there holds (:func:`head_blocks`),
+    or None for a leaf of no head (:func:`leaf_heads`) or none split over
+    ``'model'``."""
+    kind, dim = leaf_heads(cfg, key), _model_dim(spec)
+    if kind is None or dim is None:
+        return None
+    parts, index = split_index(spec[dim], mesh, _coords(mesh, coords))
+    q, kv = head_blocks(cfg, parts)[index]
+    return (q, cfg.n_heads) if kind == "q" else (kv, cfg.n_kv_heads)
+
+
+def head_block(t: torch.Tensor, dim: int, heads: range,
+               n: int) -> torch.Tensor:
+    """The slices of ``heads`` of the ``n`` equal head slices along
+    ``dim`` of ``t`` (a view)."""
+    if t.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not hold "
+                         f"{n} equal heads")
+    w = t.shape[dim] // n
+    return t.narrow(dim, heads.start * w, len(heads) * w)
 
 
 # --- the model group ---------------------------------------------------------
@@ -535,19 +676,25 @@ def fsdp_dims(shapes, dp) -> tuple[dict, dict]:
         if len(split) > 1:
             raise ValueError(f"{k}: {spec} splits {len(split)} dimensions "
                              "over the data ranks")
-        local_shape(shapes[k], spec, mesh)  # raises where it is uneven
+        # raises where a split one is uneven (the 'model' dimensions are
+        # the model column's blocks: head- or segment-aligned, or even)
+        local_shape(shapes[k], [spec[d] if d in split else None
+                                for d in range(len(spec))], mesh)
         dims[k] = split[0] if split and mesh.shape["data"] > 1 else None
     return specs, dims
 
 
-def model_block_shape(key: str, shape, spec, mesh, cfg=None
+def model_block_shape(key: str, shape, spec, mesh, cfg=None, coords=None
                       ) -> tuple[int, ...]:
     """The shape of the block of leaf ``key`` (of ``shape``, under
-    ``spec``) that a model column of ``mesh`` executes once its data
-    ranks' blocks are joined: every ``'model'``-split dimension (an MoE
-    stack's experts on ``('data', 'model')`` too) divided by the model
-    axis, the ``'data'`` ones whole; an SSM model's fused leaves
-    segment-aligned (``ssm_local_width``, with ``cfg``)."""
+    ``spec``) that the model column of ``mesh`` at ``coords`` (default:
+    the first) executes once its data ranks' blocks are joined: every
+    ``'model'``-split dimension (an MoE stack's experts on ``('data',
+    'model')`` too) divided by the model axis, the ``'data'`` ones whole;
+    with ``cfg``, an SSM model's fused leaves segment-aligned
+    (``ssm_local_width``) and the attention's leaves head-aligned
+    (:func:`head_blocks`: the column's heads, so the shape may differ from
+    column to column)."""
     mp = mesh.shape.get("model", 1)
     out = [n // mp if e is not None and "model" in (
         (e,) if isinstance(e, str) else e) else n
@@ -555,6 +702,11 @@ def model_block_shape(key: str, shape, spec, mesh, cfg=None
     name = _names(key)[-1]
     if cfg is not None and cfg.ssm is not None and name in SSM_SEGMENTS:
         out[-1] = ssm_local_width(cfg, name, mp)
+    heads = leaf_head_range(cfg, key, spec, mesh, {
+        a: 0 for a in mesh.axis_names} if coords is None else coords)
+    if heads is not None:
+        dim = _model_dim(spec)
+        out[dim] = shape[dim] // heads[1] * len(heads[0])
     return tuple(out)
 
 
@@ -687,7 +839,7 @@ class DataShards:
         whole = _shapes(shapes)
         self.specs, self.dims = fsdp_dims(whole, self.mesh)
         self.shapes = {k: model_block_shape(k, s, self.specs[k], self.mesh,
-                                            cfg)
+                                            cfg, self.coords)
                        for k, s in whole.items()}
         self.gathers = self.scatters = 0
         self.seconds = 0.0

@@ -44,8 +44,10 @@ its ``sharding.ModelGroup`` runs ``forward`` and ``decode_step``
 on those blocks, the group's sums and gather where GSPMD inserts them
 (``models/common.py``, ``moe.py``, ``mla.py``), and its fused prefill
 runs ``flash_fwd`` on the rank's heads; its cache (``init_cache(...,
-mp=)``) holds the rank's KV/mp heads.  It serves only: no gradient
-crosses the group.
+mp=, rank=)``) holds the KV heads its query heads read.  The heads are
+``sharding.head_blocks``': where the KV heads do not divide over the
+model axis, each is replicated on the ranks that split its group.  It
+serves only: no gradient crosses the group.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common as cm
-from repro_torch.models import mla, moe
+from repro_torch.models import mla, moe, sharding
 
 PREFIX = "dense_layers."
 MOE_PREFIX = "moe_layers."
@@ -369,23 +371,23 @@ _CACHE_OF = {PREFIX: "dense", MOE_PREFIX: "moe"}
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu", mp: int = 1) -> dict:
+               device: torch.device | str = "cpu", mp: int = 1,
+               rank: int = 0) -> dict:
     """The KV cache, the JAX package's layout: a stack's ``{"k": (L, B,
     max_len, KV, hd), "v": (...)}`` (an MLA model's ``{"c_kv": (L, B,
     max_len, kv_lora), "k_rope": (L, B, max_len, rope)}``) in ``dtype``,
-    zeros, under ``"dense"`` and (an MoE model's) ``"moe"``.  ``mp``: a
-    tensor-parallel rank's cache, KV/mp heads of k and v (their block
-    under ``sharding.cache_pspecs``); an MLA model's latent stays whole
-    (``models/mla.py``)."""
+    zeros, under ``"dense"`` and (an MoE model's) ``"moe"``.  ``mp`` and
+    ``rank``: model rank ``rank`` of ``mp``'s cache, the KV heads of its
+    head block (``sharding.head_blocks``: KV/mp where they divide, the
+    one KV head it shares with mp/KV ranks where mp divides over them);
+    an MLA model's latent stays whole (``models/mla.py``)."""
     _check_family(cfg)
     if cfg.mla:
         return {_CACHE_OF[prefix]: mla.mla_init_cache(
             cfg, batch, max_len, dtype, device, layers=n)
             for prefix, n, _ in stacks(cfg)}
-    if cfg.n_kv_heads % mp:
-        raise ValueError(f"{cfg.n_kv_heads} KV heads do not divide over "
-                         f"{mp} model ranks")
-    shape = (batch, max_len, cfg.n_kv_heads // mp, cfg.head_dim)
+    kv = len(sharding.head_blocks(cfg, mp)[rank][1])
+    shape = (batch, max_len, kv, cfg.head_dim)
     return {_CACHE_OF[prefix]: {
         k: torch.zeros((n, *shape), dtype=dtype, device=device)
         for k in ("k", "v")} for prefix, n, _ in stacks(cfg)}

@@ -42,13 +42,15 @@ its ``sharding.ModelGroup``) runs the encoder and decoder on its heads,
 as ``models/common.py``'s ``tp=`` paths do: Q, K, V and the MLP's up
 projection (and ``bq``, ``bk``, ``bv``, ``b_up``) are its column blocks,
 ``wo`` and ``w_down`` row blocks summed over the group before ``bo`` and
-``b_down`` are added once.  The cross-attention takes the rank's H/N
-heads, and so does its cache (``init_cache(..., mp=)``: KV/N heads of
-the self-attention K/V, H/N of the cross K/V, ``cache_pspecs``'
-blocks).  The decoder's learned position table stays whole; the token
-table and the logits are vocabulary blocks, as in
-``models/transformer.py``.  The conv frontend is on no serving path: a
-rank keeps its blocks of it and never runs them.
+``b_down`` are added once.  The heads are ``sharding.head_blocks``'
+(Whisper-large-v3's 20 over 8 ranks: 3, 3, 3, 3, 2, 2, 2, 2); the
+cross-attention takes the rank's query heads, and so does its cache
+(``init_cache(..., mp=, rank=)``: the rank's KV heads of the
+self-attention K/V, its query heads of the cross K/V).  The decoder's
+learned position table stays whole; the token table and the logits are
+vocabulary blocks, as in ``models/transformer.py``.  The conv frontend
+is on no serving path: a rank keeps its blocks of it and never runs
+them.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
-from repro_torch.models import transformer
+from repro_torch.models import sharding, transformer
 
 N_MELS = 128
 ENC, DEC = "enc_layers.", "dec_layers."
@@ -157,8 +159,8 @@ def _norm(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 def cross_kv(p: dict, enc: torch.Tensor, cfg
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The encoder states (B, Te, D) -> cross-attention k and v (B, Te, H,
-    hd) (H that of ``p``'s blocks: a tensor-parallel rank's H/N); k has
-    no bias."""
+    hd) (H that of ``p``'s blocks: a tensor-parallel rank's query heads);
+    k has no bias."""
     B, Te, _ = enc.shape
     hd = cfg.head_dim
     k = (enc @ p["wk"]).reshape(B, Te, -1, hd)
@@ -259,25 +261,26 @@ def forward(model: Whisper, tokens: torch.Tensor, *,
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cpu",
-               enc_len: int | None = None, mp: int = 1) -> dict:
+               enc_len: int | None = None, mp: int = 1,
+               rank: int = 0) -> dict:
     """The JAX package's cache, zeros in ``dtype``: ``k``, ``v`` (L, B,
     max_len, KV, hd) and ``cross_k``, ``cross_v`` (L, B, Te, H, hd), Te
     being ``enc_len`` or ``cfg.encoder_width``.  ``fill_cross_cache``
-    fills the cross K/V from the frames.  ``mp``: a tensor-parallel
-    rank's, KV/mp and H/mp heads."""
-    L, H, KV, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if H % mp or KV % mp:
-        raise ValueError(f"{H} heads over {KV} KV heads do not divide over "
-                         f"{mp} model ranks")
+    fills the cross K/V from the frames.  ``mp`` and ``rank``: model rank
+    ``rank`` of ``mp``'s, the heads of its head block
+    (``sharding.head_blocks``): its KV heads of the self-attention's, its
+    query heads of the cross-attention's."""
+    L, hd = cfg.n_layers, cfg.head_dim
+    q, kv = sharding.head_blocks(cfg, mp)[rank]
     Te = enc_len or cfg.encoder_width
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return {"k": zeros(L, batch, max_len, KV // mp, hd),
-            "v": zeros(L, batch, max_len, KV // mp, hd),
-            "cross_k": zeros(L, batch, Te, H // mp, hd),
-            "cross_v": zeros(L, batch, Te, H // mp, hd)}
+    return {"k": zeros(L, batch, max_len, len(kv), hd),
+            "v": zeros(L, batch, max_len, len(kv), hd),
+            "cross_k": zeros(L, batch, Te, len(q), hd),
+            "cross_v": zeros(L, batch, Te, len(q), hd)}
 
 
 @torch.inference_mode()

@@ -40,10 +40,11 @@ Tensor-parallel serving: a rank's model (``models.local_model``, ``tp``
 its ``sharding.ModelGroup``) runs its Mamba2 layers as
 ``models/mamba2.py`` does and the shared block on its heads: Q, K and V
 from the replicated 2·D concat through their column blocks, flash (or
-the plain attention) on the rank's H/N heads over KV/N, ``wo`` and the
-MLP's ``w_down`` row-parallel (``common.attention_block``'s and
-``apply_mlp``'s sums); its cache holds the rank's SSM heads and conv
-channels and KV/N heads of each slot.
+the plain attention) on the rank's heads (``sharding.head_blocks``:
+H/N over KV/N at full width), ``wo`` and the MLP's ``w_down``
+row-parallel (``common.attention_block``'s and ``apply_mlp``'s sums);
+its cache holds the rank's SSM heads and conv channels and its KV heads
+of each slot.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ import functools
 import torch
 
 from repro_torch.models import common as cm
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, sharding, transformer
 from repro_torch.roofline.flops import n_shared_applications  # noqa: F401
 
 
@@ -127,7 +128,7 @@ def _shared(model: Zamba2, leaves: dict | None = None) -> dict:
 def _shared_qkv(p: dict, xcat: torch.Tensor, cfg, positions: torch.Tensor):
     """xcat (B, T, 2·D) -> q (B, T, H, hd), k and v (B, T, KV, hd): the
     norm over 2·D, the projections (no biases), rotary embeddings (H and
-    KV those of ``p``'s blocks: a tensor-parallel rank's H/N and KV/N)."""
+    KV those of ``p``'s blocks: a tensor-parallel rank's heads)."""
     B, T, _ = xcat.shape
     hd = cfg.head_dim
     h = cm.apply_norm(p["in_norm"], xcat, cfg)
@@ -208,18 +209,17 @@ def forward(model: Zamba2, tokens: torch.Tensor, *, last_only: bool = False,
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: torch.device | str = "cpu", mp: int = 1) -> dict:
+               device: torch.device | str = "cpu", mp: int = 1,
+               rank: int = 0) -> dict:
     """The decode cache, the JAX package's layout: ``{"mamba": {"conv":
     (L, B, S-1, conv_dim), "ssm": (L, B, H, N, P)}}`` in fp32 whatever
     ``dtype`` (``mamba2.init_cache``), and ``"k"``, ``"v"``: (n_app, B,
     max_len, KV, hd) in ``dtype``, one slot per application; zeros.
-    ``mp``: a tensor-parallel rank's, its SSM heads and conv channels and
-    KV/mp heads."""
-    if cfg.n_kv_heads % mp:
-        raise ValueError(f"{cfg.n_kv_heads} KV heads do not divide over "
-                         f"{mp} model ranks")
+    ``mp`` and ``rank``: model rank ``rank`` of ``mp``'s, its SSM heads
+    and conv channels and the shared block's KV heads of its head block
+    (``sharding.head_blocks``)."""
     shape = (n_shared_applications(cfg), batch, max_len,
-             cfg.n_kv_heads // mp, cfg.head_dim)
+             len(sharding.head_blocks(cfg, mp)[rank][1]), cfg.head_dim)
     return {"mamba": mamba2.init_cache(cfg, batch, 0, torch.float32, device,
                                        mp),
             "k": torch.zeros(shape, dtype=dtype, device=device),

@@ -64,18 +64,22 @@ def make_serve_step(cfg, absorb: bool = False):
 def make_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cpu",
-               enc_len: int | None = None, mp: int = 1, dp: int = 1) -> dict:
+               enc_len: int | None = None, mp: int = 1, dp: int = 1,
+               rank: int = 0) -> dict:
     """The family's decode cache (``init_cache``), zeros; ``enc_len`` sets
     an encoder-decoder's cross-attention length (default
-    ``cfg.encoder_width``); ``mp`` > 1 gives a tensor-parallel rank's
-    cache (its heads and, for an SSM model, its conv channels); ``dp`` >
-    1 a data row's share of ``batch``'s rows where they split
+    ``cfg.encoder_width``); ``mp`` > 1 gives model rank ``rank``'s cache
+    (the heads of its head block, ``sharding.head_blocks``, which may
+    differ from rank to rank, and for an SSM model its conv channels);
+    ``dp`` > 1 a data row's share of ``batch``'s rows where they split
     (``sharding.batch_rows``), every row otherwise."""
     if sharding.batch_splits(batch, dp):
         batch //= dp
     kw = {"enc_len": enc_len} if cfg.family == "encdec" else {}
     if mp != 1:
         kw["mp"] = mp
+        if cfg.family != "ssm":
+            kw["rank"] = rank
     return get_model(cfg).init_cache(cfg, batch, max_len, dtype=dtype,
                                      device=device, **kw)
 

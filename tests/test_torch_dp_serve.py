@@ -136,64 +136,9 @@ def _case(case):
     return out
 
 
-_JAX_CHILD = r"""
-import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-import dataclasses, pickle
-import jax, jax.numpy as jnp
-import numpy as np
-from repro import configs
-from repro.configs.base import reduced
-from repro.models import sharding as shd
-from repro.models import whisper
-from repro.train import serve_step
-
-with open(sys.argv[1], "rb") as f:
-    cases, runs = pickle.load(f)
-assert len(jax.devices()) == 4
-out = {}
-for name, (dp, mp), batch in runs:
-    c = cases[name]
-    cfg = reduced(configs.get(c["arch"]))
-    if c["moe_kw"]:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, **c["moe_kw"]))
-    mesh = jax.sharding.Mesh(np.array(jax.devices()[:dp * mp]).reshape(
-        dp, mp), ("data", "model"))
-    with mesh:  # the serve launcher's placement, then its loop
-        p = jax.tree.map(jnp.asarray, c["jparams"])
-        p = jax.tree.map(lambda a, s: jax.device_put(
-            a, jax.sharding.NamedSharding(mesh, s)), p,
-            shd.param_pspecs(p, mesh))
-        prompt = jnp.asarray(c["prompt"][:batch])
-        cache = serve_step.make_cache(cfg, batch, prompt.shape[1] + c["gen"],
-                                      dtype=jnp.float32)
-        pb = {"tokens": prompt}
-        if "frames" in c:
-            frames = jnp.asarray(c["frames"][:batch])
-            enc = whisper.encode(p, cfg, frames)
-            k, v = jax.vmap(lambda lp: whisper.cross_kv(lp, enc, cfg))(
-                p["dec_layers"]["cross"])
-            cache = dict(cache, cross_k=k, cross_v=v)
-            pb["frames"] = frames
-        if "patches" in c:
-            pb["patches"] = jnp.asarray(c["patches"][:batch])
-        step = jax.jit(serve_step.make_serve_step(cfg))
-        logits, tokens = [], []
-        tok = prompt[:, :1]
-        for t in range(prompt.shape[1] + c["gen"]):
-            if t < prompt.shape[1]:
-                tok = prompt[:, t:t + 1]
-            tok, cache, lg = step(p, cache, tok, jnp.int32(t))
-            logits.append(np.asarray(lg))
-            tokens.append(np.asarray(tok))
-        ptok, plog = jax.jit(serve_step.make_prefill_step(cfg))(p, pb)
-    out[(name, (dp, mp), batch)] = dict(
-        logits=logits, tokens=tokens, prefill=np.asarray(plog),
-        prefill_tokens=np.asarray(ptok))
-with open(sys.argv[2], "wb") as f:
-    pickle.dump(out, f)
-"""
+# JAX's serve and prefill steps under param_pspecs on a (dp, mp) mesh of
+# 4 virtual CPU devices, in a child process
+_JAX_CHILD = ranks.JAX_SERVE_CHILD
 
 
 @functools.cache

@@ -293,7 +293,11 @@ def _args(*extra):
 
 @pytest.mark.parametrize("arch, mp, over, match", [
     ("starcoder2-3b", 3, {}, "4 heads do not divide over 3"),
-    ("starcoder2-3b", 4, {}, "2 KV heads do not divide over 4"),
+    # 2 KV heads over 4 ranks: each on 2 of them, with head-aligned blocks
+    # (sharding.head_blocks); the id names the layout's case as it was
+    # before those blocks served it
+    pytest.param("starcoder2-3b", 4, {}, None,
+                 id="starcoder2-3b-4-over1-2 KV heads do not divide over 4"),
     ("starcoder2-3b", 3, {"n_heads": 6, "n_kv_heads": 3},
      "padded vocabulary of 256 does not divide over 3"),
     ("moonshot-v1-16b-a3b", 2, {"n_experts": 5},
@@ -304,16 +308,39 @@ def _args(*extra):
 ])
 def test_refused_layouts_raise(arch, mp, over, match):
     """Each layout with no explicit form raises its message (naming
-    ROADMAP.md's item) before any group starts."""
+    ROADMAP.md's item) before any group starts; a case whose ``match``
+    is None serves (``tp_refusal`` returns None)."""
     cfg = reduced(configs.get(arch))
     if "n_experts" in over:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, **over))
     elif over:
         cfg = dataclasses.replace(cfg, **over)
+    if match is None:
+        assert serve.tp_refusal(cfg, mp) is None
+        assert serve.tp_refusal(cfg, mp, world=2 * mp) is None
+        return
     with pytest.raises(ValueError, match=match) as e:
         serve.serve_lm(_args(str(mp)), cfg)
     assert serve.TP_ITEM in str(e.value)
+
+
+LM_ARCHS = [a for a in configs.names() if configs.get(a).family != "conv"]
+
+
+@pytest.mark.parametrize("dp", [1, 2, 4])
+@pytest.mark.parametrize("mp", [2, 4, 8])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_every_language_model_serves_at_powers_of_two(arch, mp, dp):
+    """Every language model at full width serves on the (dp, mp) mesh at
+    mp 2, 4 and 8: where its heads or KV heads do not divide the model
+    axis (StarCoder2-3B at 4 and 8, Qwen2-7B and Whisper-large-v3 at 8)
+    through head-aligned blocks.  An odd model axis (3) is still refused,
+    naming ROADMAP.md's item."""
+    cfg = configs.get(arch)
+    assert serve.tp_refusal(cfg, mp, world=dp * mp) is None
+    why = serve.tp_refusal(cfg, 3, world=3 * dp)
+    assert why is not None and serve.TP_ITEM in why
 
 
 def test_a_data_axis_is_refused():

@@ -290,6 +290,13 @@ def _counts_of(group) -> dict:
     return dict(dict(sums=0, scatters=0), **group.counts())
 
 
+def _cache_layout(model) -> dict:
+    """``make_cache``'s ``mp``, ``rank`` and ``dp`` of a rank's model."""
+    return dict(mp=1 if model.tp is None else model.tp.size,
+                rank=0 if model.tp is None else model.tp.rank,
+                dp=1 if model.ds is None else model.ds.size)
+
+
 def _dp_run(model, cfg, c, batch, rows, absorb):
     """One decode over the case's prompt rows ``rows`` of its first
     ``batch`` (teacher-forced, then ``gen`` greedy steps; an MLA model's
@@ -305,9 +312,7 @@ def _dp_run(model, cfg, c, batch, rows, absorb):
               if "frames" in c else None)
     model.routing = moe.RoutingLog() if cfg.moe else None
     cache = serve_step.make_cache(cfg, batch, T + c["gen"],
-                                  dtype=torch.float32,
-                                  mp=1 if model.tp is None else model.tp.size,
-                                  dp=1 if model.ds is None else model.ds.size)
+                                  dtype=torch.float32, **_cache_layout(model))
     if frames is not None:
         whisper.fill_cross_cache(model, cache, frames)
     step = serve_step.make_serve_step(cfg, absorb=absorb)
@@ -345,10 +350,11 @@ def _dp_run(model, cfg, c, batch, rows, absorb):
         pb["patches"] = torch.from_numpy(c["patches"][:batch][rows])
     if frames is not None:
         pb["frames"] = frames
-    before = model.ds.counts()["gathers"]
+    before = _counts_of(model.ds)["gathers"]
     nxt, lg = serve_step.make_prefill_step(cfg)(model, pb)
-    res["prefill"] = dict(logits=lg.numpy().copy(), tokens=nxt.numpy().copy(),
-                          data_gathers=model.ds.counts()["gathers"] - before)
+    res["prefill"] = dict(
+        logits=lg.numpy().copy(), tokens=nxt.numpy().copy(),
+        data_gathers=_counts_of(model.ds)["gathers"] - before)
     model.routing = None
     return res
 
@@ -364,9 +370,8 @@ def _dp_cache(model, whole, cfg, c, rows, shape, coords):
     B, T = prompt.shape
     step = serve_step.make_serve_step(cfg)
     one = serve_step.make_cache(cfg, B, T, dtype=torch.float32)
-    mine = serve_step.make_cache(
-        cfg, B, T, dtype=torch.float32,
-        mp=1 if model.tp is None else model.tp.size, dp=model.ds.size)
+    mine = serve_step.make_cache(cfg, B, T, dtype=torch.float32,
+                                 **_cache_layout(model))
     for t in range(T):
         step(whole, one, prompt[:, t:t + 1], t)
         step(model, mine, prompt[rows, t:t + 1], t)
@@ -380,16 +385,18 @@ def _dp_cache(model, whole, cfg, c, rows, shape, coords):
                 gap=max(float((a - b).abs().max()) for a, b in pairs) / scale)
 
 
-def job_dp_serve(data, model_group, rank, tmp, *, cases, launchers, main,
-                 convert_cache=()):
+def job_dp_serve(data, model_group, rank, tmp, *, cases, launchers,
+                 main=None, convert_cache=()):
     """Serving on the (world / mp, mp) mesh: each case's model (its JAX
     tree, ``models.local_model`` with the data group) at each of its
     batches, its data row's prompt rows (``sharding.batch_rows``) decoded
     and prefilled by ``_dp_run`` (plain and, for MLA, absorbed); the
     blocks against ``convert.params_from_jax(..., mesh=, coords=, cfg=)``
     and ``local_state_dict``; ``serve.serve_lm`` from each of
-    ``launchers``' argv, then ``serve.main(main)``, which ends the
-    group; for the cases in ``convert_cache``, ``_dp_cache``."""
+    ``launchers``' argv, then ``serve.main(main)`` (when given), which
+    ends the group; for the cases in ``convert_cache``, ``_dp_cache``.
+    On a data axis of one rank (dp 1) the model has no ``ds``: its
+    ``ds_shapes`` are None and it gathers nothing over the data group."""
     from repro_torch import models
     from repro_torch.launch import serve
     mp_ = mesh.mp_size(model_group)
@@ -414,7 +421,7 @@ def job_dp_serve(data, model_group, rank, tmp, *, cases, launchers, main,
             weights_bytes=sum(p.numel() * p.element_size()
                               for p in model.parameters()),
             expert_ids=model.expert_ids if cfg.moe else None,
-            ds_shapes=dict(model.ds.shapes))
+            ds_shapes=None if model.ds is None else dict(model.ds.shapes))
         for batch in c["batches"]:
             rows = sharding.batch_rows(batch, dp, coords["data"])
             model = models.local_model(whole, shape, coords, model_group,
@@ -447,12 +454,83 @@ def job_dp_serve(data, model_group, rank, tmp, *, cases, launchers, main,
                 "tokens_per_s", "row_tokens_per_s", "steps", "step_s",
                 "cache_bytes", "collectives", "coords", "rows",
                 "prefill_gap", "peak_bytes")})
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        code = serve.main(main)
-    out["main"] = dict(code=code, out=buf.getvalue(),
-                       group_left=dist.is_initialized())
+    if main is not None:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = serve.main(main)
+        out["main"] = dict(code=code, out=buf.getvalue(),
+                           group_left=dist.is_initialized())
     return out
+
+
+# The JAX reference of the serving tests, run as ``python -c`` with two
+# pickle paths (in: ``(cases, runs)``, out: the results): for each run
+# ``(case, (dp, mp), batch)``, the case's reduced config (``arch``, its
+# ``over`` config overrides and ``moe_kw`` MoE overrides) with its
+# ``jparams`` placed by ``param_pspecs`` on a ``("data", "model")`` mesh
+# of ``dp * mp`` of 4 virtual CPU devices (the serve launcher's
+# placement), JAX's jitted ``make_serve_step`` teacher-forced over the
+# ``prompt``'s first ``batch`` rows then ``gen`` greedy steps (Whisper's
+# cross K/V filled from its ``frames``), and its ``make_prefill_step``
+# (a VLM's behind its ``patches``).  A string: this module imports no JAX.
+JAX_SERVE_CHILD = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import dataclasses, pickle
+import jax, jax.numpy as jnp
+import numpy as np
+from repro import configs
+from repro.configs.base import reduced
+from repro.models import sharding as shd
+from repro.models import whisper
+from repro.train import serve_step
+
+with open(sys.argv[1], "rb") as f:
+    cases, runs = pickle.load(f)
+assert len(jax.devices()) == 4
+out = {}
+for name, (dp, mp), batch in runs:
+    c = cases[name]
+    cfg = reduced(configs.get(c["arch"]), **c.get("over", {}))
+    if c["moe_kw"]:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **c["moe_kw"]))
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:dp * mp]).reshape(
+        dp, mp), ("data", "model"))
+    with mesh:  # the serve launcher's placement, then its loop
+        p = jax.tree.map(jnp.asarray, c["jparams"])
+        p = jax.tree.map(lambda a, s: jax.device_put(
+            a, jax.sharding.NamedSharding(mesh, s)), p,
+            shd.param_pspecs(p, mesh))
+        prompt = jnp.asarray(c["prompt"][:batch])
+        cache = serve_step.make_cache(cfg, batch, prompt.shape[1] + c["gen"],
+                                      dtype=jnp.float32)
+        pb = {"tokens": prompt}
+        if "frames" in c:
+            frames = jnp.asarray(c["frames"][:batch])
+            enc = whisper.encode(p, cfg, frames)
+            k, v = jax.vmap(lambda lp: whisper.cross_kv(lp, enc, cfg))(
+                p["dec_layers"]["cross"])
+            cache = dict(cache, cross_k=k, cross_v=v)
+            pb["frames"] = frames
+        if "patches" in c:
+            pb["patches"] = jnp.asarray(c["patches"][:batch])
+        step = jax.jit(serve_step.make_serve_step(cfg))
+        logits, tokens = [], []
+        tok = prompt[:, :1]
+        for t in range(prompt.shape[1] + c["gen"]):
+            if t < prompt.shape[1]:
+                tok = prompt[:, t:t + 1]
+            tok, cache, lg = step(p, cache, tok, jnp.int32(t))
+            logits.append(np.asarray(lg))
+            tokens.append(np.asarray(tok))
+        ptok, plog = jax.jit(serve_step.make_prefill_step(cfg))(p, pb)
+    out[(name, (dp, mp), batch)] = dict(
+        logits=logits, tokens=tokens, prefill=np.asarray(plog),
+        prefill_tokens=np.asarray(ptok))
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(out, f)
+"""
 
 
 JOBS = {f.__name__: f for f in (job_grads, job_ops, job_refusals,
