@@ -456,7 +456,21 @@ Phases (any failed check raises, so the run exits non-zero):
       at the rank's heads (Whisper's ``fill_cross_cache`` one an encoder
       layer) and no decode step launching any; a rank's decode p50/p99,
       tokens/s and peak memory beside the one process's;
-  28. the seconds of each phase, a JSON line of the six kernels, the
+  28. the dry-run against the card (``dryrun_check``): one rank, the
+      origin, of StarCoder2-3B (bf16, flash) and Mamba2-370M cut to 2
+      layers at ``prefill_32k`` on the (16, 16) production mesh
+      (``launch/specs.py build_cell``: 2 rows of 32,768 tokens; 2 query
+      heads over 1 KV head of 128, or 384 conv channels), counted on the
+      meta device by ``launch/dryrun.py``, then run on the card with its
+      blocks drawn there over counting groups: each kernel's launches
+      equal to the count, the parameter bytes exactly the count's, the
+      peak allocated within 20% of the predicted arguments plus the peak
+      beyond them, the logits finite; the step's time beside the
+      roofline terms (reported); ``flash_fwd`` at that rank's 2 x 32,768
+      (G 2, 128) against its plain version taken 4,096 queries at a time,
+      and ``depthwise_conv1d_fwd`` at 2 x 384 x 32,768 against its plain
+      version, timed beside SDPA and ``F.conv1d`` and the bound;
+  29. the seconds of each phase, a JSON line of the six kernels, the
       card's line, and last the result line.
 
 Exits non-zero without printing a result when there is no CUDA device.
@@ -950,6 +964,18 @@ HL_HEADS = {"qwen2": [(4, 1), (3, 1)] * 4,
 # the bf16 flash kernels: forward and dQ at 4 head dims, the fused dK/dV
 # at 3 and its two passes at 192
 FLASH_WGMMA_KERNELS = 13
+# Phase 28 (the dry-run against the card): one rank of each DR_CELLS
+# config's prefill_32k cell on the (16, 16) production mesh, the origin,
+# cut to DR_LAYERS layers, counted on the meta device by the dry-run and
+# run on the card (its blocks drawn from DR_SEED, counting groups): each
+# kernel's launches equal to the count, the parameter bytes exactly the
+# count's, the card's peak within DR_PEAK_TOL of the predicted arguments
+# plus the peak beyond them; the plain flash at 32,768 tokens in query
+# chunks of DR_Q_CHUNK (the whole (T, T) fp32 scores would be 17 GB)
+DR_LAYERS, DR_SEED, DR_PEAK_TOL, DR_Q_CHUNK = 2, 28, 0.2, 4096
+DR_SHAPE = "prefill_32k"
+DR_CELLS = {"starcoder2": ("starcoder2-3b", {"attn_impl": "flash"}),
+            "mamba2": ("mamba2-370m", {})}
 
 
 def _card_line() -> str:
@@ -6244,7 +6270,7 @@ def _ts_flash_row(torch, fa, ref, label, B, T, KV, G, hd, vd, causal=True):
     return row
 
 
-def _ts_dw_row(torch, conv1d_brgemm, ref, label, N, C, Q):
+def _ts_dw_row(torch, conv1d_brgemm, ref, label, N, C, Q, kind="tp"):
     """``depthwise_conv1d_fwd`` at a tensor-parallel rank's fused-prefill
     shape (N x C channels x Q columns after DW_TAPS - 1 of causal
     padding; bf16 in, bias + silu, fp32 out, as Mamba2's block runs it)
@@ -6272,9 +6298,10 @@ def _ts_dw_row(torch, conv1d_brgemm, ref, label, N, C, Q):
     def library():
         return F.conv1d(x, w_c1s, b, groups=C)
 
-    max_abs, rel = _check_close(f"tp {label} dw", dw(), plain(), DW_TOL_F32)
+    max_abs, rel = _check_close(f"{kind} {label} dw", dw(), plain(),
+                                DW_TOL_F32)
     nbytes = N * C * Wp * 2 + (S * C + C) * 2 + N * C * Q * 4
-    row = dict(shape=f"tp prefill {label} N={N} C={C} Q={Q} S={S} bf16 "
+    row = dict(shape=f"{kind} prefill {label} N={N} C={C} Q={Q} S={S} bf16 "
                "silu fp32-out", max_abs_err=max_abs, max_rel_diff=rel,
                kernel_ms=_device_ms(dw), plain_ms=_device_ms(plain),
                library_ms=_device_ms(library), call_ms=_call_ms(dw),
@@ -6282,7 +6309,7 @@ def _ts_dw_row(torch, conv1d_brgemm, ref, label, N, C, Q):
     row["bound_ms"], row["bound_by"] = roofline.bound(
         2.0 * N * C * S * Q, nbytes, "float32")
     _rates(row, nbytes=nbytes)
-    print("tp-serve-kernel " + json.dumps(row), flush=True)
+    print(f"{kind}-serve-kernel " + json.dumps(row), flush=True)
     return row
 
 
@@ -7838,6 +7865,170 @@ def _hl_entries(hl, flash_entries):
         for label, row in hl["flash_rows"].items()}
 
 
+def _dr_flash_row(torch, fa, ref, B, T, KV, G, hd):
+    """``flash_fwd`` at the dry-run rank's StarCoder2-3B prefill (bf16,
+    causal) against its plain version taken DR_Q_CHUNK queries at a time
+    against every key, by phase 10's per-element rule; timed beside SDPA
+    and the bound (the plain version by events around a call: its host
+    work is small beside its device time at this size)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(94)
+    q, k, v, _ = _flash_operands(torch, gen, B, T, KV, G, hd,
+                                 torch.bfloat16)
+    H = KV * G
+
+    def fl():
+        return fa.flash_fwd(q, k, v, causal=True, bq=min(256, T))
+
+    def plain():
+        parts = [ref.flash_fwd_ref(q[:, i:i + DR_Q_CHUNK], k, v,
+                                   causal=True, q_offset=i)
+                 for i in range(0, T, DR_Q_CHUNK)]
+        return (torch.cat([p[0] for p in parts], 1),
+                torch.cat([p[1] for p in parts], 1))
+
+    (o, lse), (o_p, lse_p) = fl(), plain()
+    errs = _flash_errs("dryrun flash", {"o": (o, o_p)}, lse, lse_p, True)
+    del o, lse, o_p, lse_p
+    qt, kt, vt = (t.transpose(1, 2) for t in (q.reshape(B, T, H, hd), k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    nbytes = _flash_fwd_bytes(B * T * H, B * T * KV, hd, hd, 2)
+    row = dict(shape=f"dryrun prefill B={B} T={T} H={H} KV={KV} hd={hd} "
+               "bf16 causal", **_flash_err_fields(errs, True),
+               kernel_ms=_device_ms(fl, per_graph=2, reps=3),
+               plain_ms=_call_ms(plain, reps=2),
+               library_ms=_device_ms(sdpa, per_graph=2, reps=3),
+               call_ms=_call_ms(fl, reps=5))
+    row["bound_ms"], row["bound_by"] = _attn_bound(
+        B, T, H, 2 * hd, True, "bfloat16", nbytes)
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    print("dryrun-kernel " + json.dumps(row), flush=True)
+    return row
+
+
+def _dr_card(torch, specs, cfg, shape, mesh, counters):
+    """One rank of the cell on the card (``specs.build_cell(...,
+    device=, seed=)``: its blocks drawn there, counting groups): the
+    step's launches, the parameter and argument bytes, the peak bytes
+    allocated from before the build, the logits' checks, and the step's
+    time (events around a call; host work included where longer)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cell = specs.build_cell(cfg, shape, mesh, device=DEVICE, seed=DR_SEED)
+    model = cell.args[0]
+    (_, logits), launches = _counted(counters, lambda: cell.fn(*cell.args))
+    torch.cuda.synchronize()
+    out = dict(
+        launches={k: n for k, n in launches.items() if n},
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+        arg_bytes=roofline.tensor_bytes(cell.args),
+        peak_bytes=torch.cuda.max_memory_allocated() - base,
+        logits_shape=list(logits.shape))
+    real = logits[..., :cfg.vocab_size].float()
+    if tuple(logits.shape) != (cell.meta["rows"][1] - cell.meta["rows"][0],
+                               1, cfg.padded_vocab) \
+            or not bool(torch.isfinite(real).all()):
+        raise AssertionError(f"dryrun {cfg.name}: logits of "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(real).all())}")
+    del logits, real
+    out["step_ms"] = _call_ms(lambda: cell.fn(*cell.args), reps=3)
+    del cell, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_check(torch, configs, ref, conv1d_brgemm, fa):
+    """Phase 28: the dry-run's count of one rank against the card
+    (module docstring, DR_*)."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.roofline import flops as rflops
+    mesh = make_production_mesh()
+    shape = configs.SHAPES[DR_SHAPE]
+    counters = _counters(conv1d_brgemm, fa)
+    res = {}
+    for label, (arch, over) in DR_CELLS.items():
+        cfg = dataclasses.replace(configs.get(arch), n_layers=DR_LAYERS,
+                                  **over)
+        t0 = time.perf_counter()
+        pred, meta = dryrun.count_cell(cfg, shape, mesh)
+        dry_s = time.perf_counter() - t0
+        terms = roofline.roofline_terms(
+            pred, mesh.size, rflops.model_flops(cfg, shape),
+            rflops.model_bytes(cfg, shape), mesh=mesh)
+        card = _dr_card(torch, specs, cfg, shape, mesh, counters)
+        want_launches = {k: v["calls"] for k, v in pred["kernels"].items()}
+        predicted = pred["arg_bytes"] + pred["peak_bytes"]
+        r = dict(arch=arch, layers=DR_LAYERS, meta=meta, dryrun_s=dry_s,
+                 predicted=dict(
+                     launches=want_launches, param_bytes=pred["param_bytes"],
+                     arg_bytes=pred["arg_bytes"],
+                     peak_beyond_args=pred["peak_bytes"],
+                     peak_bytes=predicted, flops=pred["flops"],
+                     dot_flops=pred["dot_flops"], bytes=pred["bytes"],
+                     coll_bytes=pred["coll_bytes"],
+                     coll_by_axis=pred["coll_by_axis"]),
+                 terms=terms, card=card,
+                 peak_rel_diff=card["peak_bytes"] / predicted - 1.0)
+        step_s = card["step_ms"] / 1e3
+        r["card_roofline_fraction"] = max(
+            terms["ideal_compute_s"], terms["ideal_memory_s"]) / step_s
+        r["count_bound_share"] = max(terms["compute_s"],
+                                     terms["memory_s"]) / step_s
+        print(f"dryrun {label}: " + json.dumps(r), flush=True)
+        if card["launches"] != want_launches:
+            raise AssertionError(f"dryrun {label}: launches on the card "
+                                 f"{card['launches']}, counted "
+                                 f"{want_launches}")
+        if card["param_bytes"] != pred["param_bytes"]:
+            raise AssertionError(f"dryrun {label}: {card['param_bytes']} "
+                                 "parameter bytes on the card, counted "
+                                 f"{pred['param_bytes']}")
+        if abs(r["peak_rel_diff"]) > DR_PEAK_TOL:
+            raise AssertionError(f"dryrun {label}: peak {card['peak_bytes']}"
+                                 f" bytes on the card, predicted {predicted}"
+                                 f" (beyond {DR_PEAK_TOL:.0%})")
+        res[label] = r
+    q, kv = res["starcoder2"]["meta"]["heads"]
+    rows = res["starcoder2"]["meta"]["rows"]
+    res["flash_row"] = _dr_flash_row(
+        torch, fa, ref, rows[1] - rows[0], shape.seq_len, kv, q // kv,
+        configs.get(DR_CELLS["starcoder2"][0]).head_dim)
+    m2 = configs.get(DR_CELLS["mamba2"][0])
+    from repro_torch.models import sharding
+    rows = res["mamba2"]["meta"]["rows"]
+    res["dw_row"] = _ts_dw_row(
+        torch, conv1d_brgemm, ref, "rank 32k", rows[1] - rows[0],
+        sharding.ssm_local_width(m2, "conv_w", mesh.shape["model"]),
+        shape.seq_len, kind="dryrun")
+    return res
+
+
+def _dr_entries(dr, dw_fwd_entry, flash_entries):
+    """Phase 28's numbers in the kernels line: ``flash_fwd`` and
+    ``depthwise_conv1d_fwd`` at the 32k rank shapes (launches a rank's
+    fused prefill of DR_LAYERS layers, the row)."""
+    keys = ("shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err")
+    for entry, label, row, name in (
+            (flash_entries[0], "starcoder2", dr["flash_row"], "flash_fwd"),
+            (dw_fwd_entry, "mamba2", dr["dw_row"], "depthwise_conv1d_fwd")):
+        entry["dryrun_32k"] = dict(
+            launches_per_rank_prefill=dr[label]["card"]["launches"][name],
+            counted=dr[label]["predicted"]["launches"][name],
+            **{k: row[k] for k in keys})
+
+
 def _build_all(conv1d_brgemm, flash_attention, build):
     """Build the six kernels' libraries at once (one nvcc each, started
     together), timed; and ptxas' lines naming each kernel, its registers
@@ -8143,6 +8334,8 @@ def main(argv=None) -> int:
                 conv1d_brgemm, flash_attention)
     hl = phase(27, head_layouts_check, torch, configs, init_model, serve,
                ref, conv1d_brgemm, flash_attention)
+    dr = phase(28, dryrun_check, torch, configs, ref, conv1d_brgemm,
+               flash_attention)
     tp_rows = {r["pass_"].replace(" ", "_") + (
         "_stem" if "stem" in r["shape"] else "") + (
         "_bf16" if r["dtype"] == "bfloat16" else ""): _dp_row(r) | {
@@ -8421,6 +8614,7 @@ def main(argv=None) -> int:
     _fs_entries(fs, dw_fwd_entry, dw_bw_entry, flash_entries)
     _dps_entries(dps, dw_fwd_entry, flash_entries)
     _hl_entries(hl, flash_entries)
+    _dr_entries(dr, dw_fwd_entry, flash_entries)
     kernels = [fwd_entry, bw_entry, dw_fwd_entry, dw_bw_entry,
                *flash_entries]
     print(f"phase times in {time.perf_counter() - t_start:.1f} s: "
@@ -8446,7 +8640,7 @@ def main(argv=None) -> int:
                            elastic=elastic, whisper=wh, zamba2=zb,
                            moonlight=mn, deepseek_v3=ds, internvl2=vl,
                            tp_serve=ts, fsdp=fs, dp_serve=dps,
-                           head_layouts=hl,
+                           head_layouts=hl, dryrun=dr,
                            phase_s=phase_s,
                            kernels=kernels),
                       f, indent=1, default=str)

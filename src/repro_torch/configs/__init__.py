@@ -1,2 +1,3 @@
 """Architecture config registry (``repro_torch.configs.get`` / ``names``)."""
-from .base import ModelConfig, get, names, reduced, register  # noqa: F401
+from .base import (SHAPES, SUBQUADRATIC, ModelConfig,  # noqa: F401
+                   ShapeConfig, get, names, reduced, register)

@@ -128,6 +128,28 @@ class ModelConfig:
         return (self.vocab_size + 255) // 256 * 256
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry-run's cells (JAX's ``ShapeConfig``):
+    a train step, a prefill, or a decode step of one new token against a
+    KV cache of ``seq_len``."""
+    name: str
+    kind: Literal["train", "prefill", "decode"]
+    seq_len: int
+    global_batch: int
+    microbatch: int = 0          # 0: the launcher picks (train's accum)
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+# the architectures that run long_500k (sub-quadratic sequence mixing)
+SUBQUADRATIC = {"mamba2-370m", "zamba2-7b"}
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 

@@ -10,7 +10,11 @@ version here.  The CPU branch is kept so the wrapper can be called, input
 checks included, on the CPU where there is no card: the port's rule for
 every kernel wrapper, which only the tensor's device decides.
 ``ops.conv1d`` reaches the plain version on the CPU through its own
-``"ref"`` backend.  Each library is built from the checkout's sources at
+``"ref"`` backend.  On a ``meta`` tensor (a dry-run's rank,
+``launch/dryrun.py``) each wrapper returns empty outputs of its kernel's
+shapes and reports the kernel's work to ``kernels.meta``
+(``roofline.flops.conv1d_flops``; each operand read and each output
+written once), launching nothing.  Each library is built from the checkout's sources at
 its first launch (``build.py``).
 
 ``conv1d_fwd`` takes a pinned register tile (``tile=``, one of
@@ -34,8 +38,11 @@ import functools
 
 import torch
 
+from repro_torch.roofline import flops as _flops
+
 from . import build as _build
 from . import epilogue as _ep
+from . import meta as _meta
 from . import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,6 +173,13 @@ def conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
         u = _ref.conv1d_preact_ref(x, w, dilation=dilation, bias=bias,
                                    residual=residual)
         return _ep.ACTIVATIONS[activation](u).to(out_dtype), u
+    if x.device.type == "meta":
+        out = torch.empty((N, K, Q), dtype=out_dtype, device=x.device)
+        preact = (torch.empty((N, K, Q), dtype=torch.float32,
+                              device=x.device) if save_preact else None)
+        _meta.report("conv1d_fwd", _flops.conv1d_flops(N, C, K, S, Q),
+                     _meta.nbytes(x, w, bias, residual, out, preact))
+        return (out, preact) if save_preact else out
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_fwd runs on cuda (or cpu); got {x.device}")
     if N > 65535:
@@ -304,6 +318,14 @@ def conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *, S: int,
     if x.device.type == "cpu":
         dw = _ref.conv1d_bwd_weight_ref(x, gout, dilation=dilation)
         return (dw, _ref.conv1d_dbias_ref(gout)) if with_dbias else dw
+    if x.device.type == "meta":
+        dw = torch.empty((S, K, C), dtype=torch.float32, device=x.device)
+        dbias = (torch.empty(K, dtype=torch.float32, device=x.device)
+                 if with_dbias else None)
+        _meta.report("conv1d_bwd_weight", _flops.conv1d_flops(N, C, K, S, Q)
+                     + (N * K * Q if with_dbias else 0),
+                     _meta.nbytes(x, gout, dw, dbias))
+        return (dw, dbias) if with_dbias else dw
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_bwd_weight runs on cuda (or cpu); got "
                          f"{x.device}")
@@ -456,6 +478,14 @@ def depthwise_conv1d_fwd(x: torch.Tensor, w: torch.Tensor, *,
                                              bias=bias, residual=residual)
         y = _ep.ACTIVATIONS[activation](u).to(out_dtype)
         return (y, u) if save_preact else y
+    if x.device.type == "meta":
+        out = torch.empty((N, C, Q), dtype=out_dtype, device=x.device)
+        preact = (torch.empty((N, C, Q), dtype=torch.float32,
+                              device=x.device) if save_preact else None)
+        _meta.report("depthwise_conv1d_fwd",
+                     _flops.conv1d_flops(N, C, 1, S, Q),
+                     _meta.nbytes(x, w, bias, residual, out, preact))
+        return (out, preact) if save_preact else out
     if x.device.type != "cuda":
         raise ValueError(f"depthwise_conv1d_fwd runs on cuda (or cpu); got "
                          f"{x.device}")
@@ -513,6 +543,15 @@ def depthwise_conv1d_bwd_weight(x: torch.Tensor, gout: torch.Tensor, *,
     if x.device.type == "cpu":
         dw = _ref.depthwise_conv1d_bwd_weight_ref(x, gout, dilation=dilation)
         return (dw, _ref.conv1d_dbias_ref(gout)) if with_dbias else dw
+    if x.device.type == "meta":
+        dw = torch.empty((S, C), dtype=torch.float32, device=x.device)
+        dbias = (torch.empty(C, dtype=torch.float32, device=x.device)
+                 if with_dbias else None)
+        _meta.report("depthwise_conv1d_bwd_weight",
+                     _flops.conv1d_flops(N, C, 1, S, Q)
+                     + (N * C * Q if with_dbias else 0),
+                     _meta.nbytes(x, gout, dw, dbias))
+        return (dw, dbias) if with_dbias else dw
     if x.device.type != "cuda":
         raise ValueError(f"depthwise_conv1d_bwd_weight runs on cuda (or "
                          f"cpu); got {x.device}")

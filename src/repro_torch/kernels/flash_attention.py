@@ -12,7 +12,11 @@ views, never transposed or copied.
 Each wrapper launches its CUDA kernel (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``) on a CUDA tensor and computes its plain version
 (``ref.flash_fwd_ref``, ``ref.flash_bwd_ref``) on a CPU tensor; a CUDA
-tensor never reaches the plain version.  Each library is built from the
+tensor never reaches the plain version.  On a ``meta`` tensor (a
+dry-run's rank, ``launch/dryrun.py``) it returns empty outputs of the
+kernel's shapes and reports the kernel's work to ``kernels.meta``
+(``roofline.flops.flash_fwd_flops``, each operand read and each output
+written once), launching nothing.  Each library is built from the
 checkout's sources at its first launch (``build.py``).  ``flash_fwd.
 launches`` and ``flash_bwd.launches`` count the launches, incremented
 where the kernel is launched and nowhere else.
@@ -29,7 +33,10 @@ import functools
 
 import torch
 
+from repro_torch.roofline import flops as _flops
+
 from . import build as _build
+from . import meta as _meta
 from . import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,6 +160,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"query tile bq={bq}: the JAX kernel floors it to one")
     if q.device.type == "cpu":
         return _ref.flash_fwd_ref(q, k, v, causal=causal, q_offset=q_offset)
+    if q.device.type == "meta":
+        o = torch.empty((B, Tq, KV, G, hd), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, Tq, KV, G), dtype=torch.float32,
+                          device=q.device)
+        _meta.report("flash_fwd", _flops.flash_fwd_flops(
+            B, Tq, Tk, KV * G, hd, causal), _meta.nbytes(q, k, v, o, lse))
+        return o, lse
     _check_on_card("flash_fwd", ("q", q), ("k", k), ("v", v))
     o = torch.empty((B, Tq, KV, G, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Tq, KV, G), dtype=torch.float32, device=q.device)
@@ -194,6 +208,12 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool = True):
         raise ValueError("lse must be contiguous")
     if q.device.type == "cpu":
         return _ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    if q.device.type == "meta":
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        _meta.report("flash_bwd", _flops.flash_bwd_flops(
+            B, Tq, Tk, KV * G, hd, causal),
+            _meta.nbytes(q, k, v, o, lse, do, dq, dk, dv))
+        return dq, dk, dv
     _check_on_card("flash_bwd", ("q", q), ("k", k), ("v", v), ("do", do))
     # rowsum(dO * o) in fp32 from the stored o, in its own dtype
     delta = (do.float() * o.float()).sum(-1).contiguous()

@@ -132,8 +132,10 @@ _ENV_DEFAULT = os.environ.get(ENV_BACKEND) or None
 
 def default_backend(x: torch.Tensor) -> str:
     """``REPRO_CONV_BACKEND`` as it was when this module was imported, else
-    the kernel for a CUDA tensor and the plain version for a CPU one."""
-    return _ENV_DEFAULT or ("cuda" if x.is_cuda else "ref")
+    the kernel for a CUDA tensor (and for a ``meta`` one, a dry-run's,
+    whose wrappers report the kernel's work) and the plain version for a
+    CPU one."""
+    return _ENV_DEFAULT or ("cuda" if x.is_cuda or x.is_meta else "ref")
 
 
 class PassConfig(NamedTuple):
@@ -206,7 +208,7 @@ def _check_backend(backend: str, x: torch.Tensor) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown conv backend {backend!r}; "
                          f"expected one of {BACKENDS}")
-    if backend == "cuda" and not x.is_cuda:
+    if backend == "cuda" and not (x.is_cuda or x.is_meta):
         raise ValueError("backend='cuda' needs CUDA tensors; x is on "
                          f"{x.device} (use backend='ref' on the CPU)")
 

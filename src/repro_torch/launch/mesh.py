@@ -1,6 +1,6 @@
 """The data and model groups (counterpart of ``repro/launch/mesh.py``'s
-``make_host_mesh(model=)``, ``make_grid_mesh``, ``dp_size``, ``mp_size``
-and ``mp_axis_name``).
+``make_host_mesh(model=)``, ``make_production_mesh``, ``make_grid_mesh``,
+``dp_size``, ``mp_size`` and ``mp_axis_name``).
 
 The JAX package names ``('data', 'model')`` mesh axes and lets
 ``lax.psum`` reduce over them.  Here each axis is a ``torch.distributed``
@@ -27,7 +27,14 @@ process group, one process per card:
     rendezvous store :func:`init_data_group` kept, each generation under
     its own key prefix (``elastic/gen<g>``).  A process keeps its
     :func:`launch_rank`, its rank in generation 0, across generations;
-  * :func:`dp_size`, :func:`dp_rank`, :func:`mp_size`, :func:`mp_rank`,
+  * :func:`make_production_mesh` gives JAX's production meshes, single
+    ``(data 16, model 16)`` and multi ``(pod 2, data 16, model 16)``, as
+    a ``sharding.MeshShape``: names and sizes, no process group.  Nothing
+    starts 256 or 512 ranks; the dry-run (``launch/dryrun.py``) builds
+    one rank of them over counting groups;
+  * :func:`dp_size` of a ``MeshShape`` is the product of its ``'pod'``
+    and ``'data'`` axes (JAX's ``dp_size(mesh)``); of a process group (or
+    None), its ranks.  :func:`dp_rank`, :func:`mp_size`, :func:`mp_rank`,
     :class:`GradReducer` and :class:`ModelReducer`, which read the groups
     and reduce over them, live in ``kernels/reduce.py`` (the conv
     Functions reduce through them) and are re-exported here.
@@ -39,13 +46,15 @@ import os
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import reduce as _reduce
 from repro_torch.kernels.reduce import (GradReducer, ModelReducer, dp_rank,
-                                        dp_size, mp_rank, mp_size)
-from repro_torch.models.sharding import MeshShape
+                                        mp_rank, mp_size)
+from repro_torch.models.sharding import MeshShape, data_size
 
 __all__ = ["GradReducer", "ModelReducer", "destroy", "dp_rank", "dp_size",
            "init_data_group", "init_mesh", "launch_rank", "local_rank",
-           "make_host_mesh", "mp_rank", "mp_size", "regroup"]
+           "make_host_mesh", "make_production_mesh", "mp_rank", "mp_size",
+           "regroup"]
 
 # the rendezvous of the group init_data_group started: (store, launch
 # rank), beside torch.distributed's own default group, which is as global
@@ -183,6 +192,23 @@ def make_host_mesh(*, model: int = 1) -> tuple[MeshShape, dict[str, int]]:
                          f"world of {world} ranks")
     return (MeshShape(("data", "model"), (world // model, model)),
             {"data": rank // model, "model": rank % model})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """JAX's production mesh: ``(data 16, model 16)``, 256 ranks, or with
+    ``multi_pod`` ``(pod 2, data 16, model 16)``, 512."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def dp_size(mesh_or_group=None) -> int:
+    """The data-parallel width: of a ``MeshShape``, the product of its
+    ``'pod'`` and ``'data'`` axes (JAX's ``dp_size(mesh)``); of a data
+    group, its ranks; 1 for None."""
+    if isinstance(mesh_or_group, MeshShape):
+        return data_size(mesh_or_group)
+    return _reduce.dp_size(mesh_or_group)
 
 
 def local_rank() -> int:

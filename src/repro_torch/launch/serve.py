@@ -150,7 +150,14 @@ rank with no head, SSM heads that do not divide over N, SSM groups that
 do not, any other leaf whose split dimension does not divide over its
 axes (d_ff, the padded vocabulary, an expert count, a ``'dp'``
 dimension over the data rows); only an odd model axis (N 3 or 6) meets
-them among the ported configs.  A world that is no multiple of N is
+them among the ported configs.  JAX's launchers cannot place these
+layouts either: both place each leaf with ``jax.device_put(p,
+NamedSharding(mesh, spec))`` (``repro/launch/serve.py``,
+``repro/launch/train.py``), which refuses a dimension that does not
+divide over its axes, and ``to_mesh_specs`` falls back only for
+``'ep'``.  Every layout where JAX's ``param_pspecs`` splits every leaf
+evenly serves here (``tests/test_torch_dryrun_layouts.py``); the port
+also serves some that JAX cannot place (StarCoder2-3B at N 6 and 12).  A world that is no multiple of N is
 refused too, and the conv family on any world (JAX's ``serve_conv``
 builds no mesh).  A failed collective, build or launch raises on its
 rank and the run exits non-zero.
@@ -524,7 +531,7 @@ def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
                    "ranks"))
     dp = 1 if world is None else world // mp
     if cfg.n_heads:
-        try:  # whole heads of one group a rank (GSPMD pads them instead)
+        try:  # whole heads of one group a rank
             sharding.head_blocks(cfg, mp)
         except ValueError as e:
             return f"{e} (no explicit form here: {TP_ITEM})"
@@ -549,7 +556,8 @@ def tp_refusal(cfg, mp: int, world: int | None = None) -> str | None:
         try:
             sharding.local_shape(shapes[key], spec, mesh_shape)
         except ValueError as e:
-            return f"{key}: {e} (GSPMD pads it; no explicit form: {TP_ITEM})"
+            return (f"{key}: {e} (JAX's launchers cannot place it either: "
+                    f"device_put needs even shards; {TP_ITEM})")
     if dp > 1:
         try:
             sharding.fsdp_dims(shapes, mesh_shape)

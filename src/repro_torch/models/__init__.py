@@ -90,6 +90,117 @@ def leaf_shapes(cfg) -> dict[str, tuple[int, ...]]:
     return {k: v[0] for k, v in get_model(cfg)._leaf_spec(cfg).items()}
 
 
+def leaf_spec(cfg) -> dict[str, tuple]:
+    """key -> ``(shape, init, scale, dtype)`` of every leaf of the
+    config's language model, without drawing: ``init`` is ``"normal"``
+    (times ``scale``), ``"zeros"`` or ``"ones"``, or for an SSM model's
+    ``dt_bias`` and ``A_log`` their own name (``mamba2.draw_leaves``);
+    ``dtype`` a ``torch.dtype``.  An SSM model's entries restate
+    ``mamba2.draw_leaves``' distributions, which draws whole leaves."""
+    import torch
+    default = getattr(torch, cfg.dtype)
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models import zamba2
+        shapes = leaf_shapes(cfg)
+        D = cfg.d_model
+        d_inner = cfg.ssm.expand * D
+        init = {"embed.tok": ("normal", 0.02),
+                "layers.mixer.in_proj": ("normal", D ** -0.5),
+                "layers.mixer.conv_w": ("normal", cfg.ssm.conv_width ** -0.5),
+                "layers.mixer.conv_b": ("zeros", 0.0),
+                "layers.mixer.dt_bias": ("dt_bias", 0.0),
+                "layers.mixer.A_log": ("A_log", 0.0),
+                "layers.mixer.out_proj": ("normal", d_inner ** -0.5),
+                "unembed": ("normal", D ** -0.5)}
+        fp32 = ("layers.mixer.dt_bias", "layers.mixer.A_log",
+                "layers.mixer.D")
+        spec = {k: (s, *init.get(k, ("ones", 0.0)),
+                    "float32" if k in fp32 else cfg.dtype)
+                for k, s in shapes.items() if not k.startswith("shared.")}
+        if cfg.family == "hybrid":
+            spec.update({f"shared.{k}": v for k, v in
+                         zamba2.shared_leaves(cfg).items()})
+    else:
+        spec = get_model(cfg)._leaf_spec(cfg)
+    return {k: (tuple(shape), init, scale,
+                getattr(torch, dt[0]) if dt else default)
+            for k, (shape, init, scale, *dt) in spec.items()}
+
+
+def rank_shapes(cfg, mesh, coords) -> dict[str, tuple[int, ...]]:
+    """key -> the shape of the block of each leaf that the device at
+    ``coords`` of ``mesh`` holds (what ``sharding.local_state_dict(...,
+    cfg=)`` cuts from the whole leaf), from the shapes alone: its model
+    column's block (``sharding.model_block_shape``: head- and
+    segment-aligned) with the data-split dimension divided over its data
+    axes (``sharding.fsdp_dims``)."""
+    from repro_torch.models import sharding
+    shapes = leaf_shapes(cfg)
+    specs, dims = sharding.fsdp_dims(shapes, mesh)
+    out = {}
+    for k, s in shapes.items():
+        b = list(sharding.model_block_shape(k, s, specs[k], mesh, cfg,
+                                            coords))
+        if dims[k] is not None:
+            b[dims[k]] //= sharding.data_parts(specs[k][dims[k]], mesh)[0]
+        out[k] = tuple(b)
+    return out
+
+
+def rank_model(cfg, mesh, coords, *, device="meta", seed: int | None = None,
+               model_group=None, data_group=None, batch=None, groups=None):
+    """The serving model of the rank at ``coords`` of ``mesh`` built from
+    the shapes (``rank_shapes``), with no whole leaf drawn: on ``meta``
+    (or with no ``seed``) empty blocks, which cost no memory there; on a
+    real device each block drawn there from its own generator, seeded
+    from ``seed`` and the leaf's place in ``leaf_spec`` (the JAX
+    package's distributions; an SSM model's small ``dt_bias`` and
+    ``A_log`` computed whole and cut).  The weights are a function of the
+    seed and the layout, not those of ``init_model`` at the same seed.
+    Then placed by :func:`place_rank` over the groups given (for a
+    dry-run, ``sharding.counting_groups``)."""
+    import math
+
+    import torch
+
+    from repro_torch.models import sharding
+    spec, shapes = leaf_spec(cfg), rank_shapes(cfg, mesh, coords)
+    device = torch.device(device)
+    draw = seed is not None and device.type != "meta"
+    leaves = {}
+    for i, (k, (whole, init, scale, dtype)) in enumerate(spec.items()):
+        shape = shapes[k]
+        if not draw:
+            leaves[k] = torch.empty(shape, dtype=dtype, device=device)
+        elif init == "normal":
+            g = torch.Generator(device=device).manual_seed(
+                seed * 1_000_003 + i)
+            leaves[k] = (torch.randn(shape, generator=g, device=device)
+                         * scale).to(dtype)
+        elif init in ("zeros", "ones"):
+            leaves[k] = torch.full(shape, float(init == "ones"),
+                                   dtype=dtype, device=device)
+        else:  # an SSM's per-head constants: (L, H), whole then cut
+            s = cfg.ssm
+            L, H = whole
+            if init == "A_log":
+                t = torch.log(torch.arange(1, H + 1, dtype=torch.float32)
+                              ).repeat(L, 1)
+            else:
+                g = torch.Generator().manual_seed(seed * 1_000_003 + i)
+                dt = torch.exp(torch.rand((L, H), generator=g)
+                               * (math.log(s.dt_max) - math.log(s.dt_min))
+                               + math.log(s.dt_min))
+                t = dt + torch.log(-torch.expm1(-dt))
+            leaves[k] = sharding.local_state_dict(
+                {k: t}, mesh, coords, device=device, cfg=cfg)[k].to(dtype)
+        if tuple(leaves[k].shape) != shape:
+            raise ValueError(f"{k}: drew {tuple(leaves[k].shape)}, the "
+                             f"rank holds {shape}")
+    return place_rank(model_class(cfg)(cfg, leaves), mesh, coords,
+                      model_group, data_group, batch, groups)
+
+
 def local_model(model, mesh, coords, model_group, device=None,
                 data_group=None, batch=None):
     """A rank's serving model of any language-model family on ``mesh``
@@ -107,7 +218,7 @@ def local_model(model, mesh, coords, model_group, device=None,
 
 
 def place_rank(model, mesh, coords, model_group, data_group=None,
-               batch=None):
+               batch=None, groups=None):
     """Give ``model``, whose leaves are the 2-D blocks the device at
     ``coords`` of ``mesh`` holds (``local_model``, or
     ``convert.params_from_jax(..., mesh=, coords=, cfg=)``), the groups
@@ -128,15 +239,20 @@ def place_rank(model, mesh, coords, model_group, data_group=None,
     drops, is ``data_group`` where ``batch`` (the global batch served;
     None: a split one) splits over the data rows
     (``sharding.batch_splits``), None where every data row serves the
-    whole batch."""
+    whole batch.  On a mesh with a ``'pod'`` axis the data group is the
+    column's ``('pod', 'data')`` ranks and ``groups`` gives the group of
+    its pod's data ranks, ``{("data",): group}``, over which the expert
+    stacks are split (``sharding.DataShards``).  A group may be a
+    ``sharding.CountingGroup`` (a dry-run's rank, ``rank_model``)."""
     from repro_torch.models import sharding
     cfg = model.cfg
-    dp = mesh.shape["data"]
+    dp = sharding.data_size(mesh)
     shapes = leaf_shapes(cfg)
     model.tp = None if model_group is None else sharding.ModelGroup(
         model_group)
     if dp > 1:
-        model.ds = sharding.DataShards(data_group, shapes, mesh, coords, cfg)
+        model.ds = sharding.DataShards(data_group, shapes, mesh, coords, cfg,
+                                       groups=groups)
     if cfg.moe is not None:
         key = next(k for k in shapes if k.endswith("moe.w_gate"))
         ids = sharding.expert_ids(cfg.moe.n_experts,

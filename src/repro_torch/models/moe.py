@@ -11,7 +11,8 @@ Two dispatches, as in the JAX package:
   order) and each expert's contiguous group of rows runs three products
   (``torch.mm`` on slices; JAX's ``jax.lax.ragged_dot``, an XLA op with
   no Pallas kernel behind it).  The group sizes are read on the host:
-  one device sync a layer;
+  one device sync a layer.  On the ``meta`` device (a dry-run's rank,
+  which has no values to route by) each expert takes an equal share;
 * capacity (``capacity_factor > 0``): each expert takes at most ``cap =
   ceil(n * k / E * capacity_factor)`` rows, gathered into an (E, cap, D)
   buffer (empty slots zero) for three ``torch.bmm``; assignments past an
@@ -223,7 +224,12 @@ def _dropless(p: dict, x2d: torch.Tensor, w: torch.Tensor,
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)  # rows grouped by expert
     xs = x2d[order // k]                          # (n * k, D)
-    bounds = _group_starts(flat_e[order], m.n_experts).tolist()  # the sync
+    if flat_e.device.type == "meta":
+        # a dry-run's rank has no values to route by: every expert takes
+        # an equal share of the n * k assignments (a balanced router)
+        bounds = [e * n * k // m.n_experts for e in range(m.n_experts + 1)]
+    else:
+        bounds = _group_starts(flat_e[order], m.n_experts).tolist()  # sync
     weights = [p[name].unbind(0) for name in ("w_gate", "w_up", "w_down")]
     o = x2d.new_zeros(n * k, x2d.shape[1])
     for j, e in enumerate(range(m.n_experts) if experts is None

@@ -18,7 +18,8 @@ names and sizes and nothing else.
 
 The torch side: :func:`local_block` is the block of a tensor that the
 device at given mesh coordinates holds under even tiling (a dimension
-that does not divide raises: GSPMD would pad it), and
+that does not divide raises: JAX's launchers cannot place such a leaf
+either, ``jax.device_put`` refusing an uneven shard), and
 :func:`local_state_dict` does the same for a whole state dict.  Where
 an explicit form cannot follow JAX's block, a rank's execution block
 departs from it: an SSM model's fused ``in_proj``, ``conv_w`` and
@@ -66,6 +67,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import meta as _kmeta
 from repro_torch.kernels.sharded import _block
 
 # rule: leaf-name -> logical spec for the *trailing* dims (layer-stack dims
@@ -189,6 +191,18 @@ def _axis(names: tuple):
 
 def _data_axes(mesh) -> tuple:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def data_size(mesh) -> int:
+    """The ranks of the mesh's data axes together (``('pod', 'data')``):
+    the data rows a batch splits over."""
+    return math.prod(mesh.shape[a] for a in _data_axes(mesh))
+
+
+def data_index(mesh, coords) -> int:
+    """The data row of the device at ``coords``: its index row-major over
+    the data axes (``'pod'`` major), its rank in its data group."""
+    return split_index(_axis(_data_axes(mesh)), mesh, _coords(mesh, coords))[1]
 
 
 def to_mesh_specs(logical: dict, mesh, shapes: dict | None = None) -> dict:
@@ -482,7 +496,7 @@ def segment_block(t: torch.Tensor, segments, parts: int,
 #
 # JAX's rules split the attention's head dimensions contiguously on 'model'
 # (``wq``'s H·hd columns, ``wk``'s KV·hd, ``wo``'s H·hd rows), and GSPMD
-# pads or re-lays out a split that does not fall on whole heads; where the
+# re-lays out at run time a split that does not fall on whole heads; where the
 # KV heads do not divide the axis, ``cache_pspecs`` splits the cache's
 # head_dim.  A rank's execution block instead takes whole heads
 # (:func:`head_blocks`): where the KV heads divide over the ranks, JAX's
@@ -601,19 +615,123 @@ def head_block(t: torch.Tensor, dim: int, heads: range,
     return t.narrow(dim, heads.start * w, len(heads) * w)
 
 
-# --- the model group ---------------------------------------------------------
+# --- the groups a model's collectives run on ---------------------------------
 
-class ModelGroup:
-    """The model axis of a tensor-parallel model: its process group, its
-    size and this rank's place in it, and the two collectives the model
-    runs on it.  ``sums`` and ``gathers`` count the calls, ``seconds``
-    their host time (to the collective's end: gloo and a synchronous
-    call)."""
+class DistGroup:
+    """A ``torch.distributed`` process group behind the collectives a
+    model runs (:class:`ModelGroup`, :class:`DataShards`,
+    :func:`data_mean`, :func:`assignments_ahead`): its size, this rank's
+    place in it, and the four collectives, each on the group."""
 
     def __init__(self, group):
         self.group = group
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        dist.all_reduce(t, group=self.group)
+
+    def all_gather(self, parts: list, t: torch.Tensor) -> None:
+        dist.all_gather(parts, t, group=self.group)
+
+    def all_gather_into_tensor(self, out: torch.Tensor,
+                               t: torch.Tensor) -> None:
+        dist.all_gather_into_tensor(out, t, group=self.group)
+
+    def reduce_scatter_tensor(self, out: torch.Tensor,
+                              t: torch.Tensor) -> None:
+        dist.reduce_scatter_tensor(out, t, group=self.group)
+
+
+class CountingGroup:
+    """One rank's stand-in for its group on a mesh axis, where the other
+    ranks do not run (the dry-run, ``launch/dryrun.py``, and its probe on
+    the card): ``size`` and ``rank`` as the group's, and collectives
+    that move nothing and record each call in ``calls`` as ``(kind,
+    axis, operand bytes)``, ``kind`` JAX's name (``all-reduce``,
+    ``all-gather``, ``reduce-scatter``), ``axis`` the mesh axis it
+    stands for.  An all-reduce leaves its operand as it is (this rank's
+    partial); a gather fills every part with this rank's block, a
+    reduce-scatter takes this rank's part of its input, so the outputs
+    have the right shapes, dtypes and devices and finite values.  The
+    fills run under ``kernels.meta.quiet``: they are not the rank's work.
+
+    It is chosen explicitly, by whoever builds a rank for counting; a
+    model placed on a real group never falls back to it."""
+
+    def __init__(self, size: int, rank: int = 0, axis: str = "model"):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} of a group of {size}")
+        self.size, self.rank, self.axis = int(size), int(rank), axis
+        self.calls: list[tuple[str, str, int]] = []
+
+    def _record(self, kind: str, t: torch.Tensor) -> None:
+        self.calls.append((kind, self.axis, t.numel() * t.element_size()))
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        self._record("all-reduce", t)
+
+    def all_gather(self, parts: list, t: torch.Tensor) -> None:
+        self._record("all-gather", t)
+        with _kmeta.quiet():
+            for p in parts:
+                p.copy_(t)
+
+    def all_gather_into_tensor(self, out: torch.Tensor,
+                               t: torch.Tensor) -> None:
+        self._record("all-gather", t)
+        with _kmeta.quiet():
+            out.view(self.size, -1).copy_(t.reshape(1, -1))
+
+    def reduce_scatter_tensor(self, out: torch.Tensor,
+                              t: torch.Tensor) -> None:
+        self._record("reduce-scatter", t)
+        with _kmeta.quiet():
+            out.copy_(t.view(self.size, -1)[self.rank])
+
+
+def counting_groups(mesh, coords) -> dict:
+    """The :class:`CountingGroup` stand-ins of the device at ``coords``:
+    ``model`` its model axis (None for one rank), ``data`` its data
+    group over ``('pod', 'data')`` (None for one rank), and ``groups``
+    for ``place_rank``: on a mesh with a ``'pod'`` axis, its pod's data
+    ranks, ``{("data",): group}``."""
+    coords = _coords(mesh, coords)
+    mp, dp = mesh.shape.get("model", 1), data_size(mesh)
+    out = dict(
+        model=CountingGroup(mp, coords.get("model", 0), "model")
+        if mp > 1 else None,
+        data=CountingGroup(dp, data_index(mesh, coords),
+                           ",".join(_data_axes(mesh))) if dp > 1 else None,
+        groups={})
+    if "pod" in mesh.axis_names and mesh.shape["data"] > 1:
+        out["groups"][("data",)] = CountingGroup(mesh.shape["data"],
+                                                 coords["data"], "data")
+    return out
+
+
+def collectives(group):
+    """The collectives of ``group``: a :class:`DistGroup` or a
+    :class:`CountingGroup` as it is, a process group wrapped in a
+    :class:`DistGroup`."""
+    if isinstance(group, (DistGroup, CountingGroup)):
+        return group
+    return DistGroup(group)
+
+
+# --- the model group ---------------------------------------------------------
+
+class ModelGroup:
+    """The model axis of a tensor-parallel model: its group (a process
+    group, or a :class:`CountingGroup`), its size and this rank's place
+    in it, and the two collectives the model runs on it.  ``sums`` and
+    ``gathers`` count the calls, ``seconds`` their host time (to the
+    collective's end: gloo and a synchronous call)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.comm = collectives(group)
+        self.size, self.rank = self.comm.size, self.comm.rank
         self.sums = self.gathers = 0
         self.seconds = 0.0
 
@@ -635,7 +753,7 @@ class ModelGroup:
         self._check_no_grad(x)
         t0 = time.perf_counter()
         y = x.to(torch.float32, copy=True)
-        dist.all_reduce(y, group=self.group)
+        self.comm.all_reduce(y)
         self.sums += 1
         self.seconds += time.perf_counter() - t0
         return y.to(x.dtype)
@@ -647,7 +765,7 @@ class ModelGroup:
         t0 = time.perf_counter()
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.group)
+        self.comm.all_gather(parts, x)
         self.gathers += 1
         self.seconds += time.perf_counter() - t0
         return torch.cat(parts, -1)
@@ -668,11 +786,12 @@ def fsdp_dims(shapes, dp) -> tuple[dict, dict]:
     raises where a leaf would split two dimensions over the data axis or
     a split one does not divide."""
     mesh = dp if isinstance(dp, MeshShape) else fsdp_mesh(dp)
+    data = set(_data_axes(mesh))
     specs = param_pspecs(shapes, mesh)
     shapes, dims = _shapes(shapes), {}
     for k, spec in specs.items():
         split = [d for d, e in enumerate(spec) if e is not None
-                 and "data" in ((e,) if isinstance(e, str) else e)]
+                 and data & set((e,) if isinstance(e, str) else e)]
         if len(split) > 1:
             raise ValueError(f"{k}: {spec} splits {len(split)} dimensions "
                              "over the data ranks")
@@ -680,8 +799,17 @@ def fsdp_dims(shapes, dp) -> tuple[dict, dict]:
         # the model column's blocks: head- or segment-aligned, or even)
         local_shape(shapes[k], [spec[d] if d in split else None
                                 for d in range(len(spec))], mesh)
-        dims[k] = split[0] if split and mesh.shape["data"] > 1 else None
+        parts = data_parts(spec[split[0]], mesh)[0] if split else 1
+        dims[k] = split[0] if parts > 1 else None
     return specs, dims
+
+
+def data_parts(entry, mesh) -> tuple[int, tuple]:
+    """(parts, axes) of a spec entry's data axes: the entry's axes among
+    ``('pod', 'data')``, in its order, and the product of their sizes."""
+    axes = tuple(a for a in ((entry,) if isinstance(entry, str) else entry)
+                 if a in ("pod", "data"))
+    return math.prod(mesh.shape[a] for a in axes), axes
 
 
 def model_block_shape(key: str, shape, spec, mesh, cfg=None, coords=None
@@ -738,10 +866,11 @@ def assignments_ahead(ids: torch.Tensor, n_ids: int, group
     of the data group ``group``, (n_ids,) int64 on ids' device; the
     group's size): every rank's flat ``ids`` (equal sizes) gathered in
     one all-gather, then counted without a host sync."""
-    size, me = dist.get_world_size(group), dist.get_rank(group)
+    comm = collectives(group)
+    size, me = comm.size, comm.rank
     ids = ids.contiguous()
     buf = ids.new_empty(size * ids.numel())
-    dist.all_gather_into_tensor(buf, ids, group=group)
+    comm.all_gather_into_tensor(buf, ids)
     lower = buf[:me * ids.numel()]
     ahead = torch.zeros(n_ids, dtype=torch.long, device=ids.device)
     return ahead.scatter_add_(0, lower, torch.ones_like(lower)), size
@@ -752,9 +881,10 @@ class _DataMean(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
+        comm = collectives(group)
         y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y / dist.get_world_size(group)
+        comm.all_reduce(y)
+        return y / comm.size
 
     @staticmethod
     def backward(ctx, g):
@@ -795,9 +925,9 @@ class _Gather(torch.autograd.Function):
 class DataShards:
     """The data axis of a language model placed FSDP-style (JAX's
     launcher: the parameters placed by :func:`param_pspecs` on a ``(dp,
-    mp)`` mesh, trained on ``(dp, 1)``, served on any): its process
-    group, the leaves' shapes and the one dimension of each that is
-    split over the data ranks, and the collectives that move the blocks.
+    mp)`` mesh, trained on ``(dp, 1)``, served on any): its group, the
+    leaves' shapes and the one dimension of each that is split over the
+    data ranks, and the collectives that move the blocks.
 
     A rank holds :func:`local_block` of each leaf (JAX's 2-D block; an
     SSM model's fused leaves segment-aligned on ``'model'``), its
@@ -814,6 +944,15 @@ class DataShards:
     ``gathers`` and ``scatters`` count those calls, ``seconds`` their
     host time, as :class:`ModelGroup` counts its.
 
+    On a mesh with a ``'pod'`` axis (JAX's multi-pod production mesh,
+    ``launch/mesh.make_production_mesh``) the data group is the
+    ``('pod', 'data')`` ranks of a model column, pod major
+    (:func:`data_index`), and a ``'dp'`` leaf is split over all of them;
+    an expert stack's ``'ep'`` entry names ``'data'`` alone, so it is
+    split over the data ranks of this pod and gathered over those:
+    ``groups`` maps such a tuple of data axes (``("data",)``) to its
+    group.  ``axes`` holds each split leaf's data axes.
+
     A gathered weight lives while its layer runs and no longer: the
     placement exists so that no rank holds its column's whole block, and
     the model keeps nothing gathered across calls.
@@ -821,23 +960,34 @@ class DataShards:
     The collectives are ``all_gather_into_tensor`` and
     ``reduce_scatter_tensor``, which gloo takes on CUDA tensors as on CPU
     ones (``tools/gloo_bench.py --fsdp``: torch 2.11 on an H100, moving
-    a CUDA tensor through the host at about 0.8 GB/s)."""
+    a CUDA tensor through the host at about 0.8 GB/s); the group may be a
+    ``CountingGroup`` (a dry-run's rank)."""
 
-    def __init__(self, group, shapes, mesh=None, coords=None, cfg=None):
+    def __init__(self, group, shapes, mesh=None, coords=None, cfg=None,
+                 groups=None):
         self.group = group
-        self.size = dist.get_world_size(group)
-        self.rank = dist.get_rank(group)
+        self.comm = collectives(group)
+        self.size, self.rank = self.comm.size, self.comm.rank
         self.mesh = fsdp_mesh(self.size) if mesh is None else mesh
-        if self.mesh.shape["data"] != self.size:
+        if data_size(self.mesh) != self.size:
             raise ValueError(f"a data group of {self.size} ranks for "
                              f"{self.mesh!r}")
         self.coords = _coords(self.mesh, {"data": self.rank, "model": 0}
                               if coords is None else coords)
-        if self.coords["data"] != self.rank:
+        if data_index(self.mesh, self.coords) != self.rank:
             raise ValueError(f"data rank {self.rank} at coordinates "
                              f"{self.coords}")
         whole = _shapes(shapes)
         self.specs, self.dims = fsdp_dims(whole, self.mesh)
+        self.axes = {k: data_parts(self.specs[k][d], self.mesh)[1]
+                     for k, d in self.dims.items() if d is not None}
+        self.comms = {_data_axes(self.mesh): self.comm}
+        for axes, g in (groups or {}).items():
+            self.comms[tuple(axes)] = collectives(g)
+        for k, axes in self.axes.items():
+            if axes not in self.comms:
+                raise ValueError(f"{k} is split over {axes}: pass its "
+                                 "group in groups=")
         self.shapes = {k: model_block_shape(k, s, self.specs[k], self.mesh,
                                             cfg, self.coords)
                        for k, s in whole.items()}
@@ -852,6 +1002,11 @@ class DataShards:
         """Whether the leaf ``key`` is held as blocks."""
         return self.dims[key] is not None
 
+    def _part(self, key: str) -> tuple[int, int]:
+        """(parts, index) of ``key``'s split dimension at this rank."""
+        axes = self.axes[key]
+        return split_index(_axis(axes), self.mesh, self.coords)
+
     def whole_shape(self, key: str, ndim: int) -> tuple[int, ...]:
         """The whole shape of ``key``'s last ``ndim`` dimensions (a layer's
         slice of a stacked leaf has one fewer than the leaf)."""
@@ -863,7 +1018,7 @@ class DataShards:
         dimensions)."""
         shape = list(self.shapes[key])
         if self.dims[key] is not None:
-            shape[self.dims[key]] //= self.size
+            shape[self.dims[key]] //= self._part(key)[0]
         return tuple(shape[len(shape) - (ndim or len(shape)):])
 
     def block(self, key: str, t: torch.Tensor) -> torch.Tensor:
@@ -874,7 +1029,7 @@ class DataShards:
                              f"got {tuple(t.shape)}")
         if self.dims[key] is None:
             return t
-        return _block(t, self.dims[key], self.size, self.rank)
+        return _block(t, self.dims[key], *self._part(key))
 
     def _dim(self, key: str, t: torch.Tensor) -> int:
         """The split dimension of ``t``, ``key``'s block or a layer's
@@ -887,16 +1042,24 @@ class DataShards:
                 "expected?)")
         return self.dims[key] - (len(self.shapes[key]) - t.dim())
 
+    def _batches(self, keys, tensors):
+        """The indices of ``tensors`` by (group, dtype), in first-seen
+        order: one collective each."""
+        out: dict = {}
+        for i, (k, t) in enumerate(zip(keys, tensors)):
+            out.setdefault((self.axes[k], t.dtype), []).append(i)
+        return out.items()
+
     def _all_gather(self, keys, blocks) -> list[torch.Tensor]:
         t0 = time.perf_counter()
         dims = [self._dim(k, b) for k, b in zip(keys, blocks)]
         out: list = [None] * len(blocks)
-        for dtype in dict.fromkeys(b.dtype for b in blocks):
-            idx = [i for i, b in enumerate(blocks) if b.dtype == dtype]
+        for (axes, _), idx in self._batches(keys, blocks):
+            comm = self.comms[axes]
             flat = torch.cat([blocks[i].reshape(-1) for i in idx])
-            buf = flat.new_empty(self.size * flat.numel())
-            dist.all_gather_into_tensor(buf, flat, group=self.group)
-            buf = buf.view(self.size, -1)
+            buf = flat.new_empty(comm.size * flat.numel())
+            comm.all_gather_into_tensor(buf, flat)
+            buf = buf.view(comm.size, -1)
             start = 0
             for i in idx:
                 n, shape = blocks[i].numel(), blocks[i].shape
@@ -917,17 +1080,17 @@ class DataShards:
                                  f"{tuple(g.shape)}")
             dims.append(self.dims[k] - (len(self.shapes[k]) - g.dim()))
         out: list = [None] * len(grads)
-        for dtype in dict.fromkeys(g.dtype for g in grads):
-            idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
-            parts = [grads[i].chunk(self.size, dims[i]) for i in idx]
-            buf = torch.cat([p[r].reshape(-1) for r in range(self.size)
+        for (axes, _), idx in self._batches(keys, grads):
+            comm = self.comms[axes]
+            parts = [grads[i].chunk(comm.size, dims[i]) for i in idx]
+            buf = torch.cat([p[r].reshape(-1) for r in range(comm.size)
                              for p in parts])
-            flat = buf.new_empty(buf.numel() // self.size)
-            dist.reduce_scatter_tensor(flat, buf, group=self.group)
+            flat = buf.new_empty(buf.numel() // comm.size)
+            comm.reduce_scatter_tensor(flat, buf)
             start = 0
             for j, i in enumerate(idx):
-                shape = parts[j][self.rank].shape
-                n = parts[j][self.rank].numel()
+                shape = parts[j][comm.rank].shape
+                n = parts[j][comm.rank].numel()
                 out[i] = flat.narrow(0, start, n).view(shape)
                 start += n
         self.scatters += 1

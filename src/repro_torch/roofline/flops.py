@@ -42,6 +42,23 @@ def conv1d_min_bytes(N: int, C: int, K: int, S: int, Q: int,
     return float(bytes_per_elem * (N * C * W + S * K * C + N * K * Q))
 
 
+def flash_fwd_flops(B: int, Tq: int, Tk: int, H: int, hd: int,
+                    causal: bool = True) -> float:
+    """QK^T + AV flops of one ``flash_fwd`` call over H query heads: the
+    closed form of :func:`_attn_seq_flops` for one layer, halved for a
+    causal mask."""
+    return 4.0 * B * Tq * Tk * H * hd * (0.5 if causal else 1.0)
+
+
+def flash_bwd_flops(B: int, Tq: int, Tk: int, H: int, hd: int,
+                    causal: bool = True) -> float:
+    """The products of one ``flash_bwd`` call: 3.5 times the forward's
+    (the dQ kernel recomputes QK^T and forms dP and dQ, the dK/dV kernel
+    recomputes QK^T and forms dP, dV and dK: seven products of the
+    forward's two)."""
+    return 3.5 * flash_fwd_flops(B, Tq, Tk, H, hd, causal)
+
+
 def _attn_params(cfg) -> int:
     """An attention block's projections; an MLA block's five (the query's
     two low-rank ones, the latent's down and up, ``wo``; no norms)."""

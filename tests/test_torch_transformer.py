@@ -577,13 +577,28 @@ def test_launcher_default_device_without_cuda_raises():
                     "flash", "--steps", "1"])
 
 
-def test_cuda_tensor_reaches_the_kernel_or_raises():
+def test_cuda_tensor_reaches_the_kernel_or_raises(monkeypatch):
     """The flash wrappers take the plain version only for a CPU tensor: a
-    tensor on another device goes to the kernel path, which refuses a
+    tensor on another device goes to the kernel path, whose checks refuse
+    a device that is not CUDA.  A ``meta`` tensor (a dry-run's) takes
+    the kernel path's ``meta`` branch, which launches nothing and returns
+    the kernel's empty outputs; the card's checks refuse it as any other
     device that is not CUDA."""
+    def plain(*a, **kw):
+        raise AssertionError("a tensor off the CPU reached the plain version")
+
+    monkeypatch.setattr(fa._ref, "flash_fwd_ref", plain)
+    monkeypatch.setattr(fa._ref, "flash_bwd_ref", plain)
     q = torch.zeros((1, 4, 1, 1, 64), device="meta")
     k = torch.zeros((1, 4, 1, 64), device="meta")
-    with pytest.raises(ValueError, match="runs on cuda"):
-        fa.flash_fwd(q, k, k)
-    with pytest.raises(ValueError, match="runs on cuda"):
-        fa.flash_bwd(q, k, k, q, torch.zeros((1, 4, 1, 1), device="meta"), q)
+    lse = torch.zeros((1, 4, 1, 1), device="meta")
+    launches = fa.flash_fwd.launches, fa.flash_bwd.launches
+    o, lse_o = fa.flash_fwd(q, k, k)
+    assert (o.shape, lse_o.shape, o.device.type) == (q.shape, lse.shape,
+                                                     "meta")
+    dq, dk, dv = fa.flash_bwd(q, k, k, q, lse, q)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == launches
+    for fn in ("flash_fwd", "flash_bwd"):
+        with pytest.raises(ValueError, match="runs on cuda"):
+            fa._check_on_card(fn, ("q", q), ("k", k), ("v", k))
